@@ -1,0 +1,754 @@
+"""The fill-path scheduling engine: encode -> ops.solver (PyTorch + CUDA)
+-> decode.
+
+A port of the fill subset of the JAX package's TPUScheduler
+(controllers/provisioning/scheduler.py): problems whose every pod kind is
+fill-routable — no topology groups, host ports, CSI volume limits, finite
+budgets, reservations, enforced minValues, gangs or DRA claims — solve
+with the same FFD order, the same kind-level 3-tier fill scan, the same
+chunking and compaction boundaries and the same decode, so the result
+equals TPUScheduler.solve's. Anything else raises UnsupportedProblem;
+nothing falls back to another engine.
+"""
+
+from __future__ import annotations
+
+import time
+from types import SimpleNamespace
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from karpenter_tpu_torch.cloudprovider.instancetype import InstanceType
+from karpenter_tpu_torch.controllers.provisioning import preferences as prefs
+from karpenter_tpu_torch.controllers.provisioning.host_scheduler import (
+    ExistingSimNode,
+    SchedulingResult,
+    SimClaim,
+    ffd_keys,
+    hostname_placeholder,
+)
+from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import ClaimTemplate
+from karpenter_tpu_torch.models import labels as l
+from karpenter_tpu_torch.models.pod import Pod
+from karpenter_tpu_torch.ops import solver as ops_solver
+from karpenter_tpu_torch.ops.encode import (
+    ProblemEncoder,
+    ReqSetTensors,
+    as_tensor,
+    encode_requirements_np,
+)
+from karpenter_tpu_torch.ops.kernels import fetch_tree, pack_bool_np
+from karpenter_tpu_torch.ops.topology import empty_topology_tensors
+from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
+from karpenter_tpu_torch.scheduling.taints import tolerates_all
+
+# NO_ROOM is a device-shape artifact: solve() grows the claims axis and
+# re-solves, so this reason only surfaces if recovery is impossible
+NO_ROOM_REASON = "claim-slot capacity exhausted; raise max_claims"
+NO_CLAIM_REASON = "no compatible in-flight claim or template"
+
+GANG_ANNOTATIONS = ("ktpu.dev/gang-name", "ktpu.dev/gang-size", "ktpu.dev/gang-rank")
+
+
+class UnsupportedProblem(ValueError):
+    """The problem needs a part of the solver this package has not ported
+    (topology groups, host ports, CSI limits, finite budgets,
+    reservations, enforced minValues, gangs, DRA claims)."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+def _next_pow2(n: int, floor: int = 8) -> int:
+    out = floor
+    while out < n:
+        out *= 2
+    return out
+
+
+def _merge_scaled(base: dict, req: dict, c: int) -> dict:
+    """base + c*req per resource, in the fill scan's f32 convention (one
+    product, one sum, each rounded) so host decode matches the device."""
+    out = dict(base)
+    cf = np.float32(c)
+    for k, v in req.items():
+        out[k] = float(np.float32(np.float32(out.get(k, 0.0)) + cf * np.float32(v)))
+    return out
+
+
+def _decode_fill_segments(ctx, segs, f) -> None:
+    """Expand every segment's per-row counts to a per-pod slot stream via
+    one np.repeat over (value, count) pairs, then apply it grouped — the
+    per-pod replay order of the reference: tier 1 in node-index order,
+    tier 2 in water-fill interleave order, tier 3 in slot order, leftovers
+    last; f32 usage merges one multiply-add per (segment, node). Fill
+    grids address WINDOW rows; `slot_map` (the dispatch's slot_of)
+    translates them to global claim ids."""
+    E = ctx.E
+    pods_sorted = ctx.pods_sorted
+    lo0 = segs[0][0]
+    vals: list[int] = []
+    cnts: list[int] = []
+    fixups: list = []  # (stream_pos, slots, counts, p0s) multi-slot tier-2 runs
+    exist_merges: list = []  # (kind, e_slots, e_counts) per segment
+    claim_events: list = []  # (slot, kind, count) per touched claim
+    fill_c = f["fill_c"]
+    fill_e = f["fill_e"]
+    open_start = f["open_start"]
+    n_opened = f["n_opened"]
+    status = f["status"]
+    slot_map = np.asarray(f["slot_map"], dtype=np.int64)
+    pc = ctx.claim_pod_counts
+    js, ss = np.nonzero(fill_c)
+    cc = fill_c[js, ss].tolist()
+    ss_l = ss.tolist()
+    gs_l = slot_map[ss].tolist() if ss.size else []
+    row_ptr = np.searchsorted(js, np.arange(len(segs) + 1))
+    for j, (lo, hi, kind) in enumerate(segs):
+        count = hi - lo
+        if count == 0:
+            continue
+        placed = 0
+        # tier 1: existing nodes in index order
+        if E:
+            e_idx = np.flatnonzero(fill_e[j])
+            if e_idx.size:
+                el = e_idx.tolist()
+                cl = fill_e[j][e_idx].tolist()
+                vals += el
+                cnts += cl
+                placed += sum(cl)
+                exist_merges.append((kind, el, cl))
+        a, b = int(row_ptr[j]), int(row_ptr[j + 1])
+        pairs = list(zip(ss_l[a:b], gs_l[a:b], cc[a:b]))
+        new_lo = int(open_start[j])
+        new_hi = new_lo + int(n_opened[j])
+        # tier 2: water-fill interleave over in-flight claims
+        t2 = [(g_, c) for s, g_, c in pairs if not new_lo <= s < new_hi]
+        if t2:
+            if len(t2) > 1:
+                fixups.append(
+                    (
+                        lo - lo0 + placed,
+                        [g_ for g_, _ in t2],
+                        [c for _, c in t2],
+                        [int(pc[g_]) for g_, _ in t2],
+                    )
+                )
+            for g_, c in t2:
+                vals.append(E + g_)
+                cnts.append(c)
+                pc[g_] += c
+                placed += c
+                claim_events.append((g_, kind, c))
+        # tier 3: new claims in slot order, each filled to capacity
+        if new_hi > new_lo:
+            for s, g_, c in pairs:
+                if new_lo <= s < new_hi:
+                    vals.append(E + g_)
+                    cnts.append(c)
+                    pc[g_] += c
+                    placed += c
+                    claim_events.append((g_, kind, c))
+        left = count - placed
+        if left > 0:
+            vals.append(ops_solver.NO_ROOM if int(status[j]) == ops_solver.NO_ROOM else -1)
+            cnts.append(left)
+    stream = np.repeat(np.asarray(vals, dtype=np.int64), np.asarray(cnts, dtype=np.int64))
+    # tier-2 interleave fixups: rewrite the slot-grouped span in
+    # fewest-pods-first (level, slot) order
+    for pos, slots, counts, p0s in fixups:
+        c2 = np.asarray(counts, dtype=np.int64)
+        n2 = int(c2.sum())
+        p0 = np.asarray(p0s, dtype=np.int64)
+        t2a = np.asarray(slots, dtype=np.int64)
+        ar = np.arange(n2, dtype=np.int64)
+        cum0 = np.cumsum(c2) - c2
+        levels = ar - np.repeat(cum0 - p0, c2)
+        slots_rep = np.repeat(t2a, c2)
+        order = np.argsort(levels * ctx.NC1 + slots_rep, kind="stable")
+        stream[pos : pos + n2] = E + slots_rep[order]
+
+    # claims ensured in ascending-slot order, pods grouped by slot
+    cmask = stream >= E
+    if cmask.any():
+        ci = np.flatnonzero(cmask)
+        cs = stream[ci] - E
+        o = np.argsort(cs, kind="stable")
+        cs_sorted = cs[o]
+        ci_list = (ci[o] + lo0).tolist()
+        bounds = np.flatnonzero(np.diff(cs_sorted)) + 1
+        starts = np.concatenate(([0], bounds))
+        ends = np.concatenate((bounds, [len(cs_sorted)]))
+        for a, b in zip(starts.tolist(), ends.tolist()):
+            s = int(cs_sorted[a])
+            claim = ctx.ensure_claim(s)
+            batch = [pods_sorted[i] for i in ci_list[a:b]]
+            claim.pods.extend(batch)
+            for p in batch:
+                ctx.assignments[p.metadata.uid] = s
+    for s, kind, c in claim_events:
+        ck = ctx.claim_kinds[s]
+        ck[kind] = ck.get(kind, 0) + c
+    # existing nodes (index order per segment)
+    emask = (stream >= 0) & (stream < E)
+    if emask.any():
+        ei = np.flatnonzero(emask)
+        es = stream[ei]
+        o = np.argsort(es, kind="stable")
+        es_sorted = es[o]
+        ei_sorted = ei[o]
+        bounds = np.flatnonzero(np.diff(es_sorted)) + 1
+        starts = np.concatenate(([0], bounds))
+        ends = np.concatenate((bounds, [len(es_sorted)]))
+        ei_list = (ei_sorted + lo0).tolist()
+        for a, b in zip(starts.tolist(), ends.tolist()):
+            node = ctx.existing_nodes[int(es_sorted[a])]
+            batch = [pods_sorted[i] for i in ei_list[a:b]]
+            node.pods.extend(batch)
+            for p in batch:
+                ctx.existing_assignments[p.metadata.uid] = node.name
+    for kind, e_idx, ce in exist_merges:
+        req_d = ctx.kind_total(kind)
+        for e, c in zip(e_idx, ce):
+            node = ctx.existing_nodes[e]
+            node.used = _merge_scaled(node.used, req_d, c)
+            nk = ctx.node_kinds.setdefault(e, {})
+            nk[kind] = nk.get(kind, 0) + c
+    # leftovers, in stream (= segment) order
+    nmask = stream < 0
+    if nmask.any():
+        for i in np.flatnonzero(nmask).tolist():
+            reason = NO_ROOM_REASON if stream[i] == ops_solver.NO_ROOM else NO_CLAIM_REASON
+            ctx.unschedulable.append((pods_sorted[lo0 + i], reason))
+
+
+class TorchScheduler:
+    """One scheduler per template/catalog set, reusable across solve()
+    calls (the vocab may grow between calls). Runs on `device` ("cuda" by
+    default; raises when CUDA is absent — pass device="cpu" for the plain
+    CPU path). plain=True runs the kernels' plain versions on the device
+    (a comparison run)."""
+
+    def __init__(
+        self,
+        templates: list[ClaimTemplate],
+        max_claims: Optional[int] = None,
+        device="cuda",
+        plain: bool = False,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchScheduler: CUDA is not available (pass device='cpu' to run on the CPU)"
+            )
+        self.plain = plain
+        self.templates = templates
+        self.max_claims = max_claims
+        self.existing_nodes: list[ExistingSimNode] = []
+        # union catalog over all templates, stable order, deduped by name
+        seen: dict[str, InstanceType] = {}
+        for t in templates:
+            for it in t.instance_types:
+                seen.setdefault(it.name, it)
+        self.catalog: list[InstanceType] = list(seen.values())
+        self._it_index = {name: i for i, name in enumerate(seen)}
+        self._tmpl_it_idx: dict = {}
+        # pipeline chunking and boundary compaction (the reference's rule:
+        # ~4 dispatch groups at P >= 4096, compaction from P >= 1024)
+        self.pipeline_chunks = 4
+        self.pipeline_min_pods = 4096
+        self.compact_min_pods = 1024
+        self._n_claims_override: Optional[int] = None
+        self._last_n_claims: Optional[int] = None
+        self.last_timings: dict = {}
+        self.last_stats: dict = {}
+        self.encoder = ProblemEncoder(device=self.device)
+        for t in templates:
+            self.encoder.observe_requirements(t.requirements)
+        for it in self.catalog:
+            self.encoder.observe_instance_type(it)
+        self._vocab_sig: Optional[tuple] = None
+
+    # -- encoding ----------------------------------------------------------
+
+    def _sig(self) -> tuple:
+        v = self.encoder.vocab
+        return (v.n_keys, tuple(len(vals) for vals in v.values), self.encoder.n_resources)
+
+    def _pads(self) -> tuple[int, int]:
+        v = self.encoder.vocab
+        return _next_pow2(max(v.n_keys, 1), 8), _next_pow2(max(v.max_values, 1), 8)
+
+    def _encode_static(self) -> None:
+        """(Re-)encode instance types + templates against the current vocab."""
+        enc = self.encoder
+        dev = self.device
+        k_pad, v_pad = self._pads()
+        self.it_tensors = enc.encode_instance_types(self.catalog, k_pad, v_pad)
+        T = len(self.catalog)
+        G = len(self.templates)
+        tmpl_reqs = enc.encode_requirements([t.requirements for t in self.templates], k_pad, v_pad)
+        its = np.zeros((G, T), dtype=bool)
+        daemon = np.zeros((G, enc.n_resources), dtype=np.float32)
+        for g, t in enumerate(self.templates):
+            for it in t.instance_types:
+                its[g, self._it_index[it.name]] = True
+            daemon[g] = enc.resources_vector(t.daemon_requests)
+        mv_lists = [
+            [r for r in t.requirements.values() if r.min_values is not None] for t in self.templates
+        ]
+        self._mv_active = any(mv_lists)
+        self.template_tensors = ops_solver.Templates(
+            reqs=tmpl_reqs,
+            its=as_tensor(its, dev),
+            daemon_requests=as_tensor(daemon, dev),
+            valid=torch.ones(G, dtype=torch.bool, device=dev),
+            budget=torch.full((G, enc.n_resources), float("inf"), dtype=torch.float32, device=dev),
+            nodes_budget=torch.full((G,), float("inf"), dtype=torch.float32, device=dev),
+            # minValues slabs: inert (enforced floors raise UnsupportedProblem)
+            mv_key=torch.full((G, 1), -2, dtype=torch.int32, device=dev),
+            mv_min=torch.zeros((G, 1), dtype=torch.int32, device=dev),
+            mv_it_values=torch.zeros((T, 1, v_pad), dtype=torch.bool, device=dev),
+        )
+        wk = enc.vocab.well_known_mask()
+        self.well_known = as_tensor(np.pad(wk, (0, k_pad - len(wk)), constant_values=False), dev)
+        self._res_active = bool(self.it_tensors.res_ofs.any()) and (
+            l.RESERVATION_ID_LABEL_KEY in enc.vocab.key_to_id
+        )
+        self._vocab_sig = self._sig()
+
+    def _encode_existing(self, e_pad: int) -> ops_solver.ExistingNodes:
+        enc = self.encoder
+        dev = self.device
+        k_pad, v_pad = self._pads()
+        reqs = ReqSetTensors.from_numpy(
+            encode_requirements_np(
+                enc.vocab,
+                [n.requirements for n in self.existing_nodes]
+                + [Requirements()] * (e_pad - len(self.existing_nodes)),
+                k_pad, v_pad, enc.skip_keys,
+            ),
+            dev,
+        )
+        avail = np.zeros((e_pad, enc.n_resources), dtype=np.float32)
+        for e, n in enumerate(self.existing_nodes):
+            avail[e] = enc.resources_vector(n.available)
+        valid = np.zeros(e_pad, dtype=bool)
+        valid[: len(self.existing_nodes)] = True
+        return ops_solver.ExistingNodes(
+            reqs=reqs,
+            avail=as_tensor(avail, dev),
+            valid=as_tensor(valid, dev),
+            ports=torch.zeros((e_pad, 1), dtype=torch.int32, device=dev),
+            vols=torch.zeros((e_pad, 1), dtype=torch.int32, device=dev),
+            vol_limits=torch.full((e_pad, 1), float("inf"), dtype=torch.float32, device=dev),
+            vol_driver=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+        )
+
+    def _check_supported(self, pods: Sequence[Pod], budgets) -> None:
+        """Raise UnsupportedProblem for anything outside the fill path."""
+        for p in pods:
+            s = p.spec
+            if s.topology_spread_constraints or s.pod_affinity or s.pod_anti_affinity:
+                raise UnsupportedProblem(f"pod {p.name}: topology groups (spread/affinity)")
+            if s.host_ports:
+                raise UnsupportedProblem(f"pod {p.name}: host ports")
+            if s.resource_claims:
+                raise UnsupportedProblem(f"pod {p.name}: DRA resource claims")
+            if any(k in p.metadata.annotations for k in GANG_ANNOTATIONS):
+                raise UnsupportedProblem(f"pod {p.name}: gang member")
+        for n in self.existing_nodes:
+            if n.volume_usage is not None:
+                raise UnsupportedProblem(f"existing node {n.name}: CSI attach limits")
+        if any(v for v in (budgets or {}).values()):
+            raise UnsupportedProblem("finite NodePool budgets")
+        if self._mv_active:
+            raise UnsupportedProblem("enforced minValues")
+        if self._res_active:
+            raise UnsupportedProblem("reservations")
+
+    def _encode(self, pods: Sequence[Pod], budgets) -> tuple[list[Pod], dict]:
+        dev = self.device
+        pods_list = list(pods)
+        P = len(pods_list)
+        cap = self.max_claims or _next_pow2(max(P, 1))
+        n_claims = self._n_claims_override or cap
+        self._last_n_claims = n_claims
+        # ---- FFD sort + pod-kind dedup ---------------------------------
+        if P:
+            sig, sizes = ffd_keys(pods_list)
+            order = np.lexsort((sig, -sizes))  # ffd_sort's order
+            pods_sorted = [pods_list[i] for i in order]
+            # kind ids numbered by first appearance in the SORTED sequence
+            sig_sorted = sig[order]
+            _, first1, inv1 = np.unique(sig_sorted, return_index=True, return_inverse=True)
+            r1 = np.argsort(np.argsort(first1))
+            kind_of = r1[inv1]
+            reps = [pods_sorted[int(first1[u])] for u in np.argsort(r1)]
+        else:
+            pods_sorted = []
+            kind_of = np.zeros(1, dtype=np.int64)
+            reps = [Pod()]
+        # vocab observation order: templates, catalog (constructor), then
+        # pod kinds, then existing nodes — value ids decide mask layout
+        for p in reps:
+            self.encoder.observe_pod(p)
+        for n in self.existing_nodes:
+            self.encoder.observe_requirements(n.requirements)
+            self.encoder.observe_resources(n.available)
+        if self._vocab_sig != self._sig():
+            self._encode_static()
+        self._check_supported(pods_list, budgets)
+        E = _next_pow2(max(len(self.existing_nodes), 1), 1)
+        exist_tensors = self._encode_existing(E)
+        U = len(reps)
+        k_pad, v_pad = self._pads()
+        enc = self.encoder
+        rep_reqs = [Requirements.from_pod(p) for p in reps]
+        row_memo: dict = {}
+        reqs_np = encode_requirements_np(enc.vocab, rep_reqs, k_pad, v_pad, enc.skip_keys, row_memo=row_memo)
+        it_allow = enc.it_allow_mask(rep_reqs, self.catalog)
+        for u in range(U):
+            # hostname selectors can never match a not-yet-named node
+            if not enc.hostname_allows(rep_reqs[u], None):
+                it_allow[u, :] = False
+        requests = np.stack([enc.resources_vector(p.total_requests()) for p in reps]).astype(np.float32)
+        tol = np.array(
+            [[tolerates_all(t.taints, p.spec.tolerations) is None for t in self.templates] for p in reps],
+            dtype=bool,
+        ).reshape(U, len(self.templates))
+        exist_ok = np.zeros((U, E), dtype=bool)
+        for e, n in enumerate(self.existing_nodes):
+            hostname = n.requirements.get(l.LABEL_HOSTNAME).any_value() or None
+            it_name = (
+                n.requirements.get(l.LABEL_INSTANCE_TYPE).any_value() or None
+                if n.requirements.has(l.LABEL_INSTANCE_TYPE)
+                else None
+            )
+            for u, p in enumerate(reps):
+                rq = rep_reqs[u]
+                ok = tolerates_all(n.taints, p.spec.tolerations) is None
+                ok = ok and enc.hostname_allows(rq, hostname)
+                if ok and rq.has(l.LABEL_INSTANCE_TYPE):
+                    r = rq.get(l.LABEL_INSTANCE_TYPE)
+                    ok = r.has(it_name) if it_name is not None else r.is_lenient()
+                exist_ok[u, e] = ok
+        # host ports on existing nodes still gate tier 1 (pods carry none)
+        port_keys: dict = {}
+        for n in self.existing_nodes:
+            for key in n.host_ports:
+                port_keys.setdefault(key, len(port_keys))
+        NP = max(len(port_keys), 1)
+        exist_ports0 = np.zeros((E, NP), dtype=bool)
+        for e, n in enumerate(self.existing_nodes):
+            for key in n.host_ports:
+                exist_ports0[e, port_keys[key]] = True
+        exist_tensors = exist_tensors._replace(ports=as_tensor(pack_bool_np(exist_ports0), dev))
+        n_ports = exist_tensors.ports.shape[1]
+        zeros_u = np.zeros((U, n_ports), dtype=np.int32)
+        zone_kid, ct_kid = enc.zone_ct_key_ids()
+        segments: list[tuple[int, int, int]] = []
+        if P:
+            ko = kind_of[:P]
+            starts = np.concatenate(([0], np.flatnonzero(ko[1:] != ko[:-1]) + 1))
+            ends = np.concatenate((starts[1:], [P]))
+            segments = [(int(lo), int(hi), int(ko[lo])) for lo, hi in zip(starts, ends)]
+        topo = empty_topology_tensors(v_pad, E + n_claims + 1, dev)
+        kinds = dict(
+            reqs=ReqSetTensors.from_numpy(reqs_np, dev),
+            requests=as_tensor(requests, dev),
+            tmpl_ok=as_tensor(tol, dev),
+            it_allow=as_tensor(it_allow, dev),
+            exist_ok=as_tensor(exist_ok, dev),
+            ports=as_tensor(zeros_u, dev),
+            port_conf=as_tensor(zeros_u, dev),
+            vols=torch.zeros((U, 1), dtype=torch.int32, device=dev),
+            hg=torch.zeros((U, 1), dtype=torch.bool, device=dev),
+        )
+        return pods_sorted, dict(
+            kinds=kinds,
+            requests_np=requests,
+            kind_of=kind_of,
+            segments=segments,
+            reps=reps,
+            exist_tensors=exist_tensors,
+            template_tensors=self.template_tensors,
+            topo_tensors=topo,
+            zone_kid=zone_kid,
+            ct_kid=ct_kid,
+            n_claims=n_claims,
+            n_ports=n_ports,
+            E=E,
+            P=P,
+        )
+
+    # -- solving -----------------------------------------------------------
+
+    def _gather_fill_xs(self, enc: dict, segs: list) -> ops_solver.FillXs:
+        """Kind -> segment row gather (the reference's `_gather_fill_xs`)."""
+        k = enc["kinds"]
+        kid = torch.as_tensor([s[2] for s in segs], dtype=torch.long).to(self.device)
+        counts = torch.as_tensor([s[1] - s[0] for s in segs], dtype=torch.int32).to(self.device)
+        hg = k["hg"][kid]
+        return ops_solver.FillXs(
+            reqs=ReqSetTensors(*(c[kid] for c in k["reqs"])),
+            requests=k["requests"][kid],
+            tmpl_ok=k["tmpl_ok"][kid],
+            it_allow=k["it_allow"][kid],
+            exist_ok=k["exist_ok"][kid],
+            ports=k["ports"][kid],
+            port_conf=k["port_conf"][kid],
+            vols=k["vols"][kid],
+            count=counts,
+            hg_applies=hg,
+            hg_records=hg,
+            hg_self=hg,
+        )
+
+    def _run_solve(self, enc: dict):
+        """Chunked fill dispatches with boundary compaction; returns the
+        final state and the per-dispatch (segments, ys, slot_of) outputs."""
+        n_claims = enc["n_claims"]
+        state = ops_solver.initial_state(
+            enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
+            enc["topo_tensors"], n_claims, enc["n_ports"], window=n_claims,
+        )
+        groups = [list(enc["segments"])] if enc["segments"] else []
+        K_pipe = self.pipeline_chunks
+        if K_pipe > 1 and enc["P"] >= max(self.pipeline_min_pods, 1) and groups and len(groups[0]) > 1:
+            target = max(-(-enc["P"] // K_pipe), 1)
+            split: list = []
+            cur: list = []
+            cur_pods = 0
+            for seg in groups[0]:
+                cur.append(seg)
+                cur_pods += seg[1] - seg[0]
+                if cur_pods >= target:
+                    split.append(cur)
+                    cur, cur_pods = [], 0
+            if cur:
+                split.append(cur)
+            groups = split
+        requests_np = enc["requests_np"]
+        remaining = np.zeros(requests_np.shape[0], dtype=np.int64)
+        for segs in groups:
+            for lo, hi, k in segs:
+                remaining[k] += hi - lo
+        compact = enc["P"] >= self.compact_min_pods
+        outputs = []
+        n_compactions = 0
+        for segs in groups:
+            xs = self._gather_fill_xs(enc, segs)
+            state, ys = ops_solver.solve_fill(
+                state, xs, enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
+                self.well_known, enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"],
+                n_claims, plain=self.plain,
+            )
+            outputs.append((segs, ys, state.slot_of))
+            for lo, hi, k in segs:
+                remaining[k] -= hi - lo
+            if compact and (remaining > 0).any():
+                r_min = requests_np[remaining > 0].min(axis=0)
+                state, _closed = ops_solver.compact_state(
+                    state, self.it_tensors, as_tensor(r_min, self.device), n_claims,
+                    plain=self.plain,
+                )
+                n_compactions += 1
+        self.last_stats = dict(
+            segments=len(enc["segments"]), groups=len(groups), compactions=n_compactions,
+        )
+        return state, outputs
+
+    def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets) -> SchedulingResult:
+        t0 = time.perf_counter()
+        self.existing_nodes = existing_nodes
+        pods_sorted, enc = self._encode(pods, budgets)
+        t1 = time.perf_counter()
+        state, outputs = self._run_solve(enc)
+        fetched = fetch_tree(
+            dict(
+                claims=ops_solver.global_claims(state, plain=self.plain),
+                n_open=state.n_open, w_open=state.w_open, w_hw=state.w_hw, spills=state.spills,
+                outputs=[
+                    dict(
+                        fill_c=ys.fill_c, fill_e=ys.fill_e, open_start=ys.open_start,
+                        n_opened=ys.n_opened, status=ys.status, slot_map=slot_of,
+                    )
+                    for _segs, ys, slot_of in outputs
+                ],
+            )
+        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        out = self._decode(pods_sorted, enc, outputs, fetched)
+        t3 = time.perf_counter()
+        self.last_timings = dict(encode_s=t1 - t0, device_s=t2 - t1, decode_s=t3 - t2)
+        self.last_stats.update(
+            n_open=int(fetched["n_open"]),
+            live_hw=int(fetched["w_hw"]),
+            resident=int(fetched["w_open"]),
+            frozen=int(fetched["n_open"]) - int(fetched["w_open"]),
+            n_claims=enc["n_claims"],
+        )
+        return out
+
+    def solve(
+        self,
+        pods: Sequence[Pod],
+        existing_nodes: Optional[list[ExistingSimNode]] = None,
+        budgets: Optional[dict[str, dict[str, float]]] = None,
+    ) -> SchedulingResult:
+        """Schedule pods onto existing nodes and new claims, with the
+        preference relaxation ladder and NO_ROOM recovery of the reference
+        (the claims axis grows and the problem re-solves until every pod
+        had a real chance at a slot)."""
+        base_existing = list(existing_nodes or [])
+        self._n_claims_override = None
+
+        def solve_round(current: list[Pod]) -> SchedulingResult:
+            while True:
+                result = self._solve_once(current, [n.clone() for n in base_existing], budgets)
+                cap = _next_pow2(max(len(current), 1))
+                used = self._last_n_claims or self.max_claims or cap
+                leftover = sum(1 for _, reason in result.unschedulable if reason == NO_ROOM_REASON)
+                if used >= cap or not leftover:
+                    return result
+                # one-shot escalation sized from the measured claim density
+                placed = max(len(current) - leftover, 1)
+                est = int(used * len(current) / placed * 1.25) + 32
+                self._n_claims_override = min(max(used * 2, -(-est // 256) * 256), cap)
+
+        return prefs.run_with_relaxation(list(pods), solve_round)
+
+    # -- decoding ----------------------------------------------------------
+
+    def _template_it_index(self, template):
+        cached = self._tmpl_it_idx.get(id(template))
+        if cached is None:
+            its = list(template.instance_types)
+            idx = np.array([self._it_index[it.name] for it in its], dtype=np.int64)
+            cached = self._tmpl_it_idx[id(template)] = (its, idx)
+        return cached
+
+    def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict) -> SchedulingResult:
+        """Claim-level decode from the fetched device state: replay the
+        pod -> slot bookkeeping in scan order, then finalize each claim's
+        requirements (template + its pod kinds + hostname), usage (device
+        carry) and viable instance types (device mask)."""
+        E = enc["E"]
+        kind_of = enc["kind_of"]
+        reps: list[Pod] = enc["reps"]
+        claims_cols = fetched["claims"]
+        claim_template = claims_cols["template"]
+        claims: list[SimClaim] = []
+        slot_to_claim: dict[int, SimClaim] = {}
+        claim_kinds: dict[int, dict[int, int]] = {}
+        node_kinds: dict[int, dict[int, int]] = {}
+        unschedulable: list[tuple[Pod, str]] = []
+        assignments: dict[str, int] = {}
+        existing_assignments: dict[str, str] = {}
+        hostname_seq = 0
+        U = len(reps)
+        kind_reqs_c: list = [None] * U
+        kind_total_c: list = [None] * U
+
+        def kind_reqs(k: int) -> Requirements:
+            if kind_reqs_c[k] is None:
+                kind_reqs_c[k] = Requirements.from_pod(reps[k])
+            return kind_reqs_c[k]
+
+        def kind_total(k: int) -> dict:
+            if kind_total_c[k] is None:
+                kind_total_c[k] = reps[k].total_requests()
+            return kind_total_c[k]
+
+        def ensure_claim(slot: int) -> SimClaim:
+            nonlocal hostname_seq
+            claim = slot_to_claim.get(slot)
+            if claim is None:
+                tmpl = self.templates[int(claim_template[slot])]
+                hostname_seq += 1
+                hostname = hostname_placeholder(hostname_seq)
+                requirements = tmpl.requirements.copy()
+                requirements.add(Requirement.new(l.LABEL_HOSTNAME, Operator.IN, hostname))
+                claim = SimClaim(
+                    template=tmpl,
+                    requirements=requirements,
+                    used={},
+                    instance_types=[],
+                    pods=[],
+                    slot=slot,
+                    hostname=hostname,
+                )
+                slot_to_claim[slot] = claim
+                claims.append(claim)
+                claim_kinds[slot] = {}
+            return claim
+
+        ctx = SimpleNamespace(
+            E=E,
+            NC1=np.int64(enc["n_claims"] + 1),
+            existing_nodes=self.existing_nodes,
+            pods_sorted=pods_sorted,
+            ensure_claim=ensure_claim,
+            slot_to_claim=slot_to_claim,
+            claim_kinds=claim_kinds,
+            claim_pod_counts=np.zeros(enc["n_claims"], dtype=np.int64),
+            assignments=assignments,
+            existing_assignments=existing_assignments,
+            unschedulable=unschedulable,
+            node_kinds=node_kinds,
+            kind_total=kind_total,
+        )
+        for (segs, _ys, _slot_of), f in zip(outputs, fetched["outputs"]):
+            _decode_fill_segments(ctx, segs, f)
+
+        its_mask = claims_cols["its"]
+        used_np = claims_cols["used"]
+        rids = self.encoder._resource_ids
+        proto_cache: dict = {}
+        its_cache: dict = {}
+        for claim in claims:
+            s = claim.slot
+            ksig = tuple(sorted(claim_kinds[s]))
+            tid = id(claim.template)
+            memo = proto_cache.get((tid, ksig))
+            if memo is None:
+                proto = claim.template.requirements.copy()
+                names = set(claim.template.daemon_requests)
+                for k in ksig:
+                    proto.add(*kind_reqs(k).values())
+                    names.update(kind_total(k))
+                names = sorted(names)
+                ridx = np.array([rids[n] for n in names], dtype=np.int64)
+                memo = proto_cache[(tid, ksig)] = (proto, names, ridx)
+            proto, names, ridx = memo
+            reqs = proto.copy()
+            reqs.add(Requirement.new(l.LABEL_HOSTNAME, Operator.IN, claim.hostname))
+            claim.requirements = reqs
+            claim.used = dict(zip(names, used_np[s][ridx].tolist()))
+            row = np.asarray(its_mask[s])
+            ikey = (tid, row.tobytes())
+            sel_list = its_cache.get(ikey)
+            if sel_list is None:
+                t_its, t_cat_idx = self._template_it_index(claim.template)
+                sel = np.flatnonzero(row[t_cat_idx])
+                sel_list = its_cache[ikey] = [t_its[i] for i in sel.tolist()]
+            claim.instance_types = list(sel_list)
+
+        for e, kinds in node_kinds.items():
+            node = self.existing_nodes[e]
+            for k in kinds:
+                node.requirements.add(*kind_reqs(k).values())
+        return SchedulingResult(
+            claims=claims,
+            unschedulable=unschedulable,
+            assignments=assignments,
+            existing=self.existing_nodes,
+            existing_assignments=existing_assignments,
+        )

@@ -1,0 +1,902 @@
+"""The fill solve path (port of the JAX package's ops/solver.py, cut to
+the kind-level batch placement scan and the window/bank bookkeeping
+around it).
+
+One step places one pod KIND (a run of content-identical pods, in FFD
+order) through the reference's 3-tier cascade (scheduler.go:582-612):
+
+  tier 1  existing nodes in index order, each filled to capacity
+  tier 2  in-flight claims of the active window, water-filled
+          fewest-pods-first with earliest-slot tie-break
+  tier 3  ceil(rem / cap) new claims of the first feasible template
+
+`solve_fill` runs the steps as a Python loop over the B segments; every
+tensor stays on the device, so a solve never syncs with the host. The
+claims axis is an active WINDOW of W rows (`slot_of` maps rows to global
+claim ids); `compact_state` evicts capacity-dead claims into the frozen
+bank between dispatches and stable-compacts the survivors.
+
+Four hand-written CUDA kernels carry the hot work (csrc/, launched
+through ops/cuda.py):
+
+  H1 req_intersects   kernels.intersects         tier 2 / tier 3 it_compat
+  H2 fill_count_grid  claim_fill_caps,           tier 2 caps, fits_final,
+                      fits_off_counted           tier 3, compact liveness
+  H3 water_fill       water_fill                 tier 2 distribution
+  H4 compact_scatter  compact_scatter            compaction, bank, decode
+
+Each wrapper runs the kernel on CUDA tensors and its plain version (same
+module, `*_plain`) on CPU tensors. `plain=True` on solve_fill /
+compact_state / global_claims selects the plain versions explicitly,
+whatever the device (a comparison run, never a fallback).
+
+Numerics are the reference's exactly: int32 everywhere, IEEE division,
+first-index ties, stable compaction, COUNT_CAP = 2^22, and every f32
+charge `used + c*req` rounded ONCE — the JAX package's compiled step
+fuses that multiply-add (XLA:CPU contracts it: 2.1000001 + 6 x 0.1 gives
+2.7, where two roundings give 2.7000003), so the kernels use __fmaf_rn
+and the plain versions `_madd`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from karpenter_tpu_torch.ops import cuda, kernels
+from karpenter_tpu_torch.ops.encode import INT_MAX, INT_MIN, InstanceTypeTensors, ReqSetTensors, as_tensor
+from karpenter_tpu_torch.ops.kernels import (
+    broadcast_set,
+    compatible_elemwise,
+    intersect_sets,
+    packed_any,
+    packed_conflict,
+    packed_count_and,
+    select_set,
+)
+from karpenter_tpu_torch.ops.topology import TYPE_AFFINITY, TYPE_SPREAD, TopologyTensors
+
+# assignment sentinels
+NO_CLAIM = -1  # no compatible existing node, in-flight claim, or template
+NO_ROOM = -2  # a template was feasible but the claim-slot capacity is full
+BIG = 2**31 - 1
+COUNT_CAP = 2**22  # "unbounded" per-candidate fill cap
+
+I32 = torch.int32
+F32 = torch.float32
+
+
+class Templates(NamedTuple):
+    """NodeClaim templates in weight-priority order (index 0 = first try)."""
+
+    reqs: ReqSetTensors  # [G, K, V]
+    its: torch.Tensor  # [G, T] bool — statically compatible instance types
+    daemon_requests: torch.Tensor  # [G, R] f32
+    valid: torch.Tensor  # [G] bool
+    budget: torch.Tensor  # [G, R] f32 — remaining pool limits (+inf unlimited)
+    nodes_budget: torch.Tensor  # [G] f32
+    mv_key: torch.Tensor  # [G, M] i32
+    mv_min: torch.Tensor  # [G, M] i32
+    mv_it_values: torch.Tensor  # [T, J, V] bool
+    rank: Optional[torch.Tensor] = None  # [G] i32 — None = weight order
+
+
+class ExistingNodes(NamedTuple):
+    """Existing/in-flight real nodes (tier 1). Port and volume bitsets ride
+    as packed int32 lanes (kernels.pack_bool_np layout)."""
+
+    reqs: ReqSetTensors  # [E, K, V]
+    avail: torch.Tensor  # [E, R] f32
+    valid: torch.Tensor  # [E] bool
+    ports: torch.Tensor  # [E, NPp] i32
+    vols: torch.Tensor  # [E, NVp] i32
+    vol_limits: torch.Tensor  # [E, ND] f32
+    vol_driver: torch.Tensor  # [ND, NVp] i32
+
+
+class SolverState(NamedTuple):
+    """The scan carry: a window of W claim rows over the global claim axis
+    [0, NCAP), the frozen bank of evicted claims, and the counters."""
+
+    exist_reqs: ReqSetTensors  # [E, K, V]
+    exist_used: torch.Tensor  # [E, R]
+    reqs: ReqSetTensors  # [W, K, V]
+    used: torch.Tensor  # [W, R]
+    its: torch.Tensor  # [W, T] bool
+    template: torch.Tensor  # [W] i32
+    open: torch.Tensor  # [W] bool
+    pods: torch.Tensor  # [W] i32
+    n_open: torch.Tensor  # [] i32 — global claims opened (next global id)
+    slot_of: torch.Tensor  # [W] i32 — global claim id per row (NCAP = unused)
+    w_open: torch.Tensor  # [] i32 — open claims resident in the window
+    w_hw: torch.Tensor  # [] i32 — high-water of w_open
+    spills: torch.Tensor  # [] i32 — opens refused because the window was full
+    bank_frozen: torch.Tensor  # [NCAP] bool
+    bank_template: torch.Tensor  # [NCAP] i32
+    bank_its: torch.Tensor  # [NCAP, T] bool
+    bank_used: torch.Tensor  # [NCAP, R] f32
+    bank_held: torch.Tensor  # [NCAP, RID] bool
+    bank_tk_mask: torch.Tensor  # [NCAP, TK, V] bool
+    bank_tk_inf: torch.Tensor  # [NCAP, TK] bool
+    bank_tk_def: torch.Tensor  # [NCAP, TK] bool
+    budget: torch.Tensor  # [G, R]
+    nodes_budget: torch.Tensor  # [G]
+    vg_counts: torch.Tensor  # [NGv, V]
+    hg_counts: torch.Tensor  # [NGh, E + NCAP + 1]
+    exist_ports: torch.Tensor  # [E, NPp] i32
+    claim_ports: torch.Tensor  # [W, NPp] i32
+    exist_vols: torch.Tensor  # [E, NVp] i32
+    res_cap: torch.Tensor  # [RID] i32
+    held: torch.Tensor  # [W, RID] bool
+
+
+class FillYs(NamedTuple):
+    """Per-segment fill record (the decode expands these to per-pod
+    assignments host-side)."""
+
+    fill_e: torch.Tensor  # [E] i32 — pods landed per existing node
+    fill_c: torch.Tensor  # [W] i32 — pods landed per WINDOW row
+    open_start: torch.Tensor  # [] i32 — w_open before this segment
+    n_opened: torch.Tensor  # [] i32 — new claims opened (contiguous rows)
+    tmpl: torch.Tensor  # [] i32 — template of opened claims (-1 = none)
+    leftover: torch.Tensor  # [] i32 — pods that failed to place
+    status: torch.Tensor  # [] i32 — NO_CLAIM / NO_ROOM for the leftover
+
+
+class FillXs(NamedTuple):
+    """Per-segment (pod kind) inputs to the fill scan."""
+
+    reqs: ReqSetTensors  # [B, K, V]
+    requests: torch.Tensor  # [B, R]
+    tmpl_ok: torch.Tensor  # [B, G]
+    it_allow: torch.Tensor  # [B, T]
+    exist_ok: torch.Tensor  # [B, E]
+    ports: torch.Tensor  # [B, NP]
+    port_conf: torch.Tensor  # [B, NP]
+    vols: torch.Tensor  # [B, NV]
+    count: torch.Tensor  # [B] i32 — pods of this kind (0 = padding row)
+    hg_applies: torch.Tensor  # [B, NGh]
+    hg_records: torch.Tensor  # [B, NGh]
+    hg_self: torch.Tensor  # [B, NGh]
+
+
+# ---------------------------------------------------------------------------
+# numpy <-> torch converters (the JAX package's containers, fetched as
+# numpy, carried onto a device; and back)
+# ---------------------------------------------------------------------------
+
+
+def _np_leaf(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:  # packed bitsets: same bits in int32 lanes
+        a = a.view(np.int32)
+    return a
+
+
+def from_numpy(cls, src, device):
+    """Build container `cls` on `device` from an object with the same
+    field names holding numpy arrays (e.g. a JAX container after
+    jax.tree.map(np.asarray, ...)). Nested requirement sets convert to
+    ReqSetTensors; None fields stay None."""
+    vals = []
+    for f in cls._fields:
+        v = getattr(src, f, None)
+        if v is None:
+            vals.append(None)
+        elif hasattr(v, "_fields"):
+            vals.append(ReqSetTensors(*(as_tensor(_np_leaf(getattr(v, g)), device) for g in ReqSetTensors._fields)))
+        else:
+            vals.append(as_tensor(_np_leaf(v), device))
+    return cls(*vals)
+
+
+def to_numpy(container) -> dict:
+    """A container as a flat {field: numpy} dict (requirement sets become
+    {field}.{component} entries), for leaf-for-leaf comparisons."""
+    out = {}
+    for f in container._fields:
+        v = getattr(container, f)
+        if v is None:
+            continue
+        if isinstance(v, ReqSetTensors):
+            for g in ReqSetTensors._fields:
+                out[f"{f}.{g}"] = getattr(v, g).cpu().numpy()
+        else:
+            out[f] = v.cpu().numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# small helpers
+# ---------------------------------------------------------------------------
+
+
+def _i32(x, device) -> torch.Tensor:
+    # a fill, not a host->device copy
+    return torch.full((), x, dtype=I32, device=device)
+
+
+def _madd(u: torch.Tensor, c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """f32 u + c*r rounded once, like a fused multiply-add: evaluated in
+    f64, where the product of a count below 2^23 and an f32 is exact and
+    the sum is exact for addends within 2^29 of each other (resource
+    columns hold one unit each), then rounded to f32."""
+    return (u.double() + c.double() * r.double()).float()
+
+
+def _pick_template(tmpl_feas: torch.Tensor, templates: Templates) -> torch.Tensor:
+    """Tier-3 template choice: first feasible in rank order ([] int64).
+    With no rank column this is argmax of the mask — the lowest-index
+    (highest-weight) feasible template, index 0 when none is feasible."""
+    if templates.rank is None:
+        return torch.argmax(tmpl_feas.to(I32))
+    big = torch.full_like(templates.rank, BIG)
+    return torch.argmin(torch.where(tmpl_feas, templates.rank, big))
+
+
+def identity_reqs(n: int, k: int, v: int, device) -> ReqSetTensors:
+    """The intersection-identity encoding (all keys undefined)."""
+    return ReqSetTensors(
+        mask=torch.ones((n, k, v), dtype=torch.bool, device=device),
+        inf=torch.ones((n, k), dtype=torch.bool, device=device),
+        excl=torch.zeros((n, k), dtype=torch.bool, device=device),
+        gte=torch.full((n, k), INT_MIN, dtype=I32, device=device),
+        lte=torch.full((n, k), INT_MAX, dtype=I32, device=device),
+        defined=torch.zeros((n, k), dtype=torch.bool, device=device),
+    )
+
+
+def initial_state(
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    topo: TopologyTensors,
+    n_claims: int,
+    n_ports: int,
+    res_cap0=None,
+    window: int = 0,
+    topo_kids: tuple = (),
+) -> SolverState:
+    """The empty carry. `window` bounds the hot claims axis (0 = the full
+    global space n_claims); `n_ports` is the PACKED port lane count."""
+    dev = it.alloc.device
+    NB = n_claims
+    W = min(window, NB) if window else NB
+    K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
+    T, R = it.alloc.shape[0], it.alloc.shape[2]
+    E = exist.avail.shape[0]
+    RID = it.res_ofs.shape[1]
+    TK = max(len(topo_kids), 1)
+    b = dict(dtype=torch.bool, device=dev)
+    return SolverState(
+        exist_reqs=exist.reqs,
+        exist_used=torch.zeros((E, R), dtype=F32, device=dev),
+        reqs=identity_reqs(W, K, V, dev),
+        used=torch.zeros((W, R), dtype=F32, device=dev),
+        its=torch.zeros((W, T), **b),
+        template=torch.zeros(W, dtype=I32, device=dev),
+        open=torch.zeros(W, **b),
+        pods=torch.zeros(W, dtype=I32, device=dev),
+        n_open=_i32(0, dev),
+        slot_of=torch.full((W,), NB, dtype=I32, device=dev),
+        w_open=_i32(0, dev),
+        w_hw=_i32(0, dev),
+        spills=_i32(0, dev),
+        bank_frozen=torch.zeros(NB, **b),
+        bank_template=torch.zeros(NB, dtype=I32, device=dev),
+        bank_its=torch.zeros((NB, T), **b),
+        bank_used=torch.zeros((NB, R), dtype=F32, device=dev),
+        bank_held=torch.zeros((NB, RID), **b),
+        bank_tk_mask=torch.zeros((NB, TK, V), **b),
+        bank_tk_inf=torch.zeros((NB, TK), **b),
+        bank_tk_def=torch.zeros((NB, TK), **b),
+        budget=templates.budget,
+        nodes_budget=templates.nodes_budget,
+        vg_counts=topo.vg_counts0,
+        hg_counts=topo.hg_counts0,
+        exist_ports=exist.ports,
+        claim_ports=torch.zeros((W, n_ports), dtype=I32, device=dev),
+        exist_vols=exist.vols,
+        res_cap=(
+            torch.as_tensor(res_cap0, dtype=I32, device=dev)
+            if res_cap0 is not None
+            else torch.zeros(RID, dtype=I32, device=dev)
+        ),
+        held=torch.zeros((W, RID), **b),
+    )
+
+
+# ---------------------------------------------------------------------------
+# H2 fill_count_grid: plain versions and wrappers
+# ---------------------------------------------------------------------------
+
+
+def off_for_plain(rows_mask, it: InstanceTypeTensors, zone_kid: int, ct_kid: int) -> torch.Tensor:
+    """[B, T, GR] bool — an available offering exists in a (zone, ct) the
+    rows' requirement masks admit (the reference's `_off_for`, as an
+    exact boolean any instead of a bf16 einsum > 0)."""
+    T, GR, Z, C = it.zc_avail.shape
+    zm = rows_mask[:, zone_kid, :Z]
+    cm = rows_mask[:, ct_kid, :C]
+    # admitted (zone, ct) pairs against available ones: a 0/1 matrix
+    # product whose counts (<= Z*C) are exact in f32
+    pairs = (zm[:, :, None] & cm[:, None, :]).reshape(-1, Z * C).to(F32)
+    avail = it.zc_avail.reshape(T * GR, Z * C).to(F32)
+    return (pairs @ avail.T > 0).reshape(-1, T, GR)
+
+
+def _fits_cells(used, c, req, it, okc) -> torch.Tensor:
+    """okc & AND_r((used + c*req <= alloc) | (used + c*req == 0)) over
+    [B, T, GR]; used [B, R], c [B, T, GR] counts (or broadcastable), each
+    charge rounded once as in _madd."""
+    acc = okc
+    ud, cd, rd = used.double(), c.double(), req.double()
+    for r in range(req.shape[0]):
+        t = (ud[:, None, None, r] + cd * rd[r]).float()
+        acc = acc & ((t <= it.alloc[None, :, :, r]) | (t == 0.0))
+    return acc
+
+
+def claim_fill_caps_plain(used, viable, req, it, off) -> torch.Tensor:
+    """[B] i32 — max pods addable per row: the best (type, group) among
+    the row's viable types (the reference's `_claim_fill_caps`)."""
+    pos = req > 0.0
+    safe = torch.where(pos, req, torch.ones_like(req))
+    okc = off & it.group_valid[None] & viable[:, :, None]
+    cap = float(COUNT_CAP)
+    est = torch.full(okc.shape, cap, dtype=F32, device=used.device)
+    for r in range(req.shape[0]):
+        head = it.alloc[None, :, :, r] - used[:, None, None, r]
+        ratio = torch.where(pos[r], head / safe[r], torch.full_like(head, float("inf")))
+        est = torch.minimum(est, ratio)
+    est = torch.where(torch.isfinite(est), est, torch.full_like(est, cap))
+    c0 = torch.clamp(torch.floor(est), 0.0, cap).to(I32)
+
+    def ok(c):
+        return _fits_cells(used, c, req, it, okc)
+
+    up = ok(c0 + 1)
+    mid = ok(c0)
+    cdn = torch.clamp(c0 - 1, min=0)
+    dn = ok(cdn)
+    zero = torch.zeros_like(c0)
+    c = torch.where(mid, torch.where(up, c0 + 1, c0), torch.where(dn, cdn, zero))
+    c = torch.where(okc, c, zero)
+    if c[0].numel() == 0:
+        return torch.zeros(c.shape[0], dtype=I32, device=c.device)
+    return c.flatten(1).max(dim=1).values
+
+
+def fits_off_counted_plain(used, counts, req, it, off) -> torch.Tensor:
+    """[B, T] bool — any over groups of used + counts*req fitting an
+    allocatable group with an offering (the reference's
+    `_fits_off_counted` reduced over GR). used [B or 1, R]; off
+    [B or 1, T, GR] or None for no offering gate."""
+    okc = it.group_valid[None]
+    if off is not None:
+        okc = okc & off
+    B = counts.shape[0]
+    okc = okc.expand((B,) + tuple(it.group_valid.shape))
+    used = used.expand(B, used.shape[1])
+    return _fits_cells(used, counts[:, None, None], req, it, okc).any(dim=-1)
+
+
+def _off_or_none(rows_mask, it, zone_kid, ct_kid):
+    return None if rows_mask is None else off_for_plain(rows_mask, it, zone_kid, ct_kid)
+
+
+def _claim_fill_caps_from_mask_plain(used, viable, req, it, rows_mask, zone_kid, ct_kid):
+    return claim_fill_caps_plain(used, viable, req, it, off_for_plain(rows_mask, it, zone_kid, ct_kid))
+
+
+def _fits_off_counted_from_mask_plain(used, counts, req, it, rows_mask, zone_kid, ct_kid):
+    return fits_off_counted_plain(used, counts, req, it, _off_or_none(rows_mask, it, zone_kid, ct_kid))
+
+
+def claim_fill_caps(used, viable, req, it, rows_mask, zone_kid, ct_kid) -> torch.Tensor:
+    """H2 max-count mode: [B] i32 (kernel on CUDA, plain on CPU); the
+    offering test reads the zone / capacity-type rows of rows_mask."""
+    if used.device.type == "cpu":
+        return _claim_fill_caps_from_mask_plain(used, viable, req, it, rows_mask, zone_kid, ct_kid)
+    return cuda.fill_count_grid(
+        0, used, req, it, rows_mask, zone_kid, ct_kid, viable.shape[0], viable=viable
+    )
+
+
+def fits_off_counted(used, counts, req, it, rows_mask, zone_kid, ct_kid) -> torch.Tensor:
+    """H2 fits-at-count mode: [B, T] bool (kernel on CUDA, plain on CPU);
+    rows_mask None drops the offering gate."""
+    if used.device.type == "cpu":
+        return _fits_off_counted_from_mask_plain(used, counts, req, it, rows_mask, zone_kid, ct_kid)
+    return cuda.fill_count_grid(
+        1, used, req, it, rows_mask, zone_kid, ct_kid, counts.shape[0], counts=counts
+    )
+
+
+# ---------------------------------------------------------------------------
+# H3 water_fill
+# ---------------------------------------------------------------------------
+
+
+def water_fill_plain(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
+    """[N] i32 — distribute rem pods fewest-pods-first with earliest-slot
+    tie-break: raise a water level L over the counts; claims fill to
+    min(f, L-1-p); the remainder at level L goes to eligible claims in
+    slot order (the reference's `_water_fill`)."""
+    f = torch.minimum(f, rem)
+    total = f.sum(dtype=I32)
+    zero = torch.zeros_like(p)
+
+    def placed(L):
+        return torch.minimum(f, torch.maximum(zero, L - p)).sum(dtype=I32)
+
+    lo = torch.zeros((), dtype=I32, device=p.device)
+    hi = p.max() + rem + 1
+    for _ in range(24):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        geq = placed(mid) >= rem
+        lo, hi = torch.where(geq, lo, mid + 1), torch.where(geq, mid, hi)
+    L = lo
+    base = torch.minimum(f, torch.maximum(zero, (L - 1) - p))
+    r0 = rem - base.sum(dtype=I32)
+    elig = (f > 0) & (p + base == L - 1) & (base < f)
+    e32 = elig.to(I32)
+    rank = torch.cumsum(e32, 0, dtype=I32) - e32
+    extra = (elig & (rank < r0)).to(I32)
+    return torch.where(total <= rem, f, base + extra)
+
+
+def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
+    """H3: kernel on CUDA, plain on CPU."""
+    if p.device.type == "cpu":
+        return water_fill_plain(p, f, rem)
+    return cuda.water_fill(p, f, rem)
+
+
+# ---------------------------------------------------------------------------
+# H4 compact_scatter
+# ---------------------------------------------------------------------------
+
+
+def compact_scatter_plain(mode: int, sel: torch.Tensor, srcs: list, dsts: list) -> None:
+    """Move rows of each src into its dst in place: mode 0 to the
+    stable-compacted position of the alive rows (sel bool), mode 1 to
+    sel[i] with out-of-range ids dropped (the reference's mode="drop")."""
+    n_dst = dsts[0].shape[0]
+    if mode == 0:
+        a32 = sel.to(I32)
+        pos = torch.cumsum(a32, 0, dtype=I32) - a32
+        keep = sel
+    else:
+        pos = sel
+        keep = (sel >= 0) & (sel < n_dst)
+    # dropped rows land in a spare row past the end, sliced off after
+    target = torch.where(keep, pos, torch.full_like(pos, n_dst)).long()
+    for s, d in zip(srcs, dsts):
+        buf = torch.cat([d, d[:1]]) if d.shape[0] else d.new_empty((1,) + tuple(d.shape[1:]))
+        buf.index_copy_(0, target, s)
+        d.copy_(buf[:n_dst])
+
+
+def compact_scatter(mode: int, sel: torch.Tensor, srcs: list, dsts: list) -> None:
+    """H4: kernel on CUDA, plain on CPU."""
+    if sel.device.type == "cpu":
+        compact_scatter_plain(mode, sel, srcs, dsts)
+    else:
+        cuda.compact_scatter(mode, sel, srcs, dsts)
+
+
+class _Ops(NamedTuple):
+    intersects: object
+    claim_fill_caps: object
+    fits_off_counted: object
+    water_fill: object
+    compact_scatter: object
+
+
+KERNEL_OPS = _Ops(kernels.intersects, claim_fill_caps, fits_off_counted, water_fill, compact_scatter)
+PLAIN_OPS = _Ops(
+    kernels.intersects_plain,
+    _claim_fill_caps_from_mask_plain,
+    _fits_off_counted_from_mask_plain,
+    water_fill_plain,
+    compact_scatter_plain,
+)
+
+
+def _ops(plain: bool) -> _Ops:
+    return PLAIN_OPS if plain else KERNEL_OPS
+
+
+# ---------------------------------------------------------------------------
+# window / bank bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def compact_state(
+    state: SolverState,
+    it: InstanceTypeTensors,
+    r_min: torch.Tensor,  # [R] f32 — elementwise min request over remaining pods
+    n_claims: int,
+    plain: bool = False,
+) -> tuple[SolverState, torch.Tensor]:
+    """Evict capacity-dead claims from the window into the frozen bank,
+    then stable-compact survivors to the front. A claim is dead when no
+    viable (type, group) cell fits used + r_min (every remaining pod
+    requests at least r_min, so it can never pass tier 2 again). Returns
+    (state', n_closed). Functional: the input state is not modified."""
+    ops = _ops(plain)
+    NB = n_claims
+    W = state.open.shape[0]
+    dev = state.used.device
+    ones = torch.ones(W, dtype=I32, device=dev)
+    fits = ops.fits_off_counted(state.used, ones, r_min, it, None, 0, 0)  # [W, T]
+    alive_cap = (fits & state.its).any(dim=1)
+    close = state.open & ~alive_cap
+    # bank rows of the closed claims, at their global ids
+    bank = dict(
+        bank_frozen=state.bank_frozen.clone(),
+        bank_template=state.bank_template.clone(),
+        bank_its=state.bank_its.clone(),
+        bank_used=state.bank_used.clone(),
+        bank_held=state.bank_held.clone(),
+    )
+    idx = torch.where(close, state.slot_of, torch.full_like(state.slot_of, NB))
+    ops.compact_scatter(
+        1,
+        idx,
+        [torch.ones(W, dtype=torch.bool, device=dev), state.template, state.its, state.used, state.held],
+        list(bank.values()),
+    )
+    # survivors to the front, identity / zero fill behind them
+    alive = state.open & ~close
+    K, V = state.reqs.mask.shape[1], state.reqs.mask.shape[2]
+    reqs2 = identity_reqs(W, K, V, dev)
+    used2 = torch.zeros_like(state.used)
+    its2 = torch.zeros_like(state.its)
+    template2 = torch.zeros_like(state.template)
+    open2 = torch.zeros_like(state.open)
+    pods2 = torch.zeros_like(state.pods)
+    slot2 = torch.full_like(state.slot_of, NB)
+    ports2 = torch.zeros_like(state.claim_ports)
+    held2 = torch.zeros_like(state.held)
+    ops.compact_scatter(
+        0,
+        alive,
+        list(state.reqs) + [state.used, state.its, state.template, state.open, state.pods,
+                            state.slot_of, state.claim_ports, state.held],
+        list(reqs2) + [used2, its2, template2, open2, pods2, slot2, ports2, held2],
+    )
+    return (
+        state._replace(
+            reqs=reqs2,
+            used=used2,
+            its=its2,
+            template=template2,
+            open=open2,
+            pods=pods2,
+            slot_of=slot2,
+            w_open=alive.sum(dtype=I32),
+            claim_ports=ports2,
+            held=held2,
+            **bank,
+        ),
+        close.sum(dtype=I32),
+    )
+
+
+def global_claims(state: SolverState, plain: bool = False) -> dict:
+    """Merge the hot window over the frozen bank into global-slot-indexed
+    decode columns (template/its/used/held). Window rows override bank
+    rows at their global id; unused rows carry the NCAP sentinel and drop."""
+    out = dict(
+        template=state.bank_template.clone(),
+        its=state.bank_its.clone(),
+        used=state.bank_used.clone(),
+        held=state.bank_held.clone(),
+    )
+    _ops(plain).compact_scatter(
+        1, state.slot_of, [state.template, state.its, state.used, state.held], list(out.values())
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fill step
+# ---------------------------------------------------------------------------
+
+
+def _count_cap_seq(used: torch.Tensor, req: torch.Tensor, limit: torch.Tensor) -> torch.Tensor:
+    """[...] i32 — max c >= 0 with used + c*req <= limit elementwise over
+    the trailing resource axis (total-based pass rule, +/-1-verified float
+    estimate, zero on failure)."""
+    pos = req > 0.0
+    safe = torch.where(pos, req, torch.ones_like(req))
+    head = limit - used
+    est = torch.where(pos, head / safe, torch.full_like(head, float("inf"))).min(dim=-1).values
+    cap = float(COUNT_CAP)
+    est = torch.floor(torch.where(torch.isfinite(est), est, torch.full_like(est, cap)))
+    c0 = torch.clamp(est, 0.0, cap).to(I32)
+
+    def ok(c):
+        t = _madd(used, c[..., None], req)
+        return ((t <= limit) | (t == 0.0)).all(dim=-1)
+
+    up = ok(c0 + 1)
+    mid = ok(c0)
+    cdn = torch.clamp(c0 - 1, min=0)
+    dn = ok(cdn)
+    zero = torch.zeros_like(c0)
+    return torch.where(mid, torch.where(up, c0 + 1, c0), torch.where(dn, cdn, zero))
+
+
+def _hg_slot_caps(topo: TopologyTensors, counts, slots, applies, records, self_sel) -> torch.Tensor:
+    """[C] i32 — how many MORE pods of this kind each slot admits under the
+    hostname groups (hg_evaluate's per-pod checks solved for the count)."""
+    cnt = counts[:, slots.long()].T  # [C, NGh]
+    rec = records[None, :]
+    self_ = self_sel[None, :].to(I32)
+    skew = topo.hg_skew[None, :]
+    inf = torch.full_like(cnt, COUNT_CAP)
+    zero = torch.zeros_like(cnt)
+    one = torch.ones_like(cnt)
+    spread = torch.where(rec, skew - self_ - cnt + 1, torch.where(cnt + self_ <= skew, inf, zero))
+    anti = torch.where(cnt == 0, torch.where(rec, one, inf), zero)
+    aff = torch.where(cnt > 0, inf, zero)
+    t = topo.hg_type[None, :]
+    cap = torch.where(t == TYPE_SPREAD, spread, torch.where(t == TYPE_AFFINITY, aff, anti))
+    gate = (applies & topo.hg_valid)[None, :]
+    cap = torch.where(gate, cap, inf)
+    return torch.clamp(cap.min(dim=-1).values, 0, COUNT_CAP)
+
+
+def _fill_step(
+    state: SolverState,
+    x: FillXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    ops: _Ops,
+) -> tuple[SolverState, FillYs]:
+    dev = state.used.device
+    NCAP = n_claims
+    E = exist.avail.shape[0]
+    G = templates.its.shape[0]
+    W = state.open.shape[0]
+    count = x.count
+    requests = x.requests
+    self_conf = packed_conflict(x.ports, x.port_conf)
+    no_wk = torch.zeros_like(well_known)
+
+    # ---- tier 1: fill existing nodes in index order -------------------
+    pod_e = broadcast_set(x.reqs, E)
+    comb_e = intersect_sets(state.exist_reqs, pod_e)
+    compat_e = compatible_elemwise(state.exist_reqs, pod_e, no_wk)
+    ports_ok_e = ~packed_conflict(x.port_conf[None, :], state.exist_ports)
+    cap_res_e = _count_cap_seq(state.exist_used, requests[None, :], exist.avail)
+    cap_topo_e = _hg_slot_caps(
+        topo, state.hg_counts, torch.arange(E, dtype=I32, device=dev),
+        x.hg_applies, x.hg_records, x.hg_self,
+    )
+    cap_e = torch.minimum(cap_res_e, cap_topo_e)
+    cap_e = torch.where(self_conf, torch.clamp(cap_e, max=1), cap_e)
+    newv_e = state.exist_vols | x.vols[None, :]
+    vcount_e = packed_count_and(newv_e[:, None, :], exist.vol_driver[None, :, :]).to(F32)
+    vols_ok_e = (vcount_e <= exist.vol_limits).all(dim=-1) | ~packed_any(x.vols)
+    feas_e = exist.valid & x.exist_ok & compat_e & ports_ok_e & vols_ok_e
+    cap_e = torch.where(feas_e, cap_e, torch.zeros_like(cap_e))
+    cap_e = torch.minimum(cap_e, count)
+    before = torch.cumsum(cap_e, 0, dtype=I32) - cap_e
+    fill_e = torch.minimum(torch.clamp(count - before, min=0), cap_e)
+    rem = count - fill_e.sum(dtype=I32)
+
+    landed_e = fill_e > 0
+    new_exist_used = _madd(state.exist_used, fill_e[:, None], requests[None, :])
+    new_exist_reqs = select_set(landed_e, comb_e, state.exist_reqs)
+    new_exist_ports = torch.where(
+        landed_e[:, None], state.exist_ports | x.ports[None, :], state.exist_ports
+    )
+    new_exist_vols = torch.where(
+        landed_e[:, None], state.exist_vols | x.vols[None, :], state.exist_vols
+    )
+
+    # ---- tier 2: water-fill in-flight claims (the active window) ------
+    pod_b = broadcast_set(x.reqs, W)
+    comb = intersect_sets(state.reqs, pod_b)
+    claim_ok = compatible_elemwise(state.reqs, pod_b, well_known)
+    it_compat = ops.intersects(comb, it.reqs)  # [W, T] (intersects is symmetric)
+    allow_t = x.it_allow[None, :]
+    viable = state.its & it_compat & allow_t
+    cap_res_n = ops.claim_fill_caps(state.used, viable, requests, it, comb.mask, zone_kid, ct_kid)
+    cap_topo_n = _hg_slot_caps(
+        topo, state.hg_counts, E + state.slot_of, x.hg_applies, x.hg_records, x.hg_self
+    )
+    ports_ok_n = ~packed_conflict(x.port_conf[None, :], state.claim_ports)
+    tol = x.tmpl_ok[state.template.long()]
+    feas_n = state.open & claim_ok & tol & ports_ok_n
+    f_n = torch.minimum(cap_res_n, cap_topo_n)
+    f_n = torch.where(self_conf, torch.clamp(f_n, max=1), f_n)
+    f_n = torch.where(feas_n, f_n, torch.zeros_like(f_n))
+    fill_c2 = ops.water_fill(state.pods, f_n, rem)
+    rem2 = rem - fill_c2.sum(dtype=I32)
+
+    landed_n = fill_c2 > 0
+    used2 = _madd(state.used, fill_c2[:, None], requests[None, :])
+    fits_final = ops.fits_off_counted(state.used, fill_c2, requests, it, comb.mask, zone_kid, ct_kid)
+    its2 = torch.where(landed_n[:, None], viable & fits_final, state.its)
+    reqs2 = select_set(landed_n, comb, state.reqs)
+    pods2 = state.pods + fill_c2
+    ports2 = torch.where(
+        landed_n[:, None], state.claim_ports | x.ports[None, :], state.claim_ports
+    )
+
+    # ---- tier 3: open new claims, each filled to capacity -------------
+    pod_g = broadcast_set(x.reqs, G)
+    comb0 = intersect_sets(templates.reqs, pod_g)
+    tmpl_compat = compatible_elemwise(templates.reqs, pod_g, well_known)
+    it_compat0 = ops.intersects(comb0, it.reqs)  # [G, T]
+    ones_g = torch.ones(G, dtype=I32, device=dev)
+    fits_off0 = ops.fits_off_counted(
+        templates.daemon_requests, ones_g, requests, it, comb0.mask, zone_kid, ct_kid
+    )
+    cap_ok = (it.cap[None, :, :] <= state.budget[:, None, :]).all(dim=-1)
+    its0 = templates.its & it_compat0 & fits_off0 & allow_t & cap_ok
+    cap_topo_fresh = _hg_slot_caps(
+        topo, state.hg_counts, (E + state.n_open).reshape(1),
+        x.hg_applies, x.hg_records, x.hg_self,
+    )[0]
+    tmpl_feas = (
+        templates.valid
+        & tmpl_compat
+        & x.tmpl_ok
+        & its0.any(dim=-1)
+        & (state.nodes_budget >= 1.0)
+    )
+    g = _pick_template(tmpl_feas, templates).reshape(1)  # [1] int64
+    g32 = g.to(I32)[0]
+    any_template = tmpl_feas.any() & (cap_topo_fresh > 0)
+    # only the chosen template's row is needed (rows are independent)
+    daemon_g = templates.daemon_requests.index_select(0, g)  # [1, R]
+    its0_g = its0.index_select(0, g)  # [1, T]
+    mask0_g = comb0.mask.index_select(0, g).contiguous()  # [1, K, V]
+    f_new0 = ops.claim_fill_caps(daemon_g, its0_g, requests, it, mask0_g, zone_kid, ct_kid)[0]
+    f_new = torch.minimum(f_new0, cap_topo_fresh)
+    f_new = torch.where(self_conf, torch.clamp(f_new, max=1), f_new)
+    zero = torch.zeros((), dtype=I32, device=dev)
+    f_new = torch.where(any_template, torch.clamp(f_new, min=0), zero)
+    # fresh claims take contiguous WINDOW rows at w_open and contiguous
+    # GLOBAL ids at n_open; the window and the global cap both bound opens
+    avail_w = torch.clamp(W - state.w_open, min=0)
+    avail_cap = torch.clamp(NCAP - state.n_open, min=0)
+    slots_avail = torch.minimum(avail_w, avail_cap)
+    want = torch.where(
+        f_new > 0,
+        torch.div(rem2 + f_new - 1, torch.clamp(f_new, min=1), rounding_mode="floor"),
+        zero,
+    )
+    n_new = torch.minimum(want, slots_avail)
+    spilled = (want > n_new) & (avail_cap > slots_avail)
+    idx = torch.arange(W, dtype=I32, device=dev)
+    i_new = idx - state.w_open
+    is_new = (i_new >= 0) & (i_new < n_new)
+    c_new = torch.where(
+        is_new, torch.minimum(torch.clamp(rem2 - i_new * f_new, min=0), f_new), torch.zeros_like(idx)
+    )
+    placed3 = c_new.sum(dtype=I32)
+    leftover = rem2 - placed3
+    status = torch.where(any_template, _i32(NO_ROOM, dev), _i32(NO_CLAIM, dev))
+    new_slot_of = torch.where(is_new, state.n_open + i_new, state.slot_of)
+
+    used3 = torch.where(
+        is_new[:, None],
+        _madd(daemon_g, c_new[:, None], requests[None, :]),
+        used2,
+    )
+    fits_new = ops.fits_off_counted(daemon_g, c_new, requests, it, mask0_g, zone_kid, ct_kid)
+    its3 = torch.where(is_new[:, None], its0_g & fits_new, its2)
+    comb0_g = ReqSetTensors(*(c.index_select(0, g)[0] for c in comb0))
+    reqs3 = select_set(is_new, broadcast_set(comb0_g, W), reqs2)
+    template3 = torch.where(is_new, g32, state.template)
+    open3 = state.open | is_new
+    pods3 = torch.where(is_new, c_new, pods2)
+    ports3 = torch.where(
+        (is_new & (c_new > 0))[:, None], ports2 | x.ports[None, :], ports2
+    )
+    new_n_open = state.n_open + n_new
+    new_w_open = state.w_open + n_new
+
+    # hostname-group counts for every landed pod, at GLOBAL slots (window
+    # rows map through slot_of; out-of-range ids drop)
+    S = state.hg_counts.shape[1]
+    fill_claims = torch.where(is_new, c_new, fill_c2)
+    slot_ids = E + new_slot_of
+    slot_ids = torch.where((slot_ids >= 0) & (slot_ids < S), slot_ids, torch.full_like(slot_ids, S))
+    fill_slots = torch.zeros(S + 1, dtype=I32, device=dev)
+    fill_slots[:E] = fill_e
+    fill_slots.index_add_(0, slot_ids.long(), fill_claims)
+    rec = (x.hg_records & topo.hg_valid).to(I32)
+    new_hg_counts = state.hg_counts + rec[:, None] * fill_slots[None, :S]
+
+    # budget bookkeeping (+inf for every fill-routed problem)
+    max_cap = torch.where(its0_g[0][:, None], it.cap, torch.full_like(it.cap, float("-inf"))).max(dim=0).values
+    max_cap = torch.where(torch.isfinite(max_cap), max_cap, torch.zeros_like(max_cap))
+    n_new_f = n_new.to(F32)
+    new_budget = state.budget.clone()
+    new_budget.index_add_(0, g, (-max_cap * n_new_f)[None, :])
+    new_nodes_budget = state.nodes_budget.clone()
+    new_nodes_budget.index_add_(0, g, (-n_new_f).reshape(1))
+
+    ys = FillYs(
+        fill_e=fill_e,
+        fill_c=fill_claims,
+        open_start=state.w_open,
+        n_opened=n_new,
+        tmpl=torch.where(n_new > 0, g32, _i32(-1, dev)),
+        leftover=leftover,
+        status=status,
+    )
+    return (
+        state._replace(
+            exist_reqs=new_exist_reqs,
+            exist_used=new_exist_used,
+            reqs=reqs3,
+            used=used3,
+            its=its3,
+            template=template3,
+            open=open3,
+            pods=pods3,
+            n_open=new_n_open,
+            slot_of=new_slot_of,
+            w_open=new_w_open,
+            w_hw=torch.maximum(state.w_hw, new_w_open),
+            spills=state.spills + spilled.to(I32),
+            budget=new_budget,
+            nodes_budget=new_nodes_budget,
+            hg_counts=new_hg_counts,
+            exist_ports=new_exist_ports,
+            claim_ports=ports3,
+            exist_vols=new_exist_vols,
+        ),
+        ys,
+    )
+
+
+def _take_x(xs: FillXs, j: int) -> FillXs:
+    return FillXs(
+        *(ReqSetTensors(*(c[j] for c in v)) if isinstance(v, ReqSetTensors) else v[j] for v in xs)
+    )
+
+
+def solve_fill(
+    state: SolverState,
+    xs: FillXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    plain: bool = False,
+) -> tuple[SolverState, FillYs]:
+    """Kind-level batch placement over the B segments of xs (the
+    reference's lax.scan as a loop); returns (state', ys stacked over B)."""
+    ops = _ops(plain)
+    ys = []
+    for j in range(xs.count.shape[0]):
+        state, y = _fill_step(
+            state, _take_x(xs, j), exist, it, templates, well_known, topo,
+            zone_kid, ct_kid, n_claims, ops,
+        )
+        ys.append(y)
+    if not ys:
+        raise ValueError("solve_fill needs at least one segment")
+    return state, FillYs(*(torch.stack(f) for f in zip(*ys)))

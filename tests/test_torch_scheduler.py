@@ -1,0 +1,259 @@
+"""End to end: TorchScheduler(device="cpu") against the JAX package's
+TPUScheduler on the same workloads (the fill cases of tests/test_fill.py,
+the 2048 x 400 selector stage, and a chunked + compacted solve), compared
+per pod and per claim; the problems outside the port raise
+UnsupportedProblem; the package imports neither JAX nor the JAX package;
+and nothing runs on a missing card."""
+
+import os
+import shutil
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+import bench
+from karpenter_tpu.controllers.provisioning import TPUScheduler
+from karpenter_tpu.controllers.provisioning import host_scheduler as j_host
+from karpenter_tpu.models import labels as jl
+from karpenter_tpu.models import pod as j_pod
+from karpenter_tpu.scheduling import Operator as JOp
+from karpenter_tpu.scheduling import Requirement as JReq
+from karpenter_tpu.scheduling import Requirements as JReqs
+from karpenter_tpu_torch import testing as p_testing
+from karpenter_tpu_torch.controllers.provisioning import TorchScheduler, UnsupportedProblem
+from karpenter_tpu_torch.controllers.provisioning import host_scheduler as p_host
+from karpenter_tpu_torch.models import labels as pl
+from karpenter_tpu_torch.models import pod as p_pod
+from karpenter_tpu_torch.scheduling import Operator as POp
+from karpenter_tpu_torch.scheduling import Requirement as PReq
+from karpenter_tpu_torch.scheduling import Requirements as PReqs
+
+ROOT = Path(__file__).resolve().parents[1]
+
+JAX_SIDE = types.SimpleNamespace(
+    make_pod=j_pod.make_pod, l=jl, HostPort=j_pod.HostPort, TSC=j_pod.TopologySpreadConstraint,
+    Req=JReq, Reqs=JReqs, Op=JOp, Node=j_host.ExistingSimNode,
+    templates=bench.make_templates, selector_pods=bench.selector_pods,
+)
+PORT_SIDE = types.SimpleNamespace(
+    make_pod=p_pod.make_pod, l=pl, HostPort=p_pod.HostPort, TSC=p_pod.TopologySpreadConstraint,
+    Req=PReq, Reqs=PReqs, Op=POp, Node=p_host.ExistingSimNode,
+    templates=p_testing.make_templates, selector_pods=p_testing.selector_pods,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pods(S, n, cpu=0.5, mem="1Gi", prefix="p", **kw):
+    return [S.make_pod(f"{prefix}-{i}", cpu=cpu, memory=mem, **kw) for i in range(n)]
+
+
+def _node_a(S):
+    reqs = S.Reqs()
+    reqs.add(S.Req.new(S.l.LABEL_HOSTNAME, S.Op.IN, "node-a"))
+    reqs.add(S.Req.new(S.l.LABEL_TOPOLOGY_ZONE, S.Op.IN, "test-zone-1"))
+    reqs.add(S.Req.new(S.l.CAPACITY_TYPE_LABEL_KEY, S.Op.IN, S.l.CAPACITY_TYPE_ON_DEMAND))
+    return S.Node(
+        name="node-a", index=0, requirements=reqs,
+        available={"cpu": 4.0, "memory": float(8 * 2**30), "pods": 110.0},
+    )
+
+
+def _selector_kinds(S):
+    pods = []
+    zones = ("test-zone-1", "test-zone-2")
+    for i in range(48):
+        sel = {}
+        if i % 3 == 1:
+            sel[S.l.LABEL_TOPOLOGY_ZONE] = zones[i % 2]
+        if i % 3 == 2:
+            sel[S.l.CAPACITY_TYPE_LABEL_KEY] = S.l.CAPACITY_TYPE_ON_DEMAND
+        pods.append(S.make_pod(f"s-{i}", cpu=0.5, memory="1Gi", node_selector=sel))
+    return pods
+
+
+# name -> (build(S) -> (templates, pods, existing), max_claims, expected unschedulable)
+CASES = {
+    "identical_pods_pack": (lambda S: (S.templates(20), _pods(S, 64), None), 64, 0),
+    "two_kinds_water_fill": (
+        lambda S: (S.templates(20), _pods(S, 8, 2.0, "4Gi", "big") + _pods(S, 40, 0.25, "256Mi", "small"), None),
+        64, 0,
+    ),
+    "selector_kinds": (lambda S: (S.templates(20), _selector_kinds(S), None), 64, 0),
+    "existing_nodes_tier1": (lambda S: (S.templates(20), _pods(S, 24, 0.5, "512Mi"), [_node_a(S)]), 64, 0),
+    "impossible_selector": (
+        lambda S: (S.templates(20), _pods(S, 5, node_selector={S.l.LABEL_TOPOLOGY_ZONE: "nonexistent-zone"}), None),
+        64, 5,
+    ),
+    "no_room_recovers": (lambda S: (S.templates(1), _pods(S, 8, 0.5, "256Mi"), None), 4, 0),
+    "non_exact_quantities": (lambda S: (S.templates(20), _pods(S, 9, 0.3, "300Mi"), None), 16, 0),
+}
+
+
+def _view(result):
+    """Everything a caller reads, keyed by pod NAME (uids differ between
+    the two packages' object counters)."""
+    name_of = {}
+    for c in result.claims:
+        for p in c.pods:
+            name_of[p.uid] = p.name
+    for p, _r in result.unschedulable:
+        name_of[p.uid] = p.name
+    for n in result.existing:
+        for p in n.pods:
+            name_of[p.uid] = p.name
+    return dict(
+        claims=[
+            (c.slot, c.hostname, [p.name for p in c.pods], [i.name for i in c.instance_types],
+             sorted(c.used.items()), c.template.nodepool_name)
+            for c in result.claims
+        ],
+        assignments=sorted((name_of[u], s) for u, s in result.assignments.items()),
+        existing=sorted((name_of[u], n) for u, n in result.existing_assignments.items()),
+        existing_used=[sorted(n.used.items()) for n in result.existing],
+        unschedulable=[(p.name, r) for p, r in result.unschedulable],
+        node_count=result.node_count,
+        total_price=result.total_price(),
+    )
+
+
+def _compare(name, build, max_claims, tweak=None):
+    jt, jpods, jex = build(JAX_SIDE)
+    pt, ppods, pex = build(PORT_SIDE)
+    js = TPUScheduler(jt, max_claims=max_claims)
+    ps = TorchScheduler(pt, max_claims=max_claims, device="cpu")
+    if tweak:
+        tweak(js)
+        tweak(ps)
+    rj = js.solve(jpods, existing_nodes=[n.clone() for n in (jex or [])])
+    rp = ps.solve(ppods, existing_nodes=[n.clone() for n in (pex or [])])
+    vj, vp = _view(rj), _view(rp)
+    for k in vj:
+        assert vj[k] == vp[k], (name, k)
+    return rp, ps
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fill_cases_match_reference(case):
+    build, max_claims, unsched = CASES[case]
+    rp, _ps = _compare(case, build, max_claims)
+    assert len(rp.unschedulable) == unsched
+    if case == "no_room_recovers":
+        assert rp.node_count == 8
+    if case == "existing_nodes_tier1":
+        assert len(rp.existing_assignments) == 8
+
+
+def test_selector_stage_2048x400():
+    rp, ps = _compare(
+        "selector_2048x400",
+        lambda S: (S.templates(400), S.selector_pods(2048), None),
+        256,
+    )
+    assert rp.node_count > 0 and not rp.unschedulable
+    assert set(ps.last_timings) == {"encode_s", "device_s", "decode_s"}
+
+
+def test_chunked_and_compacted_solve():
+    """pipeline_min_pods / compact_min_pods lowered on both schedulers: four
+    dispatch groups with compaction at the boundaries."""
+
+    def tweak(s):
+        s.pipeline_min_pods = 300
+        s.compact_min_pods = 300
+
+    rp, ps = _compare(
+        "chunked",
+        lambda S: (S.templates(60), S.selector_pods(600), None),
+        256, tweak,
+    )
+    assert ps.last_stats["groups"] == 4 and ps.last_stats["compactions"] == 3
+    assert ps.last_stats["frozen"] > 0
+
+
+def test_ffd_order_matches_reference():
+    """The pure-Python FFD keys give the reference's pod order."""
+    jp, pp = JAX_SIDE.selector_pods(300), PORT_SIDE.selector_pods(300)
+    jp += JAX_SIDE.selector_pods(40)  # repeated contents join earlier kinds
+    pp += PORT_SIDE.selector_pods(40)
+    want = [p.name for p in j_host.ffd_sort(jp)]
+    assert [p.name for p in p_host.ffd_sort(pp)] == want
+
+
+def _unsupported(kind):
+    S = PORT_SIDE
+    pods = _pods(S, 4, 0.25, "256Mi")
+    for p in pods:
+        p.metadata.labels = {"app": "x"}
+        if kind == "hostname_spread":
+            p.spec.topology_spread_constraints = [
+                S.TSC(max_skew=1, topology_key=S.l.LABEL_HOSTNAME, label_selector={"app": "x"})
+            ]
+        elif kind == "zonal_spread":
+            p.spec.topology_spread_constraints = [
+                S.TSC(max_skew=1, topology_key=S.l.LABEL_TOPOLOGY_ZONE, label_selector={"app": "x"})
+            ]
+        elif kind == "host_ports":
+            p.spec.host_ports = [S.HostPort(port=8080)]
+    return pods
+
+
+@pytest.mark.parametrize("kind", ["hostname_spread", "zonal_spread", "host_ports"])
+def test_out_of_slice_problems_raise(kind):
+    ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
+    with pytest.raises(UnsupportedProblem) as err:
+        ps.solve(_unsupported(kind))
+    assert err.value.reason
+
+
+def test_finite_budget_raises():
+    ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
+    with pytest.raises(UnsupportedProblem):
+        ps.solve(_pods(PORT_SIDE, 3), budgets={"default": {"cpu": 8.0}})
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchScheduler(p_testing.make_templates(4))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import karpenter_tpu_torch\n"
+        "for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__, 'karpenter_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'karpenter_tpu' or m.startswith('karpenter_tpu.'))\n"
+        "print(len([m for m in sys.modules if m.startswith('karpenter_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No CUDA here: the script must fail and print no result, both in the
+    checkout and alone in an otherwise empty directory."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        out = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=120, env=env,
+        )
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
