@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (karpenter_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py           # needs one CUDA card
+    python3 chip_smoke.py                  # needs one CUDA card
+    python3 chip_smoke.py --kernels-only   # stop after phase 3
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the four hand-written kernels from karpenter_tpu_torch/ops/csrc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     north-star shapes (W=4096 claims, T=1000 types, GR=1, R=4, Z=4, C=2,
-     K=V=8), seeded inputs, exact equality; times for kernel, plain
-     version and the least time the card could take (bound);
-  4. the main path: TorchScheduler(make_templates(1000), max_claims=4096)
-     on selector_pods(100_000), one cold and two warm solves, held to the
-     JAX package's result on this workload (2273 claims, 0 unschedulable,
-     3149.6813 $/h), with every kernel launched during the cold solve; one
-     more warm solve under torch.profiler (device busy share and device
-     time by kernel, trace and summary under build/profile/); and a 2048-pod
-     solve on the card held to the same solve on the CPU;
-  5. the same 100k solve with the kernels' plain versions on the card,
-     which must give the identical assignment digest.
+  2. build the six hand-written kernels from karpenter_tpu_torch/ops/csrc;
+  3. each kernel against its plain PyTorch version on the card, exact
+     equality, with times for kernel, plain version and the least time
+     the card could take (bound): H1-H4 at the north-star shapes (W=4096
+     claims, T=1000 types, GR=1, R=4, Z=4, C=2, K=V=8); H4's topology-key
+     mode, H5 and H6 at the kind scan's (W=4096, T=400, D=4 zones, the
+     encoded topology of mixed_pods: NGv 2, NGh 4; H6 over one segment of
+     256 pods); seeded inputs, the catalog tensors being the real encoded
+     ones;
+  4. the main paths, each with the launch counts zeroed just before its
+     cold solve and read just after, then two warm solves: the fill path,
+     TorchScheduler(make_templates(1000), max_claims=4096) on
+     selector_pods(100_000), held to the JAX package's result (2273
+     claims, 0 unschedulable, 3149.6813 $/h) with H1-H4 launched; the
+     topology path, TorchScheduler(make_templates(400), max_claims=4096) on
+     mixed_pods(16384), held to 3277 claims, 0 unschedulable, 354.7156 $/h
+     and 31 fill / 30 kind-scan dispatches / 60 compactions, with all six
+     kernels launched. One more warm solve of each under torch.profiler
+     (device busy share and device time by kernel, trace and summary under
+     build/profile/); a 2048-selector-pod and a 1024-mixed-pod solve on the
+     card held to the same solves on the CPU (the latter also to 205
+     claims, 21.5043 $/h);
+  5. both main-path solves with the kernels' plain versions on the card,
+     which must give the identical digest (claims, pods, types, usage,
+     requirements).
 The second-to-last line is one JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -36,6 +48,14 @@ import time
 # max_claims=4096 (TPUScheduler.solve on the CPU at commit 153c45d)
 GOLDEN_CLAIMS = 2273
 GOLDEN_PRICE = 3149.6813
+# ... for mixed_pods(16384) x make_templates(400), max_claims=4096 (the
+# reference benchmark's headline mix), with its dispatch counts, and for
+# mixed_pods(1024) x make_templates(400), max_claims=256 (the same, at 2f973d0)
+MIXED_PODS = 16384
+MIXED_CLAIMS = 3277
+MIXED_PRICE = 354.7156
+MIXED_STATS = {"fill_dispatches": 31, "kscan_dispatches": 30, "compactions": 60}
+SMALL_MIXED = (205, 21.5043)
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -224,7 +244,205 @@ def kernel_phase(sched) -> list[dict]:
     return results
 
 
-def profile_solve(sched, pods, out_dir) -> None:
+def kscan_kernel_phase(sched, enc, results: list) -> None:
+    """Phase 3b: H4's topology-key mode, H5 and H6 against their plain
+    versions at the kind scan's shapes on the mixed_pods path: the real
+    encoded catalog of make_templates(400) and its topology tensors (NGv 2,
+    NGh 4), a window of W = 4096 claim rows, D = 4 zones; H6 runs one
+    segment of 256 pods over seeded counts and domain sets, with open
+    rows, fresh rows opening during the segment, and the claim-slot
+    capacity running out. Exact equality."""
+    import torch
+
+    from karpenter_tpu_torch.ops import kernels, solver
+    from karpenter_tpu_torch.ops.encode import ReqSetTensors
+
+    dev = torch.device("cuda")
+    it = sched.it_tensors
+    T, GR, R = it.alloc.shape
+    K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    W = NCAP = 4096
+    zone_kid, ct_kid = enc["zone_kid"], enc["ct_kid"]
+    D = len(sched.encoder.vocab.values[zone_kid])
+    topo = enc["topo_tensors"]
+    templates = enc["template_tensors"]
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def rand_bool(*shape, p=0.5):
+        return (torch.rand(shape, generator=g) < p).to(dev)
+
+    def rand_int(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(dev)
+
+    def mode_line(label, ms, plain_ms, b):
+        print(f"kernel {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+
+    def entry(name, source, replaces, equal, ms, plain_ms, b):
+        results.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=0,
+            max_abs_err=0.0 if equal else 1.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, equal=equal,
+        ))
+        print(f"kernel {name}: equal={equal} (tolerance: exact) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+
+    pick = torch.randint(0, T, (W,), generator=g).to(dev)
+    cat = ReqSetTensors(*(x[pick] for x in it.reqs))
+    comb = kernels.select_set(rand_bool(W, K, p=0.6), solver.identity_reqs(W, K, V, dev), cat)
+    comb = ReqSetTensors(*(x.contiguous() for x in comb))
+
+    # H4 in its topology-key mode: the bank scatter of compact_state
+    tk = tuple(enc["topo_kids"])
+    ids = torch.where(rand_bool(W, p=0.5), torch.randperm(W, generator=g).to(dev).to(torch.int32),
+                      torch.full((W,), NCAP, dtype=torch.int32, device=dev))
+    used = (torch.rand((W, R), generator=g) * it.alloc[:, 0, :].max(0).values.cpu() * 0.5).to(dev)
+    srcs = [rand_bool(W), rand_int(0, 3, W), rand_bool(W, T), used]
+    tk_srcs = [comb.mask, comb.inf, comb.defined]
+
+    def fresh():
+        return ([torch.zeros_like(s) for s in srcs],
+                [torch.zeros((W, len(tk)) + tuple(s.shape[2:]), dtype=s.dtype, device=dev) for s in tk_srcs])
+
+    (dk, tdk), (dp, tdp) = fresh(), fresh()
+    solver.compact_scatter(1, ids, srcs, dk, tk, tk_srcs, tdk)
+    solver.compact_scatter_plain(1, ids, srcs, dp, tk, tk_srcs, tdp)
+    eq_tk = all(torch.equal(a, b) for a, b in zip(dk + tdk, dp + tdp))
+    print(f"kernel compact_scatter (topology-key mode, tk={tk}): equal={eq_tk}", flush=True)
+    h4 = next(r for r in results if r["name"] == "compact_scatter")
+    if not eq_tk:
+        h4["equal"], h4["max_abs_err"] = False, 1.0
+    moved = int(((ids >= 0) & (ids < NCAP)).sum().item())
+    row_bytes = sum(d[0].numel() * d.element_size() for d in dk + tdk)
+    mode_line(
+        "compact_scatter (topology-key mode)",
+        time_ms(lambda: solver.compact_scatter(1, ids, srcs, dk, tk, tk_srcs, tdk)),
+        time_ms(lambda: solver.compact_scatter_plain(1, ids, srcs, dp, tk, tk_srcs, tdp), iters=5),
+        bound(2 * moved * row_bytes + nbytes(ids), 0.0),
+    )
+
+    # H5 kscan_grid: grid + capd, capd from a reused grid, fits-final
+    req = enc["kinds"]["requests"][1].contiguous()
+    viable = rand_bool(W, T, p=0.6)
+    grid_k, capd_k = solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)
+    grid_p, capd_p = solver._kscan_grid_plain(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)
+    eq5 = torch.equal(grid_k, grid_p) and torch.equal(capd_k, capd_p)
+    debited = torch.clamp(grid_p - rand_int(0, 3, W, 1, 1), min=0).contiguous()
+    _, capd_rk = solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)
+    _, capd_rp = solver._kscan_grid_plain(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)
+    eq5r = torch.equal(capd_rk, capd_rp)
+    placed = rand_int(0, 6, W)
+    zset = rand_bool(W, D, p=0.5)
+    ct_m, z_m = comb.mask[:, ct_kid, :].contiguous(), comb.mask[:, zone_kid, :].contiguous()
+    fits_k = solver.kscan_fits_final(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)
+    fits_p = solver.kscan_fits_final_plain(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)
+    eq5f = torch.equal(fits_k, fits_p)
+    print(f"kernel kscan_grid: grid+capd equal={eq5}, capd of a reused grid equal={eq5r}, "
+          f"fits-final equal={eq5f}", flush=True)
+    cells = W * T * GR
+    mode_line(
+        "kscan_grid (capd of a reused grid)",
+        time_ms(lambda: solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)),
+        time_ms(lambda: solver._kscan_grid_plain(
+            used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited), iters=3),
+        bound(nbytes(debited, viable, it.zc_avail, capd_p) + W * V, cells * D * C),
+    )
+    mode_line(
+        "kscan_grid (fits-final)",
+        time_ms(lambda: solver.kscan_fits_final(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)),
+        time_ms(lambda: solver.kscan_fits_final_plain(
+            grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D), iters=3),
+        bound(nbytes(grid_p, placed, zset, ct_m, it.zc_avail, fits_p), cells * (1 + Z * C)),
+    )
+    entry(
+        "kscan_grid", "karpenter_tpu_torch/ops/csrc/kscan_grid.cu", "karpenter_tpu/ops/solver.py:2751",
+        eq5 and eq5r and eq5f,
+        time_ms(lambda: solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)),
+        time_ms(lambda: solver._kscan_grid_plain(
+            used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D), iters=3),
+        # reads: usage, viable mask, the rows' zone / capacity-type rows and
+        # the catalog; writes: the grid and capd. Operations: the count of
+        # count_cell.cuh per cell (R subtract+divide, three R-wide fma
+        # checks) and the D x C per-zone offering test.
+        bound(nbytes(used, req, viable, it.alloc, it.zc_avail, it.group_valid, grid_p, capd_p)
+              + W * 2 * V, cells * (2 * R + 9 * R + D * C)),
+    )
+
+    # H6 kscan_pod_loop: one segment of 256 pods
+    E, G = enc["E"], templates.its.shape[0]
+    NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
+    S = topo.hg_counts0.shape[1]
+    count = maxc = 256
+    w_open0, n_open0 = 3800, NCAP - 30  # 30 claim slots left
+    ar = torch.arange(W, device=dev)
+    slot_of = torch.where(ar < w_open0, ar + n_open0 - w_open0, torch.full_like(ar, NCAP)).to(torch.int32)
+    checks = []
+    times = []
+    for variant, grp in (("zone spread", 0), ("zone affinity", 1)):
+        one = torch.zeros(NGv, dtype=torch.bool, device=dev)
+        one[grp] = True
+        inp = solver.PodLoopIn(
+            cap_e=rand_int(0, 4, E), zie0=rand_bool(E, p=0.2), open0=(ar < w_open0) & rand_bool(W, p=0.95),
+            static_n0=rand_bool(W, p=0.01), pods0=rand_int(0, 30, W), zin0=rand_bool(W, p=0.1),
+            static_g=torch.ones(G, dtype=torch.bool, device=dev), capd_g=rand_int(1, 6, G, D),
+            z0_g=rand_bool(G, D, p=0.95), zinf_g=rand_bool(G, p=0.2),
+            w_open0=torch.tensor(w_open0, dtype=torch.int32, device=dev),
+            self_conf=torch.tensor(False, device=dev), key_touched=torch.tensor(True, device=dev),
+            gate=one & topo.vg_valid, recs=one & topo.vg_valid, vg_self=one.clone(),
+            pd=rand_bool(D, p=0.8), hg_applies=rand_bool(NGh, p=0.5), hg_records=rand_bool(NGh, p=0.5),
+            hg_self=rand_bool(NGh, p=0.5),
+        )
+        carry0 = solver.PodLoopCarry(
+            zn=rand_bool(W, D, p=0.6), ze=rand_bool(E, D, p=0.6), capd=rand_int(0, 4, W, D),
+            pl_n=torch.zeros(W, dtype=torch.int32, device=dev),
+            pl_e=torch.zeros(E, dtype=torch.int32, device=dev),
+            tmpl_n=torch.zeros(W, dtype=torch.int32, device=dev), cnt=rand_int(2, 4, NGv, D),
+            # hostname counts on the slots in use; the fresh slots are empty
+            hgc=((torch.rand((NGh, S), generator=g) < 0.05) & (torch.arange(S) < E + n_open0))
+            .to(torch.int32).to(dev),
+            n_open=torch.tensor(n_open0, dtype=torch.int32, device=dev),
+            w_open=torch.tensor(w_open0, dtype=torch.int32, device=dev), slot_of=slot_of.clone(),
+            spills=torch.tensor(0, dtype=torch.int32, device=dev),
+        )
+
+        def clone(c):
+            return solver.PodLoopCarry(*(x.clone() for x in c))
+
+        ck, cp = clone(carry0), clone(carry0)
+        ak = solver.kscan_pod_loop(inp, ck, topo, templates, count, maxc, NCAP)
+        ap = solver.kscan_pod_loop_plain(inp, cp, topo, templates, count, maxc, NCAP)
+        eq = torch.equal(ak, ap) and all(torch.equal(a, b) for a, b in zip(ck, cp))
+        hist = {k: int(v) for k, v in (
+            ("existing", ((ak >= 0) & (ak < E)).sum()), ("claims", (ak >= E).sum()),
+            ("no_room", (ak == solver.NO_ROOM).sum()), ("no_claim", (ak == solver.NO_CLAIM).sum()),
+            ("opened", ck.n_open - n_open0))}
+        print(f"kernel kscan_pod_loop ({variant}): equal={eq} {json.dumps(hist)}", flush=True)
+        checks.append(eq)
+        # time the launch alone (the carry reset between launches is outside the events)
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+        for a, b in ev:
+            c = clone(carry0)
+            torch.cuda.synchronize()
+            a.record()
+            solver.kscan_pod_loop(inp, c, topo, templates, count, maxc, NCAP)
+            b.record()
+        torch.cuda.synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in ev) / len(ev))
+    plain_ms = time_ms(lambda: solver.kscan_pod_loop_plain(
+        inp, clone(carry0), topo, templates, count, maxc, NCAP), iters=2, warmup=1)
+    # per pod, one pass over the candidate rows: domain bits, capacity row,
+    # placed / pods / slot counters and the hostname counts at each slot;
+    # operations: the NGv x D group terms per candidate
+    rows = E + W + G
+    row_bytes = (E * (D + 8) + W * (5 * D + 14) + G * (5 * D + 2)) + NGh * rows * 4
+    entry(
+        "kscan_pod_loop", "karpenter_tpu_torch/ops/csrc/kscan_pod_loop.cu",
+        "karpenter_tpu/ops/solver.py:3093", all(checks), sum(times) / len(times), plain_ms,
+        bound(count * row_bytes, count * rows * NGv * D * 4.0),
+    )
+
+
+def profile_solve(sched, pods, out_dir, tag) -> None:
     """One more warm solve under torch.profiler: device busy share over the
     solve's wall, and device time by kernel name (from the chrome trace,
     so launches of one name are summed and overlaps counted once)."""
@@ -232,7 +450,7 @@ def profile_solve(sched, pods, out_dir) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "northstar_trace.json")
+    path = os.path.join(out_dir, f"{tag}_trace.json")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched.solve(pods)
@@ -243,7 +461,7 @@ def profile_solve(sched, pods, out_dir) -> None:
         events = json.load(fh).get("traceEvents", [])
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not dev:
-        print("profile: not measured (the trace holds no device events)", flush=True)
+        print(f"profile {tag}: not measured (the trace holds no device events)", flush=True)
         return
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -264,9 +482,9 @@ def profile_solve(sched, pods, out_dir) -> None:
         device_events=len(dev),
         top=[dict(name=n[:90], launches=c, ms=d / 1e3) for n, (c, d) in top],
     )
-    with open(os.path.join(out_dir, "northstar_profile.json"), "w") as fh:
+    with open(os.path.join(out_dir, f"{tag}_profile.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
-    print(f"profile: wall={wall:.3f}s device_busy={busy / 1e6:.4f}s "
+    print(f"profile {tag}: wall={wall:.3f}s device_busy={busy / 1e6:.4f}s "
           f"idle_share={summary['idle_share']:.4f} device_events={len(dev)}", flush=True)
     for t in summary["top"]:
         print(f"  device {t['ms']:9.3f} ms  x{t['launches']:6d}  {t['name']}", flush=True)
@@ -276,13 +494,51 @@ def digest(result) -> str:
     h = hashlib.sha256()
     for c in result.claims:
         h.update(repr((c.slot, [p.name for p in c.pods], [i.name for i in c.instance_types],
-                       sorted(c.used.items()))).encode())
+                       sorted(c.used.items()), str(c.requirements))).encode())
     for p, reason in result.unschedulable:
         h.update(repr((p.name, reason)).encode())
     return h.hexdigest()
 
 
+def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_needed):
+    """Drive one main path: launch counts zeroed just before a cold solve
+    and read just after, the result held to the JAX package's (claims,
+    price, nothing unschedulable) and to its dispatch counts, two warm
+    solves that must give the same digest. Returns (result, launches) or
+    raises RuntimeError."""
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = sched.solve(pods)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    print(f"{label} cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} "
+          f"stats={json.dumps(sched.last_stats)} launches={json.dumps(launches)}", flush=True)
+    claims, unsched, price = result.node_count, len(result.unschedulable), result.total_price()
+    print(f"{label} result: claims={claims} unschedulable={unsched} total_price={price:.4f}", flush=True)
+    if unsched:
+        raise RuntimeError(f"{label}: {unsched} pods unschedulable")
+    if claims != golden[0] or abs(price - golden[1]) >= 1e-2:
+        raise RuntimeError(f"{label}: {claims} claims / {price:.4f} $/h, expected {golden[0]} / {golden[1]}")
+    for k, want in expect_stats.items():
+        if sched.last_stats.get(k) != want:
+            raise RuntimeError(f"{label}: {k}={sched.last_stats.get(k)}, expected {want}")
+    idle = [k for k in kernels_needed if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"{label}: kernels never launched: {idle}")
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = sched.solve(pods)
+        torch.cuda.synchronize()
+        print(f"{label} warm {i}: wall={time.perf_counter() - t0:.3f}s "
+              f"{json.dumps(sched.last_timings)}", flush=True)
+        if digest(r) != digest(result):
+            raise RuntimeError(f"{label}: warm solve differs from the cold solve")
+    return result, launches
+
+
 def main() -> int:
+    kernels_only = "--kernels-only" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -292,9 +548,10 @@ def main() -> int:
     try:
         from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
         from karpenter_tpu_torch.ops import cuda
-        from karpenter_tpu_torch.testing import make_templates, selector_pods
+        from karpenter_tpu_torch.testing import make_templates, mixed_pods, selector_pods
     except ImportError as err:
         return fail(f"karpenter_tpu_torch is not importable here ({err})")
+    t_start = time.perf_counter()
 
     # phase 1
     print(gpu_line(), flush=True)
@@ -309,67 +566,68 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
-    # phase 3 (the scheduler's encode supplies the real catalog tensors)
+    # phase 3 (the schedulers' encodes supply the real catalog and topology tensors)
     templates = make_templates(1000)
     sched = TorchScheduler(templates, max_claims=4096)
     sched._encode(selector_pods(16), None)
     kernels = kernel_phase(sched)
+    templates_m = make_templates(400)
+    sched_m = TorchScheduler(templates_m, max_claims=4096)
+    _sorted, enc_m = sched_m._encode(mixed_pods(64), None)
+    kscan_kernel_phase(sched_m, enc_m, kernels)
     bad = [k["name"] for k in kernels if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
+    if kernels_only:
+        print(f"kernels only: stopping after phase 3 ({time.perf_counter() - t_start:.1f}s)", flush=True)
+        return 0
 
-    # phase 4: the main path
+    # phase 4: the fill path (north star), then the topology path (mixed_pods)
     pods = selector_pods(100_000)
     sched = TorchScheduler(templates, max_claims=4096)
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    result = sched.solve(pods)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(cuda.LAUNCHES)
-    print(f"main path cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} "
-          f"stats={json.dumps(sched.last_stats)} launches={json.dumps(launches)}", flush=True)
-    claims, unsched, price = result.node_count, len(result.unschedulable), result.total_price()
-    print(f"main path result: claims={claims} unschedulable={unsched} total_price={price:.4f}", flush=True)
-    if unsched:
-        return fail(f"{unsched} pods unschedulable")
-    if claims != GOLDEN_CLAIMS:
-        return fail(f"{claims} claims, expected {GOLDEN_CLAIMS}")
-    if abs(price - GOLDEN_PRICE) >= 1e-2:
-        return fail(f"total price {price:.4f}, expected {GOLDEN_PRICE}")
-    idle = [k for k, n in launches.items() if n <= 0]
-    if idle:
-        return fail(f"kernels never launched on the main path: {idle}")
+    fill_kernels = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter")
+    pods_m = mixed_pods(MIXED_PODS)
+    sched_m = TorchScheduler(templates_m, max_claims=4096)
+    try:
+        result, _ = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
+                               fill_kernels)
+        profile_solve(sched, pods, os.path.join("build", "profile"), "northstar")
+        result_m, launches = solve_path(
+            torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS, cuda.KERNELS,
+        )
+    except RuntimeError as err:
+        return fail(str(err))
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    warm = []
-    for i in range(2):
-        t0 = time.perf_counter()
-        r = sched.solve(pods)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-        print(f"main path warm {i}: wall={warm[-1]:.3f}s {json.dumps(sched.last_timings)}", flush=True)
-        if digest(r) != digest(result):
-            return fail("warm solve differs from the cold solve")
-    profile_solve(sched, pods, os.path.join("build", "profile"))
-    # a small problem on the card against the plain CPU path
+    profile_solve(sched_m, pods_m, os.path.join("build", "profile"), "mixed")
+    # small problems on the card against the plain CPU path
     small_t = make_templates(400)
     r_gpu = TorchScheduler(small_t, max_claims=256).solve(selector_pods(2048))
     r_cpu = TorchScheduler(small_t, max_claims=256, device="cpu").solve(selector_pods(2048))
     if digest(r_gpu) != digest(r_cpu) or r_gpu.unschedulable:
         return fail("2048-pod solve on the card differs from the CPU solve")
-    print(f"small check: 2048 pods x 400 types, {r_gpu.node_count} claims, card == CPU", flush=True)
+    print(f"small check: 2048 selector pods x 400 types, {r_gpu.node_count} claims, card == CPU", flush=True)
+    r_gpu = TorchScheduler(small_t, max_claims=256).solve(mixed_pods(1024))
+    r_cpu = TorchScheduler(small_t, max_claims=256, device="cpu").solve(mixed_pods(1024))
+    price = r_gpu.total_price()
+    if digest(r_gpu) != digest(r_cpu) or r_gpu.unschedulable:
+        return fail("1024 mixed pods on the card differ from the CPU solve")
+    if r_gpu.node_count != SMALL_MIXED[0] or abs(price - SMALL_MIXED[1]) >= 1e-2:
+        return fail(f"1024 mixed pods: {r_gpu.node_count} claims / {price:.4f} $/h, expected {SMALL_MIXED}")
+    print(f"small check: 1024 mixed pods x 400 types, {r_gpu.node_count} claims, "
+          f"{price:.4f} $/h, card == CPU", flush=True)
 
     # phase 5: plain versions on the card
-    t0 = time.perf_counter()
-    r_plain = TorchScheduler(templates, max_claims=4096, plain=True).solve(pods)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    same = digest(r_plain) == digest(result)
-    print(f"plain on card: wall={plain_wall:.3f}s digest_equal={same}", flush=True)
-    if not same:
-        return fail("plain-version solve on the card gives another assignment")
+    for label, tmpl, ps, ref in (("north star", templates, pods, result), ("mixed path", templates_m, pods_m, result_m)):
+        t0 = time.perf_counter()
+        r_plain = TorchScheduler(tmpl, max_claims=4096, plain=True).solve(ps)
+        torch.cuda.synchronize()
+        same = digest(r_plain) == digest(ref)
+        print(f"plain on card, {label}: wall={time.perf_counter() - t0:.3f}s digest_equal={same}", flush=True)
+        if not same:
+            return fail(f"plain-version solve of the {label} on the card gives another assignment")
 
+    print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     for k in kernels:
         k.pop("equal")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,15 @@
-"""The fill-path scheduling engine: encode -> ops.solver (PyTorch + CUDA)
--> decode.
+"""The scheduling engine: encode -> ops.solver (PyTorch + CUDA) -> decode.
 
-A port of the fill subset of the JAX package's TPUScheduler
-(controllers/provisioning/scheduler.py): problems whose every pod kind is
-fill-routable — no topology groups, host ports, CSI volume limits, finite
-budgets, reservations, enforced minValues, gangs or DRA claims — solve
-with the same FFD order, the same kind-level 3-tier fill scan, the same
-chunking and compaction boundaries and the same decode, so the result
-equals TPUScheduler.solve's. Anything else raises UnsupportedProblem;
+A port of the JAX package's TPUScheduler (controllers/provisioning/
+scheduler.py) for problems whose every pod kind routes to the kind-level
+fill scan or to the zonal kind scan: selector pods, hostname topology
+groups (spread / anti-affinity / affinity with counts), and vocab-key
+groups (zone spread, zone affinity) whose kind interacts with ONE narrow
+key. The same FFD order, topology encode, routing, chunking and
+compaction boundaries and decode give a result equal to
+TPUScheduler.solve's. Anything else — kinds that route to the per-pod scan
+or to the gang engine, host ports, CSI volume limits, finite budgets,
+reservations, enforced minValues, DRA claims — raises UnsupportedProblem;
 nothing falls back to another engine.
 """
 
@@ -30,9 +32,16 @@ from karpenter_tpu_torch.controllers.provisioning.host_scheduler import (
     hostname_placeholder,
 )
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import ClaimTemplate
+from karpenter_tpu_torch.controllers.provisioning.topology import (
+    Topology,
+    TopologyType,
+    build_universe_domains,
+    template_universe_domains,
+)
 from karpenter_tpu_torch.models import labels as l
 from karpenter_tpu_torch.models.pod import Pod
 from karpenter_tpu_torch.ops import solver as ops_solver
+from karpenter_tpu_torch.ops import topology as topo_ops
 from karpenter_tpu_torch.ops.encode import (
     ProblemEncoder,
     ReqSetTensors,
@@ -40,9 +49,9 @@ from karpenter_tpu_torch.ops.encode import (
     encode_requirements_np,
 )
 from karpenter_tpu_torch.ops.kernels import fetch_tree, pack_bool_np
-from karpenter_tpu_torch.ops.topology import empty_topology_tensors
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.scheduling.taints import tolerates_all
+from karpenter_tpu_torch.utils import resources as res
 
 # NO_ROOM is a device-shape artifact: solve() grows the claims axis and
 # re-solves, so this reason only surfaces if recovery is impossible
@@ -54,8 +63,8 @@ GANG_ANNOTATIONS = ("ktpu.dev/gang-name", "ktpu.dev/gang-size", "ktpu.dev/gang-r
 
 class UnsupportedProblem(ValueError):
     """The problem needs a part of the solver this package has not ported
-    (topology groups, host ports, CSI limits, finite budgets,
-    reservations, enforced minValues, gangs, DRA claims)."""
+    (kinds routed to the per-pod scan or the gang engine, host ports, CSI
+    limits, finite budgets, reservations, enforced minValues, DRA claims)."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -226,6 +235,72 @@ def _decode_fill_segments(ctx, segs, f) -> None:
             ctx.unschedulable.append((pods_sorted[lo0 + i], reason))
 
 
+def _apply_assignments(ctx, idx0: int, arr: np.ndarray) -> None:
+    """Per-pod decode of a kind-scan segment: arr[i] is pod (idx0+i)'s
+    E-space slot (existing node < E, claim E + global id) or a negative
+    sentinel. Claims apply grouped by slot (a stable order, so each claim's
+    pods and the order claims open match the sequential replay);
+    existing-node landings merge usage one pod at a time; failures append
+    in pod order."""
+    E = ctx.E
+    pods_sorted = ctx.pods_sorted
+    kind_of = ctx.kind_of
+    cm = arr >= E
+    if cm.any():
+        ci = np.flatnonzero(cm)
+        cs = arr[ci] - E
+        o = np.argsort(cs, kind="stable")
+        cs_s = cs[o]
+        ci_s = ci[o] + idx0
+        bounds = np.flatnonzero(np.diff(cs_s)) + 1
+        starts = np.concatenate(([0], bounds))
+        ends = np.concatenate((bounds, [len(cs_s)]))
+        for a, b in zip(starts.tolist(), ends.tolist()):
+            s = int(cs_s[a])
+            claim = ctx.ensure_claim(s)
+            il = ci_s[a:b].tolist()
+            batch = [pods_sorted[i] for i in il]
+            claim.pods.extend(batch)
+            ck = ctx.claim_kinds[s]
+            for i, p in zip(il, batch):
+                ctx.assignments[p.metadata.uid] = s
+                k = int(kind_of[i])
+                ck[k] = ck.get(k, 0) + 1
+            ctx.claim_pod_counts[s] += b - a
+    em = (arr >= 0) & (arr < E)
+    if em.any():
+        for i in np.flatnonzero(em).tolist():
+            pod = pods_sorted[idx0 + i]
+            k = int(kind_of[idx0 + i])
+            e = int(arr[i])
+            node = ctx.existing_nodes[e]
+            node.used = res.merge(node.used, ctx.kind_total(k))
+            node.pods.append(pod)
+            nk = ctx.node_kinds.setdefault(e, {})
+            nk[k] = nk.get(k, 0) + 1
+            ctx.existing_assignments[pod.metadata.uid] = node.name
+    nm = arr < 0
+    if nm.any():
+        for i in np.flatnonzero(nm).tolist():
+            reason = NO_ROOM_REASON if arr[i] == ops_solver.NO_ROOM else NO_CLAIM_REASON
+            ctx.unschedulable.append((pods_sorted[idx0 + i], reason))
+
+
+def _fold_narrowing(vocab, topo_kids: tuple, reqs: Requirements, mask_r, inf_r, def_r, what: str) -> None:
+    """Intersect the device's vocab-key topology narrowing into host
+    requirements. Rows are gathered to the topo_kids axis (row j = key
+    topo_kids[j]); a key the device never narrowed equals the host-side
+    intersection already rebuilt, so the add is an exact no-op there."""
+    for j, kid in enumerate(topo_kids):
+        if not def_r[j] or inf_r[j]:
+            continue
+        key = vocab.keys[kid]
+        vals = [v for vi, v in enumerate(vocab.values[kid]) if mask_r[j, vi]]
+        if not vals:
+            raise RuntimeError(f"device narrowed {key} to the empty set on {what}")
+        reqs.add(Requirement.new(key, Operator.IN, *vals))
+
+
 class TorchScheduler:
     """One scheduler per template/catalog set, reusable across solve()
     calls (the vocab may grow between calls). Runs on `device` ("cuda" by
@@ -272,6 +347,8 @@ class TorchScheduler:
         for it in self.catalog:
             self.encoder.observe_instance_type(it)
         self._vocab_sig: Optional[tuple] = None
+        self._universe_base: Optional[dict] = None
+        self._kscan_caps: set = set()  # kscan assignment-buffer buckets handed out
 
     # -- encoding ----------------------------------------------------------
 
@@ -349,12 +426,18 @@ class TorchScheduler:
             vol_driver=torch.zeros((1, 1), dtype=torch.int32, device=dev),
         )
 
+    def universe_base(self) -> dict:
+        """The cached template/catalog half of the topology domain universe."""
+        if self._universe_base is None:
+            self._universe_base = template_universe_domains(self.templates)
+        return self._universe_base
+
     def _check_supported(self, pods: Sequence[Pod], budgets) -> None:
-        """Raise UnsupportedProblem for anything outside the fill path."""
+        """Raise UnsupportedProblem for what no ported engine runs (the
+        routing check, which needs the kind classification, is in
+        _encode)."""
         for p in pods:
             s = p.spec
-            if s.topology_spread_constraints or s.pod_affinity or s.pod_anti_affinity:
-                raise UnsupportedProblem(f"pod {p.name}: topology groups (spread/affinity)")
             if s.host_ports:
                 raise UnsupportedProblem(f"pod {p.name}: host ports")
             if s.resource_claims:
@@ -378,6 +461,24 @@ class TorchScheduler:
         cap = self.max_claims or _next_pow2(max(P, 1))
         n_claims = self._n_claims_override or cap
         self._last_n_claims = n_claims
+        # topology groups (lazy universe: a topology-free pod set never
+        # builds it); their keys and domains join the vocab before the
+        # pads freeze
+        topology = Topology.build(
+            pods_list,
+            lambda: build_universe_domains(
+                self.templates, self.existing_nodes, template_base=self.universe_base()
+            ),
+        )
+        if topology.groups or topology.inverse_groups:
+            for node in self.existing_nodes:
+                topology.register(l.LABEL_HOSTNAME, node.name)
+        for g in topology.groups + topology.inverse_groups:
+            if g.key in self.encoder.skip_keys:
+                continue
+            self.encoder.vocab.add_key(g.key)
+            for d in g.domains:
+                self.encoder.vocab.add_value(g.key, d)
         # ---- FFD sort + pod-kind dedup ---------------------------------
         if P:
             sig, sizes = ffd_keys(pods_list)
@@ -393,8 +494,9 @@ class TorchScheduler:
             pods_sorted = []
             kind_of = np.zeros(1, dtype=np.int64)
             reps = [Pod()]
-        # vocab observation order: templates, catalog (constructor), then
-        # pod kinds, then existing nodes — value ids decide mask layout
+        # vocab observation order: templates, catalog (constructor), topology
+        # domains, then pod kinds, then existing nodes — value ids decide
+        # mask layout
         for p in reps:
             self.encoder.observe_pod(p)
         for n in self.existing_nodes:
@@ -411,6 +513,10 @@ class TorchScheduler:
         rep_reqs = [Requirements.from_pod(p) for p in reps]
         row_memo: dict = {}
         reqs_np = encode_requirements_np(enc.vocab, rep_reqs, k_pad, v_pad, enc.skip_keys, row_memo=row_memo)
+        strict_np = encode_requirements_np(
+            enc.vocab, [Requirements.from_pod(p, include_preferred=False) for p in reps],
+            k_pad, v_pad, enc.skip_keys, row_memo=row_memo,
+        )
         it_allow = enc.it_allow_mask(rep_reqs, self.catalog)
         for u in range(U):
             # hostname selectors can never match a not-yet-named node
@@ -437,6 +543,14 @@ class TorchScheduler:
                     r = rq.get(l.LABEL_INSTANCE_TYPE)
                     ok = r.has(it_name) if it_name is not None else r.is_lenient()
                 exist_ok[u, e] = ok
+        # topology tensors; the hostname slot space gets one spare column so
+        # tier 3's fresh-slot read stays in bounds when every slot is open
+        topo, vg, hg = topo_ops.encode_topology(
+            topology, enc, E, n_claims + 1, [n.name for n in self.existing_nodes], v_pad, dev
+        )
+        pod_topo, rel = topo_ops.encode_pod_topology(
+            topology, vg, hg, reps, as_tensor(strict_np[0], dev)
+        )
         # host ports on existing nodes still gate tier 1 (pods carry none)
         port_keys: dict = {}
         for n in self.existing_nodes:
@@ -451,13 +565,14 @@ class TorchScheduler:
         n_ports = exist_tensors.ports.shape[1]
         zeros_u = np.zeros((U, n_ports), dtype=np.int32)
         zone_kid, ct_kid = enc.zone_ct_key_ids()
+        topo_kids = tuple(sorted({enc.vocab.key_to_id[g.key] for g in vg}))
         segments: list[tuple[int, int, int]] = []
         if P:
             ko = kind_of[:P]
             starts = np.concatenate(([0], np.flatnonzero(ko[1:] != ko[:-1]) + 1))
             ends = np.concatenate((starts[1:], [P]))
             segments = [(int(lo), int(hi), int(ko[lo])) for lo, hi in zip(starts, ends)]
-        topo = empty_topology_tensors(v_pad, E + n_claims + 1, dev)
+        batchable, kscan_key = self._classify(reps, rel, vg, hg)
         kinds = dict(
             reqs=ReqSetTensors.from_numpy(reqs_np, dev),
             requests=as_tensor(requests, dev),
@@ -467,17 +582,20 @@ class TorchScheduler:
             ports=as_tensor(zeros_u, dev),
             port_conf=as_tensor(zeros_u, dev),
             vols=torch.zeros((U, 1), dtype=torch.int32, device=dev),
-            hg=torch.zeros((U, 1), dtype=torch.bool, device=dev),
+            topo=pod_topo,
         )
         return pods_sorted, dict(
             kinds=kinds,
             requests_np=requests,
             kind_of=kind_of,
             segments=segments,
+            batchable=batchable,
+            kscan_key=kscan_key,
             reps=reps,
             exist_tensors=exist_tensors,
             template_tensors=self.template_tensors,
             topo_tensors=topo,
+            topo_kids=topo_kids,
             zone_kid=zone_kid,
             ct_kid=ct_kid,
             n_claims=n_claims,
@@ -486,80 +604,170 @@ class TorchScheduler:
             P=P,
         )
 
+    def _classify(self, reps: list, rel: dict, vg: list, hg: list) -> tuple[np.ndarray, np.ndarray]:
+        """Route every kind (the reference's batchability and kscan-key
+        rules): a kind rides the fill scan unless it interacts with a
+        vocab-key group or with an initially-empty hostname affinity group
+        (whose bootstrap is ordered); such a kind rides the kind scan when
+        every vocab-key group it applies to or records into shares ONE key
+        with at most KSCAN_D values. Any other kind would need the per-pod
+        scan, which this package has not ported: UnsupportedProblem."""
+        U = len(reps)
+        vga, vgr, hga = rel["vga"], rel["vgr"], rel["hga"]
+        empty_aff = np.zeros(hga.shape[1], dtype=bool)
+        for j, g in enumerate(hg):
+            if g.type is TopologyType.AFFINITY and g.is_empty():
+                empty_aff[j] = True
+        batchable = np.array(
+            [not vga[u].any() and not vgr[u].any() and not (hga[u] & empty_aff).any() for u in range(U)],
+            dtype=bool,
+        )
+        kscan_key = np.full(U, -1, dtype=np.int64)
+        vocab = self.encoder.vocab
+        vkeys = [vocab.key_to_id[g.key] for g in vg]
+        for u in np.flatnonzero(~batchable).tolist():
+            keys = {vkeys[j] for j in range(len(vg)) if vga[u, j] or vgr[u, j]}
+            if len(keys) == 1:
+                kid = next(iter(keys))
+                if len(vocab.values[kid]) <= ops_solver.KSCAN_D:
+                    kscan_key[u] = kid
+                    continue
+            why = (
+                "vocab-key topology groups over several keys" if len(keys) > 1
+                else "a vocab-key group wider than KSCAN_D" if keys
+                else "an initially-empty hostname affinity group"
+            )
+            raise UnsupportedProblem(f"pod {reps[u].name}: routes to the per-pod scan ({why})")
+        return batchable, kscan_key
+
     # -- solving -----------------------------------------------------------
 
-    def _gather_fill_xs(self, enc: dict, segs: list) -> ops_solver.FillXs:
-        """Kind -> segment row gather (the reference's `_gather_fill_xs`)."""
+    def _gather(self, enc: dict, segs: list) -> tuple[dict, torch.Tensor, ReqSetTensors]:
         k = enc["kinds"]
         kid = torch.as_tensor([s[2] for s in segs], dtype=torch.long).to(self.device)
         counts = torch.as_tensor([s[1] - s[0] for s in segs], dtype=torch.int32).to(self.device)
-        hg = k["hg"][kid]
+        rows = {f: k[f][kid] for f in ("requests", "tmpl_ok", "it_allow", "exist_ok", "ports", "port_conf", "vols")}
+        rows["topo"] = topo_ops.take_pod_topology(k["topo"], kid)
+        return rows, counts, ReqSetTensors(*(c[kid] for c in k["reqs"]))
+
+    def _gather_fill_xs(self, enc: dict, segs: list) -> ops_solver.FillXs:
+        """Kind -> segment row gather (the reference's `_gather_fill_xs`)."""
+        rows, counts, reqs = self._gather(enc, segs)
+        pt = rows.pop("topo")
         return ops_solver.FillXs(
-            reqs=ReqSetTensors(*(c[kid] for c in k["reqs"])),
-            requests=k["requests"][kid],
-            tmpl_ok=k["tmpl_ok"][kid],
-            it_allow=k["it_allow"][kid],
-            exist_ok=k["exist_ok"][kid],
-            ports=k["ports"][kid],
-            port_conf=k["port_conf"][kid],
-            vols=k["vols"][kid],
-            count=counts,
-            hg_applies=hg,
-            hg_records=hg,
-            hg_self=hg,
+            reqs=reqs, count=counts, hg_applies=pt.hg_applies, hg_records=pt.hg_records,
+            hg_self=pt.hg_self, **rows,
         )
 
-    def _run_solve(self, enc: dict):
-        """Chunked fill dispatches with boundary compaction; returns the
-        final state and the per-dispatch (segments, ys, slot_of) outputs."""
-        n_claims = enc["n_claims"]
-        state = ops_solver.initial_state(
-            enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
-            enc["topo_tensors"], n_claims, enc["n_ports"], window=n_claims,
+    def _gather_kind_xs(self, enc: dict, segs: list) -> ops_solver.KindXs:
+        """Kind -> segment row gather (the reference's `_gather_kind_xs`)."""
+        rows, counts, reqs = self._gather(enc, segs)
+        pt = rows.pop("topo")
+        return ops_solver.KindXs(
+            reqs=reqs, strict_mask=pt.strict_mask, count=counts,
+            vg_applies=pt.vg_applies, vg_records=pt.vg_records, vg_self=pt.vg_self,
+            hg_applies=pt.hg_applies, hg_records=pt.hg_records, hg_self=pt.hg_self, **rows,
         )
-        groups = [list(enc["segments"])] if enc["segments"] else []
+
+    def _kscan_maxc(self, n: int) -> int:
+        """The pod loop's assignment-buffer length: the reference's
+        PadBucketCache rule for "kscan_cap" (a multiple of 64, reusing a
+        bucket already handed out when one fits under the pow2 ceiling)."""
+        tight = max(64, -(-n // 64) * 64)
+        ceiling = _next_pow2(max(n, 1), 64)
+        covering = [c for c in self._kscan_caps if tight <= c <= ceiling]
+        if covering:
+            return min(covering)
+        self._kscan_caps.add(tight)
+        return tight
+
+    def _runs(self, enc: dict) -> list:
+        """Maximal runs of consecutive segments with one route — ("fill",)
+        or ("kscan", key) — with big fill runs split into ~pipeline_chunks
+        dispatches (the reference's software-pipeline split); kscan runs
+        keep their exact segments."""
+        batchable, kscan_key = enc["batchable"], enc["kscan_key"]
+        runs: list = []
+        for seg in enc["segments"]:
+            k = seg[2]
+            m = ("fill",) if batchable[k] else ("kscan", int(kscan_key[k]))
+            if runs and runs[-1][0] == m:
+                runs[-1][1].append(seg)
+            else:
+                runs.append((m, [seg]))
         K_pipe = self.pipeline_chunks
-        if K_pipe > 1 and enc["P"] >= max(self.pipeline_min_pods, 1) and groups and len(groups[0]) > 1:
-            target = max(-(-enc["P"] // K_pipe), 1)
-            split: list = []
+        if K_pipe <= 1 or enc["P"] < max(self.pipeline_min_pods, 1):
+            return runs
+        target = max(-(-enc["P"] // K_pipe), 1)
+        split: list = []
+        for mode, segs in runs:
+            if mode[0] != "fill" or len(segs) <= 1:
+                split.append((mode, segs))
+                continue
             cur: list = []
             cur_pods = 0
-            for seg in groups[0]:
+            for seg in segs:
                 cur.append(seg)
                 cur_pods += seg[1] - seg[0]
                 if cur_pods >= target:
-                    split.append(cur)
+                    split.append((mode, cur))
                     cur, cur_pods = [], 0
             if cur:
-                split.append(cur)
-            groups = split
+                split.append((mode, cur))
+        return split
+
+    def _run_solve(self, enc: dict):
+        """One dispatch per run (fill scan or kind scan) with boundary
+        compaction; returns the final state and the per-dispatch outputs
+        ("fill", segs, ys, slot_of) / ("kscan", segs, ys)."""
+        n_claims = enc["n_claims"]
+        topo_kids = enc["topo_kids"]
+        state = ops_solver.initial_state(
+            enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
+            enc["topo_tensors"], n_claims, enc["n_ports"], window=n_claims, topo_kids=topo_kids,
+        )
+        runs = self._runs(enc)
         requests_np = enc["requests_np"]
         remaining = np.zeros(requests_np.shape[0], dtype=np.int64)
-        for segs in groups:
-            for lo, hi, k in segs:
-                remaining[k] += hi - lo
+        for lo, hi, k in enc["segments"]:
+            remaining[k] += hi - lo
         compact = enc["P"] >= self.compact_min_pods
+        common = (
+            enc["exist_tensors"], self.it_tensors, enc["template_tensors"], self.well_known,
+            enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], n_claims,
+        )
         outputs = []
         n_compactions = 0
-        for segs in groups:
-            xs = self._gather_fill_xs(enc, segs)
-            state, ys = ops_solver.solve_fill(
-                state, xs, enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
-                self.well_known, enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"],
-                n_claims, plain=self.plain,
-            )
-            outputs.append((segs, ys, state.slot_of))
+        n_fill = n_kscan = 0
+        for mode, segs in runs:
+            if mode[0] == "fill":
+                xs = self._gather_fill_xs(enc, segs)
+                state, ys = ops_solver.solve_fill(state, xs, *common, plain=self.plain)
+                outputs.append(("fill", segs, ys, state.slot_of))
+                n_fill += 1
+            else:
+                key = mode[1]
+                counts = [hi - lo for lo, hi, _k in segs]
+                state, ys = ops_solver.solve_kind_scan(
+                    state, self._gather_kind_xs(enc, segs), *common,
+                    key_kid=key, n_domains=len(self.encoder.vocab.values[key]),
+                    maxc=self._kscan_maxc(max(counts)), counts=counts,
+                    requests_np=requests_np[[k for _lo, _hi, k in segs]], plain=self.plain,
+                )
+                outputs.append(("kscan", segs, ys))
+                n_kscan += 1
             for lo, hi, k in segs:
                 remaining[k] -= hi - lo
             if compact and (remaining > 0).any():
                 r_min = requests_np[remaining > 0].min(axis=0)
                 state, _closed = ops_solver.compact_state(
                     state, self.it_tensors, as_tensor(r_min, self.device), n_claims,
-                    plain=self.plain,
+                    plain=self.plain, topo_kids=topo_kids,
                 )
                 n_compactions += 1
         self.last_stats = dict(
-            segments=len(enc["segments"]), groups=len(groups), compactions=n_compactions,
+            segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n_fill,
+            kscan_dispatches=n_kscan, compactions=n_compactions,
         )
         return state, outputs
 
@@ -569,19 +777,27 @@ class TorchScheduler:
         pods_sorted, enc = self._encode(pods, budgets)
         t1 = time.perf_counter()
         state, outputs = self._run_solve(enc)
-        fetched = fetch_tree(
-            dict(
-                claims=ops_solver.global_claims(state, plain=self.plain),
-                n_open=state.n_open, w_open=state.w_open, w_hw=state.w_hw, spills=state.spills,
-                outputs=[
-                    dict(
-                        fill_c=ys.fill_c, fill_e=ys.fill_e, open_start=ys.open_start,
-                        n_opened=ys.n_opened, status=ys.status, slot_map=slot_of,
-                    )
-                    for _segs, ys, slot_of in outputs
-                ],
-            )
+        tk = list(enc["topo_kids"])
+        fetch = dict(
+            claims=ops_solver.global_claims(state, plain=self.plain, topo_kids=enc["topo_kids"]),
+            n_open=state.n_open, w_open=state.w_open, w_hw=state.w_hw, spills=state.spills,
+            outputs=[
+                dict(
+                    fill_c=o[2].fill_c, fill_e=o[2].fill_e, open_start=o[2].open_start,
+                    n_opened=o[2].n_opened, status=o[2].status, slot_map=o[3],
+                )
+                if o[0] == "fill"
+                else dict(assignment=o[2].assignment, grid_reused=o[2].grid_reused)
+                for o in outputs
+            ],
         )
+        if tk:
+            fetch.update(
+                e_mask=state.exist_reqs.mask[:, tk, :],
+                e_inf=state.exist_reqs.inf[:, tk],
+                e_def=state.exist_reqs.defined[:, tk],
+            )
+        fetched = fetch_tree(fetch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
@@ -637,11 +853,15 @@ class TorchScheduler:
 
     def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict) -> SchedulingResult:
         """Claim-level decode from the fetched device state: replay the
-        pod -> slot bookkeeping in scan order, then finalize each claim's
-        requirements (template + its pod kinds + hostname), usage (device
-        carry) and viable instance types (device mask)."""
+        pod -> slot bookkeeping in dispatch order (fill grids expanded,
+        kind-scan assignments applied per pod), then finalize each claim's
+        requirements (template + its pod kinds + hostname + the device's
+        topology narrowing), usage (device carry) and viable instance types
+        (device mask)."""
         E = enc["E"]
         kind_of = enc["kind_of"]
+        topo_kids = enc["topo_kids"]
+        vocab = self.encoder.vocab
         reps: list[Pod] = enc["reps"]
         claims_cols = fetched["claims"]
         claim_template = claims_cols["template"]
@@ -704,9 +924,14 @@ class TorchScheduler:
             unschedulable=unschedulable,
             node_kinds=node_kinds,
             kind_total=kind_total,
+            kind_of=kind_of,
         )
-        for (segs, _ys, _slot_of), f in zip(outputs, fetched["outputs"]):
-            _decode_fill_segments(ctx, segs, f)
+        for o, f in zip(outputs, fetched["outputs"]):
+            if o[0] == "fill":
+                _decode_fill_segments(ctx, o[1], f)
+                continue
+            for j, (lo, hi, _kind) in enumerate(o[1]):
+                _apply_assignments(ctx, lo, np.asarray(f["assignment"][j][: hi - lo], dtype=np.int64))
 
         its_mask = claims_cols["its"]
         used_np = claims_cols["used"]
@@ -731,6 +956,11 @@ class TorchScheduler:
             reqs = proto.copy()
             reqs.add(Requirement.new(l.LABEL_HOSTNAME, Operator.IN, claim.hostname))
             claim.requirements = reqs
+            if topo_kids:
+                _fold_narrowing(
+                    vocab, topo_kids, reqs, claims_cols["tk_mask"][s], claims_cols["tk_inf"][s],
+                    claims_cols["tk_def"][s], f"claim slot {s}",
+                )
             claim.used = dict(zip(names, used_np[s][ridx].tolist()))
             row = np.asarray(its_mask[s])
             ikey = (tid, row.tobytes())
@@ -745,6 +975,11 @@ class TorchScheduler:
             node = self.existing_nodes[e]
             for k in kinds:
                 node.requirements.add(*kind_reqs(k).values())
+            if topo_kids:
+                _fold_narrowing(
+                    vocab, topo_kids, node.requirements, fetched["e_mask"][e], fetched["e_inf"][e],
+                    fetched["e_def"][e], f"existing node {node.name}",
+                )
         return SchedulingResult(
             claims=claims,
             unschedulable=unschedulable,

@@ -13,6 +13,12 @@
 //           else drops (the reference's mode="drop" scatter).
 // Destination rows nobody writes keep what the caller put there (the
 // identity / zero fill for compaction, the bank for the scatters).
+// A field may instead move only some key rows of its source row: with
+// seg_bytes > 0 the destination row is the n_tk segments of seg_bytes
+// bytes at source offsets tk[j] * seg_bytes — the topology-key mode, which
+// banks `reqs.mask[:, topo_kids, :]`, `inf[:, topo_kids]` and
+// `defined[:, topo_kids]` (the reference's `_bank_rows` tk rows, :824-836)
+// in the same launch as the other bank columns.
 //
 // Bound on an H100: bytes — each moved row is read once and written once,
 // about 4.6 MB each way for a full [4096, T=1000] window, about 2.8 us.
@@ -27,13 +33,17 @@
 namespace {
 
 constexpr int kMaxFields = 16;
+constexpr int kMaxTk = 16;
 constexpr int kScanThreads = 1024;
 
 struct Fields {
   const uint8_t* src[kMaxFields];
   uint8_t* dst[kMaxFields];
-  int64_t row_bytes[kMaxFields];
-  int n;
+  int64_t row_bytes[kMaxFields];      // destination row bytes
+  int64_t src_row_bytes[kMaxFields];  // source row stride
+  int64_t seg_bytes[kMaxFields];      // 0 = whole row, else key-row segments
+  int tk[kMaxTk];
+  int n, n_tk;
 };
 
 __global__ void alive_scan_kernel(const uint8_t* __restrict__ alive, int n,
@@ -80,9 +90,13 @@ __global__ void scatter_rows_kernel(Fields fs, const int32_t* __restrict__ dst_r
   if (d < 0 || d >= n_dst_rows) return;
   for (int f = 0; f < fs.n; ++f) {
     const int64_t rb = fs.row_bytes[f];
-    const uint8_t* s = fs.src[f] + i * rb;
+    const uint8_t* s = fs.src[f] + i * fs.src_row_bytes[f];
     uint8_t* o = fs.dst[f] + (int64_t)d * rb;
-    if ((rb % 16) == 0 && (((uintptr_t)s | (uintptr_t)o) % 16) == 0) {
+    const int64_t seg = fs.seg_bytes[f];
+    if (seg > 0) {
+      for (int64_t k = threadIdx.x; k < rb; k += blockDim.x)
+        o[k] = s[(int64_t)fs.tk[k / seg] * seg + k % seg];
+    } else if ((rb % 16) == 0 && (((uintptr_t)s | (uintptr_t)o) % 16) == 0) {
       const int4* s4 = reinterpret_cast<const int4*>(s);
       int4* o4 = reinterpret_cast<int4*>(o);
       for (int64_t k = threadIdx.x; k < rb / 16; k += blockDim.x) o4[k] = s4[k];
@@ -94,22 +108,32 @@ __global__ void scatter_rows_kernel(Fields fs, const int32_t* __restrict__ dst_r
 
 }  // namespace
 
-// srcs/dsts/row_bytes are HOST arrays of n_fields entries; `sel` is the
-// device alive mask (mode 0) or the device int32 destination ids (mode 1);
-// `pos` is device scratch of n_rows int32 (mode 0 only).
+// srcs/dsts/row_bytes/src_row_bytes/seg_bytes are HOST arrays of n_fields
+// entries and tk a HOST array of n_tk key ids; `sel` is the device alive
+// mask (mode 0) or the device int32 destination ids (mode 1); `pos` is
+// device scratch of n_rows int32 (mode 0 only).
 extern "C" int compact_scatter(int mode, int n_rows, const void* sel,
                                int n_dst_rows, int n_fields,
                                const void* const* srcs, void* const* dsts,
-                               const int64_t* row_bytes, void* pos,
-                               void* stream) {
+                               const int64_t* row_bytes,
+                               const int64_t* src_row_bytes,
+                               const int64_t* seg_bytes, int n_tk,
+                               const int* tk, void* pos, void* stream) {
   if (n_fields > kMaxFields || n_fields < 0) return (int)cudaErrorInvalidValue;
+  if (n_tk > kMaxTk || n_tk < 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0 || n_fields == 0) return 0;
   Fields fs;
   fs.n = n_fields;
+  fs.n_tk = n_tk;
+  for (int j = 0; j < n_tk; ++j) fs.tk[j] = tk[j];
   for (int f = 0; f < n_fields; ++f) {
     fs.src[f] = (const uint8_t*)srcs[f];
     fs.dst[f] = (uint8_t*)dsts[f];
     fs.row_bytes[f] = row_bytes[f];
+    fs.src_row_bytes[f] = src_row_bytes[f];
+    fs.seg_bytes[f] = seg_bytes[f];
+    if (seg_bytes[f] > 0 && row_bytes[f] != n_tk * seg_bytes[f])
+      return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* dst_row;

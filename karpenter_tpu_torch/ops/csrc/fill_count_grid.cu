@@ -19,7 +19,8 @@
 // Numerics: the charge used + c*req rounds ONCE (__fmaf_rn), as the JAX
 // package's compiled step computes it (XLA fuses that multiply-add);
 // head = alloc - used and the estimate head / req use __fsub_rn and the
-// IEEE __fdiv_rn. Never build with --use_fast_math.
+// IEEE __fdiv_rn (the per-cell count lives in count_cell.cuh, shared with
+// H5 kscan_grid). Never build with --use_fast_math.
 //
 // Bound on an H100: each launch at W=4096, T=1000 reads at least the
 // [W, T] viable mask or writes the [W, T] fits mask, about 4 MB, so about
@@ -34,10 +35,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "count_cell.cuh"
+
 namespace {
 
-constexpr float kCountCap = 4194304.0f;  // 2^22, COUNT_CAP
-constexpr int kMaxR = 16;
+using ktpu::cell_count;
+using ktpu::fits_at;
+using ktpu::kMaxR;
 
 struct Grid {
   const float* alloc;         // [T, GR, R]
@@ -68,17 +72,6 @@ __device__ __forceinline__ bool offering(const Grid& p, int64_t b, int t,
   return false;
 }
 
-__device__ __forceinline__ bool fits_at(const float* used, const float* req,
-                                        const float* alloc, int R, int c) {
-  const float cf = (float)c;
-  bool ok = true;
-  for (int r = 0; r < R; ++r) {
-    const float t = __fmaf_rn(cf, req[r], used[r]);
-    ok = ok && ((t <= alloc[r]) || (t == 0.0f));
-  }
-  return ok;
-}
-
 __global__ void max_count_kernel(Grid p, const uint8_t* __restrict__ viable,
                                  int B, int32_t* __restrict__ out) {
   const int64_t b = blockIdx.x;
@@ -95,20 +88,7 @@ __global__ void max_count_kernel(Grid p, const uint8_t* __restrict__ viable,
       if (!p.group_valid[(int64_t)t * p.GR + g]) continue;
       if (!offering(p, b, t, g)) continue;
       const float* al = p.alloc + ((int64_t)t * p.GR + g) * p.R;
-      float est = kCountCap;
-      for (int r = 0; r < p.R; ++r) {
-        const float ratio =
-            q[r] > 0.0f ? __fdiv_rn(__fsub_rn(al[r], u[r]), q[r]) : INFINITY;
-        est = fminf(est, ratio);
-      }
-      float e = isfinite(est) ? est : kCountCap;
-      e = fminf(fmaxf(floorf(e), 0.0f), kCountCap);
-      const int c0 = (int)e;
-      const bool up = fits_at(u, q, al, p.R, c0 + 1);
-      const bool mid = fits_at(u, q, al, p.R, c0);
-      const int cdn = max(c0 - 1, 0);
-      const bool dn = fits_at(u, q, al, p.R, cdn);
-      const int c = mid ? (up ? c0 + 1 : c0) : (dn ? cdn : 0);
+      const int c = cell_count(u, q, al, p.R);
       best = max(best, c);
     }
   }

@@ -23,7 +23,10 @@ from typing import Optional
 
 import torch
 
-KERNELS = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter")
+KERNELS = (
+    "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
+    "kscan_pod_loop",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,8 +56,8 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in KERNELS:
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -113,7 +116,9 @@ _ARGTYPES = {
     "fill_count_grid": [_I, _P, _P, _P, _P, _P, _I64, _P, _P, _I64, _I, _P, _P]
     + [_I] * 6 + [_P, _P],
     "water_fill": [_P, _P, _P, _I, _P, _P],
-    "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "kscan_grid": [_I, _P, _P, _P],
+    "kscan_pod_loop": [_P, _I, _P, _P],
 }
 
 
@@ -251,30 +256,197 @@ def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Ten
     return out
 
 
-def compact_scatter(mode: int, sel: torch.Tensor, srcs: list, dsts: list) -> None:
+def compact_scatter(
+    mode: int, sel: torch.Tensor, srcs: list, dsts: list,
+    tk: tuple = (), tk_srcs: list = (), tk_dsts: list = (),
+) -> None:
     """H4: move rows of every src field into its dst field, in place —
     mode 0: to the stable-compacted position of the alive rows (sel =
-    [n] bool); mode 1: to sel[i] (int32 ids), dropping out-of-range ids."""
+    [n] bool); mode 1: to sel[i] (int32 ids), dropping out-of-range ids.
+    Each tk_src [n, K, ...] moves only its key rows `tk` into its tk_dst
+    [n_dst, len(tk), ...], in the same launch."""
     dev = sel.device
     n = sel.shape[0]
     _check(sel, "sel", torch.bool if mode == 0 else torch.int32, dev)
-    if not srcs or len(srcs) != len(dsts):
+    if not srcs or len(srcs) != len(dsts) or len(tk_srcs) != len(tk_dsts):
         raise ValueError("compact_scatter: need matching src/dst lists")
+    if tk_srcs and not tk:
+        raise ValueError("compact_scatter: key-row fields need key ids")
     n_dst = dsts[0].shape[0]
-    row_bytes = []
+    row_bytes, src_bytes, seg_bytes = [], [], []
     for s, d in zip(srcs, dsts):
         _check(s, "src", s.dtype, dev)
         _check(d, "dst", s.dtype, dev)
         if s.shape[0] != n or d.shape[0] != n_dst or s.shape[1:] != d.shape[1:]:
             raise ValueError(f"compact_scatter: src {tuple(s.shape)} / dst {tuple(d.shape)} vs rows {n}/{n_dst}")
-        row_bytes.append(s[0].numel() * s.element_size() if n else 0)
-    k = len(srcs)
-    src_arr = (ctypes.c_void_p * k)(*[s.data_ptr() for s in srcs])
-    dst_arr = (ctypes.c_void_p * k)(*[d.data_ptr() for d in dsts])
+        rb = s[0].numel() * s.element_size() if n else 0
+        row_bytes.append(rb)
+        src_bytes.append(rb)
+        seg_bytes.append(0)
+    for s, d in zip(tk_srcs, tk_dsts):
+        _check(s, "tk src", s.dtype, dev)
+        _check(d, "tk dst", s.dtype, dev)
+        if (s.shape[0] != n or d.shape[0] != n_dst or d.shape[1] != len(tk)
+                or s.shape[2:] != d.shape[2:] or max(tk) >= s.shape[1]):
+            raise ValueError(f"compact_scatter: tk src {tuple(s.shape)} / dst {tuple(d.shape)} vs tk {tk}")
+        seg = s[0, 0].numel() * s.element_size() if n else 0
+        row_bytes.append(seg * len(tk))
+        src_bytes.append(s[0].numel() * s.element_size() if n else 0)
+        seg_bytes.append(seg)
+    fields = list(srcs) + list(tk_srcs)
+    outs = list(dsts) + list(tk_dsts)
+    k = len(fields)
+    src_arr = (ctypes.c_void_p * k)(*[s.data_ptr() for s in fields])
+    dst_arr = (ctypes.c_void_p * k)(*[d.data_ptr() for d in outs])
     rb_arr = (ctypes.c_int64 * k)(*row_bytes)
+    sb_arr = (ctypes.c_int64 * k)(*src_bytes)
+    seg_arr = (ctypes.c_int64 * k)(*seg_bytes)
+    tk_arr = (ctypes.c_int * max(len(tk), 1))(*tk)
     pos = torch.empty(n, dtype=torch.int32, device=dev) if mode == 0 else None
     _call(
         "compact_scatter", mode, n, sel.data_ptr(), n_dst, k,
         ctypes.cast(src_arr, ctypes.c_void_p), ctypes.cast(dst_arr, ctypes.c_void_p),
-        ctypes.cast(rb_arr, ctypes.c_void_p), _ptr(pos),
+        ctypes.cast(rb_arr, ctypes.c_void_p), ctypes.cast(sb_arr, ctypes.c_void_p),
+        ctypes.cast(seg_arr, ctypes.c_void_p), len(tk) if tk_srcs else 0,
+        ctypes.cast(tk_arr, ctypes.c_void_p), _ptr(pos),
     )
+
+
+def _i64_array(vals) -> ctypes.Array:
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _kscan_grid_call(mode, ptrs: list, dims: list) -> None:
+    _call(
+        "kscan_grid", mode, ctypes.cast(_i64_array([p or 0 for p in ptrs]), ctypes.c_void_p),
+        ctypes.cast(_i64_array(dims), ctypes.c_void_p),
+    )
+
+
+def _kscan_common(it, key_kid: int, D: int, dev):
+    T, GR, R = it.alloc.shape
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
+    if D < 1 or D > 16 or D > V:
+        raise ValueError(f"kscan_grid: D={D} outside [1, min(16, V={V})]")
+    alloc = _check(it.alloc, "alloc", torch.float32, dev)
+    gv = _check(it.group_valid, "group_valid", torch.bool, dev)
+    zc = _check(it.zc_avail, "zc_avail", torch.bool, dev)
+    idef = _check(it.reqs.defined, "it.defined", torch.bool, dev)
+    imask = _check(it.reqs.mask, "it.mask", torch.bool, dev)
+    ptrs = [alloc.data_ptr(), gv.data_ptr(), zc.data_ptr()]
+    key_ptrs = [idef.data_ptr() + key_kid, imask.data_ptr() + key_kid * V]
+    return T, GR, R, Z, C, K, V, ptrs, key_ptrs
+
+
+def kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid=None):
+    """H5 grid mode: (grid [N, T, GR] int32, capd [N, D] int32) for the
+    rows of `used` [N, R], the viable mask [N, T] and the rows' [N, K, V]
+    requirement mask (its zone / capacity-type rows gate offerings). With
+    `grid` given, only capd is computed from it."""
+    dev = used.device
+    T, GR, R, Z, C, K, V, ptrs, key_ptrs = _kscan_common(it, key_kid, D, dev)
+    N = used.shape[0]
+    _check(used, "used", torch.float32, dev)
+    _check(req, "req", torch.float32, dev)
+    _check(viable, "viable", torch.bool, dev)
+    _check(rows_mask, "rows_mask", torch.bool, dev)
+    if used.shape != (N, R) or req.shape != (R,) or viable.shape != (N, T) or rows_mask.shape != (N, K, V):
+        raise ValueError(f"kscan_grid: used {tuple(used.shape)} viable {tuple(viable.shape)} mask {tuple(rows_mask.shape)}")
+    if key_kid == zone_kid and D > Z:
+        raise ValueError(f"kscan_grid: zone key with D={D} > Z={Z}")
+    mode = 0 if grid is None else 1
+    if grid is None:
+        grid = torch.empty((N, T, GR), dtype=torch.int32, device=dev)
+    else:
+        _check(grid, "grid", torch.int32, dev)
+        if grid.shape != (N, T, GR):
+            raise ValueError(f"kscan_grid: grid {tuple(grid.shape)} vs ({N}, {T}, {GR})")
+    capd = torch.empty((N, D), dtype=torch.int32, device=dev)
+    base = rows_mask.data_ptr()
+    _kscan_grid_call(
+        mode,
+        ptrs + [req.data_ptr(), used.data_ptr(), viable.data_ptr(), base + zone_kid * V,
+                base + ct_kid * V] + key_ptrs + [0, 0, grid.data_ptr(), capd.data_ptr()],
+        [N, T, GR, R, Z, C, D, int(key_kid == zone_kid), K * V, K, K * V],
+    )
+    return grid, capd
+
+
+def kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, D) -> torch.Tensor:
+    """H5 fits-final mode: [N, T] bool any over g of grid >= placed[n] with
+    an offering in the final domains zset [N, D] (zone key) or the zone
+    mask rows zmask [N, V]; ct_mask [N, V] gates capacity types."""
+    dev = grid.device
+    T, GR, R, Z, C, K, V, ptrs, key_ptrs = _kscan_common(it, key_kid, D, dev)
+    N = grid.shape[0]
+    _check(grid, "grid", torch.int32, dev)
+    _check(placed, "placed", torch.int32, dev)
+    _check(zset, "zset", torch.bool, dev)
+    _check(ct_mask, "ct_mask", torch.bool, dev)
+    _check(zmask, "zmask", torch.bool, dev)
+    if (grid.shape != (N, T, GR) or placed.shape != (N,) or zset.shape != (N, D)
+            or ct_mask.shape != (N, V) or zmask.shape != (N, V)):
+        raise ValueError("kscan_fits_final: shapes disagree")
+    out = torch.empty((N, T), dtype=torch.bool, device=dev)
+    _kscan_grid_call(
+        2,
+        ptrs + [0, 0, 0, zmask.data_ptr(), ct_mask.data_ptr()] + key_ptrs
+        + [zset.data_ptr(), placed.data_ptr(), grid.data_ptr(), out.data_ptr()],
+        [N, T, GR, R, Z, C, D, int(key_kid == zone_kid), V, K, K * V],
+    )
+    return out
+
+
+_LOOP_IN = (
+    ("cap_e", torch.int32), ("zie0", torch.bool), ("open0", torch.bool), ("static_n0", torch.bool),
+    ("pods0", torch.int32), ("zin0", torch.bool), ("static_g", torch.bool), ("capd_g", torch.int32),
+    ("z0_g", torch.bool), ("zinf_g", torch.bool), ("w_open0", torch.int32), ("self_conf", torch.bool),
+    ("key_touched", torch.bool), ("gate", torch.bool), ("recs", torch.bool), ("vg_self", torch.bool),
+    ("pd", torch.bool), ("hg_applies", torch.bool), ("hg_records", torch.bool), ("hg_self", torch.bool),
+)
+_LOOP_TOPO = (
+    ("vg_type", torch.int32), ("vg_skew", torch.int32), ("vg_min_domains", torch.int32),
+    ("vg_domains", torch.bool), ("vg_rank", torch.int32), ("hg_type", torch.int32),
+    ("hg_skew", torch.int32), ("hg_valid", torch.bool), ("hg_extra_nonempty", torch.bool),
+)
+_LOOP_CARRY = (
+    ("zn", torch.bool), ("ze", torch.bool), ("capd", torch.int32), ("pl_n", torch.int32),
+    ("pl_e", torch.int32), ("tmpl_n", torch.int32), ("cnt", torch.int32), ("hgc", torch.int32),
+    ("n_open", torch.int32), ("w_open", torch.int32), ("slot_of", torch.int32), ("spills", torch.int32),
+)
+
+
+def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> torch.Tensor:
+    """H6: the kind scan's pod loop for one segment in one launch. `inp`
+    (ops.solver.PodLoopIn) is read, `carry` (PodLoopCarry) updated in
+    place; returns the [maxc] int32 assignment row."""
+    dev = carry.zn.device
+    W, D = carry.zn.shape
+    E = carry.ze.shape[0]
+    G = inp.static_g.shape[0]
+    NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
+    S, V = carry.hgc.shape[1], topo.vg_domains.shape[1]
+    if count > maxc:
+        raise ValueError(f"kscan_pod_loop: {count} pods > buffer {maxc}")
+    shapes = dict(
+        cap_e=(E,), zie0=(E,), open0=(W,), static_n0=(W,), pods0=(W,), zin0=(W,), static_g=(G,),
+        capd_g=(G, D), z0_g=(G, D), zinf_g=(G,), w_open0=(), self_conf=(), key_touched=(),
+        gate=(NGv,), recs=(NGv,), vg_self=(NGv,), pd=(D,), hg_applies=(NGh,), hg_records=(NGh,),
+        hg_self=(NGh,), zn=(W, D), ze=(E, D), capd=(W, D), pl_n=(W,), pl_e=(E,), tmpl_n=(W,),
+        cnt=(NGv, D), hgc=(NGh, S), n_open=(), w_open=(), slot_of=(W,), spills=(),
+    )
+    ptrs = []
+    for group, fields in ((inp, _LOOP_IN), (topo, _LOOP_TOPO), (carry, _LOOP_CARRY)):
+        for name, dt in fields:
+            t = _check(getattr(group, name), name, dt, dev)
+            if name in shapes and tuple(t.shape) != shapes[name]:
+                raise ValueError(f"kscan_pod_loop: {name} {tuple(t.shape)} vs {shapes[name]}")
+            ptrs.append(t.data_ptr())
+    out = torch.full((maxc,), -1, dtype=torch.int32, device=dev)
+    ptrs.append(out.data_ptr())
+    _call(
+        "kscan_pod_loop", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array([E, W, G, D, NGv, NGh, S, V, n_claims, count]), ctypes.c_void_p),
+    )
+    return out

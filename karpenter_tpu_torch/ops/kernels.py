@@ -86,6 +86,17 @@ def compatible_elemwise(a: ReqSetTensors, b: ReqSetTensors, well_known: torch.Te
     return torch.all(custom_ok, dim=-1) & intersects_elemwise(a, b)
 
 
+def per_key_ok_at(a: ReqSetTensors, b: ReqSetTensors, k: int) -> torch.Tensor:
+    """[B, A] bool — the per-key intersects() term at key k between every
+    row of a ([A, K, V]) and every row of b ([B, K, V]):
+    ~shared | nonempty | both_lenient, in the solver's [claims, types]
+    orientation."""
+    shared = b.defined[:, None, k] & a.defined[None, :, k]
+    nonempty = has_intersection_at(b, a, k)
+    both_lenient = lenient(b)[:, None, k] & lenient(a)[None, :, k]
+    return ~shared | nonempty | both_lenient
+
+
 def intersect_sets(a: ReqSetTensors, b: ReqSetTensors) -> ReqSetTensors:
     """Elementwise requirement-set intersection over a shared batch shape:
     masks AND, complement AND, exclusions OR, bounds tighten, defined OR.

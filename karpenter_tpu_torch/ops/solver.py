@@ -56,7 +56,17 @@ from karpenter_tpu_torch.ops.kernels import (
     packed_count_and,
     select_set,
 )
-from karpenter_tpu_torch.ops.topology import TYPE_AFFINITY, TYPE_SPREAD, TopologyTensors
+from karpenter_tpu_torch.ops.topology import (
+    BIG_I32,
+    RANK_BASE,
+    TYPE_AFFINITY,
+    TYPE_ANTI,
+    TYPE_SPREAD,
+    TopologyTensors,
+    _onehot_rows,
+    hg_commit,
+    hg_evaluate,
+)
 
 # assignment sentinels
 NO_CLAIM = -1  # no compatible existing node, in-flight claim, or template
@@ -460,10 +470,17 @@ def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def compact_scatter_plain(mode: int, sel: torch.Tensor, srcs: list, dsts: list) -> None:
+def compact_scatter_plain(
+    mode: int, sel: torch.Tensor, srcs: list, dsts: list,
+    tk: tuple = (), tk_srcs: list = (), tk_dsts: list = (),
+) -> None:
     """Move rows of each src into its dst in place: mode 0 to the
     stable-compacted position of the alive rows (sel bool), mode 1 to
-    sel[i] with out-of-range ids dropped (the reference's mode="drop")."""
+    sel[i] with out-of-range ids dropped (the reference's mode="drop").
+    Each tk_src ([n, K, ...]) moves only its key rows `tk`, gathered into
+    its tk_dst ([n_dst, len(tk), ...]) — the topology-key bank rows."""
+    srcs = list(srcs) + [s[:, list(tk)] for s in tk_srcs]
+    dsts = list(dsts) + list(tk_dsts)
     n_dst = dsts[0].shape[0]
     if mode == 0:
         a32 = sel.to(I32)
@@ -480,12 +497,15 @@ def compact_scatter_plain(mode: int, sel: torch.Tensor, srcs: list, dsts: list) 
         d.copy_(buf[:n_dst])
 
 
-def compact_scatter(mode: int, sel: torch.Tensor, srcs: list, dsts: list) -> None:
+def compact_scatter(
+    mode: int, sel: torch.Tensor, srcs: list, dsts: list,
+    tk: tuple = (), tk_srcs: list = (), tk_dsts: list = (),
+) -> None:
     """H4: kernel on CUDA, plain on CPU."""
     if sel.device.type == "cpu":
-        compact_scatter_plain(mode, sel, srcs, dsts)
+        compact_scatter_plain(mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts)
     else:
-        cuda.compact_scatter(mode, sel, srcs, dsts)
+        cuda.compact_scatter(mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts)
 
 
 class _Ops(NamedTuple):
@@ -515,18 +535,27 @@ def _ops(plain: bool) -> _Ops:
 # ---------------------------------------------------------------------------
 
 
+def _tk_fields(reqs: ReqSetTensors) -> list:
+    """The requirement components whose topology-key rows the bank keeps."""
+    return [reqs.mask, reqs.inf, reqs.defined]
+
+
 def compact_state(
     state: SolverState,
     it: InstanceTypeTensors,
     r_min: torch.Tensor,  # [R] f32 — elementwise min request over remaining pods
     n_claims: int,
     plain: bool = False,
+    topo_kids: tuple = (),
 ) -> tuple[SolverState, torch.Tensor]:
     """Evict capacity-dead claims from the window into the frozen bank,
     then stable-compact survivors to the front. A claim is dead when no
     viable (type, group) cell fits used + r_min (every remaining pod
-    requests at least r_min, so it can never pass tier 2 again). Returns
-    (state', n_closed). Functional: the input state is not modified."""
+    requests at least r_min, so it can never pass tier 2 again). The bank
+    keeps each evicted claim's decode columns and, for every topology key
+    in `topo_kids`, its requirement rows (mask / inf / defined), so the
+    decode can read a banked claim's narrowed zone. Returns (state',
+    n_closed). Functional: the input state is not modified."""
     ops = _ops(plain)
     NB = n_claims
     W = state.open.shape[0]
@@ -543,12 +572,22 @@ def compact_state(
         bank_used=state.bank_used.clone(),
         bank_held=state.bank_held.clone(),
     )
+    tk_bank = {}
+    if topo_kids:
+        tk_bank = dict(
+            bank_tk_mask=state.bank_tk_mask.clone(),
+            bank_tk_inf=state.bank_tk_inf.clone(),
+            bank_tk_def=state.bank_tk_def.clone(),
+        )
     idx = torch.where(close, state.slot_of, torch.full_like(state.slot_of, NB))
     ops.compact_scatter(
         1,
         idx,
         [torch.ones(W, dtype=torch.bool, device=dev), state.template, state.its, state.used, state.held],
         list(bank.values()),
+        tuple(topo_kids),
+        _tk_fields(state.reqs) if topo_kids else [],
+        list(tk_bank.values()),
     )
     # survivors to the front, identity / zero fill behind them
     alive = state.open & ~close
@@ -582,24 +621,36 @@ def compact_state(
             claim_ports=ports2,
             held=held2,
             **bank,
+            **tk_bank,
         ),
         close.sum(dtype=I32),
     )
 
 
-def global_claims(state: SolverState, plain: bool = False) -> dict:
+def global_claims(state: SolverState, plain: bool = False, topo_kids: tuple = ()) -> dict:
     """Merge the hot window over the frozen bank into global-slot-indexed
-    decode columns (template/its/used/held). Window rows override bank
-    rows at their global id; unused rows carry the NCAP sentinel and drop."""
+    decode columns (template/its/used/held, plus tk_mask/tk_inf/tk_def —
+    the topology-key requirement rows — when topo_kids is given). Window
+    rows override bank rows at their global id; unused rows carry the
+    NCAP sentinel and drop."""
     out = dict(
         template=state.bank_template.clone(),
         its=state.bank_its.clone(),
         used=state.bank_used.clone(),
         held=state.bank_held.clone(),
     )
+    tk_out = {}
+    if topo_kids:
+        tk_out = dict(
+            tk_mask=state.bank_tk_mask.clone(),
+            tk_inf=state.bank_tk_inf.clone(),
+            tk_def=state.bank_tk_def.clone(),
+        )
     _ops(plain).compact_scatter(
-        1, state.slot_of, [state.template, state.its, state.used, state.held], list(out.values())
+        1, state.slot_of, [state.template, state.its, state.used, state.held], list(out.values()),
+        tuple(topo_kids), _tk_fields(state.reqs) if topo_kids else [], list(tk_out.values()),
     )
+    out.update(tk_out)
     return out
 
 
@@ -868,8 +919,9 @@ def _fill_step(
     )
 
 
-def _take_x(xs: FillXs, j: int) -> FillXs:
-    return FillXs(
+def _take_x(xs, j: int):
+    """Row j of a per-segment input container (FillXs or KindXs)."""
+    return type(xs)(
         *(ReqSetTensors(*(c[j] for c in v)) if isinstance(v, ReqSetTensors) else v[j] for v in xs)
     )
 
@@ -900,3 +952,618 @@ def solve_fill(
     if not ys:
         raise ValueError("solve_fill needs at least one segment")
     return state, FillYs(*(torch.stack(f) for f in zip(*ys)))
+
+
+# ---------------------------------------------------------------------------
+# the zonal kind scan: same-kind batched placement for vocab-key topology
+# kinds (the JAX package's solve_kind_scan / _make_kind_step)
+# ---------------------------------------------------------------------------
+# A run of identical pods whose every applying / recording vocab-key group
+# shares ONE key with at most KSCAN_D values (zones in practice). Per
+# segment, one full-width precompute (torch + H1 + H5) hoists everything
+# but the topology counts, the per-row narrowed domain sets and the
+# capacities; the pods then replay one at a time (kernel H6, one launch
+# per segment) over a compact [rows, D] domain representation with the
+# per-pod engine's decisions: tier 1 earliest existing node, tier 2
+# fewest pods / earliest slot, tier 3 first feasible template; spread
+# narrows to the (min count, sorted-name rank) domain, affinity to the
+# counted compatible set or the rank-min bootstrap, anti-affinity to the
+# zero-count domains; counts commit for single-valued or anti sets.
+
+KSCAN_D = 16  # max domain width a kind-scan key may have
+
+
+class KindXs(NamedTuple):
+    """Per-segment (pod kind) inputs to the kind scan."""
+
+    reqs: ReqSetTensors  # [B, K, V]
+    strict_mask: torch.Tensor  # [B, K, V]
+    requests: torch.Tensor  # [B, R]
+    tmpl_ok: torch.Tensor  # [B, G]
+    it_allow: torch.Tensor  # [B, T]
+    exist_ok: torch.Tensor  # [B, E]
+    ports: torch.Tensor  # [B, NP]
+    port_conf: torch.Tensor  # [B, NP]
+    vols: torch.Tensor  # [B, NV]
+    count: torch.Tensor  # [B] i32
+    vg_applies: torch.Tensor  # [B, NGv]
+    vg_records: torch.Tensor  # [B, NGv]
+    vg_self: torch.Tensor  # [B, NGv]
+    hg_applies: torch.Tensor  # [B, NGh]
+    hg_records: torch.Tensor  # [B, NGh]
+    hg_self: torch.Tensor  # [B, NGh]
+
+
+class KindYs(NamedTuple):
+    """Per-segment kind-scan record: each pod's slot in E-space (existing
+    < E, claims E + global id) or NO_ROOM / NO_CLAIM."""
+
+    assignment: torch.Tensor  # [B, MAXC] i32
+    grid_reused: torch.Tensor  # [B] bool — the boundary-adjusted grid was reused
+
+
+# ---- H5 kscan_grid: plain versions and wrappers ---------------------------
+
+
+def cap_res_grid_plain(used: torch.Tensor, req: torch.Tensor, it: InstanceTypeTensors) -> torch.Tensor:
+    """[N, T, GR] i32 — max count per (type, allocatable group) cell with
+    used + c*req within alloc (the +/-1-verified estimate and total-based
+    pass rule of claim_fill_caps; the reference's `_cap_res_grid`)."""
+    pos = req > 0.0
+    safe = torch.where(pos, req, torch.ones_like(req))
+    N = used.shape[0]
+    T, GR = it.alloc.shape[:2]
+    cap = float(COUNT_CAP)
+    est = torch.full((N, T, GR), cap, dtype=F32, device=used.device)
+    for r in range(req.shape[0]):
+        head = it.alloc[None, :, :, r] - used[:, None, None, r]
+        est = torch.minimum(est, torch.where(pos[r], head / safe[r], torch.full_like(head, float("inf"))))
+    c0 = torch.clamp(torch.floor(est), 0.0, cap).to(I32)
+    okc = it.group_valid[None].expand(N, T, GR)
+
+    def ok(c):
+        return _fits_cells(used, c, req, it, okc)
+
+    up = ok(c0 + 1)
+    mid = ok(c0)
+    cdn = torch.clamp(c0 - 1, min=0)
+    dn = ok(cdn)
+    zero = torch.zeros_like(c0)
+    c = torch.where(mid, torch.where(up, c0 + 1, c0), torch.where(dn, cdn, zero))
+    return torch.where(okc, c, zero)
+
+
+def kscan_admit(it: InstanceTypeTensors, key_kid: int, D: int) -> torch.Tensor:
+    """[T, D] bool — the per-key intersects() term between each type's
+    requirement at key_kid and the single-value set {d}."""
+    return ~it.reqs.defined[:, key_kid, None] | it.reqs.mask[:, key_kid, :D]
+
+
+def _pairs_off(zm: torch.Tensor, cm: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """[N, T, GR] bool — any over (z, c) of zm[n, z] & cm[n, c] &
+    avail[t, g, z, c], as an exact 0/1 product."""
+    T, GR, Z, C = avail.shape
+    pairs = (zm[:, :, None] & cm[:, None, :]).reshape(-1, Z * C).to(F32)
+    return (pairs @ avail.reshape(T * GR, Z * C).to(F32).T > 0).reshape(-1, T, GR)
+
+
+def kscan_capd_plain(grid, viable, ct_mask, zmask, it, key_kid: int, zone_kid: int, D: int) -> torch.Tensor:
+    """[N, D] i32 — max pods addable per row IF placed in domain d of
+    key_kid: the max grid cell over (type, group) cells the domain admits
+    with an available offering there (the reference's `_kscan_capd`)."""
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    admit = kscan_admit(it, key_kid, D)
+    zero = torch.zeros_like(grid)
+    cols = []
+    if key_kid == zone_kid:
+        for d in range(D):
+            one = torch.zeros((ct_mask.shape[0], Z), dtype=torch.bool, device=grid.device)
+            one[:, d] = True
+            off_d = _pairs_off(one, ct_mask[:, :C], it.zc_avail)
+            m = viable[:, :, None] & admit[None, :, d, None] & off_d
+            cols.append(torch.where(m, grid, zero).amax(dim=(1, 2)))
+    else:
+        base = viable[:, :, None] & _pairs_off(zmask[:, :Z], ct_mask[:, :C], it.zc_avail)
+        for d in range(D):
+            m = base & admit[None, :, d, None]
+            cols.append(torch.where(m, grid, zero).amax(dim=(1, 2)))
+    return torch.stack(cols, dim=-1)
+
+
+def kscan_fits_final_plain(grid, placed, zset, ct_mask, zmask, it, key_kid: int, zone_kid: int, D: int) -> torch.Tensor:
+    """[N, T] bool — fits_off at the final count within the final narrowed
+    domains (the reference's `_kscan_fits_final`)."""
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    fits = grid >= placed[:, None, None]
+    if key_kid == zone_kid:
+        zm = zset[:, :Z] if Z <= D else torch.nn.functional.pad(zset, (0, Z - D))
+    else:
+        zm = zmask[:, :Z]
+    return (fits & _pairs_off(zm, ct_mask[:, :C], it.zc_avail)).any(dim=-1)
+
+
+def _kscan_grid_plain(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid=None):
+    if grid is None:
+        grid = cap_res_grid_plain(used, req, it)
+    capd = kscan_capd_plain(
+        grid, viable, rows_mask[:, ct_kid, :], rows_mask[:, zone_kid, :], it, key_kid, zone_kid, D
+    )
+    return grid, capd
+
+
+def kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid=None):
+    """H5 grid mode: (grid [N, T, GR] i32, capd [N, D] i32). With `grid`
+    given (a reused boundary-adjusted grid) only capd is computed."""
+    if used.device.type == "cpu":
+        return _kscan_grid_plain(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid)
+    return cuda.kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid)
+
+
+def kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, D) -> torch.Tensor:
+    """H5 fits-final mode: [N, T] bool (kernel on CUDA, plain on CPU)."""
+    if grid.device.type == "cpu":
+        return kscan_fits_final_plain(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, D)
+    return cuda.kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, D)
+
+
+# ---- H6 kscan_pod_loop: plain version and wrapper -------------------------
+
+
+def vg_eval_plain(topo: TopologyTensors, gate, selfs, pd, D: int):
+    """The reference's `_vg_eval`: returns eval_candidates(zs [C, D], cnt
+    [NGv, D]) -> (feasible [C], newz [C, D]), the vocab-key group rules on
+    the compact domain columns of the kind's one key."""
+    dom = topo.vg_domains[:, :D]
+    rank = topo.vg_rank[:, :D]
+    skew = topo.vg_skew
+    mind = topo.vg_min_domains
+    in_universe = dom & pd[None, :]
+    supported = in_universe.sum(dim=-1, dtype=I32)
+    self_add = selfs.to(I32)
+    big = torch.tensor(BIG_I32, dtype=I32, device=dom.device)
+
+    def eval_candidates(zs, cnt):
+        masked = torch.where(in_universe, cnt, big)
+        minc = masked.min(dim=-1).values
+        minc = torch.where((mind > 0) & (supported < mind), torch.zeros_like(minc), minc)
+        minc = torch.where(minc == BIG_I32, torch.zeros_like(minc), minc)
+        eff = cnt + self_add[:, None]
+        ok_skew = (eff - minc[:, None]) <= skew[:, None]
+        opts = dom & pd[None, :] & (cnt > 0)
+        group_empty = ~torch.any(cnt > 0, dim=-1)
+        no_compat = ~torch.any(pd[None, :] & (cnt > 0), dim=-1)
+        bootstrap = selfs & (group_empty | no_compat)
+        cnt_zero = cnt == 0
+
+        valid_sp = dom[None] & zs[:, None, :] & ok_skew[None]
+        sp_key = torch.where(valid_sp, (eff * RANK_BASE + rank)[None], big)
+        sp_mask = _onehot_rows(valid_sp, torch.argmin(sp_key, dim=-1))
+        any_sp = torch.any(valid_sp, dim=-1)
+
+        opts_c = opts[None] & zs[:, None, :]
+        any_opts = torch.any(opts_c, dim=-1, keepdim=True)
+        boot_space = (dom & pd[None, :])[None] & zs[:, None, :]
+        boot_idx = torch.argmin(torch.where(boot_space, rank[None], big), dim=-1)
+        boot_mask = _onehot_rows(boot_space, boot_idx)
+        aff_mask = torch.where(any_opts, opts_c, boot_mask & bootstrap[None, :, None])
+        any_aff = torch.any(aff_mask, dim=-1)
+
+        anti_mask = boot_space & cnt_zero[None]
+        any_anti = torch.any(anti_mask, dim=-1)
+
+        t = topo.vg_type[None, :]
+        narrowed = torch.where(
+            (t == TYPE_SPREAD)[..., None], sp_mask,
+            torch.where((t == TYPE_AFFINITY)[..., None], aff_mask, anti_mask),
+        )
+        ok = torch.where(t == TYPE_SPREAD, any_sp, torch.where(t == TYPE_AFFINITY, any_aff, any_anti))
+        feasible = torch.all(~gate[None, :] | ok, dim=-1)
+        upd = torch.all(~gate[None, :, None] | narrowed, dim=1)  # [C, D]
+        return feasible, zs & upd
+
+    return eval_candidates
+
+
+class PodLoopIn(NamedTuple):
+    """Segment invariants of the kind scan's pod loop (read-only)."""
+
+    cap_e: torch.Tensor  # [E] i32 — existing-node resource caps (0 = infeasible)
+    zie0: torch.Tensor  # [E] bool — existing rows' key complement bit at segment start
+    open0: torch.Tensor  # [W] bool
+    static_n0: torch.Tensor  # [W] bool — claim_ok & toleration & ports
+    pods0: torch.Tensor  # [W] i32
+    zin0: torch.Tensor  # [W] bool
+    static_g: torch.Tensor  # [G] bool
+    capd_g: torch.Tensor  # [G, D] i32 (self-conflict clamped)
+    z0_g: torch.Tensor  # [G, D] bool
+    zinf_g: torch.Tensor  # [G] bool
+    w_open0: torch.Tensor  # [] i32
+    self_conf: torch.Tensor  # [] bool
+    key_touched: torch.Tensor  # [] bool
+    gate: torch.Tensor  # [NGv] bool — vg_applies & vg_valid
+    recs: torch.Tensor  # [NGv] bool — vg_records & vg_valid
+    vg_self: torch.Tensor  # [NGv] bool
+    pd: torch.Tensor  # [D] bool — the pod's strict domains
+    hg_applies: torch.Tensor  # [NGh] bool
+    hg_records: torch.Tensor  # [NGh] bool
+    hg_self: torch.Tensor  # [NGh] bool
+
+
+class PodLoopCarry(NamedTuple):
+    """What a landing mutates; the loop updates these tensors in place."""
+
+    zn: torch.Tensor  # [W, D] bool — window rows' narrowed domain sets
+    ze: torch.Tensor  # [E, D] bool
+    capd: torch.Tensor  # [W, D] i32
+    pl_n: torch.Tensor  # [W] i32 — pods landed per window row this segment
+    pl_e: torch.Tensor  # [E] i32
+    tmpl_n: torch.Tensor  # [W] i32
+    cnt: torch.Tensor  # [NGv, D] i32
+    hgc: torch.Tensor  # [NGh, S] i32
+    n_open: torch.Tensor  # [] i32
+    w_open: torch.Tensor  # [] i32
+    slot_of: torch.Tensor  # [W] i32
+    spills: torch.Tensor  # [] i32
+
+
+def kscan_pod_loop_plain(
+    inp: PodLoopIn, c: PodLoopCarry, topo: TopologyTensors, templates: Templates,
+    count: int, maxc: int, n_claims: int,
+) -> torch.Tensor:
+    """The kind scan's per-pod loop, one pod at a time in torch (the
+    reference's pod_step under lax.while_loop); updates the carry in place
+    and returns the [maxc] i32 assignment row. No host sync: the trip
+    count is the segment's host-known pod count."""
+    dev = c.zn.device
+    E, W, G = c.ze.shape[0], c.zn.shape[0], inp.static_g.shape[0]
+    D = c.zn.shape[1]
+    NCAP = n_claims
+    eval_candidates = vg_eval_plain(topo, inp.gate, inp.vg_self, inp.pd, D)
+    is_anti = topo.vg_type == TYPE_ANTI
+    ar_e = torch.arange(E, dtype=I32, device=dev)
+    ar_n = torch.arange(W, dtype=I32, device=dev)
+    big = torch.tensor(BIG, dtype=I32, device=dev)
+    assignment = torch.full((maxc,), NO_CLAIM, dtype=I32, device=dev)
+    zn, ze, capd, pl_n, pl_e = c.zn.clone(), c.ze.clone(), c.capd.clone(), c.pl_n.clone(), c.pl_e.clone()
+    tmpl_n, cnt, hgc, slot_of = c.tmpl_n.clone(), c.cnt.clone(), c.hgc.clone(), c.slot_of.clone()
+    n_open, w_open, spills = c.n_open.clone(), c.w_open.clone(), c.spills.clone()
+    for i in range(count):
+        zs_all = torch.cat([ze, zn, inp.z0_g], dim=0)
+        f_topo, newz = eval_candidates(zs_all, cnt)
+        slots_all = torch.cat([ar_e, E + slot_of, (E + n_open).reshape(1).expand(G)])
+        hg_ok = hg_evaluate(topo, hgc, slots_all, inp.hg_applies, inp.hg_self)
+
+        # tier 1: earliest feasible existing node
+        feas_e = (pl_e < inp.cap_e) & f_topo[:E] & hg_ok[:E]
+        pick_e = torch.argmin(torch.where(feas_e, ar_e, big))
+        found_e = feas_e.any()
+        # tier 2: fewest pods, earliest slot
+        newz_n = newz[E:E + W]
+        lim_n = torch.where(inp.self_conf, torch.clamp(capd, max=1), capd)
+        fits_n = torch.any(newz_n & (lim_n > pl_n[:, None]), dim=-1)
+        fresh = (ar_n >= inp.w_open0) & (ar_n < w_open)
+        feas_n = (
+            (inp.open0 | fresh) & (inp.static_n0 | fresh) & f_topo[E:E + W] & fits_n
+            & hg_ok[E:E + W] & ~found_e
+        )
+        order = (inp.pods0 + pl_n) * W + ar_n
+        pick = torch.argmin(torch.where(feas_n, order, big))
+        found = feas_n.any()
+        # tier 3: first feasible template
+        newz_g = newz[E + W:]
+        fits_g = torch.any(newz_g & (inp.capd_g >= 1), dim=-1)
+        tmpl_feas = inp.static_g & f_topo[E + W:] & fits_g & hg_ok[E + W:]
+        g = _pick_template(tmpl_feas, templates)
+        any_t = tmpl_feas.any() & ~found_e & ~found
+        can_open = any_t & (w_open < W) & (n_open < NCAP)
+        spilled = any_t & ~can_open & (n_open < NCAP)
+
+        place = found_e | found | can_open
+        cslot = torch.where(found, pick.to(I32), w_open)
+        gslot = torch.where(found, slot_of[pick], n_open)
+        slot = torch.where(found_e, pick_e.to(I32), E + gslot)
+        assignment[i] = torch.where(
+            place, slot, torch.where(any_t, _i32(NO_ROOM, dev), _i32(NO_CLAIM, dev))
+        )
+
+        win_z = torch.where(found_e, newz[pick_e], torch.where(found, newz_n[pick], newz_g[g]))
+        win_zinf_old = torch.where(found_e, inp.zie0[pick_e], torch.where(found, inp.zin0[pick], inp.zinf_g[g]))
+        win_zinf = win_zinf_old & ~inp.key_touched
+        single = win_z.sum(dtype=I32) == 1
+        do = inp.recs & ~win_zinf & (is_anti | single)
+        delta = (do[:, None] & win_z[None, :]).to(I32)
+        cnt = cnt + torch.where(place, delta, torch.zeros_like(delta))
+        hgc = hg_commit(hgc, slot, inp.hg_records & place, topo.hg_valid)
+
+        upd_claim = (found | can_open) & ~found_e
+        opened = can_open & ~found
+        row_c = (ar_n == cslot)
+        row_e = (ar_e == pick_e) & found_e
+        zn = torch.where((row_c & upd_claim)[:, None], win_z[None, :], zn)
+        ze = torch.where(row_e[:, None], win_z[None, :], ze)
+        capd = torch.where((row_c & opened)[:, None], inp.capd_g[g][None, :], capd)
+        pl_n = pl_n + (row_c & upd_claim).to(I32)
+        pl_e = pl_e + row_e.to(I32)
+        tmpl_n = torch.where(row_c & opened, g.to(I32), tmpl_n)
+        slot_of = torch.where(row_c & opened, n_open, slot_of)
+        n_open = n_open + opened.to(I32)
+        w_open = w_open + opened.to(I32)
+        spills = spills + spilled.to(I32)
+    for dst, src in zip(c, (zn, ze, capd, pl_n, pl_e, tmpl_n, cnt, hgc, n_open, w_open, slot_of, spills)):
+        dst.copy_(src)
+    return assignment
+
+
+def kscan_pod_loop(inp, c, topo, templates, count, maxc, n_claims) -> torch.Tensor:
+    """H6: the pod loop in one launch on CUDA, the plain loop on CPU."""
+    if c.zn.device.type == "cpu":
+        return kscan_pod_loop_plain(inp, c, topo, templates, count, maxc, n_claims)
+    if templates.rank is not None:
+        raise ValueError("kscan_pod_loop: the kernel picks templates in weight order only (rank is set)")
+    return cuda.kscan_pod_loop(inp, c, topo, count, maxc, n_claims)
+
+
+def _kind_step(
+    state: SolverState,
+    x: KindXs,
+    grid_prev: Optional[torch.Tensor],  # the previous segment's boundary-adjusted grid, to reuse
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    key_kid: int,
+    D: int,
+    count: int,
+    maxc: int,
+    ops: "_KOps",
+) -> tuple[SolverState, torch.Tensor, torch.Tensor]:
+    """One kind-scan segment (the reference's seg_step): the per-segment
+    precompute, the pod loop (H6), and the segment-end writeback. Returns
+    (state', assignment [maxc], grid_next [W, T, GR])."""
+    dev = state.used.device
+    E = exist.avail.shape[0]
+    G = templates.its.shape[0]
+    W = state.open.shape[0]
+    requests = x.requests
+    self_conf = packed_conflict(x.ports, x.port_conf)
+    pd = x.strict_mask[key_kid, :D]
+    key_touched = torch.any(x.vg_applies & topo.vg_valid)
+    no_wk = torch.zeros_like(well_known)
+
+    # ---- per-segment invariants ---------------------------------------
+    # tier 2: claims (the active window)
+    pod_b = broadcast_set(x.reqs, W)
+    comb = intersect_sets(state.reqs, pod_b)
+    claim_ok = compatible_elemwise(state.reqs, pod_b, well_known)
+    it_compat = ops.intersects(comb, it.reqs)  # [W, T]
+    viable0 = state.its & it_compat & x.it_allow[None, :]
+    tol = x.tmpl_ok[state.template.long()]
+    ports_ok_n = ~packed_conflict(x.port_conf[None, :], state.claim_ports)
+    static_n0 = claim_ok & tol & ports_ok_n
+    comb_mask = comb.mask.contiguous()
+    grid_n, capd_n0 = ops.kscan_grid(
+        state.used, requests, it, viable0, comb_mask, zone_kid, ct_kid, key_kid, D, grid_prev
+    )
+
+    # tier 1: existing nodes
+    pod_e = broadcast_set(x.reqs, E)
+    comb_e = intersect_sets(state.exist_reqs, pod_e)
+    compat_e = compatible_elemwise(state.exist_reqs, pod_e, no_wk)
+    ports_ok_e = ~packed_conflict(x.port_conf[None, :], state.exist_ports)
+    newv_e = state.exist_vols | x.vols[None, :]
+    vcount_e = packed_count_and(newv_e[:, None, :], exist.vol_driver[None, :, :]).to(F32)
+    vols_ok_e = (vcount_e <= exist.vol_limits).all(dim=-1) | ~packed_any(x.vols)
+    cap_e = _count_cap_seq(state.exist_used, requests[None, :], exist.avail)
+    static_e = exist.valid & x.exist_ok & compat_e & ports_ok_e & vols_ok_e
+    cap_e = torch.where(static_e, cap_e, torch.zeros_like(cap_e))
+    cap_e = torch.where(self_conf, torch.clamp(cap_e, max=1), cap_e)
+
+    # tier 3: fresh templates
+    pod_g = broadcast_set(x.reqs, G)
+    comb0 = intersect_sets(templates.reqs, pod_g)
+    tmpl_compat = compatible_elemwise(templates.reqs, pod_g, well_known)
+    it_compat0 = ops.intersects(comb0, it.reqs)  # [G, T]
+    its0 = templates.its & it_compat0 & x.it_allow[None, :]
+    static_g = templates.valid & tmpl_compat & x.tmpl_ok
+    comb0_mask = comb0.mask.contiguous()
+    grid_g, capd_g = ops.kscan_grid(
+        templates.daemon_requests, requests, it, its0, comb0_mask, zone_kid, ct_kid, key_kid, D
+    )
+    capd_g = torch.where(self_conf, torch.clamp(capd_g, max=1), capd_g)
+
+    zin0 = comb.inf[:, key_kid]
+    zie0 = comb_e.inf[:, key_kid]
+    w_open0 = state.w_open
+    inp = PodLoopIn(
+        cap_e=cap_e.contiguous(), zie0=zie0.contiguous(), open0=state.open,
+        static_n0=static_n0.contiguous(), pods0=state.pods, zin0=zin0.contiguous(),
+        static_g=static_g.contiguous(), capd_g=capd_g.contiguous(),
+        z0_g=comb0.mask[:, key_kid, :D].contiguous(), zinf_g=comb0.inf[:, key_kid].contiguous(),
+        w_open0=w_open0, self_conf=self_conf, key_touched=key_touched,
+        gate=(x.vg_applies & topo.vg_valid).contiguous(),
+        recs=(x.vg_records & topo.vg_valid).contiguous(), vg_self=x.vg_self.contiguous(),
+        pd=pd.contiguous(), hg_applies=x.hg_applies.contiguous(),
+        hg_records=x.hg_records.contiguous(), hg_self=x.hg_self.contiguous(),
+    )
+    carry = PodLoopCarry(
+        zn=comb.mask[:, key_kid, :D].contiguous(),
+        ze=comb_e.mask[:, key_kid, :D].contiguous(),
+        capd=capd_n0.contiguous(),
+        pl_n=torch.zeros(W, dtype=I32, device=dev),
+        pl_e=torch.zeros(E, dtype=I32, device=dev),
+        tmpl_n=state.template.clone(),
+        cnt=state.vg_counts[:, :D].clone(memory_format=torch.contiguous_format),
+        hgc=state.hg_counts.clone(),
+        n_open=state.n_open.clone(),
+        w_open=state.w_open.clone(),
+        slot_of=state.slot_of.clone(),
+        spills=state.spills.clone(),
+    )
+    assignment = ops.kscan_pod_loop(inp, carry, topo, templates, count, maxc, n_claims)
+
+    # ---- segment-end writeback ------------------------------------------
+    pl_n, pl_e = carry.pl_n, carry.pl_e
+    landed_n = pl_n > 0
+    landed_e = pl_e > 0
+    opened_here = landed_n & ~state.open
+    tmpl_n = carry.tmpl_n
+    tmpl_l = tmpl_n.long()
+    zset_f = carry.zn
+    zinf_f = zin0 & ~(key_touched & landed_n)
+
+    # usage: one multiply-add per (segment, candidate), rounded once
+    base_used = torch.where(opened_here[:, None], templates.daemon_requests[tmpl_l], state.used)
+    new_used = torch.where(landed_n[:, None], _madd(base_used, pl_n[:, None], requests[None, :]), state.used)
+    new_exist_used = _madd(state.exist_used, pl_e[:, None], requests[None, :])
+
+    # requirements: claim ∩ pod (template ∩ pod for fresh claims) with the
+    # key row narrowed to the carried domain set
+    V = comb.mask.shape[2]
+    base_reqs = select_set(opened_here, ReqSetTensors(*(f[tmpl_l] for f in comb0)), comb)
+    beyond = torch.arange(V, device=dev) >= D
+    km = base_reqs.mask[:, key_kid, :] & beyond[None, :]
+    km[:, :D] = zset_f
+    new_inf_k = torch.where(landed_n, zinf_f, base_reqs.inf[:, key_kid])
+    final_reqs = _narrow_key(base_reqs, key_kid, km, new_inf_k, landed_n & key_touched)
+    new_reqs = select_set(landed_n, final_reqs, state.reqs)
+
+    # viable types at the final count within the final domains
+    viable_base = torch.where(opened_here[:, None], its0[tmpl_l], viable0)
+    ok_key = kernels.per_key_ok_at(it.reqs, final_reqs, key_kid)  # [W, T]
+    grid_base = torch.where(opened_here[:, None, None], grid_g[tmpl_l], grid_n)
+    ct_final = torch.where(opened_here[:, None], comb0.mask[tmpl_l, ct_kid, :], comb.mask[:, ct_kid, :])
+    zf_final = torch.where(opened_here[:, None], comb0.mask[tmpl_l, zone_kid, :], comb.mask[:, zone_kid, :])
+    fits_f = ops.kscan_fits_final(
+        grid_base.contiguous(), pl_n, zset_f, ct_final.contiguous(), zf_final.contiguous(),
+        it, key_kid, zone_kid, D,
+    )
+    new_its = torch.where(landed_n[:, None], viable_base & ok_key & fits_f, state.its)
+
+    new_ports = torch.where(landed_n[:, None], state.claim_ports | x.ports[None, :], state.claim_ports)
+    new_eports = torch.where(landed_e[:, None], state.exist_ports | x.ports[None, :], state.exist_ports)
+    new_evols = torch.where(landed_e[:, None], state.exist_vols | x.vols[None, :], state.exist_vols)
+
+    # existing-node requirements writeback (same key-row treatment)
+    ekm = comb_e.mask[:, key_kid, :] & beyond[None, :]
+    ekm[:, :D] = carry.ze
+    e_inf_k = zie0 & ~(key_touched & landed_e)
+    final_ereqs = _narrow_key(comb_e, key_kid, ekm, e_inf_k, landed_e & key_touched)
+    new_ereqs = select_set(landed_e, final_ereqs, state.exist_reqs)
+
+    new_vg = state.vg_counts.clone()
+    new_vg[:, :D] = carry.cnt
+
+    # boundary grid: landed rows debited by their pod counts (fresh rows
+    # re-based on the template grid), for reuse by an equal-request segment
+    grid_next = torch.where(
+        landed_n[:, None, None], torch.clamp(grid_base - pl_n[:, None, None], min=0), grid_n
+    )
+    ar = torch.arange(W, dtype=I32, device=dev)
+    state = state._replace(
+        exist_reqs=new_ereqs,
+        exist_used=new_exist_used,
+        reqs=new_reqs,
+        used=new_used,
+        its=new_its,
+        template=torch.where(opened_here, tmpl_n, state.template),
+        open=state.open | ((ar >= w_open0) & (ar < carry.w_open)),
+        pods=state.pods + pl_n,
+        n_open=carry.n_open,
+        slot_of=carry.slot_of,
+        w_open=carry.w_open,
+        w_hw=torch.maximum(state.w_hw, carry.w_open),
+        spills=carry.spills,
+        vg_counts=new_vg,
+        hg_counts=carry.hgc,
+        exist_ports=new_eports,
+        claim_ports=new_ports,
+        exist_vols=new_evols,
+    )
+    return state, assignment, grid_next
+
+
+def _narrow_key(base: ReqSetTensors, k: int, key_mask, inf_k, marked) -> ReqSetTensors:
+    """base with key k's row replaced: mask key_mask, complement bit inf_k
+    (bounds and exclusions kept only where it stays a complement), and
+    `marked` rows defined (touched keys become finite In sets)."""
+    mask = base.mask.clone()
+    mask[:, k, :] = key_mask
+    inf = base.inf.clone()
+    inf[:, k] = inf_k
+    excl = base.excl.clone()
+    excl[:, k] = base.excl[:, k] & inf_k
+    gte = base.gte.clone()
+    gte[:, k] = torch.where(inf_k, base.gte[:, k], torch.full_like(base.gte[:, k], INT_MIN))
+    lte = base.lte.clone()
+    lte[:, k] = torch.where(inf_k, base.lte[:, k], torch.full_like(base.lte[:, k], INT_MAX))
+    defined = base.defined.clone()
+    defined[:, k] = base.defined[:, k] | marked
+    return ReqSetTensors(mask=mask, inf=inf, excl=excl, gte=gte, lte=lte, defined=defined)
+
+
+class _KOps(NamedTuple):
+    intersects: object
+    kscan_grid: object
+    kscan_fits_final: object
+    kscan_pod_loop: object
+
+
+KSCAN_KERNEL_OPS = _KOps(kernels.intersects, kscan_grid, kscan_fits_final, kscan_pod_loop)
+KSCAN_PLAIN_OPS = _KOps(kernels.intersects_plain, _kscan_grid_plain, kscan_fits_final_plain, kscan_pod_loop_plain)
+
+
+def grid_reuse_flags(requests_np: np.ndarray, grid_incremental: bool = True) -> list:
+    """Per segment, whether the previous segment's boundary-adjusted grid
+    is this segment's grid: the request rows are equal (host-known, so the
+    choice needs no device read). The first segment always computes."""
+    if not grid_incremental:
+        return [False] * len(requests_np)
+    return [False] + [
+        bool(np.array_equal(requests_np[j], requests_np[j - 1])) for j in range(1, len(requests_np))
+    ]
+
+
+def solve_kind_scan(
+    state: SolverState,
+    xs: KindXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    key_kid: int,
+    n_domains: int,
+    maxc: int,
+    counts: list,
+    requests_np: np.ndarray,
+    grid_incremental: bool = True,
+    plain: bool = False,
+) -> tuple[SolverState, KindYs]:
+    """The zonal kind scan over the B segments of xs, threading the same
+    SolverState as the fill scan. `counts` and `requests_np` are the
+    segments' pod counts and request rows on the host (the pod loop's trip
+    counts and the grid-reuse decisions); they must equal xs.count and
+    xs.requests."""
+    ops = KSCAN_PLAIN_OPS if plain else KSCAN_KERNEL_OPS
+    reuse = grid_reuse_flags(np.asarray(requests_np), grid_incremental)
+    grid = None
+    rows = []
+    for j in range(len(counts)):
+        state, a, grid = _kind_step(
+            state, _take_x(xs, j), grid if reuse[j] else None, exist, it, templates, well_known,
+            topo, zone_kid, ct_kid, n_claims, key_kid, n_domains, int(counts[j]), maxc, ops,
+        )
+        rows.append(a)
+    if not rows:
+        raise ValueError("solve_kind_scan needs at least one segment")
+    return state, KindYs(
+        assignment=torch.stack(rows),
+        grid_reused=torch.as_tensor(reuse, dtype=torch.bool).to(state.used.device),
+    )

@@ -1,15 +1,32 @@
-"""Topology tensors (port of the container in the JAX package's
-ops/topology.py). The fill path of this package solves topology-free
-problems only, so the encoder here builds the no-groups tensors: one
-invalid padding row per family. The fill step still reads the hostname
-family (hg_skew/hg_type/hg_valid/hg_counts0), so a populated container
-from the reference (via ops.solver.from_numpy) runs through the same code."""
+"""Topology as tensors (port of the JAX package's ops/topology.py, cut to
+what the fill step and the zonal kind scan need).
+
+Every group's domain -> count map becomes a row of a count matrix that the
+solver carries:
+
+  vocab-key groups   counts [NGv, V]   domains are vocab value ids of the
+  (zone, custom)                       group's key
+  hostname groups    counts [NGh, S]   domains are candidate slots (S = E
+                                       existing + claim slots + 1 spare); a
+                                       new claim IS a fresh hostname domain
+
+The per-pod vocab-key evaluation lives with the kind scan
+(ops/solver.py `vg_eval_plain`, kernel H6); `hg_evaluate` / `hg_commit`
+here are its hostname half, shared by the kind scan's plain pod loop.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
+
+from karpenter_tpu_torch.models import labels as l
+from karpenter_tpu_torch.ops.encode import as_tensor
+
+BIG_I32 = 2**31 - 1
+RANK_BASE = 1 << 16  # count * RANK_BASE + rank stays in int32 while counts < 2^14
 
 TYPE_SPREAD = 0
 TYPE_AFFINITY = 1
@@ -24,20 +41,39 @@ class TopologyTensors(NamedTuple):
     vg_min_domains: torch.Tensor  # [NGv] i32 (0 = unset)
     vg_domains: torch.Tensor  # [NGv, V] bool
     vg_counts0: torch.Tensor  # [NGv, V] i32
-    vg_rank: torch.Tensor  # [NGv, V] i32
+    vg_rank: torch.Tensor  # [NGv, V] i32 (sorted-name rank; 2^30 for non-domains)
     vg_valid: torch.Tensor  # [NGv] bool
     # hostname groups
     hg_type: torch.Tensor  # [NGh] i32
     hg_skew: torch.Tensor  # [NGh] i32
     hg_counts0: torch.Tensor  # [NGh, S] i32 — S = E existing + claim slots + 1
-    hg_extra_nonempty: torch.Tensor  # [NGh] bool
+    hg_extra_nonempty: torch.Tensor  # [NGh] bool — counts exist outside the slot space
     hg_valid: torch.Tensor  # [NGh] bool
 
 
+class PodTopology(NamedTuple):
+    """Per-kind group relations (host-computed)."""
+
+    vg_applies: torch.Tensor  # [P, NGv] bool — group restricts the pod
+    vg_records: torch.Tensor  # [P, NGv] bool — pod's placement counts into group
+    vg_self: torch.Tensor  # [P, NGv] bool — group selector matches the pod
+    hg_applies: torch.Tensor  # [P, NGh] bool
+    hg_records: torch.Tensor  # [P, NGh] bool
+    hg_self: torch.Tensor  # [P, NGh] bool
+    strict_mask: torch.Tensor  # [P, K, V] bool — strict pod requirement masks
+
+
+def _pow2(n: int, floor: int = 1) -> int:
+    out = floor
+    while out < n:
+        out *= 2
+    return out
+
+
 def empty_topology_tensors(v_pad: int, s_slots: int, device) -> TopologyTensors:
-    """The no-groups TopologyTensors, field for field what the reference's
-    encode_topology builds for an empty group list (skews 1, valid bits
-    False, vg ranks 2^30)."""
+    """The no-groups TopologyTensors, field for field what encode_topology
+    builds for an empty group list (skews 1, valid bits False, vg ranks
+    2^30)."""
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)
     return TopologyTensors(
@@ -55,3 +91,168 @@ def empty_topology_tensors(v_pad: int, s_slots: int, device) -> TopologyTensors:
         hg_extra_nonempty=torch.zeros(1, **b),
         hg_valid=torch.zeros(1, **b),
     )
+
+
+def encode_topology(
+    topology,
+    encoder,
+    e_slots: int,
+    n_slots: int,
+    existing_names: Sequence[str],
+    v_pad: int,
+    device,
+):
+    """Host Topology + ProblemEncoder -> (TopologyTensors on `device`, vg
+    groups, hg groups). existing_names maps hostname domains to slots
+    [0, E); counts on hostnames outside the slot space set
+    hg_extra_nonempty."""
+    from karpenter_tpu_torch.controllers.provisioning.topology import TopologyType
+
+    vocab = encoder.vocab
+    groups = topology.groups + topology.inverse_groups
+    if not groups:
+        return empty_topology_tensors(v_pad, e_slots + n_slots, device), [], []
+    vg = [g for g in groups if g.key != l.LABEL_HOSTNAME]
+    hg = [g for g in groups if g.key == l.LABEL_HOSTNAME]
+    NGv, NGh = _pow2(max(len(vg), 1)), _pow2(max(len(hg), 1))
+    S = e_slots + n_slots
+    type_map = {
+        TopologyType.SPREAD: TYPE_SPREAD,
+        TopologyType.AFFINITY: TYPE_AFFINITY,
+        TopologyType.ANTI_AFFINITY: TYPE_ANTI,
+    }
+
+    vg_key = np.zeros(NGv, dtype=np.int32)
+    vg_type = np.zeros(NGv, dtype=np.int32)
+    vg_skew = np.ones(NGv, dtype=np.int32)
+    vg_mind = np.zeros(NGv, dtype=np.int32)
+    vg_domains = np.zeros((NGv, v_pad), dtype=bool)
+    vg_counts0 = np.zeros((NGv, v_pad), dtype=np.int32)
+    vg_rank = np.full((NGv, v_pad), 2**30, dtype=np.int32)
+    vg_valid = np.zeros(NGv, dtype=bool)
+    for j, g in enumerate(vg):
+        kid = vocab.add_key(g.key)
+        vg_key[j] = kid
+        vg_type[j] = type_map[g.type]
+        vg_skew[j] = g.max_skew
+        vg_mind[j] = g.min_domains or 0
+        for rank, name in enumerate(sorted(g.domains)):
+            vid = vocab.value_to_id[kid].get(name)
+            if vid is None:
+                continue  # a domain no requirement mentions: unreachable
+            vg_domains[j, vid] = True
+            vg_counts0[j, vid] = g.domains[name]
+            vg_rank[j, vid] = rank
+        vg_valid[j] = True
+
+    slot_of = {name: i for i, name in enumerate(existing_names)}
+    hg_type = np.zeros(NGh, dtype=np.int32)
+    hg_skew = np.ones(NGh, dtype=np.int32)
+    hg_counts0 = np.zeros((NGh, S), dtype=np.int32)
+    hg_extra = np.zeros(NGh, dtype=bool)
+    hg_valid = np.zeros(NGh, dtype=bool)
+    for j, g in enumerate(hg):
+        hg_type[j] = type_map[g.type]
+        hg_skew[j] = g.max_skew
+        for name, count in g.domains.items():
+            if count <= 0:
+                continue
+            s = slot_of.get(name)
+            if s is None:
+                hg_extra[j] = True
+            else:
+                hg_counts0[j, s] = count
+        hg_valid[j] = True
+
+    arrs = dict(
+        vg_key=vg_key, vg_type=vg_type, vg_skew=vg_skew, vg_min_domains=vg_mind,
+        vg_domains=vg_domains, vg_counts0=vg_counts0, vg_rank=vg_rank, vg_valid=vg_valid,
+        hg_type=hg_type, hg_skew=hg_skew, hg_counts0=hg_counts0,
+        hg_extra_nonempty=hg_extra, hg_valid=hg_valid,
+    )
+    return TopologyTensors(**{k: as_tensor(v, device) for k, v in arrs.items()}), vg, hg
+
+
+def encode_pod_topology(topology, vg, hg, pods, strict_mask: torch.Tensor):
+    """(PodTopology on strict_mask's device, host numpy twins {vga, vgr,
+    hga, hgr}) for the kind representatives `pods`; the twins drive the
+    host-side kind classification without a device read."""
+    P = strict_mask.shape[0]
+    dev = strict_mask.device
+    NGv_pad = _pow2(max(len(vg), 1))
+    NGh_pad = _pow2(max(len(hg), 1))
+    rel = {name: np.zeros((P, n), dtype=bool) for name, n in (
+        ("vga", NGv_pad), ("vgr", NGv_pad), ("vgs", NGv_pad),
+        ("hga", NGh_pad), ("hgr", NGh_pad), ("hgs", NGh_pad),
+    )}
+    inverse = set(id(g) for g in topology.inverse_groups)
+    for fam, groups in (("vg", vg), ("hg", hg)):
+        a, r, s = rel[fam + "a"], rel[fam + "r"], rel[fam + "s"]
+        for i, pod in enumerate(pods):
+            for j, g in enumerate(groups):
+                sel = g.selects(pod)
+                own = pod.uid in g.owners and topology.still_declared(g, pod)
+                if id(g) in inverse:
+                    a[i, j], r[i, j] = sel, own
+                else:
+                    a[i, j], r[i, j] = own, sel
+                s[i, j] = sel
+    pt = PodTopology(
+        vg_applies=as_tensor(rel["vga"], dev),
+        vg_records=as_tensor(rel["vgr"], dev),
+        vg_self=as_tensor(rel["vgs"], dev),
+        hg_applies=as_tensor(rel["hga"], dev),
+        hg_records=as_tensor(rel["hgr"], dev),
+        hg_self=as_tensor(rel["hgs"], dev),
+        strict_mask=strict_mask,
+    )
+    return pt, {k: rel[k] for k in ("vga", "vgr", "hga", "hgr")}
+
+
+def take_pod_topology(pt: PodTopology, idx) -> PodTopology:
+    """Index every per-kind row (the kind -> segment gathers)."""
+    return PodTopology(*(x[idx] for x in pt))
+
+
+# ---------------------------------------------------------------------------
+# per-pod step functions (plain torch; kernel H6 inlines the same rules)
+# ---------------------------------------------------------------------------
+
+
+def _onehot_rows(space: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[C, NG, V] one-hot of idx per (c, j), zeroed where space is empty."""
+    V = space.shape[-1]
+    oh = torch.arange(V, device=idx.device)[None, None, :] == idx[:, :, None]
+    return oh & torch.any(space, dim=-1, keepdim=True)
+
+
+def hg_evaluate(
+    topo: TopologyTensors,
+    counts: torch.Tensor,  # [NGh, S]
+    cand_slots: torch.Tensor,  # [C] i32 — candidate hostname slots
+    applies: torch.Tensor,  # [NGh]
+    self_sel: torch.Tensor,  # [NGh]
+) -> torch.Tensor:
+    """[C] bool — hostname-group feasibility per candidate slot."""
+    cnt_s = counts[:, cand_slots.long()].T  # [C, NGh]
+    self_add = self_sel.to(torch.int32)[None, :]
+    ok_spread = (cnt_s + self_add) <= topo.hg_skew[None, :]
+    group_empty = ~(torch.any(counts > 0, dim=-1) | topo.hg_extra_nonempty)  # [NGh]
+    ok_aff = (cnt_s > 0) | (self_sel & group_empty)[None, :]
+    ok_anti = cnt_s == 0
+    t = topo.hg_type[None, :]
+    ok = torch.where(t == TYPE_SPREAD, ok_spread, torch.where(t == TYPE_AFFINITY, ok_aff, ok_anti))
+    gate = applies & topo.hg_valid
+    return torch.all(~gate[None, :] | ok, dim=-1)
+
+
+def hg_commit(
+    counts: torch.Tensor,  # [NGh, S]
+    slot: torch.Tensor,  # [] i32 — the winner's hostname slot
+    records: torch.Tensor,  # [NGh]
+    valid: torch.Tensor,  # [NGh]
+) -> torch.Tensor:
+    delta = (records & valid).to(counts.dtype)
+    out = counts.clone()
+    out.index_add_(1, slot.reshape(1).long(), delta[:, None])
+    return out

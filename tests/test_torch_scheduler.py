@@ -1,9 +1,11 @@
 """End to end: TorchScheduler(device="cpu") against the JAX package's
 TPUScheduler on the same workloads (the fill cases of tests/test_fill.py,
-the 2048 x 400 selector stage, and a chunked + compacted solve), compared
-per pod and per claim; the problems outside the port raise
+the 2048 x 400 selector stage, a chunked + compacted solve, and the
+topology workloads: the reference benchmark's mixed pods, zonal and
+hostname spread), compared per pod and per claim, requirements (the
+narrowed zone) included; the problems outside the port raise
 UnsupportedProblem; the package imports neither JAX nor the JAX package;
-and nothing runs on a missing card."""
+and nothing runs on a missing card. Tolerance: exact equality."""
 
 import os
 import shutil
@@ -36,13 +38,16 @@ ROOT = Path(__file__).resolve().parents[1]
 
 JAX_SIDE = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, HostPort=j_pod.HostPort, TSC=j_pod.TopologySpreadConstraint,
-    Req=JReq, Reqs=JReqs, Op=JOp, Node=j_host.ExistingSimNode,
-    templates=bench.make_templates, selector_pods=bench.selector_pods,
+    Term=j_pod.PodAffinityTerm, Req=JReq, Reqs=JReqs, Op=JOp, Node=j_host.ExistingSimNode,
+    templates=bench.make_templates, selector_pods=bench.selector_pods, mixed_pods=bench.mixed_pods,
+    zonal_pods=bench.zonal_pods, hostname_pods=bench.hostname_pods,
 )
 PORT_SIDE = types.SimpleNamespace(
     make_pod=p_pod.make_pod, l=pl, HostPort=p_pod.HostPort, TSC=p_pod.TopologySpreadConstraint,
-    Req=PReq, Reqs=PReqs, Op=POp, Node=p_host.ExistingSimNode,
+    Term=p_pod.PodAffinityTerm, Req=PReq, Reqs=PReqs, Op=POp, Node=p_host.ExistingSimNode,
     templates=p_testing.make_templates, selector_pods=p_testing.selector_pods,
+    mixed_pods=p_testing.mixed_pods, zonal_pods=p_testing.zonal_pods,
+    hostname_pods=p_testing.hostname_pods,
 )
 
 
@@ -115,12 +120,13 @@ def _view(result):
     return dict(
         claims=[
             (c.slot, c.hostname, [p.name for p in c.pods], [i.name for i in c.instance_types],
-             sorted(c.used.items()), c.template.nodepool_name)
+             sorted(c.used.items()), c.template.nodepool_name, str(c.requirements))
             for c in result.claims
         ],
         assignments=sorted((name_of[u], s) for u, s in result.assignments.items()),
         existing=sorted((name_of[u], n) for u, n in result.existing_assignments.items()),
         existing_used=[sorted(n.used.items()) for n in result.existing],
+        existing_reqs=[str(n.requirements) for n in result.existing],
         unschedulable=[(p.name, r) for p, r in result.unschedulable],
         node_count=result.node_count,
         total_price=result.total_price(),
@@ -190,30 +196,76 @@ def test_ffd_order_matches_reference():
     assert [p.name for p in p_host.ffd_sort(pp)] == want
 
 
+def _compact_early(s):
+    s.compact_min_pods = 50
+
+
+def _zonal_and_hostname(S):
+    return S.zonal_pods(120, kinds=3) + S.hostname_pods(60, kinds=2)
+
+
+TOPOLOGY_CASES = {
+    # (build(S) -> (templates, pods, existing), max_claims, tweak)
+    "mixed_100x24": (lambda S: (S.templates(24), S.mixed_pods(100), None), 32, None),
+    "mixed_300x48_compacted": (lambda S: (S.templates(48), S.mixed_pods(300), None), 96, _compact_early),
+    "zonal_hostname_evicted": (lambda S: (S.templates(24), _zonal_and_hostname(S), None), 128, _compact_early),
+    "mixed_existing_node": (lambda S: (S.templates(24), S.mixed_pods(80), [_node_a(S)]), 32, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPOLOGY_CASES))
+def test_topology_workloads_match_reference(case):
+    """Fill and kind-scan dispatches interleaved, compaction at their
+    boundaries (evicting claims with narrowed zones into the bank in the
+    zonal case), every claim's requirements equal the reference's."""
+    build, max_claims, tweak = TOPOLOGY_CASES[case]
+    rp, ps = _compare(case, build, max_claims, tweak)
+    st = ps.last_stats
+    assert st["kscan_dispatches"] > 0 and rp.node_count > 0
+    zoned = [c for c in rp.claims if c.requirements.get(pl.LABEL_TOPOLOGY_ZONE).operator() is POp.IN]
+    assert zoned, "no claim carries a narrowed zone"
+    if tweak is not None:
+        assert st["compactions"] > 0
+    if case == "zonal_hostname_evicted":
+        assert st["frozen"] > 0 and st["fill_dispatches"] > 0
+    if case == "mixed_existing_node":
+        assert rp.existing_assignments
+
+
 def _unsupported(kind):
     S = PORT_SIDE
     pods = _pods(S, 4, 0.25, "256Mi")
     for p in pods:
         p.metadata.labels = {"app": "x"}
-        if kind == "hostname_spread":
+        if kind == "perpod":
+            # two vocab keys (zone and capacity type): the per-pod scan's
             p.spec.topology_spread_constraints = [
-                S.TSC(max_skew=1, topology_key=S.l.LABEL_HOSTNAME, label_selector={"app": "x"})
+                S.TSC(max_skew=1, topology_key=S.l.LABEL_TOPOLOGY_ZONE, label_selector={"app": "x"}),
+                S.TSC(max_skew=1, topology_key=S.l.CAPACITY_TYPE_LABEL_KEY, label_selector={"app": "x"}),
             ]
-        elif kind == "zonal_spread":
-            p.spec.topology_spread_constraints = [
-                S.TSC(max_skew=1, topology_key=S.l.LABEL_TOPOLOGY_ZONE, label_selector={"app": "x"})
-            ]
+        elif kind == "empty_hostname_affinity":
+            # an initially-empty hostname affinity group, no vocab key
+            p.spec.pod_affinity = [S.Term(topology_key=S.l.LABEL_HOSTNAME, label_selector={"app": "x"})]
+        elif kind == "gang":
+            p.metadata.annotations = {"ktpu.dev/gang-name": "g", "ktpu.dev/gang-size": "4"}
         elif kind == "host_ports":
             p.spec.host_ports = [S.HostPort(port=8080)]
     return pods
 
 
-@pytest.mark.parametrize("kind", ["hostname_spread", "zonal_spread", "host_ports"])
+@pytest.mark.parametrize("kind", ["perpod", "empty_hostname_affinity", "gang", "host_ports"])
 def test_out_of_slice_problems_raise(kind):
     ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
     with pytest.raises(UnsupportedProblem) as err:
         ps.solve(_unsupported(kind))
     assert err.value.reason
+
+
+def test_perpod_pods_raise():
+    """The reference routes perpod_pods (bench.py:106) to its per-pod scan."""
+    ps = TorchScheduler(p_testing.make_templates(24), max_claims=32, device="cpu")
+    with pytest.raises(UnsupportedProblem, match="per-pod scan"):
+        ps.solve(p_testing.perpod_pods(8))
 
 
 def test_finite_budget_raises():
