@@ -6,7 +6,7 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the six hand-written kernels from karpenter_tpu_torch/ops/csrc;
+  2. build the eight hand-written kernels from karpenter_tpu_torch/ops/csrc;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, with times for kernel, plain version and the least time
      the card could take (bound): H1-H4 at the north-star shapes (W=4096
@@ -14,7 +14,11 @@ Phases, any failure exits non-zero:
      mode, H5 and H6 at the kind scan's (W=4096, T=400, D=4 zones, the
      encoded topology of mixed_pods: NGv 2, NGh 4; H6 over one segment of
      256 pods); seeded inputs, the catalog tensors being the real encoded
-     ones;
+     ones; H7 and H8 on the per-pod cell's real encoded problem
+     (perpod_pods(4096, kinds=8) x make_templates(400): W=4096 claim rows,
+     T=400, NGv 16), from the state a first 1024-pod kernel chunk leaves:
+     H7's keys and H8's commit for single pods, and a 256-pod chunk through
+     the kernels against the same chunk through the plain step;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -23,14 +27,20 @@ Phases, any failure exits non-zero:
      topology path, TorchScheduler(make_templates(400), max_claims=4096) on
      mixed_pods(16384), held to 3277 claims, 0 unschedulable, 354.7156 $/h
      and 31 fill / 30 kind-scan dispatches / 60 compactions, with all six
-     kernels launched. One more warm solve of each under torch.profiler
-     (device busy share and device time by kernel, trace and summary under
-     build/profile/); a 2048-selector-pod and a 1024-mixed-pod solve on the
-     card held to the same solves on the CPU (the latter also to 205
-     claims, 21.5043 $/h);
-  5. both main-path solves with the kernels' plain versions on the card,
-     which must give the identical digest (claims, pods, types, usage,
-     requirements).
+     kernels launched; the per-pod path, TorchScheduler(make_templates(400),
+     max_claims=4096) on perpod_pods(4096, kinds=8), held to 136 claims, 0
+     unschedulable, 143.0965 $/h, the JAX package's assignment digest, 4
+     per-pod dispatches and 3 compactions, with H7, H8, H2 and H4
+     launched. One more warm solve of each under torch.profiler (device
+     busy share and device time by kernel, trace and summary under
+     build/profile/); small solves on the card held to the same solves on
+     the CPU: 2048 selector pods, 1024 mixed pods (also 205 claims,
+     21.5043 $/h), perpod_pods(256), mixed and per-pod kinds in one solve,
+     and the custom-key workload that drives the per-pod step's full
+     it-compat branch;
+  5. the three main-path solves with the kernels' plain versions on the
+     card, which must give the identical digest (claims, pods, types,
+     usage, requirements).
 The second-to-last line is one JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -56,6 +66,15 @@ MIXED_CLAIMS = 3277
 MIXED_PRICE = 354.7156
 MIXED_STATS = {"fill_dispatches": 31, "kscan_dispatches": 30, "compactions": 60}
 SMALL_MIXED = (205, 21.5043)
+# ... for perpod_pods(4096, kinds=8) x make_templates(400), max_claims=4096
+# (TPUScheduler.solve on the CPU at 9314712): claims, price, the digest()
+# of its result, and its chunking (4 per-pod chunks of 1024, compactions
+# between them)
+PERPOD_PODS, PERPOD_KINDS = 4096, 8
+PERPOD_CLAIMS = 136
+PERPOD_PRICE = 143.0965
+PERPOD_DIGEST = "f40733bccab8f8d5e928195a48f32abeb61a6629511dc59ca1190979f9a0f261"
+PERPOD_STATS = {"perpod_dispatches": 4, "compactions": 3}
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -442,10 +461,127 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
     )
 
 
-def profile_solve(sched, pods, out_dir, tag) -> None:
+def perpod_kernel_phase(sched, enc, results: list) -> None:
+    """Phase 3c: H7 and H8 against their plain versions on the per-pod
+    cell's real encoded problem. A first chunk of 1024 pods through the
+    kernels opens claims; from that state, H7's keys for each of 8 pods in
+    turn (the state advanced by the plain step), H8's commit of one pod,
+    and a chunk of 256 pods through the kernels against the plain step,
+    every state leaf and assignment equal."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import cuda as kc
+    from karpenter_tpu_torch.ops import solver
+
+    first, n = 1024, 256
+    n_claims = enc["n_claims"]
+    common = (enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], sched.well_known, enc["topo_tensors"])
+    keys_args = (enc["zone_kid"], enc["ct_kid"], n_claims, tuple(enc["topo_kids"]))
+    ctx = solver.PerPodCtx(*common, *keys_args)
+    kind_of = enc["kind_of"]
+
+    def rows(lo, hi):
+        *r, pt = sched._gather_pod_chunk(enc, np.asarray(kind_of[lo:hi], dtype=np.int64), hi - lo)
+        return r, pt
+
+    def run(state, lo, hi, plain):
+        r, pt = rows(lo, hi)
+        return solver.solve_from(state, *r, *common, pt, *keys_args, plain=plain)
+
+    def same(a, b):
+        fa, fb = solver.to_numpy(a), solver.to_numpy(b)
+        return all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    state0 = solver.initial_state(
+        enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], n_claims,
+        enc["n_ports"], window=n_claims, topo_kids=enc["topo_kids"],
+    )
+    state1, _a = run(state0, 0, first, False)
+    torch.cuda.synchronize()
+    r, pt = rows(first, first + n)
+    xs = solver.pod_xs(*r, pt)
+    # H7: the keys of 8 pods in turn
+    eq7, st = True, state1
+    for i in range(8):
+        x = solver._take_x(xs, i)
+        keys_k = solver.perpod_eval(st, xs, ctx, i)
+        keys_p = solver.perpod_eval_plain(st, x, ctx)
+        eq7 = eq7 and torch.equal(keys_k, keys_p)
+        st, _ = solver.perpod_commit_plain(st, x, ctx, keys_p)
+    # H8: one pod's commit
+    x0 = solver._take_x(xs, 0)
+    keys0 = solver.perpod_eval_plain(state1, x0, ctx)
+    st_k, a_k = solver.perpod_commit(state1, xs, ctx, 0, keys0)
+    st_p, a_p = solver.perpod_commit_plain(state1, x0, ctx, keys0)
+    eq8 = bool(a_k == a_p) and same(st_k, st_p)
+    # a chunk of n pods: kernels against the plain step
+    sk, ak = run(state1, first, first + n, False)
+    sp, ap = run(state1, first, first + n, True)
+    eq_chunk = torch.equal(ak, ap) and same(sk, sp)
+    E = enc["E"]
+    hist = {"claims": int((ak >= E).sum()), "existing": int(((ak >= 0) & (ak < E)).sum()),
+            "failed": int((ak < 0).sum()), "open_before": int(state1.n_open), "open_after": int(sk.n_open)}
+    print(f"kernel perpod_eval: 8 pods' keys equal={eq7}; perpod_commit: one commit equal={eq8}; "
+          f"{n}-pod chunk through H7 + H8 == plain: {eq_chunk} {json.dumps(hist)}", flush=True)
+
+    # times: H7 alone; H8 alone on private copies (events around the launch only)
+    ms7 = time_ms(lambda: kc.perpod_eval(state1, xs, ctx, 0), iters=50)
+    plain7 = time_ms(lambda: solver.perpod_eval_plain(state1, x0, ctx), iters=5)
+    copies = [solver.own_perpod_writes(state1) for _ in range(10)]
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in copies]
+    torch.cuda.synchronize()
+    for c, (a, b) in zip(copies, ev):
+        a.record()
+        kc.perpod_commit(c, xs, ctx, 0, keys0)
+        b.record()
+    torch.cuda.synchronize()
+    ms8 = sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+    plain8 = time_ms(lambda: solver.perpod_commit_plain(state1, x0, ctx, keys0), iters=5)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    run(state1, first, first + n, False)
+    t1.record()
+    torch.cuda.synchronize()
+    print(f"kernel perpod chunk: {t0.elapsed_time(t1) / n:.4f} ms per pod (H7 + H8, launched from one C call)",
+          flush=True)
+
+    # bounds: bytes each function must move, over the memory rate. H7 reads
+    # every row's open / valid flag, and for each live row its requirement
+    # row, usage and (claims) viable-type row, the pod's rows, the group
+    # tables and the type tables once, and writes one key per row; H8 reads
+    # the keys, the winner's rows and the type tables, and writes the
+    # winner's rows and the counts back
+    it, tm, topo = sched.it_tensors, enc["template_tensors"], enc["topo_tensors"]
+    T, K, V = it.reqs.mask.shape
+    R = it.alloc.shape[2]
+    W, G = state1.open.shape[0], tm.its.shape[0]
+    req_row = K * V + 11 * K
+    live = int(enc["exist_tensors"].valid.sum()) + int(state1.open.sum()) + G
+    types = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap)
+    groups = nbytes(state1.vg_counts, topo.vg_domains, topo.vg_rank) + 2 * req_row
+    b7 = bound(E + 2 * W + G + live * (req_row + 4 * R + T) + types + groups + 4 * (E + W + G), 0.0)
+    b8 = bound(4 * (E + W + G) + 2 * (req_row + 4 * R + T) + types + groups + nbytes(state1.vg_counts), 0.0)
+    results.append(dict(
+        name="perpod_eval", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
+        replaces="karpenter_tpu/ops/solver.py:394", launches=0, max_abs_err=0.0 if eq7 and eq_chunk else 1.0,
+        ms=ms7, plain_ms=plain7, bound_ms=b7[0], bound_by=b7[1], library_ms=None, equal=eq7 and eq_chunk,
+    ))
+    results.append(dict(
+        name="perpod_commit", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
+        replaces="karpenter_tpu/ops/solver.py:591", launches=0, max_abs_err=0.0 if eq8 and eq_chunk else 1.0,
+        ms=ms8, plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1], library_ms=None, equal=eq8 and eq_chunk,
+    ))
+    for k in results[-2:]:
+        print(f"kernel {k['name']}: equal={k['equal']} (tolerance: exact) ms={k['ms']:.4f} (one wrapper call, "
+              f"host-bound) plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})", flush=True)
+
+
+def profile_solve(sched, pods, out_dir, tag) -> dict:
     """One more warm solve under torch.profiler: device busy share over the
     solve's wall, and device time by kernel name (from the chrome trace,
-    so launches of one name are summed and overlaps counted once)."""
+    so launches of one name are summed and overlaps counted once). Returns
+    {kernel name: (launches, device ms)}, empty when not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -462,7 +598,7 @@ def profile_solve(sched, pods, out_dir, tag) -> None:
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not dev:
         print(f"profile {tag}: not measured (the trace holds no device events)", flush=True)
-        return
+        return {}
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -488,6 +624,7 @@ def profile_solve(sched, pods, out_dir, tag) -> None:
           f"idle_share={summary['idle_share']:.4f} device_events={len(dev)}", flush=True)
     for t in summary["top"]:
         print(f"  device {t['ms']:9.3f} ms  x{t['launches']:6d}  {t['name']}", flush=True)
+    return {n: (c, d / 1e3) for n, (c, d) in by_name.items()}
 
 
 def digest(result) -> str:
@@ -548,7 +685,10 @@ def main() -> int:
     try:
         from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
         from karpenter_tpu_torch.ops import cuda
-        from karpenter_tpu_torch.testing import make_templates, mixed_pods, selector_pods
+        from karpenter_tpu_torch.testing import (
+            existing_node, guarded_pods, make_templates, mixed_pods, perpod_pods, selector_pods, tier_pods,
+            tier_templates, wide_zone_pods,
+        )
     except ImportError as err:
         return fail(f"karpenter_tpu_torch is not importable here ({err})")
     t_start = time.perf_counter()
@@ -575,6 +715,10 @@ def main() -> int:
     sched_m = TorchScheduler(templates_m, max_claims=4096)
     _sorted, enc_m = sched_m._encode(mixed_pods(64), None)
     kscan_kernel_phase(sched_m, enc_m, kernels)
+    pods_p = perpod_pods(PERPOD_PODS, kinds=PERPOD_KINDS)
+    sched_p = TorchScheduler(templates_m, max_claims=4096)
+    _sorted, enc_p = sched_p._encode(pods_p, None)
+    perpod_kernel_phase(sched_p, enc_p, kernels)
     bad = [k["name"] for k in kernels if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -582,24 +726,46 @@ def main() -> int:
         print(f"kernels only: stopping after phase 3 ({time.perf_counter() - t_start:.1f}s)", flush=True)
         return 0
 
-    # phase 4: the fill path (north star), then the topology path (mixed_pods)
+    # phase 4: the fill path (north star), the topology path (mixed_pods),
+    # then the per-pod path (perpod_pods); a kernel's launches in the JSON
+    # line are the sum over the three cold solves, each counted from zero
     pods = selector_pods(100_000)
     sched = TorchScheduler(templates, max_claims=4096)
     fill_kernels = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter")
     pods_m = mixed_pods(MIXED_PODS)
     sched_m = TorchScheduler(templates_m, max_claims=4096)
+    sched_p = TorchScheduler(templates_m, max_claims=4096)
+    profile_dir = os.path.join("build", "profile")
     try:
-        result, _ = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
-                               fill_kernels)
-        profile_solve(sched, pods, os.path.join("build", "profile"), "northstar")
-        result_m, launches = solve_path(
-            torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS, cuda.KERNELS,
+        result, launches_n = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
+                                        fill_kernels)
+        profile_solve(sched, pods, profile_dir, "northstar")
+        result_m, launches_m = solve_path(
+            torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
+            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS],
+        )
+        profile_solve(sched_m, pods_m, profile_dir, "mixed")
+        result_p, launches_p = solve_path(
+            torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,
+            ("perpod_eval", "perpod_commit", "fill_count_grid", "compact_scatter"),
         )
     except RuntimeError as err:
         return fail(str(err))
+    if digest(result_p) != PERPOD_DIGEST:
+        return fail(f"perpod path: digest {digest(result_p)} differs from the JAX package's {PERPOD_DIGEST}")
+    print("perpod path: digest equal to the JAX package's", flush=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    profile_solve(sched_m, pods_m, os.path.join("build", "profile"), "mixed")
+        k["launches"] = launches_n[k["name"]] + launches_m[k["name"]] + launches_p[k["name"]]
+    # H7 / H8 run ~20 µs, under the wrappers' host cost, so a host-driven
+    # loop of single launches measures the host: their ms is the device
+    # time per launch in the profiled warm per-pod solve
+    by_name = profile_solve(sched_p, pods_p, profile_dir, "perpod")
+    for k in kernels:
+        hits = [v for n, v in by_name.items() if f"::{k['name']}_kernel(" in n]
+        if k["name"] in cuda.PERPOD_KERNELS and hits:
+            (n, ms), = hits
+            k["ms"] = ms / n
+            print(f"kernel {k['name']}: {ms / n:.4f} ms per launch on the device ({n} launches profiled)", flush=True)
     # small problems on the card against the plain CPU path
     small_t = make_templates(400)
     r_gpu = TorchScheduler(small_t, max_claims=256).solve(selector_pods(2048))
@@ -616,9 +782,26 @@ def main() -> int:
         return fail(f"1024 mixed pods: {r_gpu.node_count} claims / {price:.4f} $/h, expected {SMALL_MIXED}")
     print(f"small check: 1024 mixed pods x 400 types, {r_gpu.node_count} claims, "
           f"{price:.4f} $/h, card == CPU", flush=True)
+    small_t24 = make_templates(24)
+    for label, tmpl, mc, make, nodes in (
+        ("perpod_pods(256)", small_t, 256, lambda: perpod_pods(256, kinds=4), []),
+        ("mixed_pods(80) + perpod_pods(48)", small_t24, 128, lambda: mixed_pods(80) + perpod_pods(48), []),
+        ("custom-key kinds (the full it-compat branch)", tier_templates(24), 32, tier_pods, []),
+        ("per-pod kinds with hostname groups and an existing node", small_t24, 64, lambda: guarded_pods(40),
+         [existing_node()]),
+        ("a 17-value zone key", small_t24, 64, lambda: wide_zone_pods(32), [existing_node(cpu=1.0)]),
+    ):
+        s_gpu = TorchScheduler(tmpl, max_claims=mc)
+        r_gpu = s_gpu.solve(make(), existing_nodes=nodes)
+        r_cpu = TorchScheduler(tmpl, max_claims=mc, device="cpu").solve(make(), existing_nodes=nodes)
+        if digest(r_gpu) != digest(r_cpu) or not s_gpu.last_stats["perpod_dispatches"]:
+            return fail(f"{label} on the card differs from the CPU solve (or ran no per-pod chunk)")
+        print(f"small check: {label}, {r_gpu.node_count} claims, {len(r_gpu.existing_assignments)} on existing "
+              f"nodes, {len(r_gpu.unschedulable)} unschedulable, card == CPU", flush=True)
 
     # phase 5: plain versions on the card
-    for label, tmpl, ps, ref in (("north star", templates, pods, result), ("mixed path", templates_m, pods_m, result_m)):
+    for label, tmpl, ps, ref in (("north star", templates, pods, result), ("mixed path", templates_m, pods_m, result_m),
+                                 ("perpod path", templates_m, pods_p, result_p)):
         t0 = time.perf_counter()
         r_plain = TorchScheduler(tmpl, max_claims=4096, plain=True).solve(ps)
         torch.cuda.synchronize()

@@ -1,16 +1,17 @@
 """The scheduling engine: encode -> ops.solver (PyTorch + CUDA) -> decode.
 
 A port of the JAX package's TPUScheduler (controllers/provisioning/
-scheduler.py) for problems whose every pod kind routes to the kind-level
-fill scan or to the zonal kind scan: selector pods, hostname topology
-groups (spread / anti-affinity / affinity with counts), and vocab-key
-groups (zone spread, zone affinity) whose kind interacts with ONE narrow
-key. The same FFD order, topology encode, routing, chunking and
-compaction boundaries and decode give a result equal to
-TPUScheduler.solve's. Anything else — kinds that route to the per-pod scan
-or to the gang engine, host ports, CSI volume limits, finite budgets,
-reservations, enforced minValues, DRA claims — raises UnsupportedProblem;
-nothing falls back to another engine.
+scheduler.py). Every pod kind routes as the reference routes it: selector
+pods and hostname topology groups to the kind-level fill scan, kinds
+whose vocab-key groups (zone spread, zone affinity) share ONE narrow key
+to the zonal kind scan, and every other topology kind — vocab-key groups
+over two or more keys, a key wider than KSCAN_D, an initially-empty
+hostname affinity group — to the per-pod scan, in chunks. The same FFD
+order, topology encode, routing, chunking and compaction boundaries and
+decode give a result equal to TPUScheduler.solve's. Gang members, host
+ports, CSI volume limits, finite budgets, reservations, enforced
+minValues and DRA claims raise UnsupportedProblem; nothing falls back to
+another engine.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ GANG_ANNOTATIONS = ("ktpu.dev/gang-name", "ktpu.dev/gang-size", "ktpu.dev/gang-r
 
 class UnsupportedProblem(ValueError):
     """The problem needs a part of the solver this package has not ported
-    (kinds routed to the per-pod scan or the gang engine, host ports, CSI
-    limits, finite budgets, reservations, enforced minValues, DRA claims)."""
+    (gang members, host ports, CSI limits, finite budgets, reservations,
+    enforced minValues, DRA claims)."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -337,6 +338,7 @@ class TorchScheduler:
         self.pipeline_chunks = 4
         self.pipeline_min_pods = 4096
         self.compact_min_pods = 1024
+        self.solve_chunk = 2048  # per-pod chunk length (the reference's KTPU_SOLVE_CHUNK default)
         self._n_claims_override: Optional[int] = None
         self._last_n_claims: Optional[int] = None
         self.last_timings: dict = {}
@@ -348,7 +350,7 @@ class TorchScheduler:
             self.encoder.observe_instance_type(it)
         self._vocab_sig: Optional[tuple] = None
         self._universe_base: Optional[dict] = None
-        self._kscan_caps: set = set()  # kscan assignment-buffer buckets handed out
+        self._pad_buckets: dict = {}  # pad buckets handed out, per axis kind
 
     # -- encoding ----------------------------------------------------------
 
@@ -575,6 +577,7 @@ class TorchScheduler:
         batchable, kscan_key = self._classify(reps, rel, vg, hg)
         kinds = dict(
             reqs=ReqSetTensors.from_numpy(reqs_np, dev),
+            strict=ReqSetTensors.from_numpy(strict_np, dev),
             requests=as_tensor(requests, dev),
             tmpl_ok=as_tensor(tol, dev),
             it_allow=as_tensor(it_allow, dev),
@@ -610,8 +613,8 @@ class TorchScheduler:
         vocab-key group or with an initially-empty hostname affinity group
         (whose bootstrap is ordered); such a kind rides the kind scan when
         every vocab-key group it applies to or records into shares ONE key
-        with at most KSCAN_D values. Any other kind would need the per-pod
-        scan, which this package has not ported: UnsupportedProblem."""
+        with at most KSCAN_D values (kscan_key = that key), and the per-pod
+        scan otherwise (kscan_key = -1)."""
         U = len(reps)
         vga, vgr, hga = rel["vga"], rel["vgr"], rel["hga"]
         empty_aff = np.zeros(hga.shape[1], dtype=bool)
@@ -631,13 +634,6 @@ class TorchScheduler:
                 kid = next(iter(keys))
                 if len(vocab.values[kid]) <= ops_solver.KSCAN_D:
                     kscan_key[u] = kid
-                    continue
-            why = (
-                "vocab-key topology groups over several keys" if len(keys) > 1
-                else "a vocab-key group wider than KSCAN_D" if keys
-                else "an initially-empty hostname affinity group"
-            )
-            raise UnsupportedProblem(f"pod {reps[u].name}: routes to the per-pod scan ({why})")
         return batchable, kscan_key
 
     # -- solving -----------------------------------------------------------
@@ -669,36 +665,63 @@ class TorchScheduler:
             hg_applies=pt.hg_applies, hg_records=pt.hg_records, hg_self=pt.hg_self, **rows,
         )
 
-    def _kscan_maxc(self, n: int) -> int:
-        """The pod loop's assignment-buffer length: the reference's
-        PadBucketCache rule for "kscan_cap" (a multiple of 64, reusing a
-        bucket already handed out when one fits under the pow2 ceiling)."""
-        tight = max(64, -(-n // 64) * 64)
-        ceiling = _next_pow2(max(n, 1), 64)
-        covering = [c for c in self._kscan_caps if tight <= c <= ceiling]
+    def _pad(self, kind: str, n: int, step: int) -> int:
+        """The reference's PadBucketCache rule: a multiple of `step`,
+        reusing the least bucket already handed out for `kind` that covers
+        n under the pow2 ceiling."""
+        n = max(n, 1)
+        tight = max(step, -(-n // step) * step)
+        ceiling = _next_pow2(n, step)
+        known = self._pad_buckets.setdefault(kind, set())
+        covering = [c for c in known if tight <= c <= ceiling]
         if covering:
             return min(covering)
-        self._kscan_caps.add(tight)
+        known.add(tight)
         return tight
 
+    def _gather_pod_chunk(self, enc: dict, kidx: np.ndarray, n_valid: int) -> tuple:
+        """Kind -> pod row gather for one per-pod chunk (the reference's
+        `_gather_pod_chunk`); rows past n_valid are padding (valid False)."""
+        k = enc["kinds"]
+        kid = torch.as_tensor(kidx, dtype=torch.long).to(self.device)
+        pods = ops_solver.PodTensors(
+            reqs=ReqSetTensors(*(c[kid] for c in k["reqs"])),
+            strict_reqs=ReqSetTensors(*(c[kid] for c in k["strict"])),
+            requests=k["requests"][kid],
+            valid=torch.arange(len(kidx), device=self.device) < n_valid,
+        )
+        rows = tuple(k[f][kid] for f in ("tmpl_ok", "it_allow", "exist_ok", "ports", "port_conf", "vols"))
+        return (pods, *rows, topo_ops.take_pod_topology(k["topo"], kid))
+
+    def _kscan_maxc(self, n: int) -> int:
+        """The pod loop's assignment-buffer length (bucket "kscan_cap")."""
+        return self._pad("kscan_cap", n, 64)
+
+    def _pipeline_target(self, enc: dict) -> int:
+        """Pods per dispatch group of the software-pipeline split; 0 when
+        the solve is too small to split."""
+        K_pipe = self.pipeline_chunks
+        if K_pipe <= 1 or enc["P"] < max(self.pipeline_min_pods, 1):
+            return 0
+        return max(-(-enc["P"] // K_pipe), 1)
+
     def _runs(self, enc: dict) -> list:
-        """Maximal runs of consecutive segments with one route — ("fill",)
-        or ("kscan", key) — with big fill runs split into ~pipeline_chunks
-        dispatches (the reference's software-pipeline split); kscan runs
-        keep their exact segments."""
+        """Maximal runs of consecutive segments with one route — ("fill",),
+        ("kscan", key) or ("perpod",) — with big fill runs split into
+        ~pipeline_chunks dispatches (the reference's software-pipeline
+        split); kscan and per-pod runs keep their exact segments."""
         batchable, kscan_key = enc["batchable"], enc["kscan_key"]
         runs: list = []
         for seg in enc["segments"]:
             k = seg[2]
-            m = ("fill",) if batchable[k] else ("kscan", int(kscan_key[k]))
+            m = ("fill",) if batchable[k] else ("kscan", int(kscan_key[k])) if kscan_key[k] >= 0 else ("perpod",)
             if runs and runs[-1][0] == m:
                 runs[-1][1].append(seg)
             else:
                 runs.append((m, [seg]))
-        K_pipe = self.pipeline_chunks
-        if K_pipe <= 1 or enc["P"] < max(self.pipeline_min_pods, 1):
+        target = self._pipeline_target(enc)
+        if not target:
             return runs
-        target = max(-(-enc["P"] // K_pipe), 1)
         split: list = []
         for mode, segs in runs:
             if mode[0] != "fill" or len(segs) <= 1:
@@ -717,9 +740,10 @@ class TorchScheduler:
         return split
 
     def _run_solve(self, enc: dict):
-        """One dispatch per run (fill scan or kind scan) with boundary
-        compaction; returns the final state and the per-dispatch outputs
-        ("fill", segs, ys, slot_of) / ("kscan", segs, ys)."""
+        """One dispatch per run (fill scan or kind scan) or per chunk of a
+        per-pod run, with boundary compaction; returns the final state and
+        the per-dispatch outputs ("fill", segs, ys, slot_of) / ("kscan",
+        segs, ys) / ("pods", lo, hi, assignment)."""
         n_claims = enc["n_claims"]
         topo_kids = enc["topo_kids"]
         state = ops_solver.initial_state(
@@ -727,6 +751,11 @@ class TorchScheduler:
             enc["topo_tensors"], n_claims, enc["n_ports"], window=n_claims, topo_kids=topo_kids,
         )
         runs = self._runs(enc)
+        chunk = self.solve_chunk
+        target = self._pipeline_target(enc)
+        if target:
+            chunk = min(chunk, max(target, 256))
+        kind_of = enc["kind_of"]
         requests_np = enc["requests_np"]
         remaining = np.zeros(requests_np.shape[0], dtype=np.int64)
         for lo, hi, k in enc["segments"]:
@@ -738,8 +767,37 @@ class TorchScheduler:
         )
         outputs = []
         n_compactions = 0
-        n_fill = n_kscan = 0
+        n_fill = n_kscan = n_perpod = 0
+
+        def maybe_compact(st):
+            nonlocal n_compactions
+            if not compact or not (remaining > 0).any():
+                return st
+            r_min = requests_np[remaining > 0].min(axis=0)
+            st, _closed = ops_solver.compact_state(
+                st, self.it_tensors, as_tensor(r_min, self.device), n_claims,
+                plain=self.plain, topo_kids=topo_kids,
+            )
+            n_compactions += 1
+            return st
+
         for mode, segs in runs:
+            if mode[0] == "perpod":
+                lo, hi = segs[0][0], segs[-1][1]
+                for clo in range(lo, hi, chunk):
+                    chi = min(clo + chunk, hi)
+                    L = chi - clo
+                    kidx = np.zeros(self._pad("perpod_pods", L, 8), dtype=np.int64)
+                    kidx[:L] = kind_of[clo:chi]
+                    *rows, pod_topo = self._gather_pod_chunk(enc, kidx, L)
+                    state, assignment = ops_solver.solve_from(
+                        state, *rows, *common[:5], pod_topo, *common[5:], topo_kids=topo_kids, plain=self.plain,
+                    )
+                    outputs.append(("pods", clo, chi, assignment))
+                    n_perpod += 1
+                    np.subtract.at(remaining, kind_of[clo:chi], 1)
+                    state = maybe_compact(state)
+                continue
             if mode[0] == "fill":
                 xs = self._gather_fill_xs(enc, segs)
                 state, ys = ops_solver.solve_fill(state, xs, *common, plain=self.plain)
@@ -758,16 +816,10 @@ class TorchScheduler:
                 n_kscan += 1
             for lo, hi, k in segs:
                 remaining[k] -= hi - lo
-            if compact and (remaining > 0).any():
-                r_min = requests_np[remaining > 0].min(axis=0)
-                state, _closed = ops_solver.compact_state(
-                    state, self.it_tensors, as_tensor(r_min, self.device), n_claims,
-                    plain=self.plain, topo_kids=topo_kids,
-                )
-                n_compactions += 1
+            state = maybe_compact(state)
         self.last_stats = dict(
             segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n_fill,
-            kscan_dispatches=n_kscan, compactions=n_compactions,
+            kscan_dispatches=n_kscan, perpod_dispatches=n_perpod, compactions=n_compactions,
         )
         return state, outputs
 
@@ -787,6 +839,7 @@ class TorchScheduler:
                     n_opened=o[2].n_opened, status=o[2].status, slot_map=o[3],
                 )
                 if o[0] == "fill"
+                else dict(assignment=o[3]) if o[0] == "pods"
                 else dict(assignment=o[2].assignment, grid_reused=o[2].grid_reused)
                 for o in outputs
             ],
@@ -854,7 +907,7 @@ class TorchScheduler:
     def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict) -> SchedulingResult:
         """Claim-level decode from the fetched device state: replay the
         pod -> slot bookkeeping in dispatch order (fill grids expanded,
-        kind-scan assignments applied per pod), then finalize each claim's
+        kind-scan and per-pod assignments applied per pod), then finalize each claim's
         requirements (template + its pod kinds + hostname + the device's
         topology narrowing), usage (device carry) and viable instance types
         (device mask)."""
@@ -929,6 +982,9 @@ class TorchScheduler:
         for o, f in zip(outputs, fetched["outputs"]):
             if o[0] == "fill":
                 _decode_fill_segments(ctx, o[1], f)
+                continue
+            if o[0] == "pods":
+                _apply_assignments(ctx, o[1], np.asarray(f["assignment"][: o[2] - o[1]], dtype=np.int64))
                 continue
             for j, (lo, hi, _kind) in enumerate(o[1]):
                 _apply_assignments(ctx, lo, np.asarray(f["assignment"][j][: hi - lo], dtype=np.int64))

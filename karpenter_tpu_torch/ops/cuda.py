@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written Hopper kernels (csrc/*.cu).
 
 Each source is compiled by its own `nvcc` (all started together) into a
-shared library with a plain C interface, loaded with ctypes. The build
+shared library with a plain C interface, loaded with ctypes; a source may
+hold several kernels (csrc/perpod_scan.cu holds H7 and H8). The build
 lands in build/karpenter_tpu_torch/<hash of sources and flags>/ under the
 repository root, at first CUDA use, so a fresh checkout builds everything
 itself. Launchers validate device, dtype, shape and contiguity, allocate
@@ -25,8 +26,14 @@ import torch
 
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
-    "kscan_pod_loop",
+    "kscan_pod_loop", "perpod_eval", "perpod_commit",
 )
+PERPOD_KERNELS = ("perpod_eval", "perpod_commit")
+# csrc/<source>.cu of each kernel (its own name unless listed), and the C
+# entry points of each source (its own name unless listed)
+SOURCE = {k: ("perpod_scan" if k in PERPOD_KERNELS else k) for k in KERNELS}
+ENTRIES = {"perpod_scan": ("perpod_eval", "perpod_commit", "perpod_chunk")}
+SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -62,16 +69,16 @@ def build_dir() -> Path:
 
 
 def build() -> dict:
-    """Compile every kernel that is not built yet (one nvcc per source,
+    """Compile every source that is not built yet (one nvcc per source,
     in parallel) and load all of them. Returns {"seconds", "dir", "logs"};
     raises RuntimeError with the compiler's output on a failed build."""
-    if len(_libs) == len(KERNELS):
+    if len(_libs) == len(SOURCES):
         return BUILD_INFO
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in KERNELS:
+    for name in SOURCES:
         lib = out / f"lib{name}.so"
         if lib.exists():
             continue
@@ -102,7 +109,7 @@ def build() -> dict:
             "nvcc failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed)
         )
-    for name in KERNELS:
+    for name in SOURCES:
         _libs[name] = _load(name, out / f"lib{name}.so")
     BUILD_INFO.update(seconds=time.perf_counter() - t0, dir=str(out), logs=logs)
     return BUILD_INFO
@@ -119,28 +126,39 @@ _ARGTYPES = {
     "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "kscan_grid": [_I, _P, _P, _P],
     "kscan_pod_loop": [_P, _I, _P, _P],
+    "perpod_eval": [_P, _I, _P, _I, _P],
+    "perpod_commit": [_P, _I, _P, _I, _P],
+    "perpod_chunk": [_P, _I, _P, _I, _P],
 }
 
 
-def _load(name: str, path: Path) -> ctypes.CDLL:
+def _load(source: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    for entry in ENTRIES.get(source, (source,)):
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+    err = getattr(lib, f"{source}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
 
 
-def _call(name: str, *args) -> None:
-    if name not in _libs:
+def _invoke(source: str, entry: str, *args) -> None:
+    """Call C entry `entry` of csrc/<source>.cu on torch's current stream;
+    raise when it reports a CUDA error."""
+    if source not in _libs:
         build()
-    lib = _libs[name]
-    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    lib = _libs[source]
+    rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        msg = getattr(lib, f"{source}_error_string")(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+
+
+def _call(name: str, *args) -> None:
+    """Launch kernel `name` once through its own C entry."""
+    _invoke(SOURCE[name], name, *args)
     LAUNCHES[name] += 1
 
 
@@ -450,3 +468,128 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> to
         ctypes.cast(_i64_array([E, W, G, D, NGv, NGh, S, V, n_claims, count]), ctypes.c_void_p),
     )
     return out
+
+
+def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
+    b, i = torch.bool, torch.int32
+    shapes = ((n, K, V), (n, K), (n, K), (n, K), (n, K), (n, K))
+    return [(f"{prefix}.{f}", getattr(r, f), dt, sh)
+            for f, dt, sh in zip(r._fields, (b, b, b, i, i, b), shapes)]
+
+
+def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
+    """The 88 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
+    parameter block, in its order, and its 20 dims."""
+    b, i, f = torch.bool, torch.int32, torch.float32
+    exist, it, tm, topo = ctx.exist, ctx.it, ctx.templates, ctx.topo
+    W, T = state.its.shape
+    E, R = exist.avail.shape
+    G = tm.its.shape[0]
+    K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
+    GR, Z, C = it.zc_avail.shape[1], it.zc_avail.shape[2], it.zc_avail.shape[3]
+    NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
+    S = state.hg_counts.shape[1]
+    NPp, NVp, ND = state.claim_ports.shape[1], state.exist_vols.shape[1], exist.vol_limits.shape[1]
+    L = xs.requests.shape[0]
+    NCAP = ctx.n_claims
+    if S < E + NCAP + 1:
+        raise ValueError(f"perpod_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
+    fields = (
+        _set_fields("exist_reqs", state.exist_reqs, E, K, V)
+        + [("exist_used", state.exist_used, f, (E, R))]
+        + _set_fields("reqs", state.reqs, W, K, V)
+        + [
+            ("used", state.used, f, (W, R)), ("its", state.its, b, (W, T)), ("template", state.template, i, (W,)),
+            ("open", state.open, b, (W,)), ("pods", state.pods, i, (W,)), ("n_open", state.n_open, i, ()),
+            ("slot_of", state.slot_of, i, (W,)), ("w_open", state.w_open, i, ()), ("w_hw", state.w_hw, i, ()),
+            ("spills", state.spills, i, ()), ("budget", state.budget, f, (G, R)),
+            ("nodes_budget", state.nodes_budget, f, (G,)), ("vg_counts", state.vg_counts, i, (NGv, V)),
+            ("hg_counts", state.hg_counts, i, (NGh, S)), ("exist_ports", state.exist_ports, i, (E, NPp)),
+            ("claim_ports", state.claim_ports, i, (W, NPp)), ("exist_vols", state.exist_vols, i, (E, NVp)),
+            ("avail", exist.avail, f, (E, R)), ("exist.valid", exist.valid, b, (E,)),
+            ("vol_limits", exist.vol_limits, f, (E, ND)), ("vol_driver", exist.vol_driver, i, (ND, NVp)),
+        ]
+        + _set_fields("it.reqs", it.reqs, T, K, V)
+        + [
+            ("alloc", it.alloc, f, (T, GR, R)), ("group_valid", it.group_valid, b, (T, GR)),
+            ("zc_avail", it.zc_avail, b, (T, GR, Z, C)), ("cap", it.cap, f, (T, R)),
+        ]
+        + _set_fields("templates.reqs", tm.reqs, G, K, V)
+        + [
+            ("templates.its", tm.its, b, (G, T)), ("daemon_requests", tm.daemon_requests, f, (G, R)),
+            ("templates.valid", tm.valid, b, (G,)), ("well_known", ctx.well_known, b, (K,)),
+            ("vg_key", topo.vg_key, i, (NGv,)), ("vg_type", topo.vg_type, i, (NGv,)),
+            ("vg_skew", topo.vg_skew, i, (NGv,)), ("vg_min_domains", topo.vg_min_domains, i, (NGv,)),
+            ("vg_domains", topo.vg_domains, b, (NGv, V)), ("vg_rank", topo.vg_rank, i, (NGv, V)),
+            ("vg_valid", topo.vg_valid, b, (NGv,)), ("hg_type", topo.hg_type, i, (NGh,)),
+            ("hg_skew", topo.hg_skew, i, (NGh,)), ("hg_extra_nonempty", topo.hg_extra_nonempty, b, (NGh,)),
+            ("hg_valid", topo.hg_valid, b, (NGh,)),
+        ]
+        + _set_fields("pods.reqs", xs.reqs, L, K, V)
+        + [
+            ("requests", xs.requests, f, (L, R)), ("tmpl_ok", xs.tmpl_ok, b, (L, G)),
+            ("it_allow", xs.it_allow, b, (L, T)), ("exist_ok", xs.exist_ok, b, (L, E)),
+            ("ports", xs.ports, i, (L, NPp)), ("port_conf", xs.port_conf, i, (L, NPp)),
+            ("vols", xs.vols, i, (L, NVp)), ("valid", xs.valid, b, (L,)),
+            ("vg_applies", xs.vg_applies, b, (L, NGv)), ("vg_records", xs.vg_records, b, (L, NGv)),
+            ("vg_self", xs.vg_self, b, (L, NGv)), ("hg_applies", xs.hg_applies, b, (L, NGh)),
+            ("hg_records", xs.hg_records, b, (L, NGh)), ("hg_self", xs.hg_self, b, (L, NGh)),
+            ("strict_mask", xs.strict_mask, b, (L, K, V)),
+            ("keys", keys, i, (E + W + G,)), ("assignment", assignment, i, (L,)),
+        ]
+    )
+    dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid]
+    return fields, dims
+
+
+def _perpod_call(entry: str, state, xs, ctx, keys, assignment, n: int) -> None:
+    dev = state.used.device
+    fields, dims = _perpod_fields(state, xs, ctx, keys, assignment)
+    ptrs = []
+    for name, t, dt, shape in fields:
+        _check(t, name, dt, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"perpod_scan: {name} {tuple(t.shape)} vs {shape}")
+        ptrs.append(t.data_ptr())
+    _invoke(
+        "perpod_scan", entry, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array(dims), ctypes.c_void_p), n,
+    )
+
+
+def _keys_buffer(state, ctx) -> torch.Tensor:
+    n_rows = ctx.exist.avail.shape[0] + state.open.shape[0] + ctx.templates.its.shape[0]
+    return torch.empty(n_rows, dtype=torch.int32, device=state.used.device)
+
+
+def _assignment_buffer(xs) -> torch.Tensor:
+    return torch.full((xs.requests.shape[0],), -1, dtype=torch.int32, device=xs.requests.device)
+
+
+def perpod_scan(state, xs, ctx) -> torch.Tensor:
+    """H7 + H8 for every pod of the chunk, in order, in one C call: `state`
+    (ops.solver.SolverState; its written fields private to the caller) is
+    updated in place; returns the [L] int32 assignment."""
+    keys, assignment = _keys_buffer(state, ctx), _assignment_buffer(xs)
+    L = xs.requests.shape[0]
+    _perpod_call("perpod_chunk", state, xs, ctx, keys, assignment, L)
+    for k in PERPOD_KERNELS:
+        LAUNCHES[k] += L
+    return assignment
+
+
+def perpod_eval(state, xs, ctx, pod: int) -> torch.Tensor:
+    """H7 alone for pod `pod` of the chunk: the [E + W + G] int32 keys."""
+    keys = _keys_buffer(state, ctx)
+    _perpod_call("perpod_eval", state, xs, ctx, keys, _assignment_buffer(xs), pod)
+    LAUNCHES["perpod_eval"] += 1
+    return keys
+
+
+def perpod_commit(state, xs, ctx, pod: int, keys: torch.Tensor) -> torch.Tensor:
+    """H8 alone for pod `pod` from `keys`: commits into `state` in place;
+    returns the pod's assignment (a [] int32 tensor)."""
+    assignment = _assignment_buffer(xs)
+    _perpod_call("perpod_commit", state, xs, ctx, keys, assignment, pod)
+    LAUNCHES["perpod_commit"] += 1
+    return assignment[pod]

@@ -10,6 +10,8 @@ Semantics (golden-tested against karpenter_tpu_torch/scheduling):
 
 `intersects` is kernel H1: on a CUDA tensor it launches
 csrc/req_intersects.cu, on a CPU tensor it runs `intersects_plain`.
+`set_eq_rows`, `per_key_ok_table` and `update_set_at` serve the plain
+per-pod step only (kernels H7 / H8 inline the same tests).
 """
 
 from __future__ import annotations
@@ -84,6 +86,45 @@ def compatible_elemwise(a: ReqSetTensors, b: ReqSetTensors, well_known: torch.Te
     """[B] bool — compatible() over aligned batches (a=node side, b=incoming)."""
     custom_ok = ~b.defined | well_known[None, :] | a.defined | lenient(b)
     return torch.all(custom_ok, dim=-1) & intersects_elemwise(a, b)
+
+
+def set_eq_rows(a: ReqSetTensors, b: ReqSetTensors) -> torch.Tensor:
+    """[..., K] bool — full-tuple per-key equality over broadcastable
+    batches (mask, complement bit, exclusions, bounds, defined). Equal
+    encodings denote the same requirement, so they intersect a third set
+    alike: the per-pod step's incremental it-compat rests on this."""
+    return (
+        torch.all(a.mask == b.mask, dim=-1)
+        & (a.inf == b.inf)
+        & (a.excl == b.excl)
+        & (a.gte == b.gte)
+        & (a.lte == b.lte)
+        & (a.defined == b.defined)
+    )
+
+
+def per_key_ok_table(a: ReqSetTensors, b: ReqSetTensors) -> torch.Tensor:
+    """[A, K] bool — the per-key intersects() term between every row of a
+    and ONE set b ([K, V] components); intersects(a_i, b) is the AND of
+    row i."""
+    shared = a.defined & b.defined[None, :]
+    hit = torch.any(a.mask & b.mask[None], dim=-1)
+    gte = torch.maximum(a.gte, b.gte[None, :])
+    lte = torch.minimum(a.lte, b.lte[None, :])
+    nonempty = hit | (a.inf & b.inf[None, :] & (gte <= lte))
+    both_lenient = lenient(a) & lenient(b)[None, :]
+    return ~shared | nonempty | both_lenient
+
+
+def update_set_at(r: ReqSetTensors, idx, value: ReqSetTensors) -> ReqSetTensors:
+    """r with batch row idx replaced by value (functional: r is not
+    modified)."""
+    out = []
+    for x, v in zip(r, value):
+        y = x.clone()
+        y[idx] = v
+        out.append(y)
+    return ReqSetTensors(*out)
 
 
 def per_key_ok_at(a: ReqSetTensors, b: ReqSetTensors, k: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""The fill solve path (port of the JAX package's ops/solver.py, cut to
-the kind-level batch placement scan and the window/bank bookkeeping
-around it).
+"""The solve paths (port of the JAX package's ops/solver.py): the
+kind-level fill scan, the zonal kind scan, the per-pod scan, and the
+window/bank bookkeeping around them.
 
-One step places one pod KIND (a run of content-identical pods, in FFD
-order) through the reference's 3-tier cascade (scheduler.go:582-612):
+One fill step places one pod KIND (a run of content-identical pods, in
+FFD order) through the reference's 3-tier cascade (scheduler.go:582-612):
 
   tier 1  existing nodes in index order, each filled to capacity
   tier 2  in-flight claims of the active window, water-filled
@@ -14,20 +14,27 @@ order) through the reference's 3-tier cascade (scheduler.go:582-612):
 tensor stays on the device, so a solve never syncs with the host. The
 claims axis is an active WINDOW of W rows (`slot_of` maps rows to global
 claim ids); `compact_state` evicts capacity-dead claims into the frozen
-bank between dispatches and stable-compacts the survivors.
+bank between dispatches and stable-compacts the survivors. The kind scan
+(`solve_kind_scan`) and the per-pod scan (`solve_from`) thread the same
+carry, one pod at a time through the same three tiers.
 
-Four hand-written CUDA kernels carry the hot work (csrc/, launched
-through ops/cuda.py):
+Hand-written CUDA kernels carry the hot work (csrc/, launched through
+ops/cuda.py):
 
   H1 req_intersects   kernels.intersects         tier 2 / tier 3 it_compat
   H2 fill_count_grid  claim_fill_caps,           tier 2 caps, fits_final,
                       fits_off_counted           tier 3, compact liveness
   H3 water_fill       water_fill                 tier 2 distribution
   H4 compact_scatter  compact_scatter            compaction, bank, decode
+  H5 kscan_grid       kscan_grid,                the kind scan's grid,
+                      kscan_fits_final           capd and final types
+  H6 kscan_pod_loop   kscan_pod_loop             the kind scan's pod loop
+  H7 perpod_eval      perpod_eval                per-pod candidate keys
+  H8 perpod_commit    perpod_commit              per-pod pick and commit
 
 Each wrapper runs the kernel on CUDA tensors and its plain version (same
-module, `*_plain`) on CPU tensors. `plain=True` on solve_fill /
-compact_state / global_claims selects the plain versions explicitly,
+module, `*_plain`) on CPU tensors. `plain=True` on the solve entry points,
+compact_state and global_claims selects the plain versions explicitly,
 whatever the device (a comparison run, never a fallback).
 
 Numerics are the reference's exactly: int32 everywhere, IEEE division,
@@ -55,7 +62,9 @@ from karpenter_tpu_torch.ops.kernels import (
     packed_conflict,
     packed_count_and,
     select_set,
+    take_set,
 )
+from karpenter_tpu_torch.ops import topology as topo_ops
 from karpenter_tpu_torch.ops.topology import (
     BIG_I32,
     RANK_BASE,
@@ -920,7 +929,8 @@ def _fill_step(
 
 
 def _take_x(xs, j: int):
-    """Row j of a per-segment input container (FillXs or KindXs)."""
+    """Row j of a per-segment or per-pod input container (FillXs, KindXs,
+    PodXs)."""
     return type(xs)(
         *(ReqSetTensors(*(c[j] for c in v)) if isinstance(v, ReqSetTensors) else v[j] for v in xs)
     )
@@ -1566,4 +1576,412 @@ def solve_kind_scan(
     return state, KindYs(
         assignment=torch.stack(rows),
         grid_reused=torch.as_tensor(reuse, dtype=torch.bool).to(state.used.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the per-pod scan: one pod per step through the three tiers (the JAX
+# package's solve / solve_from / _make_step)
+# ---------------------------------------------------------------------------
+# Kinds the fill scan and the kind scan cannot take — vocab-key groups over
+# two or more keys, a key wider than KSCAN_D, an initially-empty hostname
+# affinity group — place one pod at a time: tier 1 the earliest feasible
+# existing node (strict Compatible), tier 2 the feasible in-flight claim
+# with the fewest pods (earliest window row on ties), tier 3 a new claim of
+# the first feasible template. Every candidate's combined requirements are
+# narrowed by the vocab-key groups before its instance types are filtered
+# (nodeclaim.go:199-213), and the winner's counts commit before the next
+# pod. On CUDA a chunk of pods runs as kernels H7 (candidate evaluation,
+# one block per row) and H8 (pick + commit, one block), launched per pod
+# from one C call per chunk; `_pod_step` is their plain version.
+
+
+class PodTensors(NamedTuple):
+    """Per-pod rows of a chunk (the kind rows gathered by pod)."""
+
+    reqs: ReqSetTensors  # [L, K, V] (preferences folded in)
+    strict_reqs: ReqSetTensors  # [L, K, V] required-only
+    requests: torch.Tensor  # [L, R] f32
+    valid: torch.Tensor  # [L] bool — False on padding rows
+
+
+class PodXs(NamedTuple):
+    """The per-pod scan inputs, stacked over the chunk's L pods (one row
+    is one step's xs in the reference)."""
+
+    reqs: ReqSetTensors  # [L, K, V]
+    requests: torch.Tensor  # [L, R]
+    tmpl_ok: torch.Tensor  # [L, G]
+    it_allow: torch.Tensor  # [L, T]
+    exist_ok: torch.Tensor  # [L, E]
+    ports: torch.Tensor  # [L, NPp] i32 packed
+    port_conf: torch.Tensor  # [L, NPp] i32 packed
+    vols: torch.Tensor  # [L, NVp] i32 packed
+    valid: torch.Tensor  # [L]
+    vg_applies: torch.Tensor  # [L, NGv]
+    vg_records: torch.Tensor  # [L, NGv]
+    vg_self: torch.Tensor  # [L, NGv]
+    hg_applies: torch.Tensor  # [L, NGh]
+    hg_records: torch.Tensor  # [L, NGh]
+    hg_self: torch.Tensor  # [L, NGh]
+    strict_mask: torch.Tensor  # [L, K, V]
+
+
+class PerPodCtx(NamedTuple):
+    """The problem the per-pod step reads (never written)."""
+
+    exist: ExistingNodes
+    it: InstanceTypeTensors
+    templates: Templates
+    well_known: torch.Tensor  # [K]
+    topo: TopologyTensors
+    zone_kid: int
+    ct_kid: int
+    n_claims: int
+    topo_kids: tuple
+
+
+def _fits_and_offering(total, comb: ReqSetTensors, it: InstanceTypeTensors, zone_kid: int, ct_kid: int):
+    """[B, T] bool — an allocatable group where total fits (zero requests
+    always pass) AND an available offering in a (zone, capacity type) the
+    combined requirements admit (nodeclaim.go:630-652 fits()); the
+    reference's bf16 einsum is an exact boolean any here."""
+    t = total[:, None, None, :]
+    fit = ((t <= it.alloc[None]) | (t == 0.0)).all(dim=-1) & it.group_valid[None]
+    return (fit & off_for_plain(comb.mask, it, zone_kid, ct_kid)).any(dim=-1)
+
+
+def _apply_topo(reqs: ReqSetTensors, upd: torch.Tensor, touched: torch.Tensor) -> ReqSetTensors:
+    """AND the topology domain masks into candidate requirements: touched
+    keys become concrete finite sets (requirements.Add of an In set)."""
+    inf = reqs.inf & ~touched[None, :]
+    return ReqSetTensors(
+        mask=reqs.mask & upd,
+        inf=inf,
+        excl=reqs.excl & inf,
+        gte=torch.where(inf, reqs.gte, torch.full_like(reqs.gte, INT_MIN)),
+        lte=torch.where(inf, reqs.lte, torch.full_like(reqs.lte, INT_MAX)),
+        defined=reqs.defined | touched[None, :],
+    )
+
+
+def _pod_eval_full(state: SolverState, x: PodXs, c: PerPodCtx):
+    """Every candidate of one pod, as the reference's step computes them:
+    (keys [E + W + G] i32, aux). A key is BIG for an infeasible row, else
+    its tie key: the row index in tier 1, pods·W + row in tier 2, the
+    template's order in tier 3. Tier precedence is the commit's."""
+    exist, it, templates, topo = c.exist, c.it, c.templates, c.topo
+    dev = state.used.device
+    K = it.reqs.mask.shape[1]
+    E, G, W = exist.avail.shape[0], templates.its.shape[0], state.open.shape[0]
+    big = torch.full((), BIG, dtype=I32, device=dev)
+    no_wk = torch.zeros_like(c.well_known)
+
+    # ---- tier 1: existing nodes, strict Compatible (existingnode.go:101)
+    pod_e = broadcast_set(x.reqs, E)
+    comb_e = intersect_sets(state.exist_reqs, pod_e)
+    exist_compat = compatible_elemwise(state.exist_reqs, pod_e, no_wk)
+    total_e = state.exist_used + x.requests[None, :]
+    exist_fit = ((total_e <= exist.avail) | (total_e == 0.0)).all(dim=-1)
+    pre = topo_ops.vg_pod_precompute(topo, state.vg_counts, x.strict_mask, x.vg_applies, x.vg_self, K)
+    topo_e, upd_e, _ = topo_ops.vg_evaluate(topo, pre, comb_e.mask)
+    topo_eh = hg_evaluate(topo, state.hg_counts, torch.arange(E, dtype=I32, device=dev), x.hg_applies, x.hg_self)
+    ports_ok_e = ~packed_conflict(x.port_conf[None, :], state.exist_ports)
+    newv_e = state.exist_vols | x.vols[None, :]
+    vcount_e = packed_count_and(newv_e[:, None, :], exist.vol_driver[None, :, :]).to(F32)
+    vols_ok_e = (vcount_e <= exist.vol_limits).all(dim=-1) | ~packed_any(x.vols)
+    feas_e = (
+        exist.valid & x.exist_ok & exist_compat & exist_fit & topo_e & topo_eh & ports_ok_e & vols_ok_e & x.valid
+    )
+
+    # ---- tier 2: the window's in-flight claims
+    pod_b = broadcast_set(x.reqs, W)
+    comb = intersect_sets(state.reqs, pod_b)
+    claim_ok = compatible_elemwise(state.reqs, pod_b, c.well_known)
+    topo_n, upd_n, _ = topo_ops.vg_evaluate(topo, pre, comb.mask)
+    topo_nh = hg_evaluate(topo, state.hg_counts, E + state.slot_of, x.hg_applies, x.hg_self)
+    comb_t = _apply_topo(comb, upd_n, pre.key_touched)
+    # incremental it-compat, as the reference classifies each (claim, key):
+    # equal to the pod row -> the pod x type table; equal to the stored
+    # claim row -> implied by state.its; a topology key -> exact; anything
+    # else on a pickable claim -> the full pairwise intersects for all rows
+    kid_mask = torch.zeros(K, dtype=torch.bool, device=dev)
+    kid_mask[list(c.topo_kids)] = True
+    eq_p = kernels.set_eq_rows(comb_t, pod_b)
+    eq_c = kernels.set_eq_rows(comb_t, state.reqs)
+    nonkid = ~kid_mask[None, :]
+    need_exact = ~eq_p & ~eq_c & nonkid
+    any_fallback = torch.any(state.open & claim_ok & need_exact.any(dim=-1))
+    pod_tkok = kernels.per_key_ok_table(it.reqs, x.reqs)  # [T, K]
+    viol = ((eq_p & ~eq_c & nonkid).to(F32) @ (~pod_tkok).to(F32).T) > 0.0
+    fast = ~viol
+    for k in c.topo_kids:
+        fast = fast & kernels.per_key_ok_at(it.reqs, comb_t, k)
+    it_compat = torch.where(any_fallback, kernels.intersects_plain(comb_t, it.reqs), fast)
+    total = state.used + x.requests[None, :]
+    fits_off = _fits_and_offering(total, comb_t, it, c.zone_kid, c.ct_kid)
+    new_its = state.its & it_compat & fits_off & x.it_allow[None, :]
+    tol = x.tmpl_ok[state.template.long()]
+    ports_ok_n = ~packed_conflict(x.port_conf[None, :], state.claim_ports)
+    feas = state.open & claim_ok & tol & topo_n & topo_nh & ports_ok_n & new_its.any(dim=-1) & x.valid
+
+    # ---- tier 3: a new claim per template; hostname groups read the
+    # fresh slot E + n_open (hg_counts keeps a spare column past the cap)
+    pod_g = broadcast_set(x.reqs, G)
+    comb0 = intersect_sets(templates.reqs, pod_g)
+    tmpl_compat = compatible_elemwise(templates.reqs, pod_g, c.well_known)
+    topo_g, upd_g, _ = topo_ops.vg_evaluate(topo, pre, comb0.mask)
+    topo_gh = hg_evaluate(topo, state.hg_counts, (E + state.n_open).reshape(1).expand(G), x.hg_applies, x.hg_self)
+    comb0_t = _apply_topo(comb0, upd_g, pre.key_touched)
+    it_compat0 = kernels.intersects_plain(comb0_t, it.reqs)  # [G, T]
+    total0 = templates.daemon_requests + x.requests[None, :]
+    fits_off0 = _fits_and_offering(total0, comb0_t, it, c.zone_kid, c.ct_kid)
+    cap_ok = (it.cap[None, :, :] <= state.budget[:, None, :]).all(dim=-1)  # NodePool limits
+    its0 = templates.its & it_compat0 & fits_off0 & x.it_allow[None, :] & cap_ok
+    tmpl_feas = (
+        templates.valid & tmpl_compat & x.tmpl_ok & topo_g & topo_gh & its0.any(dim=-1)
+        & (state.nodes_budget >= 1.0) & x.valid
+    )
+    order_g = torch.arange(G, dtype=I32, device=dev) if templates.rank is None else templates.rank
+
+    keys = torch.cat([
+        torch.where(feas_e, torch.arange(E, dtype=I32, device=dev), big),
+        torch.where(feas, state.pods * W + torch.arange(W, dtype=I32, device=dev), big),
+        torch.where(tmpl_feas, order_g, big),
+    ])
+    aux = dict(
+        comb_e_t=_apply_topo(comb_e, upd_e, pre.key_touched), total_e=total_e, comb_t=comb_t,
+        new_its=new_its, total=total, comb0_t=comb0_t, its0=its0, any_fallback=any_fallback,
+    )
+    return keys, aux
+
+
+def perpod_eval_plain(state: SolverState, x: PodXs, c: PerPodCtx) -> torch.Tensor:
+    """H7's plain version: the [E + W + G] i32 candidate keys of one pod."""
+    return _pod_eval_full(state, x, c)[0]
+
+
+def _pod_commit(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor, aux: dict):
+    """Pick and commit (the reference's merge of the three tiers and its
+    carry update): tier 1 beats tier 2 beats tier 3, each the least key
+    (first index on ties). Returns (state', assignment [] i32)."""
+    exist, it, templates, topo = c.exist, c.it, c.templates, c.topo
+    dev = state.used.device
+    E, G, W = exist.avail.shape[0], templates.its.shape[0], state.open.shape[0]
+    NCAP = c.n_claims
+    ke, kn, kg = keys[:E], keys[E:E + W], keys[E + W:]
+    pick_e = torch.argmin(ke)
+    found_e = ke[pick_e] < BIG
+    pick = torch.argmin(kn)
+    found = (kn[pick] < BIG) & ~found_e
+    g = torch.argmin(kg)
+    any_template = (kg[g] < BIG) & x.valid & ~found_e & ~found
+    can_open = any_template & (state.w_open < W) & (state.n_open < NCAP)
+    # a refusal with global capacity left is a WINDOW spill
+    spilled = any_template & ~can_open & (state.n_open < NCAP)
+
+    gslot = torch.where(found, state.slot_of[pick], state.n_open)
+    slot = torch.where(found_e, pick_e.to(I32), E + gslot)
+    place = found_e | found | can_open
+    assignment = torch.where(
+        place, slot, torch.where(any_template, _i32(NO_ROOM, dev), _i32(NO_CLAIM, dev))
+    )
+
+    # existing node (its topology-narrowed requirements are stored)
+    comb_e_t = aux["comb_e_t"]
+    win_e = take_set(comb_e_t, pick_e)
+    new_exist_reqs = select_set(found_e, kernels.update_set_at(state.exist_reqs, pick_e, win_e), state.exist_reqs)
+    new_exist_used = state.exist_used.clone()
+    new_exist_used[pick_e] = torch.where(found_e, aux["total_e"][pick_e], state.exist_used[pick_e])
+    new_exist_ports = state.exist_ports.clone()
+    new_exist_ports[pick_e] = torch.where(found_e, state.exist_ports[pick_e] | x.ports, state.exist_ports[pick_e])
+    new_exist_vols = state.exist_vols.clone()
+    new_exist_vols[pick_e] = torch.where(found_e, state.exist_vols[pick_e] | x.vols, state.exist_vols[pick_e])
+
+    # claim (tier 2 or 3); cslot is out of range only when nothing commits
+    upd_claim = (found | can_open) & ~found_e
+    opened = can_open & ~found
+    cslot = torch.clamp(torch.where(found, pick.to(I32), state.w_open), max=W - 1).long()
+    sel_reqs = select_set(found, take_set(aux["comb_t"], pick), take_set(aux["comb0_t"], g))
+    sel_its = torch.where(found, aux["new_its"][pick], aux["its0"][g])
+    sel_used = torch.where(found, aux["total"][pick], templates.daemon_requests[g] + x.requests)
+    sel_template = torch.where(found, state.template[pick], g.to(I32))
+    final_reqs = select_set(found_e, win_e, sel_reqs)
+    new_vg = torch.where(
+        place, topo_ops.vg_commit(topo, state.vg_counts, final_reqs.mask, final_reqs.inf, x.vg_records),
+        state.vg_counts,
+    )
+    new_hg = torch.where(place, hg_commit(state.hg_counts, slot, x.hg_records, topo.hg_valid), state.hg_counts)
+
+    def put(t, v, pred=upd_claim):
+        out = t.clone()
+        out[cslot] = torch.where(pred, v, t[cslot])
+        return out
+
+    new_reqs = select_set(upd_claim, kernels.update_set_at(state.reqs, cslot, sel_reqs), state.reqs)
+    opened_i = opened.to(I32)
+    new_w_open = state.w_open + opened_i
+
+    # limits bookkeeping on open: the max capacity over the claim's viable
+    # types (scheduler.go:791 subtractMax); inf budgets stay inf
+    max_cap = torch.where(aux["its0"][g][:, None], it.cap, torch.full_like(it.cap, float("-inf"))).max(dim=0).values
+    max_cap = torch.where(torch.isfinite(max_cap), max_cap, torch.zeros_like(max_cap))
+    new_budget = state.budget.clone()
+    new_budget[g] = torch.where(opened, state.budget[g] + -max_cap, state.budget[g])
+    new_nodes_budget = state.nodes_budget.clone()
+    new_nodes_budget[g] = torch.where(opened, state.nodes_budget[g] + -1.0, state.nodes_budget[g])
+
+    return state._replace(
+        exist_reqs=new_exist_reqs,
+        exist_used=new_exist_used,
+        reqs=new_reqs,
+        used=put(state.used, sel_used),
+        its=put(state.its, sel_its),
+        template=put(state.template, sel_template),
+        open=put(state.open, torch.ones((), dtype=torch.bool, device=dev)),
+        pods=put(state.pods, state.pods[cslot] + 1),
+        n_open=state.n_open + opened_i,
+        slot_of=put(state.slot_of, state.n_open, opened),
+        w_open=new_w_open,
+        w_hw=torch.maximum(state.w_hw, new_w_open),
+        spills=state.spills + spilled.to(I32),
+        budget=new_budget,
+        nodes_budget=new_nodes_budget,
+        vg_counts=new_vg,
+        hg_counts=new_hg,
+        exist_ports=new_exist_ports,
+        claim_ports=put(state.claim_ports, state.claim_ports[cslot] | x.ports),
+        exist_vols=new_exist_vols,
+    ), assignment
+
+
+def perpod_commit_plain(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor):
+    """H8's plain version: pick from the keys and commit (the winner's
+    combined requirements, narrowing and viable types recomputed from the
+    state, as the kernel does)."""
+    return _pod_commit(state, x, c, keys, _pod_eval_full(state, x, c)[1])
+
+
+def _pod_step(state: SolverState, x: PodXs, c: PerPodCtx):
+    """One pod through the three tiers (the reference's _make_step step,
+    minValues, reservations and volumes' limits off): H7's plain half,
+    then H8's."""
+    keys, aux = _pod_eval_full(state, x, c)
+    return _pod_commit(state, x, c, keys, aux)
+
+
+def pod_xs(pods: PodTensors, tmpl_ok, it_allow, exist_ok, ports, port_conf, vols, pod_topo) -> PodXs:
+    """The chunk's scan inputs (the reference's _xs)."""
+    return PodXs(
+        reqs=pods.reqs, requests=pods.requests, tmpl_ok=tmpl_ok, it_allow=it_allow, exist_ok=exist_ok,
+        ports=ports, port_conf=port_conf, vols=vols, valid=pods.valid,
+        vg_applies=pod_topo.vg_applies, vg_records=pod_topo.vg_records, vg_self=pod_topo.vg_self,
+        hg_applies=pod_topo.hg_applies, hg_records=pod_topo.hg_records, hg_self=pod_topo.hg_self,
+        strict_mask=pod_topo.strict_mask,
+    )
+
+
+# the carry fields a per-pod step writes (the kernels update them in place)
+PERPOD_WRITES = (
+    "exist_reqs", "exist_used", "reqs", "used", "its", "template", "open", "pods", "n_open", "slot_of",
+    "w_open", "w_hw", "spills", "budget", "nodes_budget", "vg_counts", "hg_counts", "exist_ports",
+    "claim_ports", "exist_vols",
+)
+
+
+def own_perpod_writes(state: SolverState) -> SolverState:
+    """The state with private copies of every field the kernels write, so
+    an in-place chunk leaves the caller's state (and the problem tensors
+    that the initial state aliases) untouched."""
+
+    def own(v):
+        if isinstance(v, ReqSetTensors):
+            return ReqSetTensors(*(t.clone(memory_format=torch.contiguous_format) for t in v))
+        return v.clone(memory_format=torch.contiguous_format)
+
+    return state._replace(**{f: own(getattr(state, f)) for f in PERPOD_WRITES})
+
+
+def perpod_loop_plain(state: SolverState, xs: PodXs, c: PerPodCtx):
+    """The chunk as a Python loop of `_pod_step` (functional)."""
+    out = []
+    for i in range(xs.requests.shape[0]):
+        state, a = _pod_step(state, _take_x(xs, i), c)
+        out.append(a)
+    return state, (torch.stack(out) if out else torch.zeros(0, dtype=I32, device=state.used.device))
+
+
+def perpod_loop_kernels(state: SolverState, xs: PodXs, c: PerPodCtx):
+    """The chunk as H7 + H8 launches from one C call. The kernels update
+    the carry in place (the JAX package's scan cannot), into private
+    copies of the fields they write."""
+    if c.templates.rank is not None:
+        raise ValueError("solve_from: kernels H7 / H8 pick templates in weight order only (rank is set)")
+    state = own_perpod_writes(state)
+    return state, cuda.perpod_scan(state, xs, c)
+
+
+def perpod_eval(state: SolverState, xs: PodXs, c: PerPodCtx, i: int) -> torch.Tensor:
+    """H7 for pod i of the chunk: [E + W + G] i32 keys (kernel on CUDA,
+    plain on CPU)."""
+    if state.used.device.type == "cpu":
+        return perpod_eval_plain(state, _take_x(xs, i), c)
+    return cuda.perpod_eval(state, xs, c, i)
+
+
+def perpod_commit(state: SolverState, xs: PodXs, c: PerPodCtx, i: int, keys: torch.Tensor):
+    """H8 for pod i from its keys: (state', assignment [] i32) (kernel on
+    CUDA, into private copies of the written fields; plain on CPU)."""
+    if state.used.device.type == "cpu":
+        return perpod_commit_plain(state, _take_x(xs, i), c, keys)
+    state = own_perpod_writes(state)
+    return state, cuda.perpod_commit(state, xs, c, i, keys)
+
+
+def solve_from(
+    state: SolverState,
+    pods: PodTensors,
+    pod_tmpl_ok: torch.Tensor,  # [L, G] bool
+    pod_it_allow: torch.Tensor,  # [L, T] bool
+    pod_exist_ok: torch.Tensor,  # [L, E] bool
+    pod_ports: torch.Tensor,  # [L, NPp] i32 packed
+    pod_port_conf: torch.Tensor,  # [L, NPp] i32 packed
+    pod_vols: torch.Tensor,  # [L, NVp] i32 packed
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    pod_topo: topo_ops.PodTopology,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    topo_kids: tuple = (),
+    plain: bool = False,
+) -> tuple[SolverState, torch.Tensor]:
+    """Resume the per-pod scan from `state` over a chunk of L pod rows;
+    returns (state', assignment [L] i32: E-space slot, NO_ROOM or
+    NO_CLAIM). The input state is not modified. On CUDA (plain=False) the
+    chunk runs as kernels H7 + H8 in one C call, with no host sync; on the
+    CPU, or with plain=True, `_pod_step` loops in Python."""
+    xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids))
+    if plain or state.used.device.type == "cpu":
+        return perpod_loop_plain(state, xs, ctx)
+    return perpod_loop_kernels(state, xs, ctx)
+
+
+def solve(
+    pods: PodTensors, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols,
+    exist: ExistingNodes, it: InstanceTypeTensors, templates: Templates, well_known, topo: TopologyTensors,
+    pod_topo, zone_kid: int, ct_kid: int, n_claims: int, topo_kids: tuple = (), window: int = 0,
+    plain: bool = False,
+) -> tuple[SolverState, torch.Tensor]:
+    """initial_state followed by solve_from (the reference's solve)."""
+    state = initial_state(
+        exist, it, templates, topo, n_claims, pod_ports.shape[1], window=window, topo_kids=topo_kids,
+    )
+    return solve_from(
+        state, pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols,
+        exist, it, templates, well_known, topo, pod_topo, zone_kid, ct_kid, n_claims, topo_kids, plain,
     )

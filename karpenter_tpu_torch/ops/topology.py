@@ -1,5 +1,5 @@
 """Topology as tensors (port of the JAX package's ops/topology.py, cut to
-what the fill step and the zonal kind scan need).
+what the fill step, the zonal kind scan and the per-pod step need).
 
 Every group's domain -> count map becomes a row of a count matrix that the
 solver carries:
@@ -10,9 +10,11 @@ solver carries:
                                        existing + claim slots + 1 spare); a
                                        new claim IS a fresh hostname domain
 
-The per-pod vocab-key evaluation lives with the kind scan
-(ops/solver.py `vg_eval_plain`, kernel H6); `hg_evaluate` / `hg_commit`
-here are its hostname half, shared by the kind scan's plain pod loop.
+The per-pod rules — `vg_pod_precompute` / `vg_evaluate` / `vg_commit`
+for vocab-key groups, `hg_evaluate` / `hg_commit` for hostname groups —
+are the plain per-pod step's (ops/solver.py `_pod_step`; kernels H7 / H8
+inline them). The kind scan's compact-domain twin of the vocab-key half
+is ops/solver.py `vg_eval_plain` (kernel H6).
 """
 
 from __future__ import annotations
@@ -215,7 +217,8 @@ def take_pod_topology(pt: PodTopology, idx) -> PodTopology:
 
 
 # ---------------------------------------------------------------------------
-# per-pod step functions (plain torch; kernel H6 inlines the same rules)
+# per-pod step functions (plain torch; kernels H7 / H8 inline the same rules,
+# kernel H6 its hostname half)
 # ---------------------------------------------------------------------------
 
 
@@ -224,6 +227,115 @@ def _onehot_rows(space: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     V = space.shape[-1]
     oh = torch.arange(V, device=idx.device)[None, None, :] == idx[:, :, None]
     return oh & torch.any(space, dim=-1, keepdim=True)
+
+
+class VGPodPre(NamedTuple):
+    """Candidate-independent per-pod terms of the vocab-key groups."""
+
+    pd: torch.Tensor  # [NGv, V] the pod's strict domains per group
+    eff: torch.Tensor  # [NGv, V] count + self
+    ok_skew: torch.Tensor  # [NGv, V]
+    opts: torch.Tensor  # [NGv, V] affinity options (count > 0, pod-compatible)
+    bootstrap: torch.Tensor  # [NGv]
+    cnt_zero: torch.Tensor  # [NGv, V]
+    gate: torch.Tensor  # [NGv] the group applies to this pod
+    key_touched: torch.Tensor  # [K]
+    keys_eq: torch.Tensor  # [NGv, K]
+
+
+def vg_pod_precompute(
+    topo: TopologyTensors,
+    counts: torch.Tensor,  # [NGv, V]
+    pod_strict_mask: torch.Tensor,  # [K, V]
+    applies: torch.Tensor,  # [NGv]
+    self_sel: torch.Tensor,  # [NGv]
+    n_keys: int,
+) -> VGPodPre:
+    """The spread minimum over the pod's supported domains (0 under an
+    unmet minDomains), skew-valid domains, affinity options and the
+    bootstrap flag (topologygroup.go:298-381)."""
+    pd = pod_strict_mask[topo.vg_key.long()]
+    dom = topo.vg_domains
+    cnt = counts
+    in_universe = dom & pd
+    supported = in_universe.sum(dim=-1, dtype=torch.int32)
+    big = torch.full_like(cnt, BIG_I32)
+    minc = torch.where(in_universe, cnt, big).min(dim=-1).values
+    zero = torch.zeros_like(minc)
+    minc = torch.where((topo.vg_min_domains > 0) & (supported < topo.vg_min_domains), zero, minc)
+    minc = torch.where(minc == BIG_I32, zero, minc)
+    eff = cnt + self_sel.to(torch.int32)[:, None]
+    ok_skew = (eff - minc[:, None]) <= topo.vg_skew[:, None]
+    pos = cnt > 0
+    opts = dom & pd & pos
+    group_empty = ~torch.any(pos, dim=-1)
+    no_compat = ~torch.any(pd & pos, dim=-1)
+    bootstrap = self_sel & (group_empty | no_compat)
+    gate = applies & topo.vg_valid
+    keys_eq = topo.vg_key[:, None] == torch.arange(n_keys, dtype=torch.int32, device=cnt.device)[None, :]
+    key_touched = torch.any(gate[:, None] & keys_eq, dim=0)
+    return VGPodPre(
+        pd=pd, eff=eff, ok_skew=ok_skew, opts=opts, bootstrap=bootstrap, cnt_zero=cnt == 0,
+        gate=gate, key_touched=key_touched, keys_eq=keys_eq,
+    )
+
+
+def vg_evaluate(topo: TopologyTensors, pre: VGPodPre, comb_mask: torch.Tensor):
+    """(feasible [C], upd [C, K, V], narrowed [C, NGv, V]) for candidates
+    with combined masks comb_mask [C, K, V]: spread narrows to the domain
+    of least (count + self, sorted-name rank), affinity to the counted
+    compatible domains or the rank-first bootstrap domain, anti-affinity
+    to the zero-count domains; upd is the AND of every applying group's
+    choice at its key. Ties go to the first index (argmin)."""
+    nd = comb_mask[:, topo.vg_key.long(), :]  # [C, NGv, V]
+    dom = topo.vg_domains
+    big = torch.tensor(BIG_I32, dtype=torch.int32, device=nd.device)
+
+    valid_sp = dom[None] & nd & pre.ok_skew[None]
+    spread_key = torch.where(valid_sp, (pre.eff * RANK_BASE + topo.vg_rank)[None], big)
+    sp_mask = _onehot_rows(valid_sp, torch.argmin(spread_key, dim=-1))
+    any_sp = torch.any(valid_sp, dim=-1)
+
+    opts_c = pre.opts[None] & nd
+    any_opts = torch.any(opts_c, dim=-1, keepdim=True)
+    boot_space = dom[None] & pre.pd[None] & nd
+    boot_idx = torch.argmin(torch.where(boot_space, topo.vg_rank[None], big), dim=-1)
+    boot_mask = _onehot_rows(boot_space, boot_idx)
+    aff_mask = torch.where(any_opts, opts_c, boot_mask & pre.bootstrap[None, :, None])
+    any_aff = torch.any(aff_mask, dim=-1)
+
+    anti_mask = boot_space & pre.cnt_zero[None]
+    any_anti = torch.any(anti_mask, dim=-1)
+
+    t = topo.vg_type[None, :]
+    narrowed = torch.where(
+        (t == TYPE_SPREAD)[..., None], sp_mask,
+        torch.where((t == TYPE_AFFINITY)[..., None], aff_mask, anti_mask),
+    )
+    ok = torch.where(t == TYPE_SPREAD, any_sp, torch.where(t == TYPE_AFFINITY, any_aff, any_anti))
+    feasible = torch.all(~pre.gate[None, :] | ok, dim=-1)
+    contrib = ~(pre.gate[None, :, None, None] & pre.keys_eq[None, :, :, None]) | narrowed[:, :, None, :]
+    upd = torch.all(contrib, dim=1)  # [C, K, V]
+    return feasible, upd, narrowed
+
+
+def vg_commit(
+    topo: TopologyTensors,
+    counts: torch.Tensor,  # [NGv, V]
+    final_mask: torch.Tensor,  # [K, V] the winner's requirement masks
+    final_inf: torch.Tensor,  # [K]
+    records: torch.Tensor,  # [NGv]
+) -> torch.Tensor:
+    """Count the winner's final values of each recording group's key
+    (topology.go:190-212): all of them for anti-affinity, a collapsed
+    single value otherwise, never a complement requirement."""
+    key = topo.vg_key.long()
+    vals = final_mask[key]
+    finite = ~final_inf[key]
+    single = vals.sum(dim=-1, dtype=torch.int32) == 1
+    is_anti = topo.vg_type == TYPE_ANTI
+    do = records & topo.vg_valid & finite & (is_anti | single)
+    return counts + (do[:, None] & vals).to(counts.dtype)
 
 
 def hg_evaluate(

@@ -2,9 +2,9 @@
 TPUScheduler on the same workloads (the fill cases of tests/test_fill.py,
 the 2048 x 400 selector stage, a chunked + compacted solve, and the
 topology workloads: the reference benchmark's mixed pods, zonal and
-hostname spread), compared per pod and per claim, requirements (the
-narrowed zone) included; the problems outside the port raise
-UnsupportedProblem; the package imports neither JAX nor the JAX package;
+hostname spread, and the per-pod kinds), compared per pod and per claim,
+requirements (the narrowed zone) included; the problems outside the port
+raise UnsupportedProblem; the package imports neither JAX nor the JAX package;
 and nothing runs on a missing card. Tolerance: exact equality."""
 
 import os
@@ -40,14 +40,14 @@ JAX_SIDE = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, HostPort=j_pod.HostPort, TSC=j_pod.TopologySpreadConstraint,
     Term=j_pod.PodAffinityTerm, Req=JReq, Reqs=JReqs, Op=JOp, Node=j_host.ExistingSimNode,
     templates=bench.make_templates, selector_pods=bench.selector_pods, mixed_pods=bench.mixed_pods,
-    zonal_pods=bench.zonal_pods, hostname_pods=bench.hostname_pods,
+    zonal_pods=bench.zonal_pods, hostname_pods=bench.hostname_pods, perpod_pods=bench.perpod_pods,
 )
 PORT_SIDE = types.SimpleNamespace(
     make_pod=p_pod.make_pod, l=pl, HostPort=p_pod.HostPort, TSC=p_pod.TopologySpreadConstraint,
     Term=p_pod.PodAffinityTerm, Req=PReq, Reqs=PReqs, Op=POp, Node=p_host.ExistingSimNode,
     templates=p_testing.make_templates, selector_pods=p_testing.selector_pods,
     mixed_pods=p_testing.mixed_pods, zonal_pods=p_testing.zonal_pods,
-    hostname_pods=p_testing.hostname_pods,
+    hostname_pods=p_testing.hostname_pods, perpod_pods=p_testing.perpod_pods,
 )
 
 
@@ -232,8 +232,7 @@ def test_topology_workloads_match_reference(case):
         assert rp.existing_assignments
 
 
-def _unsupported(kind):
-    S = PORT_SIDE
+def _edge_pods(S, kind):
     pods = _pods(S, 4, 0.25, "256Mi")
     for p in pods:
         p.metadata.labels = {"app": "x"}
@@ -253,19 +252,27 @@ def _unsupported(kind):
     return pods
 
 
-@pytest.mark.parametrize("kind", ["perpod", "empty_hostname_affinity", "gang", "host_ports"])
+@pytest.mark.parametrize("kind", ["gang", "host_ports"])
 def test_out_of_slice_problems_raise(kind):
     ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
     with pytest.raises(UnsupportedProblem) as err:
-        ps.solve(_unsupported(kind))
+        ps.solve(_edge_pods(PORT_SIDE, kind))
     assert err.value.reason
 
 
-def test_perpod_pods_raise():
-    """The reference routes perpod_pods (bench.py:106) to its per-pod scan."""
-    ps = TorchScheduler(p_testing.make_templates(24), max_claims=32, device="cpu")
-    with pytest.raises(UnsupportedProblem, match="per-pod scan"):
-        ps.solve(p_testing.perpod_pods(8))
+@pytest.mark.parametrize("kind", ["perpod", "empty_hostname_affinity"])
+def test_per_pod_kinds_match_reference(kind):
+    """Kinds the reference routes to its per-pod scan (two vocab keys; an
+    initially-empty hostname affinity group) solve on the port's per-pod
+    scan and match."""
+    _rp, ps = _compare(kind, lambda S: (S.templates(10), _edge_pods(S, kind), None), 16)
+    assert ps.last_stats["perpod_dispatches"] > 0
+
+
+def test_perpod_pods_match_reference():
+    """perpod_pods (bench.py:106): zone and capacity-type spread per kind."""
+    rp, ps = _compare("perpod_pods", lambda S: (S.templates(24), S.perpod_pods(8), None), 32)
+    assert ps.last_stats["perpod_dispatches"] == 1 and rp.node_count > 0
 
 
 def test_finite_budget_raises():
