@@ -19,6 +19,10 @@ Phases, any failure exits non-zero:
      T=400, NGv 16), from the state a first 1024-pod kernel chunk leaves:
      H7's keys and H8's commit for single pods, and a 256-pod chunk through
      the kernels against the same chunk through the plain step;
+     H7 and H8 in scenario mode on the what-if prefix cell's encode
+     (S=128 scenarios): the first step's keys of every scenario, one
+     commit per scenario, and 4 scenarios (the largest prefix among them)
+     run to the end through the kernels and through the plain loop;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -37,10 +41,19 @@ Phases, any failure exits non-zero:
      the CPU: 2048 selector pods, 1024 mixed pods (also 205 claims,
      21.5043 $/h), perpod_pods(256), mixed and per-pod kinds in one solve,
      and the custom-key workload that drives the per-pod step's full
-     it-compat branch;
+     it-compat branch; then the consolidation path: mixed_pods(4096) x
+     make_templates(400) provisioned and launched as 819 nodes with 4096
+     bound pods, 64 pending pods, and TorchScheduler.whatif_batch on
+     multi-node consolidation's batch (the prefixes 1..100 of the cheapest
+     candidates) and single-node consolidation's (each of them alone),
+     cold and twice warm, held to the JAX package's signals, with H7 / H8
+     in scenario mode launched; one more warm prefix batch under
+     torch.profiler; the sequential confirm of prefixes 1, 10 and 100
+     (TorchScheduler.solve(topology=...)) held to the JAX package's;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
-     usage, requirements).
+     usage, requirements), and the wall of phase 3's plain what-if
+     sub-batch.
 The second-to-last line is one JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -75,6 +88,29 @@ PERPOD_CLAIMS = 136
 PERPOD_PRICE = 143.0965
 PERPOD_DIGEST = "f40733bccab8f8d5e928195a48f32abeb61a6629511dc59ca1190979f9a0f261"
 PERPOD_STATS = {"perpod_dispatches": 4, "compactions": 3}
+# ... for the consolidation what-ifs (`python tests/test_torch_whatif.py`:
+# TPUScheduler.whatif_batch and TPUScheduler.solve(topology=...) on the CPU,
+# the JAX package at 05db391): mixed_pods(4096) x make_templates(400)
+# provisioned and launched by the consolidation fixture (nodes, bound pods,
+# cluster_digest), 64 pending pods, the first 100 candidates; the
+# [(feasible, n_new)] list and signals_digest of each batch, and the
+# sequential confirm's signal for prefixes 1, 10 and 100
+WHATIF_PODS, WHATIF_TYPES, WHATIF_PENDING, WHATIF_CANDS = 4096, 400, 64, 100
+WHATIF_CLUSTER = (819, 4096, "6438ce59b952c04d68567d8a2d253c0b80ea14da1e280da08ed309a0cee5e8e1")
+WHATIF_GOLDEN = {
+    "prefix": ([(True, k) for k in range(1, 101)],
+               "6b138f7464188d8b40eccaaa88ef1c30ed8307dbb3808e17314837a35b3f0e4c"),
+    "single": ([(True, 1)] * 100, "723e81c45816f47fe3e68d23400bd8458d53012a1798466d590d8529d3c4a7b9"),
+}
+WHATIF_CONFIRM = {1: (True, 1), 10: (True, 10), 100: (True, 100)}
+# ... and each batch's placements_digest: every real scenario's assignment,
+# final hostname counts and zone counts by domain name, from the JAX
+# package's solve run per scenario on the arguments of the batch's
+# solve_whatif call (same source, commit and cluster)
+WHATIF_PLACEMENTS = {
+    "prefix": "2351f73c1df49678c977ebca9ec586f154ffc3f92d7f51a5cb2d471af7cfb1b1",
+    "single": "4774cc66b5f6724686cbcf5aa9627f51a2f49d526f696bfac2374ae868e60213",
+}
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -577,11 +613,261 @@ def perpod_kernel_phase(sched, enc, results: list) -> None:
               f"host-bound) plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})", flush=True)
 
 
-def profile_solve(sched, pods, out_dir, tag) -> dict:
-    """One more warm solve under torch.profiler: device busy share over the
-    solve's wall, and device time by kernel name (from the chrome trace,
-    so launches of one name are summed and overlaps counted once). Returns
-    {kernel name: (launches, device ms)}, empty when not measured."""
+def whatif_kernel_phase(cell, results: list) -> float:
+    """Phase 3d: H7 and H8 in scenario mode against the plain per-scenario
+    step, on the what-if prefix cell's encode (S = 128 scenarios, each its
+    own pods, surviving nodes and topology seeds): the first step's keys
+    of every scenario, one commit per scenario from those keys, and 4
+    scenarios (the largest prefix among them) run to the end through the
+    kernels and through the plain loop, assignments and every carry leaf
+    equal. Returns the plain sub-batch's wall (s)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import cuda as kc
+    from karpenter_tpu_torch.ops import solver
+
+    sched, pods, specs = cell["sched"], *cell["batches"]["prefix"]
+    args, kwargs = sched._whatif_inputs(pods, cell["cluster"].nodes, None, specs, cell["factory"])
+    idx, active, _count, ev, vg0, hg0, pt, tol, it_allow, exist_ok, ports, conf, vols, exist, it, tm, wk, tt, ptopo = args[:19]
+    zone_kid, ct_kid, n_claims = args[19:]
+    topo_kids = tuple(kwargs["topo_kids"])
+    S, L = idx.shape
+    xs = solver.pod_xs(pt, tol, it_allow, exist_ok, ports, conf, vols, ptopo)
+    ctx = solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids)
+    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], topo_kids=topo_kids)
+    valid = (pt.valid[idx.long()] & active).contiguous()
+    ref = solver.stack_scenarios(st0, S, vg0, hg0)
+    idx_h = idx.cpu().numpy()
+
+    def ctx_s(s):
+        return ctx._replace(exist=exist._replace(valid=ev[s]), topo=tt._replace(vg_counts0=vg0[s], hg_counts0=hg0[s]))
+
+    def x_s(s, i):
+        return solver._take_x(xs, int(idx_h[s, i]))._replace(valid=valid[s, i])
+
+    def same(a, b):
+        fa, fb = solver.to_numpy(a), solver.to_numpy(b)
+        return all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    def plain_keys():
+        return torch.stack([solver.perpod_eval_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s))
+                            for s in range(S)])
+
+    # H7: the first step's keys of every scenario
+    keys_k = kc.perpod_whatif_eval(ref, xs, ctx, idx, valid, ev, 0)
+    keys_p = plain_keys()
+    eq7 = torch.equal(keys_k, keys_p)
+    # H8: one commit per scenario from those keys
+    k_state = solver.stack_scenarios(st0, S, vg0, hg0)
+    a_k = kc.perpod_whatif_commit(k_state, xs, ctx, idx, valid, ev, 0, keys_p)
+    eq8 = True
+    for s in range(S):
+        sp, ap = solver.perpod_commit_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s), keys_p[s])
+        eq8 = eq8 and int(ap) == int(a_k[s]) and same(solver.scenario_state(k_state, s), sp)
+    # 4 scenarios to the end, the largest prefix among them
+    n_real = len(specs)
+    pick = torch.tensor([0, n_real // 3, 2 * n_real // 3, n_real - 1], device=idx.device)
+    sub = (*(a[pick] for a in args[:6]), *args[6:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_k = solver.solve_whatif_full(*sub, topo_kids=topo_kids)
+    torch.cuda.synchronize()
+    kernel_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_p = solver.solve_whatif_full(*sub, topo_kids=topo_kids, plain=True)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    eq_sub = (all(torch.equal(a, b) for a, b in zip(out_k[:3], out_p[:3]))
+              and all(same(a, b) for a, b in zip(out_k[3], out_p[3])))
+    hist = {"S": S, "L": L, "E": int(exist.avail.shape[0]), "W": n_claims,
+            "sub_n_open": out_k[1].tolist(), "sub_n_unsched": out_k[0].tolist(),
+            "sub_placed": int((out_k[2] >= 0).sum()), "kernel_wall_s": round(kernel_wall, 4)}
+    print(f"kernel perpod_whatif_eval: {S} scenarios' first-step keys equal={eq7}; perpod_whatif_commit: "
+          f"{S} commits equal={eq8}; 4 scenarios x {L} steps through H7 + H8 in scenario mode == plain: "
+          f"{eq_sub} {json.dumps(hist)}", flush=True)
+
+    # times: the wrappers (host-bound: each validates and syncs; the device
+    # time per launch comes from the profiled warm batch of phase 4)
+    ms7 = time_ms(lambda: kc.perpod_whatif_eval(ref, xs, ctx, idx, valid, ev, 0), iters=20)
+    plain7 = time_ms(plain_keys, iters=1, warmup=0)
+    copies = [solver.stack_scenarios(st0, S, vg0, hg0) for _ in range(5)]
+    ev_ = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in copies]
+    torch.cuda.synchronize()
+    for c, (a, b) in zip(copies, ev_):
+        a.record()
+        kc.perpod_whatif_commit(c, xs, ctx, idx, valid, ev, 0, keys_p)
+        b.record()
+    torch.cuda.synchronize()
+    ms8 = sum(a.elapsed_time(b) for a, b in ev_) / len(ev_)
+    t0 = time.perf_counter()
+    for s in range(S):
+        solver.perpod_commit_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s), keys_p[s])
+    torch.cuda.synchronize()
+    plain8 = (time.perf_counter() - t0) * 1e3
+
+    # bounds at step 0, the step these times are taken at (phase 4 puts the
+    # profiled batch's per-launch average beside its own ms)
+    b7, b8, live = whatif_bounds(args, a_k[:, None])
+    print(f"whatif bounds at step 0: {json.dumps(live)}", flush=True)
+    for name, eq, ms, plain_ms, b in (
+        ("perpod_whatif_eval", eq7 and eq_sub, ms7, plain7, b7),
+        ("perpod_whatif_commit", eq8 and eq_sub, ms8, plain8, b8),
+    ):
+        results.append(dict(
+            name=name, route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
+            replaces="karpenter_tpu/ops/solver.py:1120", launches=0,
+            max_abs_err=0.0 if eq else 1.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, equal=eq,
+        ))
+        print(f"kernel {name}: equal={eq} (tolerance: exact) ms={ms:.4f} (one wrapper call, host-bound) "
+              f"plain_ms={plain_ms:.4f} (all {S} scenarios) bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+    return plain_wall
+
+
+def whatif_bounds(args, assignment) -> tuple:
+    """H7 / H8 in scenario mode: the bytes each must move per launch, over
+    the memory rate, from this run's data. `args` are solve_whatif's
+    inputs and `assignment` [S, n] the batch's first n steps' assignments
+    (a surviving node's index, E + a claim slot, or < 0). A block has work
+    only for a live row of a live scenario: the step's pod is real and the
+    row passes its gates (a surviving node the pod may use, a claim opened
+    by an earlier step, a template the pod may use); every other block
+    writes its key and stops. Per live row H7 reads the row's requirement
+    row, usage and hostname counts (claims and templates also their
+    viable-type row), per live scenario the pod's rows, its gate rows and
+    zone counts, and per step with a live row the type and group tables
+    once; it writes every key. H8 reads a live scenario's keys and pod
+    rows, reads and writes its winner's row and its counts, reads the type
+    table once per step whose winner is a claim, and writes every
+    assignment. Returns (H7 bound, H8 bound, live-row stats), averaged
+    over the n steps."""
+    import torch
+
+    idx, active, _count, ev, _vg0, _hg0, pt, tol, _it_allow, exist_ok = args[:10]
+    exist, it, tm, tt, n_claims = args[13], args[14], args[15], args[17], args[21]
+    S, n = assignment.shape
+    E, W, G = exist.avail.shape[0], n_claims, tm.its.shape[0]
+    T_, K, V = it.reqs.mask.shape
+    R = it.alloc.shape[2]
+    NGv, NGh = tt.vg_type.shape[0], tt.hg_type.shape[0]
+    ix = idx[:, :n].long()
+    valid = pt.valid[ix] & active[:, :n]  # [S, n]
+    n_exist = (exist_ok[ix] & ev[:, None, :]).sum(-1) * valid
+    n_tmpl = (tol[ix] & tm.valid).sum(-1) * valid
+    a = assignment.long()
+    slot = torch.where(a >= E, a - E, torch.full_like(a, W))
+    placed = torch.zeros((S, n, W + 1), dtype=torch.bool, device=a.device)
+    placed.scatter_(2, slot[..., None], True)
+    n_open = (placed[..., :W].cumsum(1) > 0).sum(-1)  # claims open after each step
+    n_win = torch.cat([torch.zeros_like(n_open[:, :1]), n_open[:, :-1]], 1) * valid
+    any_row = ((n_exist + n_win + n_tmpl) > 0).any(0)
+    any_claim = ((a >= E) & valid).any(0)
+
+    req_row = K * V + 11 * K
+    pod_row = req_row + K * V + 4 * R + T_ + G + E + 4 + 3 * (NGv + NGh)
+    scen = pod_row + E + W + 4 * NGv * V
+    exist_b, win_b, tmpl_b = (req_row + 8 * R + 4 * NGh, req_row + 4 * R + T_ + 4 * NGh,
+                              req_row + 8 * R + T_ + 4 * NGh)
+    types = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap)
+    groups = nbytes(tt.vg_domains, tt.vg_rank)
+    n_valid = int(valid.sum())
+    b7 = (n * S * (1 + 4 * (E + W + G)) + int(any_row.sum()) * (types + groups) + n_valid * scen
+          + int(n_exist.sum()) * exist_b + int(n_win.sum()) * win_b + int(n_tmpl.sum()) * tmpl_b)
+    b8 = (n * S * 5 + int(any_claim.sum()) * types + n_valid * (
+        4 * (E + W + G) + 2 * min(exist_b, win_b) + pod_row + groups + 8 * NGv * V + 8 * NGh))
+    live = dict(steps=n, blocks_per_launch=S * (E + W + G),
+                live_rows_per_launch=float((n_exist + n_win + n_tmpl).sum()) / n,
+                live_scenarios_per_launch=n_valid / n)
+    return bound(b7 / n, 0.0), bound(b8 / n, 0.0), live
+
+
+def whatif_cell(torch, T, templates) -> dict:
+    """The consolidation cells' problem on the card: mixed_pods(4096)
+    provisioned by a TorchScheduler solve and launched (held to the JAX
+    package's cluster), 64 pending pods, the cheapest candidates, the
+    topology factory, and multi-node (prefix) and single-node batches."""
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+
+    t0 = time.perf_counter()
+    cl = T.bound_cluster(T.mixed_pods(WHATIF_PODS), templates)
+    torch.cuda.synchronize()
+    got = (len(cl.nodes), sum(len(v) for v in cl.bound.values()), T.cluster_digest(cl))
+    print(f"whatif cluster: {got[0]} nodes, {got[1]} bound pods, digest {got[2][:16]}..., "
+          f"provisioned on the card in {time.perf_counter() - t0:.3f}s", flush=True)
+    if got != WHATIF_CLUSTER:
+        raise RuntimeError(f"whatif cluster {got} differs from the JAX package's {WHATIF_CLUSTER}")
+    cands = T.candidates(cl)
+    pending = T.pending_pods(WHATIF_PENDING)
+    batches = {kind: getattr(T, f"{kind}_scenarios")(cands, WHATIF_CANDS, pending) for kind in ("prefix", "single")}
+    return dict(cluster=cl, cands=cands, pending=pending, factory=T.topology_factory(cl), batches=batches,
+                sched=TorchScheduler(templates), templates=templates)
+
+
+def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
+    """Drive one what-if batch: launch counts zeroed just before a cold
+    whatif_batch and read just after, the signals held to the JAX
+    package's, two warm calls that must agree. Returns the launches or
+    raises RuntimeError."""
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+
+    sched = TorchScheduler(cell["templates"])
+    pods, specs = cell["batches"][kind]
+
+    def run():
+        t0 = time.perf_counter()
+        sig = sched.whatif_batch(pods, [n.clone() for n in cell["cluster"].nodes], None, specs, cell["factory"])
+        torch.cuda.synchronize()
+        return sig, time.perf_counter() - t0
+
+    label = f"whatif_{kind}{WHATIF_CANDS}"
+    cuda.reset_launches()
+    sig, wall = run()
+    launches = dict(cuda.LAUNCHES)
+    print(f"{label} cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} stats={json.dumps(sched.last_stats)} "
+          f"launches={json.dumps(launches)}", flush=True)
+    want, want_digest = WHATIF_GOLDEN[kind]
+    digest_ = T.signals_digest(sig) if sig is not None else None
+    print(f"{label} signals: digest {digest_} (JAX {want_digest}); feasible {sum(f for f, _n in sig or ())}"
+          f"/{len(sig or ())}, new claims {sum(n for _f, n in sig or ())}", flush=True)
+    if sig != want or digest_ != want_digest:
+        raise RuntimeError(f"{label}: signals differ from the JAX package's")
+    # what the placements decide, held to the JAX package's: the batch's
+    # solve_whatif on the same inputs, run again for every scenario's
+    # assignment and final hostname counts, and its zone counts by domain
+    from karpenter_tpu_torch.ops import solver
+
+    args, kwargs = sched._whatif_inputs(pods, [n.clone() for n in cell["cluster"].nodes], None, specs,
+                                        cell["factory"])
+    _unsched, _open, assignment, states = solver.solve_whatif_full(*args, **kwargs)
+    n = len(specs)
+    placements = T.placements_digest(
+        assignment[:n].cpu().numpy(), torch.stack([st.vg_counts for st in states[:n]]).cpu().numpy(),
+        torch.stack([st.hg_counts for st in states[:n]]).cpu().numpy(), args[17].vg_key.cpu().numpy(),
+        sched.encoder.vocab,
+    )
+    print(f"{label} placements: digest {placements} (JAX {WHATIF_PLACEMENTS[kind]}); "
+          f"{int((assignment[:n] >= 0).sum())} pods placed", flush=True)
+    if placements != WHATIF_PLACEMENTS[kind]:
+        raise RuntimeError(f"{label}: placements differ from the JAX package's")
+    cell[f"{kind}_run"] = (args, assignment)
+    idle = [k for k in cuda.WHATIF_KERNELS if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"{label}: kernels never launched: {idle}")
+    for i in range(2):
+        sig_w, wall = run()
+        print(f"{label} warm {i}: wall={wall:.3f}s {json.dumps(sched.last_timings)}", flush=True)
+        if sig_w != sig:
+            raise RuntimeError(f"{label}: warm call differs from the cold call")
+    cell[f"{kind}_sched"] = sched
+    return launches
+
+
+def profile_run(fn, out_dir, tag) -> dict:
+    """One more warm call of fn under torch.profiler: device busy share
+    over the call's wall, and device time by kernel name (from the chrome
+    trace, so launches of one name are summed and overlaps counted once).
+    Returns {kernel name: (launches, device ms)}, empty when not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,7 +875,7 @@ def profile_solve(sched, pods, out_dir, tag) -> dict:
     path = os.path.join(out_dir, f"{tag}_trace.json")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.solve(pods)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(path)
@@ -684,6 +970,7 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     try:
         from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+        from karpenter_tpu_torch import testing as T
         from karpenter_tpu_torch.ops import cuda
         from karpenter_tpu_torch.testing import (
             existing_node, guarded_pods, make_templates, mixed_pods, perpod_pods, selector_pods, tier_pods,
@@ -719,6 +1006,11 @@ def main() -> int:
     sched_p = TorchScheduler(templates_m, max_claims=4096)
     _sorted, enc_p = sched_p._encode(pods_p, None)
     perpod_kernel_phase(sched_p, enc_p, kernels)
+    try:
+        cell_w = whatif_cell(torch, T, templates_m)
+    except RuntimeError as err:
+        return fail(str(err))
+    whatif_plain_wall = whatif_kernel_phase(cell_w, kernels)
     bad = [k["name"] for k in kernels if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -739,12 +1031,12 @@ def main() -> int:
     try:
         result, launches_n = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
                                         fill_kernels)
-        profile_solve(sched, pods, profile_dir, "northstar")
+        profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
-            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS],
+            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS],
         )
-        profile_solve(sched_m, pods_m, profile_dir, "mixed")
+        profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
             torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,
             ("perpod_eval", "perpod_commit", "fill_count_grid", "compact_scatter"),
@@ -754,14 +1046,13 @@ def main() -> int:
     if digest(result_p) != PERPOD_DIGEST:
         return fail(f"perpod path: digest {digest(result_p)} differs from the JAX package's {PERPOD_DIGEST}")
     print("perpod path: digest equal to the JAX package's", flush=True)
-    for k in kernels:
-        k["launches"] = launches_n[k["name"]] + launches_m[k["name"]] + launches_p[k["name"]]
     # H7 / H8 run ~20 µs, under the wrappers' host cost, so a host-driven
     # loop of single launches measures the host: their ms is the device
     # time per launch in the profiled warm per-pod solve
-    by_name = profile_solve(sched_p, pods_p, profile_dir, "perpod")
+    by_name = profile_run(lambda: sched_p.solve(pods_p), profile_dir, "perpod")
     for k in kernels:
-        hits = [v for n, v in by_name.items() if f"::{k['name']}_kernel(" in n]
+        # the single-scenario instantiation of the kernel template
+        hits = [v for n, v in by_name.items() if f"::{k['name']}_kernel<false>(" in n]
         if k["name"] in cuda.PERPOD_KERNELS and hits:
             (n, ms), = hits
             k["ms"] = ms / n
@@ -799,6 +1090,44 @@ def main() -> int:
         print(f"small check: {label}, {r_gpu.node_count} claims, {len(r_gpu.existing_assignments)} on existing "
               f"nodes, {len(r_gpu.unschedulable)} unschedulable, card == CPU", flush=True)
 
+    # the consolidation path: both batches, a profiled warm prefix batch,
+    # the sequential confirms
+    try:
+        launches_w = [whatif_path(torch, cuda, T, cell_w, kind) for kind in ("prefix", "single")]
+    except RuntimeError as err:
+        return fail(str(err))
+    for k in kernels:
+        k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w])
+    pods_w, specs_w = cell_w["batches"]["prefix"]
+    sched_w = cell_w["prefix_sched"]
+    by_name = profile_run(
+        lambda: sched_w.whatif_batch(pods_w, [n.clone() for n in cell_w["cluster"].nodes], None, specs_w,
+                                     cell_w["factory"]),
+        profile_dir, "whatif_prefix",
+    )
+    # the profiled ms is the average over the batch's launches, so its
+    # bound is the average over the same steps
+    b7, b8, live = whatif_bounds(*cell_w["prefix_run"])
+    print(f"whatif bounds over the prefix batch's steps: {json.dumps(live)}", flush=True)
+    for k in kernels:
+        base = {"perpod_whatif_eval": "perpod_eval", "perpod_whatif_commit": "perpod_commit"}.get(k["name"])
+        hits = [v for n, v in by_name.items() if base and f"::{base}_kernel<true>(" in n]
+        if hits:
+            (n, ms), = hits
+            b = b7 if k["name"] == "perpod_whatif_eval" else b8
+            k.update(ms=ms / n, bound_ms=b[0], bound_by=b[1])
+            print(f"kernel {k['name']}: {ms / n:.4f} ms per launch on the device ({n} launches profiled, "
+                  f"{sched_w.last_stats['S']} scenarios each), bound {b[0]:.5f} ms ({b[1]}) averaged over "
+                  f"the same steps", flush=True)
+    for n_cands, want in WHATIF_CONFIRM.items():
+        t0 = time.perf_counter()
+        got = T.sequential_signal(TorchScheduler(templates_m), cell_w["cluster"], cell_w["factory"],
+                                  cell_w["pending"], cell_w["cands"][:n_cands])
+        torch.cuda.synchronize()
+        print(f"whatif confirm prefix {n_cands}: {got} (JAX {want}) in {time.perf_counter() - t0:.3f}s", flush=True)
+        if got != want:
+            return fail(f"sequential confirm of prefix {n_cands}: {got}, the JAX package's {want}")
+
     # phase 5: plain versions on the card
     for label, tmpl, ps, ref in (("north star", templates, pods, result), ("mixed path", templates_m, pods_m, result_m),
                                  ("perpod path", templates_m, pods_p, result_p)):
@@ -809,6 +1138,8 @@ def main() -> int:
         print(f"plain on card, {label}: wall={time.perf_counter() - t0:.3f}s digest_equal={same}", flush=True)
         if not same:
             return fail(f"plain-version solve of the {label} on the card gives another assignment")
+    print(f"plain on card, what-if sub-batch (4 scenarios of whatif_prefix{WHATIF_CANDS}, phase 3): "
+          f"wall={whatif_plain_wall:.3f}s", flush=True)
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     for k in kernels:

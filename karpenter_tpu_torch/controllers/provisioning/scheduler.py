@@ -16,6 +16,7 @@ another engine.
 
 from __future__ import annotations
 
+import copy
 import time
 from types import SimpleNamespace
 from typing import Optional, Sequence
@@ -456,22 +457,25 @@ class TorchScheduler:
         if self._res_active:
             raise UnsupportedProblem("reservations")
 
-    def _encode(self, pods: Sequence[Pod], budgets) -> tuple[list[Pod], dict]:
+    def _encode(self, pods: Sequence[Pod], budgets, topology: Optional[Topology] = None) -> tuple[list[Pod], dict]:
+        """Encode one problem (the provisioning solve's, or the what-ifs'
+        union problem). `topology` (seeded from bound pods by the caller) is
+        used as given; without it one is built from the pods alone (lazy
+        universe: a topology-free pod set never builds it). Its keys and
+        domains join the vocab before the pads freeze."""
         dev = self.device
         pods_list = list(pods)
         P = len(pods_list)
         cap = self.max_claims or _next_pow2(max(P, 1))
         n_claims = self._n_claims_override or cap
         self._last_n_claims = n_claims
-        # topology groups (lazy universe: a topology-free pod set never
-        # builds it); their keys and domains join the vocab before the
-        # pads freeze
-        topology = Topology.build(
-            pods_list,
-            lambda: build_universe_domains(
-                self.templates, self.existing_nodes, template_base=self.universe_base()
-            ),
-        )
+        if topology is None:
+            topology = Topology.build(
+                pods_list,
+                lambda: build_universe_domains(
+                    self.templates, self.existing_nodes, template_base=self.universe_base()
+                ),
+            )
         if topology.groups or topology.inverse_groups:
             for node in self.existing_nodes:
                 topology.register(l.LABEL_HOSTNAME, node.name)
@@ -598,6 +602,8 @@ class TorchScheduler:
             exist_tensors=exist_tensors,
             template_tensors=self.template_tensors,
             topo_tensors=topo,
+            vg_groups=vg,
+            hg_groups=hg,
             topo_kids=topo_kids,
             zone_kid=zone_kid,
             ct_kid=ct_kid,
@@ -823,10 +829,10 @@ class TorchScheduler:
         )
         return state, outputs
 
-    def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets) -> SchedulingResult:
+    def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets, topology=None) -> SchedulingResult:
         t0 = time.perf_counter()
         self.existing_nodes = existing_nodes
-        pods_sorted, enc = self._encode(pods, budgets)
+        pods_sorted, enc = self._encode(pods, budgets, topology)
         t1 = time.perf_counter()
         state, outputs = self._run_solve(enc)
         tk = list(enc["topo_kids"])
@@ -871,17 +877,22 @@ class TorchScheduler:
         pods: Sequence[Pod],
         existing_nodes: Optional[list[ExistingSimNode]] = None,
         budgets: Optional[dict[str, dict[str, float]]] = None,
+        topology: Optional[Topology] = None,
     ) -> SchedulingResult:
         """Schedule pods onto existing nodes and new claims, with the
         preference relaxation ladder and NO_ROOM recovery of the reference
         (the claims axis grows and the problem re-solves until every pod
-        had a real chance at a slot)."""
+        had a real chance at a slot). `topology`, when given (seeded from
+        the pods bound to the existing nodes, as a consolidation
+        simulation builds it), replaces the one built from the pods; every
+        round solves on a pristine deep copy of it."""
         base_existing = list(existing_nodes or [])
         self._n_claims_override = None
 
         def solve_round(current: list[Pod]) -> SchedulingResult:
             while True:
-                result = self._solve_once(current, [n.clone() for n in base_existing], budgets)
+                topo = copy.deepcopy(topology) if topology is not None else None
+                result = self._solve_once(current, [n.clone() for n in base_existing], budgets, topo)
                 cap = _next_pow2(max(len(current), 1))
                 used = self._last_n_claims or self.max_claims or cap
                 leftover = sum(1 for _, reason in result.unschedulable if reason == NO_ROOM_REASON)
@@ -893,6 +904,131 @@ class TorchScheduler:
                 self._n_claims_override = min(max(used * 2, -(-est // 256) * 256), cap)
 
         return prefs.run_with_relaxation(list(pods), solve_round)
+
+    # -- batched consolidation what-ifs -------------------------------------
+
+    def whatif_batch(
+        self,
+        pods: Sequence[Pod],
+        existing_nodes: list[ExistingSimNode],
+        budgets: Optional[dict[str, dict[str, float]]],
+        scenarios: list[tuple[set, set, set]],
+        topology_factory,
+        volume_reqs: Optional[dict] = None,
+        reserved_in_use: Optional[dict[str, int]] = None,
+        bound_pods=None,
+        pod_volumes: Optional[dict] = None,
+    ) -> Optional[list[tuple[bool, int]]]:
+        """Batched disruption what-ifs (the reference's whatif_batch,
+        scheduler.py:1332-1487): S candidate exclusion sets solved in one
+        device dispatch instead of S sequential simulations
+        (multinodeconsolidation.go:136-183). `pods` is the union pod set
+        (pending + every scenario's displaced pods); each scenario is
+        (excluded node names, active pod uids, counted pod uids), and
+        topology_factory(pods, excluded) builds the scenario's topology
+        seeded from the pods bound to its surviving nodes. Returns
+        (feasible, n_new_claims) per scenario, feasible meaning no counted
+        pod went unscheduled.
+
+        None where the reference returns None, so that the caller
+        simulates the scenarios one by one: gang pods, volume topologies
+        with several alternatives or a key some node leaves undefined, and
+        scenarios whose topology groups differ from the first one's. What
+        the reference answers but this package has not ported raises
+        UnsupportedProblem (volume topologies, CSI attach limits, host
+        ports, finite budgets, enforced minValues, reservations, DRA
+        claims). `reserved_in_use` has nothing to count without
+        reservations, and `bound_pods` is the reference's data form for a
+        remote engine; neither is read."""
+        t0 = time.perf_counter()
+        vol = {uid: list(v) for uid, v in (volume_reqs or {}).items() if v}
+        if any(len(alts) > 1 for alts in vol.values()):
+            return None
+        if vol and existing_nodes:
+            keys = {r.key for alts in vol.values() for a in alts for r in a.values()}
+            if any(not n.requirements.has(k) for n in existing_nodes for k in keys):
+                return None
+        pods = list(pods)
+        if any(p.metadata.annotations.get(GANG_ANNOTATIONS[0]) for p in pods):
+            return None
+        if vol:
+            raise UnsupportedProblem("volume topology requirements")
+        if any(pod_volumes.values() if pod_volumes else ()):
+            raise UnsupportedProblem("CSI attach limits")
+        inputs = self._whatif_inputs(pods, existing_nodes, budgets, scenarios, topology_factory)
+        if inputs is None:
+            return None
+        args, kwargs = inputs
+        t1 = time.perf_counter()
+        n_unsched, n_open = ops_solver.solve_whatif(*args, **kwargs)
+        fetched = fetch_tree(dict(n_unsched=n_unsched, n_open=n_open))
+        t2 = time.perf_counter()
+        out = [(int(fetched["n_unsched"][s]) == 0, int(fetched["n_open"][s])) for s in range(len(scenarios))]
+        self.last_timings = dict(encode_s=t1 - t0, device_s=t2 - t1, decode_s=time.perf_counter() - t2)
+        return out
+
+    def _whatif_inputs(self, pods: list, existing_nodes, budgets, scenarios, topology_factory):
+        """solve_whatif's (args, kwargs) for whatif_batch: the union encode
+        with scenario 0's topology, each scenario's compact pod list in FFD
+        order, its surviving nodes and its topology seeds; None when a
+        scenario's topology groups differ from scenario 0's. Sets
+        last_stats (S, L, E, W, ...)."""
+        # the what-if always runs unwindowed on the cold claims axis
+        self._n_claims_override = None
+        self.existing_nodes = [n.clone() for n in existing_nodes]
+        topo0 = topology_factory(pods, scenarios[0][0])
+        pods_sorted, enc = self._encode(pods, budgets, topo0)
+        tt = enc["topo_tensors"]
+        E, P, n_claims = enc["E"], enc["P"], enc["n_claims"]
+        node_names = [n.name for n in self.existing_nodes]
+        kidx = np.zeros(_next_pow2(max(P, 1), 1), dtype=np.int64)
+        kidx[:P] = enc["kind_of"][:P]
+        # the union's pod rows (the reference's _materialize_pods)
+        pt, tol, it_allow, exist_ok, ports, port_conf, vols, pod_topo = self._gather_pod_chunk(enc, kidx, P)
+        # each scenario's compact pod list, in FFD order: the scan length is
+        # the largest scenario's, not the union's; both axes pad to powers
+        # of two
+        S = len(scenarios)
+        S_pad = _next_pow2(S, 1)
+        uids = [p.uid for p in pods_sorted]
+        per_scenario = [[i for i, u in enumerate(uids) if u in active] for _ex, active, _counted in scenarios]
+        L = _next_pow2(max((len(ix) for ix in per_scenario), default=1), 1)
+        idx = np.zeros((S_pad, L), dtype=np.int32)
+        active = np.zeros((S_pad, L), dtype=bool)
+        counted = np.zeros((S_pad, L), dtype=bool)
+        exist_valid = np.ones((S_pad, E), dtype=bool)
+        vg0 = np.repeat(tt.vg_counts0.cpu().numpy()[None], S_pad, axis=0)
+        hg0 = np.repeat(tt.hg_counts0.cpu().numpy()[None], S_pad, axis=0)
+        for s, (excluded, _active, counted_uids) in enumerate(scenarios):
+            for e, name in enumerate(node_names):
+                exist_valid[s, e] = name not in excluded
+            ix = per_scenario[s]
+            idx[s, : len(ix)] = ix
+            active[s, : len(ix)] = True
+            counted[s, : len(ix)] = [uids[i] in counted_uids for i in ix]
+            if s == 0:
+                continue  # scenario 0's seeds are the encoded baseline
+            topo_s = topology_factory(pods, excluded)
+            for name in node_names:
+                topo_s.register(l.LABEL_HOSTNAME, name)
+            counts = topo_ops.encode_topology_counts(
+                topo_s, self.encoder, E, n_claims + 1, node_names, tt.vg_counts0.shape[1],
+                enc["vg_groups"], enc["hg_groups"],
+            )
+            if counts is None:
+                # inverse anti-affinity groups come from bound pods, which
+                # differ per exclusion set: the shared encode cannot hold
+                # every scenario
+                return None
+            vg0[s], hg0[s] = counts
+        dev = self.device
+        self.last_stats = dict(scenarios=S, S=S_pad, L=L, E=E, W=n_claims, P=P)
+        args = (
+            *(as_tensor(a, dev) for a in (idx, active, counted, exist_valid, vg0, hg0)),
+            pt, tol, it_allow, exist_ok, ports, port_conf, vols, enc["exist_tensors"], self.it_tensors,
+            enc["template_tensors"], self.well_known, tt, pod_topo, enc["zone_kid"], enc["ct_kid"], n_claims,
+        )
+        return args, dict(topo_kids=enc["topo_kids"], plain=self.plain)
 
     # -- decoding ----------------------------------------------------------
 

@@ -3,7 +3,8 @@
 what the encode needs).
 
 Every TSC and (anti)affinity term becomes a TopologyGroup tracking a
-domain -> count map (topology.go / topologygroup.go); ops/topology.py
+domain -> count map (topology.go / topologygroup.go), seeded from the
+pods already bound to nodes; ops/topology.py
 turns the groups into the count tensors the solver carries. Owners of an
 anti-affinity term also get an inverse group, which records where they
 land so that pods matching the selector avoid it (topology.go:330-356).
@@ -71,6 +72,10 @@ class TopologyGroup:
         for d in domains:
             self.domains.setdefault(d, 0)
 
+    def record(self, *domains: str) -> None:
+        for d in domains:
+            self.domains[d] = self.domains.get(d, 0) + 1
+
     def selects(self, pod: Pod) -> bool:
         return pod.metadata.namespace in self.namespaces and _selects(self.selector, pod)
 
@@ -129,11 +134,20 @@ class Topology:
         self._by_ident: dict[tuple, TopologyGroup] = {}
 
     @staticmethod
-    def build(pods: list[Pod], universe_domains: "dict[str, set[str]] | callable") -> "Topology":
+    def build(
+        pods: list[Pod],
+        universe_domains: "dict[str, set[str]] | callable",
+        bound_pods: Optional[list[tuple[Pod, dict[str, str]]]] = None,
+    ) -> "Topology":
         """universe_domains: key -> known domains, or a zero-arg callable
-        producing it, evaluated only when some pod declares topology (a
-        topology-free pod set gets an empty Topology)."""
-        if not pods_declare_topology(pods):
+        producing it, evaluated only when some pod declares topology.
+        bound_pods: pods already placed, with their node's labels; they
+        seed the groups' counts (topology.go:361-459 countDomains). A
+        topology-free pod set with no bound anti-affinity gets an empty
+        Topology."""
+        if not pods_declare_topology(pods) and not any(
+            entry[0].spec.pod_anti_affinity for entry in bound_pods or ()
+        ):
             return Topology()
         if callable(universe_domains):
             universe_domains = universe_domains()
@@ -162,6 +176,22 @@ class Topology:
                     universe_domains.get(term.topology_key, set()), pod.metadata.namespace,
                 )
                 ig.owners.add(pod.uid)
+        for pod, node_labels in bound_pods or []:
+            for g in topo.groups:
+                domain = node_labels.get(g.key)
+                if domain is not None and g.selects(pod):
+                    g.record(domain)
+            # a bound pod with an anti-affinity term blocks its domain for
+            # every pod matching that selector (updateInverseAffinities)
+            for term in pod.spec.pod_anti_affinity:
+                ig = topo._ensure_inverse(
+                    term.topology_key, term.label_selector,
+                    universe_domains.get(term.topology_key, set()), pod.metadata.namespace,
+                )
+                ig.owners.add(pod.uid)
+                domain = node_labels.get(term.topology_key)
+                if domain is not None:
+                    ig.record(domain)
         return topo
 
     def _ensure(self, ttype, key, selector, max_skew, min_domains, pod, domains) -> TopologyGroup:

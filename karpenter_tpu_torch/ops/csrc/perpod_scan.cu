@@ -32,6 +32,23 @@
 // `perpod_chunk` enqueues H7 and H8 for each of a chunk's pods from the
 // host side of this file: one ctypes call per chunk, no host sync.
 //
+// Scenario mode (`perpod_whatif`) replaces `solve_whatif` (solver.py:1120-
+// 1205): jax.vmap of `initial_state` + the scan of `_make_step` over S
+// consolidation scenarios, each its own per-pod scan over its own pod list
+// against its own surviving nodes and topology seeds. H7 runs on a grid of
+// (E + W + G, S) blocks, blockIdx.y the scenario; H8 on S blocks, one per
+// scenario, each exactly the single-scenario block. Every carry field H8
+// writes, exist.valid, the validity row, the keys, the assignment and
+// pod_idx carry a per-scenario byte stride; the catalog, template and
+// topology tables are shared (stride 0). Step i of scenario s reads the
+// union's pod row pod_idx[s, i] instead of a materialised [S, L, ...]
+// copy. Each block first moves its scenario's pointers into shared
+// memory. The single-scenario entries pass the same 89 pointers with
+// pod_idx null (step i reads row i), S = 1 and no strides; they run the
+// kernels' other instantiation, which reads its parameter in place and
+// skips that prologue. One C call enqueues H7 + H8 for every step of all
+// S scenarios, with no host sync.
+//
 // The it-compat term. The reference classifies each (claim, key) of the
 // narrowed row: equal to the stored claim row -> implied by state.its
 // (which certified that row when it was stored), else tested exactly,
@@ -148,10 +165,19 @@ struct P {
   // scratch and output
   int32_t* keys;           // [E + W + G]
   int32_t* assignment;     // [L]
+  // the union pod row of each step; null in the single-scenario entries
+  int32_t* pod_idx;        // [L]
   int E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid;
 };
-constexpr int kPtrs = 88;
+constexpr int kPtrs = 89;
 constexpr int kDims = 20;
+
+// The kernels' parameter: the block of scenario 0 and each pointer's byte
+// stride from one scenario to the next (0 for what the scenarios share).
+struct PS {
+  P p;
+  int64_t stride[kPtrs];
+};
 
 // the per-block workspace in dynamic shared memory
 struct WS {
@@ -484,20 +510,43 @@ __device__ bool type_ok(const P& p, const WS& ws, int pod, int tier, int idx, in
   return false;
 }
 
+// the block's parameters: in scenario mode, scenario s's block in shared
+// memory, every pointer moved by s strides (needs blockDim.x >= kPtrs +
+// kDims); the single-scenario entries read the kernel parameter itself
+template <bool kScen>
+__device__ __forceinline__ const P& block_params(const PS& ps, int s, P* sp) {
+  if constexpr (!kScen) return ps.p;
+  const int tid = threadIdx.x;
+  const int64_t* src = reinterpret_cast<const int64_t*>(&ps.p);
+  if (tid < kPtrs)
+    reinterpret_cast<int64_t*>(sp)[tid] = src[tid] + (src[tid] ? (int64_t)s * ps.stride[tid] : 0);
+  else if (tid < kPtrs + kDims)
+    (&sp->E)[tid - kPtrs] = (&ps.p.E)[tid - kPtrs];
+  __syncthreads();
+  return *sp;
+}
+
+// the union pod row of step `step`
+__device__ __forceinline__ int pod_row(const P& p, int step) { return p.pod_idx ? p.pod_idx[step] : step; }
+
 // the candidate's live gates that need no workspace (block-uniform)
-__device__ __forceinline__ bool row_live(const P& p, int pod, int tier, int idx) {
-  if (!p.pvalid[pod]) return false;
+__device__ __forceinline__ bool row_live(const P& p, int step, int pod, int tier, int idx) {
+  if (!p.pvalid[step]) return false;
   if (tier == 1) return p.exist_valid[idx] && p.exist_ok[(int64_t)pod * p.E + idx];
   if (tier == 2) return p.open[idx];
   return p.t_valid[idx] && p.tmpl_ok[(int64_t)pod * p.G + idx] && p.nodes_budget[idx] >= 1.0f;
 }
 
-__global__ void __launch_bounds__(kEvalThreads) perpod_eval_kernel(P p, int pod) {
+template <bool kScen>
+__global__ void __launch_bounds__(kEvalThreads) perpod_eval_kernel(const __grid_constant__ PS ps, int step) {
   extern __shared__ __align__(16) char smem[];
+  __shared__ P sp;
+  const P& p = block_params<kScen>(ps, blockIdx.y, &sp);
+  const int pod = pod_row(p, step);
   const int row = blockIdx.x;
   const int tier = row < p.E ? 1 : (row < p.E + p.W ? 2 : 3);
   const int idx = tier == 1 ? row : (tier == 2 ? row - p.E : row - p.E - p.W);
-  if (!row_live(p, pod, tier, idx)) {
+  if (!row_live(p, step, pod, tier, idx)) {
     if (threadIdx.x == 0) p.keys[row] = kBig;
     return;
   }
@@ -551,10 +600,14 @@ struct Pick {
   int place, found_e, found, opened, tier, idx, cslot, slot, assign, spilled;
 };
 
-__global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(P p, int pod) {
+template <bool kScen>
+__global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(const __grid_constant__ PS ps, int step) {
   extern __shared__ __align__(16) char smem[];
   __shared__ int32_t red[3][32];
   __shared__ Pick pk;
+  __shared__ P sp;
+  const P& p = block_params<kScen>(ps, blockIdx.x, &sp);
+  const int pod = pod_row(p, step);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int E = p.E, W = p.W, G = p.G;
   // ---- the three tiers' least keys -------------------------------------------
@@ -565,7 +618,7 @@ __global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(P p, int 
   block_min3(red, b0, b1, b2);
   if (tid == 0) {
     const int32_t n_open = *p.n_open, w_open = *p.w_open;
-    const bool valid = p.pvalid[pod];
+    const bool valid = p.pvalid[step];
     const bool found_e = red[0][0] < kBig;
     const int pick_e = found_e ? red[0][0] : 0;
     const bool found = !found_e && red[1][0] < kBig;
@@ -595,7 +648,7 @@ __global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(P p, int 
   const Pick w = pk;
   if (!w.place) {
     if (tid == 0) {
-      p.assignment[pod] = w.assign;
+      p.assignment[step] = w.assign;
       *p.spills += w.spilled;
     }
     return;
@@ -668,80 +721,128 @@ __global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(P p, int 
       p.pods[w.cslot] += 1;
     }
     *p.w_hw = max(*p.w_hw, *p.w_open);
-    p.assignment[pod] = w.assign;
+    p.assignment[step] = w.assign;
   }
 }
 
 struct Launch {
-  P p;
+  PS ps;
+  int S;
+  bool scen;  // scenario mode (the scenario entries), else one scenario read in place
   size_t smem;
 };
 
-int setup(const int64_t* ptrs, int n_ptrs, const int64_t* dims, Launch* out) {
+// strides: nullptr for the single-scenario entries (S = 1, stride 0)
+int setup(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S, Launch* out) {
   static_assert(offsetof(P, E) == kPtrs * sizeof(void*), "P: pointers first");
-  if (n_ptrs != kPtrs) return (int)cudaErrorInvalidValue;
-  P p;
+  static_assert(kEvalThreads >= kPtrs + kDims, "scenario_block needs a thread per field");
+  if (n_ptrs != kPtrs || S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  PS ps;
+  memset(&ps, 0, sizeof(ps));
+  P& p = ps.p;
   memcpy(&p, ptrs, kPtrs * sizeof(void*));
+  if (strides) memcpy(ps.stride, strides, kPtrs * sizeof(int64_t));
   int* d = &p.E;
   for (int i = 0; i < kDims; ++i) d[i] = (int)dims[i];
   if (p.K < 1 || p.V < 1 || p.R < 1 || p.NGv < 1 || p.NGh < 1 || p.Z > p.V || p.C > p.V)
     return (int)cudaErrorInvalidValue;
   const size_t smem = carve(nullptr, nullptr, p.K, p.V, p.NGv, p.R);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t granted = 48 * 1024;
+  const size_t static_smem = 4096;  // the scenario block, the reductions, the pick
+  if (smem + static_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  static size_t granted = 48 * 1024 - static_smem;
   if (smem > granted) {
-    cudaError_t e = cudaFuncSetAttribute(perpod_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(perpod_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    const void* fns[] = {(const void*)perpod_eval_kernel<false>, (const void*)perpod_eval_kernel<true>,
+                         (const void*)perpod_commit_kernel<false>, (const void*)perpod_commit_kernel<true>};
+    for (const void* fn : fns) {
+      const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
     granted = smem;
   }
-  out->p = p;
+  out->ps = ps;
+  out->S = S;
+  out->scen = strides != nullptr;
   out->smem = smem;
   return 0;
 }
 
-int launch_eval(const Launch& l, int pod, cudaStream_t s) {
-  perpod_eval_kernel<<<l.p.E + l.p.W + l.p.G, kEvalThreads, l.smem, s>>>(l.p, pod);
+int launch_eval(const Launch& l, int step, cudaStream_t s) {
+  const P& p = l.ps.p;
+  const dim3 grid(p.E + p.W + p.G, l.S);
+  if (l.scen)
+    perpod_eval_kernel<true><<<grid, kEvalThreads, l.smem, s>>>(l.ps, step);
+  else
+    perpod_eval_kernel<false><<<grid, kEvalThreads, l.smem, s>>>(l.ps, step);
   return (int)cudaGetLastError();
 }
 
-int launch_commit(const Launch& l, int pod, cudaStream_t s) {
-  perpod_commit_kernel<<<1, kCommitThreads, l.smem, s>>>(l.p, pod);
+int launch_commit(const Launch& l, int step, cudaStream_t s) {
+  if (l.scen)
+    perpod_commit_kernel<true><<<l.S, kCommitThreads, l.smem, s>>>(l.ps, step);
+  else
+    perpod_commit_kernel<false><<<l.S, kCommitThreads, l.smem, s>>>(l.ps, step);
   return (int)cudaGetLastError();
+}
+
+int run_steps(const Launch& l, int n_steps, cudaStream_t s) {
+  int rc;
+  for (int i = 0; i < n_steps; ++i) {
+    if ((rc = launch_eval(l, i, s))) return rc;
+    if ((rc = launch_commit(l, i, s))) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// ptrs: a host array of the 88 device pointers in P's field order; dims:
-// E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L,
-// zone_kid, ct_kid. Each entry returns cudaGetLastError() of its launches.
+// ptrs: a host array of the 89 device pointers in P's field order (pod_idx
+// null in the single-scenario entries); dims: E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L,
+// zone_kid, ct_kid; strides: 89 byte strides per scenario. Each entry
+// returns cudaGetLastError() of its launches.
 
 // H7 alone, for pod `pod` of the chunk: keys[E + W + G]
 extern "C" int perpod_eval(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int pod, void* stream) {
   Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, &l);
+  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
   return rc ? rc : launch_eval(l, pod, (cudaStream_t)stream);
 }
 
 // H8 alone, for pod `pod`, from the keys in the scratch buffer
 extern "C" int perpod_commit(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int pod, void* stream) {
   Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, &l);
+  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
   return rc ? rc : launch_commit(l, pod, (cudaStream_t)stream);
 }
 
 // the chunk: H7 then H8 for pods 0 .. n_pods - 1, in order
 extern "C" int perpod_chunk(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int n_pods, void* stream) {
   Launch l;
-  int rc = setup(ptrs, n_ptrs, dims, &l);
-  if (rc) return rc;
-  const cudaStream_t s = (cudaStream_t)stream;
-  for (int i = 0; i < n_pods; ++i) {
-    if ((rc = launch_eval(l, i, s))) return rc;
-    if ((rc = launch_commit(l, i, s))) return rc;
-  }
-  return 0;
+  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
+  return rc ? rc : run_steps(l, n_pods, (cudaStream_t)stream);
+}
+
+// scenario mode: H7 then H8 for steps 0 .. n_steps - 1 of all S scenarios
+extern "C" int perpod_whatif(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S,
+                             int n_steps, void* stream) {
+  Launch l;
+  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
+  return rc ? rc : run_steps(l, n_steps, (cudaStream_t)stream);
+}
+
+// scenario mode, H7 alone for step `step`: keys[S, E + W + G]
+extern "C" int perpod_whatif_eval(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides,
+                                  int S, int step, void* stream) {
+  Launch l;
+  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
+  return rc ? rc : launch_eval(l, step, (cudaStream_t)stream);
+}
+
+// scenario mode, H8 alone for step `step`, from the keys in the scratch buffer
+extern "C" int perpod_whatif_commit(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides,
+                                    int S, int step, void* stream) {
+  Launch l;
+  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
+  return rc ? rc : launch_commit(l, step, (cudaStream_t)stream);
 }
 
 extern "C" const char* perpod_scan_error_string(int e) {

@@ -2,7 +2,8 @@
 
 Each source is compiled by its own `nvcc` (all started together) into a
 shared library with a plain C interface, loaded with ctypes; a source may
-hold several kernels (csrc/perpod_scan.cu holds H7 and H8). The build
+hold several kernels (csrc/perpod_scan.cu holds H7 and H8, and their
+scenario mode). The build
 lands in build/karpenter_tpu_torch/<hash of sources and flags>/ under the
 repository root, at first CUDA use, so a fresh checkout builds everything
 itself. Launchers validate device, dtype, shape and contiguity, allocate
@@ -24,15 +25,22 @@ from typing import Optional
 
 import torch
 
+PERPOD_KERNELS = ("perpod_eval", "perpod_commit")
+# H7 / H8 in scenario mode (the batched what-ifs), counted on their own
+WHATIF_KERNELS = ("perpod_whatif_eval", "perpod_whatif_commit")
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
-    "kscan_pod_loop", "perpod_eval", "perpod_commit",
+    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS,
 )
-PERPOD_KERNELS = ("perpod_eval", "perpod_commit")
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
-SOURCE = {k: ("perpod_scan" if k in PERPOD_KERNELS else k) for k in KERNELS}
-ENTRIES = {"perpod_scan": ("perpod_eval", "perpod_commit", "perpod_chunk")}
+SOURCE = {k: ("perpod_scan" if k in PERPOD_KERNELS + WHATIF_KERNELS else k) for k in KERNELS}
+ENTRIES = {
+    "perpod_scan": (
+        "perpod_eval", "perpod_commit", "perpod_chunk", "perpod_whatif", "perpod_whatif_eval",
+        "perpod_whatif_commit",
+    ),
+}
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,6 +137,9 @@ _ARGTYPES = {
     "perpod_eval": [_P, _I, _P, _I, _P],
     "perpod_commit": [_P, _I, _P, _I, _P],
     "perpod_chunk": [_P, _I, _P, _I, _P],
+    "perpod_whatif": [_P, _I, _P, _P, _I, _I, _P],
+    "perpod_whatif_eval": [_P, _I, _P, _P, _I, _I, _P],
+    "perpod_whatif_commit": [_P, _I, _P, _P, _I, _I, _P],
 }
 
 
@@ -478,8 +489,9 @@ def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
 
 
 def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
-    """The 88 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
-    parameter block, in its order, and its 20 dims."""
+    """The 89 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
+    parameter block, in its order, and its 20 dims. The last, pod_idx, is
+    None (a null pointer: step i reads pod row i); scenario mode sets it."""
     b, i, f = torch.bool, torch.int32, torch.float32
     exist, it, tm, topo = ctx.exist, ctx.it, ctx.templates, ctx.topo
     W, T = state.its.shape
@@ -535,7 +547,7 @@ def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
             ("vg_self", xs.vg_self, b, (L, NGv)), ("hg_applies", xs.hg_applies, b, (L, NGh)),
             ("hg_records", xs.hg_records, b, (L, NGh)), ("hg_self", xs.hg_self, b, (L, NGh)),
             ("strict_mask", xs.strict_mask, b, (L, K, V)),
-            ("keys", keys, i, (E + W + G,)), ("assignment", assignment, i, (L,)),
+            ("keys", keys, i, (E + W + G,)), ("assignment", assignment, i, (L,)), ("pod_idx", None, i, (L,)),
         ]
     )
     dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid]
@@ -547,6 +559,9 @@ def _perpod_call(entry: str, state, xs, ctx, keys, assignment, n: int) -> None:
     fields, dims = _perpod_fields(state, xs, ctx, keys, assignment)
     ptrs = []
     for name, t, dt, shape in fields:
+        if t is None:
+            ptrs.append(0)
+            continue
         _check(t, name, dt, dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"perpod_scan: {name} {tuple(t.shape)} vs {shape}")
@@ -593,3 +608,118 @@ def perpod_commit(state, xs, ctx, pod: int, keys: torch.Tensor) -> torch.Tensor:
     _perpod_call("perpod_commit", state, xs, ctx, keys, assignment, pod)
     LAUNCHES["perpod_commit"] += 1
     return assignment[pod]
+
+
+# ---------------------------------------------------------------------------
+# H7 / H8 in scenario mode: S per-pod scans in one launch sequence
+# ---------------------------------------------------------------------------
+
+def _whatif_fields(state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid) -> tuple[list, list, list]:
+    """csrc/perpod_scan.cu's scenario-mode block: the single-scenario
+    block's 89 (name, tensor, dtype, shape) fields with each scenario
+    field (`_scenario_tensors`) stacked on a leading S axis and pod_idx
+    [S, L] set, their 89 byte strides per scenario (0 for the shared
+    tables), and the 20 dims (L = steps per scenario). `xs` holds the
+    union's pod rows, which step i of scenario s reads at pod_idx[s, i]."""
+    S, L = pod_idx.shape
+    from karpenter_tpu_torch.ops.solver import PERPOD_WRITES
+
+    first = state._replace(**{f: _first(getattr(state, f)) for f in PERPOD_WRITES})
+    ctx0 = ctx._replace(exist=ctx.exist._replace(valid=exist_valid[0]))
+    base, dims = _perpod_fields(first, xs, ctx0, keys[0], assignment[0])
+    stacked = _scenario_tensors(state, keys, assignment, pod_idx, valid, exist_valid)
+    fields, strides = [], []
+    for name, t, dt, shape in base:
+        if name in stacked:
+            t = stacked[name]
+            shape = (S,) + ((L,) if name in ("valid", "assignment", "pod_idx") else shape)
+            strides.append(t.stride(0) * t.element_size() if S > 1 else 0)
+        else:
+            strides.append(0)
+        fields.append((name, t, dt, shape))
+    dims[17] = L
+    return fields, strides, dims
+
+
+def _first(v):
+    """Scenario 0's view of a stacked field (a tensor or a requirement set)."""
+    return type(v)(*(t[0] for t in v)) if isinstance(v, tuple) else v[0]
+
+
+def _scenario_tensors(state, keys, assignment, pod_idx, valid, exist_valid) -> dict:
+    """The parameter-block fields that differ per scenario, by name, each
+    stacked on a leading S axis: every carry field H8 writes
+    (solver.PERPOD_WRITES; requirement sets field by field), exist.valid,
+    the validity row, the two buffers and pod_idx."""
+    from karpenter_tpu_torch.ops.solver import PERPOD_WRITES
+
+    out = {}
+    for f in PERPOD_WRITES:
+        v = getattr(state, f)
+        if isinstance(v, tuple):
+            out.update((f"{f}.{g}", t) for g, t in zip(v._fields, v))
+        else:
+            out[f] = v
+    out.update({"exist.valid": exist_valid, "valid": valid, "keys": keys, "assignment": assignment,
+                "pod_idx": pod_idx})
+    return out
+
+
+def _whatif_call(entry: str, state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, n: int) -> None:
+    dev = state.used.device
+    fields, strides, dims = _whatif_fields(state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid)
+    S, L = pod_idx.shape
+    P = xs.requests.shape[0]
+    ptrs = []
+    for name, t, dt, shape in fields:
+        _check(t, name, dt, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"perpod_whatif: {name} {tuple(t.shape)} vs {shape}")
+        ptrs.append(t.data_ptr())
+    if L and (int(pod_idx.min()) < 0 or int(pod_idx.max()) >= P):
+        raise ValueError(f"perpod_whatif: pod_idx outside the {P} pod rows")
+    _invoke(
+        "perpod_scan", entry, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array(dims), ctypes.c_void_p), ctypes.cast(_i64_array(strides), ctypes.c_void_p),
+        S, n,
+    )
+
+
+def _whatif_buffers(state, ctx, pod_idx) -> tuple[torch.Tensor, torch.Tensor]:
+    S, L = pod_idx.shape
+    W = state.open.shape[1]
+    n_rows = ctx.exist.avail.shape[0] + W + ctx.templates.its.shape[0]
+    dev = state.used.device
+    return (torch.empty((S, n_rows), dtype=torch.int32, device=dev),
+            torch.full((S, L), -1, dtype=torch.int32, device=dev))
+
+
+def perpod_whatif(state, xs, ctx, pod_idx, valid, exist_valid) -> torch.Tensor:
+    """H7 + H8 in scenario mode for every step of S scenarios, in one C
+    call: `state` (ops.solver.SolverState whose written fields are stacked
+    [S, ...] and private to the caller) is updated in place; step i of
+    scenario s places the union pod row pod_idx[s, i] when valid[s, i],
+    against the nodes exist_valid[s]. Returns the [S, L] int32 assignment."""
+    keys, assignment = _whatif_buffers(state, ctx, pod_idx)
+    L = pod_idx.shape[1]
+    _whatif_call("perpod_whatif", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, L)
+    for k in WHATIF_KERNELS:
+        LAUNCHES[k] += L
+    return assignment
+
+
+def perpod_whatif_eval(state, xs, ctx, pod_idx, valid, exist_valid, step: int) -> torch.Tensor:
+    """H7 in scenario mode alone, for step `step`: keys [S, E + W + G]."""
+    keys, assignment = _whatif_buffers(state, ctx, pod_idx)
+    _whatif_call("perpod_whatif_eval", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, step)
+    LAUNCHES["perpod_whatif_eval"] += 1
+    return keys
+
+
+def perpod_whatif_commit(state, xs, ctx, pod_idx, valid, exist_valid, step: int, keys) -> torch.Tensor:
+    """H8 in scenario mode alone, for step `step` from `keys` [S, E + W + G]:
+    commits into `state` in place; returns the [S] int32 assignments."""
+    _keys, assignment = _whatif_buffers(state, ctx, pod_idx)
+    _whatif_call("perpod_whatif_commit", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, step)
+    LAUNCHES["perpod_whatif_commit"] += 1
+    return assignment[:, step]

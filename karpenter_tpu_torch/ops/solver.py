@@ -1985,3 +1985,120 @@ def solve(
         state, pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols,
         exist, it, templates, well_known, topo, pod_topo, zone_kid, ct_kid, n_claims, topo_kids, plain,
     )
+
+
+# ---------------------------------------------------------------------------
+# batched consolidation what-ifs (the JAX package's solve_whatif)
+# ---------------------------------------------------------------------------
+
+
+def stack_scenarios(state: SolverState, S: int, vg_counts0: torch.Tensor, hg_counts0: torch.Tensor) -> SolverState:
+    """`state` with every field the per-pod step writes stacked on a
+    leading scenario axis of S private copies, the topology counts taken
+    from the per-scenario seeds [S, NGv, V] / [S, NGh, Sl]; the fields the
+    step never writes (the bank) stay shared."""
+
+    def rep(t):
+        return t.unsqueeze(0).expand((S,) + tuple(t.shape)).contiguous()
+
+    out = {}
+    for f in PERPOD_WRITES:
+        v = getattr(state, f)
+        out[f] = ReqSetTensors(*(rep(t) for t in v)) if isinstance(v, ReqSetTensors) else rep(v)
+    out["vg_counts"] = vg_counts0.to(I32).clone(memory_format=torch.contiguous_format)
+    out["hg_counts"] = hg_counts0.to(I32).clone(memory_format=torch.contiguous_format)
+    return state._replace(**out)
+
+
+def scenario_state(state: SolverState, s: int) -> SolverState:
+    """Scenario s of a stacked state (views)."""
+    return state._replace(**{
+        f: (ReqSetTensors(*(t[s] for t in v)) if isinstance(v, ReqSetTensors) else v[s])
+        for f, v in ((f, getattr(state, f)) for f in PERPOD_WRITES)
+    })
+
+
+def whatif_loop_plain(state0, xs: PodXs, ctx: PerPodCtx, idx, valid, exist_valid, vg0, hg0):
+    """The plain per-pod loop once per scenario, each from state0 with its
+    own topology seeds, surviving nodes and pod rows xs[idx[s]] (valid
+    rows valid[s]): ([S, L] assignment, the final carry of each scenario)."""
+    rows, states = [], []
+    for s in range(idx.shape[0]):
+        c = ctx._replace(exist=ctx.exist._replace(valid=exist_valid[s]),
+                         topo=ctx.topo._replace(vg_counts0=vg0[s], hg_counts0=hg0[s]))
+        st = state0._replace(vg_counts=vg0[s], hg_counts=hg0[s])
+        st, a = perpod_loop_plain(st, _take_x(xs, idx[s])._replace(valid=valid[s]), c)
+        states.append(st)
+        rows.append(a)
+    return torch.stack(rows), states
+
+
+def whatif_loop_kernels(state0, xs: PodXs, ctx: PerPodCtx, idx, valid, exist_valid, vg0, hg0):
+    """All scenarios as kernels H7 + H8 in scenario mode from one C call,
+    into a stacked carry (stack_scenarios); the same outputs as
+    whatif_loop_plain (the final carries are views of the stacked one)."""
+    if ctx.templates.rank is not None:
+        raise ValueError("solve_whatif: kernels H7 / H8 pick templates in weight order only (rank is set)")
+    S = idx.shape[0]
+    stacked = stack_scenarios(state0, S, vg0, hg0)
+    assignment = cuda.perpod_whatif(
+        stacked, xs, ctx, idx.to(I32).contiguous(), valid.contiguous(), exist_valid.contiguous(),
+    )
+    return assignment, [scenario_state(stacked, s) for s in range(S)]
+
+
+def solve_whatif_full(
+    scen_pod_idx: torch.Tensor,  # [S, L] i32 — this scenario's pods (rows of the union)
+    scen_active: torch.Tensor,  # [S, L] bool — real entries (False = padding)
+    scen_count: torch.Tensor,  # [S, L] bool — pods whose failure counts (displaced)
+    scen_exist_valid: torch.Tensor,  # [S, E] bool — per-scenario surviving nodes
+    scen_vg_counts0: torch.Tensor,  # [S, NGv, V] i32 — per-scenario topology seeds
+    scen_hg_counts0: torch.Tensor,  # [S, NGh, Sl] i32
+    pods: PodTensors,
+    pod_tmpl_ok: torch.Tensor,
+    pod_it_allow: torch.Tensor,
+    pod_exist_ok: torch.Tensor,
+    pod_ports: torch.Tensor,
+    pod_port_conf: torch.Tensor,
+    pod_vols: torch.Tensor,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    pod_topo: topo_ops.PodTopology,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    topo_kids: tuple = (),
+    window: int = 0,
+    plain: bool = False,
+):
+    """solve_whatif with everything it computes: (n_unsched [S] i32,
+    n_open [S] i32, assignment [S, L] i32, the final carry of each
+    scenario). The plain path runs the plain per-pod loop once per
+    scenario, each from its own initial state (what jax.vmap of the
+    reference's `one` computes); on CUDA (plain=False) all S scenarios run
+    as kernels H7 + H8 in scenario mode from one C call, with no host
+    sync."""
+    idx = scen_pod_idx.long()
+    valid = pods.valid[idx] & scen_active  # [S, L]
+    xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids))
+    state0 = initial_state(exist, it, templates, topo, n_claims, pod_ports.shape[1], window=window, topo_kids=topo_kids)
+    loop = whatif_loop_plain if plain or valid.device.type == "cpu" else whatif_loop_kernels
+    assignment, states = loop(state0, xs, ctx, idx, valid, scen_exist_valid, scen_vg_counts0, scen_hg_counts0)
+    n_open = torch.stack([st.n_open for st in states])
+    n_unsched = (scen_count & valid & (assignment < 0)).sum(dim=1, dtype=I32)
+    return n_unsched, n_open, assignment, states
+
+
+def solve_whatif(*args, **kwargs) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched consolidation what-ifs (the reference's solve_whatif,
+    solver.py:1120-1205): S disruption scenarios over one encoded union
+    problem, each a per-pod scan over its own compact pod list against its
+    own surviving nodes and topology count seeds. Arguments as
+    solve_whatif_full; returns per scenario (n_unsched [S] i32 — failures
+    among the pods the scenario counts, n_open [S] i32 — new claims)."""
+    n_unsched, n_open, _assignment, _states = solve_whatif_full(*args, **kwargs)
+    return n_unsched, n_open

@@ -175,6 +175,63 @@ def encode_topology(
     return TopologyTensors(**{k: as_tensor(v, device) for k, v in arrs.items()}), vg, hg
 
 
+def encode_topology_counts(
+    topology,
+    encoder,
+    e_slots: int,
+    n_slots: int,
+    existing_names: Sequence[str],
+    v_pad: int,
+    base_vg: Sequence,
+    base_hg: Sequence,
+):
+    """Numpy-only (vg_counts0 [NGv, v_pad], hg_counts0 [NGh, E + slots])
+    of a what-if scenario's topology, rows aligned to a baseline encode's
+    group lists by ident(): inverse anti-affinity groups come from bound
+    pods, which differ per exclusion set, so positions do not line up.
+    None when the scenario's group multiset differs from the baseline's
+    (the caller then simulates the scenarios one by one)."""
+    groups = topology.groups + topology.inverse_groups
+    vg = [g for g in groups if g.key != l.LABEL_HOSTNAME]
+    hg = [g for g in groups if g.key == l.LABEL_HOSTNAME]
+
+    def align(scenario_groups, base_groups):
+        by_ident: dict = {}
+        for g in scenario_groups:
+            by_ident.setdefault(g.ident(), []).append(g)
+        ordered = []
+        for b in base_groups:
+            bucket = by_ident.get(b.ident())
+            if not bucket:
+                return None
+            ordered.append(bucket.pop(0))
+        if any(bucket for bucket in by_ident.values()):
+            return None  # groups the baseline encode lacks
+        return ordered
+
+    vg_aligned = align(vg, base_vg)
+    hg_aligned = align(hg, base_hg)
+    if vg_aligned is None or hg_aligned is None:
+        return None
+    NGv, NGh = _pow2(max(len(base_vg), 1)), _pow2(max(len(base_hg), 1))
+    vocab = encoder.vocab
+    vg_counts0 = np.zeros((NGv, v_pad), dtype=np.int32)
+    for j, g in enumerate(vg_aligned):
+        kid = vocab.add_key(g.key)
+        for name, count in g.domains.items():
+            vid = vocab.value_to_id[kid].get(name)
+            if vid is not None:
+                vg_counts0[j, vid] = count
+    slot_of = {name: i for i, name in enumerate(existing_names)}
+    hg_counts0 = np.zeros((NGh, e_slots + n_slots), dtype=np.int32)
+    for j, g in enumerate(hg_aligned):
+        for name, count in g.domains.items():
+            s = slot_of.get(name)
+            if count > 0 and s is not None:
+                hg_counts0[j, s] = count
+    return vg_counts0, hg_counts0
+
+
 def encode_pod_topology(topology, vg, hg, pods, strict_mask: torch.Tensor):
     """(PodTopology on strict_mask's device, host numpy twins {vga, vgr,
     hga, hgr}) for the kind representatives `pods`; the twins drive the

@@ -6,15 +6,31 @@ see the same problem, and per-pod workloads that reach every path of
 the per-pod step: `tier_templates` / `tier_pods` (kinds sharing claims
 through a custom key), `guarded_pods` (hostname groups, one of them
 initially empty), `wide_zone_pods` (a zone key wider than KSCAN_D) and
-`existing_node` (tier 1)."""
+`existing_node` (tier 1); and a consolidation fixture (`bound_cluster`,
+`candidates`, `prefix_scenarios` / `single_scenarios`,
+`topology_factory`, `sequential_signal`, the digests): a cluster whose nodes carry
+bound pods, and the what-if scenarios the disruption methods submit.
+
+The consolidation fixture reads models only through a `side` namespace
+(PORT by default), so the same code builds its twin from another
+package's classes."""
 
 from __future__ import annotations
+
+import hashlib
+import types
+from dataclasses import dataclass
 
 import numpy as np
 
 from karpenter_tpu_torch.cloudprovider.fake import instance_types
 from karpenter_tpu_torch.controllers.provisioning.host_scheduler import ExistingSimNode
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import build_templates
+from karpenter_tpu_torch.controllers.provisioning.topology import (
+    Topology,
+    build_universe_domains,
+    template_universe_domains,
+)
 from karpenter_tpu_torch.models import labels as l
 from karpenter_tpu_torch.models.nodepool import NodePool
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
@@ -25,6 +41,7 @@ from karpenter_tpu_torch.models.pod import (
     TopologySpreadConstraint,
     make_pod,
 )
+from karpenter_tpu_torch.utils import resources as res
 
 TIER = "example.com/tier"
 
@@ -203,3 +220,201 @@ def wide_zone_pods(n: int):
         p.spec.node_affinity = NodeAffinity(required=[NodeSelectorTerm(
             match_expressions=[{"key": l.LABEL_TOPOLOGY_ZONE, "operator": "NotIn", "values": extra}])])
     return zonal_pods(n, kinds=2) + away
+
+
+# ---------------------------------------------------------------------------
+# consolidation fixture
+# ---------------------------------------------------------------------------
+
+PORT = types.SimpleNamespace(
+    make_pod=make_pod, l=l, res=res, Operator=Operator, Requirement=Requirement, Requirements=Requirements,
+    ExistingSimNode=ExistingSimNode, Topology=Topology, build_universe_domains=build_universe_domains,
+    template_universe_domains=template_universe_domains,
+)
+
+
+@dataclass
+class BoundCluster:
+    """Launched nodes and the pods bound to them."""
+
+    nodes: list  # ExistingSimNode per node, in launch order
+    labels: dict  # node name -> node labels
+    bound: dict  # node name -> its bound pods
+    price: dict  # node name -> $/h of its offering
+    templates: list
+
+
+@dataclass
+class Candidate:
+    """A node consolidation may remove, with the pods it would displace."""
+
+    name: str
+    reschedulable_pods: list
+
+
+def pending_pods(n: int, seed: int = 1, side=PORT):
+    """selector_pods' shape from another seed, named pending-<i>."""
+    L = side.l
+    rng = np.random.default_rng(seed)
+    zones = ("test-zone-1", "test-zone-2", "test-zone-3", "test-zone-4")
+    pods = []
+    for i in range(n):
+        sel = {}
+        if i % 5 == 1:
+            sel[L.LABEL_TOPOLOGY_ZONE] = zones[i % len(zones)]
+        if i % 5 == 2:
+            sel[L.LABEL_ARCH] = L.ARCH_AMD64
+        if i % 5 == 3:
+            sel[L.CAPACITY_TYPE_LABEL_KEY] = L.CAPACITY_TYPE_ON_DEMAND
+        pods.append(side.make_pod(
+            f"pending-{i}", cpu=float(rng.choice([0.1, 0.25, 0.5, 1.0, 2.0, 4.0])),
+            memory=f"{rng.choice([0.25, 0.5, 1.0, 2.0, 4.0])}Gi", node_selector=sel,
+        ))
+    return pods
+
+
+def launch_claims(result, templates, side=PORT) -> BoundCluster:
+    """Launch every claim of a SchedulingResult as a node (what a cloud
+    provider does): its cheapest viable instance type (ties by name), that
+    type's cheapest offering compatible with the claim's requirements
+    (ties by zone, then capacity type), labels for hostname, zone, capacity
+    type, instance type and arch, and available = allocatable - the
+    template's daemon overhead - the claim's pods, which become the node's
+    bound pods. Nodes are named node-<i> in claim order."""
+    L, R = side.l, side.res
+    nodes, labels, bound, price = [], {}, {}, {}
+    for i, c in enumerate(result.claims):
+        it = min(c.instance_types, key=lambda t: (t.cheapest_offering_price(c.requirements), t.name))
+        offers = [
+            o for o in it.offerings
+            if o.available and o.capacity_type != L.CAPACITY_TYPE_RESERVED
+            and c.requirements.is_compatible(o.requirements, L.WELL_KNOWN_LABELS)
+        ]
+        o = min(offers, key=lambda o: (o.price, o.zone, o.capacity_type))
+        name = f"node-{i:04d}"
+        lab = {
+            L.LABEL_HOSTNAME: name, L.LABEL_TOPOLOGY_ZONE: o.zone, L.CAPACITY_TYPE_LABEL_KEY: o.capacity_type,
+            L.LABEL_INSTANCE_TYPE: it.name, L.LABEL_ARCH: it.requirements.get(L.LABEL_ARCH).any_value(),
+        }
+        reqs = side.Requirements()
+        for k, v in lab.items():
+            reqs.add(side.Requirement.new(k, side.Operator.IN, v))
+        avail = R.subtract(R.subtract(it.allocatable(), c.template.daemon_requests),
+                           R.merge(*(p.total_requests() for p in c.pods)))
+        nodes.append(side.ExistingSimNode(name=name, index=i, requirements=reqs, available=avail))
+        labels[name] = lab
+        bound[name] = list(c.pods)
+        price[name] = o.price
+    return BoundCluster(nodes=nodes, labels=labels, bound=bound, price=price, templates=templates)
+
+
+def bound_cluster(pods, templates, max_claims=None, device="cuda") -> BoundCluster:
+    """Provision `pods` with a TorchScheduler solve and launch its claims."""
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+
+    result = TorchScheduler(templates, max_claims=max_claims, device=device).solve(pods)
+    if result.unschedulable:
+        raise ValueError(f"bound_cluster: {len(result.unschedulable)} pods unschedulable")
+    return launch_claims(result, templates)
+
+
+def candidates(cluster: BoundCluster) -> list:
+    """Every node as a consolidation candidate, cheapest first, ties by name."""
+    names = sorted(cluster.bound, key=lambda n: (cluster.price[n], n))
+    return [Candidate(n, list(cluster.bound[n])) for n in names]
+
+
+def scenarios_of(sets: list, pending: list) -> tuple[list, list]:
+    """(union pods, [(excluded, active uids, counted uids)]) as the
+    reference's Provisioner.simulate_batch builds them: active = pending
+    and displaced, counted = displaced; the union is the pending pods, then
+    each displaced pod once, in scenario order."""
+    union: dict = {}
+    specs = []
+    pending_uids = {p.uid for p in pending}
+    for cands in sets:
+        displaced = [p for c in cands for p in c.reschedulable_pods]
+        for p in displaced:
+            union.setdefault(p.uid, p)
+        counted = {p.uid for p in displaced}
+        specs.append(({c.name for c in cands}, pending_uids | counted, counted))
+    return list(pending) + list(union.values()), specs
+
+
+def prefix_scenarios(cands: list, n: int, pending: list) -> tuple[list, list]:
+    """Multi-node consolidation's batch: the prefixes 1..n of `cands`."""
+    return scenarios_of([cands[:k] for k in range(1, n + 1)], pending)
+
+
+def single_scenarios(cands: list, n: int, pending: list) -> tuple[list, list]:
+    """Single-node consolidation's batch: each of the first n candidates alone."""
+    return scenarios_of([[c] for c in cands[:n]], pending)
+
+
+def topology_factory(cluster: BoundCluster, side=PORT):
+    """factory(pods, excluded): the scenario's topology, seeded from the
+    pods bound to every node not excluded, over the universe of the
+    templates and those nodes (the reference's Provisioner._build_topology)."""
+    base = side.template_universe_domains(cluster.templates)
+
+    def factory(pods, excluded):
+        survivors = [n for n in cluster.nodes if n.name not in excluded]
+        bound = [(p, cluster.labels[n.name]) for n in survivors for p in cluster.bound[n.name]]
+        return side.Topology.build(
+            list(pods),
+            lambda: side.build_universe_domains(cluster.templates, survivors, template_base=base),
+            bound,
+        )
+
+    return factory
+
+
+def sequential_signal(sched, cluster: BoundCluster, factory, pending: list, cands: list) -> tuple[bool, int]:
+    """One scenario simulated alone, as a consolidation confirm does: the
+    pending and displaced pods solved against the surviving nodes with the
+    scenario's topology; (no displaced pod unscheduled, claims opened)."""
+    excluded = {c.name for c in cands}
+    displaced = [p for c in cands for p in c.reschedulable_pods]
+    pods = list(pending) + displaced
+    survivors = [n.clone() for n in cluster.nodes if n.name not in excluded]
+    result = sched.solve(pods, survivors, None, topology=factory(pods, excluded))
+    failed = {p.uid for p, _reason in result.unschedulable} & {p.uid for p in displaced}
+    return not failed, len(result.claims)
+
+
+def cluster_digest(cluster: BoundCluster) -> str:
+    """sha256 of the launched nodes: names, labels, available resources and
+    bound pod names."""
+    h = hashlib.sha256()
+    for n in cluster.nodes:
+        h.update(repr((n.name, sorted(cluster.labels[n.name].items()), sorted(n.available.items()),
+                       sorted(p.name for p in cluster.bound[n.name]))).encode())
+    return h.hexdigest()
+
+
+def signals_digest(signals) -> str:
+    """sha256 of a what-if batch's [(feasible, n_new_claims)] list."""
+    return hashlib.sha256(repr([(bool(f), int(n)) for f, n in signals]).encode()).hexdigest()
+
+
+def placements_digest(assignment, vg_counts, hg_counts, vg_key, vocab) -> str:
+    """sha256 of what a what-if batch's placements decide: each scenario's
+    [L] assignment (a surviving node's index, E + a new claim's slot, or
+    < 0), its final hostname group counts by slot and its final vocab-key
+    group counts by domain name. int32 arrays [S, L], [S, NGh, Sl] and
+    [S, NGv, V] of the real scenarios; `vg_key` [NGv] and the encoder's
+    `vocab` name each count's key and value (value ids follow the order in
+    which a process met the values, so the digest uses the names)."""
+    h = hashlib.sha256()
+    for a in (assignment, hg_counts):
+        a = np.ascontiguousarray(np.asarray(a, dtype=np.int32))
+        h.update(repr(a.shape).encode())
+        h.update(a.tobytes())
+    keys = [int(k) for k in np.asarray(vg_key)]
+    for scen in np.asarray(vg_counts):
+        for k, row in zip(keys, scen):
+            names = vocab.values[k]
+            h.update(repr((vocab.keys[k], sorted(
+                (names[v] if v < len(names) else f"#{v}", int(c)) for v, c in enumerate(row) if c
+            ))).encode())
+    return h.hexdigest()

@@ -392,5 +392,6 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
     assert got == want
     assert stats["kscan_dispatches"] > 0 and stats["compactions"] > 0
     # every launcher but the per-pod kernels' (no kind here routes there;
-    # tests/test_torch_perpod.py holds that launcher to the solve)
-    assert set(seen) == set(p_cuda.KERNELS) - set(p_cuda.PERPOD_KERNELS), seen
+    # tests/test_torch_perpod.py holds that launcher to the solve) and
+    # their scenario mode (tests/test_torch_whatif.py)
+    assert set(seen) == set(p_cuda.KERNELS) - set(p_cuda.PERPOD_KERNELS) - set(p_cuda.WHATIF_KERNELS), seen

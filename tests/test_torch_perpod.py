@@ -491,10 +491,11 @@ def test_perpod_wrappers_compose_to_the_step():
 
 
 def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
-    """The CUDA path's one C call per chunk, with the C entry stubbed: 88
+    """The CUDA path's one C call per chunk, with the C entry stubbed: 89
     pointers in the kernel's field order (each the data of the tensor the
-    field names, checked for device, dtype, shape and contiguity), the 20
-    dims, the pod count; and both kernels' launch counts advance by L."""
+    field names, checked for device, dtype, shape and contiguity; the last,
+    the scenario mode's pod_idx, null), the 20 dims, the pod count; and
+    both kernels' launch counts advance by L."""
     prob = _Problem(_hostname_pods(12), bench.make_templates(20), 16, [_existing_node()])
     _j, pst = prob.initial()
     _jc, (ppt, *prest, ptopo) = prob.chunk(0, 12, l_pad=16)
@@ -517,7 +518,8 @@ def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
     assert (source, entry, n) == ("perpod_scan", "perpod_chunk", 16)
     keys, assignment = p_cuda._keys_buffer(st, ctx), p_cuda._assignment_buffer(xs)
     fields, want_dims = p_cuda._perpod_fields(st, xs, ctx, keys, assignment)
-    assert len(fields) == len(ptrs) == 88
+    assert len(fields) == len(ptrs) == 89
+    assert fields[-1][:2] == ("pod_idx", None) and ptrs[-1] == 0
     for (name, t, _dt, _shape), got in zip(fields[:86], ptrs[:86]):
         assert got == t.data_ptr(), name
     E, W, G = prob.enc["E"], pst.open.shape[0], prob.p_args[2].its.shape[0]
