@@ -6,7 +6,7 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eight hand-written kernels from karpenter_tpu_torch/ops/csrc;
+  2. build the hand-written kernels from karpenter_tpu_torch/ops/csrc;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, with times for kernel, plain version and the least time
      the card could take (bound): H1-H4 at the north-star shapes (W=4096
@@ -14,15 +14,16 @@ Phases, any failure exits non-zero:
      mode, H5 and H6 at the kind scan's (W=4096, T=400, D=4 zones, the
      encoded topology of mixed_pods: NGv 2, NGh 4; H6 over one segment of
      256 pods); seeded inputs, the catalog tensors being the real encoded
-     ones; H7 and H8 on the per-pod cell's real encoded problem
+     ones; the per-pod kernel (perpod_scan_persistent, H7 + H8 in one
+     launch per chunk) on the per-pod cell's real encoded problem
      (perpod_pods(4096, kinds=8) x make_templates(400): W=4096 claim rows,
-     T=400, NGv 16), from the state a first 1024-pod kernel chunk leaves:
-     H7's keys and H8's commit for single pods, and a 256-pod chunk through
-     the kernels against the same chunk through the plain step;
-     H7 and H8 in scenario mode on the what-if prefix cell's encode
-     (S=128 scenarios): the first step's keys of every scenario, one
-     commit per scenario, and 4 scenarios (the largest prefix among them)
-     run to the end through the kernels and through the plain loop;
+     T=400, NGv 16), from the state a first 1024-pod chunk leaves: one
+     step, 8 steps and a 256-pod chunk through the kernel against the same
+     steps through the plain step; its scenario mode on the what-if prefix
+     cell's encode (S=128 scenarios): one step of every scenario in one
+     launch, and 4 scenarios (the largest prefix among them) run to the end
+     through the kernel and through the plain loop; assignments and every
+     carry leaf equal;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -34,11 +35,13 @@ Phases, any failure exits non-zero:
      kernels launched; the per-pod path, TorchScheduler(make_templates(400),
      max_claims=4096) on perpod_pods(4096, kinds=8), held to 136 claims, 0
      unschedulable, 143.0965 $/h, the JAX package's assignment digest, 4
-     per-pod dispatches and 3 compactions, with H7, H8, H2 and H4
-     launched. One more warm solve of each under torch.profiler (device
-     busy share and device time by kernel, trace and summary under
-     build/profile/); small solves on the card held to the same solves on
-     the CPU: 2048 selector pods, 1024 mixed pods (also 205 claims,
+     per-pod dispatches and 3 compactions, with the per-pod kernel launched
+     once per chunk and H2 and H4. One more warm solve of each under
+     torch.profiler (device busy share and device time by kernel, trace and
+     summary under build/profile/; the per-pod kernel's ms per launch and
+     per step beside its bound per step over the same steps); small
+     solves on the card held to the same solves on the CPU: 2048 selector
+     pods, 1024 mixed pods (also 205 claims,
      21.5043 $/h), perpod_pods(256), mixed and per-pod kinds in one solve,
      and the custom-key workload that drives the per-pod step's full
      it-compat branch; then the consolidation path: mixed_pods(4096) x
@@ -46,10 +49,11 @@ Phases, any failure exits non-zero:
      bound pods, 64 pending pods, and TorchScheduler.whatif_batch on
      multi-node consolidation's batch (the prefixes 1..100 of the cheapest
      candidates) and single-node consolidation's (each of them alone),
-     cold and twice warm, held to the JAX package's signals, with H7 / H8
-     in scenario mode launched; one more warm prefix batch under
-     torch.profiler; the sequential confirm of prefixes 1, 10 and 100
-     (TorchScheduler.solve(topology=...)) held to the JAX package's;
+     cold and twice warm, held to the JAX package's signals, with the
+     per-pod kernel in scenario mode launched once per batch; one more warm
+     call of each batch under torch.profiler; the sequential confirm of
+     prefixes 1, 10 and 100 (TorchScheduler.solve(topology=...)) held to
+     the JAX package's;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
      usage, requirements), and the wall of phase 3's plain what-if
@@ -63,6 +67,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -497,24 +502,40 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
     )
 
 
-def perpod_kernel_phase(sched, enc, results: list) -> None:
-    """Phase 3c: H7 and H8 against their plain versions on the per-pod
+def launch_ms(run_once, setups: list) -> float:
+    """Mean device time of one launch: CUDA events around `run_once(x)`
+    alone for each prepared input x (its set-up outside the events)."""
+    import torch
+
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in setups]
+    torch.cuda.synchronize()
+    for x, (a, b) in zip(setups, ev):
+        a.record()
+        run_once(x)
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+
+
+def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 256) -> dict:
+    """Phase 3c: the per-pod kernel against the plain loop on the per-pod
     cell's real encoded problem. A first chunk of 1024 pods through the
-    kernels opens claims; from that state, H7's keys for each of 8 pods in
-    turn (the state advanced by the plain step), H8's commit of one pod,
-    and a chunk of 256 pods through the kernels against the plain step,
-    every state leaf and assignment equal."""
+    kernel opens claims; from that state, one step, 8 steps (one launch
+    each, `perpod_steps`) and the 256-pod chunk through the kernel against
+    the same steps through the plain step: the assignment and every carry
+    leaf equal. Times: one launch of the 256-step chunk (device events),
+    per step, beside its bound averaged over the same 256 steps. Returns
+    the chunk's launch inputs, as perpod_step_bounds reads them."""
     import numpy as np
     import torch
 
     from karpenter_tpu_torch.ops import cuda as kc
     from karpenter_tpu_torch.ops import solver
 
-    first, n = 1024, 256
     n_claims = enc["n_claims"]
     common = (enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], sched.well_known, enc["topo_tensors"])
     keys_args = (enc["zone_kid"], enc["ct_kid"], n_claims, tuple(enc["topo_kids"]))
-    ctx = solver.PerPodCtx(*common, *keys_args)
+    ctx = solver.PerPodCtx(*common, *keys_args, kc.perpod_tables(sched.it_tensors, enc["template_tensors"].its))
     kind_of = enc["kind_of"]
 
     def rows(lo, hi):
@@ -537,90 +558,220 @@ def perpod_kernel_phase(sched, enc, results: list) -> None:
     torch.cuda.synchronize()
     r, pt = rows(first, first + n)
     xs = solver.pod_xs(*r, pt)
-    # H7: the keys of 8 pods in turn
-    eq7, st = True, state1
-    for i in range(8):
-        x = solver._take_x(xs, i)
-        keys_k = solver.perpod_eval(st, xs, ctx, i)
-        keys_p = solver.perpod_eval_plain(st, x, ctx)
-        eq7 = eq7 and torch.equal(keys_k, keys_p)
-        st, _ = solver.perpod_commit_plain(st, x, ctx, keys_p)
-    # H8: one pod's commit
-    x0 = solver._take_x(xs, 0)
-    keys0 = solver.perpod_eval_plain(state1, x0, ctx)
-    st_k, a_k = solver.perpod_commit(state1, xs, ctx, 0, keys0)
-    st_p, a_p = solver.perpod_commit_plain(state1, x0, ctx, keys0)
-    eq8 = bool(a_k == a_p) and same(st_k, st_p)
-    # a chunk of n pods: kernels against the plain step
+    checks = {}
+    for steps in (1, 8):
+        sk, ak = solver.perpod_steps(state1, xs, ctx, 0, steps)
+        sp, ap = solver.perpod_loop_plain(state1, solver._take_x(xs, slice(0, steps)), ctx)
+        checks[f"{steps} step(s)"] = torch.equal(ak, ap) and same(sk, sp)
     sk, ak = run(state1, first, first + n, False)
+    t0 = time.perf_counter()
     sp, ap = run(state1, first, first + n, True)
-    eq_chunk = torch.equal(ak, ap) and same(sk, sp)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / n
+    checks[f"{n}-pod chunk"] = torch.equal(ak, ap) and same(sk, sp)
     E = enc["E"]
     hist = {"claims": int((ak >= E).sum()), "existing": int(((ak >= 0) & (ak < E)).sum()),
             "failed": int((ak < 0).sum()), "open_before": int(state1.n_open), "open_after": int(sk.n_open)}
-    print(f"kernel perpod_eval: 8 pods' keys equal={eq7}; perpod_commit: one commit equal={eq8}; "
-          f"{n}-pod chunk through H7 + H8 == plain: {eq_chunk} {json.dumps(hist)}", flush=True)
+    print(f"kernel perpod_scan_persistent (one block): from the state after {first} pods, kernel == plain: "
+          f"{json.dumps(checks)} {json.dumps(hist)}", flush=True)
 
-    # times: H7 alone; H8 alone on private copies (events around the launch only)
-    ms7 = time_ms(lambda: kc.perpod_eval(state1, xs, ctx, 0), iters=50)
-    plain7 = time_ms(lambda: solver.perpod_eval_plain(state1, x0, ctx), iters=5)
-    copies = [solver.own_perpod_writes(state1) for _ in range(10)]
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in copies]
-    torch.cuda.synchronize()
-    for c, (a, b) in zip(copies, ev):
-        a.record()
-        kc.perpod_commit(c, xs, ctx, 0, keys0)
-        b.record()
-    torch.cuda.synchronize()
-    ms8 = sum(a.elapsed_time(b) for a, b in ev) / len(ev)
-    plain8 = time_ms(lambda: solver.perpod_commit_plain(state1, x0, ctx, keys0), iters=5)
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    run(state1, first, first + n, False)
-    t1.record()
-    torch.cuda.synchronize()
-    print(f"kernel perpod chunk: {t0.elapsed_time(t1) / n:.4f} ms per pod (H7 + H8, launched from one C call)",
-          flush=True)
-
-    # bounds: bytes each function must move, over the memory rate. H7 reads
-    # every row's open / valid flag, and for each live row its requirement
-    # row, usage and (claims) viable-type row, the pod's rows, the group
-    # tables and the type tables once, and writes one key per row; H8 reads
-    # the keys, the winner's rows and the type tables, and writes the
-    # winner's rows and the counts back
-    it, tm, topo = sched.it_tensors, enc["template_tensors"], enc["topo_tensors"]
-    T, K, V = it.reqs.mask.shape
-    R = it.alloc.shape[2]
-    W, G = state1.open.shape[0], tm.its.shape[0]
-    req_row = K * V + 11 * K
-    live = int(enc["exist_tensors"].valid.sum()) + int(state1.open.sum()) + G
-    types = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap)
-    groups = nbytes(state1.vg_counts, topo.vg_domains, topo.vg_rank) + 2 * req_row
-    b7 = bound(E + 2 * W + G + live * (req_row + 4 * R + T) + types + groups + 4 * (E + W + G), 0.0)
-    b8 = bound(4 * (E + W + G) + 2 * (req_row + 4 * R + T) + types + groups + nbytes(state1.vg_counts), 0.0)
+    # one launch of the n-step chunk, on private copies made outside the events
+    copies = [solver.own_perpod_writes(state1) for _ in range(5)]
+    ms = launch_ms(lambda c: kc.perpod_steps(c, xs, ctx, 0, n), copies) / n
+    chunk = dict(state0=state1, xs=xs, ctx=ctx, assignment=ak[None])
+    b, live = perpod_step_bounds([chunk])
+    ok = all(checks.values())
+    print(f"kernel perpod_scan_persistent: {ms:.5f} ms per step ({n} steps in one launch), plain "
+          f"{plain_step_ms:.4f} ms per step, bound {b[0]:.7f} ms per step ({b[1]}) {json.dumps(live)}", flush=True)
     results.append(dict(
-        name="perpod_eval", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
-        replaces="karpenter_tpu/ops/solver.py:394", launches=0, max_abs_err=0.0 if eq7 and eq_chunk else 1.0,
-        ms=ms7, plain_ms=plain7, bound_ms=b7[0], bound_by=b7[1], library_ms=None, equal=eq7 and eq_chunk,
+        name="perpod_scan_persistent", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
+        replaces="karpenter_tpu/ops/solver.py:315", launches=0, max_abs_err=0.0 if ok else 1.0,
+        ms=ms, plain_ms=plain_step_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
     ))
-    results.append(dict(
-        name="perpod_commit", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
-        replaces="karpenter_tpu/ops/solver.py:591", launches=0, max_abs_err=0.0 if eq8 and eq_chunk else 1.0,
-        ms=ms8, plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1], library_ms=None, equal=eq8 and eq_chunk,
-    ))
-    for k in results[-2:]:
-        print(f"kernel {k['name']}: equal={k['equal']} (tolerance: exact) ms={k['ms']:.4f} (one wrapper call, "
-              f"host-bound) plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})", flush=True)
+    return chunk
 
 
-def whatif_kernel_phase(cell, results: list) -> float:
-    """Phase 3d: H7 and H8 in scenario mode against the plain per-scenario
-    step, on the what-if prefix cell's encode (S = 128 scenarios, each its
-    own pods, surviving nodes and topology seeds): the first step's keys
-    of every scenario, one commit per scenario from those keys, and 4
-    scenarios (the largest prefix among them) run to the end through the
-    kernels and through the plain loop, assignments and every carry leaf
-    equal. Returns the plain sub-batch's wall (s)."""
+def scalar_tests(st, xs, ctx, rows, valid, ev, amax):
+    """The per-pod kernel's scalar tests (row_cheap) of one step, from the
+    carry before it, for S scenarios at once: st's written fields carry a
+    leading [S] axis, rows [S] are the steps' pod rows, valid [S], ev [S, E]
+    the surviving nodes, amax [T, R] each type's most allocatable over its
+    valid groups. Returns (pass1 [S, E], pass2 [S, W], pass3 [S, G],
+    gate1 [S, E], gate3 [S, G], the hostname groups that apply [S],
+    whether the pod has volumes [S]); gate: the row's live test alone."""
+    import torch
+
+    exist, tm, tt = ctx.exist, ctx.templates, ctx.topo
+    E = exist.avail.shape[0]
+    req = xs.requests[rows]  # [S, R]
+    conf = xs.port_conf[rows]
+    hgate = xs.hg_applies[rows] & tt.hg_valid  # [S, NGh]
+    hself = xs.hg_self[rows].to(torch.int32)
+    nonempty = tt.hg_extra_nonempty | (st.hg_counts > 0).any(-1)  # [S, NGh]
+
+    def fits(used, cap):
+        t = used + req[:, None, :]
+        return ((t <= cap) | (t == 0)).all(-1)
+
+    def hostname_ok(counts):  # counts [S, NGh, n] at each row's slot
+        ht = tt.hg_type[None, :, None]
+        ok = torch.where(ht == 0, counts + hself[..., None] <= tt.hg_skew[None, :, None],
+                         torch.where(ht == 1, (counts > 0) | ((hself[..., None] > 0) & ~nonempty[..., None]),
+                                     counts == 0))
+        return (ok | ~hgate[..., None]).all(1)
+
+    def ports_free(used_ports):
+        return ((conf[:, None, :] & used_ports) == 0).all(-1)
+
+    def popcount(x):
+        x = x.to(torch.int64) & 0xFFFFFFFF
+        x = x - ((x >> 1) & 0x55555555)
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        x = (x + (x >> 4)) & 0x0F0F0F0F
+        return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+    vols = xs.vols[rows]  # [S, NVp]
+    has_vols = (vols != 0).any(-1)
+    gate1 = ev & xs.exist_ok[rows] & valid[:, None]
+    held = (st.exist_vols | vols[:, None, :])[:, :, None, :] & exist.vol_driver[None, None]  # [S, E, ND, NVp]
+    vol_ok = ((popcount(held).sum(-1) <= exist.vol_limits[None]).all(-1)) | ~has_vols[:, None]
+    pass1 = (gate1 & fits(st.exist_used, exist.avail[None]) & ports_free(st.exist_ports) & vol_ok
+             & hostname_ok(st.hg_counts[:, :, :E]))
+    W = int(st.w_open.max()) if st.w_open.numel() else 0
+    W = min(W, st.open.shape[1])
+    its = st.its[:, :W]  # [S, W, T]
+    row_max = torch.where(its[..., None], amax[None, None], torch.tensor(float("-inf"), device=its.device)).amax(2)
+    slot2 = (E + st.slot_of[:, :W].long()).clamp(max=st.hg_counts.shape[2] - 1)
+    counts2 = st.hg_counts.gather(2, slot2[:, None, :].expand(-1, st.hg_counts.shape[1], -1))
+    tok = xs.tmpl_ok[rows]  # [S, G]
+    pass2 = (st.open[:, :W] & (torch.arange(W, device=its.device)[None] < st.w_open[:, None]) & valid[:, None]
+             & fits(st.used[:, :W], row_max) & ports_free(st.claim_ports[:, :W])
+             & tok.gather(1, st.template[:, :W].long().clamp(min=0)) & hostname_ok(counts2))
+    gate3 = tm.valid[None] & tok & (st.nodes_budget >= 1.0) & valid[:, None]
+    slot3 = (E + st.n_open.long()).clamp(max=st.hg_counts.shape[2] - 1)
+    counts3 = st.hg_counts.gather(2, slot3[:, None, None].expand(-1, st.hg_counts.shape[1], 1))
+    pass3 = gate3 & hostname_ok(counts3)
+    return pass1, pass2, pass3, gate1, gate3, hgate.sum(-1), has_vols
+
+
+def perpod_step_bounds(chunks: list) -> tuple:
+    """The per-pod kernel's bound per step: the bytes one launch must move,
+    over the memory rate, divided by its steps, from this run's data,
+    summed over `chunks` (each one launch: its inputs xs / ctx, the carry
+    before it `state0`, its assignment [S, n] and, in scenario mode, a
+    stacked state0 and pod_idx / valid / exist_valid). The launch is
+    replayed one step at a time (a launch of the same kernel per step) so
+    that each step's tests read the carry that step saw. Counted: once per
+    launch the type and group tables; per step the assignment; per real
+    step the pod's rows, its gate rows and the vocab-key counts, and for
+    each tier the step reaches (tier 2 when no existing node takes the
+    pod, tier 3 when no claim does either: the kernel's order, which the
+    pick makes exact; tiers 1 and 3 only up to the chosen row, since the
+    least feasible index decides) each candidate row's live flag; a live
+    row's scalar tests (free resources or a claim's resource ceilings,
+    ports, volumes, the hostname counts of the groups that apply); and
+    only for a row that passes them its requirement row and, for claims
+    and templates, its viable-type row; per placed pod the winner's rows
+    and counts written. Returns (bound, row stats per step)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import cuda as kc
+    from karpenter_tpu_torch.ops import solver
+
+    total_bytes, steps = 0, 0
+    stats = dict(steps=0, real_steps=0, rows_reached=0, rows_tested=0, rows_full=0, tier2_full=0)
+    for ch in chunks:
+        xs, ctx, want = ch["xs"], ch["ctx"], ch["assignment"]
+        it, tm, tt, exist = ctx.it, ctx.templates, ctx.topo, ctx.exist
+        scen = "pod_idx" in ch
+        S, n = want.shape
+        dev = want.device
+        E, G = exist.avail.shape[0], tm.its.shape[0]
+        T, K, V = it.reqs.mask.shape
+        R = it.alloc.shape[2]
+        NGv, NGh = tt.vg_type.shape[0], tt.hg_type.shape[0]
+        NPp, NVp, ND = xs.port_conf.shape[1], xs.vols.shape[1], exist.vol_limits.shape[1]
+        idx = ch["pod_idx"].long() if scen else torch.arange(n, device=dev)[None]
+        ev = ch["exist_valid"] if scen else exist.valid[None]
+        valid = (ch["valid"] if scen else xs.valid[None]) & (idx >= 0)
+        amax = torch.where(it.group_valid[..., None], it.alloc, torch.tensor(float("-inf"), device=dev)).amax(1)
+        run = solver.own_perpod_writes(ch["state0"])
+        got = torch.full((S, n), -1, dtype=torch.int32, device=dev)
+        req_row = K * V + 11 * K
+        pod_row = req_row + K * V + 4 * R + T + G + E + 4 + 3 * (NGv + NGh)
+        tables = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, tm.its, tt.vg_domains, tt.vg_rank)
+        total_bytes += S * tables + S * n * 5
+        acc = torch.zeros(7, dtype=torch.int64, device=dev)
+        for i in range(n):
+            # a single-scenario carry's written fields gain the [1] axis (views)
+            st = run if scen else run._replace(**{
+                f: type(v)(*(t[None] for t in v)) if isinstance(v, tuple) else v[None]
+                for f, v in ((f, getattr(run, f)) for f in solver.PERPOD_WRITES)})
+            w_open0, n_open0 = st.w_open.long(), st.n_open.long()
+            p1, p2, p3, g1, g3, n_hg, has_vols = scalar_tests(st, xs, ctx, idx[:, i], valid[:, i], ev, amax)
+            if scen:
+                kc.perpod_whatif_steps(run, xs, ctx, ch["pod_idx"], ch["valid"], ev, i, i + 1, got)
+            else:
+                kc.perpod_steps(run, xs, ctx, i, i + 1, got[0])
+            a = got[:, i].long()
+            v = valid[:, i]
+            on_node = v & (a >= 0) & (a < E)
+            opened = v & (a - E >= n_open0)
+            reach2 = v & ~on_node
+            reach3 = v & ((a < 0) | opened)
+            # tier 1 up to the chosen node, tier 3 up to the chosen template
+            cut1 = torch.where(on_node, a, torch.full_like(a, E - 1))
+            upto1 = torch.arange(E, device=dev)[None] <= cut1[:, None]
+            tmpl_after = st.template.gather(1, w_open0.clamp(max=st.template.shape[1] - 1)[:, None])[:, 0]
+            cut3 = torch.where(opened, tmpl_after.long(), torch.full_like(a, G - 1))
+            upto3 = (torch.arange(G, device=dev)[None] <= cut3[:, None]) & reach3[:, None]
+            Wn = p2.shape[1]
+            rows2 = (torch.arange(Wn, device=dev)[None] < w_open0[:, None]) & reach2[:, None]
+            t1, f1 = (g1 & upto1 & v[:, None]), (p1 & upto1 & v[:, None])
+            t2, f2 = rows2, p2 & rows2
+            t3, f3 = (g3 & upto3), (p3 & upto3)
+            cheap1 = 8 * R + 4 * NPp + 4 * n_hg + has_vols * (4 * NVp + 4 * ND)
+            cheap2 = 9 + 8 * R + 4 * NPp + 4 * n_hg
+            placed = v & (a >= 0)
+            step_bytes = (
+                v * (pod_row + 4 * NGv * V)
+                + (upto1 & v[:, None]).sum(1) + t1.sum(1) * cheap1 + f1.sum(1) * req_row
+                + t2.sum(1) * cheap2 + f2.sum(1) * (req_row + T)
+                + upto3.sum(1) * 5 + reach3 * 4 * n_hg + f3.sum(1) * (req_row + 8 * R + T)
+                + placed * (req_row + 4 * R + T + 8 * NGv * V + 8 * NGh)
+            )
+            # the winner passed its scalar tests (a check of this replica of them)
+            found = reach2 & (a >= E) & ~opened
+            won2 = (st.slot_of[:, :Wn].long() == (a - E)[:, None]) & rows2
+            wrong = ((on_node & ~p1.gather(1, a.clamp(0, E - 1)[:, None])[:, 0]) | (found & ~(p2 & won2).any(1))
+                     | (opened & ~p3.gather(1, cut3.clamp(0, G - 1)[:, None])[:, 0]))
+            acc += torch.stack([step_bytes.sum(), (upto1 & v[:, None]).sum() + rows2.sum() + upto3.sum(),
+                                t1.sum() + t2.sum() + t3.sum(), f1.sum() + f2.sum() + f3.sum(), f2.sum(), v.sum(),
+                                wrong.sum()])
+        acc = acc.tolist()
+        if acc[6]:
+            raise RuntimeError(f"perpod_step_bounds: {acc[6]} winners fail the replica of the scalar tests")
+        total_bytes += acc[0]
+        for k, x in zip(("rows_reached", "rows_tested", "rows_full", "tier2_full", "real_steps"), acc[1:]):
+            stats[k] += x
+        if not torch.equal(got, want):
+            raise RuntimeError("perpod_step_bounds: the step-by-step replay differs from the timed launch")
+        steps += n
+        stats["steps"] += n
+    per = {k + "_per_step": stats[k] / max(stats["steps"], 1)
+           for k in ("rows_reached", "rows_tested", "rows_full", "tier2_full")}
+    return bound(total_bytes / max(steps, 1), 0.0), {**stats, **per}
+
+
+def whatif_kernel_phase(cell, results: list) -> tuple:
+    """Phase 3d: the per-pod kernel in scenario mode against the plain
+    per-scenario loop, on the what-if prefix cell's encode (S = 128
+    scenarios, each its own pods, surviving nodes and topology seeds): one
+    step of all 128 scenarios in one launch, and 4 scenarios (the largest
+    prefix among them) run to the end, assignments and every carry leaf
+    equal. Times: one launch of the whole batch (every step of all
+    scenarios), per step, beside its bound averaged over the same steps.
+    Returns (the plain sub-batch's wall in s, the batch's launch inputs)."""
     import numpy as np
     import torch
 
@@ -634,37 +785,28 @@ def whatif_kernel_phase(cell, results: list) -> float:
     topo_kids = tuple(kwargs["topo_kids"])
     S, L = idx.shape
     xs = solver.pod_xs(pt, tol, it_allow, exist_ok, ports, conf, vols, ptopo)
-    ctx = solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids)
+    ctx = solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"])
     st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], topo_kids=topo_kids)
     valid = (pt.valid[idx.long()] & active).contiguous()
-    ref = solver.stack_scenarios(st0, S, vg0, hg0)
     idx_h = idx.cpu().numpy()
-
-    def ctx_s(s):
-        return ctx._replace(exist=exist._replace(valid=ev[s]), topo=tt._replace(vg_counts0=vg0[s], hg_counts0=hg0[s]))
-
-    def x_s(s, i):
-        return solver._take_x(xs, int(idx_h[s, i]))._replace(valid=valid[s, i])
 
     def same(a, b):
         fa, fb = solver.to_numpy(a), solver.to_numpy(b)
         return all(np.array_equal(fa[k], fb[k]) for k in fa)
 
-    def plain_keys():
-        return torch.stack([solver.perpod_eval_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s))
-                            for s in range(S)])
-
-    # H7: the first step's keys of every scenario
-    keys_k = kc.perpod_whatif_eval(ref, xs, ctx, idx, valid, ev, 0)
-    keys_p = plain_keys()
-    eq7 = torch.equal(keys_k, keys_p)
-    # H8: one commit per scenario from those keys
+    # one step of every scenario in one launch
     k_state = solver.stack_scenarios(st0, S, vg0, hg0)
-    a_k = kc.perpod_whatif_commit(k_state, xs, ctx, idx, valid, ev, 0, keys_p)
-    eq8 = True
+    a_k = kc.perpod_whatif_steps(k_state, xs, ctx, idx, valid, ev, 0, 1)[:, 0]
+    eq1 = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for s in range(S):
-        sp, ap = solver.perpod_commit_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s), keys_p[s])
-        eq8 = eq8 and int(ap) == int(a_k[s]) and same(solver.scenario_state(k_state, s), sp)
+        c = ctx._replace(exist=exist._replace(valid=ev[s]), topo=tt._replace(vg_counts0=vg0[s], hg_counts0=hg0[s]))
+        x = solver._take_x(xs, int(idx_h[s, 0]))._replace(valid=valid[s, 0])
+        sp, ap = solver._pod_step(st0._replace(vg_counts=vg0[s], hg_counts=hg0[s]), x, c)
+        eq1 = eq1 and int(ap) == int(a_k[s]) and same(solver.scenario_state(k_state, s), sp)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3
     # 4 scenarios to the end, the largest prefix among them
     n_real = len(specs)
     pick = torch.tensor([0, n_real // 3, 2 * n_real // 3, n_real - 1], device=idx.device)
@@ -683,103 +825,26 @@ def whatif_kernel_phase(cell, results: list) -> float:
     hist = {"S": S, "L": L, "E": int(exist.avail.shape[0]), "W": n_claims,
             "sub_n_open": out_k[1].tolist(), "sub_n_unsched": out_k[0].tolist(),
             "sub_placed": int((out_k[2] >= 0).sum()), "kernel_wall_s": round(kernel_wall, 4)}
-    print(f"kernel perpod_whatif_eval: {S} scenarios' first-step keys equal={eq7}; perpod_whatif_commit: "
-          f"{S} commits equal={eq8}; 4 scenarios x {L} steps through H7 + H8 in scenario mode == plain: "
-          f"{eq_sub} {json.dumps(hist)}", flush=True)
+    print(f"kernel perpod_scan_persistent (scenario mode): one step of {S} scenarios == plain: {eq1}; "
+          f"4 scenarios x {L} steps == plain: {eq_sub} {json.dumps(hist)}", flush=True)
 
-    # times: the wrappers (host-bound: each validates and syncs; the device
-    # time per launch comes from the profiled warm batch of phase 4)
-    ms7 = time_ms(lambda: kc.perpod_whatif_eval(ref, xs, ctx, idx, valid, ev, 0), iters=20)
-    plain7 = time_ms(plain_keys, iters=1, warmup=0)
-    copies = [solver.stack_scenarios(st0, S, vg0, hg0) for _ in range(5)]
-    ev_ = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in copies]
-    torch.cuda.synchronize()
-    for c, (a, b) in zip(copies, ev_):
-        a.record()
-        kc.perpod_whatif_commit(c, xs, ctx, idx, valid, ev, 0, keys_p)
-        b.record()
-    torch.cuda.synchronize()
-    ms8 = sum(a.elapsed_time(b) for a, b in ev_) / len(ev_)
-    t0 = time.perf_counter()
-    for s in range(S):
-        solver.perpod_commit_plain(solver.scenario_state(ref, s), x_s(s, 0), ctx_s(s), keys_p[s])
-    torch.cuda.synchronize()
-    plain8 = (time.perf_counter() - t0) * 1e3
-
-    # bounds at step 0, the step these times are taken at (phase 4 puts the
-    # profiled batch's per-launch average beside its own ms)
-    b7, b8, live = whatif_bounds(args, a_k[:, None])
-    print(f"whatif bounds at step 0: {json.dumps(live)}", flush=True)
-    for name, eq, ms, plain_ms, b in (
-        ("perpod_whatif_eval", eq7 and eq_sub, ms7, plain7, b7),
-        ("perpod_whatif_commit", eq8 and eq_sub, ms8, plain8, b8),
-    ):
-        results.append(dict(
-            name=name, route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
-            replaces="karpenter_tpu/ops/solver.py:1120", launches=0,
-            max_abs_err=0.0 if eq else 1.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-            library_ms=None, equal=eq,
-        ))
-        print(f"kernel {name}: equal={eq} (tolerance: exact) ms={ms:.4f} (one wrapper call, host-bound) "
-              f"plain_ms={plain_ms:.4f} (all {S} scenarios) bound_ms={b[0]:.5f} ({b[1]})", flush=True)
-    return plain_wall
-
-
-def whatif_bounds(args, assignment) -> tuple:
-    """H7 / H8 in scenario mode: the bytes each must move per launch, over
-    the memory rate, from this run's data. `args` are solve_whatif's
-    inputs and `assignment` [S, n] the batch's first n steps' assignments
-    (a surviving node's index, E + a claim slot, or < 0). A block has work
-    only for a live row of a live scenario: the step's pod is real and the
-    row passes its gates (a surviving node the pod may use, a claim opened
-    by an earlier step, a template the pod may use); every other block
-    writes its key and stops. Per live row H7 reads the row's requirement
-    row, usage and hostname counts (claims and templates also their
-    viable-type row), per live scenario the pod's rows, its gate rows and
-    zone counts, and per step with a live row the type and group tables
-    once; it writes every key. H8 reads a live scenario's keys and pod
-    rows, reads and writes its winner's row and its counts, reads the type
-    table once per step whose winner is a claim, and writes every
-    assignment. Returns (H7 bound, H8 bound, live-row stats), averaged
-    over the n steps."""
-    import torch
-
-    idx, active, _count, ev, _vg0, _hg0, pt, tol, _it_allow, exist_ok = args[:10]
-    exist, it, tm, tt, n_claims = args[13], args[14], args[15], args[17], args[21]
-    S, n = assignment.shape
-    E, W, G = exist.avail.shape[0], n_claims, tm.its.shape[0]
-    T_, K, V = it.reqs.mask.shape
-    R = it.alloc.shape[2]
-    NGv, NGh = tt.vg_type.shape[0], tt.hg_type.shape[0]
-    ix = idx[:, :n].long()
-    valid = pt.valid[ix] & active[:, :n]  # [S, n]
-    n_exist = (exist_ok[ix] & ev[:, None, :]).sum(-1) * valid
-    n_tmpl = (tol[ix] & tm.valid).sum(-1) * valid
-    a = assignment.long()
-    slot = torch.where(a >= E, a - E, torch.full_like(a, W))
-    placed = torch.zeros((S, n, W + 1), dtype=torch.bool, device=a.device)
-    placed.scatter_(2, slot[..., None], True)
-    n_open = (placed[..., :W].cumsum(1) > 0).sum(-1)  # claims open after each step
-    n_win = torch.cat([torch.zeros_like(n_open[:, :1]), n_open[:, :-1]], 1) * valid
-    any_row = ((n_exist + n_win + n_tmpl) > 0).any(0)
-    any_claim = ((a >= E) & valid).any(0)
-
-    req_row = K * V + 11 * K
-    pod_row = req_row + K * V + 4 * R + T_ + G + E + 4 + 3 * (NGv + NGh)
-    scen = pod_row + E + W + 4 * NGv * V
-    exist_b, win_b, tmpl_b = (req_row + 8 * R + 4 * NGh, req_row + 4 * R + T_ + 4 * NGh,
-                              req_row + 8 * R + T_ + 4 * NGh)
-    types = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap)
-    groups = nbytes(tt.vg_domains, tt.vg_rank)
-    n_valid = int(valid.sum())
-    b7 = (n * S * (1 + 4 * (E + W + G)) + int(any_row.sum()) * (types + groups) + n_valid * scen
-          + int(n_exist.sum()) * exist_b + int(n_win.sum()) * win_b + int(n_tmpl.sum()) * tmpl_b)
-    b8 = (n * S * 5 + int(any_claim.sum()) * types + n_valid * (
-        4 * (E + W + G) + 2 * min(exist_b, win_b) + pod_row + groups + 8 * NGv * V + 8 * NGh))
-    live = dict(steps=n, blocks_per_launch=S * (E + W + G),
-                live_rows_per_launch=float((n_exist + n_win + n_tmpl).sum()) / n,
-                live_scenarios_per_launch=n_valid / n)
-    return bound(b7 / n, 0.0), bound(b8 / n, 0.0), live
+    # one launch of the whole batch on private copies made outside the events
+    copies = [solver.stack_scenarios(st0, S, vg0, hg0) for _ in range(3)]
+    outs = []
+    ms = launch_ms(lambda c: outs.append(kc.perpod_whatif(c, xs, ctx, idx, valid, ev)), copies) / L
+    batch = dict(state0=solver.stack_scenarios(st0, S, vg0, hg0), xs=xs, ctx=ctx, assignment=outs[0], pod_idx=idx,
+                 valid=valid, exist_valid=ev)
+    b, live = perpod_step_bounds([batch])
+    ok = eq1 and eq_sub
+    print(f"kernel perpod_scan_persistent (scenario mode): {ms:.5f} ms per step ({L} steps of {S} scenarios in "
+          f"one launch), plain {plain_step_ms:.4f} ms per step (all {S} scenarios), bound {b[0]:.7f} ms per step "
+          f"({b[1]}) {json.dumps(live)}", flush=True)
+    results.append(dict(
+        name="perpod_scan_persistent_whatif", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
+        replaces="karpenter_tpu/ops/solver.py:1120", launches=0, max_abs_err=0.0 if ok else 1.0,
+        ms=ms, plain_ms=plain_step_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
+    ))
+    return plain_wall, batch
 
 
 def whatif_cell(torch, T, templates) -> dict:
@@ -850,10 +915,10 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
           f"{int((assignment[:n] >= 0).sum())} pods placed", flush=True)
     if placements != WHATIF_PLACEMENTS[kind]:
         raise RuntimeError(f"{label}: placements differ from the JAX package's")
-    cell[f"{kind}_run"] = (args, assignment)
-    idle = [k for k in cuda.WHATIF_KERNELS if launches[k] <= 0]
-    if idle:
-        raise RuntimeError(f"{label}: kernels never launched: {idle}")
+    cell[f"{kind}_run"] = whatif_launch_inputs(args, kwargs, assignment)
+    if launches[cuda.WHATIF_KERNELS[0]] != 1 or any(launches[k] for k in cuda.PERPOD_KERNELS):
+        raise RuntimeError(f"{label}: expected one launch of the per-pod kernel in scenario mode, got "
+                           f"{json.dumps(launches)}")
     for i in range(2):
         sig_w, wall = run()
         print(f"{label} warm {i}: wall={wall:.3f}s {json.dumps(sched.last_timings)}", flush=True)
@@ -863,11 +928,74 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
     return launches
 
 
+def whatif_launch_inputs(args, kwargs, assignment) -> dict:
+    """A what-if batch's one launch, as perpod_step_bounds reads it, from
+    its solve_whatif arguments and its [S, L] assignment."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+
+    idx, active, _count, ev, vg0, hg0, pt, tol, it_allow, exist_ok, ports, conf, vols, exist, it, tm, wk, tt, ptopo = args[:19]
+    zone_kid, ct_kid, n_claims = args[19:]
+    topo_kids = tuple(kwargs["topo_kids"])
+    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], topo_kids=topo_kids)
+    return dict(
+        xs=solver.pod_xs(pt, tol, it_allow, exist_ok, ports, conf, vols, ptopo),
+        ctx=solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"]),
+        state0=solver.stack_scenarios(st0, idx.shape[0], vg0, hg0), pod_idx=idx,
+        valid=pt.valid[idx.long()] & active, exist_valid=ev, assignment=assignment,
+    )
+
+
+def record_chunks(cuda, fn) -> list:
+    """Run fn with every single-scenario launch of the per-pod kernel
+    recorded (its inputs, a copy of the carry before it, its assignment),
+    as perpod_step_bounds reads them."""
+    from karpenter_tpu_torch.ops import solver
+
+    rec = []
+    real = cuda.perpod_scan
+
+    def recording(state, xs, ctx):
+        state0 = solver.own_perpod_writes(state)
+        a = real(state, xs, ctx)
+        rec.append(dict(state0=state0, xs=xs, ctx=ctx, assignment=a[None]))
+        return a
+
+    cuda.perpod_scan = recording
+    try:
+        fn()
+    finally:
+        cuda.perpod_scan = real
+    return rec
+
+
+def profiled_kernel(kernels: list, name: str, inst: str, by_name: dict, launches: list) -> None:
+    """Print the per-pod kernel's device time per launch and per step in a
+    profiled call (instantiation <inst>), its bound per step over the same
+    launches; set them on the kernel's entry of `kernels` when it is there."""
+    hits = [v for n, v in by_name.items() if f"perpod_scan_persistent_kernel<{inst}>(" in n]
+    if not hits:
+        print(f"kernel {name}: device time not measured (no profiled launch)", flush=True)
+        return
+    (n, ms), = hits
+    steps = sum(ch["assignment"].shape[1] for ch in launches)
+    b, live = perpod_step_bounds(launches)
+    print(f"kernel {name}: {ms / n:.4f} ms per launch, {ms / steps:.6f} ms per step on the device ({n} launches, "
+          f"{steps} steps profiled), bound {b[0]:.7f} ms per step ({b[1]}) over the same steps {json.dumps(live)}",
+          flush=True)
+    for k in kernels:
+        if k["name"] == name:
+            k.update(ms=ms / steps, bound_ms=b[0], bound_by=b[1])
+
+
 def profile_run(fn, out_dir, tag) -> dict:
     """One more warm call of fn under torch.profiler: device busy share
     over the call's wall, and device time by kernel name (from the chrome
     trace, so launches of one name are summed and overlaps counted once).
-    Returns {kernel name: (launches, device ms)}, empty when not measured."""
+    Returns the summary (wall_s, device_busy_s, idle_share, ...) with
+    by_name {kernel name: (launches, device ms)}; by_name alone, empty, when
+    not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -884,7 +1012,7 @@ def profile_run(fn, out_dir, tag) -> dict:
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not dev:
         print(f"profile {tag}: not measured (the trace holds no device events)", flush=True)
-        return {}
+        return dict(by_name={})
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -910,7 +1038,7 @@ def profile_run(fn, out_dir, tag) -> dict:
           f"idle_share={summary['idle_share']:.4f} device_events={len(dev)}", flush=True)
     for t in summary["top"]:
         print(f"  device {t['ms']:9.3f} ms  x{t['launches']:6d}  {t['name']}", flush=True)
-    return {n: (c, d / 1e3) for n, (c, d) in by_name.items()}
+    return dict(summary, by_name={n: (c, d / 1e3) for n, (c, d) in by_name.items()})
 
 
 def digest(result) -> str:
@@ -973,8 +1101,8 @@ def main() -> int:
         from karpenter_tpu_torch import testing as T
         from karpenter_tpu_torch.ops import cuda
         from karpenter_tpu_torch.testing import (
-            existing_node, guarded_pods, make_templates, mixed_pods, perpod_pods, selector_pods, tier_pods,
-            tier_templates, wide_zone_pods,
+            existing_node, guarded_pods, make_templates, many_resources_pods, mixed_pods, perpod_pods, selector_pods,
+            tier_pods, tier_templates, wide_zone_pods,
         )
     except ImportError as err:
         return fail(f"karpenter_tpu_torch is not importable here ({err})")
@@ -992,6 +1120,11 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    # the launcher's workspace check counts on the per-pod kernel's static
+    # shared memory staying within cuda.SMEM_STATIC
+    static = [int(m) for m in re.findall(r"(\d+) bytes smem", info["logs"].get("perpod_scan", ""))]
+    if static and max(static) > cuda.SMEM_STATIC:
+        return fail(f"perpod_scan: {max(static)} B of static shared memory, above cuda.SMEM_STATIC")
 
     # phase 3 (the schedulers' encodes supply the real catalog and topology tensors)
     templates = make_templates(1000)
@@ -1010,7 +1143,7 @@ def main() -> int:
         cell_w = whatif_cell(torch, T, templates_m)
     except RuntimeError as err:
         return fail(str(err))
-    whatif_plain_wall = whatif_kernel_phase(cell_w, kernels)
+    whatif_plain_wall, _batch = whatif_kernel_phase(cell_w, kernels)
     bad = [k["name"] for k in kernels if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -1039,24 +1172,22 @@ def main() -> int:
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
             torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,
-            ("perpod_eval", "perpod_commit", "fill_count_grid", "compact_scatter"),
+            (*cuda.PERPOD_KERNELS, "fill_count_grid", "compact_scatter"),
         )
     except RuntimeError as err:
         return fail(str(err))
     if digest(result_p) != PERPOD_DIGEST:
         return fail(f"perpod path: digest {digest(result_p)} differs from the JAX package's {PERPOD_DIGEST}")
     print("perpod path: digest equal to the JAX package's", flush=True)
-    # H7 / H8 run ~20 µs, under the wrappers' host cost, so a host-driven
-    # loop of single launches measures the host: their ms is the device
-    # time per launch in the profiled warm per-pod solve
-    by_name = profile_run(lambda: sched_p.solve(pods_p), profile_dir, "perpod")
-    for k in kernels:
-        # the single-scenario instantiation of the kernel template
-        hits = [v for n, v in by_name.items() if f"::{k['name']}_kernel<false>(" in n]
-        if k["name"] in cuda.PERPOD_KERNELS and hits:
-            (n, ms), = hits
-            k["ms"] = ms / n
-            print(f"kernel {k['name']}: {ms / n:.4f} ms per launch on the device ({n} launches profiled)", flush=True)
+    if launches_p[cuda.PERPOD_KERNELS[0]] != PERPOD_STATS["perpod_dispatches"]:
+        return fail(f"perpod path: {launches_p[cuda.PERPOD_KERNELS[0]]} launches of the per-pod kernel, "
+                    f"expected one per chunk ({PERPOD_STATS['perpod_dispatches']})")
+    # the kernel's device time per launch and per step in the profiled warm
+    # solve, beside its bound over the same steps (a solve is deterministic:
+    # the chunks are recorded from another warm solve)
+    chunks = record_chunks(cuda, lambda: sched_p.solve(pods_p))
+    profiled_kernel(kernels, cuda.PERPOD_KERNELS[0], "false",
+                    profile_run(lambda: sched_p.solve(pods_p), profile_dir, "perpod")["by_name"], chunks)
     # small problems on the card against the plain CPU path
     small_t = make_templates(400)
     r_gpu = TorchScheduler(small_t, max_claims=256).solve(selector_pods(2048))
@@ -1081,6 +1212,11 @@ def main() -> int:
         ("per-pod kinds with hostname groups and an existing node", small_t24, 64, lambda: guarded_pods(40),
          [existing_node()]),
         ("a 17-value zone key", small_t24, 64, lambda: wide_zone_pods(32), [existing_node(cpu=1.0)]),
+        ("a 45-value zone key (two words of value bits)", small_t24, 64, lambda: wide_zone_pods(32, extra_zones=41),
+         [existing_node(cpu=1.0)]),
+        ("a 2104-value zone key (V = 4096: fewer warps' row scratches fit)", small_t24, 64,
+         lambda: wide_zone_pods(32, extra_zones=2100), [existing_node(cpu=1.0)]),
+        ("40 resources (past a warp's 32 lanes)", small_t24, 32, many_resources_pods, []),
     ):
         s_gpu = TorchScheduler(tmpl, max_claims=mc)
         r_gpu = s_gpu.solve(make(), existing_nodes=nodes)
@@ -1098,27 +1234,17 @@ def main() -> int:
         return fail(str(err))
     for k in kernels:
         k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w])
-    pods_w, specs_w = cell_w["batches"]["prefix"]
-    sched_w = cell_w["prefix_sched"]
-    by_name = profile_run(
-        lambda: sched_w.whatif_batch(pods_w, [n.clone() for n in cell_w["cluster"].nodes], None, specs_w,
-                                     cell_w["factory"]),
-        profile_dir, "whatif_prefix",
-    )
-    # the profiled ms is the average over the batch's launches, so its
-    # bound is the average over the same steps
-    b7, b8, live = whatif_bounds(*cell_w["prefix_run"])
-    print(f"whatif bounds over the prefix batch's steps: {json.dumps(live)}", flush=True)
-    for k in kernels:
-        base = {"perpod_whatif_eval": "perpod_eval", "perpod_whatif_commit": "perpod_commit"}.get(k["name"])
-        hits = [v for n, v in by_name.items() if base and f"::{base}_kernel<true>(" in n]
-        if hits:
-            (n, ms), = hits
-            b = b7 if k["name"] == "perpod_whatif_eval" else b8
-            k.update(ms=ms / n, bound_ms=b[0], bound_by=b[1])
-            print(f"kernel {k['name']}: {ms / n:.4f} ms per launch on the device ({n} launches profiled, "
-                  f"{sched_w.last_stats['S']} scenarios each), bound {b[0]:.5f} ms ({b[1]}) averaged over "
-                  f"the same steps", flush=True)
+    for kind in ("prefix", "single"):
+        pods_w, specs_w = cell_w["batches"][kind]
+        sched_w = cell_w[f"{kind}_sched"]
+        by_name = profile_run(
+            lambda: sched_w.whatif_batch(pods_w, [n.clone() for n in cell_w["cluster"].nodes], None, specs_w,
+                                         cell_w["factory"]),
+            profile_dir, f"whatif_{kind}",
+        )["by_name"]
+        # the JSON line carries the prefix batch's numbers
+        profiled_kernel(kernels if kind == "prefix" else [], cuda.WHATIF_KERNELS[0], "true", by_name,
+                        [cell_w[f"{kind}_run"]])
     for n_cands, want in WHATIF_CONFIRM.items():
         t0 = time.perf_counter()
         got = T.sequential_signal(TorchScheduler(templates_m), cell_w["cluster"], cell_w["factory"],

@@ -42,6 +42,7 @@ from karpenter_tpu_torch.controllers.provisioning.topology import (
 )
 from karpenter_tpu_torch.models import labels as l
 from karpenter_tpu_torch.models.pod import Pod
+from karpenter_tpu_torch.ops import cuda as ops_cuda
 from karpenter_tpu_torch.ops import solver as ops_solver
 from karpenter_tpu_torch.ops import topology as topo_ops
 from karpenter_tpu_torch.ops.encode import (
@@ -396,6 +397,12 @@ class TorchScheduler:
         )
         wk = enc.vocab.well_known_mask()
         self.well_known = as_tensor(np.pad(wk, (0, k_pad - len(wk)), constant_values=False), dev)
+        # the per-pod kernel's packed type tables, once per encode (the
+        # plain path never reads them)
+        self.perpod_tables = (
+            ops_cuda.perpod_tables(self.it_tensors, self.template_tensors.its)
+            if dev.type == "cuda" and not self.plain else None
+        )
         self._res_active = bool(self.it_tensors.res_ofs.any()) and (
             l.RESERVATION_ID_LABEL_KEY in enc.vocab.key_to_id
         )
@@ -798,6 +805,7 @@ class TorchScheduler:
                     *rows, pod_topo = self._gather_pod_chunk(enc, kidx, L)
                     state, assignment = ops_solver.solve_from(
                         state, *rows, *common[:5], pod_topo, *common[5:], topo_kids=topo_kids, plain=self.plain,
+                        tables=self.perpod_tables,
                     )
                     outputs.append(("pods", clo, chi, assignment))
                     n_perpod += 1
@@ -1028,7 +1036,7 @@ class TorchScheduler:
             pt, tol, it_allow, exist_ok, ports, port_conf, vols, enc["exist_tensors"], self.it_tensors,
             enc["template_tensors"], self.well_known, tt, pod_topo, enc["zone_kid"], enc["ct_kid"], n_claims,
         )
-        return args, dict(topo_kids=enc["topo_kids"], plain=self.plain)
+        return args, dict(topo_kids=enc["topo_kids"], plain=self.plain, tables=self.perpod_tables)
 
     # -- decoding ----------------------------------------------------------
 

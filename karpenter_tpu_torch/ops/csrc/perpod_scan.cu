@@ -1,73 +1,95 @@
-// H7 perpod_eval and H8 perpod_commit — replace the per-pod step of the
-// JAX package's ops/solver.py `_make_step` (solver.py:373-748), traced by
-// `solve` (:1024) and `solve_from` (:1069), with ops/topology.py
+// perpod_scan_persistent — replaces the per-pod step of the JAX package's
+// ops/solver.py `_make_step` (solver.py:373-748), traced by `solve`
+// (:1024) and `solve_from` (:1069) and vmapped over consolidation
+// scenarios by `solve_whatif` (:1120-1205), with ops/topology.py
 // `vg_pod_precompute` (:383), `vg_evaluate` (:441), `vg_commit` (:492),
-// `hg_evaluate` (:511) and `hg_commit` (:531) inlined.
+// `hg_evaluate` (:511) and `hg_commit` (:531) inlined. It takes the place
+// of the port's earlier kernels H7 (a block per candidate row, a launch
+// per pod) and H8 (a block to pick and commit, a launch per pod).
 //
-// Per pod, two launches on the caller's stream:
-//   H7 perpod_eval, one block per candidate row (E existing nodes, then W
-//      window claims, then G templates). A block whose row cannot take the
-//      pod (pod padding, a node that is not valid or not allowed, a window
-//      row that is not open, a template that is not valid, not tolerated or
-//      out of nodes budget) writes BIG after a few loads. Otherwise it
-//      recomputes the pod's vocab-key group terms from the counts, forms
-//      the combined requirements row ∩ pod in shared memory, tests
-//      Compatible (strict, without the well-known allowance, in tier 1),
-//      the resources (tier 1), the vocab-key groups (feasibility and the
-//      narrowed domains ANDed into the row), the hostname groups at the
-//      row's slot (e, E + slot_of[w], E + n_open), host ports and volumes,
-//      then strides its threads over the T instance types for
-//      its & it_compat & fits_off & it_allow (& cap_ok in tier 3). It
-//      writes one int32 key: BIG when infeasible, else the row index
-//      (tier 1), pods·W + w (tier 2) or the template index (tier 3).
-//   H8 perpod_commit, one block: three block-wide minimum reductions over
-//      the keys (tier 1 beats tier 2 beats tier 3; the least key wins, so
-//      ties go to the lowest index), then the winner's combined
-//      requirements, narrowing and viable types are recomputed by the same
-//      device code as H7's and the carry is updated IN PLACE (the JAX
-//      package cannot: its scan threads a new carry): assignment, the
-//      node's or claim's requirements / usage / types / ports, template,
-//      open, pods, slot_of, n_open, w_open, w_hw, spills, budget,
-//      nodes_budget, vocab-key and hostname counts.
-// `perpod_chunk` enqueues H7 and H8 for each of a chunk's pods from the
-// host side of this file: one ctypes call per chunk, no host sync.
+// One launch runs steps lo .. hi - 1 of a per-pod chunk (one block) or of
+// every scenario of a what-if batch (one block per scenario, S blocks). A
+// block owns its scenario's whole carry and loops over its steps; the
+// scenarios are independent, so there is no grid-wide barrier. The carry's
+// vocab-key counts and scalars (n_open, w_open, w_hw, spills) live in
+// shared memory for the launch. Per step:
+//   1. the pod-only terms, once, into shared memory: the pod row (its
+//      masks as words of value bits), its vocab-key group terms (czero,
+//      opts, okskew as words of value bits), the groups that apply and
+//      the keys they touch, the hostname-group gates;
+//   2. the candidates, tier by tier in precedence order, each tier only if
+//      no earlier tier has a feasible row (the pick never reads a later
+//      tier then). One thread per candidate row runs the row's scalar
+//      tests (row_cheap: live gates, a node's free resources, host ports
+//      and volumes, a claim's template and resource ceilings, the hostname
+//      groups at the row's slot) and the block ballots the rows that pass
+//      into a list in shared memory, with their keys. Each warp takes rows
+//      from the list (every warp, or fewer when a wide vocabulary leaves
+//      shared memory for fewer row scratches: the launch picks the most
+//      that fit) and evaluates one at a time into its own scratch
+//      (eval_row: the row's data loaded at once, the combined requirements
+//      as value bits, Compatible, the vocab-key groups' narrowing over the
+//      set bits only, then its lanes over the instance types with a vote
+//      at the first surviving type), keeping the scratch of its best row.
+//      A warp skips a row whose key is not below the least key found so
+//      far (a shared hint, read through one lane so the warp agrees). The
+//      least key is a minimum over the warps' slots in shared memory; keys
+//      are distinct, so no tie can arise. Tier 1's key is the node index
+//      and tier 3's the template index, so those tiers stop at the first
+//      list chunk with a feasible row; tier 2's key (pods·W + row) needs
+//      every live row;
+//   3. the pick (the reference's merge of the tiers); the winner's row is
+//      in its warp's kept scratch, computed with the pre-commit counts.
+//      The block writes its viable types (tier 2 narrows its own row in
+//      place) and commits the carry IN PLACE (the JAX package's scan
+//      threads a new carry): assignment, the node's or claim's
+//      requirements / usage / types / ports, template, open, pods,
+//      slot_of, n_open, w_open, w_hw, spills, budget, nodes_budget,
+//      vocab-key and hostname counts, and the claim's resource ceilings.
+// A claim row's resource ceilings (row_max) are the most any of its viable
+// types allocates; a pod whose total exceeds them fits no type, so
+// row_cheap drops a full claim without its T-wide type scan.
+// The read-only type tables come packed (ops/cuda.py `perpod_tables`: each
+// table [.., T] with the type axis innermost, so the lanes of a warp read
+// neighbouring bytes, the requirement masks as 32-bit words of value bits,
+// the offerings as words of (zone, capacity type) bits, each field padded
+// to 16 bytes). Each block stages the longest prefix of them that fits its
+// shared memory with one bulk asynchronous copy (cp.async.bulk completing
+// on an mbarrier) at the start of the launch; the rest it reads from the
+// packed buffer in device memory.
 //
-// Scenario mode (`perpod_whatif`) replaces `solve_whatif` (solver.py:1120-
-// 1205): jax.vmap of `initial_state` + the scan of `_make_step` over S
-// consolidation scenarios, each its own per-pod scan over its own pod list
-// against its own surviving nodes and topology seeds. H7 runs on a grid of
-// (E + W + G, S) blocks, blockIdx.y the scenario; H8 on S blocks, one per
-// scenario, each exactly the single-scenario block. Every carry field H8
-// writes, exist.valid, the validity row, the keys, the assignment and
-// pod_idx carry a per-scenario byte stride; the catalog, template and
-// topology tables are shared (stride 0). Step i of scenario s reads the
-// union's pod row pod_idx[s, i] instead of a materialised [S, L, ...]
-// copy. Each block first moves its scenario's pointers into shared
-// memory. The single-scenario entries pass the same 89 pointers with
-// pod_idx null (step i reads row i), S = 1 and no strides; they run the
-// kernels' other instantiation, which reads its parameter in place and
-// skips that prologue. One C call enqueues H7 + H8 for every step of all
-// S scenarios, with no host sync.
+// Scenario mode: every carry field the step writes, exist.valid, the
+// validity row, the scratch, the assignment and pod_idx carry a
+// per-scenario byte stride; the catalog, template and topology tables are
+// shared (stride 0). Step i of scenario s reads the union's pod row
+// pod_idx[s, i]. Each block first moves its scenario's pointers into shared
+// memory; the single-scenario instantiation reads its parameter in place.
 //
 // The it-compat term. The reference classifies each (claim, key) of the
 // narrowed row: equal to the stored claim row -> implied by state.its
 // (which certified that row when it was stored), else tested exactly,
 // falling back to the full pairwise intersects when a pickable claim has
 // a key equal to neither the pod's nor the stored row; both branches AND
-// with state.its. H7 tests, per type, exactly the keys where the narrowed
-// row differs from the stored row: equal to either branch whenever the
-// stored rows satisfy that invariant, which every writer of the carry
-// keeps (tests/test_torch_perpod.py drives the fallback branch).
+// with state.its. The kernel tests, per type, exactly the keys where the
+// narrowed row differs from the stored row: equal to either branch
+// whenever the stored rows satisfy that invariant, which every writer of
+// the carry keeps (tests/test_torch_perpod.py drives the fallback branch).
 //
 // Numerics: charges are used + req as one f32 add; every count and key is
 // int32; set tests are exact boolean reductions where the reference uses
-// bf16 einsums; the spread pick keys on eff·2^16 + rank, the affinity
-// bootstrap on rank, ties to the lowest index.
+// bf16 einsums; the spread pick keys on (count + self)·2^16 + rank, the affinity
+// bootstrap on rank, ties to the lowest value index (set bits are visited
+// lowest first).
 //
-// Bound on an H100: a latency chain. Each pod is one H7 pass over the
-// candidate rows' requirement rows and the type tables (L2-resident) and
-// one single-block H8; the pods of a chunk cannot overlap, and most of
-// the W blocks of H7 exit after one load.
+// Bound on an H100: a latency chain. A step depends on the step before
+// through the counts and the claim rows, so a block's steps cannot
+// overlap; the work of a step is a few hundred live rows at most, each
+// row's requirement row, usage and (claims) viable-type row read once, far
+// under what the memory could move in the time. The design removes what
+// is not that chain: no launch per step, no block per dead row, no
+// per-row recomputation of the pod's terms, the cheap tests a thread per
+// row, the rest a warp per row with its loads in flight together, and the
+// type tables in shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,8 +106,12 @@ constexpr int32_t kRankBase = 1 << 16;
 constexpr int32_t kNoRoom = -2;
 constexpr int32_t kNoClaim = -1;
 constexpr int kSpread = 0, kAffinity = 1, kAnti = 2;
-constexpr int kEvalThreads = 128;
-constexpr int kCommitThreads = 1024;
+constexpr int kThreads = 512;
+enum { kNOpen, kWOpen, kWHw, kSpills };  // Pod::sc
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmemMax = 232448;       // a block's shared memory on an H100
+constexpr uint32_t kCopyChunk = 32768;  // bytes per bulk copy instruction
 
 struct Set {
   uint8_t* mask;   // [n, K, V]
@@ -96,9 +122,9 @@ struct Set {
   uint8_t* def;    // [n, K]
 };
 
-// Field order = the pointer array's order (ops/cuda.py _PERPOD_FIELDS).
+// Field order = the pointer array's order (ops/cuda.py _perpod_fields).
 struct P {
-  // carry, written by H8
+  // carry, written by the commit
   Set exist_reqs;          // [E]
   float* exist_used;       // [E, R]
   Set reqs;                // [W]
@@ -115,22 +141,16 @@ struct P {
   float* budget;           // [G, R]
   float* nodes_budget;     // [G]
   int32_t* vg_counts;      // [NGv, V]
-  int32_t* hg_counts;      // [NGh, S]
+  int32_t* hg_counts;      // [NGh, Sl]
   int32_t* exist_ports;    // [E, NPp]
   int32_t* claim_ports;    // [W, NPp]
   int32_t* exist_vols;     // [E, NVp]
-  // problem, read only
+  // problem, read only (the type tables come packed, see Tab)
   float* avail;            // [E, R]
   uint8_t* exist_valid;    // [E]
   float* vol_limits;       // [E, ND]
   int32_t* vol_driver;     // [ND, NVp]
-  Set it;                  // [T]
-  float* alloc;            // [T, GR, R]
-  uint8_t* group_valid;    // [T, GR]
-  uint8_t* zc_avail;       // [T, GR, Z, C]
-  float* cap;              // [T, R]
   Set tr;                  // [G] template requirements
-  uint8_t* t_its;          // [G, T]
   float* daemon;           // [G, R]
   uint8_t* t_valid;        // [G]
   uint8_t* well_known;     // [K]
@@ -162,34 +182,97 @@ struct P {
   uint8_t* hg_records;
   uint8_t* hg_self;
   uint8_t* strict_mask;    // [L, K, V]
-  // scratch and output
-  int32_t* keys;           // [E + W + G]
+  // scratch: each open claim row's resource ceilings, the most any of its
+  // viable types allocates in a valid group (a necessary condition of the
+  // type test, so row_cheap can drop a full claim); set for the open rows
+  // at the start of a launch and for a claim row at its commit
+  float* row_max;          // [W, R]
+  // output
   int32_t* assignment;     // [L]
-  // the union pod row of each step; null in the single-scenario entries
+  // the union pod row of each step; null in the single-scenario entry
   int32_t* pod_idx;        // [L]
-  int E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid;
+  // Sl: hostname slots (E + NCAP + 1), the second axis of hg_counts
+  int E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid;
 };
-constexpr int kPtrs = 89;
+constexpr int kPtrs = 78;
 constexpr int kDims = 20;
 
-// The kernels' parameter: the block of scenario 0 and each pointer's byte
+// The kernel's parameter: the block of scenario 0 and each pointer's byte
 // stride from one scenario to the next (0 for what the scenarios share).
 struct PS {
   P p;
   int64_t stride[kPtrs];
 };
 
-// the per-block workspace in dynamic shared memory
-struct WS {
-  uint8_t *pm, *cm;                                   // [K*V] pod / combined masks
-  uint8_t *cinf, *cexcl, *cdef, *clen, *touched, *changed;  // [K]
-  int32_t *cgte, *clte;                               // [K]
-  uint8_t *pd, *okskew, *opts, *czero, *dom, *narrowed;  // [NGv*V]
-  int32_t *eff, *rank;                                // [NGv*V]
-  int32_t *gate, *boot, *gok;                         // [NGv]
-  float* total;                                       // [R]
-  int32_t* flag;                                      // [8]
+// The packed type tables (ops/cuda.py _TABLES), in staging order.
+enum Tab { kTIts, kGv, kAlloc, kZc, kCap, kDef, kInf, kExcl, kMbits, kGte, kLte, kTabs };
+
+struct TabArgs {
+  const char* base;              // the packed buffer in device memory
+  int64_t off[kTabs + 1];        // byte offset of each table, then the total
+  uint32_t staged;               // bytes of the prefix staged in shared memory
 };
+
+struct Tabs {
+  const uint8_t* t_its;   // [G, T]
+  const uint8_t* gv;      // [GR, T]
+  const float* alloc;     // [GR, R, T]
+  const uint32_t* zc;     // [GR, NZW, T] (zone, capacity type) bits z*C + c
+  const float* cap;       // [R, T]
+  const uint8_t* def;     // [K, T]
+  const uint8_t* inf;     // [K, T]
+  const uint8_t* excl;    // [K, T]
+  const uint32_t* mbits;  // [K, NW, T] value bits
+  const int32_t* gte;     // [K, T]
+  const int32_t* lte;     // [K, T]
+};
+
+// The pod-only terms of a step, and copies of the small read-only tables
+// made once per launch (every row reads them). A requirement mask is kept
+// as 32-bit words of value bits: NW = ceil(V / 32) words per key.
+struct Pod {
+  // once per launch; vgc and sc are the carry's vocab-key counts and its
+  // scalars (n_open, w_open, w_hw, spills), kept here and written back at
+  // the end of the launch
+  uint32_t* domb;                                       // [NGv*NW] group domains
+  uint8_t *vvalid, *wk, *hvalid, *hnonempty;            // [NGv], [K], [NGh], [NGh]
+  int32_t *rank, *vkey, *vtype, *vskew, *vmind;         // [NGv*V], [NGv] x 4
+  int32_t *htype, *hskew;                               // [NGh]
+  int32_t *vgc, *sc;                                    // [NGv*V], [4]
+  // per step
+  uint32_t *pmb, *smb;                                  // [K*NW] the pod mask's bits, its strict mask's
+  uint8_t *pinf, *pexcl, *pdef, *plen, *touched;        // [K]
+  int32_t *pgte, *plte;                                 // [K]
+  uint32_t *czerob, *optsb, *okskewb;                   // [NGv*NW]
+  uint8_t *vgate, *vself, *boot;                        // [NGv]
+  int32_t* glist;                                       // [NGv] the groups that apply, in order
+  uint8_t *hgate, *hself;                               // [NGh]
+  float* req;                                           // [R]
+  uint8_t *allow, *tok, *nits;                          // [T] it_allow row, [G] tmpl_ok row,
+                                                        // [T] the committed claim's viable types
+  int32_t *pconf, *pvols;                               // [NPp], [NVp]
+  int32_t *list, *lkey;                                 // [kThreads] live rows, their keys
+  uint8_t* rm;                                          // [nev][K*V, 16-byte rounded] each evaluating
+                                                        // warp's byte copy of its row's mask
+  int32_t* flags;                                       // [4]: 0 the pod has volumes, 1 the least key
+                                                        // found, 2 the groups that apply, 3 the valid
+                                                        // existing nodes (once per launch)
+};
+
+// One row's scratch. Each warp has two: it evaluates into one while the
+// other holds its best row so far, which the commit then reads.
+struct WS {
+  uint32_t *rmb, *cmb, *narb;                      // [K*NW] the candidate's mask bits, the combined row's,
+                                                   // [NGv*NW] each applying group's choice
+  uint8_t *rinf, *rexcl, *rdef;                    // [K] the stored row
+  int32_t *rgte, *rlte;                            // [K]
+  uint8_t *cinf, *cexcl, *cdef, *clen, *changed;   // [K] the combined row
+  int32_t *cgte, *clte;                            // [K]
+  uint32_t* zcm;                                   // [NZW] admitted (zone, capacity type) bits
+  float *total, *bud;                              // [R] usage with the pod, (tier 3) the budget
+};
+
+__host__ __device__ inline int words(int bits) { return (bits + 31) / 32; }
 
 __host__ __device__ inline char* take(char* base, size_t* off, size_t bytes) {
   char* p = base ? base + *off : nullptr;
@@ -197,30 +280,68 @@ __host__ __device__ inline char* take(char* base, size_t* off, size_t bytes) {
   return p;
 }
 
-// lays the workspace out from `base` (nullptr: only sizes it); returns bytes
-__host__ __device__ inline size_t carve(WS* ws, char* base, int K, int V, int NGv, int R) {
+// Lays the workspace out from `base` (nullptr: only sizes it) after the
+// staged tables: the pod terms and a mask buffer for each of the `nev`
+// warps that evaluate rows, then two row scratches for each of them. Returns bytes. Mirrored by ops/cuda.py
+// `perpod_workspace` (tests/test_torch_perpod_emulated.py holds the two
+// equal).
+__host__ __device__ inline size_t carve(char* base, const P& p, int nev, Pod* pod, WS (*ws)[2]) {
   size_t off = 0;
-  const size_t KV = (size_t)K * V, GV = (size_t)NGv * V;
-  WS w;
-  w.pm = (uint8_t*)take(base, &off, KV);
-  w.cm = (uint8_t*)take(base, &off, KV);
-  uint8_t** k8[] = {&w.cinf, &w.cexcl, &w.cdef, &w.clen, &w.touched, &w.changed};
+  const size_t K = p.K, GV = (size_t)p.NGv * p.V, NGv = p.NGv, NGh = p.NGh;
+  const size_t NW = words(p.V), NZW = words(p.Z * p.C);
+  Pod d;
+  d.domb = (uint32_t*)take(base, &off, 4 * NGv * NW);
+  d.vvalid = (uint8_t*)take(base, &off, NGv);
+  d.wk = (uint8_t*)take(base, &off, K);
+  d.hvalid = (uint8_t*)take(base, &off, NGh);
+  d.hnonempty = (uint8_t*)take(base, &off, NGh);
+  d.rank = (int32_t*)take(base, &off, 4 * GV);
+  int32_t** v32[] = {&d.vkey, &d.vtype, &d.vskew, &d.vmind};
+  for (int32_t** f : v32) *f = (int32_t*)take(base, &off, 4 * NGv);
+  d.htype = (int32_t*)take(base, &off, 4 * NGh);
+  d.hskew = (int32_t*)take(base, &off, 4 * NGh);
+  d.vgc = (int32_t*)take(base, &off, 4 * GV);
+  d.sc = (int32_t*)take(base, &off, 16);
+  d.pmb = (uint32_t*)take(base, &off, 4 * K * NW);
+  d.smb = (uint32_t*)take(base, &off, 4 * K * NW);
+  uint8_t** k8[] = {&d.pinf, &d.pexcl, &d.pdef, &d.plen, &d.touched};
   for (uint8_t** f : k8) *f = (uint8_t*)take(base, &off, K);
-  int32_t** k32[] = {&w.cgte, &w.clte};
-  for (int32_t** f : k32) *f = (int32_t*)take(base, &off, 4 * (size_t)K);
-  uint8_t** g8[] = {&w.pd, &w.okskew, &w.opts, &w.czero, &w.dom, &w.narrowed};
-  for (uint8_t** f : g8) *f = (uint8_t*)take(base, &off, GV);
-  w.eff = (int32_t*)take(base, &off, 4 * GV);
-  w.rank = (int32_t*)take(base, &off, 4 * GV);
-  int32_t** n32[] = {&w.gate, &w.boot, &w.gok};
-  for (int32_t** f : n32) *f = (int32_t*)take(base, &off, 4 * (size_t)NGv);
-  w.total = (float*)take(base, &off, 4 * (size_t)R);
-  w.flag = (int32_t*)take(base, &off, 4 * 8);
-  if (ws) *ws = w;
+  d.pgte = (int32_t*)take(base, &off, 4 * K);
+  d.plte = (int32_t*)take(base, &off, 4 * K);
+  uint32_t** gb[] = {&d.czerob, &d.optsb, &d.okskewb};
+  for (uint32_t** f : gb) *f = (uint32_t*)take(base, &off, 4 * NGv * NW);
+  uint8_t** g8[] = {&d.vgate, &d.vself, &d.boot};
+  for (uint8_t** f : g8) *f = (uint8_t*)take(base, &off, NGv);
+  d.glist = (int32_t*)take(base, &off, 4 * NGv);
+  d.hgate = (uint8_t*)take(base, &off, NGh);
+  d.hself = (uint8_t*)take(base, &off, NGh);
+  d.req = (float*)take(base, &off, 4 * (size_t)p.R);
+  d.allow = (uint8_t*)take(base, &off, p.T);
+  d.tok = (uint8_t*)take(base, &off, p.G);
+  d.nits = (uint8_t*)take(base, &off, p.T);
+  d.pconf = (int32_t*)take(base, &off, 4 * (size_t)p.NPp);
+  d.pvols = (int32_t*)take(base, &off, 4 * (size_t)p.NVp);
+  d.list = (int32_t*)take(base, &off, 4 * (size_t)kThreads);
+  d.lkey = (int32_t*)take(base, &off, 4 * (size_t)kThreads);
+  d.flags = (int32_t*)take(base, &off, 16);
+  d.rm = (uint8_t*)take(base, &off, nev * (((size_t)p.K * p.V + 15) & ~(size_t)15));
+  if (pod) *pod = d;
+  for (int w = 0; w < 2 * nev; ++w) {
+    WS s;
+    uint32_t** wb[] = {&s.rmb, &s.cmb};
+    for (uint32_t** f : wb) *f = (uint32_t*)take(base, &off, 4 * K * NW);
+    s.narb = (uint32_t*)take(base, &off, 4 * NGv * NW);
+    uint8_t** w8[] = {&s.rinf, &s.rexcl, &s.rdef, &s.cinf, &s.cexcl, &s.cdef, &s.clen, &s.changed};
+    for (uint8_t** f : w8) *f = (uint8_t*)take(base, &off, K);
+    int32_t** w32[] = {&s.rgte, &s.rlte, &s.cgte, &s.clte};
+    for (int32_t** f : w32) *f = (int32_t*)take(base, &off, 4 * K);
+    s.zcm = (uint32_t*)take(base, &off, 4 * NZW);
+    s.total = (float*)take(base, &off, 4 * (size_t)p.R);
+    s.bud = (float*)take(base, &off, 4 * (size_t)p.R);
+    if (ws) ws[w / 2][w % 2] = s;
+  }
   return off;
 }
-
-enum { F_OK = 0 };
 
 // lenient(): NotIn (complement with exclusions) or DoesNotExist (an empty
 // concrete set), on a defined key
@@ -228,291 +349,621 @@ __device__ __forceinline__ bool lenient_of(bool def, bool inf, bool excl, bool a
   return def && ((inf && excl) || (!inf && !any_mask));
 }
 
-// Evaluate candidate (tier, idx) for pod `pod` into the workspace: the
-// combined requirements (narrowed by the vocab-key groups) in ws.c*, the
-// candidate's total usage in ws.total, and ws.flag[F_OK] = every test but
-// the instance-type filter. Called by every thread of the block.
-__device__ void eval_row(const P& p, WS& ws, int pod, int tier, int idx) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int K = p.K, V = p.V, KV = K * V, NGv = p.NGv;
-  const Set& rs = tier == 1 ? p.exist_reqs : (tier == 2 ? p.reqs : p.tr);
-  const int64_t ro = (int64_t)idx * KV, po = (int64_t)pod * KV;
-  // ---- pod row and combined row (requirements.Add) -----------------------
-  for (int i = tid; i < KV; i += nt) {
-    const uint8_t pm = p.pr.mask[po + i];
-    ws.pm[i] = pm;
-    ws.cm[i] = pm & rs.mask[ro + i];
+__device__ __forceinline__ const Set& tier_set(const P& p, int tier) {
+  return tier == 1 ? p.exist_reqs : (tier == 2 ? p.reqs : p.tr);
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* b, int v) { return (b[v >> 5] >> (v & 31)) & 1u; }
+
+// the per-key term of intersects(it[t], combined row) at key k
+__device__ __forceinline__ bool key_ok(const P& p, const Tabs& tb, const WS& ws, int t, int k) {
+  const int T = p.T;
+  const bool idef = tb.def[k * T + t];
+  if (!(idef && ws.cdef[k])) return true;
+  const int NW = words(p.V);
+  bool any = false;
+  for (int w = 0; w < NW; ++w) {
+    const uint32_t m = tb.mbits[(k * NW + w) * T + t];
+    if (m & ws.cmb[k * NW + w]) return true;
+    any |= m != 0;
   }
-  if (tid == 0) ws.flag[F_OK] = 1;
-  __syncthreads();
-  for (int k = tid; k < K; k += nt) {
-    const int64_t pk = (int64_t)pod * K + k, rk = (int64_t)idx * K + k;
-    const bool pinf = p.pr.inf[pk], pexcl = p.pr.excl[pk], pdef = p.pr.def[pk];
-    const int32_t pgte = p.pr.gte[pk], plte = p.pr.lte[pk];
-    const bool rinf = rs.inf[rk], rexcl = rs.excl[rk], rdef = rs.def[rk];
-    const int32_t rgte = rs.gte[rk], rlte = rs.lte[rk];
-    bool pany = false, rany = false, hit = false;
-    for (int v = 0; v < V; ++v) {
-      pany |= ws.pm[k * V + v] != 0;
-      rany |= rs.mask[ro + k * V + v] != 0;
-      hit |= ws.cm[k * V + v] != 0;
+  const bool iinf = tb.inf[k * T + t];
+  if (iinf && ws.cinf[k] && max(tb.gte[k * T + t], ws.cgte[k]) <= min(tb.lte[k * T + t], ws.clte[k])) return true;
+  return lenient_of(idef, iinf, tb.excl[k * T + t], any) && ws.clen[k];
+}
+
+// the candidate's total fits allocatable group gr of instance type t
+__device__ __forceinline__ bool group_fits(const P& p, const Tabs& tb, const WS& ws, int t, int gr) {
+  const int T = p.T, R = p.R;
+  bool fit = tb.gv[gr * T + t];
+  for (int r = 0; r < R && fit; ++r) {
+    const float tot = ws.total[r];
+    fit = tot <= tb.alloc[(gr * R + r) * T + t] || tot == 0.0f;
+  }
+  return fit;
+}
+
+// instance type t survives on the candidate: (its) & it_compat & fits_off
+// & it_allow (& cap_ok, tier 3); fits_off tests the groups where the
+// candidate's total fits and an offering sits in an admitted zone and
+// capacity type. The resource test goes before the key tests: it is the
+// one a full claim fails, for every type.
+__device__ bool type_ok(const P& p, const Tabs& tb, const Pod& pa, const WS& ws, int tier, int idx, int t) {
+  const int T = p.T, R = p.R;
+  if (!pa.allow[t]) return false;
+  if (tier == 2 ? !p.its[(int64_t)idx * T + t] : !tb.t_its[(int64_t)idx * T + t]) return false;
+  if (tier == 3)
+    for (int r = 0; r < R; ++r)
+      if (!(tb.cap[r * T + t] <= ws.bud[r])) return false;
+  uint32_t fits = 0;  // the first 32 groups where the total fits; later ones are tested again
+  bool any = false;
+  for (int gr = 0; gr < p.GR; ++gr) {
+    const bool fit = group_fits(p, tb, ws, t, gr);
+    if (gr < 32) fits |= (uint32_t)fit << gr;
+    any |= fit;
+  }
+  if (!any) return false;
+  for (int k = 0; k < p.K; ++k)
+    if (ws.changed[k] && !key_ok(p, tb, ws, t, k)) return false;
+  const int NZW = words(p.Z * p.C);
+  for (int gr = 0; gr < p.GR; ++gr) {
+    if (!(gr < 32 ? (fits >> gr & 1u) != 0 : group_fits(p, tb, ws, t, gr))) continue;
+    for (int w = 0; w < NZW; ++w)
+      if (tb.zc[(gr * NZW + w) * T + t] & ws.zcm[w]) return true;
+  }
+  return false;
+}
+
+// The candidate's scalar tests, one thread per row: its live gates (a
+// valid node the pod may use, an open window row, a valid template the pod
+// tolerates within its nodes budget), and the tests of the row's own
+// scalars — a node's free resources, host ports and volume limits, a
+// claim's template toleration, resource ceilings and host ports, the
+// hostname groups at the row's slot (e, E + slot_of[w], E + n_open). The
+// rest is eval_row's. The tests accumulate rather than return early, so
+// the row's loads are in flight together.
+__device__ bool row_cheap(const P& p, const Pod& pa, int pod, int tier, int idx) {
+  const int R = p.R;
+  bool ok;
+  int slot;
+  if (tier == 1) {
+    ok = (p.exist_valid[idx] != 0) & (p.exist_ok[(int64_t)pod * p.E + idx] != 0);
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      const float t = p.exist_used[(int64_t)idx * R + r] + pa.req[r];
+      ok &= (t <= p.avail[(int64_t)idx * R + r]) | (t == 0.0f);
     }
-    const bool plen = lenient_of(pdef, pinf, pexcl, pany);
+    for (int l = 0; l < p.NPp; ++l) ok &= (pa.pconf[l] & p.exist_ports[(int64_t)idx * p.NPp + l]) == 0;
+    if (pa.flags[0] && ok)
+      for (int d = 0; d < p.ND; ++d) {
+        int cnt = 0;
+        for (int l = 0; l < p.NVp; ++l)
+          cnt += __popc((uint32_t)((p.exist_vols[(int64_t)idx * p.NVp + l] | pa.pvols[l])
+                                   & p.vol_driver[(int64_t)d * p.NVp + l]));
+        ok &= (float)cnt <= p.vol_limits[(int64_t)idx * p.ND + d];
+      }
+    slot = idx;
+  } else if (tier == 2) {
+    const int tmpl = p.tmpl[idx];
+    slot = p.E + p.slot_of[idx];
+    ok = p.open[idx] != 0;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      const float t = p.used[(int64_t)idx * R + r] + pa.req[r];
+      ok &= (t <= p.row_max[(int64_t)idx * R + r]) | (t == 0.0f);
+    }
+    for (int l = 0; l < p.NPp; ++l) ok &= (pa.pconf[l] & p.claim_ports[(int64_t)idx * p.NPp + l]) == 0;
+    ok &= pa.tok[tmpl] != 0;
+  } else {
+    ok = (p.t_valid[idx] != 0) & (pa.tok[idx] != 0) & (p.nodes_budget[idx] >= 1.0f);
+    slot = p.E + pa.sc[kNOpen];
+  }
+  for (int h = 0; h < p.NGh; ++h) {
+    if (!pa.hgate[h]) continue;
+    const int32_t c = p.hg_counts[(int64_t)h * p.Sl + slot];
+    const int type = pa.htype[h];
+    if (type == kSpread)
+      ok &= c + (pa.hself[h] ? 1 : 0) <= pa.hskew[h];
+    else if (type == kAffinity)  // the bootstrap: the group is empty everywhere
+      ok &= c > 0 || (pa.hself[h] && !pa.hnonempty[h]);
+    else
+      ok &= c == 0;
+  }
+  return ok;
+}
+
+// Evaluate candidate (tier, idx), which passed row_cheap, for pod `pod`
+// with the calling warp: returns (warp-uniform) whether the row is
+// feasible, its instance types included. A feasible row leaves in ws the
+// combined requirements narrowed by the vocab-key groups (value bits in
+// cmb), the keys that differ from the stored row and the candidate's
+// total usage; an infeasible one may stop at the first failed test. The
+// row's own data is loaded first, every load issued before any is used.
+__device__ bool eval_row(const P& p, const Tabs& tb, const Pod& pa, const WS& ws, int pod, int tier, int idx) {
+  const int lane = threadIdx.x & 31;
+  const int K = p.K, V = p.V, KV = K * V, R = p.R, T = p.T, NW = words(V);
+  const Set& rs = tier_set(p, tier);
+  const int64_t ro = (int64_t)idx * KV, rk0 = (int64_t)idx * K;
+  // ---- the row's data (the first 32 keys and resources take the register
+  // path, anything past them a loop) ------------------------------------------
+  float base = 0.0f, bud = 0.0f;
+  if (lane < R) {
+    base = tier == 1 ? p.exist_used[(int64_t)idx * R + lane]
+           : tier == 2 ? p.used[(int64_t)idx * R + lane]
+                       : p.daemon[(int64_t)idx * R + lane];
+    if (tier == 3) bud = p.budget[(int64_t)idx * R + lane];
+  }
+  // the first types' row, so their first test finds it in cache
+  const bool its_first = tier != 1 && lane < T
+                         && (tier == 2 ? p.its[(int64_t)idx * T + lane] : tb.t_its[(int64_t)idx * T + lane]);
+  uint8_t rinf = 0, rexcl = 0, rdef = 0;
+  int32_t rgte = 0, rlte = 0;
+  if (lane < K) {
+    rinf = rs.inf[rk0 + lane];
+    rexcl = rs.excl[rk0 + lane];
+    rdef = rs.def[rk0 + lane];
+    rgte = rs.gte[rk0 + lane];
+    rlte = rs.lte[rk0 + lane];
+  }
+  // the stored mask into the warp's byte buffer (KV <= 512: a word per
+  // lane and round, the loads in flight together)
+  uint8_t* rm = pa.rm + (size_t)(threadIdx.x >> 5) * ((KV + 15) & ~15);
+  const bool words4 = (KV & 3) == 0 && KV <= 512;
+  uint32_t mw[4] = {0, 0, 0, 0};
+  if (words4) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(rs.mask + ro);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < KV / 4) mw[q] = src[lane + 32 * q];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < KV / 4) reinterpret_cast<uint32_t*>(rm)[lane + 32 * q] = mw[q];
+  } else {
+    for (int i = lane; i < KV; i += 32) rm[i] = rs.mask[ro + i];
+  }
+  if (lane < K) {
+    ws.rinf[lane] = rinf;
+    ws.rexcl[lane] = rexcl;
+    ws.rdef[lane] = rdef;
+    ws.rgte[lane] = rgte;
+    ws.rlte[lane] = rlte;
+  }
+  for (int k = lane + 32; k < K; k += 32) {
+    ws.rinf[k] = rs.inf[rk0 + k];
+    ws.rexcl[k] = rs.excl[rk0 + k];
+    ws.rdef[k] = rs.def[rk0 + k];
+    ws.rgte[k] = rs.gte[rk0 + k];
+    ws.rlte[k] = rs.lte[rk0 + k];
+  }
+  if (lane < R) {
+    ws.bud[lane] = bud;
+    ws.total[lane] = base + pa.req[lane];
+  }
+  for (int r = lane + 32; r < R; r += 32) {
+    ws.bud[r] = tier == 3 ? p.budget[(int64_t)idx * R + r] : 0.0f;
+    ws.total[r] = (tier == 1 ? p.exist_used[(int64_t)idx * R + r]
+                   : tier == 2 ? p.used[(int64_t)idx * R + r]
+                               : p.daemon[(int64_t)idx * R + r]) + pa.req[r];
+  }
+  __syncwarp();
+  // the stored mask's value bits: one ballot per (key, word), lanes over values
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < NW; ++w) {
+      const int v = 32 * w + lane;
+      const unsigned b = __ballot_sync(kFull, v < V && rm[k * V + v]);
+      if (lane == 0) ws.rmb[k * NW + w] = b;
+    }
+  __syncwarp();
+  // ---- combined row (requirements.Add) and Compatible(row, pod) -------------
+  bool bad = false;
+  for (int k = lane; k < K; k += 32) {
+    const bool pinf = pa.pinf[k], pdef = pa.pdef[k];
+    const bool rinf = ws.rinf[k], rexcl = ws.rexcl[k], rdef = ws.rdef[k];
+    bool rany = false, hit = false;
+    for (int w = 0; w < NW; ++w) {
+      const uint32_t r = ws.rmb[k * NW + w], c = r & pa.pmb[k * NW + w];
+      ws.cmb[k * NW + w] = c;
+      rany |= r != 0;
+      hit |= c != 0;
+    }
+    const bool plen = pa.plen[k];
     const bool rlen = lenient_of(rdef, rinf, rexcl, rany);
-    const int32_t gte0 = max(rgte, pgte), lte0 = min(rlte, plte);
+    const int32_t gte0 = max(ws.rgte[k], pa.pgte[k]), lte0 = min(ws.rlte[k], pa.plte[k]);
     const bool inf = rinf && pinf && gte0 <= lte0;
     ws.cinf[k] = inf;
-    ws.cexcl[k] = (rexcl || pexcl) && inf;
+    ws.cexcl[k] = (rexcl || pa.pexcl[k]) && inf;
     ws.cgte[k] = inf ? gte0 : kIntMin;
     ws.clte[k] = inf ? lte0 : kIntMax;
     ws.cdef[k] = rdef || pdef;
-    // Compatible(row, pod): custom keys of the pod must be defined on the
-    // row (well-known keys excused outside tier 1), shared keys intersect
-    const bool wk = tier != 1 && p.well_known[k];
+    // custom keys of the pod must be defined on the row (well-known keys
+    // excused outside tier 1), shared keys intersect
+    const bool wk = tier != 1 && pa.wk[k];
     const bool custom_ok = !pdef || wk || rdef || plen;
     const bool inter = !(rdef && pdef) || hit || inf || (rlen && plen);
-    if (!(custom_ok && inter)) ws.flag[F_OK] = 0;
+    if (!(custom_ok && inter)) bad = true;
   }
-  // ---- candidate usage ---------------------------------------------------
-  for (int r = tid; r < p.R; r += nt) {
-    const float req = p.requests[(int64_t)pod * p.R + r];
-    const float base = tier == 1 ? p.exist_used[(int64_t)idx * p.R + r]
-                       : tier == 2 ? p.used[(int64_t)idx * p.R + r]
-                                   : p.daemon[(int64_t)idx * p.R + r];
-    const float t = base + req;
-    ws.total[r] = t;
-    if (tier == 1 && !(t <= p.avail[(int64_t)idx * p.R + r] || t == 0.0f)) ws.flag[F_OK] = 0;
-  }
-  // ---- the pod's vocab-key group terms (vg_pod_precompute) ----------------
-  for (int j = tid; j < NGv; j += nt) {
-    const int key = p.vg_key[j];
-    const int64_t gv = (int64_t)j * V;
-    int32_t minc = kBig;
-    int supported = 0;
-    bool any_pos = false, any_pdpos = false;
-    for (int v = 0; v < V; ++v) {
-      const bool dom = p.vg_domains[gv + v];
-      const bool pd = p.strict_mask[po + (int64_t)key * V + v];
-      const int32_t c = p.vg_counts[gv + v];
-      ws.dom[gv + v] = dom;
-      ws.pd[gv + v] = pd;
-      ws.rank[gv + v] = p.vg_rank[gv + v];
-      ws.czero[gv + v] = c == 0;
-      ws.opts[gv + v] = dom && pd && c > 0;
-      if (dom && pd) {
-        ++supported;
-        minc = min(minc, c);
-      }
-      any_pos |= c > 0;
-      any_pdpos |= pd && c > 0;
-    }
-    const int32_t mind = p.vg_mind[j];
-    if (mind > 0 && supported < mind) minc = 0;
-    if (minc == kBig) minc = 0;
-    const int32_t self_add = p.vg_self[(int64_t)pod * NGv + j] ? 1 : 0;
-    for (int v = 0; v < V; ++v) {
-      const int32_t e = p.vg_counts[gv + v] + self_add;
-      ws.eff[gv + v] = e;
-      ws.okskew[gv + v] = (e - minc) <= p.vg_skew[j];
-    }
-    ws.boot[j] = self_add && (!any_pos || !any_pdpos);
-    ws.gate[j] = p.vg_applies[(int64_t)pod * NGv + j] && p.vg_valid[j];
-  }
-  __syncthreads();
-  for (int k = tid; k < K; k += nt) {
-    bool t = false;
-    for (int j = 0; j < NGv; ++j) t |= ws.gate[j] && p.vg_key[j] == k;
-    ws.touched[k] = t;
-  }
-  // ---- vg_evaluate on the combined mask -------------------------------------
-  for (int j = tid; j < NGv; j += nt) {
-    const int64_t gv = (int64_t)j * V;
-    const int64_t kv = (int64_t)p.vg_key[j] * V;
-    const int type = p.vg_type[j];
+  __syncwarp();
+  if (__any_sync(kFull, bad)) return false;
+  // ---- vg_evaluate of the groups that apply, on the combined mask: the
+  // candidates are words of bits, visited lowest value first -----------------
+  const int ng = pa.flags[2];
+  for (int q = lane; q < ng; q += 32) {
+    const int j = pa.glist[q];
+    const int gw = j * NW, kw = pa.vkey[j] * NW, gv = j * V;
+    const int type = pa.vtype[j];
+    int best = -1;
     bool ok = false;
     if (type == kSpread) {
-      int best = -1;
+      const int32_t self_add = pa.vself[j] ? 1 : 0;
       int32_t bk = kBig;
-      for (int v = 0; v < V; ++v) {
-        if (!(ws.dom[gv + v] && ws.cm[kv + v] && ws.okskew[gv + v])) continue;
-        const int32_t key = ws.eff[gv + v] * kRankBase + ws.rank[gv + v];
-        if (best < 0 || key < bk) {
-          bk = key;
-          best = v;
-        }
-      }
-      for (int v = 0; v < V; ++v) ws.narrowed[gv + v] = v == best;
-      ok = best >= 0;
-    } else if (type == kAffinity) {
-      bool any_opts = false;
-      for (int v = 0; v < V; ++v) any_opts |= ws.opts[gv + v] && ws.cm[kv + v];
-      if (any_opts) {
-        for (int v = 0; v < V; ++v) ws.narrowed[gv + v] = ws.opts[gv + v] && ws.cm[kv + v];
-        ok = true;
-      } else {
-        int best = -1;
-        int32_t bk = kBig;
-        for (int v = 0; v < V; ++v) {
-          if (!(ws.dom[gv + v] && ws.pd[gv + v] && ws.cm[kv + v])) continue;
-          if (best < 0 || ws.rank[gv + v] < bk) {
-            bk = ws.rank[gv + v];
+      for (int w = 0; w < NW; ++w)
+        for (uint32_t c = pa.domb[gw + w] & ws.cmb[kw + w] & pa.okskewb[gw + w]; c; c &= c - 1) {
+          const int v = 32 * w + __ffs(c) - 1;
+          const int32_t key = (pa.vgc[gv + v] + self_add) * kRankBase + pa.rank[gv + v];
+          if (best < 0 || key < bk) {
+            bk = key;
             best = v;
           }
         }
-        if (!ws.boot[j]) best = -1;
-        for (int v = 0; v < V; ++v) ws.narrowed[gv + v] = v == best;
-        ok = best >= 0;
+    } else if (type == kAffinity) {
+      bool any_opts = false;
+      for (int w = 0; w < NW; ++w) any_opts |= (pa.optsb[gw + w] & ws.cmb[kw + w]) != 0;
+      if (any_opts) {
+        for (int w = 0; w < NW; ++w) ws.narb[gw + w] = pa.optsb[gw + w] & ws.cmb[kw + w];
+        ok = true;
+      } else if (pa.boot[j]) {
+        int32_t bk = kBig;
+        for (int w = 0; w < NW; ++w)
+          for (uint32_t c = pa.domb[gw + w] & pa.smb[kw + w] & ws.cmb[kw + w]; c; c &= c - 1) {
+            const int v = 32 * w + __ffs(c) - 1;
+            if (best < 0 || pa.rank[gv + v] < bk) {
+              bk = pa.rank[gv + v];
+              best = v;
+            }
+          }
       }
     } else {
-      for (int v = 0; v < V; ++v) {
-        const bool n = ws.dom[gv + v] && ws.pd[gv + v] && ws.cm[kv + v] && ws.czero[gv + v];
-        ws.narrowed[gv + v] = n;
-        ok |= n;
+      for (int w = 0; w < NW; ++w) {
+        const uint32_t n = pa.domb[gw + w] & pa.smb[kw + w] & ws.cmb[kw + w] & pa.czerob[gw + w];
+        ws.narb[gw + w] = n;
+        ok |= n != 0;
       }
     }
-    ws.gok[j] = !ws.gate[j] || ok;
+    if (type == kSpread || (type == kAffinity && !ok)) {  // a single value, or none
+      for (int w = 0; w < NW; ++w) ws.narb[gw + w] = best >= 0 && best >> 5 == w ? 1u << (best & 31) : 0u;
+      ok = best >= 0;
+    }
+    if (!ok) bad = true;
   }
-  __syncthreads();
-  if (tid == 0)
-    for (int j = 0; j < NGv; ++j)
-      if (!ws.gok[j]) ws.flag[F_OK] = 0;
-  // ---- _apply_topo: AND each applying group's choice into its key ---------
-  for (int i = tid; i < KV; i += nt) {
-    const int k = i / V, v = i - k * V;
-    bool upd = true;
-    for (int j = 0; j < NGv; ++j)
-      if (ws.gate[j] && p.vg_key[j] == k) upd = upd && ws.narrowed[(int64_t)j * V + v];
-    ws.cm[i] = ws.cm[i] && upd;
-  }
-  for (int k = tid; k < K; k += nt) {
-    if (!ws.touched[k]) continue;
+  __syncwarp();
+  if (__any_sync(kFull, bad)) return false;
+  // ---- _apply_topo: AND each applying group's choice into its key, which
+  // becomes a concrete finite set --------------------------------------------
+  for (int k = lane; k < K; k += 32) {
+    if (!pa.touched[k]) continue;
+    for (int q = 0; q < ng; ++q) {
+      const int j = pa.glist[q];
+      if (pa.vkey[j] == k)
+        for (int w = 0; w < NW; ++w) ws.cmb[k * NW + w] &= ws.narb[j * NW + w];
+    }
     ws.cinf[k] = 0;
     ws.cexcl[k] = 0;
     ws.cgte[k] = kIntMin;
     ws.clte[k] = kIntMax;
     ws.cdef[k] = 1;
   }
-  // ---- hostname groups at the candidate's slot --------------------------------
-  const int slot = tier == 1 ? idx : (tier == 2 ? p.E + p.slot_of[idx] : p.E + *p.n_open);
-  for (int h = 0; h < p.NGh; ++h) {
-    const bool gate = p.hg_applies[(int64_t)pod * p.NGh + h] && p.hg_valid[h];
-    if (!gate) continue;
-    const int32_t c = p.hg_counts[(int64_t)h * p.S + slot];
-    const bool self = p.hg_self[(int64_t)pod * p.NGh + h];
-    const int type = p.hg_type[h];
-    bool ok;
-    if (type == kSpread) {
-      ok = c + (self ? 1 : 0) <= p.hg_skew[h];
-    } else if (type == kAffinity) {
-      ok = c > 0;
-      if (!ok && self) {  // the bootstrap: the group is empty everywhere
-        int any = p.hg_extra[h] != 0;
-        for (int s = tid; s < p.S && !any; s += nt) any = p.hg_counts[(int64_t)h * p.S + s] > 0;
-        ok = !__syncthreads_or(any);
-      }
-    } else {
-      ok = c == 0;
-    }
-    if (!ok && tid == 0) ws.flag[F_OK] = 0;
-  }
-  // ---- host ports, volumes, toleration ------------------------------------------
-  if (tid == 0) {
-    bool ok = true;
-    if (tier != 3) {
-      const int32_t* used_ports = tier == 1 ? p.exist_ports : p.claim_ports;
-      for (int l = 0; l < p.NPp; ++l)
-        if (p.port_conf[(int64_t)pod * p.NPp + l] & used_ports[(int64_t)idx * p.NPp + l]) ok = false;
-    }
-    if (tier == 1) {
-      bool pod_vols = false;
-      for (int l = 0; l < p.NVp; ++l) pod_vols |= p.vols[(int64_t)pod * p.NVp + l] != 0;
-      if (pod_vols) {
-        for (int d = 0; d < p.ND; ++d) {
-          int cnt = 0;
-          for (int l = 0; l < p.NVp; ++l)
-            cnt += __popc((uint32_t)((p.exist_vols[(int64_t)idx * p.NVp + l] | p.vols[(int64_t)pod * p.NVp + l])
-                                     & p.vol_driver[(int64_t)d * p.NVp + l]));
-          if (!((float)cnt <= p.vol_limits[(int64_t)idx * p.ND + d])) ok = false;
-        }
-      }
-    }
-    if (tier == 2 && !p.tmpl_ok[(int64_t)pod * p.G + p.tmpl[idx]]) ok = false;
-    if (!ok) ws.flag[F_OK] = 0;
-  }
-  __syncthreads();
-  // lenient() of the narrowed row, and (tier 2) the keys where it differs
-  // from the stored claim row
-  for (int k = tid; k < K; k += nt) {
+  __syncwarp();
+  // ---- lenient() of the narrowed row, the keys where it differs from the
+  // stored row (tier 3: every key), the admitted offerings --------------------
+  for (int k = lane; k < K; k += 32) {
     bool any = false, same = true;
-    const int64_t rk = (int64_t)idx * K + k;
-    for (int v = 0; v < V; ++v) {
-      any |= ws.cm[k * V + v] != 0;
-      if (tier == 2) same = same && ws.cm[k * V + v] == rs.mask[ro + k * V + v];
+    for (int w = 0; w < NW; ++w) {
+      any |= ws.cmb[k * NW + w] != 0;
+      same = same && ws.cmb[k * NW + w] == ws.rmb[k * NW + w];
     }
     ws.clen[k] = lenient_of(ws.cdef[k], ws.cinf[k], ws.cexcl[k], any);
-    if (tier == 2)
-      same = same && ws.cinf[k] == rs.inf[rk] && ws.cexcl[k] == rs.excl[rk] && ws.cgte[k] == rs.gte[rk]
-             && ws.clte[k] == rs.lte[rk] && ws.cdef[k] == rs.def[rk];
+    same = same && ws.cinf[k] == ws.rinf[k] && ws.cexcl[k] == ws.rexcl[k] && ws.cgte[k] == ws.rgte[k]
+           && ws.clte[k] == ws.rlte[k] && ws.cdef[k] == ws.rdef[k];
     ws.changed[k] = tier == 3 || !same;
   }
-  __syncthreads();
-}
-
-// the per-key term of intersects(it[t], combined row) at key k
-__device__ __forceinline__ bool key_ok(const P& p, const WS& ws, int t, int k) {
-  const int64_t tk = (int64_t)t * p.K + k;
-  const bool idef = p.it.def[tk];
-  if (!(idef && ws.cdef[k])) return true;
-  const uint8_t* im = p.it.mask + tk * p.V;
-  const uint8_t* cm = ws.cm + (int64_t)k * p.V;
-  bool any = false;
-  for (int v = 0; v < p.V; ++v) {
-    const bool m = im[v];
-    if (m && cm[v]) return true;
-    any |= m;
+  const int ZC = p.Z * p.C;
+  const uint32_t* zb = ws.cmb + p.zone_kid * NW;
+  const uint32_t* cb = ws.cmb + p.ct_kid * NW;
+  for (int w = lane; w < words(ZC); w += 32) {
+    uint32_t bits = 0;
+    for (int b = w * 32; b < min(ZC, w * 32 + 32); ++b) {
+      const int z = b / p.C, c = b - z * p.C;
+      bits |= (uint32_t)(bit(zb, z) && bit(cb, c)) << (b - w * 32);
+    }
+    ws.zcm[w] = bits;
   }
-  const bool iinf = p.it.inf[tk];
-  if (iinf && ws.cinf[k] && max(p.it.gte[tk], ws.cgte[k]) <= min(p.it.lte[tk], ws.clte[k])) return true;
-  return lenient_of(idef, iinf, p.it.excl[tk], any) && ws.clen[k];
-}
-
-// instance type t survives on the candidate: (its) & it_compat & fits_off
-// & it_allow (& cap_ok, tier 3); fits_off tests the groups where the
-// candidate's total fits and an offering sits in an admitted zone and
-// capacity type
-__device__ bool type_ok(const P& p, const WS& ws, int pod, int tier, int idx, int t) {
-  const int64_t T = p.T;
-  if (!p.it_allow[(int64_t)pod * T + t]) return false;
-  if (tier == 2 ? !p.its[(int64_t)idx * T + t] : !p.t_its[(int64_t)idx * T + t]) return false;
-  if (tier == 3)
-    for (int r = 0; r < p.R; ++r)
-      if (!(p.cap[(int64_t)t * p.R + r] <= p.budget[(int64_t)idx * p.R + r])) return false;
-  for (int k = 0; k < p.K; ++k)
-    if (ws.changed[k] && !key_ok(p, ws, t, k)) return false;
-  const uint8_t* zm = ws.cm + (int64_t)p.zone_kid * p.V;
-  const uint8_t* cmk = ws.cm + (int64_t)p.ct_kid * p.V;
-  for (int gr = 0; gr < p.GR; ++gr) {
-    const int64_t tg = (int64_t)t * p.GR + gr;
-    if (!p.group_valid[tg]) continue;
-    bool fit = true;
-    for (int r = 0; r < p.R && fit; ++r) {
-      const float tot = ws.total[r];
-      fit = tot <= p.alloc[tg * p.R + r] || tot == 0.0f;
-    }
-    if (!fit) continue;
-    const uint8_t* zc = p.zc_avail + tg * p.Z * p.C;
-    for (int z = 0; z < p.Z; ++z) {
-      if (!zm[z]) continue;
-      for (int c = 0; c < p.C; ++c)
-        if (cmk[c] && zc[z * p.C + c]) return true;
-    }
+  __syncwarp();
+  if (tier == 1) return true;
+  // ---- the instance types: lanes over T, stop at the first survivor ---------
+  for (int b = 0; b < T; b += 32) {
+    const int t = b + lane;
+    const bool ok = t < T && (b == 0 ? its_first : true) && type_ok(p, tb, pa, ws, tier, idx, t);
+    if (__any_sync(kFull, ok)) return true;
   }
   return false;
 }
 
+// the pod-only terms of a step (vg_pod_precompute and the rest),
+// block-wide: the pod's rows into shared memory (every load issued before
+// the stores; its masks straight to value bits), then the terms from
+// there, by separate warps
+__device__ void pod_phase(const P& p, const Pod& pa, int pod) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int K = p.K, V = p.V, KV = K * V, NGv = p.NGv, NW = words(V);
+  const int64_t po = (int64_t)pod * KV, pk = (int64_t)pod * K + tid;
+  uint8_t inf = 0, excl = 0, def = 0, allow = 0, tok = 0, vg = 0, vs = 0, hg = 0, hs = 0;
+  int32_t gte = 0, lte = 0, conf = 0, vols = 0;
+  float req = 0.0f;
+  if (tid < K) {
+    inf = p.pr.inf[pk];
+    excl = p.pr.excl[pk];
+    def = p.pr.def[pk];
+    gte = p.pr.gte[pk];
+    lte = p.pr.lte[pk];
+  }
+  if (tid < p.R) req = p.requests[(int64_t)pod * p.R + tid];
+  if (tid < p.T) allow = p.it_allow[(int64_t)pod * p.T + tid];
+  if (tid < p.G) tok = p.tmpl_ok[(int64_t)pod * p.G + tid];
+  if (tid < p.NPp) conf = p.port_conf[(int64_t)pod * p.NPp + tid];
+  if (tid < p.NVp) vols = p.vols[(int64_t)pod * p.NVp + tid];
+  if (tid < NGv) {
+    vg = p.vg_applies[(int64_t)pod * NGv + tid];
+    vs = p.vg_self[(int64_t)pod * NGv + tid];
+  }
+  if (tid < p.NGh) {
+    hg = p.hg_applies[(int64_t)pod * p.NGh + tid];
+    hs = p.hg_self[(int64_t)pod * p.NGh + tid];
+  }
+  // the pod's mask and its strict mask as value bits: a thread per (key,
+  // value) of a K x 32 NW grid, a ballot per (key, word); whole warps
+  // enter, as K NW 32 and the block are multiples of 32
+  for (int i = tid; i < K * NW * 32; i += nt) {
+    const int kw = i >> 5, k = kw / NW, v = (kw - k * NW) * 32 + lane;
+    const bool in = v < V;
+    const unsigned bp = __ballot_sync(kFull, in && p.pr.mask[po + k * V + v]);
+    const unsigned bs = __ballot_sync(kFull, in && p.strict_mask[po + k * V + v]);
+    if (lane == 0) {
+      pa.pmb[kw] = bp;
+      pa.smb[kw] = bs;
+    }
+  }
+  if (tid < K) {
+    pa.pinf[tid] = inf;
+    pa.pexcl[tid] = excl;
+    pa.pdef[tid] = def;
+    pa.pgte[tid] = gte;
+    pa.plte[tid] = lte;
+  }
+  if (tid < p.R) pa.req[tid] = req;
+  if (tid < p.T) pa.allow[tid] = allow;
+  if (tid < p.G) pa.tok[tid] = tok;
+  if (tid < p.NPp) pa.pconf[tid] = conf;
+  if (tid < p.NVp) pa.pvols[tid] = vols;
+  if (tid < NGv) {
+    pa.vgate[tid] = vg && pa.vvalid[tid];
+    pa.vself[tid] = vs;
+  }
+  if (tid < p.NGh) {
+    pa.hgate[tid] = hg && pa.hvalid[tid];
+    pa.hself[tid] = hs;
+  }
+  // what a thread per element leaves (wider problems)
+  for (int k = tid + nt; k < K; k += nt) {
+    const int64_t q = (int64_t)pod * K + k;
+    pa.pinf[k] = p.pr.inf[q];
+    pa.pexcl[k] = p.pr.excl[q];
+    pa.pdef[k] = p.pr.def[q];
+    pa.pgte[k] = p.pr.gte[q];
+    pa.plte[k] = p.pr.lte[q];
+  }
+  for (int r = tid + nt; r < p.R; r += nt) pa.req[r] = p.requests[(int64_t)pod * p.R + r];
+  for (int t = tid + nt; t < p.T; t += nt) pa.allow[t] = p.it_allow[(int64_t)pod * p.T + t];
+  for (int g = tid + nt; g < p.G; g += nt) pa.tok[g] = p.tmpl_ok[(int64_t)pod * p.G + g];
+  for (int l = tid + nt; l < p.NPp; l += nt) pa.pconf[l] = p.port_conf[(int64_t)pod * p.NPp + l];
+  for (int l = tid + nt; l < p.NVp; l += nt) pa.pvols[l] = p.vols[(int64_t)pod * p.NVp + l];
+  for (int j = tid + nt; j < NGv; j += nt) {
+    pa.vgate[j] = p.vg_applies[(int64_t)pod * NGv + j] && pa.vvalid[j];
+    pa.vself[j] = p.vg_self[(int64_t)pod * NGv + j];
+  }
+  for (int h = tid + nt; h < p.NGh; h += nt) {
+    pa.hgate[h] = p.hg_applies[(int64_t)pod * p.NGh + h] && pa.hvalid[h];
+    pa.hself[h] = p.hg_self[(int64_t)pod * p.NGh + h];
+  }
+  if (tid == 0) pa.flags[0] = 0;
+  __syncthreads();
+  // warps 0..: the vocab-key group terms, a thread per group
+  for (int j = tid; j < NGv; j += nt) {
+    const int kw = pa.vkey[j] * NW, gv = j * V, gw = j * NW;
+    int32_t minc = kBig;
+    int supported = 0;
+    bool any_pos = false, any_pdpos = false;
+    for (int w = 0; w < NW; ++w) {
+      uint32_t cz = 0, op = 0;
+      for (int v = 32 * w; v < min(V, 32 * w + 32); ++v) {
+        const bool dom = bit(pa.domb + gw, v);
+        const bool d = bit(pa.smb + kw, v);
+        const int32_t c = pa.vgc[gv + v];
+        cz |= (uint32_t)(c == 0) << (v & 31);
+        op |= (uint32_t)(dom && d && c > 0) << (v & 31);
+        if (dom && d) {
+          ++supported;
+          minc = min(minc, c);
+        }
+        any_pos |= c > 0;
+        any_pdpos |= d && c > 0;
+      }
+      pa.czerob[gw + w] = cz;
+      pa.optsb[gw + w] = op;
+    }
+    const int32_t mind = pa.vmind[j];
+    if (mind > 0 && supported < mind) minc = 0;
+    if (minc == kBig) minc = 0;
+    const int32_t self_add = pa.vself[j] ? 1 : 0;
+    for (int w = 0; w < NW; ++w) {
+      uint32_t ok = 0;
+      for (int v = 32 * w; v < min(V, 32 * w + 32); ++v) {
+        ok |= (uint32_t)((pa.vgc[gv + v] + self_add - minc) <= pa.vskew[j]) << (v & 31);
+      }
+      pa.okskewb[gw + w] = ok;
+    }
+    pa.boot[j] = self_add && (!any_pos || !any_pdpos);
+  }
+  // warp 8: lenient() of the pod's keys, the keys the groups touch
+  if (warp == 8 % kWarps)
+    for (int k = lane; k < K; k += 32) {
+      bool any = false;
+      for (int w = 0; w < NW; ++w) any |= pa.pmb[k * NW + w] != 0;
+      pa.plen[k] = lenient_of(pa.pdef[k], pa.pinf[k], pa.pexcl[k], any);
+      bool t = false;
+      for (int j = 0; j < NGv; ++j) t |= pa.vgate[j] && pa.vkey[j] == k;
+      pa.touched[k] = t;
+    }
+  // the last warp: the groups that apply, in order; the pod's volumes
+  if (warp == kWarps - 1) {
+    int cnt = 0;
+    for (int b = 0; b < NGv; b += 32) {
+      const int j = b + lane;
+      const bool g = j < NGv && pa.vgate[j];
+      const unsigned m = __ballot_sync(kFull, g);
+      if (g) pa.glist[cnt + __popc(m & ((1u << lane) - 1u))] = j;
+      cnt += __popc(m);
+    }
+    bool v = false;
+    for (int l = lane; l < p.NVp; l += 32) v |= pa.pvols[l] != 0;
+    v = __any_sync(kFull, v);
+    if (lane == 0) {
+      pa.flags[2] = cnt;
+      pa.flags[0] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// the launch-level copies of the small tables (every block, once)
+__device__ void launch_phase(const P& p, const Pod& pa) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int V = p.V, NW = words(V);
+  for (int i = tid; i < p.NGv * NW; i += nt) {
+    const int j = i / NW, w = i - j * NW;
+    uint32_t b = 0;
+    for (int v = 32 * w; v < min(V, 32 * w + 32); ++v) b |= (uint32_t)(p.vg_domains[j * V + v] != 0) << (v & 31);
+    pa.domb[i] = b;
+  }
+  for (int i = tid; i < p.NGv * V; i += nt) {
+    pa.rank[i] = p.vg_rank[i];
+    pa.vgc[i] = p.vg_counts[i];
+  }
+  for (int j = tid; j < p.NGv; j += nt) {
+    pa.vkey[j] = p.vg_key[j];
+    pa.vtype[j] = p.vg_type[j];
+    pa.vskew[j] = p.vg_skew[j];
+    pa.vmind[j] = p.vg_mind[j];
+    pa.vvalid[j] = p.vg_valid[j];
+  }
+  if (tid == 0) {
+    pa.sc[kNOpen] = *p.n_open;
+    pa.sc[kWOpen] = *p.w_open;
+    pa.sc[kWHw] = *p.w_hw;
+    pa.sc[kSpills] = *p.spills;
+  }
+  for (int k = tid; k < p.K; k += nt) pa.wk[k] = p.well_known[k];
+  for (int h = tid; h < p.NGh; h += nt) {
+    pa.htype[h] = p.hg_type[h];
+    pa.hskew[h] = p.hg_skew[h];
+    pa.hvalid[h] = p.hg_valid[h];
+  }
+  // the valid existing nodes: tier 1 has no row without one
+  int nv = 0;
+  for (int e = tid; e < p.E; e += nt) nv |= p.exist_valid[e] != 0;
+  nv = __syncthreads_or(nv);
+  if (tid == 0) pa.flags[3] = nv;
+  // a hostname group is nonempty when any slot counts a pod (or pods
+  // outside the problem do); counts only grow, the commit keeps it
+  for (int h = 0; h < p.NGh; ++h) {
+    int any = tid == 0 && p.hg_extra[h];
+    for (int s = tid; s < p.Sl && !any; s += nt) any = p.hg_counts[(int64_t)h * p.Sl + s] > 0;
+    any = __syncthreads_or(any);
+    if (tid == 0) pa.hnonempty[h] = any;
+  }
+}
+
+// The least key of one tier's feasible rows (kBig when none), block-wide
+// and block-uniform; when there is one, *win names the scratch that holds
+// its row (warp * 2 + slot). The live rows and their keys go into pa.list
+// kThreads at a time, in index order; the first nev warps take them one
+// row each, with no barrier between rows: a warp skips a row whose key is not below
+// the least key any warp has found so far (pa.flags[1], a hint that may
+// lag, so a row is only ever skipped for a real better one). In tiers 1
+// and 3 the key is the index, so a tier stops at the first list chunk
+// with a feasible row.
+template <int kTier>
+__device__ int32_t scan_tier(const P& p, const Tabs& tb, const Pod& pa, WS (*ws)[2], int nev, int pod,
+                             int32_t* wcount, int32_t* red, int32_t* keep, int* win) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = kTier == 1 ? p.E : (kTier == 2 ? min(pa.sc[kWOpen], p.W) : p.G);
+  volatile int32_t* hint = pa.flags + 1;
+  int32_t best = kBig;
+  int cur = 0, kept = -1;
+  if (tid == 0) *hint = kBig;
+  for (int base = 0; base < n; base += kThreads) {
+    const int c = base + tid;
+    const bool live = c < n && row_cheap(p, pa, pod, kTier, c);
+    const int32_t key = !live ? kBig : (kTier == 2 ? p.pods[c] * p.W + c : c);
+    const unsigned m = __ballot_sync(kFull, live);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      off += w < warp ? wcount[w] : 0;
+      total += wcount[w];
+    }
+    if (live) {
+      const int at = off + __popc(m & ((1u << lane) - 1u));
+      pa.list[at] = c;
+      pa.lkey[at] = key;
+    }
+    __syncthreads();
+    for (int i = warp; warp < nev && i < total; i += nev) {
+      const int32_t k = pa.lkey[i];
+      const int32_t h = __shfl_sync(kFull, lane == 0 ? *hint : 0, 0);
+      if (k >= h) {
+        if (kTier == 2) continue;
+        break;  // keys rise along the list
+      }
+      if (!eval_row(p, tb, pa, ws[warp][cur], pod, kTier, pa.list[i])) continue;
+      if (k < best) {
+        best = k;
+        kept = cur;
+        cur ^= 1;
+      }
+      if (lane == 0 && k < *hint) *hint = k;
+    }
+    __syncthreads();
+    if (kTier != 2 && *hint < kBig) break;
+  }
+  if (lane == 0) {
+    red[warp] = best;
+    keep[warp] = kept;
+  }
+  __syncthreads();
+  int32_t mk = kBig;
+  for (int w = 0; w < kWarps; ++w)
+    if (red[w] < mk) {
+      mk = red[w];
+      *win = w * 2 + keep[w];
+    }
+  __syncthreads();
+  return mk;
+}
+
 // the block's parameters: in scenario mode, scenario s's block in shared
-// memory, every pointer moved by s strides (needs blockDim.x >= kPtrs +
-// kDims); the single-scenario entries read the kernel parameter itself
+// memory, every pointer moved by s strides; the single-scenario
+// instantiation reads the kernel parameter itself
 template <bool kScen>
 __device__ __forceinline__ const P& block_params(const PS& ps, int s, P* sp) {
   if constexpr (!kScen) return ps.p;
@@ -526,150 +977,106 @@ __device__ __forceinline__ const P& block_params(const PS& ps, int s, P* sp) {
   return *sp;
 }
 
-// the union pod row of step `step`
-__device__ __forceinline__ int pod_row(const P& p, int step) { return p.pod_idx ? p.pod_idx[step] : step; }
-
-// the candidate's live gates that need no workspace (block-uniform)
-__device__ __forceinline__ bool row_live(const P& p, int step, int pod, int tier, int idx) {
-  if (!p.pvalid[step]) return false;
-  if (tier == 1) return p.exist_valid[idx] && p.exist_ok[(int64_t)pod * p.E + idx];
-  if (tier == 2) return p.open[idx];
-  return p.t_valid[idx] && p.tmpl_ok[(int64_t)pod * p.G + idx] && p.nodes_budget[idx] >= 1.0f;
+// ---- the bulk asynchronous copy of the staged tables ----------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <bool kScen>
-__global__ void __launch_bounds__(kEvalThreads) perpod_eval_kernel(const __grid_constant__ PS ps, int step) {
-  extern __shared__ __align__(16) char smem[];
-  __shared__ P sp;
-  const P& p = block_params<kScen>(ps, blockIdx.y, &sp);
-  const int pod = pod_row(p, step);
-  const int row = blockIdx.x;
-  const int tier = row < p.E ? 1 : (row < p.E + p.W ? 2 : 3);
-  const int idx = tier == 1 ? row : (tier == 2 ? row - p.E : row - p.E - p.W);
-  if (!row_live(p, step, pod, tier, idx)) {
-    if (threadIdx.x == 0) p.keys[row] = kBig;
-    return;
+__device__ __forceinline__ void stage_tables(const TabArgs& ta, char* dst, uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  WS ws;
-  carve(&ws, smem, p.K, p.V, p.NGv, p.R);
-  eval_row(p, ws, pod, tier, idx);
-  bool ok = ws.flag[F_OK] != 0;
-  if (ok && tier != 1) {
-    int any = 0;
-    for (int t = threadIdx.x; t < p.T && !any; t += blockDim.x) any = type_ok(p, ws, pod, tier, idx, t);
-    ok = __syncthreads_or(any) != 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(ta.staged) : "memory");
+    for (uint32_t off = 0; off < ta.staged; off += kCopyChunk) {
+      const uint32_t n = min(kCopyChunk, ta.staged - off);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+              smem_addr(dst + off)),
+          "l"(ta.base + off), "r"(n), "r"(b)
+          : "memory");
+    }
   }
-  if (threadIdx.x == 0)
-    p.keys[row] = !ok ? kBig : (tier == 1 ? idx : (tier == 2 ? p.pods[idx] * p.W + idx : idx));
 }
 
-// block-wide minimum of three values, left in red[k][0]
-__device__ __forceinline__ void block_min3(int32_t (*red)[32], int32_t v0, int32_t v1, int32_t v2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    v0 = min(v0, __shfl_down_sync(0xffffffffu, v0, off));
-    v1 = min(v1, __shfl_down_sync(0xffffffffu, v1, off));
-    v2 = min(v2, __shfl_down_sync(0xffffffffu, v2, off));
-  }
-  if (lane == 0) {
-    red[0][warp] = v0;
-    red[1][warp] = v1;
-    red[2][warp] = v2;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    int32_t a = lane < nw ? red[0][lane] : kBig;
-    int32_t b = lane < nw ? red[1][lane] : kBig;
-    int32_t c = lane < nw ? red[2][lane] : kBig;
-    for (int off = 16; off > 0; off >>= 1) {
-      a = min(a, __shfl_down_sync(0xffffffffu, a, off));
-      b = min(b, __shfl_down_sync(0xffffffffu, b, off));
-      c = min(c, __shfl_down_sync(0xffffffffu, c, off));
-    }
-    if (lane == 0) {
-      red[0][0] = a;
-      red[1][0] = b;
-      red[2][0] = c;
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void wait_tables(uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(b), "r"(0u)
+        : "memory");
 }
 
 struct Pick {
   int place, found_e, found, opened, tier, idx, cslot, slot, assign, spilled;
 };
 
-template <bool kScen>
-__global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(const __grid_constant__ PS ps, int step) {
-  extern __shared__ __align__(16) char smem[];
-  __shared__ int32_t red[3][32];
-  __shared__ Pick pk;
-  __shared__ P sp;
-  const P& p = block_params<kScen>(ps, blockIdx.x, &sp);
-  const int pod = pod_row(p, step);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int E = p.E, W = p.W, G = p.G;
-  // ---- the three tiers' least keys -------------------------------------------
-  int32_t b0 = kBig, b1 = kBig, b2 = kBig;
-  for (int i = tid; i < E; i += nt) b0 = min(b0, p.keys[i]);
-  for (int i = tid; i < W; i += nt) b1 = min(b1, p.keys[E + i]);
-  for (int i = tid; i < G; i += nt) b2 = min(b2, p.keys[E + W + i]);
-  block_min3(red, b0, b1, b2);
-  if (tid == 0) {
-    const int32_t n_open = *p.n_open, w_open = *p.w_open;
-    const bool valid = p.pvalid[step];
-    const bool found_e = red[0][0] < kBig;
-    const int pick_e = found_e ? red[0][0] : 0;
-    const bool found = !found_e && red[1][0] < kBig;
-    const int pick = found ? red[1][0] % W : 0;
-    const bool any_tf = red[2][0] < kBig;
-    int g = 0;  // the first feasible template (index 0 when none is)
-    if (any_tf)
-      for (int i = 0; i < G; ++i)
-        if (p.keys[E + W + i] == red[2][0]) {
-          g = i;
-          break;
-        }
-    const bool any_t = any_tf && valid && !found_e && !found;
-    const bool can_open = any_t && w_open < W && n_open < p.NCAP;
-    pk.spilled = any_t && !can_open && n_open < p.NCAP;
-    pk.place = found_e || found || can_open;
-    pk.found_e = found_e;
-    pk.found = found;
-    pk.opened = can_open && !found;
-    pk.tier = found_e ? 1 : (found ? 2 : 3);
-    pk.idx = found_e ? pick_e : (found ? pick : g);
-    pk.cslot = found ? pick : w_open;
-    pk.slot = found_e ? pick_e : E + (found ? p.slot_of[pick] : n_open);
-    pk.assign = pk.place ? pk.slot : (any_t ? kNoRoom : kNoClaim);
-  }
-  __syncthreads();
-  const Pick w = pk;
-  if (!w.place) {
-    if (tid == 0) {
-      p.assignment[step] = w.assign;
-      *p.spills += w.spilled;
-    }
-    return;
-  }
-  // ---- the winner, recomputed with the pre-commit counts --------------------------
-  WS ws;
-  carve(&ws, smem, p.K, p.V, p.NGv, p.R);
-  eval_row(p, ws, pod, w.tier, w.idx);
-  const int T = p.T;
+// the reference's merge of the three tiers (tier 1 beats tier 2 beats
+// tier 3, each its least key)
+__device__ __forceinline__ Pick pick(const P& p, const Pod& pa, bool valid, int32_t m1, int32_t m2, int32_t m3) {
+  Pick w;
+  const int32_t n_open = pa.sc[kNOpen], w_open = pa.sc[kWOpen];
+  const bool found_e = m1 < kBig;
+  const int pick_e = found_e ? m1 : 0;
+  const bool found = !found_e && m2 < kBig;
+  const int pk = found ? m2 % p.W : 0;
+  const bool any_t = m3 < kBig && valid && !found_e && !found;
+  const int g = m3 < kBig ? m3 : 0;  // the first feasible template (index 0 when none is)
+  const bool can_open = any_t && w_open < p.W && n_open < p.NCAP;
+  w.spilled = any_t && !can_open && n_open < p.NCAP;
+  w.place = found_e || found || can_open;
+  w.found_e = found_e;
+  w.found = found;
+  w.opened = can_open && !found;
+  w.tier = found_e ? 1 : (found ? 2 : 3);
+  w.idx = found_e ? pick_e : (found ? pk : g);
+  w.cslot = found ? pk : w_open;
+  w.slot = found_e ? pick_e : p.E + (found ? p.slot_of[pk] : n_open);
+  w.assign = w.place ? w.slot : (any_t ? kNoRoom : kNoClaim);
+  return w;
+}
+
+// claim row w's ceiling for resource r from its viable types `row` (in
+// shared or device memory), by the calling warp
+__device__ void row_ceiling(const P& p, const Tabs& tb, const uint8_t* row, int w, int r) {
+  const int lane = threadIdx.x & 31, T = p.T, R = p.R;
+  float m = -INFINITY;
+  for (int t = lane; t < T; t += 32)
+    if (row[t])
+      for (int gr = 0; gr < p.GR; ++gr)
+        if (tb.gv[gr * T + t]) m = fmaxf(m, tb.alloc[(gr * R + r) * T + t]);
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+  if (lane == 0) p.row_max[(int64_t)w * R + r] = m;
+}
+
+// the winner's commit, block-wide, from the scratch that holds its row
+__device__ void commit(const P& p, const Tabs& tb, const Pod& pa, const WS& ws, int pod, const Pick& w) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int K = p.K, V = p.V, KV = K * V, T = p.T, R = p.R, NW = words(V);
   if (w.tier != 1) {
     // the claim row's viable types: tier 2 narrows its own row in place
-    // (each thread reads and writes its own types), tier 3 fills the fresh row
+    // (each thread reads and writes its own types), tier 3 fills the fresh
+    // row; a copy in shared memory for the limits and the ceilings
     uint8_t* out = p.its + (int64_t)w.cslot * T;
-    for (int t = tid; t < T; t += nt) out[t] = type_ok(p, ws, pod, w.tier, w.idx, t);
+    for (int t = tid; t < T; t += nt) {
+      const uint8_t ok = type_ok(p, tb, pa, ws, w.tier, w.idx, t);
+      out[t] = ok;
+      pa.nits[t] = ok;
+    }
   }
   __syncthreads();
-  // ---- commit -----------------------------------------------------------------------
-  const int K = p.K, V = p.V, KV = K * V;
   const Set& dst = w.tier == 1 ? p.exist_reqs : p.reqs;
   const int drow = w.tier == 1 ? w.idx : w.cslot;
-  for (int i = tid; i < KV; i += nt) dst.mask[(int64_t)drow * KV + i] = ws.cm[i];
+  for (int i = tid; i < KV; i += nt) {
+    const int k = i / V;
+    dst.mask[(int64_t)drow * KV + i] = bit(ws.cmb + k * NW, i - k * V);
+  }
   for (int k = tid; k < K; k += nt) {
     const int64_t dk = (int64_t)drow * K + k;
     dst.inf[dk] = ws.cinf[k];
@@ -678,8 +1085,8 @@ __global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(const __g
     dst.lte[dk] = ws.clte[k];
     dst.def[dk] = ws.cdef[k];
   }
-  float* used_row = (w.tier == 1 ? p.exist_used : p.used) + (int64_t)drow * p.R;
-  for (int r = tid; r < p.R; r += nt) used_row[r] = ws.total[r];
+  float* used_row = (w.tier == 1 ? p.exist_used : p.used) + (int64_t)drow * R;
+  for (int r = tid; r < R; r += nt) used_row[r] = ws.total[r];
   int32_t* port_row = (w.tier == 1 ? p.exist_ports : p.claim_ports) + (int64_t)drow * p.NPp;
   for (int l = tid; l < p.NPp; l += nt) port_row[l] |= p.ports[(int64_t)pod * p.NPp + l];
   if (w.tier == 1)
@@ -688,55 +1095,150 @@ __global__ void __launch_bounds__(kCommitThreads) perpod_commit_kernel(const __g
   // vocab-key counts: the final values of each recording group's key, all
   // of them for anti-affinity, a single value otherwise, never a complement
   for (int j = tid; j < p.NGv; j += nt) {
-    const int key = p.vg_key[j];
+    const int key = pa.vkey[j];
     int n = 0;
-    for (int v = 0; v < V; ++v) n += ws.cm[key * V + v] != 0;
-    const bool rec = p.vg_records[(int64_t)pod * p.NGv + j] && p.vg_valid[j];
-    if (rec && !ws.cinf[key] && (p.vg_type[j] == kAnti || n == 1))
-      for (int v = 0; v < V; ++v)
-        if (ws.cm[key * V + v]) p.vg_counts[(int64_t)j * V + v] += 1;
+    for (int w = 0; w < NW; ++w) n += __popc(ws.cmb[key * NW + w]);
+    const bool rec = p.vg_records[(int64_t)pod * p.NGv + j] && pa.vvalid[j];
+    if (rec && !ws.cinf[key] && (pa.vtype[j] == kAnti || n == 1))
+      for (int w = 0; w < NW; ++w)
+        for (uint32_t c = ws.cmb[key * NW + w]; c; c &= c - 1) pa.vgc[j * V + 32 * w + __ffs(c) - 1] += 1;
   }
   for (int h = tid; h < p.NGh; h += nt)
-    if (p.hg_records[(int64_t)pod * p.NGh + h] && p.hg_valid[h]) p.hg_counts[(int64_t)h * p.S + w.slot] += 1;
-  // limits on open: the max capacity over the fresh claim's viable types
-  if (w.opened)
-    for (int r = tid; r < p.R; r += nt) {
-      float m = -INFINITY;
-      const uint8_t* row = p.its + (int64_t)w.cslot * T;
-      for (int t = 0; t < T; ++t)
-        if (row[t]) m = fmaxf(m, p.cap[(int64_t)t * p.R + r]);
-      if (!isfinite(m)) m = 0.0f;
-      p.budget[(int64_t)w.idx * p.R + r] += -m;
+    if (p.hg_records[(int64_t)pod * p.NGh + h] && pa.hvalid[h]) {
+      const int32_t c = p.hg_counts[(int64_t)h * p.Sl + w.slot] + 1;
+      p.hg_counts[(int64_t)h * p.Sl + w.slot] = c;
+      if (c > 0) pa.hnonempty[h] = 1;  // counts only grow within a scan
     }
-  if (tid == 0) {
-    if (w.tier != 1) {
+  if (w.tier != 1) {
+    // the claim's ceilings, and the limits on open: the max capacity over
+    // the fresh claim's viable types; one warp per (resource, quantity)
+    for (int r = warp; r < R; r += nt / 32) row_ceiling(p, tb, pa.nits, w.cslot, r);
+    if (w.opened)
+      for (int r = nt / 32 - 1 - warp; r >= 0 && r < R; r += nt / 32) {
+        float m = -INFINITY;
+        for (int t = lane; t < T; t += 32)
+          if (pa.nits[t]) m = fmaxf(m, tb.cap[r * T + t]);
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+        if (lane == 0) p.budget[(int64_t)w.idx * R + r] += -(isfinite(m) ? m : 0.0f);
+      }
+    if (tid == 0) {
       if (w.opened) {
         p.tmpl[w.cslot] = w.idx;
-        p.slot_of[w.cslot] = *p.n_open;
-        *p.n_open += 1;
-        *p.w_open += 1;
-        p.nodes_budget[w.idx] += -1.0f;
+        p.slot_of[w.cslot] = pa.sc[kNOpen];
+        pa.sc[kNOpen] += 1;
+        pa.sc[kWOpen] += 1;
       }
       p.open[w.cslot] = 1;
-      p.pods[w.cslot] += 1;
     }
-    *p.w_hw = max(*p.w_hw, *p.w_open);
-    p.assignment[step] = w.assign;
+    if (tid == 32) p.pods[w.cslot] += 1;
+    if (tid == 64 && w.opened) p.nodes_budget[w.idx] += -1.0f;
   }
 }
 
-struct Launch {
-  PS ps;
-  int S;
-  bool scen;  // scenario mode (the scenario entries), else one scenario read in place
-  size_t smem;
-};
+template <bool kScen>
+__global__ void __launch_bounds__(kThreads, 1)
+    perpod_scan_persistent_kernel(const __grid_constant__ PS ps, const __grid_constant__ TabArgs ta, int nev, int lo,
+                                  int hi) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ P sp;
+  __shared__ Tabs tabs;
+  __shared__ Pod pod_s;
+  __shared__ WS ws_s[kWarps][2];
+  __shared__ int32_t wcount[kWarps], red[kWarps], keep[kWarps];
+  __shared__ __align__(8) uint64_t bar;
+  const P& p = block_params<kScen>(ps, blockIdx.x, &sp);
+  const int tid = threadIdx.x;
+  char* staged = smem;
+  if (tid == 0) {
+    carve(smem + ta.staged, p, nev, &pod_s, ws_s);
+    const char* src[kTabs];
+    for (int f = 0; f < kTabs; ++f)
+      src[f] = ta.off[f + 1] <= (int64_t)ta.staged ? staged + ta.off[f] : ta.base + ta.off[f];
+    tabs = Tabs{(const uint8_t*)src[kTIts], (const uint8_t*)src[kGv], (const float*)src[kAlloc],
+                (const uint32_t*)src[kZc], (const float*)src[kCap], (const uint8_t*)src[kDef],
+                (const uint8_t*)src[kInf], (const uint8_t*)src[kExcl], (const uint32_t*)src[kMbits],
+                (const int32_t*)src[kGte], (const int32_t*)src[kLte]};
+  }
+  if (ta.staged) stage_tables(ta, staged, &bar);
+  __syncthreads();
+  const Pod& pa = pod_s;
+  const Tabs& tb = tabs;
+  launch_phase(p, pa);
+  if (ta.staged) wait_tables(&bar);
+  __syncthreads();
+  for (int i = tid >> 5; i < min(pa.sc[kWOpen], p.W) * p.R; i += kWarps)
+    row_ceiling(p, tb, p.its + (int64_t)(i / p.R) * p.T, i / p.R, i % p.R);
+  __syncthreads();
+  for (int step = lo; step < hi; ++step) {
+    const int pod = p.pod_idx ? p.pod_idx[step] : step;
+    const bool valid = p.pvalid[step];
+    int32_t m1 = kBig, m2 = kBig, m3 = kBig;
+    int win = 0;
+    if (valid) {
+      pod_phase(p, pa, pod);
+      if (pa.flags[3]) m1 = scan_tier<1>(p, tb, pa, ws_s, nev, pod, wcount, red, keep, &win);
+      if (m1 == kBig) m2 = scan_tier<2>(p, tb, pa, ws_s, nev, pod, wcount, red, keep, &win);
+      if (m1 == kBig && m2 == kBig) m3 = scan_tier<3>(p, tb, pa, ws_s, nev, pod, wcount, red, keep, &win);
+    }
+    const Pick w = pick(p, pa, valid, m1, m2, m3);
+    if (w.place) commit(p, tb, pa, ws_s[win / 2][win % 2], pod, w);
+    if (tid == 0) {  // after commit's own updates of w_open by this thread
+      if (!w.place) pa.sc[kSpills] += w.spilled;
+      pa.sc[kWHw] = max(pa.sc[kWHw], pa.sc[kWOpen]);
+      p.assignment[step] = w.assign;
+    }
+    __syncthreads();
+  }
+  // the carry's counts and scalars back to device memory
+  for (int i = tid; i < p.NGv * p.V; i += blockDim.x) p.vg_counts[i] = pa.vgc[i];
+  if (tid == 0) {
+    *p.n_open = pa.sc[kNOpen];
+    *p.w_open = pa.sc[kWOpen];
+    *p.w_hw = pa.sc[kWHw];
+    *p.spills = pa.sc[kSpills];
+  }
+}
 
-// strides: nullptr for the single-scenario entries (S = 1, stride 0)
-int setup(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S, Launch* out) {
+template <bool kScen>
+int launch(const PS& ps, const TabArgs& ta_in, int S, int lo, int hi, cudaStream_t stream) {
+  auto* fn = perpod_scan_persistent_kernel<kScen>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  // the most evaluating warps whose row scratches fit (a wide vocabulary
+  // leaves room for fewer), then the longest prefix of the tables that
+  // fits beside the workspace
+  int nev = kWarps;
+  size_t work = carve(nullptr, ps.p, nev, nullptr, nullptr);
+  while (nev > 1 && attr.sharedSizeBytes + work > (size_t)kSmemMax)
+    work = carve(nullptr, ps.p, --nev, nullptr, nullptr);
+  const int64_t budget = (int64_t)kSmemMax - (int64_t)attr.sharedSizeBytes - (int64_t)work;
+  if (budget < 0) return (int)cudaErrorInvalidValue;
+  TabArgs ta = ta_in;
+  ta.staged = 0;
+  for (int f = 0; f < kTabs && ta.off[f + 1] <= budget; ++f) ta.staged = (uint32_t)ta.off[f + 1];
+  const size_t smem = ta.staged + work;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<S, kThreads, smem, stream>>>(ps, ta, nev, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: a host array of the 78 device pointers in P's field order (pod_idx
+// null in the single-scenario entry); dims: E, W, G, T, K, V, R, GR, Z, C,
+// NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid; strides: 78 byte
+// strides per scenario, or null for one scenario read in place (S = 1);
+// tables: the packed type tables in device memory (16-byte aligned) and
+// the byte offset of each of the 11 tables and the total (each 16-byte
+// aligned). Runs steps lo .. hi - 1 of every scenario in one launch;
+// returns cudaGetLastError() of the launch.
+extern "C" int perpod_steps(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S,
+                            const void* tables, const int64_t* table_off, int lo, int hi, void* stream) {
   static_assert(offsetof(P, E) == kPtrs * sizeof(void*), "P: pointers first");
-  static_assert(kEvalThreads >= kPtrs + kDims, "scenario_block needs a thread per field");
-  if (n_ptrs != kPtrs || S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  static_assert(kThreads >= kPtrs + kDims, "block_params needs a thread per field");
+  if (n_ptrs != kPtrs || S < 1 || (!strides && S != 1)) return (int)cudaErrorInvalidValue;
   PS ps;
   memset(&ps, 0, sizeof(ps));
   P& p = ps.p;
@@ -744,105 +1246,31 @@ int setup(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* s
   if (strides) memcpy(ps.stride, strides, kPtrs * sizeof(int64_t));
   int* d = &p.E;
   for (int i = 0; i < kDims; ++i) d[i] = (int)dims[i];
-  if (p.K < 1 || p.V < 1 || p.R < 1 || p.NGv < 1 || p.NGh < 1 || p.Z > p.V || p.C > p.V)
+  if (p.K < 1 || p.V < 1 || p.R < 1 || p.NGv < 1 || p.NGh < 1 || p.Z > p.V || p.C > p.V || p.W < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = carve(nullptr, nullptr, p.K, p.V, p.NGv, p.R);
-  const size_t static_smem = 4096;  // the scenario block, the reductions, the pick
-  if (smem + static_smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t granted = 48 * 1024 - static_smem;
-  if (smem > granted) {
-    const void* fns[] = {(const void*)perpod_eval_kernel<false>, (const void*)perpod_eval_kernel<true>,
-                         (const void*)perpod_commit_kernel<false>, (const void*)perpod_commit_kernel<true>};
-    for (const void* fn : fns) {
-      const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    granted = smem;
+  if (lo < 0 || hi > p.L || lo > hi) return (int)cudaErrorInvalidValue;
+  TabArgs ta;
+  memset(&ta, 0, sizeof(ta));
+  ta.base = (const char*)tables;
+  if ((uintptr_t)tables % 16) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f <= kTabs; ++f) {
+    ta.off[f] = table_off[f];
+    if (ta.off[f] % 16 || (f && ta.off[f] < ta.off[f - 1])) return (int)cudaErrorInvalidValue;
   }
-  out->ps = ps;
-  out->S = S;
-  out->scen = strides != nullptr;
-  out->smem = smem;
-  return 0;
+  if (lo == hi) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return strides ? launch<true>(ps, ta, S, lo, hi, s) : launch<false>(ps, ta, S, lo, hi, s);
 }
 
-int launch_eval(const Launch& l, int step, cudaStream_t s) {
-  const P& p = l.ps.p;
-  const dim3 grid(p.E + p.W + p.G, l.S);
-  if (l.scen)
-    perpod_eval_kernel<true><<<grid, kEvalThreads, l.smem, s>>>(l.ps, step);
-  else
-    perpod_eval_kernel<false><<<grid, kEvalThreads, l.smem, s>>>(l.ps, step);
-  return (int)cudaGetLastError();
-}
-
-int launch_commit(const Launch& l, int step, cudaStream_t s) {
-  if (l.scen)
-    perpod_commit_kernel<true><<<l.S, kCommitThreads, l.smem, s>>>(l.ps, step);
-  else
-    perpod_commit_kernel<false><<<l.S, kCommitThreads, l.smem, s>>>(l.ps, step);
-  return (int)cudaGetLastError();
-}
-
-int run_steps(const Launch& l, int n_steps, cudaStream_t s) {
-  int rc;
-  for (int i = 0; i < n_steps; ++i) {
-    if ((rc = launch_eval(l, i, s))) return rc;
-    if ((rc = launch_commit(l, i, s))) return rc;
-  }
-  return 0;
-}
-
-}  // namespace
-
-// ptrs: a host array of the 89 device pointers in P's field order (pod_idx
-// null in the single-scenario entries); dims: E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L,
-// zone_kid, ct_kid; strides: 89 byte strides per scenario. Each entry
-// returns cudaGetLastError() of its launches.
-
-// H7 alone, for pod `pod` of the chunk: keys[E + W + G]
-extern "C" int perpod_eval(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int pod, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
-  return rc ? rc : launch_eval(l, pod, (cudaStream_t)stream);
-}
-
-// H8 alone, for pod `pod`, from the keys in the scratch buffer
-extern "C" int perpod_commit(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int pod, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
-  return rc ? rc : launch_commit(l, pod, (cudaStream_t)stream);
-}
-
-// the chunk: H7 then H8 for pods 0 .. n_pods - 1, in order
-extern "C" int perpod_chunk(const int64_t* ptrs, int n_ptrs, const int64_t* dims, int n_pods, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, nullptr, 1, &l);
-  return rc ? rc : run_steps(l, n_pods, (cudaStream_t)stream);
-}
-
-// scenario mode: H7 then H8 for steps 0 .. n_steps - 1 of all S scenarios
-extern "C" int perpod_whatif(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S,
-                             int n_steps, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
-  return rc ? rc : run_steps(l, n_steps, (cudaStream_t)stream);
-}
-
-// scenario mode, H7 alone for step `step`: keys[S, E + W + G]
-extern "C" int perpod_whatif_eval(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides,
-                                  int S, int step, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
-  return rc ? rc : launch_eval(l, step, (cudaStream_t)stream);
-}
-
-// scenario mode, H8 alone for step `step`, from the keys in the scratch buffer
-extern "C" int perpod_whatif_commit(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides,
-                                    int S, int step, void* stream) {
-  Launch l;
-  const int rc = setup(ptrs, n_ptrs, dims, strides, S, &l);
-  return rc ? rc : launch_commit(l, step, (cudaStream_t)stream);
+// the workspace bytes of a launch with `nev` evaluating warps (dims as
+// perpod_steps'), without the staged tables: what ops/cuda.py's
+// `perpod_workspace` mirrors
+extern "C" int64_t perpod_workspace(const int64_t* dims, int nev) {
+  P p;
+  memset(&p, 0, sizeof(p));
+  int* d = &p.E;
+  for (int i = 0; i < kDims; ++i) d[i] = (int)dims[i];
+  return (int64_t)carve(nullptr, p, nev, nullptr, nullptr);
 }
 
 extern "C" const char* perpod_scan_error_string(int e) {

@@ -1,9 +1,7 @@
 """Build, load and launch the hand-written Hopper kernels (csrc/*.cu).
 
 Each source is compiled by its own `nvcc` (all started together) into a
-shared library with a plain C interface, loaded with ctypes; a source may
-hold several kernels (csrc/perpod_scan.cu holds H7 and H8, and their
-scenario mode). The build
+shared library with a plain C interface, loaded with ctypes. The build
 lands in build/karpenter_tpu_torch/<hash of sources and flags>/ under the
 repository root, at first CUDA use, so a fresh checkout builds everything
 itself. Launchers validate device, dtype, shape and contiguity, allocate
@@ -25,9 +23,10 @@ from typing import Optional
 
 import torch
 
-PERPOD_KERNELS = ("perpod_eval", "perpod_commit")
-# H7 / H8 in scenario mode (the batched what-ifs), counted on their own
-WHATIF_KERNELS = ("perpod_whatif_eval", "perpod_whatif_commit")
+# the per-pod scan's kernel, csrc/perpod_scan.cu: one launch per chunk of
+# steps; its scenario mode (the batched what-ifs) counted on its own
+PERPOD_KERNELS = ("perpod_scan_persistent",)
+WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
     "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS,
@@ -35,12 +34,7 @@ KERNELS = (
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
 SOURCE = {k: ("perpod_scan" if k in PERPOD_KERNELS + WHATIF_KERNELS else k) for k in KERNELS}
-ENTRIES = {
-    "perpod_scan": (
-        "perpod_eval", "perpod_commit", "perpod_chunk", "perpod_whatif", "perpod_whatif_eval",
-        "perpod_whatif_commit",
-    ),
-}
+ENTRIES = {"perpod_scan": ("perpod_steps",)}
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,12 +128,7 @@ _ARGTYPES = {
     "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "kscan_grid": [_I, _P, _P, _P],
     "kscan_pod_loop": [_P, _I, _P, _P],
-    "perpod_eval": [_P, _I, _P, _I, _P],
-    "perpod_commit": [_P, _I, _P, _I, _P],
-    "perpod_chunk": [_P, _I, _P, _I, _P],
-    "perpod_whatif": [_P, _I, _P, _P, _I, _I, _P],
-    "perpod_whatif_eval": [_P, _I, _P, _P, _I, _I, _P],
-    "perpod_whatif_commit": [_P, _I, _P, _P, _I, _I, _P],
+    "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
 }
 
 
@@ -481,6 +470,14 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> to
     return out
 
 
+
+
+# ---------------------------------------------------------------------------
+# the per-pod scan: perpod_scan_persistent, one launch per chunk of steps
+# (one block) or per what-if batch (one block per scenario)
+# ---------------------------------------------------------------------------
+
+
 def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
     b, i = torch.bool, torch.int32
     shapes = ((n, K, V), (n, K), (n, K), (n, K), (n, K), (n, K))
@@ -488,10 +485,12 @@ def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
             for f, dt, sh in zip(r._fields, (b, b, b, i, i, b), shapes)]
 
 
-def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
-    """The 89 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
-    parameter block, in its order, and its 20 dims. The last, pod_idx, is
-    None (a null pointer: step i reads pod row i); scenario mode sets it."""
+def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
+    """The 78 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
+    parameter block, in its order, and its 20 dims. `row_max` [W, R] f32 is
+    the kernel's scratch. The last, pod_idx, is None (a null pointer: step
+    i reads pod row i); scenario mode sets it. The type tables travel
+    packed (`perpod_tables`)."""
     b, i, f = torch.bool, torch.int32, torch.float32
     exist, it, tm, topo = ctx.exist, ctx.it, ctx.templates, ctx.topo
     W, T = state.its.shape
@@ -500,12 +499,12 @@ def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
     K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
     GR, Z, C = it.zc_avail.shape[1], it.zc_avail.shape[2], it.zc_avail.shape[3]
     NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
-    S = state.hg_counts.shape[1]
+    Sl = state.hg_counts.shape[1]
     NPp, NVp, ND = state.claim_ports.shape[1], state.exist_vols.shape[1], exist.vol_limits.shape[1]
     L = xs.requests.shape[0]
     NCAP = ctx.n_claims
-    if S < E + NCAP + 1:
-        raise ValueError(f"perpod_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
+    if Sl < E + NCAP + 1:
+        raise ValueError(f"perpod_scan: hostname slots {Sl} < E + n_claims + 1 = {E + NCAP + 1}")
     fields = (
         _set_fields("exist_reqs", state.exist_reqs, E, K, V)
         + [("exist_used", state.exist_used, f, (E, R))]
@@ -516,19 +515,14 @@ def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
             ("slot_of", state.slot_of, i, (W,)), ("w_open", state.w_open, i, ()), ("w_hw", state.w_hw, i, ()),
             ("spills", state.spills, i, ()), ("budget", state.budget, f, (G, R)),
             ("nodes_budget", state.nodes_budget, f, (G,)), ("vg_counts", state.vg_counts, i, (NGv, V)),
-            ("hg_counts", state.hg_counts, i, (NGh, S)), ("exist_ports", state.exist_ports, i, (E, NPp)),
+            ("hg_counts", state.hg_counts, i, (NGh, Sl)), ("exist_ports", state.exist_ports, i, (E, NPp)),
             ("claim_ports", state.claim_ports, i, (W, NPp)), ("exist_vols", state.exist_vols, i, (E, NVp)),
             ("avail", exist.avail, f, (E, R)), ("exist.valid", exist.valid, b, (E,)),
             ("vol_limits", exist.vol_limits, f, (E, ND)), ("vol_driver", exist.vol_driver, i, (ND, NVp)),
         ]
-        + _set_fields("it.reqs", it.reqs, T, K, V)
-        + [
-            ("alloc", it.alloc, f, (T, GR, R)), ("group_valid", it.group_valid, b, (T, GR)),
-            ("zc_avail", it.zc_avail, b, (T, GR, Z, C)), ("cap", it.cap, f, (T, R)),
-        ]
         + _set_fields("templates.reqs", tm.reqs, G, K, V)
         + [
-            ("templates.its", tm.its, b, (G, T)), ("daemon_requests", tm.daemon_requests, f, (G, R)),
+            ("daemon_requests", tm.daemon_requests, f, (G, R)),
             ("templates.valid", tm.valid, b, (G,)), ("well_known", ctx.well_known, b, (K,)),
             ("vg_key", topo.vg_key, i, (NGv,)), ("vg_type", topo.vg_type, i, (NGv,)),
             ("vg_skew", topo.vg_skew, i, (NGv,)), ("vg_min_domains", topo.vg_min_domains, i, (NGv,)),
@@ -546,17 +540,101 @@ def _perpod_fields(state, xs, ctx, keys, assignment) -> tuple[list, list]:
             ("vg_applies", xs.vg_applies, b, (L, NGv)), ("vg_records", xs.vg_records, b, (L, NGv)),
             ("vg_self", xs.vg_self, b, (L, NGv)), ("hg_applies", xs.hg_applies, b, (L, NGh)),
             ("hg_records", xs.hg_records, b, (L, NGh)), ("hg_self", xs.hg_self, b, (L, NGh)),
-            ("strict_mask", xs.strict_mask, b, (L, K, V)),
-            ("keys", keys, i, (E + W + G,)), ("assignment", assignment, i, (L,)), ("pod_idx", None, i, (L,)),
+            ("strict_mask", xs.strict_mask, b, (L, K, V)), ("row_max", row_max, f, (W, R)),
+            ("assignment", assignment, i, (L,)), ("pod_idx", None, i, (L,)),
         ]
     )
-    dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, S, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid]
+    dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid]
+    need = perpod_workspace(dims)
+    if need > SMEM_BLOCK - SMEM_STATIC:
+        raise ValueError(
+            f"perpod_scan: K={K} keys x V={V} values with NGv={NGv} vocab-key groups need {need} B of shared "
+            f"memory (the pod's terms and one warp's row scratch), above the {SMEM_BLOCK - SMEM_STATIC} B a "
+            f"block has beside the kernel's static part"
+        )
     return fields, dims
 
 
-def _perpod_call(entry: str, state, xs, ctx, keys, assignment, n: int) -> None:
-    dev = state.used.device
-    fields, dims = _perpod_fields(state, xs, ctx, keys, assignment)
+# a block's shared memory on an H100 (csrc/perpod_scan.cu kSmemMax), and at
+# least the per-pod kernel's static shared memory (ptxas -v: chip_smoke.py
+# checks it)
+SMEM_BLOCK = 232448
+SMEM_STATIC = 8192
+
+
+def perpod_workspace(dims, nev: int = 1) -> int:
+    """Bytes of csrc/perpod_scan.cu's shared-memory workspace (its
+    `carve`, each field rounded up to 16 bytes) for `dims` (the 20 dims of
+    _perpod_fields) with `nev` warps evaluating rows: the pod's terms, the
+    vocab-key counts and ranks, then per warp a byte copy of its row's mask
+    and two row scratches. The launch runs as many of its 16 warps as fit,
+    at least one."""
+    _E, _W, G, T, K, V, R, _GR, Z, C, NGv, NGh, _Sl, NPp, NVp = dims[:15]
+    NW, NZW = -(-V // 32), -(-(Z * C) // 32)
+    pod = ([4 * NGv * NW, NGv, K, NGh, NGh, 4 * NGv * V] + [4 * NGv] * 4 + [4 * NGh] * 2
+           + [4 * NGv * V, 16, 4 * K * NW, 4 * K * NW] + [K] * 5 + [4 * K] * 2 + [4 * NGv * NW] * 3 + [NGv] * 3
+           + [4 * NGv, NGh, NGh, 4 * R, T, G, T, 4 * NPp, 4 * NVp, 4 * 512, 4 * 512, 16])
+    row = [4 * K * NW] * 2 + [4 * NGv * NW] + [K] * 8 + [4 * K] * 4 + [4 * NZW, 4 * R, 4 * R]
+
+    def padded(sizes):
+        return sum(-(-n // 16) * 16 for n in sizes)
+
+    return padded(pod) + nev * padded([K * V]) + 2 * nev * padded(row)
+
+
+# csrc/perpod_scan.cu's packed type tables, in its staging order (Tab)
+TABLES = ("t_its", "group_valid", "alloc", "zc_bits", "cap", "defined", "inf", "excl", "mask_bits", "gte", "lte")
+TABLE_SOURCES = ("it.mask", "it.inf", "it.excl", "it.gte", "it.lte", "it.defined", "alloc", "group_valid",
+                 "zc_avail", "cap", "templates.its")
+
+
+def bit_words(x: torch.Tensor) -> torch.Tensor:
+    """[..., n] bool -> [..., ceil(n / 32)] int32: bit i of word w is x[..., 32 w + i]."""
+    n = x.shape[-1]
+    nw = (n + 31) // 32
+    pad = torch.zeros(x.shape[:-1] + (nw * 32 - n,), dtype=torch.bool, device=x.device)
+    b = torch.cat([x, pad], dim=-1).reshape(x.shape[:-1] + (nw, 32)).to(torch.int64)
+    s = (b << torch.arange(32, dtype=torch.int64, device=x.device)).sum(dim=-1)
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def perpod_tables(it, t_its) -> tuple[torch.Tensor, list]:
+    """The type tables csrc/perpod_scan.cu reads, packed into one uint8
+    buffer (TABLES order, each field padded to 16 bytes) with the type axis
+    innermost: t_its [G, T], group_valid [GR, T], alloc [GR, R, T], the
+    offerings as (zone, capacity type) bits z*C + c [GR, ceil(Z*C/32), T],
+    cap [R, T], the catalog requirements' defined / inf / excl [K, T], mask
+    as value bits [K, ceil(V/32), T], gte / lte [K, T]. Returns (buffer,
+    the byte offset of each field and the total). TorchScheduler builds it
+    once per encode of the catalog (PerPodCtx.tables); a launch whose
+    context carries none builds its own."""
+    srcs = (*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, t_its)
+    want = (torch.bool,) * 3 + (torch.int32,) * 2 + (torch.bool, torch.float32, torch.bool, torch.bool,
+                                                       torch.float32, torch.bool)
+    for name, t, dt in zip(TABLE_SOURCES, srcs, want):
+        if t.dtype != dt or t.device != it.alloc.device:
+            raise ValueError(f"perpod_tables: {name} is {t.dtype} on {t.device}, expected {dt} on {it.alloc.device}")
+    T, GR, R = it.alloc.shape
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    reqs = it.reqs
+    fields = (
+        t_its, it.group_valid.T, it.alloc.permute(1, 2, 0),
+        bit_words(it.zc_avail.reshape(T, GR, Z * C)).permute(1, 2, 0), it.cap.T,
+        reqs.defined.T, reqs.inf.T, reqs.excl.T, bit_words(reqs.mask).permute(1, 2, 0), reqs.gte.T, reqs.lte.T,
+    )
+    pieces, offsets = [], [0]
+    for t in fields:
+        raw = t.contiguous().view(torch.uint8).reshape(-1)
+        pad = -raw.numel() % 16
+        pieces += [raw, torch.zeros(pad, dtype=torch.uint8, device=raw.device)]
+        offsets.append(offsets[-1] + raw.numel() + pad)
+    return torch.cat(pieces), offsets
+
+
+def _perpod_launch(fields, dims, strides, S: int, ctx, lo: int, hi: int, what: str) -> None:
+    """Check every field (device, dtype, shape, contiguity) and launch
+    perpod_scan_persistent once for steps lo .. hi - 1."""
+    dev = ctx.it.alloc.device
     ptrs = []
     for name, t, dt, shape in fields:
         if t is None:
@@ -564,61 +642,53 @@ def _perpod_call(entry: str, state, xs, ctx, keys, assignment, n: int) -> None:
             continue
         _check(t, name, dt, dev)
         if tuple(t.shape) != shape:
-            raise ValueError(f"perpod_scan: {name} {tuple(t.shape)} vs {shape}")
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} vs {shape}")
         ptrs.append(t.data_ptr())
+    if not 0 <= lo <= hi <= dims[17]:
+        raise ValueError(f"{what}: steps [{lo}, {hi}) outside [0, {dims[17]})")
+    if lo == hi:
+        return
+    tables, offsets = ctx.tables if ctx.tables is not None else perpod_tables(ctx.it, ctx.templates.its)
     _invoke(
-        "perpod_scan", entry, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
-        ctypes.cast(_i64_array(dims), ctypes.c_void_p), n,
+        "perpod_scan", "perpod_steps", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array(dims), ctypes.c_void_p),
+        None if strides is None else ctypes.cast(_i64_array(strides), ctypes.c_void_p), S,
+        tables.data_ptr(), ctypes.cast(_i64_array(offsets), ctypes.c_void_p), lo, hi,
     )
-
-
-def _keys_buffer(state, ctx) -> torch.Tensor:
-    n_rows = ctx.exist.avail.shape[0] + state.open.shape[0] + ctx.templates.its.shape[0]
-    return torch.empty(n_rows, dtype=torch.int32, device=state.used.device)
+    LAUNCHES[PERPOD_KERNELS[0] if strides is None else WHATIF_KERNELS[0]] += 1
 
 
 def _assignment_buffer(xs) -> torch.Tensor:
     return torch.full((xs.requests.shape[0],), -1, dtype=torch.int32, device=xs.requests.device)
 
 
-def perpod_scan(state, xs, ctx) -> torch.Tensor:
-    """H7 + H8 for every pod of the chunk, in order, in one C call: `state`
+def perpod_steps(state, xs, ctx, lo: int, hi: int, assignment: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Steps lo .. hi - 1 of the chunk in one launch: `state`
     (ops.solver.SolverState; its written fields private to the caller) is
-    updated in place; returns the [L] int32 assignment."""
-    keys, assignment = _keys_buffer(state, ctx), _assignment_buffer(xs)
-    L = xs.requests.shape[0]
-    _perpod_call("perpod_chunk", state, xs, ctx, keys, assignment, L)
-    for k in PERPOD_KERNELS:
-        LAUNCHES[k] += L
+    updated in place; step i writes assignment[i] of the [L] int32 buffer
+    (a fresh one of -1 when None), which is returned."""
+    if assignment is None:
+        assignment = _assignment_buffer(xs)
+    row_max = torch.empty(state.used.shape, dtype=torch.float32, device=state.used.device)
+    fields, dims = _perpod_fields(state, xs, ctx, row_max, assignment)
+    _perpod_launch(fields, dims, None, 1, ctx, lo, hi, "perpod_scan")
     return assignment
 
 
-def perpod_eval(state, xs, ctx, pod: int) -> torch.Tensor:
-    """H7 alone for pod `pod` of the chunk: the [E + W + G] int32 keys."""
-    keys = _keys_buffer(state, ctx)
-    _perpod_call("perpod_eval", state, xs, ctx, keys, _assignment_buffer(xs), pod)
-    LAUNCHES["perpod_eval"] += 1
-    return keys
-
-
-def perpod_commit(state, xs, ctx, pod: int, keys: torch.Tensor) -> torch.Tensor:
-    """H8 alone for pod `pod` from `keys`: commits into `state` in place;
-    returns the pod's assignment (a [] int32 tensor)."""
-    assignment = _assignment_buffer(xs)
-    _perpod_call("perpod_commit", state, xs, ctx, keys, assignment, pod)
-    LAUNCHES["perpod_commit"] += 1
-    return assignment[pod]
+def perpod_scan(state, xs, ctx) -> torch.Tensor:
+    """Every step of the chunk in one launch; returns the [L] int32 assignment."""
+    return perpod_steps(state, xs, ctx, 0, xs.requests.shape[0])
 
 
 # ---------------------------------------------------------------------------
-# H7 / H8 in scenario mode: S per-pod scans in one launch sequence
+# scenario mode: S per-pod scans, one block each, in one launch
 # ---------------------------------------------------------------------------
 
-def _whatif_fields(state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid) -> tuple[list, list, list]:
+def _whatif_fields(state, xs, ctx, row_max, assignment, pod_idx, valid, exist_valid) -> tuple[list, list, list]:
     """csrc/perpod_scan.cu's scenario-mode block: the single-scenario
-    block's 89 (name, tensor, dtype, shape) fields with each scenario
+    block's 78 (name, tensor, dtype, shape) fields with each scenario
     field (`_scenario_tensors`) stacked on a leading S axis and pod_idx
-    [S, L] set, their 89 byte strides per scenario (0 for the shared
+    [S, L] set, their 78 byte strides per scenario (0 for the shared
     tables), and the 20 dims (L = steps per scenario). `xs` holds the
     union's pod rows, which step i of scenario s reads at pod_idx[s, i]."""
     S, L = pod_idx.shape
@@ -626,8 +696,8 @@ def _whatif_fields(state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid
 
     first = state._replace(**{f: _first(getattr(state, f)) for f in PERPOD_WRITES})
     ctx0 = ctx._replace(exist=ctx.exist._replace(valid=exist_valid[0]))
-    base, dims = _perpod_fields(first, xs, ctx0, keys[0], assignment[0])
-    stacked = _scenario_tensors(state, keys, assignment, pod_idx, valid, exist_valid)
+    base, dims = _perpod_fields(first, xs, ctx0, row_max[0], assignment[0])
+    stacked = _scenario_tensors(state, row_max, assignment, pod_idx, valid, exist_valid)
     fields, strides = [], []
     for name, t, dt, shape in base:
         if name in stacked:
@@ -646,11 +716,11 @@ def _first(v):
     return type(v)(*(t[0] for t in v)) if isinstance(v, tuple) else v[0]
 
 
-def _scenario_tensors(state, keys, assignment, pod_idx, valid, exist_valid) -> dict:
+def _scenario_tensors(state, row_max, assignment, pod_idx, valid, exist_valid) -> dict:
     """The parameter-block fields that differ per scenario, by name, each
-    stacked on a leading S axis: every carry field H8 writes
+    stacked on a leading S axis: every carry field the step writes
     (solver.PERPOD_WRITES; requirement sets field by field), exist.valid,
-    the validity row, the two buffers and pod_idx."""
+    the validity row, the kernel's scratch, the assignment and pod_idx."""
     from karpenter_tpu_torch.ops.solver import PERPOD_WRITES
 
     out = {}
@@ -660,66 +730,31 @@ def _scenario_tensors(state, keys, assignment, pod_idx, valid, exist_valid) -> d
             out.update((f"{f}.{g}", t) for g, t in zip(v._fields, v))
         else:
             out[f] = v
-    out.update({"exist.valid": exist_valid, "valid": valid, "keys": keys, "assignment": assignment,
+    out.update({"exist.valid": exist_valid, "valid": valid, "row_max": row_max, "assignment": assignment,
                 "pod_idx": pod_idx})
     return out
 
 
-def _whatif_call(entry: str, state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, n: int) -> None:
-    dev = state.used.device
-    fields, strides, dims = _whatif_fields(state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid)
+def perpod_whatif_steps(state, xs, ctx, pod_idx, valid, exist_valid, lo: int, hi: int,
+                        assignment: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Steps lo .. hi - 1 of S scenarios in one launch, one block per
+    scenario: `state` (ops.solver.SolverState whose written fields are
+    stacked [S, ...] and private to the caller) is updated in place; step i
+    of scenario s places the union pod row pod_idx[s, i] when valid[s, i],
+    against the nodes exist_valid[s], into assignment[s, i] of the [S, L]
+    int32 buffer (a fresh one of -1 when None), which is returned."""
     S, L = pod_idx.shape
+    if assignment is None:
+        assignment = torch.full((S, L), -1, dtype=torch.int32, device=pod_idx.device)
+    row_max = torch.empty(state.used.shape, dtype=torch.float32, device=state.used.device)
+    fields, strides, dims = _whatif_fields(state, xs, ctx, row_max, assignment, pod_idx, valid, exist_valid)
     P = xs.requests.shape[0]
-    ptrs = []
-    for name, t, dt, shape in fields:
-        _check(t, name, dt, dev)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"perpod_whatif: {name} {tuple(t.shape)} vs {shape}")
-        ptrs.append(t.data_ptr())
     if L and (int(pod_idx.min()) < 0 or int(pod_idx.max()) >= P):
         raise ValueError(f"perpod_whatif: pod_idx outside the {P} pod rows")
-    _invoke(
-        "perpod_scan", entry, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
-        ctypes.cast(_i64_array(dims), ctypes.c_void_p), ctypes.cast(_i64_array(strides), ctypes.c_void_p),
-        S, n,
-    )
-
-
-def _whatif_buffers(state, ctx, pod_idx) -> tuple[torch.Tensor, torch.Tensor]:
-    S, L = pod_idx.shape
-    W = state.open.shape[1]
-    n_rows = ctx.exist.avail.shape[0] + W + ctx.templates.its.shape[0]
-    dev = state.used.device
-    return (torch.empty((S, n_rows), dtype=torch.int32, device=dev),
-            torch.full((S, L), -1, dtype=torch.int32, device=dev))
-
-
-def perpod_whatif(state, xs, ctx, pod_idx, valid, exist_valid) -> torch.Tensor:
-    """H7 + H8 in scenario mode for every step of S scenarios, in one C
-    call: `state` (ops.solver.SolverState whose written fields are stacked
-    [S, ...] and private to the caller) is updated in place; step i of
-    scenario s places the union pod row pod_idx[s, i] when valid[s, i],
-    against the nodes exist_valid[s]. Returns the [S, L] int32 assignment."""
-    keys, assignment = _whatif_buffers(state, ctx, pod_idx)
-    L = pod_idx.shape[1]
-    _whatif_call("perpod_whatif", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, L)
-    for k in WHATIF_KERNELS:
-        LAUNCHES[k] += L
+    _perpod_launch(fields, dims, strides, S, ctx, lo, hi, "perpod_whatif")
     return assignment
 
 
-def perpod_whatif_eval(state, xs, ctx, pod_idx, valid, exist_valid, step: int) -> torch.Tensor:
-    """H7 in scenario mode alone, for step `step`: keys [S, E + W + G]."""
-    keys, assignment = _whatif_buffers(state, ctx, pod_idx)
-    _whatif_call("perpod_whatif_eval", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, step)
-    LAUNCHES["perpod_whatif_eval"] += 1
-    return keys
-
-
-def perpod_whatif_commit(state, xs, ctx, pod_idx, valid, exist_valid, step: int, keys) -> torch.Tensor:
-    """H8 in scenario mode alone, for step `step` from `keys` [S, E + W + G]:
-    commits into `state` in place; returns the [S] int32 assignments."""
-    _keys, assignment = _whatif_buffers(state, ctx, pod_idx)
-    _whatif_call("perpod_whatif_commit", state, xs, ctx, keys, assignment, pod_idx, valid, exist_valid, step)
-    LAUNCHES["perpod_whatif_commit"] += 1
-    return assignment[:, step]
+def perpod_whatif(state, xs, ctx, pod_idx, valid, exist_valid) -> torch.Tensor:
+    """Every step of S scenarios in one launch; returns the [S, L] int32 assignment."""
+    return perpod_whatif_steps(state, xs, ctx, pod_idx, valid, exist_valid, 0, pod_idx.shape[1])

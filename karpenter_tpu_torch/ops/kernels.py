@@ -11,7 +11,7 @@ Semantics (golden-tested against karpenter_tpu_torch/scheduling):
 `intersects` is kernel H1: on a CUDA tensor it launches
 csrc/req_intersects.cu, on a CPU tensor it runs `intersects_plain`.
 `set_eq_rows`, `per_key_ok_table` and `update_set_at` serve the plain
-per-pod step only (kernels H7 / H8 inline the same tests).
+per-pod step only (the per-pod kernel, H7/H8, inlines the same tests).
 """
 
 from __future__ import annotations

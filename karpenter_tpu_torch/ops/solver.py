@@ -29,8 +29,10 @@ ops/cuda.py):
   H5 kscan_grid       kscan_grid,                the kind scan's grid,
                       kscan_fits_final           capd and final types
   H6 kscan_pod_loop   kscan_pod_loop             the kind scan's pod loop
-  H7 perpod_eval      perpod_eval                per-pod candidate keys
-  H8 perpod_commit    perpod_commit              per-pod pick and commit
+  H7/H8 perpod_scan_persistent                   the per-pod scan: a chunk
+                      perpod_steps, solve_from,  of steps, or every step of
+                      solve_whatif               S what-if scenarios, in
+                                                 one launch
 
 Each wrapper runs the kernel on CUDA tensors and its plain version (same
 module, `*_plain`) on CPU tensors. `plain=True` on the solve entry points,
@@ -1591,9 +1593,10 @@ def solve_kind_scan(
 # the first feasible template. Every candidate's combined requirements are
 # narrowed by the vocab-key groups before its instance types are filtered
 # (nodeclaim.go:199-213), and the winner's counts commit before the next
-# pod. On CUDA a chunk of pods runs as kernels H7 (candidate evaluation,
-# one block per row) and H8 (pick + commit, one block), launched per pod
-# from one C call per chunk; `_pod_step` is their plain version.
+# pod. On CUDA a chunk of pods runs as one launch of
+# perpod_scan_persistent (one block loops the chunk's steps: the pod's
+# terms once, the live rows of each tier a warp each, pick and commit in
+# place); `_pod_step` is its plain version.
 
 
 class PodTensors(NamedTuple):
@@ -1639,6 +1642,9 @@ class PerPodCtx(NamedTuple):
     ct_kid: int
     n_claims: int
     topo_kids: tuple
+    # the kernel's packed type tables (ops/cuda.py perpod_tables: buffer,
+    # offsets), built once per encode; None: the launch builds them
+    tables: Optional[tuple] = None
 
 
 def _fits_and_offering(total, comb: ReqSetTensors, it: InstanceTypeTensors, zone_kid: int, ct_kid: int):
@@ -1756,11 +1762,6 @@ def _pod_eval_full(state: SolverState, x: PodXs, c: PerPodCtx):
     return keys, aux
 
 
-def perpod_eval_plain(state: SolverState, x: PodXs, c: PerPodCtx) -> torch.Tensor:
-    """H7's plain version: the [E + W + G] i32 candidate keys of one pod."""
-    return _pod_eval_full(state, x, c)[0]
-
-
 def _pod_commit(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor, aux: dict):
     """Pick and commit (the reference's merge of the three tiers and its
     carry update): tier 1 beats tier 2 beats tier 3, each the least key
@@ -1855,17 +1856,10 @@ def _pod_commit(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor, 
     ), assignment
 
 
-def perpod_commit_plain(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor):
-    """H8's plain version: pick from the keys and commit (the winner's
-    combined requirements, narrowing and viable types recomputed from the
-    state, as the kernel does)."""
-    return _pod_commit(state, x, c, keys, _pod_eval_full(state, x, c)[1])
-
-
 def _pod_step(state: SolverState, x: PodXs, c: PerPodCtx):
     """One pod through the three tiers (the reference's _make_step step,
-    minValues, reservations and volumes' limits off): H7's plain half,
-    then H8's."""
+    minValues, reservations and volumes' limits off): every candidate's
+    key, then the pick and commit."""
     keys, aux = _pod_eval_full(state, x, c)
     return _pod_commit(state, x, c, keys, aux)
 
@@ -1912,30 +1906,25 @@ def perpod_loop_plain(state: SolverState, xs: PodXs, c: PerPodCtx):
 
 
 def perpod_loop_kernels(state: SolverState, xs: PodXs, c: PerPodCtx):
-    """The chunk as H7 + H8 launches from one C call. The kernels update
-    the carry in place (the JAX package's scan cannot), into private
-    copies of the fields they write."""
+    """The chunk as one launch of perpod_scan_persistent. The kernel
+    updates the carry in place (the JAX package's scan cannot), into
+    private copies of the fields it writes."""
     if c.templates.rank is not None:
-        raise ValueError("solve_from: kernels H7 / H8 pick templates in weight order only (rank is set)")
+        raise ValueError("solve_from: the per-pod kernel picks templates in weight order only (rank is set)")
     state = own_perpod_writes(state)
     return state, cuda.perpod_scan(state, xs, c)
 
 
-def perpod_eval(state: SolverState, xs: PodXs, c: PerPodCtx, i: int) -> torch.Tensor:
-    """H7 for pod i of the chunk: [E + W + G] i32 keys (kernel on CUDA,
-    plain on CPU)."""
+def perpod_steps(state: SolverState, xs: PodXs, c: PerPodCtx, lo: int, hi: int):
+    """Steps lo .. hi - 1 of the chunk: (state', assignment [hi - lo] i32)
+    — one kernel launch on CUDA, into private copies of the written
+    fields; the plain step in a Python loop on the CPU."""
     if state.used.device.type == "cpu":
-        return perpod_eval_plain(state, _take_x(xs, i), c)
-    return cuda.perpod_eval(state, xs, c, i)
-
-
-def perpod_commit(state: SolverState, xs: PodXs, c: PerPodCtx, i: int, keys: torch.Tensor):
-    """H8 for pod i from its keys: (state', assignment [] i32) (kernel on
-    CUDA, into private copies of the written fields; plain on CPU)."""
-    if state.used.device.type == "cpu":
-        return perpod_commit_plain(state, _take_x(xs, i), c, keys)
+        return perpod_loop_plain(state, _take_x(xs, slice(lo, hi)), c)
+    if c.templates.rank is not None:
+        raise ValueError("perpod_steps: the per-pod kernel picks templates in weight order only (rank is set)")
     state = own_perpod_writes(state)
-    return state, cuda.perpod_commit(state, xs, c, i, keys)
+    return state, cuda.perpod_steps(state, xs, c, lo, hi)[lo:hi]
 
 
 def solve_from(
@@ -1958,14 +1947,17 @@ def solve_from(
     n_claims: int,
     topo_kids: tuple = (),
     plain: bool = False,
+    tables: Optional[tuple] = None,
 ) -> tuple[SolverState, torch.Tensor]:
     """Resume the per-pod scan from `state` over a chunk of L pod rows;
     returns (state', assignment [L] i32: E-space slot, NO_ROOM or
     NO_CLAIM). The input state is not modified. On CUDA (plain=False) the
-    chunk runs as kernels H7 + H8 in one C call, with no host sync; on the
-    CPU, or with plain=True, `_pod_step` loops in Python."""
+    chunk runs as one kernel launch, with no host sync, reading the type
+    tables packed in `tables` (cuda.perpod_tables of it and templates.its;
+    None: the launch packs them); on the CPU, or with plain=True,
+    `_pod_step` loops in Python."""
     xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
-    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids))
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables)
     if plain or state.used.device.type == "cpu":
         return perpod_loop_plain(state, xs, ctx)
     return perpod_loop_kernels(state, xs, ctx)
@@ -2034,11 +2026,12 @@ def whatif_loop_plain(state0, xs: PodXs, ctx: PerPodCtx, idx, valid, exist_valid
 
 
 def whatif_loop_kernels(state0, xs: PodXs, ctx: PerPodCtx, idx, valid, exist_valid, vg0, hg0):
-    """All scenarios as kernels H7 + H8 in scenario mode from one C call,
-    into a stacked carry (stack_scenarios); the same outputs as
-    whatif_loop_plain (the final carries are views of the stacked one)."""
+    """All scenarios in one launch of the per-pod kernel in scenario mode
+    (one block per scenario), into a stacked carry (stack_scenarios); the
+    same outputs as whatif_loop_plain (the final carries are views of the
+    stacked one)."""
     if ctx.templates.rank is not None:
-        raise ValueError("solve_whatif: kernels H7 / H8 pick templates in weight order only (rank is set)")
+        raise ValueError("solve_whatif: the per-pod kernel picks templates in weight order only (rank is set)")
     S = idx.shape[0]
     stacked = stack_scenarios(state0, S, vg0, hg0)
     assignment = cuda.perpod_whatif(
@@ -2073,18 +2066,19 @@ def solve_whatif_full(
     topo_kids: tuple = (),
     window: int = 0,
     plain: bool = False,
+    tables: Optional[tuple] = None,
 ):
     """solve_whatif with everything it computes: (n_unsched [S] i32,
     n_open [S] i32, assignment [S, L] i32, the final carry of each
     scenario). The plain path runs the plain per-pod loop once per
     scenario, each from its own initial state (what jax.vmap of the
     reference's `one` computes); on CUDA (plain=False) all S scenarios run
-    as kernels H7 + H8 in scenario mode from one C call, with no host
-    sync."""
+    in one launch of the per-pod kernel in scenario mode, with no host
+    sync (`tables` as solve_from's)."""
     idx = scen_pod_idx.long()
     valid = pods.valid[idx] & scen_active  # [S, L]
     xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
-    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids))
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables)
     state0 = initial_state(exist, it, templates, topo, n_claims, pod_ports.shape[1], window=window, topo_kids=topo_kids)
     loop = whatif_loop_plain if plain or valid.device.type == "cpu" else whatif_loop_kernels
     assignment, states = loop(state0, xs, ctx, idx, valid, scen_exist_valid, scen_vg_counts0, scen_hg_counts0)

@@ -12,8 +12,8 @@ solver carries:
 
 The per-pod rules — `vg_pod_precompute` / `vg_evaluate` / `vg_commit`
 for vocab-key groups, `hg_evaluate` / `hg_commit` for hostname groups —
-are the plain per-pod step's (ops/solver.py `_pod_step`; kernels H7 / H8
-inline them). The kind scan's compact-domain twin of the vocab-key half
+are the plain per-pod step's (ops/solver.py `_pod_step`; the per-pod kernel
+inlines them). The kind scan's compact-domain twin of the vocab-key half
 is ops/solver.py `vg_eval_plain` (kernel H6).
 """
 
@@ -274,7 +274,7 @@ def take_pod_topology(pt: PodTopology, idx) -> PodTopology:
 
 
 # ---------------------------------------------------------------------------
-# per-pod step functions (plain torch; kernels H7 / H8 inline the same rules,
+# per-pod step functions (plain torch; the per-pod kernel inlines the same rules,
 # kernel H6 its hostname half)
 # ---------------------------------------------------------------------------
 

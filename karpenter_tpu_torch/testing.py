@@ -210,16 +210,29 @@ def guarded_pods(n: int):
     return pods
 
 
-def wide_zone_pods(n: int):
-    """Zone-spread kinds beside pods that exclude 13 more zone names: the
-    zone key holds 17 values, wider than KSCAN_D, so the spread kinds route
-    to the per-pod scan."""
-    extra = [f"extra-zone-{i}" for i in range(13)]
+def wide_zone_pods(n: int, extra_zones: int = 13):
+    """Zone-spread kinds beside pods that exclude `extra_zones` more zone
+    names: the zone key holds 4 + extra_zones values (17 by default), wider
+    than KSCAN_D, so the spread kinds route to the per-pod scan; past 32
+    values a key's value bits take two words in the per-pod kernel."""
+    extra = [f"extra-zone-{i}" for i in range(extra_zones)]
     away = [make_pod(f"away-{i}", cpu=0.5, memory="512Mi") for i in range(2)]
     for p in away:
         p.spec.node_affinity = NodeAffinity(required=[NodeSelectorTerm(
             match_expressions=[{"key": l.LABEL_TOPOLOGY_ZONE, "operator": "NotIn", "values": extra}])])
     return zonal_pods(n, kinds=2) + away
+
+
+def many_resources_pods(n: int = 24, extra: int = 36):
+    """Per-pod kinds whose pods name `extra` extended resources (R past a
+    warp's 32 lanes with the default), at zero but for two pods that ask
+    for one no instance type offers."""
+    pods = perpod_pods(n, kinds=2)
+    for i, p in enumerate(pods):
+        p.spec.requests.update({f"example.com/r{r}": 0.0 for r in range(extra)})
+        if i < 2:
+            p.spec.requests[f"example.com/r{extra - 1}"] = 1.0
+    return pods
 
 
 # ---------------------------------------------------------------------------

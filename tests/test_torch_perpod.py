@@ -4,7 +4,8 @@ helpers of ops/kernels.py) against the JAX package's, on the same
 inputs: seeded numpy for the rules and helpers; for solve_from the
 reference TPUScheduler's own encode, carried onto the port with
 from_numpy, every SolverState leaf and the assignment compared after
-every chunk. Also the H7 / H8 launcher's argument block. Tolerance: exact
+every chunk. Also the per-pod kernel's launcher and packed tables, lazy
+tiers and the open-row prefix the kernel relies on. Tolerance: exact
 equality everywhere."""
 
 import ctypes
@@ -467,7 +468,9 @@ def test_solve_is_initial_state_then_solve_from():
 
 
 def test_perpod_wrappers_compose_to_the_step():
-    """H7's and H8's plain wrappers, pod by pod, give solve_from's result."""
+    """The chunk in pieces through perpod_steps (plain on the CPU): steps
+    [0, 1), [1, 7) and [7, 16), each from the state the last left, give
+    solve_from's result."""
     prob = _Problem(bench.perpod_pods(16, kinds=2), bench.make_templates(20), 24)
     _j, pst = prob.initial()
     _jc, (ppt, *prest, ptopo) = prob.chunk(0, 16)
@@ -476,26 +479,198 @@ def test_perpod_wrappers_compose_to_the_step():
     ctx = p_solver.PerPodCtx(*prob.p_args, prob.enc["zone_kid"], prob.enc["ct_kid"], prob.enc["n_claims"],
                              tuple(prob.enc["topo_kids"]))
     st, got = pst, []
-    for i in range(16):
-        keys = p_solver.perpod_eval(st, xs, ctx, i)
-        st, a = p_solver.perpod_commit(st, xs, ctx, i, keys)
-        got.append(int(a))
+    for lo, hi in ((0, 1), (1, 7), (7, 16)):
+        st, a = p_solver.perpod_steps(st, xs, ctx, lo, hi)
+        assert a.shape == (hi - lo,)
+        got += a.tolist()
     assert got == want.tolist()
     fa, fb = p_solver.to_numpy(want_state), p_solver.to_numpy(st)
     assert all(np.array_equal(fa[k], fb[k]) for k in fa)
 
 
+# cases in which later tiers have finite keys beside an earlier tier's:
+# an existing node beside claims and templates, claims beside templates
+LAZY_CASES = {
+    "existing_node": CASES["existing_node"],
+    "hostname_groups": CASES["hostname_groups"],
+    "shared_claims": lambda: (_spread_pods(20, 2, cpu=0.5), bench.make_templates(20), 32, None, 0, 12),
+}
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_lazy_tiers_are_exact(seed):
+    """The kernel evaluates tier 2 only when no existing node is feasible
+    and tier 3 only when no claim is either. _pod_commit with the tier-2
+    and tier-3 keys set to BIG wherever tier 1 has a finite key, and the
+    tier-3 keys wherever tier 2 does, gives the same assignment and every
+    carry leaf, step after step, on each case's pods in a seeded order."""
+    rng = np.random.default_rng(seed)
+    name = ("existing_node", "hostname_groups", "shared_claims")[seed % 3]
+    pods, templates, max_claims, existing, window, _step = LAZY_CASES[name]()
+    prob = _Problem(pods, templates, max_claims, existing, window)
+    _j, st = prob.initial()
+    P = prob.enc["P"]
+    order = rng.permutation(P)
+    prob.enc["kind_of"] = np.asarray(prob.enc["kind_of"])[order]
+    _jc, (ppt, *prest, ptopo) = prob.chunk(0, P)
+    xs = p_solver.pod_xs(ppt, *prest, ptopo)
+    ctx = p_solver.PerPodCtx(*prob.p_args, prob.enc["zone_kid"], prob.enc["ct_kid"], prob.enc["n_claims"],
+                             tuple(prob.enc["topo_kids"]))
+    E, W = prob.enc["E"], st.open.shape[0]
+    masked = 0
+    for i in range(P):
+        x = p_solver._take_x(xs, i)
+        keys, aux = p_solver._pod_eval_full(st, x, ctx)
+        lazy = keys.clone()
+        big = p_solver.BIG
+        if bool((keys[:E] < big).any()):
+            lazy[E:] = big
+        elif bool((keys[E:E + W] < big).any()):
+            lazy[E + W:] = big
+        masked += int(not torch.equal(lazy, keys))
+        want_state, want = p_solver._pod_commit(st, x, ctx, keys, aux)
+        got_state, got = p_solver._pod_commit(st, x, ctx, lazy, aux)
+        assert int(got) == int(want), (name, i)
+        fa, fb = p_solver.to_numpy(want_state), p_solver.to_numpy(got_state)
+        assert all(np.array_equal(fa[k], fb[k]) for k in fa), (name, i)
+        st = want_state
+    assert masked, f"{name}: no step had a later tier to skip"
+
+
+def _assert_open_prefix(state, what):
+    W = state.open.shape[0]
+    want = torch.arange(W) < int(state.w_open)
+    assert torch.equal(state.open.cpu(), want), what
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_open_rows_are_a_prefix(case):
+    """The kernel scans window rows [0, w_open) only: the open rows are
+    exactly that prefix in the state every per-pod step starts from and
+    leaves, chunk after chunk."""
+    pods, templates, max_claims, existing, window, step = CASES[case]()
+    prob = _Problem(pods, templates, max_claims, existing, window)
+    _j, st = prob.initial()
+    ctx = p_solver.PerPodCtx(*prob.p_args, prob.enc["zone_kid"], prob.enc["ct_kid"], prob.enc["n_claims"],
+                             tuple(prob.enc["topo_kids"]))
+    P = prob.enc["P"]
+    opened = 0
+    for lo in range(0, P, step):
+        _jc, (ppt, *prest, ptopo) = prob.chunk(lo, min(lo + step, P))
+        xs = p_solver.pod_xs(ppt, *prest, ptopo)
+        for i in range(xs.requests.shape[0]):
+            _assert_open_prefix(st, (case, lo, i))
+            st, _a = p_solver._pod_step(st, p_solver._take_x(xs, i), ctx)
+            _assert_open_prefix(st, (case, lo, i, "after"))
+        opened = max(opened, int(st.w_open))
+    assert opened > 0
+
+
+def test_open_rows_are_a_prefix_across_scan_kinds(monkeypatch):
+    """The same on a TorchScheduler solve whose per-pod chunks follow fill
+    and kind-scan segments, and after a compaction that closes claims."""
+    from karpenter_tpu_torch import testing as p_testing
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+
+    real = p_solver._pod_step
+    seen = []
+
+    def checked(state, x, c):
+        _assert_open_prefix(state, "before")
+        out = real(state, x, c)
+        _assert_open_prefix(out[0], "after")
+        seen.append(int(out[0].w_open))
+        return out
+
+    monkeypatch.setattr(p_solver, "_pod_step", checked)
+    s = TorchScheduler(p_testing.make_templates(24), max_claims=64, device="cpu")
+    s.solve_chunk = 24
+    s.solve(p_testing.mixed_pods(30) + p_testing.perpod_pods(40))
+    assert s.last_stats["perpod_dispatches"] >= 2 and s.last_stats["kscan_dispatches"] >= 1 and max(seen) > 0
+    # compact_state keeps the surviving claims as the prefix
+    monkeypatch.setattr(p_solver, "_pod_step", real)
+    pods, templates, max_claims, existing, window, _step = CASES["perpod"]()
+    prob = _Problem(pods, templates, max_claims, existing, window)
+    _j, st = prob.initial()
+    _jc, (ppt, *prest, ptopo) = prob.chunk(0, prob.enc["P"])
+    st, _a = p_solver.solve_from(st, ppt, *prest, *prob.p_args, ptopo, **prob.common)
+    it = prob.p_args[1]
+    used = st.used.clone()
+    used[1:int(st.w_open):3, 0] = 1e6  # every third claim is full
+    r_min = torch.zeros(it.alloc.shape[2])
+    r_min[0] = 0.25
+    st2, closed = p_solver.compact_state(st._replace(used=used), it, r_min, prob.enc["n_claims"], plain=True,
+                                         topo_kids=prob.enc["topo_kids"])
+    assert 0 < int(closed) < int(st.w_open)
+    _assert_open_prefix(st2, "compacted")
+
+
+def test_perpod_tables_layout():
+    """perpod_tables packs the type tables the kernel reads: each field at
+    a 16-byte aligned offset, the type axis innermost, masks and offerings
+    as 32-bit words of bits (value v of a key at bit v % 32 of word v // 32);
+    a second call packs the same bytes again, and a changed source shows."""
+    prob = _Problem(_hostname_pods(8), bench.make_templates(20), 16, [_existing_node()])
+    it, t_its = prob.p_args[1], prob.p_args[2].its
+    buf, off = p_cuda.perpod_tables(it, t_its)
+    assert len(off) == len(p_cuda.TABLES) + 1 and all(o % 16 == 0 for o in off) and off[-1] == buf.numel()
+    T, GR, R = it.alloc.shape
+    K, V = it.reqs.mask.shape[1:]
+    Z, C = it.zc_avail.shape[2:]
+    raw = buf.numpy()
+
+    def field(i, dtype, shape):
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        assert off[i + 1] - off[i] >= n
+        return raw[off[i]:off[i] + n].view(dtype).reshape(shape)
+
+    def bits(words, n):
+        return ((words[..., None].view(np.uint32) >> np.arange(32, dtype=np.uint32)) & 1).reshape(
+            words.shape[:-1] + (-1,))[..., :n].astype(bool)
+
+    G = t_its.shape[0]
+    assert np.array_equal(field(0, np.bool_, (G, T)), t_its.numpy())
+    assert np.array_equal(field(1, np.bool_, (GR, T)), it.group_valid.numpy().T)
+    assert np.array_equal(field(2, np.float32, (GR, R, T)), it.alloc.numpy().transpose(1, 2, 0))
+    zc = field(3, np.int32, (GR, (Z * C + 31) // 32, T)).transpose(2, 0, 1)
+    assert np.array_equal(bits(zc, Z * C), it.zc_avail.numpy().reshape(T, GR, Z * C))
+    assert np.array_equal(field(4, np.float32, (R, T)), it.cap.numpy().T)
+    for i, f in ((5, "defined"), (6, "inf"), (7, "excl")):
+        assert np.array_equal(field(i, np.bool_, (K, T)), getattr(it.reqs, f).numpy().T), f
+    mb = field(8, np.int32, (K, (V + 31) // 32, T)).transpose(2, 0, 1)
+    assert np.array_equal(bits(mb, V), it.reqs.mask.numpy())
+    assert np.array_equal(field(9, np.int32, (K, T)), it.reqs.gte.numpy().T)
+    assert np.array_equal(field(10, np.int32, (K, T)), it.reqs.lte.numpy().T)
+    # words past 32 values, and the top bit of a word
+    x = np.random.default_rng(0).random((3, 4, 70)) < 0.5
+    x[..., 31] = True
+    assert np.array_equal(bits(p_cuda.bit_words(torch.from_numpy(x)).numpy(), 70), x)
+    again, off2 = p_cuda.perpod_tables(it, t_its)
+    assert again is not buf and torch.equal(again, buf) and off2 == off
+    it.cap[0, 0] += 1.0
+    assert not torch.equal(p_cuda.perpod_tables(it, t_its)[0], buf)
+    with pytest.raises(ValueError, match="dtype|float32"):
+        p_cuda.perpod_tables(it._replace(cap=it.cap.double()), t_its)
+
+
 # ---------------------------------------------------------------------------
-# 6. the H7 / H8 launcher's argument block
+# 6. the per-pod kernel's launcher and its argument block
 # ---------------------------------------------------------------------------
+
+
+def _read(p, n):
+    return list((ctypes.c_int64 * n).from_address(p.value))
 
 
 def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
-    """The CUDA path's one C call per chunk, with the C entry stubbed: 89
+    """The CUDA path's one launch per chunk, with the C entry stubbed: 78
     pointers in the kernel's field order (each the data of the tensor the
-    field names, checked for device, dtype, shape and contiguity; the last,
-    the scenario mode's pod_idx, null), the 20 dims, the pod count; and
-    both kernels' launch counts advance by L."""
+    field names, checked for device, dtype, shape and contiguity; the
+    kernel's scratch a fresh [W, R] buffer; the last, the scenario mode's
+    pod_idx, null), the 20 dims, no strides and one
+    block, the packed type tables and their offsets, the steps [0, L); one
+    launch counted; a launch of steps [3, 4) alone; nothing launched for
+    no steps; the context's own packed tables passed as they are."""
     prob = _Problem(_hostname_pods(12), bench.make_templates(20), 16, [_existing_node()])
     _j, pst = prob.initial()
     _jc, (ppt, *prest, ptopo) = prob.chunk(0, 12, l_pad=16)
@@ -504,34 +679,45 @@ def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
                              tuple(prob.enc["topo_kids"]))
     seen = []
 
-    def read(p, n):
-        return list((ctypes.c_int64 * n).from_address(p.value))
-
-    def fake(source, entry, ptrs, n_ptrs, dims, n):
-        seen.append((source, entry, read(ptrs, n_ptrs), read(dims, 20), n))
+    def fake(source, entry, ptrs, n_ptrs, dims, strides, S, tables, offsets, lo, hi):
+        off = _read(offsets, len(p_cuda.TABLES) + 1)
+        seen.append((source, entry, _read(ptrs, n_ptrs), _read(dims, 20), strides, S, tables, off, lo, hi,
+                     bytes((ctypes.c_uint8 * off[-1]).from_address(tables))))
 
     monkeypatch.setattr(p_cuda, "_invoke", fake)
     p_cuda.reset_launches()
     st = p_solver.own_perpod_writes(pst)
-    p_cuda.perpod_scan(st, xs, ctx)
-    (source, entry, ptrs, dims, n), = seen
-    assert (source, entry, n) == ("perpod_scan", "perpod_chunk", 16)
-    keys, assignment = p_cuda._keys_buffer(st, ctx), p_cuda._assignment_buffer(xs)
-    fields, want_dims = p_cuda._perpod_fields(st, xs, ctx, keys, assignment)
-    assert len(fields) == len(ptrs) == 89
+    assignment = p_cuda.perpod_scan(st, xs, ctx)
+    (source, entry, ptrs, dims, strides, S, tables, offsets, lo, hi, raw), = seen
+    assert (source, entry, strides, S, lo, hi) == ("perpod_scan", "perpod_steps", None, 1, 0, 16)
+    fields, want_dims = p_cuda._perpod_fields(st, xs, ctx, torch.empty(st.used.shape), assignment)
+    assert len(fields) == len(ptrs) == 78
     assert fields[-1][:2] == ("pod_idx", None) and ptrs[-1] == 0
-    for (name, t, _dt, _shape), got in zip(fields[:86], ptrs[:86]):
-        assert got == t.data_ptr(), name
+    for (name, t, _dt, _shape), got in zip(fields[:77], ptrs[:77]):
+        if name == "row_max":
+            assert got and got not in ptrs[:75], name  # a buffer of its own
+        else:
+            assert got == t.data_ptr(), name
     E, W, G = prob.enc["E"], pst.open.shape[0], prob.p_args[2].its.shape[0]
     T, K, V = prob.p_args[1].reqs.mask.shape
     assert dims == want_dims and dims[:6] == [E, W, G, T, K, V] and dims[16:18] == [prob.enc["n_claims"], 16]
-    assert p_cuda.LAUNCHES["perpod_eval"] == p_cuda.LAUNCHES["perpod_commit"] == 16
-    # one eval and one commit launch, each for one pod
+    buf, want_off = p_cuda.perpod_tables(ctx.it, ctx.templates.its)
+    assert raw == buf.numpy().tobytes() and offsets == want_off
+    assert p_cuda.LAUNCHES["perpod_scan_persistent"] == 1 and p_cuda.LAUNCHES["perpod_scan_persistent_whatif"] == 0
+    # steps [3, 4) alone, into the caller's assignment buffer
     seen.clear()
-    p_cuda.perpod_eval(st, xs, ctx, 3)
-    p_cuda.perpod_commit(st, xs, ctx, 3, keys)
-    assert [(s[1], s[4]) for s in seen] == [("perpod_eval", 3), ("perpod_commit", 3)]
-    # what the launcher refuses: a non-contiguous field, a wrong dtype
+    assert p_cuda.perpod_steps(st, xs, ctx, 3, 4, assignment) is assignment
+    assert [(s[1], s[8], s[9]) for s in seen] == [("perpod_steps", 3, 4)]
+    seen.clear()
+    p_cuda.perpod_steps(st, xs, ctx, 5, 5)
+    assert not seen and p_cuda.LAUNCHES["perpod_scan_persistent"] == 2
+    # tables packed once (as TorchScheduler does per encode) travel in the context
+    own = p_cuda.perpod_tables(ctx.it, ctx.templates.its)
+    p_cuda.perpod_steps(st, xs, ctx._replace(tables=own), 0, 1)
+    assert seen[-1][6] == own[0].data_ptr() and seen[-1][7] == own[1]
+    # what the launcher refuses: steps past the chunk, a non-contiguous field, a wrong dtype
+    with pytest.raises(ValueError, match="steps"):
+        p_cuda.perpod_steps(st, xs, ctx, 0, 17)
     bad = xs._replace(it_allow=xs.it_allow.t().contiguous().t())
     with pytest.raises(ValueError, match="contiguous"):
         p_cuda.perpod_scan(st, bad, ctx)
@@ -544,7 +730,9 @@ def test_scheduler_hands_the_launcher_what_it_takes(monkeypatch):
     """A whole TorchScheduler solve with per-pod, kind-scan and fill kinds
     in which every per-pod chunk is first validated by the CUDA launcher
     (C entry stubbed) and then computed by the plain loop: the launcher
-    accepts every chunk, and the result is unchanged."""
+    accepts every chunk, one launch of steps [0, L) per chunk, each with
+    the type tables the scheduler packed once for its encode (as it does
+    on the card), and the result is unchanged."""
     from karpenter_tpu_torch import testing as p_testing
     from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 
@@ -555,15 +743,27 @@ def test_scheduler_hands_the_launcher_what_it_takes(monkeypatch):
         return [(c.slot, [p.name for p in c.pods], str(c.requirements)) for c in r.claims], s.last_stats
 
     want, _ = solve()
-    calls = []
-    monkeypatch.setattr(p_cuda, "_invoke", lambda source, entry, *a: calls.append(entry))
+    calls, packed = [], []
+    real_static = TorchScheduler._encode_static
+
+    def static_with_tables(self):
+        real_static(self)
+        self.perpod_tables = p_cuda.perpod_tables(self.it_tensors, self.template_tensors.its)
+        packed.append(self.perpod_tables[0].data_ptr())
+
+    monkeypatch.setattr(TorchScheduler, "_encode_static", static_with_tables)
+    monkeypatch.setattr(p_cuda, "_invoke", lambda source, entry, *a: calls.append((entry, a[-2], a[-1], a[5])))
     plain = p_solver.perpod_loop_plain
 
     def checked(state, xs, ctx):
         p_cuda.perpod_scan(p_solver.own_perpod_writes(state), xs, ctx)
+        assert calls[-1][:3] == ("perpod_steps", 0, xs.requests.shape[0])
         return plain(state, xs, ctx)
 
     monkeypatch.setattr(p_solver, "perpod_loop_plain", checked)
+    p_cuda.reset_launches()
     got, stats = solve()
     assert got == want
-    assert stats["perpod_dispatches"] == len(calls) >= 2 and set(calls) == {"perpod_chunk"}
+    assert stats["perpod_dispatches"] == len(calls) >= 2 and {c[0] for c in calls} == {"perpod_steps"}
+    assert len(packed) == 1 and {c[3] for c in calls} == set(packed)
+    assert p_cuda.LAUNCHES["perpod_scan_persistent"] == len(calls)

@@ -42,11 +42,12 @@ def _perpod_with_node(S):
     return S.templates(20), pods, [_node_a(S)]
 
 
-def _wide_zone_key(S):
+def _wide_zone_key(S, n_extra=13):
     """Zone-spread kinds (one key, the kind scan's shape) beside pods that
-    exclude 13 more zone names: the zone key holds 17 values, wider than
-    KSCAN_D, so the spread kinds route to the per-pod scan."""
-    extra = [f"extra-zone-{i}" for i in range(13)]
+    exclude n_extra more zone names: the zone key holds 4 + n_extra values
+    (17; 45 in the wider case, past one 32-bit word of value bits), wider
+    than KSCAN_D, so the spread kinds route to the per-pod scan."""
+    extra = [f"extra-zone-{i}" for i in range(n_extra)]
     aff, term = (JNodeAffinity, JNodeSelectorTerm) if S is JAX_SIDE else (PNodeAffinity, PNodeSelectorTerm)
     away = [S.make_pod(f"away-{i}", cpu=0.5, memory="512Mi") for i in range(2)]
     for p in away:
@@ -71,6 +72,7 @@ CASES = {
         lambda S: (S.templates(20), _edge_pods(S, "empty_hostname_affinity") + S.perpod_pods(16, kinds=2), None), 32, None,
     ),
     "wide_zone_key": (_wide_zone_key, 64, None),
+    "wider_zone_key": (lambda S: _wide_zone_key(S, 41), 64, None),
     "custom_key_fallback": (_tier, 32, None),
 }
 
@@ -87,7 +89,7 @@ def test_perpod_workloads_match_reference(case):
         assert st["fill_dispatches"] > 0 and st["kscan_dispatches"] > 0
     if case == "perpod_existing_node":
         assert rp.existing_assignments
-    if case == "wide_zone_key":
+    if case in ("wide_zone_key", "wider_zone_key"):
         assert st["kscan_dispatches"] == 0
     if case.startswith("perpod_64"):
         # every claim carries a narrowed zone and a narrowed capacity type

@@ -468,7 +468,7 @@ def test_solve_with_topology_from_bound_pods(k):
 def emulate_whatif(state, xs, ctx, pod_idx, valid, exist_valid):
     """csrc/perpod_scan.cu's scenario mode on the CPU: the plain step for
     every step of every scenario, written back into the stacked carry in
-    place, as the kernels write it."""
+    place, as the kernel writes it."""
     S, L = pod_idx.shape
     out = torch.full((S, L), -1, dtype=torch.int32)
     for s in range(S):
@@ -511,7 +511,7 @@ def test_whatif_kernel_path_composes(monkeypatch):
     args = (st0, xs, ctx, idx.long(), valid, ev, vg0, hg0)
     ak, sk = p_solver.whatif_loop_kernels(*args)
     ap, sp = p_solver.whatif_loop_plain(*args)
-    assert calls == ["perpod_whatif"]
+    assert calls == ["perpod_steps"]
     assert torch.equal(ak, ap) and (ak >= 0).any()
     for s, (x, y) in enumerate(zip(sk, sp)):
         fx, fy = p_solver.to_numpy(x), p_solver.to_numpy(y)
@@ -519,24 +519,24 @@ def test_whatif_kernel_path_composes(monkeypatch):
 
 
 def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
-    """The scenario-mode C call with the C entry stubbed: the single-
-    scenario block's 89 pointers, each scenario field stacked on a leading
+    """The scenario-mode launch with the C entry stubbed: the single-
+    scenario block's 78 pointers, each scenario field stacked on a leading
     S axis and pod_idx set, each pointer's byte stride per scenario (the
     stacked fields' row stride, 0 for the shared tables), the 20 dims with
-    L = steps per scenario, S and the step count; with S = 1 the block is
-    the single-scenario block (pod_idx aside) with every stride 0."""
+    L = steps per scenario, S blocks, the packed type tables, steps [0, L)
+    in one launch, counted once; a launch of steps [2, 5) alone; with S = 1
+    the block is the single-scenario block (pod_idx aside) with every
+    stride 0."""
     jc, _pc = _cells("topology")
     seen = []
 
     def read(p, n):
         return list((ctypes.c_int64 * n).from_address(p.value))
 
-    def fake(source, entry, ptrs, n_ptrs, dims, *rest):
-        if len(rest) == 3:
-            strides, S, n = rest
-            seen.append((entry, read(ptrs, n_ptrs), read(dims, 20), read(strides, n_ptrs), S, n))
-        else:
-            seen.append((entry, read(ptrs, n_ptrs), read(dims, 20), None, 1, rest[0]))
+    def fake(source, entry, ptrs, n_ptrs, dims, strides, S, tables, offsets, lo, hi):
+        end = read(offsets, len(p_cuda.TABLES) + 1)[-1]
+        seen.append((entry, read(ptrs, n_ptrs), read(dims, 20), read(strides, n_ptrs), S,
+                     bytes((ctypes.c_uint8 * end).from_address(tables)), lo, hi))
 
     _sig, a, kw, _out, _vocab = _capture_whatif(jc, [jc.cands[:k] for k in range(1, 4)])
     conv, common = _to_port(a, kw)
@@ -549,46 +549,72 @@ def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
     valid = pods.valid[idx.long()] & active
     monkeypatch.setattr(p_cuda, "_invoke", fake)
     p_cuda.reset_launches()
-    p_cuda.perpod_whatif(stacked, xs, ctx, idx, valid, ev)
-    (entry, ptrs, dims, strides, s_got, n), = seen
-    assert (entry, s_got, n) == ("perpod_whatif", S, L)
-    keys, assignment = p_cuda._whatif_buffers(stacked, ctx, idx)
-    fields, want_strides, want_dims = p_cuda._whatif_fields(stacked, xs, ctx, keys, assignment, idx, valid, ev)
-    assert len(fields) == len(ptrs) == len(strides) == 89 and strides == want_strides
+    assignment = p_cuda.perpod_whatif(stacked, xs, ctx, idx, valid, ev)
+    (entry, ptrs, dims, strides, s_got, tables, lo, hi), = seen
+    assert (entry, s_got, lo, hi) == ("perpod_steps", S, 0, L) and assignment.shape == (S, L)
+    assert tables == p_cuda.perpod_tables(it, tm.its)[0].numpy().tobytes()
+    row_max = torch.empty(stacked.used.shape)
+    fields, want_strides, want_dims = p_cuda._whatif_fields(stacked, xs, ctx, row_max, assignment, idx, valid, ev)
+    assert len(fields) == len(ptrs) == len(strides) == 78 and strides == want_strides
     assert fields[-1][0] == "pod_idx" and ptrs[-1] == idx.data_ptr()
-    scen = set(p_cuda._scenario_tensors(stacked, keys, assignment, idx, valid, ev))
+    scen = set(p_cuda._scenario_tensors(stacked, row_max, assignment, idx, valid, ev))
     # every field the step writes has a stride: none shares one carry across the blocks
     assert {f"{f}.mask" if f.endswith("reqs") else f for f in p_solver.PERPOD_WRITES} <= scen
     for (name, t, _dt, shape), got, stride in zip(fields, ptrs, strides):
-        if name not in ("keys", "assignment"):
-            assert got == t.data_ptr(), name
+        assert got == t.data_ptr() or name == "row_max", name
         stacked_field = name in scen
         assert stride == (t.stride(0) * t.element_size() if stacked_field else 0), name
         assert shape[0] == S if stacked_field else True
     E, W, G = exist.avail.shape[0], stacked.open.shape[1], tm.its.shape[0]
     assert dims == want_dims and dims[:3] == [E, W, G] and dims[17] == L
     assert strides[[f[0] for f in fields].index("vg_counts")] == vg0[0].numel() * 4
-    assert p_cuda.LAUNCHES["perpod_whatif_eval"] == p_cuda.LAUNCHES["perpod_whatif_commit"] == L
+    assert p_cuda.LAUNCHES["perpod_scan_persistent_whatif"] == 1 and p_cuda.LAUNCHES["perpod_scan_persistent"] == 0
+    # steps [2, 5) alone, into the caller's buffer
+    seen.clear()
+    assert p_cuda.perpod_whatif_steps(stacked, xs, ctx, idx, valid, ev, 2, 5, assignment) is assignment
+    assert [(e[0], e[6], e[7]) for e in seen] == [("perpod_steps", 2, 5)]
     # S = 1: the single-scenario block of scenario 0, strides 0
     one = p_solver.stack_scenarios(st0, 1, vg0[:1], hg0[:1])
     xs0 = p_solver._take_x(xs, idx[0].long())._replace(valid=valid[0])
     seen.clear()
-    p_cuda.perpod_whatif(one, xs, ctx, idx[:1], valid[:1], ev[:1])
-    (_e, ptrs1, dims1, strides1, s1, _n), = seen
+    a1 = p_cuda.perpod_whatif(one, xs, ctx, idx[:1], valid[:1], ev[:1])
+    (_e, ptrs1, dims1, strides1, s1, _t, _lo, _hi), = seen
     assert s1 == 1 and set(strides1) == {0}
     ctx0 = ctx._replace(exist=exist._replace(valid=ev[0]))
-    chunk_fields, chunk_dims = p_cuda._perpod_fields(p_solver.scenario_state(one, 0), xs0, ctx0, keys[0], assignment[0])
+    chunk_fields, chunk_dims = p_cuda._perpod_fields(p_solver.scenario_state(one, 0), xs0, ctx0, row_max[0], a1[0])
     assert dims1 == chunk_dims
     for (name, t, _dt, _shape), got in zip(chunk_fields, ptrs1):
-        # the carry is the same tensors, one scenario deep (keys and
-        # assignment are fresh buffers on each call)
-        if name in scen and name not in ("keys", "assignment", "pod_idx"):
+        # the carry is the same tensors, one scenario deep
+        if name in scen and name not in ("pod_idx", "row_max"):
             assert got == {"valid": valid, "exist.valid": ev}.get(name, t).data_ptr(), name
-    # what the launcher refuses: a pod row index past the union, a wrong dtype
+    # what the launcher refuses: a pod row index past the union, a wrong dtype, steps past L
     with pytest.raises(ValueError, match="pod_idx"):
         p_cuda.perpod_whatif(stacked, xs, ctx, idx + pods.valid.shape[0], valid, ev)
     with pytest.raises(ValueError, match="dtype"):
         p_cuda.perpod_whatif(stacked, xs, ctx, idx, valid.to(torch.int32), ev)
+    with pytest.raises(ValueError, match="steps"):
+        p_cuda.perpod_whatif_steps(stacked, xs, ctx, idx, valid, ev, 0, L + 1)
+
+
+def test_open_rows_are_a_prefix_in_whatifs(monkeypatch):
+    """The per-pod kernel scans window rows [0, w_open) only: in every
+    step of a what-if batch's plain path the open rows are that prefix."""
+    _jc, pc = _cells("topology")
+    real = p_solver._pod_step
+    seen = []
+
+    def checked(state, x, c):
+        out = real(state, x, c)
+        for st in (state, out[0]):
+            W = st.open.shape[0]
+            assert torch.equal(st.open, torch.arange(W) < int(st.w_open))
+        seen.append(int(out[0].w_open))
+        return out
+
+    monkeypatch.setattr(p_solver, "_pod_step", checked)
+    pods, specs = T.prefix_scenarios(pc.cands, 4, pc.pending)
+    sig = pc.scheduler().whatif_batch(pods, [x.clone() for x in pc.cluster.nodes], None, specs, pc.factory)
+    assert sig is not None and seen and max(seen) > 0
 
 
 def chip_goldens() -> dict:
