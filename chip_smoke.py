@@ -23,7 +23,11 @@ Phases, any failure exits non-zero:
      cell's encode (S=128 scenarios): one step of every scenario in one
      launch, and 4 scenarios (the largest prefix among them) run to the end
      through the kernel and through the plain loop; assignments and every
-     carry leaf equal;
+     carry leaf equal; the same two checks with the kernel's minValues and
+     reservation branches on: one step, 8 steps and a 256-pod chunk of
+     constrained_4096x400 from the state after 1024 pods, and in scenario
+     mode on whatif_constrained_prefix100's encode (reservation
+     capacities and held rows among the carry leaves);
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -53,7 +57,21 @@ Phases, any failure exits non-zero:
      per-pod kernel in scenario mode launched once per batch; one more warm
      call of each batch under torch.profiler; the sequential confirm of
      prefixes 1, 10 and 100 (TorchScheduler.solve(topology=...)) held to
-     the JAX package's;
+     the JAX package's; then Karpenter's constraints: constrained_4096x400
+     (mixed_pods(4096) and a 64-pod deployment on host port 443 over
+     constrained_templates(400): minValues 2 on instance-type names and
+     families, reserved offerings on 4 types, a pool cpu limit that binds;
+     max_claims=4096), cold and twice warm, held to the JAX package's
+     claims, unschedulable pods, $/h and result digest, every kind on the
+     per-pod kernel (once per chunk, no fill or kind-scan dispatch), its
+     kernel ms per step from a profiled warm solve beside its bound;
+     hostports_2048x400 (mixed_pods(2048) and the deployment over
+     make_templates(400): host-port bits on the fill and kind-scan
+     kernels), held to the JAX package's; whatif_constrained_prefix100
+     (the constrained templates' cluster of mixed_pods(4096), CSI attach
+     limits and PVCs, reservations in use, 64 pending pods, the prefixes
+     1..100) held to the JAX package's signals and placements, one launch
+     in scenario mode, and one profiled warm batch;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
      usage, requirements), and the wall of phase 3's plain what-if
@@ -116,6 +134,29 @@ WHATIF_PLACEMENTS = {
     "prefix": "2351f73c1df49678c977ebca9ec586f154ffc3f92d7f51a5cb2d471af7cfb1b1",
     "single": "4774cc66b5f6724686cbcf5aa9627f51a2f49d526f696bfac2374ae868e60213",
 }
+# ... for the constrained cells (`python tests/test_torch_constrained.py`:
+# TPUScheduler on the CPU, the JAX package at 823a69e):
+# constrained_4096x400, mixed_pods(4096) and a 64-pod ingress deployment on
+# host port 443 over constrained_templates(400) (minValues 2 on names and
+# families, reservations on 4 types) with a pool cpu limit of 4150 (75% of
+# the 5533 cpu the problem launches without one), max_claims=4096: claims,
+# unschedulable pods, $/h (reserved claims at 0) and testing.result_digest
+CONSTRAINED_PODS, CONSTRAINED_INGRESS, CONSTRAINED_TYPES = 4096, 64, 400
+CONSTRAINED_CPU_LIMIT = 4150.0
+CONSTRAINED_GOLDEN = (67, 1504, 35.0462, "95f3dac060101e971bad314654c5ee8566609fa0b929d8bddeb5b26c3532b412")
+# hostports_2048x400: mixed_pods(2048) and the ingress deployment over
+# make_templates(400), no limit: claims, $/h, result_digest
+HOSTPORTS_PODS = 2048
+HOSTPORTS_GOLDEN = (410, 43.1019, "e08c63873a86e98b2bdca7c2f9c6eaf72ca07496c25554d2107a43837b23a3a6")
+# whatif_constrained_prefix100: mixed_pods(4096) provisioned over
+# constrained_templates(400) (no limit) and launched (nodes, bound pods,
+# cluster_digest), reservations in use by the nodes launched into them,
+# CSI limit 4 on every node with a PVC on every 4th bound and every 8th
+# of the 64 pending pods; the prefixes 1..100: signals_digest and the
+# placements digest
+WHATIF_C_CLUSTER = (819, 4096, "9918ce157b8189ae07de347c45d6b43eaeec20392174f60ec79d7d551fa2699c")
+WHATIF_C_GOLDEN = ("6b138f7464188d8b40eccaaa88ef1c30ed8307dbb3808e17314837a35b3f0e4c",
+                   "091fe961c67739156a965188628cd7608142f1dd5b2ca8d7c03bdeff6b337d61")
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -311,10 +352,12 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
     NGh 4), a window of W = 4096 claim rows, D = 4 zones; H6 runs one
     segment of 256 pods over seeded counts and domain sets, with open
     rows, fresh rows opening during the segment, and the claim-slot
-    capacity running out. Exact equality."""
+    capacity running out, and once more with the zone counts past 2^15
+    (where the rank key wraps). Exact equality."""
     import torch
 
     from karpenter_tpu_torch.ops import kernels, solver
+    from karpenter_tpu_torch.testing import BIG_COUNT
     from karpenter_tpu_torch.ops.encode import ReqSetTensors
 
     dev = torch.device("cuda")
@@ -438,7 +481,8 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
     slot_of = torch.where(ar < w_open0, ar + n_open0 - w_open0, torch.full_like(ar, NCAP)).to(torch.int32)
     checks = []
     times = []
-    for variant, grp in (("zone spread", 0), ("zone affinity", 1)):
+    for variant, grp, big in (("zone spread", 0, 0), ("zone affinity", 1, 0),
+                              ("zone spread, counts past 2^15", 0, BIG_COUNT)):
         one = torch.zeros(NGv, dtype=torch.bool, device=dev)
         one[grp] = True
         inp = solver.PodLoopIn(
@@ -456,7 +500,7 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
             zn=rand_bool(W, D, p=0.6), ze=rand_bool(E, D, p=0.6), capd=rand_int(0, 4, W, D),
             pl_n=torch.zeros(W, dtype=torch.int32, device=dev),
             pl_e=torch.zeros(E, dtype=torch.int32, device=dev),
-            tmpl_n=torch.zeros(W, dtype=torch.int32, device=dev), cnt=rand_int(2, 4, NGv, D),
+            tmpl_n=torch.zeros(W, dtype=torch.int32, device=dev), cnt=rand_int(2, 4, NGv, D) + big,
             # hostname counts on the slots in use; the fresh slots are empty
             hgc=((torch.rand((NGh, S), generator=g) < 0.05) & (torch.arange(S) < E + n_open0))
             .to(torch.int32).to(dev),
@@ -478,6 +522,8 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
             ("opened", ck.n_open - n_open0))}
         print(f"kernel kscan_pod_loop ({variant}): equal={eq} {json.dumps(hist)}", flush=True)
         checks.append(eq)
+        if big:
+            continue
         # time the launch alone (the carry reset between launches is outside the events)
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(10)]
         for a, b in ev:
@@ -517,15 +563,20 @@ def launch_ms(run_once, setups: list) -> float:
     return sum(a.elapsed_time(b) for a, b in ev) / len(ev)
 
 
-def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 256) -> dict:
-    """Phase 3c: the per-pod kernel against the plain loop on the per-pod
-    cell's real encoded problem. A first chunk of 1024 pods through the
-    kernel opens claims; from that state, one step, 8 steps (one launch
-    each, `perpod_steps`) and the 256-pod chunk through the kernel against
-    the same steps through the plain step: the assignment and every carry
-    leaf equal. Times: one launch of the 256-step chunk (device events),
-    per step, beside its bound averaged over the same 256 steps. Returns
-    the chunk's launch inputs, as perpod_step_bounds reads them."""
+def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 256,
+                        cell: str = "perpod_4096x400") -> dict:
+    """Phase 3c: the per-pod kernel against the plain loop on a per-pod
+    cell's real encoded problem (its minValues and reservation flags on
+    when the cell carries them). A first chunk of 1024 pods through the
+    kernel opens claims (and takes reservations and budget); from that
+    state, one step, 8 steps (one launch each, `perpod_steps`) and the
+    256-pod chunk through the kernel against the same steps through the
+    plain step: the assignment and every carry leaf equal (reservation
+    capacities and held rows included). Times: one launch of the 256-step
+    chunk (device events), per step, beside its bound averaged over the
+    same 256 steps. Appends the kernel's entry to `results` (None: returns
+    it as "entry" only); returns the chunk's launch inputs, as
+    perpod_step_bounds reads them."""
     import numpy as np
     import torch
 
@@ -533,9 +584,11 @@ def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 2
     from karpenter_tpu_torch.ops import solver
 
     n_claims = enc["n_claims"]
-    common = (enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], sched.well_known, enc["topo_tensors"])
+    tm = enc["template_tensors"]
+    common = (enc["exist_tensors"], sched.it_tensors, tm, sched.well_known, enc["topo_tensors"])
     keys_args = (enc["zone_kid"], enc["ct_kid"], n_claims, tuple(enc["topo_kids"]))
-    ctx = solver.PerPodCtx(*common, *keys_args, kc.perpod_tables(sched.it_tensors, enc["template_tensors"].its))
+    flags = sched._flags()
+    ctx = solver.PerPodCtx(*common, *keys_args, kc.perpod_tables(sched.it_tensors, tm.its, tm.mv_it_values), flags)
     kind_of = enc["kind_of"]
 
     def rows(lo, hi):
@@ -544,15 +597,15 @@ def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 2
 
     def run(state, lo, hi, plain):
         r, pt = rows(lo, hi)
-        return solver.solve_from(state, *r, *common, pt, *keys_args, plain=plain)
+        return solver.solve_from(state, *r, *common, pt, *keys_args, plain=plain, flags=flags)
 
     def same(a, b):
         fa, fb = solver.to_numpy(a), solver.to_numpy(b)
         return all(np.array_equal(fa[k], fb[k]) for k in fa)
 
     state0 = solver.initial_state(
-        enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], n_claims,
-        enc["n_ports"], window=n_claims, topo_kids=enc["topo_kids"],
+        enc["exist_tensors"], sched.it_tensors, tm, enc["topo_tensors"], n_claims,
+        enc["n_ports"], enc["res_cap0"], window=n_claims, topo_kids=enc["topo_kids"],
     )
     state1, _a = run(state0, 0, first, False)
     torch.cuda.synchronize()
@@ -571,9 +624,12 @@ def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 2
     checks[f"{n}-pod chunk"] = torch.equal(ak, ap) and same(sk, sp)
     E = enc["E"]
     hist = {"claims": int((ak >= E).sum()), "existing": int(((ak >= 0) & (ak < E)).sum()),
-            "failed": int((ak < 0).sum()), "open_before": int(state1.n_open), "open_after": int(sk.n_open)}
-    print(f"kernel perpod_scan_persistent (one block): from the state after {first} pods, kernel == plain: "
-          f"{json.dumps(checks)} {json.dumps(hist)}", flush=True)
+            "failed": int((ak < 0).sum()), "open_before": int(state1.n_open), "open_after": int(sk.n_open),
+            "flags": {k: int(v) for k, v in flags._asdict().items()},
+            "res_cap_before": state1.res_cap.tolist(), "res_cap_after": sk.res_cap.tolist(),
+            "held_rows": int(sk.held.any(-1).sum())}
+    print(f"kernel perpod_scan_persistent (one block, {cell}): from the state after {first} pods, kernel == "
+          f"plain: {json.dumps(checks)} {json.dumps(hist)}", flush=True)
 
     # one launch of the n-step chunk, on private copies made outside the events
     copies = [solver.own_perpod_writes(state1) for _ in range(5)]
@@ -581,13 +637,16 @@ def perpod_kernel_phase(sched, enc, results: list, first: int = 1024, n: int = 2
     chunk = dict(state0=state1, xs=xs, ctx=ctx, assignment=ak[None])
     b, live = perpod_step_bounds([chunk])
     ok = all(checks.values())
-    print(f"kernel perpod_scan_persistent: {ms:.5f} ms per step ({n} steps in one launch), plain "
+    print(f"kernel perpod_scan_persistent ({cell}): {ms:.5f} ms per step ({n} steps in one launch), plain "
           f"{plain_step_ms:.4f} ms per step, bound {b[0]:.7f} ms per step ({b[1]}) {json.dumps(live)}", flush=True)
-    results.append(dict(
+    entry = dict(
         name="perpod_scan_persistent", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
         replaces="karpenter_tpu/ops/solver.py:315", launches=0, max_abs_err=0.0 if ok else 1.0,
         ms=ms, plain_ms=plain_step_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
-    ))
+    )
+    if results is not None:
+        results.append(entry)
+    chunk["entry"] = entry
     return chunk
 
 
@@ -662,7 +721,9 @@ def perpod_step_bounds(chunks: list) -> tuple:
     stacked state0 and pod_idx / valid / exist_valid). The launch is
     replayed one step at a time (a launch of the same kernel per step) so
     that each step's tests read the carry that step saw. Counted: once per
-    launch the type and group tables; per step the assignment; per real
+    launch the type and group tables (under the minValues or reservation
+    flags also every type's min-keyed value words and reserved-offering
+    bits); per step the assignment; per real
     step the pod's rows, its gate rows and the vocab-key counts, and for
     each tier the step reaches (tier 2 when no existing node takes the
     pod, tier 3 when no claim does either: the kernel's order, which the
@@ -671,8 +732,10 @@ def perpod_step_bounds(chunks: list) -> tuple:
     row's scalar tests (free resources or a claim's resource ceilings,
     ports, volumes, the hostname counts of the groups that apply); and
     only for a row that passes them its requirement row and, for claims
-    and templates, its viable-type row; per placed pod the winner's rows
-    and counts written. Returns (bound, row stats per step)."""
+    and templates, its viable-type row, and under the flags its
+    template's floors and (claims) its held row; per placed pod the
+    winner's rows and counts written. Returns (bound, row stats per
+    step)."""
     import torch
 
     from karpenter_tpu_torch.ops import cuda as kc
@@ -699,8 +762,16 @@ def perpod_step_bounds(chunks: list) -> tuple:
         got = torch.full((S, n), -1, dtype=torch.int32, device=dev)
         req_row = K * V + 11 * K
         pod_row = req_row + K * V + 4 * R + T + G + E + 4 + 3 * (NGv + NGh)
-        tables = nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, tm.its, tt.vg_domains, tt.vg_rank)
-        total_bytes += S * tables + S * n * 5
+        # under the flags the type tables gain the slab words and reserved
+        # bits (read once per launch, like the others); a fully read row
+        # reads its template's floors and (claims) its held row
+        RID, RZ = it.res_ofs.shape[1], it.res_ofs.shape[2]
+        mv_on, res_on = int(ctx.flags.mv_active), int(ctx.flags.res_active)
+        full_row = mv_on * 8 * tm.mv_key.shape[1]
+        held_row = res_on * RID
+        tables = (nbytes(*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, tm.its, tt.vg_domains, tt.vg_rank)
+                  + mv_on * T * 4 * tm.mv_it_values.shape[1] * -(-V // 32) + res_on * T * 4 * -(-(RID * RZ) // 32))
+        total_bytes += tables + S * n * 5
         acc = torch.zeros(7, dtype=torch.int64, device=dev)
         for i in range(n):
             # a single-scenario carry's written fields gain the [1] axis (views)
@@ -736,9 +807,9 @@ def perpod_step_bounds(chunks: list) -> tuple:
             step_bytes = (
                 v * (pod_row + 4 * NGv * V)
                 + (upto1 & v[:, None]).sum(1) + t1.sum(1) * cheap1 + f1.sum(1) * req_row
-                + t2.sum(1) * cheap2 + f2.sum(1) * (req_row + T)
-                + upto3.sum(1) * 5 + reach3 * 4 * n_hg + f3.sum(1) * (req_row + 8 * R + T)
-                + placed * (req_row + 4 * R + T + 8 * NGv * V + 8 * NGh)
+                + t2.sum(1) * cheap2 + f2.sum(1) * (req_row + T + full_row + held_row)
+                + upto3.sum(1) * 5 + reach3 * 4 * n_hg + f3.sum(1) * (req_row + 8 * R + T + full_row)
+                + placed * (req_row + 4 * R + T + 8 * NGv * V + 8 * NGh + held_row)
             )
             # the winner passed its scalar tests (a check of this replica of them)
             found = reach2 & (a >= E) & ~opened
@@ -765,13 +836,17 @@ def perpod_step_bounds(chunks: list) -> tuple:
 
 def whatif_kernel_phase(cell, results: list) -> tuple:
     """Phase 3d: the per-pod kernel in scenario mode against the plain
-    per-scenario loop, on the what-if prefix cell's encode (S = 128
-    scenarios, each its own pods, surviving nodes and topology seeds): one
-    step of all 128 scenarios in one launch, and 4 scenarios (the largest
-    prefix among them) run to the end, assignments and every carry leaf
-    equal. Times: one launch of the whole batch (every step of all
+    per-scenario loop, on a what-if prefix cell's encode (S = 128
+    scenarios, each its own pods, surviving nodes and topology seeds; the
+    constrained cell's with its flags, reservation capacities, CSI limits
+    and PVCs): one step of all 128 scenarios in one launch, and 4
+    scenarios (the largest prefix among them) run to the end, assignments
+    and every carry leaf equal (reservation capacities and held rows
+    included). Times: one launch of the whole batch (every step of all
     scenarios), per step, beside its bound averaged over the same steps.
-    Returns (the plain sub-batch's wall in s, the batch's launch inputs)."""
+    Appends the kernel's entry to `results` (None: not appended). Returns
+    (the plain sub-batch's wall in s, the batch's launch inputs with the
+    entry)."""
     import numpy as np
     import torch
 
@@ -779,14 +854,16 @@ def whatif_kernel_phase(cell, results: list) -> tuple:
     from karpenter_tpu_torch.ops import solver
 
     sched, pods, specs = cell["sched"], *cell["batches"]["prefix"]
-    args, kwargs = sched._whatif_inputs(pods, cell["cluster"].nodes, None, specs, cell["factory"])
+    args, kwargs = sched._whatif_inputs(pods, [n.clone() for n in cell["cluster"].nodes], None, specs,
+                                        cell["factory"], **cell.get("kw", {}))
     idx, active, _count, ev, vg0, hg0, pt, tol, it_allow, exist_ok, ports, conf, vols, exist, it, tm, wk, tt, ptopo = args[:19]
     zone_kid, ct_kid, n_claims = args[19:]
     topo_kids = tuple(kwargs["topo_kids"])
+    flags = kwargs["flags"]
     S, L = idx.shape
     xs = solver.pod_xs(pt, tol, it_allow, exist_ok, ports, conf, vols, ptopo)
-    ctx = solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"])
-    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], topo_kids=topo_kids)
+    ctx = solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"], flags)
+    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], kwargs["res_cap0"], topo_kids=topo_kids)
     valid = (pt.valid[idx.long()] & active).contiguous()
     idx_h = idx.cpu().numpy()
 
@@ -813,19 +890,23 @@ def whatif_kernel_phase(cell, results: list) -> tuple:
     sub = (*(a[pick] for a in args[:6]), *args[6:])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_k = solver.solve_whatif_full(*sub, topo_kids=topo_kids)
+    out_k = solver.solve_whatif_full(*sub, topo_kids=topo_kids, res_cap0=kwargs["res_cap0"], flags=flags)
     torch.cuda.synchronize()
     kernel_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out_p = solver.solve_whatif_full(*sub, topo_kids=topo_kids, plain=True)
+    out_p = solver.solve_whatif_full(*sub, topo_kids=topo_kids, plain=True, res_cap0=kwargs["res_cap0"], flags=flags)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     eq_sub = (all(torch.equal(a, b) for a, b in zip(out_k[:3], out_p[:3]))
               and all(same(a, b) for a, b in zip(out_k[3], out_p[3])))
     hist = {"S": S, "L": L, "E": int(exist.avail.shape[0]), "W": n_claims,
             "sub_n_open": out_k[1].tolist(), "sub_n_unsched": out_k[0].tolist(),
-            "sub_placed": int((out_k[2] >= 0).sum()), "kernel_wall_s": round(kernel_wall, 4)}
-    print(f"kernel perpod_scan_persistent (scenario mode): one step of {S} scenarios == plain: {eq1}; "
+            "sub_placed": int((out_k[2] >= 0).sum()), "kernel_wall_s": round(kernel_wall, 4),
+            "flags": {k: int(v) for k, v in flags._asdict().items()},
+            "sub_res_cap": [st.res_cap.tolist() for st in out_k[3]],
+            "sub_held_rows": [int(st.held.any(-1).sum()) for st in out_k[3]]}
+    label = cell.get("label", "whatif_prefix100")
+    print(f"kernel perpod_scan_persistent (scenario mode, {label}): one step of {S} scenarios == plain: {eq1}; "
           f"4 scenarios x {L} steps == plain: {eq_sub} {json.dumps(hist)}", flush=True)
 
     # one launch of the whole batch on private copies made outside the events
@@ -836,14 +917,17 @@ def whatif_kernel_phase(cell, results: list) -> tuple:
                  valid=valid, exist_valid=ev)
     b, live = perpod_step_bounds([batch])
     ok = eq1 and eq_sub
-    print(f"kernel perpod_scan_persistent (scenario mode): {ms:.5f} ms per step ({L} steps of {S} scenarios in "
-          f"one launch), plain {plain_step_ms:.4f} ms per step (all {S} scenarios), bound {b[0]:.7f} ms per step "
-          f"({b[1]}) {json.dumps(live)}", flush=True)
-    results.append(dict(
+    print(f"kernel perpod_scan_persistent (scenario mode, {label}): {ms:.5f} ms per step ({L} steps of {S} "
+          f"scenarios in one launch), plain {plain_step_ms:.4f} ms per step (all {S} scenarios), bound "
+          f"{b[0]:.7f} ms per step ({b[1]}) {json.dumps(live)}", flush=True)
+    entry = dict(
         name="perpod_scan_persistent_whatif", route="cuda", source="karpenter_tpu_torch/ops/csrc/perpod_scan.cu",
         replaces="karpenter_tpu/ops/solver.py:1120", launches=0, max_abs_err=0.0 if ok else 1.0,
         ms=ms, plain_ms=plain_step_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
-    ))
+    )
+    if results is not None:
+        results.append(entry)
+    batch["entry"] = entry
     return plain_wall, batch
 
 
@@ -865,37 +949,41 @@ def whatif_cell(torch, T, templates) -> dict:
     cands = T.candidates(cl)
     pending = T.pending_pods(WHATIF_PENDING)
     batches = {kind: getattr(T, f"{kind}_scenarios")(cands, WHATIF_CANDS, pending) for kind in ("prefix", "single")}
+    golden = {kind: (*WHATIF_GOLDEN[kind], WHATIF_PLACEMENTS[kind]) for kind in ("prefix", "single")}
     return dict(cluster=cl, cands=cands, pending=pending, factory=T.topology_factory(cl), batches=batches,
-                sched=TorchScheduler(templates), templates=templates)
+                sched=TorchScheduler(templates), templates=templates, golden=golden)
 
 
 def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
     """Drive one what-if batch: launch counts zeroed just before a cold
     whatif_batch and read just after, the signals held to the JAX
-    package's, two warm calls that must agree. Returns the launches or
-    raises RuntimeError."""
+    package's (cell["golden"][kind]: the signals or None, their digest, the
+    placements digest), two warm calls that must agree. Returns the
+    launches or raises RuntimeError."""
     from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 
     sched = TorchScheduler(cell["templates"])
     pods, specs = cell["batches"][kind]
+    kw = cell.get("kw", {})
 
     def run():
         t0 = time.perf_counter()
-        sig = sched.whatif_batch(pods, [n.clone() for n in cell["cluster"].nodes], None, specs, cell["factory"])
+        sig = sched.whatif_batch(pods, [n.clone() for n in cell["cluster"].nodes], None, specs, cell["factory"],
+                                 **kw)
         torch.cuda.synchronize()
         return sig, time.perf_counter() - t0
 
-    label = f"whatif_{kind}{WHATIF_CANDS}"
+    label = cell.get("label", f"whatif_{kind}{WHATIF_CANDS}")
     cuda.reset_launches()
     sig, wall = run()
     launches = dict(cuda.LAUNCHES)
     print(f"{label} cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} stats={json.dumps(sched.last_stats)} "
           f"launches={json.dumps(launches)}", flush=True)
-    want, want_digest = WHATIF_GOLDEN[kind]
+    want, want_digest, want_placements = cell["golden"][kind]
     digest_ = T.signals_digest(sig) if sig is not None else None
     print(f"{label} signals: digest {digest_} (JAX {want_digest}); feasible {sum(f for f, _n in sig or ())}"
           f"/{len(sig or ())}, new claims {sum(n for _f, n in sig or ())}", flush=True)
-    if sig != want or digest_ != want_digest:
+    if (want is not None and sig != want) or digest_ != want_digest:
         raise RuntimeError(f"{label}: signals differ from the JAX package's")
     # what the placements decide, held to the JAX package's: the batch's
     # solve_whatif on the same inputs, run again for every scenario's
@@ -903,7 +991,7 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
     from karpenter_tpu_torch.ops import solver
 
     args, kwargs = sched._whatif_inputs(pods, [n.clone() for n in cell["cluster"].nodes], None, specs,
-                                        cell["factory"])
+                                        cell["factory"], **kw)
     _unsched, _open, assignment, states = solver.solve_whatif_full(*args, **kwargs)
     n = len(specs)
     placements = T.placements_digest(
@@ -911,9 +999,9 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
         torch.stack([st.hg_counts for st in states[:n]]).cpu().numpy(), args[17].vg_key.cpu().numpy(),
         sched.encoder.vocab,
     )
-    print(f"{label} placements: digest {placements} (JAX {WHATIF_PLACEMENTS[kind]}); "
+    print(f"{label} placements: digest {placements} (JAX {want_placements}); "
           f"{int((assignment[:n] >= 0).sum())} pods placed", flush=True)
-    if placements != WHATIF_PLACEMENTS[kind]:
+    if placements != want_placements:
         raise RuntimeError(f"{label}: placements differ from the JAX package's")
     cell[f"{kind}_run"] = whatif_launch_inputs(args, kwargs, assignment)
     if launches[cuda.WHATIF_KERNELS[0]] != 1 or any(launches[k] for k in cuda.PERPOD_KERNELS):
@@ -938,13 +1026,125 @@ def whatif_launch_inputs(args, kwargs, assignment) -> dict:
     idx, active, _count, ev, vg0, hg0, pt, tol, it_allow, exist_ok, ports, conf, vols, exist, it, tm, wk, tt, ptopo = args[:19]
     zone_kid, ct_kid, n_claims = args[19:]
     topo_kids = tuple(kwargs["topo_kids"])
-    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], topo_kids=topo_kids)
+    st0 = solver.initial_state(exist, it, tm, tt, n_claims, ports.shape[1], kwargs["res_cap0"], topo_kids=topo_kids)
     return dict(
         xs=solver.pod_xs(pt, tol, it_allow, exist_ok, ports, conf, vols, ptopo),
-        ctx=solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"]),
+        ctx=solver.PerPodCtx(exist, it, tm, wk, tt, zone_kid, ct_kid, n_claims, topo_kids, kwargs["tables"],
+                             kwargs["flags"]),
         state0=solver.stack_scenarios(st0, idx.shape[0], vg0, hg0), pod_idx=idx,
         valid=pt.valid[idx.long()] & active, exist_valid=ev, assignment=assignment,
     )
+
+
+def constrained_cell(T, TorchScheduler) -> dict:
+    """constrained_4096x400's problem: templates, pods, budgets and a
+    scheduler for it."""
+    templates = T.constrained_templates(CONSTRAINED_TYPES)
+    pods = T.mixed_pods(CONSTRAINED_PODS) + T.hostport_pods(CONSTRAINED_INGRESS)
+    budgets = {"default": {"cpu": CONSTRAINED_CPU_LIMIT}}
+    return dict(templates=templates, pods=pods, budgets=budgets,
+                sched=TorchScheduler(templates, max_claims=4096))
+
+
+def constrained_whatif_cell(torch, T, TorchScheduler, templates) -> dict:
+    """whatif_constrained_prefix100's problem on the card: mixed_pods(4096)
+    provisioned over the constrained templates by a TorchScheduler solve
+    and launched (held to the JAX package's cluster), the CSI limits and
+    PVCs, the reservations in use, 64 pending pods and the prefix batch."""
+    t0 = time.perf_counter()
+    result = TorchScheduler(templates, max_claims=4096).solve(T.mixed_pods(WHATIF_PODS))
+    torch.cuda.synchronize()
+    if result.unschedulable:
+        raise RuntimeError(f"whatif_constrained cluster: {len(result.unschedulable)} pods unschedulable")
+    cl = T.launch_claims(result, templates)
+    got = (len(cl.nodes), sum(len(v) for v in cl.bound.values()), T.cluster_digest(cl))
+    print(f"whatif_constrained cluster: {got[0]} nodes, {got[1]} bound pods, digest {got[2][:16]}..., "
+          f"provisioned on the card in {time.perf_counter() - t0:.3f}s", flush=True)
+    if got != WHATIF_C_CLUSTER:
+        raise RuntimeError(f"whatif_constrained cluster {got} differs from the JAX package's {WHATIF_C_CLUSTER}")
+    cands = T.candidates(cl)
+    pending = T.pending_pods(WHATIF_PENDING)
+    kw = dict(pod_volumes=T.attach_volumes(cl, pending), reserved_in_use=T.reserved_in_use(cl))
+    print(f"whatif_constrained: {len(kw['pod_volumes'])} pods with a PVC, reservations in use "
+          f"{json.dumps(kw['reserved_in_use'])}", flush=True)
+    batches = {"prefix": T.prefix_scenarios(cands, WHATIF_CANDS, pending)}
+    return dict(cluster=cl, cands=cands, pending=pending, factory=T.topology_factory(cl), batches=batches,
+                sched=TorchScheduler(templates), templates=templates, kw=kw, label=f"whatif_constrained_prefix"
+                f"{WHATIF_CANDS}", golden={"prefix": (None, *WHATIF_C_GOLDEN)})
+
+
+def constrained_path(torch, cuda, cell, kernels, profile_dir) -> dict:
+    """Drive constrained_4096x400: launch counts zeroed just before a cold
+    solve and read just after, the result held to the JAX package's
+    (claims, unschedulable pods, $/h, result_digest), every kind on the
+    per-pod scan (no fill or kind-scan dispatch, the per-pod kernel once
+    per chunk), two warm solves with the same digest, one more under
+    torch.profiler with the kernel's ms per step beside its bound. Returns
+    the launches or raises RuntimeError."""
+    from karpenter_tpu_torch import testing as T
+
+    sched, pods, budgets = cell["sched"], cell["pods"], cell["budgets"]
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = sched.solve(pods, budgets=budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    st = sched.last_stats
+    print(f"constrained_4096x400 cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} stats={json.dumps(st)} "
+          f"launches={json.dumps(launches)}", flush=True)
+    got = (result.node_count, len(result.unschedulable), round(result.total_price(), 4), T.result_digest(result))
+    print(f"constrained_4096x400 result: claims={got[0]} unschedulable={got[1]} total_price={got[2]:.4f} "
+          f"reserved claims={sum(bool(c.reserved_ids) for c in result.claims)} digest {got[3]} "
+          f"(JAX {CONSTRAINED_GOLDEN})", flush=True)
+    if got[:2] != CONSTRAINED_GOLDEN[:2] or abs(got[2] - CONSTRAINED_GOLDEN[2]) >= 1e-2 \
+            or got[3] != CONSTRAINED_GOLDEN[3]:
+        raise RuntimeError(f"constrained_4096x400: {got} differs from the JAX package's {CONSTRAINED_GOLDEN}")
+    if st["fill_dispatches"] or st["kscan_dispatches"]:
+        raise RuntimeError("constrained_4096x400: a fill or kind-scan dispatch under finite budgets")
+    # the relaxation ladder re-solves (its unschedulable pods shed a
+    # preference), so the per-pod kernel launches once per chunk of every
+    # round; H2 and H4 run in the compactions
+    n_chunks = st["perpod_dispatches_all"]
+    if launches[cuda.PERPOD_KERNELS[0]] != n_chunks or not n_chunks:
+        raise RuntimeError(f"constrained_4096x400: {launches[cuda.PERPOD_KERNELS[0]]} launches of the per-pod "
+                           f"kernel for {n_chunks} chunks over {st['rounds']} rounds")
+    if any(launches[k] for k in ("water_fill", "kscan_grid", "kscan_pod_loop")):
+        raise RuntimeError(f"constrained_4096x400: fill or kind-scan kernels launched {json.dumps(launches)}")
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = sched.solve(pods, budgets=budgets)
+        torch.cuda.synchronize()
+        print(f"constrained_4096x400 warm {i}: wall={time.perf_counter() - t0:.3f}s "
+              f"{json.dumps(sched.last_timings)}", flush=True)
+        if T.result_digest(r) != got[3]:
+            raise RuntimeError("constrained_4096x400: warm solve differs from the cold solve")
+    chunks = record_chunks(cuda, lambda: sched.solve(pods, budgets=budgets))
+    entry = dict(name=cuda.PERPOD_KERNELS[0])
+    profiled_kernel([entry], cuda.PERPOD_KERNELS[0], "false",
+                    profile_run(lambda: sched.solve(pods, budgets=budgets), profile_dir, "constrained")["by_name"],
+                    chunks, "constrained_4096x400")
+    print(f"constrained_4096x400 kernel: {json.dumps(entry)}", flush=True)
+    return launches
+
+
+def hostports_path(torch, cuda, T, TorchScheduler, profile_dir) -> dict:
+    """Drive hostports_2048x400 (the fill and kind-scan routes with host
+    ports) through solve_path, held to the JAX package's claims and $/h
+    with H2, H3, H5 and H6 launched, then to its result_digest; one more
+    warm solve under torch.profiler. Returns the launches or raises
+    RuntimeError."""
+    sched = TorchScheduler(T.make_templates(CONSTRAINED_TYPES))
+    pods = T.mixed_pods(HOSTPORTS_PODS) + T.hostport_pods(CONSTRAINED_INGRESS)
+    result, launches = solve_path(torch, cuda, "hostports_2048x400", sched, pods, HOSTPORTS_GOLDEN[:2], {},
+                                  ("fill_count_grid", "water_fill", "kscan_grid", "kscan_pod_loop"))
+    got = T.result_digest(result)
+    print(f"hostports_2048x400: claims with host ports={sum(1 for c in result.claims if c.host_ports)} "
+          f"digest {got} (JAX {HOSTPORTS_GOLDEN[2]})", flush=True)
+    if got != HOSTPORTS_GOLDEN[2]:
+        raise RuntimeError("hostports_2048x400: result digest differs from the JAX package's")
+    profile_run(lambda: sched.solve(pods), profile_dir, "hostports")
+    return launches
 
 
 def record_chunks(cuda, fn) -> list:
@@ -970,18 +1170,20 @@ def record_chunks(cuda, fn) -> list:
     return rec
 
 
-def profiled_kernel(kernels: list, name: str, inst: str, by_name: dict, launches: list) -> None:
+def profiled_kernel(kernels: list, name: str, inst: str, by_name: dict, launches: list, cell: str = "") -> None:
     """Print the per-pod kernel's device time per launch and per step in a
-    profiled call (instantiation <inst>), its bound per step over the same
-    launches; set them on the kernel's entry of `kernels` when it is there."""
+    profiled call (instantiation <inst>) of cell `cell`, its bound per step
+    over the same launches; set them on the kernel's entry of `kernels`
+    when it is there."""
+    label = f"{name} ({cell})" if cell else name
     hits = [v for n, v in by_name.items() if f"perpod_scan_persistent_kernel<{inst}>(" in n]
     if not hits:
-        print(f"kernel {name}: device time not measured (no profiled launch)", flush=True)
+        print(f"kernel {label}: device time not measured (no profiled launch)", flush=True)
         return
     (n, ms), = hits
     steps = sum(ch["assignment"].shape[1] for ch in launches)
     b, live = perpod_step_bounds(launches)
-    print(f"kernel {name}: {ms / n:.4f} ms per launch, {ms / steps:.6f} ms per step on the device ({n} launches, "
+    print(f"kernel {label}: {ms / n:.4f} ms per launch, {ms / steps:.6f} ms per step on the device ({n} launches, "
           f"{steps} steps profiled), bound {b[0]:.7f} ms per step ({b[1]}) over the same steps {json.dumps(live)}",
           flush=True)
     for k in kernels:
@@ -1102,7 +1304,7 @@ def main() -> int:
         from karpenter_tpu_torch.ops import cuda
         from karpenter_tpu_torch.testing import (
             existing_node, guarded_pods, make_templates, many_resources_pods, mixed_pods, perpod_pods, selector_pods,
-            tier_pods, tier_templates, wide_zone_pods,
+            tier_pods, tier_templates, wide_zone_pods, zonal_pods,
         )
     except ImportError as err:
         return fail(f"karpenter_tpu_torch is not importable here ({err})")
@@ -1144,7 +1346,17 @@ def main() -> int:
     except RuntimeError as err:
         return fail(str(err))
     whatif_plain_wall, _batch = whatif_kernel_phase(cell_w, kernels)
-    bad = [k["name"] for k in kernels if not k["equal"]]
+    # the constrained cells: the kernel's minValues and reservation branches
+    cell_c = constrained_cell(T, TorchScheduler)
+    _sorted, enc_c = cell_c["sched"]._encode(cell_c["pods"], cell_c["budgets"])
+    checks_c = [perpod_kernel_phase(cell_c["sched"], enc_c, None, cell="constrained_4096x400")["entry"]]
+    try:
+        cell_wc = constrained_whatif_cell(torch, T, TorchScheduler, cell_c["templates"])
+    except RuntimeError as err:
+        return fail(str(err))
+    whatif_c_plain_wall, batch_c = whatif_kernel_phase(cell_wc, None)
+    checks_c.append(batch_c["entry"])
+    bad = [k["name"] for k in kernels + checks_c if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
     if kernels_only:
@@ -1225,6 +1437,23 @@ def main() -> int:
             return fail(f"{label} on the card differs from the CPU solve (or ran no per-pod chunk)")
         print(f"small check: {label}, {r_gpu.node_count} claims, {len(r_gpu.existing_assignments)} on existing "
               f"nodes, {len(r_gpu.unschedulable)} unschedulable, card == CPU", flush=True)
+    # zone counts past 2^15 through solve(topology=) on the kind scan: H6's
+    # rank key wraps as the plain version's does
+    def seeded(pods):
+        return T.seed_big_counts(T.PORT.Topology.build(list(pods), lambda: T.PORT.build_universe_domains(
+            small_t24, [], template_base=T.PORT.template_universe_domains(small_t24))))
+
+    s_gpu = TorchScheduler(small_t24, max_claims=64)
+    cuda.reset_launches()
+    r_gpu = s_gpu.solve(zonal_pods(64, kinds=2), topology=seeded(zonal_pods(64, kinds=2)))
+    n_h6 = cuda.LAUNCHES["kscan_pod_loop"]
+    r_cpu = TorchScheduler(small_t24, max_claims=64, device="cpu").solve(
+        zonal_pods(64, kinds=2), topology=seeded(zonal_pods(64, kinds=2)))
+    if digest(r_gpu) != digest(r_cpu) or not s_gpu.last_stats["kscan_dispatches"] or not n_h6:
+        return fail("zonal pods with zone counts past 2^15 on the card differ from the CPU solve "
+                    "(or ran no kscan_pod_loop launch)")
+    print(f"small check: zonal_pods(64) with zone counts past 2^15, {r_gpu.node_count} claims, "
+          f"{n_h6} kscan_pod_loop launches, card == CPU", flush=True)
 
     # the consolidation path: both batches, a profiled warm prefix batch,
     # the sequential confirms
@@ -1232,8 +1461,25 @@ def main() -> int:
         launches_w = [whatif_path(torch, cuda, T, cell_w, kind) for kind in ("prefix", "single")]
     except RuntimeError as err:
         return fail(str(err))
+    # the constrained cells: Karpenter's constraints on the per-pod scan,
+    # host ports on the fill and kind-scan routes, the constrained what-ifs
+    try:
+        launches_c = constrained_path(torch, cuda, cell_c, kernels, profile_dir)
+        launches_h = hostports_path(torch, cuda, T, TorchScheduler, profile_dir)
+        launches_wc = whatif_path(torch, cuda, T, cell_wc, "prefix")
+    except RuntimeError as err:
+        return fail(str(err))
+    pods_wc, specs_wc = cell_wc["batches"]["prefix"]
+    sched_wc = cell_wc["prefix_sched"]
+    by_name = profile_run(
+        lambda: sched_wc.whatif_batch(pods_wc, [n.clone() for n in cell_wc["cluster"].nodes], None, specs_wc,
+                                      cell_wc["factory"], **cell_wc["kw"]),
+        profile_dir, "whatif_constrained",
+    )["by_name"]
+    profiled_kernel([], cuda.WHATIF_KERNELS[0], "true", by_name, [cell_wc["prefix_run"]], cell_wc["label"])
     for k in kernels:
-        k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w])
+        k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w, launches_c,
+                                                      launches_h, launches_wc])
     for kind in ("prefix", "single"):
         pods_w, specs_w = cell_w["batches"][kind]
         sched_w = cell_w[f"{kind}_sched"]
@@ -1265,7 +1511,7 @@ def main() -> int:
         if not same:
             return fail(f"plain-version solve of the {label} on the card gives another assignment")
     print(f"plain on card, what-if sub-batch (4 scenarios of whatif_prefix{WHATIF_CANDS}, phase 3): "
-          f"wall={whatif_plain_wall:.3f}s", flush=True)
+          f"wall={whatif_plain_wall:.3f}s; of {cell_wc['label']}: wall={whatif_c_plain_wall:.3f}s", flush=True)
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     for k in kernels:

@@ -1,8 +1,9 @@
 """Result types and FFD ordering shared with the JAX package's host
 scheduler (controllers/provisioning/host_scheduler.py), cut to what the
-fill path needs: SimClaim / ExistingSimNode / SchedulingResult, the
-placeholder hostnames, and the pure-Python FFD sort keys (the order comes
-out identical to the reference's, native key gather or not)."""
+port's solve needs: SimClaim / ExistingSimNode / SchedulingResult, the
+placeholder hostnames, the claim finalizers of the decode (reserved
+pins, BestEffort minValues), and the pure-Python FFD sort keys (the order
+comes out identical to the reference's, native key gather or not)."""
 
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ from typing import Optional
 
 import numpy as np
 
-from karpenter_tpu_torch.cloudprovider.instancetype import InstanceType
+from karpenter_tpu_torch.cloudprovider.instancetype import RESERVATION_ID_LABEL, InstanceType, satisfies_min_values
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import ClaimTemplate
+from karpenter_tpu_torch.models import labels as l
 from karpenter_tpu_torch.models.pod import Pod
-from karpenter_tpu_torch.scheduling import Requirements
+from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.utils import resources as res
 
 
@@ -30,6 +32,11 @@ class SimClaim:
     pods: list[Pod] = field(default_factory=list)
     slot: int = 0
     hostname: str = ""  # placeholder hostname (nodeclaim.go:93)
+    host_ports: list[tuple] = field(default_factory=list)
+    # reservation ids this claim pessimistically holds (nodeclaim.go:52-60)
+    reserved_ids: frozenset = frozenset()
+    # BestEffort minValues relaxation happened (scheduler.go:769)
+    min_values_relaxed: bool = False
 
     def cheapest_launch(self) -> tuple[Optional[InstanceType], float]:
         """Cheapest (type, price) among viable types/offerings compatible
@@ -57,7 +64,8 @@ class ExistingSimNode:
     used: dict[str, float] = field(default_factory=dict)
     pods: list[Pod] = field(default_factory=list)
     host_ports: list[tuple] = field(default_factory=list)  # (ip, port, proto)
-    # CSI attach tracking; the fill path supports only None (no limits)
+    # CSI attach tracking (scheduling.volumes.VolumeUsage); None = no
+    # limits published, unconstrained
     volume_usage: object = None
 
     def clone(self) -> "ExistingSimNode":
@@ -71,7 +79,7 @@ class ExistingSimNode:
             used=dict(self.used),
             pods=list(self.pods),
             host_ports=list(self.host_ports),
-            volume_usage=self.volume_usage,
+            volume_usage=self.volume_usage.copy() if self.volume_usage is not None else None,
         )
 
 
@@ -97,6 +105,38 @@ def hostname_placeholder(seq: int) -> str:
     """Simulation-only hostname for new claims (nodeclaim.go:93); shared by
     both engines so hostname-domain bookkeeping lines up."""
     return f"hostname-placeholder-{seq:04d}"
+
+
+def finalize_reserved(claim: SimClaim) -> None:
+    """FinalizeScheduling's reserved-capacity pin (nodeclaim.go:385-401): a
+    claim holding reservations is pinned to capacity-type=reserved and its
+    reservation ids, so claims never over-launch into one reservation."""
+    if not claim.reserved_ids:
+        return
+    claim.requirements.add(Requirement.new(l.CAPACITY_TYPE_LABEL_KEY, Operator.IN, l.CAPACITY_TYPE_RESERVED))
+    claim.requirements.add(Requirement.new(RESERVATION_ID_LABEL, Operator.IN, *sorted(claim.reserved_ids)))
+
+
+def finalize_min_values(claim: SimClaim) -> None:
+    """BestEffort minValues at the end of a solve (scheduler.go:763-772,
+    nodeclaim.go:214-219): floors the final viable types cannot meet drop
+    to the distinct-value count they reach, and the claim is flagged
+    relaxed. A no-op for floors that hold."""
+    reqs = claim.requirements
+    if not reqs.has_min_values():
+        return
+    _, unsat, err = satisfies_min_values(claim.instance_types, reqs)
+    if not err:
+        return
+    for key, achievable in unsat.items():
+        reqs.relax_min_values(key, achievable)
+    claim.min_values_relaxed = True
+
+
+def normalize_volume_reqs(volume_reqs: Optional[dict]) -> dict:
+    """uid -> non-empty list of Requirements alternatives (drops None and
+    empty entries)."""
+    return {uid: list(v) for uid, v in (volume_reqs or {}).items() if v}
 
 
 def _canon_terms(terms) -> tuple:
@@ -160,15 +200,16 @@ def pod_ffd_key(pod: Pod) -> tuple[tuple, float]:
     )
 
 
-def ffd_keys(pods: list[Pod]) -> tuple[np.ndarray, np.ndarray]:
-    """(kind ids by first appearance, FFD sizes) for a pod list."""
+def ffd_keys(pods: list[Pod], kind_sig=pod_content_sig) -> tuple[np.ndarray, np.ndarray]:
+    """(kind ids by first appearance of `kind_sig`, FFD sizes) for a pod
+    list."""
     ids: dict = {}
     n = len(pods)
     sig = np.empty(n, dtype=np.int64)
     sizes = np.empty(n, dtype=np.float64)
     for i, p in enumerate(pods):
-        s, sizes[i] = pod_ffd_key(p)
-        sig[i] = ids.setdefault(s, len(ids))
+        _s, sizes[i] = pod_ffd_key(p)
+        sig[i] = ids.setdefault(kind_sig(p), len(ids))
     return sig, sizes
 
 

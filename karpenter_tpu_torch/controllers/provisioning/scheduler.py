@@ -6,12 +6,15 @@ pods and hostname topology groups to the kind-level fill scan, kinds
 whose vocab-key groups (zone spread, zone affinity) share ONE narrow key
 to the zonal kind scan, and every other topology kind — vocab-key groups
 over two or more keys, a key wider than KSCAN_D, an initially-empty
-hostname affinity group — to the per-pod scan, in chunks. The same FFD
-order, topology encode, routing, chunking and compaction boundaries and
-decode give a result equal to TPUScheduler.solve's. Gang members, host
-ports, CSI volume limits, finite budgets, reservations, enforced
-minValues and DRA claims raise UnsupportedProblem; nothing falls back to
-another engine.
+hostname affinity group — to the per-pod scan, in chunks. Under finite
+NodePool budgets, enforced minValues or reservations every kind rides the
+per-pod scan. Host ports, CSI attach limits and a PVC's single zone
+alternative ride every route. The same FFD order, topology encode,
+routing, chunking and compaction boundaries and decode give a result
+equal to TPUScheduler.solve's. Gang members, DRA claims, volume
+topologies with several alternatives and volume keys an existing node
+leaves undefined raise UnsupportedProblem; nothing falls back to another
+engine.
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ from karpenter_tpu_torch.controllers.provisioning.host_scheduler import (
     SchedulingResult,
     SimClaim,
     ffd_keys,
+    finalize_min_values,
+    finalize_reserved,
     hostname_placeholder,
+    normalize_volume_reqs,
+    pod_content_sig,
 )
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import ClaimTemplate
 from karpenter_tpu_torch.controllers.provisioning.topology import (
@@ -53,6 +60,8 @@ from karpenter_tpu_torch.ops.encode import (
 )
 from karpenter_tpu_torch.ops.kernels import fetch_tree, pack_bool_np
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
+from karpenter_tpu_torch.scheduling import hostports
+from karpenter_tpu_torch.scheduling.reservations import ReservationManager
 from karpenter_tpu_torch.scheduling.taints import tolerates_all
 from karpenter_tpu_torch.utils import resources as res
 
@@ -66,8 +75,8 @@ GANG_ANNOTATIONS = ("ktpu.dev/gang-name", "ktpu.dev/gang-size", "ktpu.dev/gang-r
 
 class UnsupportedProblem(ValueError):
     """The problem needs a part of the solver this package has not ported
-    (gang members, host ports, CSI limits, finite budgets, reservations,
-    enforced minValues, DRA claims)."""
+    (gang members, DRA claims, volume topologies with several alternatives
+    or with a key an existing node leaves undefined)."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -205,6 +214,9 @@ def _decode_fill_segments(ctx, segs, f) -> None:
     for s, kind, c in claim_events:
         ck = ctx.claim_kinds[s]
         ck[kind] = ck.get(kind, 0) + c
+        pk = ctx.kind_ports(kind)
+        if pk:
+            ctx.slot_to_claim[s].host_ports.extend(pk * c)
     # existing nodes (index order per segment)
     emask = (stream >= 0) & (stream < E)
     if emask.any():
@@ -225,9 +237,12 @@ def _decode_fill_segments(ctx, segs, f) -> None:
                 ctx.existing_assignments[p.metadata.uid] = node.name
     for kind, e_idx, ce in exist_merges:
         req_d = ctx.kind_total(kind)
+        pk = ctx.kind_ports(kind)
         for e, c in zip(e_idx, ce):
             node = ctx.existing_nodes[e]
             node.used = _merge_scaled(node.used, req_d, c)
+            if pk:
+                node.host_ports.extend(pk * c)
             nk = ctx.node_kinds.setdefault(e, {})
             nk[kind] = nk.get(kind, 0) + c
     # leftovers, in stream (= segment) order
@@ -269,6 +284,9 @@ def _apply_assignments(ctx, idx0: int, arr: np.ndarray) -> None:
                 ctx.assignments[p.metadata.uid] = s
                 k = int(kind_of[i])
                 ck[k] = ck.get(k, 0) + 1
+                pk = ctx.kind_ports(k)
+                if pk:
+                    claim.host_ports.extend(pk)
             ctx.claim_pod_counts[s] += b - a
     em = (arr >= 0) & (arr < E)
     if em.any():
@@ -279,6 +297,7 @@ def _apply_assignments(ctx, idx0: int, arr: np.ndarray) -> None:
             node = ctx.existing_nodes[e]
             node.used = res.merge(node.used, ctx.kind_total(k))
             node.pods.append(pod)
+            node.host_ports.extend(ctx.kind_ports(k))
             nk = ctx.node_kinds.setdefault(e, {})
             nk[k] = nk.get(k, 0) + 1
             ctx.existing_assignments[pod.metadata.uid] = node.name
@@ -309,7 +328,9 @@ class TorchScheduler:
     calls (the vocab may grow between calls). Runs on `device` ("cuda" by
     default; raises when CUDA is absent — pass device="cpu" for the plain
     CPU path). plain=True runs the kernels' plain versions on the device
-    (a comparison run)."""
+    (a comparison run). reserved_mode ("fallback" or "strict"),
+    reserved_capacity_enabled and min_values_policy ("Strict" or
+    "BestEffort") are the reference's settings of the same names."""
 
     def __init__(
         self,
@@ -317,6 +338,9 @@ class TorchScheduler:
         max_claims: Optional[int] = None,
         device="cuda",
         plain: bool = False,
+        reserved_mode: str = "fallback",
+        reserved_capacity_enabled: bool = True,
+        min_values_policy: str = "Strict",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -324,6 +348,9 @@ class TorchScheduler:
                 "TorchScheduler: CUDA is not available (pass device='cpu' to run on the CPU)"
             )
         self.plain = plain
+        self.reserved_mode = reserved_mode
+        self.reserved_capacity_enabled = reserved_capacity_enabled
+        self.min_values_policy = min_values_policy
         self.templates = templates
         self.max_claims = max_claims
         self.existing_nodes: list[ExistingSimNode] = []
@@ -353,6 +380,12 @@ class TorchScheduler:
         self._vocab_sig: Optional[tuple] = None
         self._universe_base: Optional[dict] = None
         self._pad_buckets: dict = {}  # pad buckets handed out, per axis kind
+        # per solve: the pool budgets, volume-topology alternatives, CSI
+        # volumes per pod uid and reservation ids already taken
+        self.budgets: dict = {}
+        self._volume_reqs: dict = {}
+        self._pod_vols: dict = {}
+        self._reserved_in_use: dict = {}
 
     # -- encoding ----------------------------------------------------------
 
@@ -379,34 +412,114 @@ class TorchScheduler:
             for it in t.instance_types:
                 its[g, self._it_index[it.name]] = True
             daemon[g] = enc.resources_vector(t.daemon_requests)
-        mv_lists = [
-            [r for r in t.requirements.values() if r.min_values is not None] for t in self.templates
-        ]
+        # minValues floors from the templates (pods never carry them): key -1
+        # counts instance-type names, key j >= 0 the j-th other min-keyed
+        # label, whose values per type sit in the [T, J, V] slab — each
+        # type's raw value set for the key, for NotIn too (Values(),
+        # requirement.go:282-284, as satisfies_min_values counts)
+        mv_keys_named: list[str] = []
+        mv_lists = []
+        for t in self.templates:
+            entries = []
+            for r in t.requirements.values():
+                if r.min_values is None:
+                    continue
+                if r.key == l.LABEL_INSTANCE_TYPE:
+                    entries.append((-1, r.min_values))
+                else:
+                    if r.key not in mv_keys_named:
+                        mv_keys_named.append(r.key)
+                    entries.append((mv_keys_named.index(r.key), r.min_values))
+            mv_lists.append(entries)
+        M = _next_pow2(max((len(e) for e in mv_lists), default=1), 1)
+        mv_key = np.full((G, M), -2, dtype=np.int32)
+        mv_min = np.zeros((G, M), dtype=np.int32)
+        for g, entries in enumerate(mv_lists):
+            for m, (k, v) in enumerate(entries):
+                mv_key[g, m] = k
+                mv_min[g, m] = v
+        mv_it_values = np.zeros((T, max(len(mv_keys_named), 1), v_pad), dtype=bool)
+        for j, key_name in enumerate(mv_keys_named):
+            kid = enc.vocab.key_to_id.get(key_name)
+            if kid is None:
+                continue
+            for t_idx, it in enumerate(self.catalog):
+                if not it.requirements.has(key_name):
+                    continue
+                for v in it.requirements.get(key_name).values:
+                    vid = enc.vocab.value_to_id[kid].get(v)
+                    if vid is not None:
+                        mv_it_values[t_idx, j, vid] = True
         self._mv_active = any(mv_lists)
         self.template_tensors = ops_solver.Templates(
             reqs=tmpl_reqs,
             its=as_tensor(its, dev),
             daemon_requests=as_tensor(daemon, dev),
             valid=torch.ones(G, dtype=torch.bool, device=dev),
+            # per-solve budgets are patched in by _encode
             budget=torch.full((G, enc.n_resources), float("inf"), dtype=torch.float32, device=dev),
             nodes_budget=torch.full((G,), float("inf"), dtype=torch.float32, device=dev),
-            # minValues slabs: inert (enforced floors raise UnsupportedProblem)
-            mv_key=torch.full((G, 1), -2, dtype=torch.int32, device=dev),
-            mv_min=torch.zeros((G, 1), dtype=torch.int32, device=dev),
-            mv_it_values=torch.zeros((T, 1, v_pad), dtype=torch.bool, device=dev),
+            mv_key=as_tensor(mv_key, dev),
+            mv_min=as_tensor(mv_min, dev),
+            mv_it_values=as_tensor(mv_it_values, dev),
         )
         wk = enc.vocab.well_known_mask()
         self.well_known = as_tensor(np.pad(wk, (0, k_pad - len(wk)), constant_values=False), dev)
         # the per-pod kernel's packed type tables, once per encode (the
         # plain path never reads them)
         self.perpod_tables = (
-            ops_cuda.perpod_tables(self.it_tensors, self.template_tensors.its)
+            ops_cuda.perpod_tables(self.it_tensors, self.template_tensors.its, self.template_tensors.mv_it_values)
             if dev.type == "cuda" and not self.plain else None
         )
-        self._res_active = bool(self.it_tensors.res_ofs.any()) and (
-            l.RESERVATION_ID_LABEL_KEY in enc.vocab.key_to_id
+        # the reserved-capacity vocabulary (reservationmanager.go:40-47);
+        # capacities are read per solve
+        self._rid_kid, self._res_vid, self._rid_names = enc.reservation_ids()
+        self._res_active = (
+            self.reserved_capacity_enabled and self._rid_kid >= 0 and self._res_vid >= 0
+            and bool(self.it_tensors.res_ofs.any())
         )
         self._vocab_sig = self._sig()
+
+    def _encode_budgets(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pools' remaining limits per template ([G, R] resources, [G]
+        nodes; +inf where a pool sets none)."""
+        enc = self.encoder
+        G = len(self.templates)
+        budget = np.full((G, enc.n_resources), np.inf, dtype=np.float32)
+        nodes_budget = np.full(G, np.inf, dtype=np.float32)
+        for g, t in enumerate(self.templates):
+            pool_budget = self.budgets.get(t.nodepool_name)
+            if pool_budget is not None:
+                for k, v in pool_budget.items():
+                    if k == "nodes":
+                        nodes_budget[g] = v
+                    elif k in enc.resource_names:
+                        budget[g, enc.resource_names.index(k)] = v
+        return as_tensor(budget, self.device), as_tensor(nodes_budget, self.device)
+
+    def _res_cap0(self) -> np.ndarray:
+        """[RID] i32 reservation capacities for this solve: the catalog's
+        counts minus the ids pinned by claims not launched yet."""
+        cap0 = np.zeros(self.it_tensors.res_ofs.shape[1], dtype=np.int32)
+        if self._rid_names:
+            rm = ReservationManager(self.catalog)
+            for i, rid in enumerate(self._rid_names):
+                cap0[i] = rm.capacity.get(rid, 0)
+            for rid, n in self._reserved_in_use.items():
+                if rid in self._rid_names:
+                    i = self._rid_names.index(rid)
+                    cap0[i] = max(cap0[i] - n, 0)
+        return cap0
+
+    def _flags(self) -> ops_solver.PerPodFlags:
+        """The per-pod scan's minValues and reservation flags (BestEffort
+        never enforces floors in the solve; the decode relaxes them,
+        nodeclaim.go:606-613)."""
+        return ops_solver.PerPodFlags(
+            mv_active=self._mv_active and self.min_values_policy != "BestEffort",
+            res_active=self._res_active, res_strict=self.reserved_mode == "strict",
+            rid_kid=self._rid_kid, res_vid=self._res_vid,
+        )
 
     def _encode_existing(self, e_pad: int) -> ops_solver.ExistingNodes:
         enc = self.encoder
@@ -426,15 +539,120 @@ class TorchScheduler:
             avail[e] = enc.resources_vector(n.available)
         valid = np.zeros(e_pad, dtype=bool)
         valid[: len(self.existing_nodes)] = True
+        # ports and volumes: filled in by _encode_ports / _encode_volumes
         return ops_solver.ExistingNodes(
-            reqs=reqs,
-            avail=as_tensor(avail, dev),
-            valid=as_tensor(valid, dev),
-            ports=torch.zeros((e_pad, 1), dtype=torch.int32, device=dev),
-            vols=torch.zeros((e_pad, 1), dtype=torch.int32, device=dev),
-            vol_limits=torch.full((e_pad, 1), float("inf"), dtype=torch.float32, device=dev),
-            vol_driver=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+            reqs=reqs, avail=as_tensor(avail, dev), valid=as_tensor(valid, dev),
+            ports=None, vols=None, vol_limits=None, vol_driver=None,
         )
+
+    def _encode_ports(self, reps: list, exist_tensors):
+        """The host-port vocabulary over the nodes' and the kinds' ports, and
+        per kind its ports and the ports it conflicts with (same port and
+        protocol, and the same IP or a wildcard on either side), packed 32
+        per int32 lane: (exist_tensors with its ports, ports_k, conf_k)."""
+        port_index: dict = {}
+        for n in self.existing_nodes:
+            for key in n.host_ports:
+                port_index.setdefault(key, len(port_index))
+        for p in reps:
+            for h in p.spec.host_ports:
+                port_index.setdefault(hostports.port_key(h), len(port_index))
+        port_keys = list(port_index)
+        U, E = len(reps), exist_tensors.avail.shape[0]
+        NP = max(len(port_keys), 1)
+        ports = np.zeros((U, NP), dtype=bool)
+        conf = np.zeros((U, NP), dtype=bool)
+        wild = hostports.WILDCARD_IP
+        for u, p in enumerate(reps):
+            for h in p.spec.host_ports:
+                ip, port, proto = hostports.port_key(h)
+                ports[u, port_index[(ip, port, proto)]] = True
+                for j, (jip, jport, jproto) in enumerate(port_keys):
+                    if port == jport and proto == jproto and (ip == wild or jip == wild or ip == jip):
+                        conf[u, j] = True
+        exist_ports = np.zeros((E, NP), dtype=bool)
+        for e, n in enumerate(self.existing_nodes):
+            for key in n.host_ports:
+                exist_ports[e, port_index[key]] = True
+        exist_tensors = exist_tensors._replace(ports=as_tensor(pack_bool_np(exist_ports), self.device))
+        return exist_tensors, pack_bool_np(ports), pack_bool_np(conf)
+
+    def _encode_volumes(self, reps: list, exist_tensors):
+        """CSI attach limits (volumeusage.go:187-229): a (driver, PVC) column
+        vocabulary over the drivers some node limits, shared by the nodes'
+        usage and the kinds' volumes, plus a marker column that flags a
+        kind carrying any volume (the check must run for it, even when all
+        its volumes belong to unlimited drivers). Inert one-lane tensors
+        when no node limits a driver or no kind carries a volume. Returns
+        (exist_tensors with vols / vol_limits / vol_driver, vols_k)."""
+        U, E = len(reps), exist_tensors.avail.shape[0]
+        limited_drivers = {d for n in self.existing_nodes if n.volume_usage is not None for d in n.volume_usage.limits}
+        pod_vols = self._pod_vols
+        if limited_drivers and any(pod_vols.get(p.uid) for p in reps):
+            col_index: dict = {}
+            drv_index: dict = {}
+
+            def vol_col(driver: str, pvc: str) -> None:
+                if driver in limited_drivers:
+                    drv_index.setdefault(driver, len(drv_index))
+                    col_index.setdefault((driver, pvc), len(col_index))
+
+            for n in self.existing_nodes:
+                vu = n.volume_usage
+                if vu is None:
+                    continue
+                for driver in vu.limits:
+                    drv_index.setdefault(driver, len(drv_index))
+                for vols in vu.pod_volumes.values():
+                    for driver, pvcs in vols.items():
+                        for pvc in pvcs:
+                            vol_col(driver, pvc)
+            for p in reps:
+                for driver, pvcs in (pod_vols.get(p.uid) or {}).items():
+                    for pvc in pvcs:
+                        vol_col(driver, pvc)
+            marker = len(col_index)
+            NV = _next_pow2(len(col_index) + 1, 1)
+            ND = _next_pow2(max(len(drv_index), 1), 1)
+            vol_driver = np.zeros((NV, ND), dtype=bool)
+            for (driver, _pvc), c in col_index.items():
+                vol_driver[c, drv_index[driver]] = True
+            exist_vols = np.zeros((E, NV), dtype=bool)
+            vol_limits = np.full((E, ND), np.inf, dtype=np.float32)
+            for e, n in enumerate(self.existing_nodes):
+                vu = n.volume_usage
+                if vu is None:
+                    continue
+                for driver, cap in vu.limits.items():
+                    vol_limits[e, drv_index[driver]] = float(cap)
+                for vols in vu.pod_volumes.values():
+                    for driver, pvcs in vols.items():
+                        for pvc in pvcs:
+                            c = col_index.get((driver, pvc))
+                            if c is not None:
+                                exist_vols[e, c] = True
+            vols_k = np.zeros((U, NV), dtype=bool)
+            for u, p in enumerate(reps):
+                vols = pod_vols.get(p.uid)
+                if vols:
+                    vols_k[u, marker] = True
+                for driver, pvcs in (vols or {}).items():
+                    for pvc in pvcs:
+                        c = col_index.get((driver, pvc))
+                        if c is not None:
+                            vols_k[u, c] = True
+        else:
+            vol_driver = np.zeros((1, 1), dtype=bool)
+            exist_vols = np.zeros((E, 1), dtype=bool)
+            vol_limits = np.full((E, 1), np.inf, dtype=np.float32)
+            vols_k = np.zeros((U, 1), dtype=bool)
+        dev = self.device
+        exist_tensors = exist_tensors._replace(
+            vols=as_tensor(pack_bool_np(exist_vols), dev),
+            vol_limits=as_tensor(vol_limits, dev),
+            vol_driver=as_tensor(pack_bool_np(vol_driver.T), dev),
+        )
+        return exist_tensors, pack_bool_np(vols_k)
 
     def universe_base(self) -> dict:
         """The cached template/catalog half of the topology domain universe."""
@@ -442,27 +660,37 @@ class TorchScheduler:
             self._universe_base = template_universe_domains(self.templates)
         return self._universe_base
 
-    def _check_supported(self, pods: Sequence[Pod], budgets) -> None:
-        """Raise UnsupportedProblem for what no ported engine runs (the
-        routing check, which needs the kind classification, is in
-        _encode)."""
+    def _check_supported(self, pods: Sequence[Pod]) -> None:
+        """Raise UnsupportedProblem for what no ported engine runs: gang
+        members and DRA claims (the volume checks are solve's and
+        whatif_batch's, where the reference routes them)."""
         for p in pods:
-            s = p.spec
-            if s.host_ports:
-                raise UnsupportedProblem(f"pod {p.name}: host ports")
-            if s.resource_claims:
+            if p.spec.resource_claims:
                 raise UnsupportedProblem(f"pod {p.name}: DRA resource claims")
             if any(k in p.metadata.annotations for k in GANG_ANNOTATIONS):
                 raise UnsupportedProblem(f"pod {p.name}: gang member")
-        for n in self.existing_nodes:
-            if n.volume_usage is not None:
-                raise UnsupportedProblem(f"existing node {n.name}: CSI attach limits")
-        if any(v for v in (budgets or {}).values()):
-            raise UnsupportedProblem("finite NodePool budgets")
-        if self._mv_active:
-            raise UnsupportedProblem("enforced minValues")
-        if self._res_active:
-            raise UnsupportedProblem("reservations")
+
+    def _kind_sig(self, pod: Pod):
+        """The pod-kind signature: its content, refined by its volume
+        topology alternatives (pods of one kind share every encoded row)."""
+        alts = self._volume_reqs.get(pod.uid)
+        vol_sig = None if not alts else tuple(
+            tuple((r.key, r.complement, tuple(sorted(r.values)), r.gte, r.lte)
+                  for r in sorted(a.values(), key=lambda r: r.key))
+            for a in alts
+        )
+        return (pod_content_sig(pod), vol_sig)
+
+    def _pod_reqs(self, pod: Pod) -> Requirements:
+        """The pod's requirements with its PVC's zone restriction folded in
+        (volume topology narrows the node side, not the strict
+        requirements that topology counting reads — volumetopology.go).
+        Only single-alternative problems get here."""
+        reqs = Requirements.from_pod(pod)
+        alts = self._volume_reqs.get(pod.uid)
+        if alts:
+            reqs.add(*alts[0].values())
+        return reqs
 
     def _encode(self, pods: Sequence[Pod], budgets, topology: Optional[Topology] = None) -> tuple[list[Pod], dict]:
         """Encode one problem (the provisioning solve's, or the what-ifs'
@@ -494,7 +722,8 @@ class TorchScheduler:
                 self.encoder.vocab.add_value(g.key, d)
         # ---- FFD sort + pod-kind dedup ---------------------------------
         if P:
-            sig, sizes = ffd_keys(pods_list)
+            # kinds refined by the volume restriction (the reference's _kind_sig)
+            sig, sizes = ffd_keys(pods_list, self._kind_sig)
             order = np.lexsort((sig, -sizes))  # ffd_sort's order
             pods_sorted = [pods_list[i] for i in order]
             # kind ids numbered by first appearance in the SORTED sequence
@@ -512,18 +741,26 @@ class TorchScheduler:
         # mask layout
         for p in reps:
             self.encoder.observe_pod(p)
+            for alt in self._volume_reqs.get(p.uid) or ():
+                for r in alt.values():
+                    self.encoder.vocab.add_key(r.key)
+                    for v in r.values:
+                        self.encoder.vocab.add_value(r.key, v)
         for n in self.existing_nodes:
             self.encoder.observe_requirements(n.requirements)
             self.encoder.observe_resources(n.available)
         if self._vocab_sig != self._sig():
             self._encode_static()
-        self._check_supported(pods_list, budgets)
+        self._check_supported(pods_list)
+        self.budgets = {k: dict(v) for k, v in (budgets or {}).items()}
+        budget, nodes_budget = self._encode_budgets()
+        template_tensors = self.template_tensors._replace(budget=budget, nodes_budget=nodes_budget)
         E = _next_pow2(max(len(self.existing_nodes), 1), 1)
         exist_tensors = self._encode_existing(E)
         U = len(reps)
         k_pad, v_pad = self._pads()
         enc = self.encoder
-        rep_reqs = [Requirements.from_pod(p) for p in reps]
+        rep_reqs = [self._pod_reqs(p) for p in reps]
         row_memo: dict = {}
         reqs_np = encode_requirements_np(enc.vocab, rep_reqs, k_pad, v_pad, enc.skip_keys, row_memo=row_memo)
         strict_np = encode_requirements_np(
@@ -564,19 +801,9 @@ class TorchScheduler:
         pod_topo, rel = topo_ops.encode_pod_topology(
             topology, vg, hg, reps, as_tensor(strict_np[0], dev)
         )
-        # host ports on existing nodes still gate tier 1 (pods carry none)
-        port_keys: dict = {}
-        for n in self.existing_nodes:
-            for key in n.host_ports:
-                port_keys.setdefault(key, len(port_keys))
-        NP = max(len(port_keys), 1)
-        exist_ports0 = np.zeros((E, NP), dtype=bool)
-        for e, n in enumerate(self.existing_nodes):
-            for key in n.host_ports:
-                exist_ports0[e, port_keys[key]] = True
-        exist_tensors = exist_tensors._replace(ports=as_tensor(pack_bool_np(exist_ports0), dev))
+        exist_tensors, ports_k, conf_k = self._encode_ports(reps, exist_tensors)
+        exist_tensors, vols_k = self._encode_volumes(reps, exist_tensors)
         n_ports = exist_tensors.ports.shape[1]
-        zeros_u = np.zeros((U, n_ports), dtype=np.int32)
         zone_kid, ct_kid = enc.zone_ct_key_ids()
         topo_kids = tuple(sorted({enc.vocab.key_to_id[g.key] for g in vg}))
         segments: list[tuple[int, int, int]] = []
@@ -585,7 +812,11 @@ class TorchScheduler:
             starts = np.concatenate(([0], np.flatnonzero(ko[1:] != ko[:-1]) + 1))
             ends = np.concatenate((starts[1:], [P]))
             segments = [(int(lo), int(hi), int(ko[lo])) for lo, hi in zip(starts, ends)]
-        batchable, kscan_key = self._classify(reps, rel, vg, hg)
+        # under finite budgets, enforced minValues or reservations every
+        # kind rides the per-pod scan (the reference's allow_fill)
+        flags = self._flags()
+        allow_fill = not flags.mv_active and not flags.res_active and not any(v for v in self.budgets.values())
+        batchable, kscan_key = self._classify(reps, rel, vg, hg, allow_fill)
         kinds = dict(
             reqs=ReqSetTensors.from_numpy(reqs_np, dev),
             strict=ReqSetTensors.from_numpy(strict_np, dev),
@@ -593,9 +824,9 @@ class TorchScheduler:
             tmpl_ok=as_tensor(tol, dev),
             it_allow=as_tensor(it_allow, dev),
             exist_ok=as_tensor(exist_ok, dev),
-            ports=as_tensor(zeros_u, dev),
-            port_conf=as_tensor(zeros_u, dev),
-            vols=torch.zeros((U, 1), dtype=torch.int32, device=dev),
+            ports=as_tensor(ports_k, dev),
+            port_conf=as_tensor(conf_k, dev),
+            vols=as_tensor(vols_k, dev),
             topo=pod_topo,
         )
         return pods_sorted, dict(
@@ -607,7 +838,8 @@ class TorchScheduler:
             kscan_key=kscan_key,
             reps=reps,
             exist_tensors=exist_tensors,
-            template_tensors=self.template_tensors,
+            template_tensors=template_tensors,
+            res_cap0=as_tensor(self._res_cap0(), dev),
             topo_tensors=topo,
             vg_groups=vg,
             hg_groups=hg,
@@ -620,14 +852,15 @@ class TorchScheduler:
             P=P,
         )
 
-    def _classify(self, reps: list, rel: dict, vg: list, hg: list) -> tuple[np.ndarray, np.ndarray]:
+    def _classify(self, reps: list, rel: dict, vg: list, hg: list, allow_fill: bool) -> tuple:
         """Route every kind (the reference's batchability and kscan-key
         rules): a kind rides the fill scan unless it interacts with a
         vocab-key group or with an initially-empty hostname affinity group
         (whose bootstrap is ordered); such a kind rides the kind scan when
         every vocab-key group it applies to or records into shares ONE key
         with at most KSCAN_D values (kscan_key = that key), and the per-pod
-        scan otherwise (kscan_key = -1)."""
+        scan otherwise (kscan_key = -1). Without allow_fill every kind
+        rides the per-pod scan."""
         U = len(reps)
         vga, vgr, hga = rel["vga"], rel["vgr"], rel["hga"]
         empty_aff = np.zeros(hga.shape[1], dtype=bool)
@@ -637,8 +870,10 @@ class TorchScheduler:
         batchable = np.array(
             [not vga[u].any() and not vgr[u].any() and not (hga[u] & empty_aff).any() for u in range(U)],
             dtype=bool,
-        )
+        ) & allow_fill
         kscan_key = np.full(U, -1, dtype=np.int64)
+        if not allow_fill:
+            return batchable, kscan_key
         vocab = self.encoder.vocab
         vkeys = [vocab.key_to_id[g.key] for g in vg]
         for u in np.flatnonzero(~batchable).tolist():
@@ -761,7 +996,7 @@ class TorchScheduler:
         topo_kids = enc["topo_kids"]
         state = ops_solver.initial_state(
             enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
-            enc["topo_tensors"], n_claims, enc["n_ports"], window=n_claims, topo_kids=topo_kids,
+            enc["topo_tensors"], n_claims, enc["n_ports"], enc["res_cap0"], window=n_claims, topo_kids=topo_kids,
         )
         runs = self._runs(enc)
         chunk = self.solve_chunk
@@ -805,7 +1040,7 @@ class TorchScheduler:
                     *rows, pod_topo = self._gather_pod_chunk(enc, kidx, L)
                     state, assignment = ops_solver.solve_from(
                         state, *rows, *common[:5], pod_topo, *common[5:], topo_kids=topo_kids, plain=self.plain,
-                        tables=self.perpod_tables,
+                        tables=self.perpod_tables, flags=self._flags(),
                     )
                     outputs.append(("pods", clo, chi, assignment))
                     n_perpod += 1
@@ -886,6 +1121,10 @@ class TorchScheduler:
         existing_nodes: Optional[list[ExistingSimNode]] = None,
         budgets: Optional[dict[str, dict[str, float]]] = None,
         topology: Optional[Topology] = None,
+        volume_reqs: Optional[dict] = None,
+        reserved_mode: Optional[str] = None,
+        reserved_in_use: Optional[dict[str, int]] = None,
+        pod_volumes: Optional[dict] = None,
     ) -> SchedulingResult:
         """Schedule pods onto existing nodes and new claims, with the
         preference relaxation ladder and NO_ROOM recovery of the reference
@@ -893,14 +1132,32 @@ class TorchScheduler:
         had a real chance at a slot). `topology`, when given (seeded from
         the pods bound to the existing nodes, as a consolidation
         simulation builds it), replaces the one built from the pods; every
-        round solves on a pristine deep copy of it."""
+        round solves on a pristine deep copy of it. `budgets` are the
+        pools' remaining limits ({pool: {resource or "nodes": amount}}),
+        `volume_reqs` each pod uid's volume-topology alternatives,
+        `pod_volumes` each pod uid's CSI volumes ({driver: {pvc}}),
+        `reserved_in_use` the reservation ids held by claims not launched
+        yet, and `reserved_mode` overrides the scheduler's for this solve."""
+        norm_vol = normalize_volume_reqs(volume_reqs)
+        if any(len(alts) > 1 for alts in norm_vol.values()):
+            # the reference's host oracle tries each alternative per pod
+            raise UnsupportedProblem("volume topologies with several alternatives")
+        if norm_vol and existing_nodes:
+            keys = {r.key for alts in norm_vol.values() for a in alts for r in a.values()}
+            if any(not n.requirements.has(k) for n in existing_nodes for k in keys):
+                raise UnsupportedProblem("volume topology key undefined on an existing node")
         base_existing = list(existing_nodes or [])
         self._n_claims_override = None
+        self._volume_reqs = norm_vol
+        self._pod_vols = pod_volumes or {}
+        self._reserved_in_use = reserved_in_use or {}
+        round_dispatches = []  # per _solve_once: its per-pod chunks
 
         def solve_round(current: list[Pod]) -> SchedulingResult:
             while True:
                 topo = copy.deepcopy(topology) if topology is not None else None
                 result = self._solve_once(current, [n.clone() for n in base_existing], budgets, topo)
+                round_dispatches.append(self.last_stats["perpod_dispatches"])
                 cap = _next_pow2(max(len(current), 1))
                 used = self._last_n_claims or self.max_claims or cap
                 leftover = sum(1 for _, reason in result.unschedulable if reason == NO_ROOM_REASON)
@@ -911,7 +1168,16 @@ class TorchScheduler:
                 est = int(used * len(current) / placed * 1.25) + 32
                 self._n_claims_override = min(max(used * 2, -(-est // 256) * 256), cap)
 
-        return prefs.run_with_relaxation(list(pods), solve_round)
+        prev_mode = self.reserved_mode
+        if reserved_mode is not None:
+            self.reserved_mode = reserved_mode
+        try:
+            result = prefs.run_with_relaxation(list(pods), solve_round)
+        finally:
+            self.reserved_mode = prev_mode
+        # last_stats describe the last round; these count every round
+        self.last_stats.update(rounds=len(round_dispatches), perpod_dispatches_all=sum(round_dispatches))
+        return result
 
     # -- batched consolidation what-ifs -------------------------------------
 
@@ -941,15 +1207,13 @@ class TorchScheduler:
         None where the reference returns None, so that the caller
         simulates the scenarios one by one: gang pods, volume topologies
         with several alternatives or a key some node leaves undefined, and
-        scenarios whose topology groups differ from the first one's. What
-        the reference answers but this package has not ported raises
-        UnsupportedProblem (volume topologies, CSI attach limits, host
-        ports, finite budgets, enforced minValues, reservations, DRA
-        claims). `reserved_in_use` has nothing to count without
-        reservations, and `bound_pods` is the reference's data form for a
-        remote engine; neither is read."""
+        scenarios whose topology groups differ from the first one's. DRA
+        claims, which the port has not ported, raise UnsupportedProblem.
+        `volume_reqs`, `pod_volumes` and `reserved_in_use` are solve's;
+        `bound_pods` is the reference's data form for a remote engine and
+        is not read."""
         t0 = time.perf_counter()
-        vol = {uid: list(v) for uid, v in (volume_reqs or {}).items() if v}
+        vol = normalize_volume_reqs(volume_reqs)
         if any(len(alts) > 1 for alts in vol.values()):
             return None
         if vol and existing_nodes:
@@ -959,11 +1223,8 @@ class TorchScheduler:
         pods = list(pods)
         if any(p.metadata.annotations.get(GANG_ANNOTATIONS[0]) for p in pods):
             return None
-        if vol:
-            raise UnsupportedProblem("volume topology requirements")
-        if any(pod_volumes.values() if pod_volumes else ()):
-            raise UnsupportedProblem("CSI attach limits")
-        inputs = self._whatif_inputs(pods, existing_nodes, budgets, scenarios, topology_factory)
+        inputs = self._whatif_inputs(pods, existing_nodes, budgets, scenarios, topology_factory, vol,
+                                     reserved_in_use, pod_volumes)
         if inputs is None:
             return None
         args, kwargs = inputs
@@ -975,12 +1236,16 @@ class TorchScheduler:
         self.last_timings = dict(encode_s=t1 - t0, device_s=t2 - t1, decode_s=time.perf_counter() - t2)
         return out
 
-    def _whatif_inputs(self, pods: list, existing_nodes, budgets, scenarios, topology_factory):
+    def _whatif_inputs(self, pods: list, existing_nodes, budgets, scenarios, topology_factory, volume_reqs=None,
+                       reserved_in_use=None, pod_volumes=None):
         """solve_whatif's (args, kwargs) for whatif_batch: the union encode
         with scenario 0's topology, each scenario's compact pod list in FFD
         order, its surviving nodes and its topology seeds; None when a
         scenario's topology groups differ from scenario 0's. Sets
         last_stats (S, L, E, W, ...)."""
+        self._volume_reqs = normalize_volume_reqs(volume_reqs)
+        self._pod_vols = pod_volumes or {}
+        self._reserved_in_use = reserved_in_use or {}
         # the what-if always runs unwindowed on the cold claims axis
         self._n_claims_override = None
         self.existing_nodes = [n.clone() for n in existing_nodes]
@@ -1036,7 +1301,10 @@ class TorchScheduler:
             pt, tol, it_allow, exist_ok, ports, port_conf, vols, enc["exist_tensors"], self.it_tensors,
             enc["template_tensors"], self.well_known, tt, pod_topo, enc["zone_kid"], enc["ct_kid"], n_claims,
         )
-        return args, dict(topo_kids=enc["topo_kids"], plain=self.plain, tables=self.perpod_tables)
+        return args, dict(
+            topo_kids=enc["topo_kids"], plain=self.plain, tables=self.perpod_tables, res_cap0=enc["res_cap0"],
+            flags=self._flags(),
+        )
 
     # -- decoding ----------------------------------------------------------
 
@@ -1073,11 +1341,17 @@ class TorchScheduler:
         U = len(reps)
         kind_reqs_c: list = [None] * U
         kind_total_c: list = [None] * U
+        kind_ports_c: list = [None] * U
 
         def kind_reqs(k: int) -> Requirements:
             if kind_reqs_c[k] is None:
-                kind_reqs_c[k] = Requirements.from_pod(reps[k])
+                kind_reqs_c[k] = self._pod_reqs(reps[k])
             return kind_reqs_c[k]
+
+        def kind_ports(k: int) -> list:
+            if kind_ports_c[k] is None:
+                kind_ports_c[k] = [hostports.port_key(h) for h in reps[k].spec.host_ports]
+            return kind_ports_c[k]
 
         def kind_total(k: int) -> dict:
             if kind_total_c[k] is None:
@@ -1121,6 +1395,7 @@ class TorchScheduler:
             unschedulable=unschedulable,
             node_kinds=node_kinds,
             kind_total=kind_total,
+            kind_ports=kind_ports,
             kind_of=kind_of,
         )
         for o, f in zip(outputs, fetched["outputs"]):
@@ -1135,6 +1410,8 @@ class TorchScheduler:
 
         its_mask = claims_cols["its"]
         used_np = claims_cols["used"]
+        held = claims_cols["held"]
+        n_rid = len(self._rid_names)
         rids = self.encoder._resource_ids
         proto_cache: dict = {}
         its_cache: dict = {}
@@ -1170,6 +1447,12 @@ class TorchScheduler:
                 sel = np.flatnonzero(row[t_cat_idx])
                 sel_list = its_cache[ikey] = [t_its[i] for i in sel.tolist()]
             claim.instance_types = list(sel_list)
+            # the reservations the scan holds for this claim
+            if n_rid:
+                claim.reserved_ids = frozenset(self._rid_names[r] for r in np.nonzero(held[s][:n_rid])[0])
+            finalize_reserved(claim)
+            if self.min_values_policy == "BestEffort":
+                finalize_min_values(claim)
 
         for e, kinds in node_kinds.items():
             node = self.existing_nodes[e]
@@ -1180,6 +1463,14 @@ class TorchScheduler:
                     vocab, topo_kids, node.requirements, fetched["e_mask"][e], fetched["e_inf"][e],
                     fetched["e_def"][e], f"existing node {node.name}",
                 )
+        # attach tracking of the pods that landed on existing nodes
+        if self._pod_vols:
+            by_name = {n.name: n for n in self.existing_nodes}
+            for uid, node_name in existing_assignments.items():
+                vols = self._pod_vols.get(uid)
+                node = by_name.get(node_name)
+                if vols and node is not None and node.volume_usage is not None:
+                    node.volume_usage.add(uid, vols)
         return SchedulingResult(
             claims=claims,
             unschedulable=unschedulable,

@@ -166,7 +166,10 @@ __device__ bool vg_eval(const Shared& sh, const Loop& p, uint32_t zs, uint32_t* 
     if (sh.vtype[j] == kSpread) {
       const uint32_t valid = sh.dom[j] & zs & sh.okskew[j];
       int32_t key[kMaxD];
-      for (int d = 0; d < p.D; ++d) key[d] = sh.eff[j][d] * kRankBase + sh.rank[j][d];
+      // (count + self) * 2^16 + rank in uint32, wrapping past a count of
+      // 2^15 - 1 as the reference's int32 arithmetic does
+      for (int d = 0; d < p.D; ++d)
+        key[d] = (int32_t)((uint32_t)sh.eff[j][d] * (uint32_t)kRankBase + (uint32_t)sh.rank[j][d]);
       narrowed = argmin_onehot(valid, key, p.D);
     } else {
       const uint32_t boot_space = sh.dom[j] & sh.pd & zs;

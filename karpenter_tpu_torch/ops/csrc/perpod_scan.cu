@@ -3,7 +3,9 @@
 // (:1024) and `solve_from` (:1069) and vmapped over consolidation
 // scenarios by `solve_whatif` (:1120-1205), with ops/topology.py
 // `vg_pod_precompute` (:383), `vg_evaluate` (:441), `vg_commit` (:492),
-// `hg_evaluate` (:511) and `hg_commit` (:531) inlined. It takes the place
+// `hg_evaluate` (:511) and `hg_commit` (:531) inlined, and the step's
+// minValues and reservation branches (solver.py:513-531, 580-589, 683-700;
+// `_min_values_ok` :289, `_reserve_options` :352). It takes the place
 // of the port's earlier kernels H7 (a block per candidate row, a launch
 // per pod) and H8 (a block to pick and commit, a launch per pod).
 //
@@ -75,11 +77,26 @@
 // whenever the stored rows satisfy that invariant, which every writer of
 // the carry keeps (tests/test_torch_perpod.py drives the fallback branch).
 //
+// minValues and reservations (the launch's mv_active / res_active). A row's
+// feasibility then depends on its whole viable type set, so eval_row
+// tests all T types instead of stopping at the first survivor: each chunk
+// of 32 types ballots its survivors, and lanes over words OR the
+// survivors' value-bit words of the J min-keyed keys (table kMv) and
+// their reserved-offering bits (kRes, bit r·RZ + z) into the row scratch.
+// The floors are popcounts of those words against the template's mv_min
+// (key -1: the survivors counted); the reservable options (to_res: an
+// offering on a survivor in an admitted zone, capacity type and id, held
+// already or with capacity left) stay in the scratch for the commit,
+// which reserves the newly held ids and releases the dropped ones. The
+// reservation capacities are the launch's, in shared memory, like the
+// vocab-key counts; held rows take the carry's per-scenario stride.
+//
 // Numerics: charges are used + req as one f32 add; every count and key is
 // int32; set tests are exact boolean reductions where the reference uses
-// bf16 einsums; the spread pick keys on (count + self)·2^16 + rank, the affinity
-// bootstrap on rank, ties to the lowest value index (set bits are visited
-// lowest first).
+// bf16 einsums; the spread pick keys on (count + self)·2^16 + rank, formed
+// in uint32 so that it wraps as the reference's int32 arithmetic does, the
+// affinity bootstrap on rank, ties to the lowest value index (set bits are
+// visited lowest first).
 //
 // Bound on an H100: a latency chain. A step depends on the step before
 // through the counts and the claim rows, so a block's steps cannot
@@ -145,6 +162,8 @@ struct P {
   int32_t* exist_ports;    // [E, NPp]
   int32_t* claim_ports;    // [W, NPp]
   int32_t* exist_vols;     // [E, NVp]
+  int32_t* res_cap;        // [RID] reservation capacity left
+  uint8_t* held;           // [W, RID] the reservations each claim holds
   // problem, read only (the type tables come packed, see Tab)
   float* avail;            // [E, R]
   uint8_t* exist_valid;    // [E]
@@ -153,6 +172,8 @@ struct P {
   Set tr;                  // [G] template requirements
   float* daemon;           // [G, R]
   uint8_t* t_valid;        // [G]
+  int32_t* mv_key;         // [G, M] minValues keys: -1 names, j >= 0 min-keyed key j, -2 none
+  int32_t* mv_min;         // [G, M] their floors
   uint8_t* well_known;     // [K]
   int32_t* vg_key;         // [NGv]
   int32_t* vg_type;
@@ -191,11 +212,14 @@ struct P {
   int32_t* assignment;     // [L]
   // the union pod row of each step; null in the single-scenario entry
   int32_t* pod_idx;        // [L]
-  // Sl: hostname slots (E + NCAP + 1), the second axis of hg_counts
+  // Sl: hostname slots (E + NCAP + 1), the second axis of hg_counts; J
+  // min-keyed keys, M minValues entries per template; RID reservation ids
+  // over RZ zones; the flags of the minValues and reservation branches
   int E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid;
+  int J, M, RID, RZ, rid_kid, res_vid, mv_active, res_active, res_strict;
 };
-constexpr int kPtrs = 78;
-constexpr int kDims = 20;
+constexpr int kPtrs = 82;
+constexpr int kDims = 29;
 
 // The kernel's parameter: the block of scenario 0 and each pointer's byte
 // stride from one scenario to the next (0 for what the scenarios share).
@@ -205,7 +229,7 @@ struct PS {
 };
 
 // The packed type tables (ops/cuda.py _TABLES), in staging order.
-enum Tab { kTIts, kGv, kAlloc, kZc, kCap, kDef, kInf, kExcl, kMbits, kGte, kLte, kTabs };
+enum Tab { kTIts, kGv, kAlloc, kZc, kCap, kDef, kInf, kExcl, kMbits, kGte, kLte, kMv, kRes, kTabs };
 
 struct TabArgs {
   const char* base;              // the packed buffer in device memory
@@ -225,6 +249,8 @@ struct Tabs {
   const uint32_t* mbits;  // [K, NW, T] value bits
   const int32_t* gte;     // [K, T]
   const int32_t* lte;     // [K, T]
+  const uint32_t* mv;     // [J, NW, T] each type's value bits of the min-keyed keys
+  const uint32_t* res;    // [NRW, T] each type's reserved offerings, bit r*RZ + z
 };
 
 // The pod-only terms of a step, and copies of the small read-only tables
@@ -239,6 +265,7 @@ struct Pod {
   int32_t *rank, *vkey, *vtype, *vskew, *vmind;         // [NGv*V], [NGv] x 4
   int32_t *htype, *hskew;                               // [NGh]
   int32_t *vgc, *sc;                                    // [NGv*V], [4]
+  int32_t* rescap;                                      // [RID] the carry's reservation capacity
   // per step
   uint32_t *pmb, *smb;                                  // [K*NW] the pod mask's bits, its strict mask's
   uint8_t *pinf, *pexcl, *pdef, *plen, *touched;        // [K]
@@ -270,6 +297,9 @@ struct WS {
   int32_t *cgte, *clte;                            // [K]
   uint32_t* zcm;                                   // [NZW] admitted (zone, capacity type) bits
   float *total, *bud;                              // [R] usage with the pod, (tier 3) the budget
+  uint32_t *mvb, *resb, *tores;                    // [J*NW] the viable types' min-keyed values,
+                                                   // [NRW] their reserved offerings, [NTW] the
+                                                   // reservable ids (to_res)
 };
 
 __host__ __device__ inline int words(int bits) { return (bits + 31) / 32; }
@@ -289,6 +319,7 @@ __host__ __device__ inline size_t carve(char* base, const P& p, int nev, Pod* po
   size_t off = 0;
   const size_t K = p.K, GV = (size_t)p.NGv * p.V, NGv = p.NGv, NGh = p.NGh;
   const size_t NW = words(p.V), NZW = words(p.Z * p.C);
+  const size_t JW = (size_t)p.J * NW, NRW = words(p.RID * p.RZ), NTW = words(p.RID);
   Pod d;
   d.domb = (uint32_t*)take(base, &off, 4 * NGv * NW);
   d.vvalid = (uint8_t*)take(base, &off, NGv);
@@ -302,6 +333,7 @@ __host__ __device__ inline size_t carve(char* base, const P& p, int nev, Pod* po
   d.hskew = (int32_t*)take(base, &off, 4 * NGh);
   d.vgc = (int32_t*)take(base, &off, 4 * GV);
   d.sc = (int32_t*)take(base, &off, 16);
+  d.rescap = (int32_t*)take(base, &off, 4 * (size_t)p.RID);
   d.pmb = (uint32_t*)take(base, &off, 4 * K * NW);
   d.smb = (uint32_t*)take(base, &off, 4 * K * NW);
   uint8_t** k8[] = {&d.pinf, &d.pexcl, &d.pdef, &d.plen, &d.touched};
@@ -338,6 +370,9 @@ __host__ __device__ inline size_t carve(char* base, const P& p, int nev, Pod* po
     s.zcm = (uint32_t*)take(base, &off, 4 * NZW);
     s.total = (float*)take(base, &off, 4 * (size_t)p.R);
     s.bud = (float*)take(base, &off, 4 * (size_t)p.R);
+    s.mvb = (uint32_t*)take(base, &off, 4 * JW);
+    s.resb = (uint32_t*)take(base, &off, 4 * NRW);
+    s.tores = (uint32_t*)take(base, &off, 4 * NTW);
     if (ws) ws[w / 2][w % 2] = s;
   }
   return off;
@@ -472,6 +507,90 @@ __device__ bool row_cheap(const P& p, const Pod& pa, int pod, int tier, int idx)
   return ok;
 }
 
+// eval_row's type test under minValues or reservations: every type, the
+// survivors' min-keyed value words and reserved offerings ORed into the
+// scratch, then the floors (_min_values_ok) and the reservable options
+// (_reserve_options, the strict refusals), warp-uniform. Leaves to_res in
+// ws.tores.
+__device__ bool eval_types_full(const P& p, const Tabs& tb, const Pod& pa, const WS& ws, int tier, int idx,
+                                bool its_first) {
+  const int lane = threadIdx.x & 31, T = p.T, NW = words(p.V);
+  const int JW = p.J * NW, NRW = words(p.RID * p.RZ), NTW = words(p.RID);
+  for (int q = lane; q < JW; q += 32) ws.mvb[q] = 0;
+  for (int q = lane; q < NRW; q += 32) ws.resb[q] = 0;
+  int n = 0;  // the surviving types
+  for (int b = 0; b < T; b += 32) {
+    const int t = b + lane;
+    const bool ok = t < T && (b == 0 ? its_first : true) && type_ok(p, tb, pa, ws, tier, idx, t);
+    const unsigned m = __ballot_sync(kFull, ok);
+    n += __popc(m);
+    // lanes over words, each ORing its word of every survivor of the chunk
+    if (p.mv_active)
+      for (int q = lane; q < JW; q += 32) {
+        uint32_t acc = 0;
+        for (unsigned c = m; c; c &= c - 1) acc |= tb.mv[(int64_t)q * T + b + __ffs(c) - 1];
+        ws.mvb[q] |= acc;
+      }
+    if (p.res_active)
+      for (int q = lane; q < NRW; q += 32) {
+        uint32_t acc = 0;
+        for (unsigned c = m; c; c &= c - 1) acc |= tb.res[(int64_t)q * T + b + __ffs(c) - 1];
+        ws.resb[q] |= acc;
+      }
+  }
+  __syncwarp();
+  if (n == 0) return false;
+  bool bad = false;
+  if (p.mv_active) {
+    // the floors: key -1 counts the types, key j the distinct values of
+    // min-keyed key j; padding entries have floor 0
+    const int tmpl = tier == 2 ? p.tmpl[idx] : idx;
+    for (int m = lane; m < p.M; m += 32) {
+      const int32_t key = p.mv_key[(int64_t)tmpl * p.M + m], need = p.mv_min[(int64_t)tmpl * p.M + m];
+      if (need <= 0) continue;
+      int cnt = n;
+      if (key != -1) {
+        const int j = min(max(key, 0), p.J - 1);
+        cnt = 0;
+        for (int w = 0; w < NW; ++w) cnt += __popc(ws.mvb[j * NW + w]);
+      }
+      if (cnt < need) bad = true;
+    }
+  }
+  if (p.res_active) {
+    // an available reserved offering on a survivor whose zone, reservation
+    // id and capacity type the narrowed row admits; reservable when the
+    // claim holds it already or capacity is left
+    const uint32_t* zb = ws.cmb + p.zone_kid * NW;
+    const uint32_t* rb = ws.cmb + p.rid_kid * NW;
+    const bool ct_res = bit(ws.cmb + p.ct_kid * NW, p.res_vid);
+    const uint8_t* hrow = tier == 2 ? p.held + (int64_t)idx * p.RID : nullptr;
+    bool any_ofs = false, any_to = false, any_held = false;
+    for (int w = lane; w < NTW; w += 32) {
+      uint32_t to = 0;
+      for (int r = 32 * w; r < min(p.RID, 32 * w + 32); ++r) {
+        bool hit = false;
+        for (int z = 0; z < p.RZ && !hit; ++z) hit = bit(ws.resb, r * p.RZ + z) && bit(zb, z);
+        const bool ofs = hit && bit(rb, r) && ct_res;
+        const bool h = hrow && hrow[r];
+        any_ofs |= ofs;
+        any_held |= h;
+        if (ofs && (h || pa.rescap[r] > 0)) to |= 1u << (r & 31);
+      }
+      ws.tores[w] = to;
+      any_to |= to != 0;
+    }
+    // strict (scheduler.go:75-78): refuse when reserved offerings are
+    // compatible but none can be held, or (tier 2) when the add would
+    // drop the claim's reservations
+    const bool ao = __any_sync(kFull, any_ofs), at = __any_sync(kFull, any_to);
+    const bool ah = __any_sync(kFull, any_held);
+    if (p.res_strict && (ao || (tier == 2 && ah)) && !at) bad = true;
+  }
+  __syncwarp();
+  return !__any_sync(kFull, bad);
+}
+
 // Evaluate candidate (tier, idx), which passed row_cheap, for pod `pod`
 // with the calling warp: returns (warp-uniform) whether the row is
 // feasible, its instance types included. A feasible row leaves in ws the
@@ -599,7 +718,8 @@ __device__ bool eval_row(const P& p, const Tabs& tb, const Pod& pa, const WS& ws
       for (int w = 0; w < NW; ++w)
         for (uint32_t c = pa.domb[gw + w] & ws.cmb[kw + w] & pa.okskewb[gw + w]; c; c &= c - 1) {
           const int v = 32 * w + __ffs(c) - 1;
-          const int32_t key = (pa.vgc[gv + v] + self_add) * kRankBase + pa.rank[gv + v];
+          const int32_t key = (int32_t)((uint32_t)(pa.vgc[gv + v] + self_add) * (uint32_t)kRankBase
+                                        + (uint32_t)pa.rank[gv + v]);
           if (best < 0 || key < bk) {
             bk = key;
             best = v;
@@ -679,13 +799,16 @@ __device__ bool eval_row(const P& p, const Tabs& tb, const Pod& pa, const WS& ws
   }
   __syncwarp();
   if (tier == 1) return true;
-  // ---- the instance types: lanes over T, stop at the first survivor ---------
-  for (int b = 0; b < T; b += 32) {
-    const int t = b + lane;
-    const bool ok = t < T && (b == 0 ? its_first : true) && type_ok(p, tb, pa, ws, tier, idx, t);
-    if (__any_sync(kFull, ok)) return true;
+  if (!p.mv_active && !p.res_active) {
+    // ---- the instance types: lanes over T, stop at the first survivor -------
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      const bool ok = t < T && (b == 0 ? its_first : true) && type_ok(p, tb, pa, ws, tier, idx, t);
+      if (__any_sync(kFull, ok)) return true;
+    }
+    return false;
   }
-  return false;
+  return eval_types_full(p, tb, pa, ws, tier, idx, its_first);
 }
 
 // the pod-only terms of a step (vg_pod_precompute and the rest),
@@ -865,6 +988,7 @@ __device__ void launch_phase(const P& p, const Pod& pa) {
     pa.vmind[j] = p.vg_mind[j];
     pa.vvalid[j] = p.vg_valid[j];
   }
+  for (int r = tid; r < p.RID; r += nt) pa.rescap[r] = p.res_cap[r];
   if (tid == 0) {
     pa.sc[kNOpen] = *p.n_open;
     pa.sc[kWOpen] = *p.w_open;
@@ -1132,6 +1256,17 @@ __device__ void commit(const P& p, const Tabs& tb, const Pod& pa, const WS& ws, 
     }
     if (tid == 32) p.pods[w.cslot] += 1;
     if (tid == 64 && w.opened) p.nodes_budget[w.idx] += -1.0f;
+    // reserved capacity: the row holds the winner's options; newly held
+    // ids take one from the capacity, dropped ones give it back (a fresh
+    // claim held none)
+    if (p.res_active)
+      for (int r = tid; r < p.RID; r += nt) {
+        const bool sel = bit(ws.tores, r);
+        uint8_t* h = p.held + (int64_t)w.cslot * p.RID + r;
+        const bool prev = w.tier == 2 && *h;
+        pa.rescap[r] += (int)(prev && !sel) - (int)(sel && !prev);
+        *h = sel;
+      }
   }
 }
 
@@ -1157,7 +1292,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     tabs = Tabs{(const uint8_t*)src[kTIts], (const uint8_t*)src[kGv], (const float*)src[kAlloc],
                 (const uint32_t*)src[kZc], (const float*)src[kCap], (const uint8_t*)src[kDef],
                 (const uint8_t*)src[kInf], (const uint8_t*)src[kExcl], (const uint32_t*)src[kMbits],
-                (const int32_t*)src[kGte], (const int32_t*)src[kLte]};
+                (const int32_t*)src[kGte], (const int32_t*)src[kLte], (const uint32_t*)src[kMv],
+                (const uint32_t*)src[kRes]};
   }
   if (ta.staged) stage_tables(ta, staged, &bar);
   __syncthreads();
@@ -1191,6 +1327,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // the carry's counts and scalars back to device memory
   for (int i = tid; i < p.NGv * p.V; i += blockDim.x) p.vg_counts[i] = pa.vgc[i];
+  for (int r = tid; r < p.RID; r += blockDim.x) p.res_cap[r] = pa.rescap[r];
   if (tid == 0) {
     *p.n_open = pa.sc[kNOpen];
     *p.w_open = pa.sc[kWOpen];
@@ -1226,12 +1363,13 @@ int launch(const PS& ps, const TabArgs& ta_in, int S, int lo, int hi, cudaStream
 
 }  // namespace
 
-// ptrs: a host array of the 78 device pointers in P's field order (pod_idx
+// ptrs: a host array of the 82 device pointers in P's field order (pod_idx
 // null in the single-scenario entry); dims: E, W, G, T, K, V, R, GR, Z, C,
-// NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid; strides: 78 byte
+// NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid, J, M, RID, RZ,
+// rid_kid, res_vid, mv_active, res_active, res_strict; strides: 82 byte
 // strides per scenario, or null for one scenario read in place (S = 1);
 // tables: the packed type tables in device memory (16-byte aligned) and
-// the byte offset of each of the 11 tables and the total (each 16-byte
+// the byte offset of each of the 13 tables and the total (each 16-byte
 // aligned). Runs steps lo .. hi - 1 of every scenario in one launch;
 // returns cudaGetLastError() of the launch.
 extern "C" int perpod_steps(const int64_t* ptrs, int n_ptrs, const int64_t* dims, const int64_t* strides, int S,
@@ -1247,6 +1385,10 @@ extern "C" int perpod_steps(const int64_t* ptrs, int n_ptrs, const int64_t* dims
   int* d = &p.E;
   for (int i = 0; i < kDims; ++i) d[i] = (int)dims[i];
   if (p.K < 1 || p.V < 1 || p.R < 1 || p.NGv < 1 || p.NGh < 1 || p.Z > p.V || p.C > p.V || p.W < 1)
+    return (int)cudaErrorInvalidValue;
+  if (p.J < 1 || p.M < 1 || p.RID < 1 || p.RZ < 1 || p.RZ > p.V || p.RID > p.V)
+    return (int)cudaErrorInvalidValue;
+  if (p.res_active && (p.rid_kid < 0 || p.rid_kid >= p.K || p.res_vid < 0 || p.res_vid >= p.V))
     return (int)cudaErrorInvalidValue;
   if (lo < 0 || hi > p.L || lo > hi) return (int)cudaErrorInvalidValue;
   TabArgs ta;

@@ -486,8 +486,8 @@ def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
 
 
 def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
-    """The 78 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
-    parameter block, in its order, and its 20 dims. `row_max` [W, R] f32 is
+    """The 82 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
+    parameter block, in its order, and its 29 dims. `row_max` [W, R] f32 is
     the kernel's scratch. The last, pod_idx, is None (a null pointer: step
     i reads pod row i); scenario mode sets it. The type tables travel
     packed (`perpod_tables`)."""
@@ -503,6 +503,8 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
     NPp, NVp, ND = state.claim_ports.shape[1], state.exist_vols.shape[1], exist.vol_limits.shape[1]
     L = xs.requests.shape[0]
     NCAP = ctx.n_claims
+    J, M = tm.mv_it_values.shape[1], tm.mv_key.shape[1]
+    RID, RZ = it.res_ofs.shape[1], it.res_ofs.shape[2]
     if Sl < E + NCAP + 1:
         raise ValueError(f"perpod_scan: hostname slots {Sl} < E + n_claims + 1 = {E + NCAP + 1}")
     fields = (
@@ -517,13 +519,15 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
             ("nodes_budget", state.nodes_budget, f, (G,)), ("vg_counts", state.vg_counts, i, (NGv, V)),
             ("hg_counts", state.hg_counts, i, (NGh, Sl)), ("exist_ports", state.exist_ports, i, (E, NPp)),
             ("claim_ports", state.claim_ports, i, (W, NPp)), ("exist_vols", state.exist_vols, i, (E, NVp)),
+            ("res_cap", state.res_cap, i, (RID,)), ("held", state.held, b, (W, RID)),
             ("avail", exist.avail, f, (E, R)), ("exist.valid", exist.valid, b, (E,)),
             ("vol_limits", exist.vol_limits, f, (E, ND)), ("vol_driver", exist.vol_driver, i, (ND, NVp)),
         ]
         + _set_fields("templates.reqs", tm.reqs, G, K, V)
         + [
             ("daemon_requests", tm.daemon_requests, f, (G, R)),
-            ("templates.valid", tm.valid, b, (G,)), ("well_known", ctx.well_known, b, (K,)),
+            ("templates.valid", tm.valid, b, (G,)), ("mv_key", tm.mv_key, i, (G, M)),
+            ("mv_min", tm.mv_min, i, (G, M)), ("well_known", ctx.well_known, b, (K,)),
             ("vg_key", topo.vg_key, i, (NGv,)), ("vg_type", topo.vg_type, i, (NGv,)),
             ("vg_skew", topo.vg_skew, i, (NGv,)), ("vg_min_domains", topo.vg_min_domains, i, (NGv,)),
             ("vg_domains", topo.vg_domains, b, (NGv, V)), ("vg_rank", topo.vg_rank, i, (NGv, V)),
@@ -544,7 +548,9 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
             ("assignment", assignment, i, (L,)), ("pod_idx", None, i, (L,)),
         ]
     )
-    dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid]
+    dims = [E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, ctx.zone_kid, ctx.ct_kid,
+            J, M, RID, RZ, ctx.flags.rid_kid, ctx.flags.res_vid, int(ctx.flags.mv_active),
+            int(ctx.flags.res_active), int(ctx.flags.res_strict)]
     need = perpod_workspace(dims)
     if need > SMEM_BLOCK - SMEM_STATIC:
         raise ValueError(
@@ -564,17 +570,20 @@ SMEM_STATIC = 8192
 
 def perpod_workspace(dims, nev: int = 1) -> int:
     """Bytes of csrc/perpod_scan.cu's shared-memory workspace (its
-    `carve`, each field rounded up to 16 bytes) for `dims` (the 20 dims of
+    `carve`, each field rounded up to 16 bytes) for `dims` (the 29 dims of
     _perpod_fields) with `nev` warps evaluating rows: the pod's terms, the
-    vocab-key counts and ranks, then per warp a byte copy of its row's mask
-    and two row scratches. The launch runs as many of its 16 warps as fit,
+    vocab-key counts and ranks, the reservation capacities, then per warp a
+    byte copy of its row's mask and two row scratches (with the minValues
+    and reservation words). The launch runs as many of its 16 warps as fit,
     at least one."""
     _E, _W, G, T, K, V, R, _GR, Z, C, NGv, NGh, _Sl, NPp, NVp = dims[:15]
+    J, _M, RID, RZ = dims[20:24]
     NW, NZW = -(-V // 32), -(-(Z * C) // 32)
     pod = ([4 * NGv * NW, NGv, K, NGh, NGh, 4 * NGv * V] + [4 * NGv] * 4 + [4 * NGh] * 2
-           + [4 * NGv * V, 16, 4 * K * NW, 4 * K * NW] + [K] * 5 + [4 * K] * 2 + [4 * NGv * NW] * 3 + [NGv] * 3
-           + [4 * NGv, NGh, NGh, 4 * R, T, G, T, 4 * NPp, 4 * NVp, 4 * 512, 4 * 512, 16])
-    row = [4 * K * NW] * 2 + [4 * NGv * NW] + [K] * 8 + [4 * K] * 4 + [4 * NZW, 4 * R, 4 * R]
+           + [4 * NGv * V, 16, 4 * RID, 4 * K * NW, 4 * K * NW] + [K] * 5 + [4 * K] * 2 + [4 * NGv * NW] * 3
+           + [NGv] * 3 + [4 * NGv, NGh, NGh, 4 * R, T, G, T, 4 * NPp, 4 * NVp, 4 * 512, 4 * 512, 16])
+    row = ([4 * K * NW] * 2 + [4 * NGv * NW] + [K] * 8 + [4 * K] * 4 + [4 * NZW, 4 * R, 4 * R]
+           + [4 * J * NW, 4 * -(-(RID * RZ) // 32), 4 * -(-RID // 32)])
 
     def padded(sizes):
         return sum(-(-n // 16) * 16 for n in sizes)
@@ -582,10 +591,13 @@ def perpod_workspace(dims, nev: int = 1) -> int:
     return padded(pod) + nev * padded([K * V]) + 2 * nev * padded(row)
 
 
-# csrc/perpod_scan.cu's packed type tables, in its staging order (Tab)
-TABLES = ("t_its", "group_valid", "alloc", "zc_bits", "cap", "defined", "inf", "excl", "mask_bits", "gte", "lte")
+# csrc/perpod_scan.cu's packed type tables, in its staging order (Tab):
+# the hot tables first, so that the staged prefix keeps them when shared
+# memory is short
+TABLES = ("t_its", "group_valid", "alloc", "zc_bits", "cap", "defined", "inf", "excl", "mask_bits", "gte", "lte",
+          "mv_bits", "res_bits")
 TABLE_SOURCES = ("it.mask", "it.inf", "it.excl", "it.gte", "it.lte", "it.defined", "alloc", "group_valid",
-                 "zc_avail", "cap", "templates.its")
+                 "zc_avail", "cap", "templates.its", "templates.mv_it_values", "res_ofs")
 
 
 def bit_words(x: torch.Tensor) -> torch.Tensor:
@@ -598,29 +610,39 @@ def bit_words(x: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
 
 
-def perpod_tables(it, t_its) -> tuple[torch.Tensor, list]:
+def perpod_tables(it, t_its, mv_it_values: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
     """The type tables csrc/perpod_scan.cu reads, packed into one uint8
     buffer (TABLES order, each field padded to 16 bytes) with the type axis
     innermost: t_its [G, T], group_valid [GR, T], alloc [GR, R, T], the
     offerings as (zone, capacity type) bits z*C + c [GR, ceil(Z*C/32), T],
     cap [R, T], the catalog requirements' defined / inf / excl [K, T], mask
-    as value bits [K, ceil(V/32), T], gte / lte [K, T]. Returns (buffer,
-    the byte offset of each field and the total). TorchScheduler builds it
-    once per encode of the catalog (PerPodCtx.tables); a launch whose
-    context carries none builds its own."""
-    srcs = (*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, t_its)
+    as value bits [K, ceil(V/32), T], gte / lte [K, T], the minValues slab
+    mv_it_values [T, J, V] as value bits [J, ceil(V/32), T] (None: one key
+    of no values), the reserved offerings res_ofs [T, RID, RZ] as bits
+    r*RZ + z [ceil(RID*RZ/32), T]. Returns (buffer, the byte offset of each
+    field and the total). TorchScheduler builds it once per encode of the
+    catalog (PerPodCtx.tables); a launch whose context carries none builds
+    its own."""
+    T, GR, R = it.alloc.shape
+    V = it.reqs.mask.shape[2]
+    if mv_it_values is None:
+        mv_it_values = torch.zeros((T, 1, V), dtype=torch.bool, device=it.alloc.device)
+    srcs = (*it.reqs, it.alloc, it.group_valid, it.zc_avail, it.cap, t_its, mv_it_values, it.res_ofs)
     want = (torch.bool,) * 3 + (torch.int32,) * 2 + (torch.bool, torch.float32, torch.bool, torch.bool,
-                                                       torch.float32, torch.bool)
+                                                       torch.float32, torch.bool, torch.bool, torch.bool)
     for name, t, dt in zip(TABLE_SOURCES, srcs, want):
         if t.dtype != dt or t.device != it.alloc.device:
             raise ValueError(f"perpod_tables: {name} is {t.dtype} on {t.device}, expected {dt} on {it.alloc.device}")
-    T, GR, R = it.alloc.shape
+    if mv_it_values.shape[0] != T or mv_it_values.shape[2] != V:
+        raise ValueError(f"perpod_tables: mv_it_values {tuple(mv_it_values.shape)} vs T={T}, V={V}")
     Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    RID, RZ = it.res_ofs.shape[1], it.res_ofs.shape[2]
     reqs = it.reqs
     fields = (
         t_its, it.group_valid.T, it.alloc.permute(1, 2, 0),
         bit_words(it.zc_avail.reshape(T, GR, Z * C)).permute(1, 2, 0), it.cap.T,
         reqs.defined.T, reqs.inf.T, reqs.excl.T, bit_words(reqs.mask).permute(1, 2, 0), reqs.gte.T, reqs.lte.T,
+        bit_words(mv_it_values).permute(1, 2, 0), bit_words(it.res_ofs.reshape(T, RID * RZ)).T,
     )
     pieces, offsets = [], [0]
     for t in fields:
@@ -644,11 +666,15 @@ def _perpod_launch(fields, dims, strides, S: int, ctx, lo: int, hi: int, what: s
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} vs {shape}")
         ptrs.append(t.data_ptr())
+    fl = ctx.flags
+    if fl.res_active and not (0 <= fl.rid_kid < dims[4] and 0 <= fl.res_vid < dims[5]):
+        raise ValueError(f"{what}: reservations on with rid_kid={fl.rid_kid}, res_vid={fl.res_vid}")
     if not 0 <= lo <= hi <= dims[17]:
         raise ValueError(f"{what}: steps [{lo}, {hi}) outside [0, {dims[17]})")
     if lo == hi:
         return
-    tables, offsets = ctx.tables if ctx.tables is not None else perpod_tables(ctx.it, ctx.templates.its)
+    tables, offsets = ctx.tables if ctx.tables is not None else perpod_tables(
+        ctx.it, ctx.templates.its, ctx.templates.mv_it_values)
     _invoke(
         "perpod_scan", "perpod_steps", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
         ctypes.cast(_i64_array(dims), ctypes.c_void_p),
@@ -686,10 +712,10 @@ def perpod_scan(state, xs, ctx) -> torch.Tensor:
 
 def _whatif_fields(state, xs, ctx, row_max, assignment, pod_idx, valid, exist_valid) -> tuple[list, list, list]:
     """csrc/perpod_scan.cu's scenario-mode block: the single-scenario
-    block's 78 (name, tensor, dtype, shape) fields with each scenario
+    block's 82 (name, tensor, dtype, shape) fields with each scenario
     field (`_scenario_tensors`) stacked on a leading S axis and pod_idx
-    [S, L] set, their 78 byte strides per scenario (0 for the shared
-    tables), and the 20 dims (L = steps per scenario). `xs` holds the
+    [S, L] set, their 82 byte strides per scenario (0 for the shared
+    tables), and the 29 dims (L = steps per scenario). `xs` holds the
     union's pod rows, which step i of scenario s reads at pod_idx[s, i]."""
     S, L = pod_idx.shape
     from karpenter_tpu_torch.ops.solver import PERPOD_WRITES

@@ -385,3 +385,15 @@ class ProblemEncoder:
             self.vocab.key_to_id[l.LABEL_TOPOLOGY_ZONE],
             self.vocab.key_to_id[l.CAPACITY_TYPE_LABEL_KEY],
         )
+
+    def reservation_ids(self) -> tuple[int, int, list[str]]:
+        """(reservation-id key id, the reserved capacity type's value id,
+        the reservation ids in value-id order); -1 ids when the vocab has
+        no reservation."""
+        rid_kid = self.vocab.key_to_id.get(l.RESERVATION_ID_LABEL_KEY, -1)
+        ct_kid = self.vocab.key_to_id.get(l.CAPACITY_TYPE_LABEL_KEY)
+        res_vid = -1
+        if ct_kid is not None and l.CAPACITY_TYPE_RESERVED in self.vocab.values[ct_kid]:
+            res_vid = self.vocab.values[ct_kid].index(l.CAPACITY_TYPE_RESERVED)
+        rid_names = list(self.vocab.values[rid_kid]) if rid_kid >= 0 else []
+        return rid_kid, res_vid, rid_names

@@ -1630,6 +1630,20 @@ class PodXs(NamedTuple):
     strict_mask: torch.Tensor  # [L, K, V]
 
 
+class PerPodFlags(NamedTuple):
+    """The per-pod scan's minValues and reservation flags (the reference's
+    of the same names)."""
+
+    # enforced minValues floors (Strict policy with a template carrying one)
+    mv_active: bool = False
+    # reserved capacity: reserve/release per claim, the strict refusals;
+    # the reservation-id key and the reserved capacity type's value id
+    res_active: bool = False
+    res_strict: bool = False
+    rid_kid: int = -1
+    res_vid: int = -1
+
+
 class PerPodCtx(NamedTuple):
     """The problem the per-pod step reads (never written)."""
 
@@ -1645,6 +1659,7 @@ class PerPodCtx(NamedTuple):
     # the kernel's packed type tables (ops/cuda.py perpod_tables: buffer,
     # offsets), built once per encode; None: the launch builds them
     tables: Optional[tuple] = None
+    flags: PerPodFlags = PerPodFlags()
 
 
 def _fits_and_offering(total, comb: ReqSetTensors, it: InstanceTypeTensors, zone_kid: int, ct_kid: int):
@@ -1655,6 +1670,36 @@ def _fits_and_offering(total, comb: ReqSetTensors, it: InstanceTypeTensors, zone
     t = total[:, None, None, :]
     fit = ((t <= it.alloc[None]) | (t == 0.0)).all(dim=-1) & it.group_valid[None]
     return (fit & off_for_plain(comb.mask, it, zone_kid, ct_kid)).any(dim=-1)
+
+
+def _min_values_ok(viable: torch.Tensor, mv_key_c: torch.Tensor, mv_min_c: torch.Tensor, mv_it_values: torch.Tensor):
+    """[C] bool — every minValues floor of each candidate holds over its
+    viable types [C, T] (SatisfiesMinValues, types.go:399-433): key -1
+    counts the types, key j >= 0 the distinct values of min-keyed key j
+    in the slab [T, J, V]. The reference's bf16 einsum as an exact product
+    of 0/1 matrices (sums at most T, exact in f32)."""
+    C, T = viable.shape
+    J, V = mv_it_values.shape[1], mv_it_values.shape[2]
+    present = (viable.to(F32) @ mv_it_values.reshape(T, J * V).to(F32)).reshape(C, J, V) > 0
+    counts_all = present.sum(dim=-1, dtype=I32)  # [C, J]
+    name_count = viable.sum(dim=-1, dtype=I32)  # [C]
+    per_key = counts_all.gather(1, mv_key_c.clamp(0, J - 1).long())  # [C, M]
+    cnt = torch.where(mv_key_c == -1, name_count[:, None], per_key)
+    return ((mv_min_c <= 0) | (cnt >= mv_min_c)).all(dim=-1)
+
+
+def _reserve_options(viable: torch.Tensor, comb_mask: torch.Tensor, res_ofs: torch.Tensor, zone_kid: int,
+                    ct_kid: int, rid_kid: int, res_vid: int) -> torch.Tensor:
+    """[B, RID] bool — the reserved offerings each candidate could hold over
+    its viable types [B, T] (offeringsToReserve, nodeclaim.go:313-332): an
+    available reserved offering [T, RID, Z] on a surviving type whose zone,
+    capacity type and reservation id the combined requirements' mask
+    [B, K, V] admit. The reference's bf16 einsum as an exact 0/1 product."""
+    T, RID, Zr = res_ofs.shape
+    B = viable.shape[0]
+    per_rz = (viable.to(F32) @ res_ofs.reshape(T, RID * Zr).to(F32)).reshape(B, RID, Zr) > 0
+    hit = (per_rz & comb_mask[:, zone_kid, :Zr][:, None, :]).any(dim=-1)
+    return hit & comb_mask[:, rid_kid, :RID] & comb_mask[:, ct_kid, res_vid][:, None]
 
 
 def _apply_topo(reqs: ReqSetTensors, upd: torch.Tensor, touched: torch.Tensor) -> ReqSetTensors:
@@ -1730,6 +1775,21 @@ def _pod_eval_full(state: SolverState, x: PodXs, c: PerPodCtx):
     tol = x.tmpl_ok[state.template.long()]
     ports_ok_n = ~packed_conflict(x.port_conf[None, :], state.claim_ports)
     feas = state.open & claim_ok & tol & topo_n & topo_nh & ports_ok_n & new_its.any(dim=-1) & x.valid
+    tmpl_c = state.template.long()
+    if c.flags.mv_active:
+        feas = feas & _min_values_ok(new_its, templates.mv_key[tmpl_c], templates.mv_min[tmpl_c],
+                                     templates.mv_it_values)
+    if c.flags.res_active:
+        ofs_c = _reserve_options(new_its, comb_t.mask, it.res_ofs, c.zone_kid, c.ct_kid, c.flags.rid_kid,
+                                 c.flags.res_vid)
+        to_res = ofs_c & (state.held | (state.res_cap > 0)[None, :])
+        if c.flags.res_strict:
+            # strict (scheduler.go:75-78): refuse an add when compatible
+            # reserved offerings exist but none can be held, or when it
+            # would drop the claim's reservations
+            feas = feas & ~((ofs_c.any(dim=-1) | state.held.any(dim=-1)) & ~to_res.any(dim=-1))
+    else:
+        to_res = state.held
 
     # ---- tier 3: a new claim per template; hostname groups read the
     # fresh slot E + n_open (hg_counts keeps a spare column past the cap)
@@ -1748,6 +1808,16 @@ def _pod_eval_full(state: SolverState, x: PodXs, c: PerPodCtx):
         templates.valid & tmpl_compat & x.tmpl_ok & topo_g & topo_gh & its0.any(dim=-1)
         & (state.nodes_budget >= 1.0) & x.valid
     )
+    if c.flags.mv_active:
+        tmpl_feas = tmpl_feas & _min_values_ok(its0, templates.mv_key, templates.mv_min, templates.mv_it_values)
+    if c.flags.res_active:
+        ofs0 = _reserve_options(its0, comb0_t.mask, it.res_ofs, c.zone_kid, c.ct_kid, c.flags.rid_kid,
+                                 c.flags.res_vid)
+        to_res0 = ofs0 & (state.res_cap > 0)[None, :]
+        if c.flags.res_strict:
+            tmpl_feas = tmpl_feas & ~(ofs0.any(dim=-1) & ~to_res0.any(dim=-1))
+    else:
+        to_res0 = torch.zeros((G, state.held.shape[1]), dtype=torch.bool, device=dev)
     order_g = torch.arange(G, dtype=I32, device=dev) if templates.rank is None else templates.rank
 
     keys = torch.cat([
@@ -1758,6 +1828,7 @@ def _pod_eval_full(state: SolverState, x: PodXs, c: PerPodCtx):
     aux = dict(
         comb_e_t=_apply_topo(comb_e, upd_e, pre.key_touched), total_e=total_e, comb_t=comb_t,
         new_its=new_its, total=total, comb0_t=comb0_t, its0=its0, any_fallback=any_fallback,
+        to_res=to_res, to_res0=to_res0,
     )
     return keys, aux
 
@@ -1832,6 +1903,16 @@ def _pod_commit(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor, 
     new_nodes_budget = state.nodes_budget.clone()
     new_nodes_budget[g] = torch.where(opened, state.nodes_budget[g] + -1.0, state.nodes_budget[g])
 
+    # reserved capacity: hold the winner's options, taking newly held ids
+    # from the capacity and returning dropped ones (nodeclaim.go:260-262)
+    new_res_cap, new_held = state.res_cap, state.held
+    if c.flags.res_active:
+        sel_res = torch.where(found, aux["to_res"][pick], aux["to_res0"][g])
+        prev_res = found & state.held[pick]
+        delta = (prev_res & ~sel_res).to(I32) - (sel_res & ~prev_res).to(I32)
+        new_res_cap = torch.where(upd_claim, state.res_cap + delta, state.res_cap)
+        new_held = put(state.held, sel_res)
+
     return state._replace(
         exist_reqs=new_exist_reqs,
         exist_used=new_exist_used,
@@ -1853,13 +1934,14 @@ def _pod_commit(state: SolverState, x: PodXs, c: PerPodCtx, keys: torch.Tensor, 
         exist_ports=new_exist_ports,
         claim_ports=put(state.claim_ports, state.claim_ports[cslot] | x.ports),
         exist_vols=new_exist_vols,
+        res_cap=new_res_cap,
+        held=new_held,
     ), assignment
 
 
 def _pod_step(state: SolverState, x: PodXs, c: PerPodCtx):
-    """One pod through the three tiers (the reference's _make_step step,
-    minValues, reservations and volumes' limits off): every candidate's
-    key, then the pick and commit."""
+    """One pod through the three tiers (the reference's _make_step step):
+    every candidate's key, then the pick and commit."""
     keys, aux = _pod_eval_full(state, x, c)
     return _pod_commit(state, x, c, keys, aux)
 
@@ -1879,7 +1961,7 @@ def pod_xs(pods: PodTensors, tmpl_ok, it_allow, exist_ok, ports, port_conf, vols
 PERPOD_WRITES = (
     "exist_reqs", "exist_used", "reqs", "used", "its", "template", "open", "pods", "n_open", "slot_of",
     "w_open", "w_hw", "spills", "budget", "nodes_budget", "vg_counts", "hg_counts", "exist_ports",
-    "claim_ports", "exist_vols",
+    "claim_ports", "exist_vols", "res_cap", "held",
 )
 
 
@@ -1948,16 +2030,19 @@ def solve_from(
     topo_kids: tuple = (),
     plain: bool = False,
     tables: Optional[tuple] = None,
+    flags: PerPodFlags = PerPodFlags(),
 ) -> tuple[SolverState, torch.Tensor]:
     """Resume the per-pod scan from `state` over a chunk of L pod rows;
     returns (state', assignment [L] i32: E-space slot, NO_ROOM or
     NO_CLAIM). The input state is not modified. On CUDA (plain=False) the
     chunk runs as one kernel launch, with no host sync, reading the type
-    tables packed in `tables` (cuda.perpod_tables of it and templates.its;
+    tables packed in `tables` (cuda.perpod_tables of it and templates;
     None: the launch packs them); on the CPU, or with plain=True,
-    `_pod_step` loops in Python."""
+    `_pod_step` loops in Python. `flags` turn on the minValues floors and
+    the reservations (PerPodFlags)."""
     xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
-    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables)
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables,
+                    flags)
     if plain or state.used.device.type == "cpu":
         return perpod_loop_plain(state, xs, ctx)
     return perpod_loop_kernels(state, xs, ctx)
@@ -1967,15 +2052,15 @@ def solve(
     pods: PodTensors, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols,
     exist: ExistingNodes, it: InstanceTypeTensors, templates: Templates, well_known, topo: TopologyTensors,
     pod_topo, zone_kid: int, ct_kid: int, n_claims: int, topo_kids: tuple = (), window: int = 0,
-    plain: bool = False,
+    plain: bool = False, res_cap0=None, tables: Optional[tuple] = None, flags: PerPodFlags = PerPodFlags(),
 ) -> tuple[SolverState, torch.Tensor]:
     """initial_state followed by solve_from (the reference's solve)."""
     state = initial_state(
-        exist, it, templates, topo, n_claims, pod_ports.shape[1], window=window, topo_kids=topo_kids,
+        exist, it, templates, topo, n_claims, pod_ports.shape[1], res_cap0, window=window, topo_kids=topo_kids,
     )
     return solve_from(
         state, pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols,
-        exist, it, templates, well_known, topo, pod_topo, zone_kid, ct_kid, n_claims, topo_kids, plain,
+        exist, it, templates, well_known, topo, pod_topo, zone_kid, ct_kid, n_claims, topo_kids, plain, tables, flags,
     )
 
 
@@ -2067,19 +2152,24 @@ def solve_whatif_full(
     window: int = 0,
     plain: bool = False,
     tables: Optional[tuple] = None,
+    res_cap0=None,
+    flags: PerPodFlags = PerPodFlags(),
 ):
     """solve_whatif with everything it computes: (n_unsched [S] i32,
     n_open [S] i32, assignment [S, L] i32, the final carry of each
     scenario). The plain path runs the plain per-pod loop once per
     scenario, each from its own initial state (what jax.vmap of the
-    reference's `one` computes); on CUDA (plain=False) all S scenarios run
-    in one launch of the per-pod kernel in scenario mode, with no host
-    sync (`tables` as solve_from's)."""
+    reference's `one` computes: the reservation capacities res_cap0 and
+    the held rows start afresh in every scenario); on CUDA (plain=False)
+    all S scenarios run in one launch of the per-pod kernel in scenario
+    mode, with no host sync (`tables` and the flags as solve_from's)."""
     idx = scen_pod_idx.long()
     valid = pods.valid[idx] & scen_active  # [S, L]
     xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
-    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables)
-    state0 = initial_state(exist, it, templates, topo, n_claims, pod_ports.shape[1], window=window, topo_kids=topo_kids)
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables,
+                    flags)
+    state0 = initial_state(exist, it, templates, topo, n_claims, pod_ports.shape[1], res_cap0, window=window,
+                           topo_kids=topo_kids)
     loop = whatif_loop_plain if plain or valid.device.type == "cpu" else whatif_loop_kernels
     assignment, states = loop(state0, xs, ctx, idx, valid, scen_exist_valid, scen_vg_counts0, scen_hg_counts0)
     n_open = torch.stack([st.n_open for st in states])

@@ -10,6 +10,10 @@ initially empty), `wide_zone_pods` (a zone key wider than KSCAN_D) and
 `candidates`, `prefix_scenarios` / `single_scenarios`,
 `topology_factory`, `sequential_signal`, the digests): a cluster whose nodes carry
 bound pods, and the what-if scenarios the disruption methods submit.
+Karpenter's constraints (`reserved_catalog`, `constrained_templates`,
+`hostport_pods`, `attach_volumes`, `reserved_in_use`) build the
+constrained cells: reserved offerings, minValues floors, a host-port
+deployment, CSI attach limits and PVCs.
 
 The consolidation fixture reads models only through a `side` namespace
 (PORT by default), so the same code builds its twin from another
@@ -23,6 +27,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from karpenter_tpu_torch.cloudprovider import fake
 from karpenter_tpu_torch.cloudprovider.fake import instance_types
 from karpenter_tpu_torch.controllers.provisioning.host_scheduler import ExistingSimNode
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import build_templates
@@ -35,12 +40,14 @@ from karpenter_tpu_torch.models import labels as l
 from karpenter_tpu_torch.models.nodepool import NodePool
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.models.pod import (
+    HostPort,
     NodeAffinity,
     NodeSelectorTerm,
     PodAffinityTerm,
     TopologySpreadConstraint,
     make_pod,
 )
+from karpenter_tpu_torch.scheduling.volumes import VolumeUsage
 from karpenter_tpu_torch.utils import resources as res
 
 TIER = "example.com/tier"
@@ -242,7 +249,8 @@ def many_resources_pods(n: int = 24, extra: int = 36):
 PORT = types.SimpleNamespace(
     make_pod=make_pod, l=l, res=res, Operator=Operator, Requirement=Requirement, Requirements=Requirements,
     ExistingSimNode=ExistingSimNode, Topology=Topology, build_universe_domains=build_universe_domains,
-    template_universe_domains=template_universe_domains,
+    template_universe_domains=template_universe_domains, fake=fake, NodePool=NodePool,
+    build_templates=build_templates, HostPort=HostPort, VolumeUsage=VolumeUsage,
 )
 
 
@@ -298,9 +306,11 @@ def launch_claims(result, templates, side=PORT) -> BoundCluster:
     nodes, labels, bound, price = [], {}, {}, {}
     for i, c in enumerate(result.claims):
         it = min(c.instance_types, key=lambda t: (t.cheapest_offering_price(c.requirements), t.name))
+        # a claim pinned to its reservations launches into one of them
+        pinned = c.requirements.has(L.RESERVATION_ID_LABEL_KEY)
         offers = [
             o for o in it.offerings
-            if o.available and o.capacity_type != L.CAPACITY_TYPE_RESERVED
+            if o.available and (pinned or o.capacity_type != L.CAPACITY_TYPE_RESERVED)
             and c.requirements.is_compatible(o.requirements, L.WELL_KNOWN_LABELS)
         ]
         o = min(offers, key=lambda o: (o.price, o.zone, o.capacity_type))
@@ -309,6 +319,8 @@ def launch_claims(result, templates, side=PORT) -> BoundCluster:
             L.LABEL_HOSTNAME: name, L.LABEL_TOPOLOGY_ZONE: o.zone, L.CAPACITY_TYPE_LABEL_KEY: o.capacity_type,
             L.LABEL_INSTANCE_TYPE: it.name, L.LABEL_ARCH: it.requirements.get(L.LABEL_ARCH).any_value(),
         }
+        if o.capacity_type == L.CAPACITY_TYPE_RESERVED:
+            lab[L.RESERVATION_ID_LABEL_KEY] = o.reservation_id
         reqs = side.Requirements()
         for k, v in lab.items():
             reqs.add(side.Requirement.new(k, side.Operator.IN, v))
@@ -382,6 +394,20 @@ def topology_factory(cluster: BoundCluster, side=PORT):
     return factory
 
 
+# a spread count past 2^15: the rank key (count + self)·2^16 + rank wraps
+BIG_COUNT = 2**15 + 5
+
+
+def seed_big_counts(topo, side=PORT):
+    """topo with every zone-spread domain's count raised by BIG_COUNT + 0..2
+    (past 2^15, where the topology rank key wraps in int32). Returns topo."""
+    for g in topo.groups:
+        if g.key == side.l.LABEL_TOPOLOGY_ZONE:
+            for i, d in enumerate(sorted(g.domains)):
+                g.domains[d] += BIG_COUNT + i % 3
+    return topo
+
+
 def sequential_signal(sched, cluster: BoundCluster, factory, pending: list, cands: list) -> tuple[bool, int]:
     """One scenario simulated alone, as a consolidation confirm does: the
     pending and displaced pods solved against the surviving nodes with the
@@ -430,4 +456,116 @@ def placements_digest(assignment, vg_counts, hg_counts, vg_key, vocab) -> str:
             h.update(repr((vocab.keys[k], sorted(
                 (names[v] if v < len(names) else f"#{v}", int(c)) for v, c in enumerate(row) if c
             ))).encode())
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Karpenter's constraints: reservations, minValues, host ports, CSI limits
+# ---------------------------------------------------------------------------
+
+# the constrained cells' reservations: catalog index -> (zone, reservation
+# id, capacity), on 4 of the 16- and 32-cpu amd64 types (the sizes claims
+# of mixed_pods grow to) in the 2 zones where its first claims land
+RESERVATIONS = {
+    32: ("test-zone-3", "res-c16x", 8),
+    34: ("test-zone-4", "res-s16x", 8),
+    40: ("test-zone-3", "res-c32x", 16),
+    42: ("test-zone-4", "res-s32x", 32),
+}
+FAMILY_KEY = "karpenter-tpu.sh/instance-family"
+# the pool's minValues floors (spot diversity over names and families)
+MIN_VALUES = (("node.kubernetes.io/instance-type", 2), (FAMILY_KEY, 2))
+INGRESS_PORT = 443
+CSI_DRIVER = "ebs.csi.aws.com"
+CSI_LIMIT = 4
+
+
+def reserved_catalog(n: int, reservations: dict = RESERVATIONS, side=PORT) -> list:
+    """instance_types(n) with reserved offerings added to the types at the
+    indices of `reservations` (capacity-type reserved, price 0)."""
+    f = side.fake
+    combos = [(fam, cpu, arch) for cpu in f.CPU_SIZES for fam in f.FAMILIES for arch in f.ARCHS]
+    out = []
+    for i in range(n):
+        fam, cpu, arch = combos[i % len(combos)]
+        gen = i // len(combos)
+        name = f"{fam}-{cpu}x-{arch}" + (f"-gen{gen}" if gen else "")
+        zone_rid_cap = reservations.get(i)
+        out.append(f.new_instance_type(
+            name, family=fam, cpu=cpu, arch=arch, price_multiplier=1.0 + 0.07 * gen,
+            reservations=[zone_rid_cap] if zone_rid_cap else None,
+        ))
+    return out
+
+
+def constrained_templates(n_types: int, min_values=MIN_VALUES, reservations: dict = RESERVATIONS, side=PORT):
+    """Pool "default" over reserved_catalog(n_types) whose requirements
+    carry `min_values` as Exists requirements with minValues floors."""
+    pool = side.NodePool()
+    pool.metadata.name = "default"
+    pool.spec.template.spec.requirements = [
+        {"key": k, "operator": "Exists", "minValues": v} for k, v in min_values
+    ]
+    return side.build_templates([(pool, reserved_catalog(n_types, reservations, side))])
+
+
+def hostport_pods(n: int = 64, port: int = INGRESS_PORT, side=PORT) -> list:
+    """An ingress deployment: n pods that each bind host port `port`, so a
+    node takes one of them."""
+    pods = []
+    for i in range(n):
+        p = side.make_pod(f"ingress-{i}", cpu=0.5, memory="512Mi")
+        p.metadata.labels = {"app": "ingress"}
+        p.spec.host_ports = [side.HostPort(port=port)]
+        pods.append(p)
+    return pods
+
+
+def attach_volumes(cluster: BoundCluster, pending: list, every_bound: int = 4, every_pending: int = 8,
+                   driver: str = CSI_DRIVER, limit: int = CSI_LIMIT, side=PORT) -> dict:
+    """CSI attach limits on a launched cluster: every node publishes
+    `limit` attachments for `driver`, and every `every_bound`-th bound pod
+    (in node order) and every `every_pending`-th pending pod mounts a PVC
+    of its own. The nodes' volume usage holds their bound pods' PVCs;
+    returns pod uid -> {driver: {pvc}} for every pod with one."""
+    vols = {}
+    k = 0
+    for n in cluster.nodes:
+        vu = side.VolumeUsage()
+        vu.add_limit(driver, limit)
+        for p in cluster.bound[n.name]:
+            if k % every_bound == 0:
+                v = {driver: {f"pvc-{p.name}"}}
+                vu.add(p.uid, v)
+                vols[p.uid] = v
+            k += 1
+        n.volume_usage = vu
+    for i, p in enumerate(pending):
+        if i % every_pending == 0:
+            vols[p.uid] = {driver: {f"pvc-{p.name}"}}
+    return vols
+
+
+def reserved_in_use(cluster: BoundCluster, side=PORT) -> dict:
+    """Reservation id -> nodes of the cluster launched into it."""
+    out: dict = {}
+    for lab in cluster.labels.values():
+        rid = lab.get(side.l.RESERVATION_ID_LABEL_KEY)
+        if rid is not None:
+            out[rid] = out.get(rid, 0) + 1
+    return out
+
+
+def result_digest(result) -> str:
+    """sha256 of what a constrained solve decides: per claim its slot,
+    hostname, pods, viable types, usage, requirements (reserved pins and
+    relaxed floors included), reserved ids, minValues relaxation and host
+    ports; the unschedulable pods with their reasons."""
+    h = hashlib.sha256()
+    for c in result.claims:
+        h.update(repr((c.slot, c.hostname, [p.name for p in c.pods], [i.name for i in c.instance_types],
+                       sorted(c.used.items()), str(c.requirements), sorted(c.reserved_ids), c.min_values_relaxed,
+                       sorted(c.host_ports))).encode())
+    for p, reason in result.unschedulable:
+        h.update(repr((p.name, reason)).encode())
     return h.hexdigest()

@@ -607,8 +607,9 @@ def test_open_rows_are_a_prefix_across_scan_kinds(monkeypatch):
 
 def test_perpod_tables_layout():
     """perpod_tables packs the type tables the kernel reads: each field at
-    a 16-byte aligned offset, the type axis innermost, masks and offerings
-    as 32-bit words of bits (value v of a key at bit v % 32 of word v // 32);
+    a 16-byte aligned offset, the type axis innermost, masks, offerings,
+    the minValues slab and the reserved offerings as 32-bit words of bits
+    (value v of a key at bit v % 32 of word v // 32);
     a second call packs the same bytes again, and a changed source shows."""
     prob = _Problem(_hostname_pods(8), bench.make_templates(20), 16, [_existing_node()])
     it, t_its = prob.p_args[1], prob.p_args[2].its
@@ -641,6 +642,18 @@ def test_perpod_tables_layout():
     assert np.array_equal(bits(mb, V), it.reqs.mask.numpy())
     assert np.array_equal(field(9, np.int32, (K, T)), it.reqs.gte.numpy().T)
     assert np.array_equal(field(10, np.int32, (K, T)), it.reqs.lte.numpy().T)
+    # the minValues slab [T, J, V] and the reserved offerings [T, RID, Z], as
+    # bits (r * Z + z for the offerings) with the type axis innermost
+    rng = np.random.default_rng(2)
+    mv = rng.random((T, 3, V)) < 0.3
+    ro = rng.random((T, 2, Z)) < 0.4
+    buf2, off2 = p_cuda.perpod_tables(it._replace(res_ofs=torch.from_numpy(ro)), t_its, torch.from_numpy(mv))
+    raw2 = buf2.numpy()
+    mvw = raw2[off2[11]:off2[11] + 3 * ((V + 31) // 32) * T * 4].view(np.int32).reshape(3, -1, T).transpose(2, 0, 1)
+    assert np.array_equal(bits(mvw, V), mv)
+    rw = raw2[off2[12]:off2[12] + ((2 * Z + 31) // 32) * T * 4].view(np.int32).reshape(-1, T).T
+    assert np.array_equal(bits(rw, 2 * Z), ro.reshape(T, 2 * Z))
+    assert len(off2) == len(p_cuda.TABLES) + 1 == 14 and off2[:12] == off[:12]
     # words past 32 values, and the top bit of a word
     x = np.random.default_rng(0).random((3, 4, 70)) < 0.5
     x[..., 31] = True
@@ -663,11 +676,12 @@ def _read(p, n):
 
 
 def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
-    """The CUDA path's one launch per chunk, with the C entry stubbed: 78
+    """The CUDA path's one launch per chunk, with the C entry stubbed: 82
     pointers in the kernel's field order (each the data of the tensor the
     field names, checked for device, dtype, shape and contiguity; the
     kernel's scratch a fresh [W, R] buffer; the last, the scenario mode's
-    pod_idx, null), the 20 dims, no strides and one
+    pod_idx, null), the 29 dims (the minValues and reservation flags off),
+    no strides and one
     block, the packed type tables and their offsets, the steps [0, L); one
     launch counted; a launch of steps [3, 4) alone; nothing launched for
     no steps; the context's own packed tables passed as they are."""
@@ -681,7 +695,7 @@ def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
 
     def fake(source, entry, ptrs, n_ptrs, dims, strides, S, tables, offsets, lo, hi):
         off = _read(offsets, len(p_cuda.TABLES) + 1)
-        seen.append((source, entry, _read(ptrs, n_ptrs), _read(dims, 20), strides, S, tables, off, lo, hi,
+        seen.append((source, entry, _read(ptrs, n_ptrs), _read(dims, 29), strides, S, tables, off, lo, hi,
                      bytes((ctypes.c_uint8 * off[-1]).from_address(tables))))
 
     monkeypatch.setattr(p_cuda, "_invoke", fake)
@@ -691,16 +705,18 @@ def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
     (source, entry, ptrs, dims, strides, S, tables, offsets, lo, hi, raw), = seen
     assert (source, entry, strides, S, lo, hi) == ("perpod_scan", "perpod_steps", None, 1, 0, 16)
     fields, want_dims = p_cuda._perpod_fields(st, xs, ctx, torch.empty(st.used.shape), assignment)
-    assert len(fields) == len(ptrs) == 78
+    assert len(fields) == len(ptrs) == 82
     assert fields[-1][:2] == ("pod_idx", None) and ptrs[-1] == 0
-    for (name, t, _dt, _shape), got in zip(fields[:77], ptrs[:77]):
+    i_row_max = [f[0] for f in fields].index("row_max")
+    for (name, t, _dt, _shape), got in zip(fields[:81], ptrs[:81]):
         if name == "row_max":
-            assert got and got not in ptrs[:75], name  # a buffer of its own
+            assert got and got not in ptrs[:i_row_max], name  # a buffer of its own
         else:
             assert got == t.data_ptr(), name
     E, W, G = prob.enc["E"], pst.open.shape[0], prob.p_args[2].its.shape[0]
     T, K, V = prob.p_args[1].reqs.mask.shape
     assert dims == want_dims and dims[:6] == [E, W, G, T, K, V] and dims[16:18] == [prob.enc["n_claims"], 16]
+    assert dims[26:] == [0, 0, 0]
     buf, want_off = p_cuda.perpod_tables(ctx.it, ctx.templates.its)
     assert raw == buf.numpy().tobytes() and offsets == want_off
     assert p_cuda.LAUNCHES["perpod_scan_persistent"] == 1 and p_cuda.LAUNCHES["perpod_scan_persistent_whatif"] == 0

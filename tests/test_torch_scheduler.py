@@ -3,8 +3,10 @@ TPUScheduler on the same workloads (the fill cases of tests/test_fill.py,
 the 2048 x 400 selector stage, a chunked + compacted solve, and the
 topology workloads: the reference benchmark's mixed pods, zonal and
 hostname spread, and the per-pod kinds), compared per pod and per claim,
-requirements (the narrowed zone) included; the problems outside the port
-raise UnsupportedProblem; the package imports neither JAX nor the JAX package;
+requirements (the narrowed zone) included; host ports and a finite budget
+match too (tests/test_torch_constrained.py holds the rest of Karpenter's
+constraints); the problems outside the port (gangs, DRA claims) raise
+UnsupportedProblem; the package imports neither JAX nor the JAX package;
 and nothing runs on a missing card. Tolerance: exact equality."""
 
 import os
@@ -249,11 +251,22 @@ def _edge_pods(S, kind):
             p.metadata.annotations = {"ktpu.dev/gang-name": "g", "ktpu.dev/gang-size": "4"}
         elif kind == "host_ports":
             p.spec.host_ports = [S.HostPort(port=8080)]
+        elif kind == "dra":
+            p.spec.resource_claims = ["gpu-claim"]
     return pods
 
 
-@pytest.mark.parametrize("kind", ["gang", "host_ports"])
+@pytest.mark.parametrize("kind", ["gang", "host_ports", "dra"])
 def test_out_of_slice_problems_raise(kind):
+    """Gang members and DRA claims stay outside the port and raise
+    UnsupportedProblem. Host ports are inside it now: pods binding one
+    host port (each a node of its own) ride the fill scan and match the
+    reference, the claims' host ports included."""
+    if kind == "host_ports":
+        rp, ps = _compare(kind, lambda S: (S.templates(10), _edge_pods(S, kind), None), 16)
+        assert rp.node_count == 4 and all(c.host_ports == [("0.0.0.0", 8080, "TCP")] for c in rp.claims)
+        assert ps.last_stats["fill_dispatches"] > 0
+        return
     ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
     with pytest.raises(UnsupportedProblem) as err:
         ps.solve(_edge_pods(PORT_SIDE, kind))
@@ -276,9 +289,17 @@ def test_perpod_pods_match_reference():
 
 
 def test_finite_budget_raises():
-    ps = TorchScheduler(p_testing.make_templates(10), max_claims=16, device="cpu")
-    with pytest.raises(UnsupportedProblem):
-        ps.solve(_pods(PORT_SIDE, 3), budgets={"default": {"cpu": 8.0}})
+    """A finite cpu budget, which raised before the port had budgets, now
+    matches the reference: every kind on the per-pod scan, the pool's
+    limit binds and the same pods stay unschedulable."""
+
+    def solve(S, sched_cls, **kw):
+        return sched_cls(S.templates(10), max_claims=16, **kw).solve(
+            _pods(S, 12, 1.0, "1Gi"), budgets={"default": {"cpu": 8.0}})
+
+    rj, rp = solve(JAX_SIDE, TPUScheduler), solve(PORT_SIDE, TorchScheduler, device="cpu")
+    assert _view(rj) == _view(rp)
+    assert rp.unschedulable and rp.node_count
 
 
 def test_default_device_needs_cuda(monkeypatch):

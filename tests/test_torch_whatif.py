@@ -435,13 +435,15 @@ def test_whatif_batch_declines_where_the_reference_does():
 
 
 def test_whatif_batch_raises_on_what_the_port_lacks():
-    """A node with CSI attach limits: the reference answers, the port has
-    not ported the volume columns and raises UnsupportedProblem."""
+    """A pending pod with a DRA resource claim: the port has not ported
+    device allocation and raises UnsupportedProblem (CSI attach limits
+    and volume zones answer: tests/test_torch_constrained.py)."""
     _jc, pc = _cells("selector")
-    pods, specs = T.prefix_scenarios(pc.cands, 2, pc.pending)
+    dra = pc.S.make_pod("dra-0", cpu=0.5)
+    dra.spec.resource_claims = ["gpu-claim"]
+    pods, specs = T.prefix_scenarios(pc.cands, 2, pc.pending + [dra])
     nodes = [x.clone() for x in pc.cluster.nodes]
-    nodes[0].volume_usage = object()
-    with pytest.raises(UnsupportedProblem, match="CSI"):
+    with pytest.raises(UnsupportedProblem, match="DRA"):
         pc.scheduler().whatif_batch(pods, nodes, None, specs, pc.factory)
 
 
@@ -520,9 +522,10 @@ def test_whatif_kernel_path_composes(monkeypatch):
 
 def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
     """The scenario-mode launch with the C entry stubbed: the single-
-    scenario block's 78 pointers, each scenario field stacked on a leading
+    scenario block's 82 pointers, each scenario field stacked on a leading
     S axis and pod_idx set, each pointer's byte stride per scenario (the
-    stacked fields' row stride, 0 for the shared tables), the 20 dims with
+    stacked fields' row stride, 0 for the shared tables; the reservation
+    capacities and held rows among the stacked), the 29 dims with
     L = steps per scenario, S blocks, the packed type tables, steps [0, L)
     in one launch, counted once; a launch of steps [2, 5) alone; with S = 1
     the block is the single-scenario block (pod_idx aside) with every
@@ -535,7 +538,7 @@ def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
 
     def fake(source, entry, ptrs, n_ptrs, dims, strides, S, tables, offsets, lo, hi):
         end = read(offsets, len(p_cuda.TABLES) + 1)[-1]
-        seen.append((entry, read(ptrs, n_ptrs), read(dims, 20), read(strides, n_ptrs), S,
+        seen.append((entry, read(ptrs, n_ptrs), read(dims, 29), read(strides, n_ptrs), S,
                      bytes((ctypes.c_uint8 * end).from_address(tables)), lo, hi))
 
     _sig, a, kw, _out, _vocab = _capture_whatif(jc, [jc.cands[:k] for k in range(1, 4)])
@@ -552,10 +555,10 @@ def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
     assignment = p_cuda.perpod_whatif(stacked, xs, ctx, idx, valid, ev)
     (entry, ptrs, dims, strides, s_got, tables, lo, hi), = seen
     assert (entry, s_got, lo, hi) == ("perpod_steps", S, 0, L) and assignment.shape == (S, L)
-    assert tables == p_cuda.perpod_tables(it, tm.its)[0].numpy().tobytes()
+    assert tables == p_cuda.perpod_tables(it, tm.its, tm.mv_it_values)[0].numpy().tobytes()
     row_max = torch.empty(stacked.used.shape)
     fields, want_strides, want_dims = p_cuda._whatif_fields(stacked, xs, ctx, row_max, assignment, idx, valid, ev)
-    assert len(fields) == len(ptrs) == len(strides) == 78 and strides == want_strides
+    assert len(fields) == len(ptrs) == len(strides) == 82 and strides == want_strides
     assert fields[-1][0] == "pod_idx" and ptrs[-1] == idx.data_ptr()
     scen = set(p_cuda._scenario_tensors(stacked, row_max, assignment, idx, valid, ev))
     # every field the step writes has a stride: none shares one carry across the blocks
