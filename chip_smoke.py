@@ -27,7 +27,10 @@ Phases, any failure exits non-zero:
      reservation branches on: one step, 8 steps and a 256-pod chunk of
      constrained_4096x400 from the state after 1024 pods, and in scenario
      mode on whatif_constrained_prefix100's encode (reservation
-     capacities and held rows among the carry leaves);
+     capacities and held rows among the carry leaves); the gang kernel
+     (gang_scan, H9) on the first gang run of each gang cell below from
+     its empty carry, against the plain loop: every carry leaf it writes
+     and every GangYs leaf;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -71,7 +74,16 @@ Phases, any failure exits non-zero:
      (the constrained templates' cluster of mixed_pods(4096), CSI attach
      limits and PVCs, reservations in use, 64 pending pods, the prefixes
      1..100) held to the JAX package's signals and placements, one launch
-     in scenario mode, and one profiled warm batch;
+     in scenario mode, and one profiled warm batch; then gangs:
+     gang_storm_64x16x400 (64 gangs x 16 at 1.5 cpu, the whale gang of 4 x
+     10000 cpu, selector_pods(2048) over make_templates(400),
+     max_claims=2048) and gang_zonal_budget_4096x400 (32 zone-spread gangs
+     x 16, 8 hostname-spread gangs x 8, zonal_pods(4096, kinds=8), a pool
+     cpu limit that binds, max_claims=4096), cold and twice warm, held to
+     the JAX package's claims, unschedulable pods and reasons (the whale
+     alone spills, whole), $/h, slice hosts and digests, gang_scan
+     launched once per gang run of every round, one profiled warm solve
+     each;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
      usage, requirements), and the wall of phase 3's plain what-if
@@ -157,6 +169,32 @@ HOSTPORTS_GOLDEN = (410, 43.1019, "e08c63873a86e98b2bdca7c2f9c6eaf72ca07496c2555
 WHATIF_C_CLUSTER = (819, 4096, "9918ce157b8189ae07de347c45d6b43eaeec20392174f60ec79d7d551fa2699c")
 WHATIF_C_GOLDEN = ("6b138f7464188d8b40eccaaa88ef1c30ed8307dbb3808e17314837a35b3f0e4c",
                    "091fe961c67739156a965188628cd7608142f1dd5b2ca8d7c03bdeff6b337d61")
+# the gang cells (python tests/test_torch_gang.py prints them, TPUScheduler
+# on the CPU): gang_storm_64x16x400 — 64 gangs x 16 members at 1.5 cpu,
+# the whale gang of 4 x 10000 cpu and selector_pods(2048) over
+# make_templates(400), max_claims=2048 (the JAX package's bench.py gang
+# storm at its TPU sizes); gang_zonal_budget_4096x400 — 32 zone-spread
+# gangs x 16 at 1.0 cpu, 8 hostname-spread gangs x 8 at 2.0 cpu and
+# zonal_pods(4096, kinds=8) over make_templates(400), max_claims=4096, a
+# pool cpu limit of testing.GANG_ZONAL_CPU_LIMIT (75% of the 9744 cpu the
+# problem launches without one): claims, unschedulable pods and reasons,
+# the gangs that spilled, $/h, slice hosts and testing.slice_digest /
+# result_digest
+GANG_TYPES = 400
+GANG_STORM = dict(n_gangs=64, size=16, singles=2048, max_claims=2048)
+GANG_STORM_GOLDEN = dict(
+    claims=112, unschedulable=4, reasons={"no compatible in-flight claim or template": 4},
+    spilled={"default/whale": 4}, price=109.5592, slice_hosts=64,
+    slice_digest="695086e9e2d0cb32c8187bd11750904de3c7f8fe0582a8780a196d35cdc01eed",
+    result_digest="d6cabe4171ce9bd7f9c90c95930cc997a39babeb17d7da85e2ad6bdf18ce2076",
+)
+GANG_ZONAL_MAX_CLAIMS = 4096
+GANG_ZONAL_GOLDEN = dict(
+    claims=116, unschedulable=1850, reasons={"no compatible in-flight claim or template": 1850},
+    spilled={"singleton": 1850}, price=82.5913, slice_hosts=40,
+    slice_digest="0fa701be3eda7c3bc3df33edb7f6ca18955cc709081a0babb68e507b3c99b0d5",
+    result_digest="8e380e3f44788b502e03705e016894edff12fbaebeb348e62782e5f79e03891b",
+)
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -1147,6 +1185,150 @@ def hostports_path(torch, cuda, T, TorchScheduler, profile_dir) -> dict:
     return launches
 
 
+def gang_cells(T, TorchScheduler) -> list:
+    """The two gang cells' problems: label, pods, budgets, a scheduler,
+    the JAX package's golden."""
+    templates = T.make_templates(GANG_TYPES)
+    st = GANG_STORM
+    return [
+        dict(label="gang_storm_64x16x400", pods=T.gang_storm_pods(st["n_gangs"], st["size"], st["singles"]),
+             budgets=None, sched=TorchScheduler(templates, max_claims=st["max_claims"]), golden=GANG_STORM_GOLDEN),
+        dict(label="gang_zonal_budget_4096x400", pods=T.gang_zonal_pods(),
+             budgets={"default": {"cpu": T.GANG_ZONAL_CPU_LIMIT}},
+             sched=TorchScheduler(templates, max_claims=GANG_ZONAL_MAX_CLAIMS), golden=GANG_ZONAL_GOLDEN),
+    ]
+
+
+def gang_golden(T, result) -> dict:
+    """What the gang cells hold to the JAX package's (tests/test_torch_gang.py
+    _golden, without the launched cpu)."""
+    from karpenter_tpu_torch.gang import gang_of
+
+    spilled: dict = {}
+    reasons: dict = {}
+    for p, r in result.unschedulable:
+        g = gang_of(p)
+        key = g[0] if g else "singleton"
+        spilled[key] = spilled.get(key, 0) + 1
+        reasons[r] = reasons.get(r, 0) + 1
+    return dict(
+        claims=len(result.claims), unschedulable=len(result.unschedulable), reasons=reasons, spilled=spilled,
+        price=round(result.total_price(), 4), slice_hosts=sum(1 for c in result.claims if c.gang),
+        slice_digest=T.slice_digest(result), result_digest=T.result_digest(result),
+    )
+
+
+def gang_kernel_phase(torch, cuda, cells: list, results: list) -> None:
+    """Phase 3d: H9 gang_scan against its plain version (`_gang_step` per
+    segment) on the first gang run of each gang cell's real encoded
+    problem, from the empty carry: every carry leaf the scan writes
+    (bank rows, n_open, budgets, vg / hg counts, the bank's key rows) and
+    every GangYs leaf, exact. Times: the kernel per launch (CUDA events,
+    each launch on a fresh copy of the carry), the plain loop per run, the
+    bound (the run's inputs read once, the bank rows it writes written
+    once). The first cell's numbers go into the kernels line."""
+    from karpenter_tpu_torch.ops import solver
+
+    for cell in cells:
+        sched = cell["sched"]
+        _sorted, enc = sched._encode(cell["pods"], cell["budgets"])
+        mode, segs = next(r for r in sched._runs(enc) if r[0][0] == "gang")
+        xs, maxg, kw = sched._gang_args(enc, segs, mode[1])
+        state0 = sched._initial_state(enc)
+        common = (enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], sched.well_known,
+                  enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], enc["n_claims"])
+        st_k, ys_k = solver.solve_gang(state0, xs, *common, maxg=maxg, **kw)
+        st_p, ys_p = solver.solve_gang(state0, xs, *common, maxg=maxg, plain=True, **kw)
+        torch.cuda.synchronize()
+        pairs = [(f, getattr(st_k, f), getattr(st_p, f)) for f in solver.GANG_WRITES]
+        pairs += [(f, getattr(ys_k, f), getattr(ys_p, f)) for f in solver.GangYs._fields]
+        bad = [f for f, a, b in pairs if not torch.equal(a, b)]
+        err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().nan_to_num(0.0).max())
+                  if a.numel() else 0.0 for _f, a, b in pairs)
+        pre = solver.gang_precompute(xs, sched.it_tensors, enc["template_tensors"], sched.well_known,
+                                     enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], kw["key_kid"],
+                                     kw["n_domains"])
+        carries = iter([state0._replace(**{f: getattr(state0, f).clone() for f in solver.GANG_WRITES})
+                        for _ in range(23)])
+        args = (sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], enc["zone_kid"], enc["n_claims"],
+                maxg, kw["key_kid"], kw["n_domains"], kw["tk_idx"])
+        ms = time_ms(lambda: cuda.gang_scan(pre, next(carries), enc["exist_tensors"], *args), iters=20, warmup=3)
+        plain_ms = time_ms(lambda: solver.solve_gang(state0, xs, *common, maxg=maxg, plain=True, **kw),
+                           iters=2, warmup=1)
+        it = sched.it_tensors
+        T_, GR, R = it.alloc.shape
+        Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+        B = xs.count.shape[0]
+        hosts = int(ys_k.n_opened.sum())
+        tk = st_k.bank_tk_mask.shape[2] + 2 if kw["tk_idx"] >= 0 else 0
+        b = bound(
+            nbytes(*pre, it.alloc, it.group_valid, it.zc_avail, it.cap, enc["template_tensors"].daemon_requests,
+                   state0.budget, state0.nodes_budget, state0.vg_counts) + hosts * (T_ + 4 * R + 5 + tk) + 24 * B,
+            float(B * T_ * GR * (9 * R + Z * C) + hosts * T_ * GR * 2 * R),
+        )
+        print(f"kernel gang_scan ({cell['label']}, first gang run: B={B} segments, maxg={maxg}, key {kw['key_kid']}, "
+              f"{hosts} slice hosts): equal={not bad} (tolerance: exact; {len(pairs)} leaves) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+        if bad:
+            print(f"  gang_scan leaves that differ: {bad}", flush=True)
+        if cell is cells[0]:
+            results.append(dict(
+                name="gang_scan", route="cuda", source="karpenter_tpu_torch/ops/csrc/gang_scan.cu",
+                replaces="karpenter_tpu/ops/solver.py:2657", launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=None, equal=not bad,
+            ))
+        elif bad:
+            results[-1]["equal"] = False
+            results[-1]["max_abs_err"] = max(results[-1]["max_abs_err"], err)
+
+
+def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
+    """Drive one gang cell: launch counts zeroed just before a cold solve
+    and read just after, the result held to the JAX package's (claims,
+    unschedulable pods and reasons, the gangs that spilled, $/h, slice
+    hosts, slice and result digests), gang_scan launched once per gang run
+    of every round, two warm solves with the same digest, one more under
+    torch.profiler (idle share, gang_scan's device ms per launch). Returns
+    the launches or raises RuntimeError."""
+    label, sched, pods, budgets = cell["label"], cell["sched"], cell["pods"], cell["budgets"]
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = sched.solve(pods, budgets=budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    st = sched.last_stats
+    print(f"{label} cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} stats={json.dumps(st)} "
+          f"launches={json.dumps(launches)}", flush=True)
+    got = gang_golden(T, result)
+    print(f"{label} result: {json.dumps(got)}", flush=True)
+    want = cell["golden"]
+    for k, v in want.items():
+        same = abs(got[k] - v) < 1e-2 if k == "price" else got[k] == v
+        if not same:
+            raise RuntimeError(f"{label}: {k} {got[k]} differs from the JAX package's {v}")
+    print(f"{label}: equal to the JAX package's result", flush=True)
+    if not st["gang_dispatches_all"] or launches["gang_scan"] != st["gang_dispatches_all"]:
+        raise RuntimeError(f"{label}: {launches['gang_scan']} gang_scan launches for {st['gang_dispatches_all']} "
+                           f"gang runs over {st['rounds']} rounds")
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = sched.solve(pods, budgets=budgets)
+        torch.cuda.synchronize()
+        print(f"{label} warm {i}: wall={time.perf_counter() - t0:.3f}s {json.dumps(sched.last_timings)}", flush=True)
+        if T.result_digest(r) != got["result_digest"] or T.slice_digest(r) != got["slice_digest"]:
+            raise RuntimeError(f"{label}: warm solve differs from the cold solve")
+    by_name = profile_run(lambda: sched.solve(pods, budgets=budgets), profile_dir, label)["by_name"]
+    hits = [v for n, v in by_name.items() if "gang_scan_kernel" in n]
+    if hits:
+        n, ms = hits[0]
+        print(f"kernel gang_scan ({label}): {ms / n:.4f} ms per launch on the device ({n} launches profiled)",
+              flush=True)
+    else:
+        print(f"kernel gang_scan ({label}): device time not measured (no profiled launch)", flush=True)
+    return launches
+
+
 def record_chunks(cuda, fn) -> list:
     """Run fn with every single-scenario launch of the per-pod kernel
     recorded (its inputs, a copy of the carry before it, its assignment),
@@ -1356,6 +1538,9 @@ def main() -> int:
         return fail(str(err))
     whatif_c_plain_wall, batch_c = whatif_kernel_phase(cell_wc, None)
     checks_c.append(batch_c["entry"])
+    # the gang cells: H9 on each cell's first gang run
+    cells_g = gang_cells(T, TorchScheduler)
+    gang_kernel_phase(torch, cuda, cells_g, kernels)
     bad = [k["name"] for k in kernels + checks_c if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -1379,7 +1564,7 @@ def main() -> int:
         profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
-            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS],
+            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan",)],
         )
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
@@ -1467,6 +1652,8 @@ def main() -> int:
         launches_c = constrained_path(torch, cuda, cell_c, kernels, profile_dir)
         launches_h = hostports_path(torch, cuda, T, TorchScheduler, profile_dir)
         launches_wc = whatif_path(torch, cuda, T, cell_wc, "prefix")
+        # gangs: a training-job burst, zone-spread jobs under a spend limit
+        launches_g = [gang_path(torch, cuda, T, cell, profile_dir) for cell in cells_g]
     except RuntimeError as err:
         return fail(str(err))
     pods_wc, specs_wc = cell_wc["batches"]["prefix"]
@@ -1479,7 +1666,7 @@ def main() -> int:
     profiled_kernel([], cuda.WHATIF_KERNELS[0], "true", by_name, [cell_wc["prefix_run"]], cell_wc["label"])
     for k in kernels:
         k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w, launches_c,
-                                                      launches_h, launches_wc])
+                                                      launches_h, launches_wc, *launches_g])
     for kind in ("prefix", "single"):
         pods_w, specs_w = cell_w["batches"][kind]
         sched_w = cell_w[f"{kind}_sched"]

@@ -37,6 +37,8 @@ class SimClaim:
     reserved_ids: frozenset = frozenset()
     # BestEffort minValues relaxation happened (scheduler.go:769)
     min_values_relaxed: bool = False
+    # the gang key when this claim is a slice host of a gang, else None
+    gang: Optional[str] = None
 
     def cheapest_launch(self) -> tuple[Optional[InstanceType], float]:
         """Cheapest (type, price) among viable types/offerings compatible

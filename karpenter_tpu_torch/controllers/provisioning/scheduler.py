@@ -1,20 +1,23 @@
 """The scheduling engine: encode -> ops.solver (PyTorch + CUDA) -> decode.
 
 A port of the JAX package's TPUScheduler (controllers/provisioning/
-scheduler.py). Every pod kind routes as the reference routes it: selector
-pods and hostname topology groups to the kind-level fill scan, kinds
-whose vocab-key groups (zone spread, zone affinity) share ONE narrow key
-to the zonal kind scan, and every other topology kind — vocab-key groups
-over two or more keys, a key wider than KSCAN_D, an initially-empty
-hostname affinity group — to the per-pod scan, in chunks. Under finite
-NodePool budgets, enforced minValues or reservations every kind rides the
-per-pod scan. Host ports, CSI attach limits and a PVC's single zone
+scheduler.py). Every pod kind routes as the reference routes it: complete
+gangs first, one all-or-nothing gang scan segment each; selector pods and
+hostname topology groups to the kind-level fill scan, kinds whose
+vocab-key groups (zone spread, zone affinity) share ONE narrow key to the
+zonal kind scan, and every other topology kind — vocab-key groups over
+two or more keys, a key wider than KSCAN_D, an initially-empty hostname
+affinity group — to the per-pod scan, in chunks. Under finite NodePool
+budgets, enforced minValues or reservations every singleton kind rides
+the per-pod scan. Host ports, CSI attach limits and a PVC's single zone
 alternative ride every route. The same FFD order, topology encode,
 routing, chunking and compaction boundaries and decode give a result
-equal to TPUScheduler.solve's. Gang members, DRA claims, volume
-topologies with several alternatives and volume keys an existing node
-leaves undefined raise UnsupportedProblem; nothing falls back to another
-engine.
+equal to TPUScheduler.solve's. DRA claims, volume topologies with several
+alternatives, volume keys an existing node leaves undefined, and the
+gangs the reference sends to its host oracle (under enforced minValues or
+reservations, vocab-key groups over several keys or a key wider than
+KSCAN_D, hostname affinity or anti-affinity) raise UnsupportedProblem;
+nothing falls back to another engine.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import gang as gang_mod
 from karpenter_tpu_torch.cloudprovider.instancetype import InstanceType
 from karpenter_tpu_torch.controllers.provisioning import preferences as prefs
 from karpenter_tpu_torch.controllers.provisioning.host_scheduler import (
@@ -70,13 +74,12 @@ from karpenter_tpu_torch.utils import resources as res
 NO_ROOM_REASON = "claim-slot capacity exhausted; raise max_claims"
 NO_CLAIM_REASON = "no compatible in-flight claim or template"
 
-GANG_ANNOTATIONS = ("ktpu.dev/gang-name", "ktpu.dev/gang-size", "ktpu.dev/gang-rank")
-
 
 class UnsupportedProblem(ValueError):
     """The problem needs a part of the solver this package has not ported
-    (gang members, DRA claims, volume topologies with several alternatives
-    or with a key an existing node leaves undefined)."""
+    (DRA claims, volume topologies with several alternatives or with a key
+    an existing node leaves undefined, gangs the reference hands to its
+    host oracle)."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -306,6 +309,42 @@ def _apply_assignments(ctx, idx0: int, arr: np.ndarray) -> None:
         for i in np.flatnonzero(nm).tolist():
             reason = NO_ROOM_REASON if arr[i] == ops_solver.NO_ROOM else NO_CLAIM_REASON
             ctx.unschedulable.append((pods_sorted[idx0 + i], reason))
+
+
+def _decode_gang_segments(ctx, segs, f, gang_key_of_kind: dict) -> None:
+    """Expand each gang segment: slice host j takes the contiguous rank
+    block [j*f, (j+1)*f) and is marked with the gang's key; a gang that did
+    not place fails every member together with one reason (the claims axis,
+    its spill, or no template)."""
+    for j, (lo, hi, kind) in enumerate(segs):
+        count = hi - lo
+        if count == 0:
+            continue
+        if int(f["leftover"][j]):
+            st = int(f["status"][j])
+            reason = (
+                NO_ROOM_REASON if st == ops_solver.NO_ROOM
+                else gang_mod.GANG_SPILL_REASON if st == ops_solver.GANG_SPILL
+                else NO_CLAIM_REASON
+            )
+            ctx.unschedulable.extend((ctx.pods_sorted[i], reason) for i in range(lo, hi))
+            continue
+        fj = int(f["fill"][j])
+        base = int(f["open_g"][j])
+        pk = ctx.kind_ports(kind)
+        for cj in range(int(f["n_opened"][j])):
+            slot = base + cj
+            claim = ctx.ensure_claim(slot)
+            claim.gang = gang_key_of_kind.get(int(kind))
+            batch = [ctx.pods_sorted[i] for i in range(lo + cj * fj, lo + min((cj + 1) * fj, count))]
+            claim.pods.extend(batch)
+            for p in batch:
+                ctx.assignments[p.metadata.uid] = slot
+            if pk:
+                claim.host_ports.extend(pk * len(batch))
+            ck = ctx.claim_kinds[slot]
+            ck[kind] = ck.get(kind, 0) + len(batch)
+            ctx.claim_pod_counts[slot] += len(batch)
 
 
 def _fold_narrowing(vocab, topo_kids: tuple, reqs: Requirements, mask_r, inf_r, def_r, what: str) -> None:
@@ -661,14 +700,12 @@ class TorchScheduler:
         return self._universe_base
 
     def _check_supported(self, pods: Sequence[Pod]) -> None:
-        """Raise UnsupportedProblem for what no ported engine runs: gang
-        members and DRA claims (the volume checks are solve's and
-        whatif_batch's, where the reference routes them)."""
+        """Raise UnsupportedProblem for what no ported engine runs: DRA
+        claims (the volume checks are solve's and whatif_batch's, the gang
+        classes _route_gangs', where the reference routes them)."""
         for p in pods:
             if p.spec.resource_claims:
                 raise UnsupportedProblem(f"pod {p.name}: DRA resource claims")
-            if any(k in p.metadata.annotations for k in GANG_ANNOTATIONS):
-                raise UnsupportedProblem(f"pod {p.name}: gang member")
 
     def _kind_sig(self, pod: Pod):
         """The pod-kind signature: its content, refined by its volume
@@ -699,14 +736,30 @@ class TorchScheduler:
         universe: a topology-free pod set never builds it). Its keys and
         domains join the vocab before the pads freeze."""
         dev = self.device
-        pods_list = list(pods)
+        pods_all = list(pods)
+        # ---- gang partition: complete gangs form a rank-ordered prefix,
+        # largest slice first; invalid gangs and gangs still waiting for
+        # stragglers never enter the solve (reported first, in this order)
+        gangs, singles, invalid = gang_mod.collect_gangs(pods_all)
+        pre_unsched: list = list(invalid)
+        gang_prefix: list = []
+        gang_bounds: list = []  # (lo, hi, gang key) within the prefix
+        for g in gang_mod.order_gangs(gangs):
+            if not g.complete:
+                pre_unsched.extend((p, gang_mod.GANG_WAITING_REASON) for p in g.pods_in_rank_order())
+                continue
+            lo_g = len(gang_prefix)
+            gang_prefix.extend(g.pods_in_rank_order())
+            gang_bounds.append((lo_g, len(gang_prefix), g.key))
+        pods_list = gang_prefix + singles
+        n_gang = len(gang_prefix)
         P = len(pods_list)
         cap = self.max_claims or _next_pow2(max(P, 1))
         n_claims = self._n_claims_override or cap
         self._last_n_claims = n_claims
         if topology is None:
             topology = Topology.build(
-                pods_list,
+                pods_all,
                 lambda: build_universe_domains(
                     self.templates, self.existing_nodes, template_base=self.universe_base()
                 ),
@@ -724,7 +777,15 @@ class TorchScheduler:
         if P:
             # kinds refined by the volume restriction (the reference's _kind_sig)
             sig, sizes = ffd_keys(pods_list, self._kind_sig)
-            order = np.lexsort((sig, -sizes))  # ffd_sort's order
+            # each gang is its own kind (negative ids never collide), and
+            # only the singletons FFD-sort, ties by first appearance among them
+            for gi, (lo_g, hi_g, _key) in enumerate(gang_bounds):
+                sig[lo_g:hi_g] = -(gi + 1)
+            _, first0, inv0 = np.unique(sig[n_gang:], return_index=True, return_inverse=True)
+            ranks = np.argsort(np.argsort(first0))[inv0]
+            order = np.concatenate(
+                [np.arange(n_gang, dtype=np.int64), n_gang + np.lexsort((ranks, -sizes[n_gang:]))]
+            )
             pods_sorted = [pods_list[i] for i in order]
             # kind ids numbered by first appearance in the SORTED sequence
             sig_sorted = sig[order]
@@ -736,6 +797,8 @@ class TorchScheduler:
             pods_sorted = []
             kind_of = np.zeros(1, dtype=np.int64)
             reps = [Pod()]
+        # kind -> gang key (the prefix keeps its positions through the sort)
+        gang_key_of_kind = {int(kind_of[lo_g]): key for lo_g, _hi, key in gang_bounds}
         # vocab observation order: templates, catalog (constructor), topology
         # domains, then pod kinds, then existing nodes — value ids decide
         # mask layout
@@ -751,7 +814,7 @@ class TorchScheduler:
             self.encoder.observe_resources(n.available)
         if self._vocab_sig != self._sig():
             self._encode_static()
-        self._check_supported(pods_list)
+        self._check_supported(pods_all)
         self.budgets = {k: dict(v) for k, v in (budgets or {}).items()}
         budget, nodes_budget = self._encode_budgets()
         template_tensors = self.template_tensors._replace(budget=budget, nodes_budget=nodes_budget)
@@ -816,7 +879,8 @@ class TorchScheduler:
         # kind rides the per-pod scan (the reference's allow_fill)
         flags = self._flags()
         allow_fill = not flags.mv_active and not flags.res_active and not any(v for v in self.budgets.values())
-        batchable, kscan_key = self._classify(reps, rel, vg, hg, allow_fill)
+        gang_kind, gang_vg_key = self._route_gangs(gang_key_of_kind, U, rel, vg, hg, flags)
+        batchable, kscan_key = self._classify(reps, rel, vg, hg, allow_fill, gang_kind)
         kinds = dict(
             reqs=ReqSetTensors.from_numpy(reqs_np, dev),
             strict=ReqSetTensors.from_numpy(strict_np, dev),
@@ -836,6 +900,10 @@ class TorchScheduler:
             segments=segments,
             batchable=batchable,
             kscan_key=kscan_key,
+            gang_kind=gang_kind,
+            gang_vg_key=gang_vg_key,
+            gang_key_of_kind=gang_key_of_kind,
+            pre_unsched=pre_unsched,
             reps=reps,
             exist_tensors=exist_tensors,
             template_tensors=template_tensors,
@@ -852,15 +920,59 @@ class TorchScheduler:
             P=P,
         )
 
-    def _classify(self, reps: list, rel: dict, vg: list, hg: list, allow_fill: bool) -> tuple:
-        """Route every kind (the reference's batchability and kscan-key
-        rules): a kind rides the fill scan unless it interacts with a
-        vocab-key group or with an initially-empty hostname affinity group
-        (whose bootstrap is ordered); such a kind rides the kind scan when
-        every vocab-key group it applies to or records into shares ONE key
-        with at most KSCAN_D values (kscan_key = that key), and the per-pod
-        scan otherwise (kscan_key = -1). Without allow_fill every kind
-        rides the per-pod scan."""
+    def _route_gangs(self, gang_key_of_kind: dict, U: int, rel: dict, vg: list, hg: list, flags) -> tuple:
+        """The gang kinds' route (the reference's, scheduler.py:2116-2176):
+        (gang_kind [U] bool, gang_vg_key [U] — the ONE narrow vocab key a
+        gang kind's groups share, -1 for none). Where the reference hands
+        the solve to its host oracle (_GangHostRoute) this raises
+        UnsupportedProblem with the reference's reason: enforced minValues,
+        reservations, vocab-key groups over several keys or a key wider
+        than KSCAN_D, hostname affinity or anti-affinity. (The reference's
+        "gang" quarantine rung belongs to its guard package, which this
+        package does not have.)"""
+        gang_kind = np.zeros(U, dtype=bool)
+        for k in gang_key_of_kind:
+            gang_kind[k] = True
+        gang_vg_key = np.full(U, -1, dtype=np.int64)
+        if not gang_key_of_kind:
+            return gang_kind, gang_vg_key
+        vocab = self.encoder.vocab
+        vga, vgr, hga, hgr = rel["vga"], rel["vgr"], rel["hga"], rel["hgr"]
+        vkeys = [vocab.key_to_id[g.key] for g in vg]
+        host_why = None
+        if flags.mv_active:
+            host_why = "gang under enforced minValues"
+        elif flags.res_active:
+            host_why = "gang under reservations"
+        for u in np.flatnonzero(gang_kind).tolist():
+            if host_why:
+                break
+            keys = {vkeys[j] for j in range(len(vg)) if vga[u, j] or vgr[u, j]}
+            if len(keys) > 1:
+                host_why = "gang vg groups span multiple vocab keys"
+            elif keys:
+                kid = next(iter(keys))
+                if len(vocab.values[kid]) > ops_solver.KSCAN_D:
+                    host_why = "gang vg key wider than KSCAN_D"
+                else:
+                    gang_vg_key[u] = kid
+            for j in np.flatnonzero(hga[u] | hgr[u]).tolist():
+                if hg[j].type is not TopologyType.SPREAD:
+                    host_why = "gang hostname affinity/anti-affinity"
+                    break
+        if host_why:
+            raise UnsupportedProblem(host_why)
+        return gang_kind, gang_vg_key
+
+    def _classify(self, reps: list, rel: dict, vg: list, hg: list, allow_fill: bool, gang_kind) -> tuple:
+        """Route every singleton kind (the reference's batchability and
+        kscan-key rules): a kind rides the fill scan unless it interacts
+        with a vocab-key group or with an initially-empty hostname affinity
+        group (whose bootstrap is ordered); such a kind rides the kind scan
+        when every vocab-key group it applies to or records into shares ONE
+        key with at most KSCAN_D values (kscan_key = that key), and the
+        per-pod scan otherwise (kscan_key = -1). Without allow_fill every
+        kind rides the per-pod scan. Gang kinds are never batchable."""
         U = len(reps)
         vga, vgr, hga = rel["vga"], rel["vgr"], rel["hga"]
         empty_aff = np.zeros(hga.shape[1], dtype=bool)
@@ -870,7 +982,7 @@ class TorchScheduler:
         batchable = np.array(
             [not vga[u].any() and not vgr[u].any() and not (hga[u] & empty_aff).any() for u in range(U)],
             dtype=bool,
-        ) & allow_fill
+        ) & allow_fill & ~gang_kind
         kscan_key = np.full(U, -1, dtype=np.int64)
         if not allow_fill:
             return batchable, kscan_key
@@ -954,15 +1066,22 @@ class TorchScheduler:
         return max(-(-enc["P"] // K_pipe), 1)
 
     def _runs(self, enc: dict) -> list:
-        """Maximal runs of consecutive segments with one route — ("fill",),
-        ("kscan", key) or ("perpod",) — with big fill runs split into
-        ~pipeline_chunks dispatches (the reference's software-pipeline
-        split); kscan and per-pod runs keep their exact segments."""
+        """Maximal runs of consecutive segments with one route — ("gang",
+        key), ("fill",), ("kscan", key) or ("perpod",) — with big fill runs
+        split into ~pipeline_chunks dispatches (the reference's
+        software-pipeline split); gang, kscan and per-pod runs keep their
+        exact segments."""
         batchable, kscan_key = enc["batchable"], enc["kscan_key"]
+        gang_kind, gang_vg_key = enc["gang_kind"], enc["gang_vg_key"]
         runs: list = []
         for seg in enc["segments"]:
             k = seg[2]
-            m = ("fill",) if batchable[k] else ("kscan", int(kscan_key[k])) if kscan_key[k] >= 0 else ("perpod",)
+            if gang_kind[k]:
+                m = ("gang", int(gang_vg_key[k]))
+            elif batchable[k]:
+                m = ("fill",)
+            else:
+                m = ("kscan", int(kscan_key[k])) if kscan_key[k] >= 0 else ("perpod",)
             if runs and runs[-1][0] == m:
                 runs[-1][1].append(seg)
             else:
@@ -987,6 +1106,26 @@ class TorchScheduler:
                 split.append((mode, cur))
         return split
 
+    def _initial_state(self, enc: dict) -> ops_solver.SolverState:
+        """The empty carry of an encoded problem (window = the claims axis)."""
+        return ops_solver.initial_state(
+            enc["exist_tensors"], self.it_tensors, enc["template_tensors"], enc["topo_tensors"], enc["n_claims"],
+            enc["n_ports"], enc["res_cap0"], window=enc["n_claims"], topo_kids=enc["topo_kids"],
+        )
+
+    def _gang_args(self, enc: dict, segs: list, key: int) -> tuple:
+        """solve_gang's inputs for one gang run: (xs, maxg, key kwargs). One
+        segment per gang, padded with count-0 rows to a "gang_segments"
+        bucket; maxg the "gang_cap" bucket over the largest gang (a gang of
+        N pods never opens more than N hosts)."""
+        B_pad = self._pad("gang_segments", len(segs), 8)
+        padded = list(segs) + [(0, 0, segs[0][2])] * (B_pad - len(segs))
+        maxg = self._pad("gang_cap", max(hi - lo for lo, hi, _k in segs), 8)
+        kw = dict(key_kid=-1, n_domains=1, tk_idx=-1)
+        if key >= 0:
+            kw = dict(key_kid=key, n_domains=len(self.encoder.vocab.values[key]), tk_idx=enc["topo_kids"].index(key))
+        return self._gather_kind_xs(enc, padded), maxg, kw
+
     def _run_solve(self, enc: dict):
         """One dispatch per run (fill scan or kind scan) or per chunk of a
         per-pod run, with boundary compaction; returns the final state and
@@ -994,10 +1133,7 @@ class TorchScheduler:
         segs, ys) / ("pods", lo, hi, assignment)."""
         n_claims = enc["n_claims"]
         topo_kids = enc["topo_kids"]
-        state = ops_solver.initial_state(
-            enc["exist_tensors"], self.it_tensors, enc["template_tensors"],
-            enc["topo_tensors"], n_claims, enc["n_ports"], enc["res_cap0"], window=n_claims, topo_kids=topo_kids,
-        )
+        state = self._initial_state(enc)
         runs = self._runs(enc)
         chunk = self.solve_chunk
         target = self._pipeline_target(enc)
@@ -1015,7 +1151,7 @@ class TorchScheduler:
         )
         outputs = []
         n_compactions = 0
-        n_fill = n_kscan = n_perpod = 0
+        n_fill = n_kscan = n_perpod = n_gang = 0
 
         def maybe_compact(st):
             nonlocal n_compactions
@@ -1030,6 +1166,15 @@ class TorchScheduler:
             return st
 
         for mode, segs in runs:
+            if mode[0] == "gang":
+                xs, maxg, gang_kw = self._gang_args(enc, segs, mode[1])
+                state, ys = ops_solver.solve_gang(state, xs, *common, maxg=maxg, plain=self.plain, **gang_kw)
+                outputs.append(("gang", segs, ys))
+                n_gang += 1
+                for lo, hi, k in segs:
+                    remaining[k] -= hi - lo
+                state = maybe_compact(state)
+                continue
             if mode[0] == "perpod":
                 lo, hi = segs[0][0], segs[-1][1]
                 for clo in range(lo, hi, chunk):
@@ -1068,7 +1213,8 @@ class TorchScheduler:
             state = maybe_compact(state)
         self.last_stats = dict(
             segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n_fill,
-            kscan_dispatches=n_kscan, perpod_dispatches=n_perpod, compactions=n_compactions,
+            kscan_dispatches=n_kscan, perpod_dispatches=n_perpod, gang_dispatches=n_gang,
+            compactions=n_compactions,
         )
         return state, outputs
 
@@ -1089,6 +1235,7 @@ class TorchScheduler:
                 )
                 if o[0] == "fill"
                 else dict(assignment=o[3]) if o[0] == "pods"
+                else o[2]._asdict() if o[0] == "gang"
                 else dict(assignment=o[2].assignment, grid_reused=o[2].grid_reused)
                 for o in outputs
             ],
@@ -1151,13 +1298,13 @@ class TorchScheduler:
         self._volume_reqs = norm_vol
         self._pod_vols = pod_volumes or {}
         self._reserved_in_use = reserved_in_use or {}
-        round_dispatches = []  # per _solve_once: its per-pod chunks
+        round_dispatches = []  # per _solve_once: (its per-pod chunks, its gang runs)
 
         def solve_round(current: list[Pod]) -> SchedulingResult:
             while True:
                 topo = copy.deepcopy(topology) if topology is not None else None
                 result = self._solve_once(current, [n.clone() for n in base_existing], budgets, topo)
-                round_dispatches.append(self.last_stats["perpod_dispatches"])
+                round_dispatches.append((self.last_stats["perpod_dispatches"], self.last_stats["gang_dispatches"]))
                 cap = _next_pow2(max(len(current), 1))
                 used = self._last_n_claims or self.max_claims or cap
                 leftover = sum(1 for _, reason in result.unschedulable if reason == NO_ROOM_REASON)
@@ -1176,7 +1323,11 @@ class TorchScheduler:
         finally:
             self.reserved_mode = prev_mode
         # last_stats describe the last round; these count every round
-        self.last_stats.update(rounds=len(round_dispatches), perpod_dispatches_all=sum(round_dispatches))
+        self.last_stats.update(
+            rounds=len(round_dispatches),
+            perpod_dispatches_all=sum(r[0] for r in round_dispatches),
+            gang_dispatches_all=sum(r[1] for r in round_dispatches),
+        )
         return result
 
     # -- batched consolidation what-ifs -------------------------------------
@@ -1221,7 +1372,7 @@ class TorchScheduler:
             if any(not n.requirements.has(k) for n in existing_nodes for k in keys):
                 return None
         pods = list(pods)
-        if any(p.metadata.annotations.get(GANG_ANNOTATIONS[0]) for p in pods):
+        if any(gang_mod.is_gang_pod(p) for p in pods):
             return None
         inputs = self._whatif_inputs(pods, existing_nodes, budgets, scenarios, topology_factory, vol,
                                      reserved_in_use, pod_volumes)
@@ -1334,7 +1485,9 @@ class TorchScheduler:
         slot_to_claim: dict[int, SimClaim] = {}
         claim_kinds: dict[int, dict[int, int]] = {}
         node_kinds: dict[int, dict[int, int]] = {}
-        unschedulable: list[tuple[Pod, str]] = []
+        # pods decided before the solve: invalid gangs and gangs waiting for
+        # stragglers
+        unschedulable: list[tuple[Pod, str]] = list(enc["pre_unsched"])
         assignments: dict[str, int] = {}
         existing_assignments: dict[str, str] = {}
         hostname_seq = 0
@@ -1404,6 +1557,9 @@ class TorchScheduler:
                 continue
             if o[0] == "pods":
                 _apply_assignments(ctx, o[1], np.asarray(f["assignment"][: o[2] - o[1]], dtype=np.int64))
+                continue
+            if o[0] == "gang":
+                _decode_gang_segments(ctx, o[1], f, enc["gang_key_of_kind"])
                 continue
             for j, (lo, hi, _kind) in enumerate(o[1]):
                 _apply_assignments(ctx, lo, np.asarray(f["assignment"][j][: hi - lo], dtype=np.int64))

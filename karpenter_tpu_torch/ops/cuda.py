@@ -29,7 +29,7 @@ PERPOD_KERNELS = ("perpod_scan_persistent",)
 WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
-    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS,
+    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan",
 )
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
@@ -129,6 +129,7 @@ _ARGTYPES = {
     "kscan_grid": [_I, _P, _P, _P],
     "kscan_pod_loop": [_P, _I, _P, _P],
     "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "gang_scan": [_P, _I, _P, _P],
 }
 
 
@@ -784,3 +785,78 @@ def perpod_whatif_steps(state, xs, ctx, pod_idx, valid, exist_valid, lo: int, hi
 def perpod_whatif(state, xs, ctx, pod_idx, valid, exist_valid) -> torch.Tensor:
     """Every step of S scenarios in one launch; returns the [S, L] int32 assignment."""
     return perpod_whatif_steps(state, xs, ctx, pod_idx, valid, exist_valid, 0, pod_idx.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# gangs: gang_scan, one launch per gang run (one block walks its segments)
+# ---------------------------------------------------------------------------
+
+
+def gang_scan(pre, state, exist, it, templates, topo, zone_kid: int, n_claims: int, maxg: int, key_kid: int,
+              D: int, tk_idx: int) -> list:
+    """H9: every gang segment of `pre` (ops.solver.GangPre, B rows) in one
+    launch. The carry fields of `state` it writes (ops.solver.GANG_WRITES,
+    private to the caller) are updated in place; returns the six [B]
+    int32 GangYs rows (open_g, n_opened, fill, tmpl, leftover, status)."""
+    dev = state.used.device
+    b, i, f = torch.bool, torch.int32, torch.float32
+    B, G, T = pre.its_base.shape
+    GR, R = it.alloc.shape[1], it.alloc.shape[2]
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    NGv, V = state.vg_counts.shape
+    NGh, S = state.hg_counts.shape
+    E = exist.avail.shape[0]
+    NCAP = n_claims
+    TK = state.bank_tk_inf.shape[1]
+    has_key = key_kid >= 0
+    Dk = D if has_key else 1
+    if S < E + NCAP + 1:
+        raise ValueError(f"gang_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
+    if not 1 <= Dk <= 16 or (has_key and key_kid == zone_kid and Dk > Z):
+        raise ValueError(f"gang_scan: key domains D={Dk} outside [1, 16] (Z={Z} for the zone key)")
+    if tk_idx >= TK or (tk_idx >= 0 and not has_key):
+        raise ValueError(f"gang_scan: tk_idx={tk_idx} with TK={TK}, key {key_kid}")
+    its_b = torch.empty((maxg, T), dtype=b, device=dev)
+    capTd = torch.empty((T, Dk), dtype=i, device=dev)
+    ys = torch.empty((6, B), dtype=i, device=dev)
+    fields = [
+        ("its_base", pre.its_base, b, (B, G, T)), ("tmpl_base", pre.tmpl_base, b, (B, G)),
+        ("zmask", pre.zmask, b, (B, G, Z)), ("cmask", pre.cmask, b, (B, G, C)),
+        ("requests", pre.requests, f, (B, R)), ("count", pre.count, i, (B,)), ("self_conf", pre.self_conf, b, (B,)),
+        ("zinf", pre.zinf, b, (B, G)), ("zdef", pre.zdef, b, (B, G)),
+        ("kmask", pre.kmask, b, (B, G, V)), ("pd", pre.pd, b, (B, Dk)), ("key_touched", pre.key_touched, b, (B,)),
+        ("gate", pre.gate, b, (B, NGv)), ("recs", pre.recs, b, (B, NGv)), ("vg_self", pre.vg_self, b, (B, NGv)),
+        ("hg_applies", pre.hg_applies, b, (B, NGh)), ("hg_rec", pre.hg_rec, b, (B, NGh)),
+        ("hg_self", pre.hg_self, b, (B, NGh)),
+        ("alloc", it.alloc, f, (T, GR, R)), ("group_valid", it.group_valid, b, (T, GR)),
+        ("zc_avail", it.zc_avail, b, (T, GR, Z, C)), ("cap", it.cap, f, (T, R)), ("admit", pre.admit, b, (T, Dk)),
+        ("daemon_requests", templates.daemon_requests, f, (G, R)), ("rank", templates.rank, i, (G,)),
+        ("vg_type", topo.vg_type, i, (NGv,)), ("vg_skew", topo.vg_skew, i, (NGv,)),
+        ("vg_min_domains", topo.vg_min_domains, i, (NGv,)), ("vg_domains", topo.vg_domains, b, (NGv, V)),
+        ("vg_rank", topo.vg_rank, i, (NGv, V)), ("hg_type", topo.hg_type, i, (NGh,)),
+        ("hg_skew", topo.hg_skew, i, (NGh,)), ("hg_valid", topo.hg_valid, b, (NGh,)),
+        ("hg_extra_nonempty", topo.hg_extra_nonempty, b, (NGh,)),
+        ("n_open", state.n_open, i, ()), ("budget", state.budget, f, (G, R)),
+        ("nodes_budget", state.nodes_budget, f, (G,)), ("vg_counts", state.vg_counts, i, (NGv, V)),
+        ("hg_counts", state.hg_counts, i, (NGh, S)), ("bank_frozen", state.bank_frozen, b, (NCAP,)),
+        ("bank_template", state.bank_template, i, (NCAP,)), ("bank_its", state.bank_its, b, (NCAP, T)),
+        ("bank_used", state.bank_used, f, (NCAP, R)), ("bank_tk_mask", state.bank_tk_mask, b, (NCAP, TK, V)),
+        ("bank_tk_inf", state.bank_tk_inf, b, (NCAP, TK)), ("bank_tk_def", state.bank_tk_def, b, (NCAP, TK)),
+        ("ys", ys, i, (6, B)), ("its_b", its_b, b, (maxg, T)), ("capTd", capTd, i, (T, Dk)),
+    ]
+    ptrs = []
+    for name, t, dt, shape in fields:
+        if t is None:  # rank: lexical order
+            ptrs.append(0)
+            continue
+        _check(t, name, dt, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"gang_scan: {name} {tuple(t.shape)} vs {shape}")
+        ptrs.append(t.data_ptr())
+    dims = [B, G, T, GR, R, Z, C, V, Dk, NGv, NGh, S, E, NCAP, maxg, TK, tk_idx, int(has_key),
+            int(has_key and key_kid == zone_kid)]
+    _call(
+        "gang_scan", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array(dims), ctypes.c_void_p),
+    )
+    return list(ys)

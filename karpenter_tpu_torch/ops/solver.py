@@ -2186,3 +2186,358 @@ def solve_whatif(*args, **kwargs) -> tuple[torch.Tensor, torch.Tensor]:
     among the pods the scenario counts, n_open [S] i32 — new claims)."""
     n_unsched, n_open, _assignment, _states = solve_whatif_full(*args, **kwargs)
     return n_unsched, n_open
+
+
+# ---------------------------------------------------------------------------
+# gangs: all-or-nothing slice placement (the JAX package's solve_gang /
+# _make_gang_step)
+# ---------------------------------------------------------------------------
+# One segment per gang, pods in rank order. The slice shape is closed
+# form: the chosen template's per-host fill f (the fill step's tier-3 cap),
+# then want = ceil(count / f) hosts. The hosts' rank blocks j = 0 .. want-1
+# are evaluated in order on fresh hostname slots E + n_open + j: the
+# hostname groups at the slot, and under ONE narrow vocab key the kind
+# scan's group rules (vg_eval_plain) against counts fixed within a block;
+# each block's remaining types feed its bank row and its budget debit.
+# Any failing block spills the whole gang. A placed gang writes its hosts
+# straight into the frozen bank (rows n_open + j: dedicated claims that no
+# later pod shares; slot_of and w_open do not move), charges budget[g]
+# once with the summed per-block debits, nodes_budget[g] with want, and
+# commits the counts. On CUDA one launch of gang_scan (H9) walks the
+# run's segments; `_gang_step` is its plain version.
+
+GANG_SPILL = -3  # a constraint no claims-axis escalation fixes (node budget, a refused rank block)
+
+
+class GangYs(NamedTuple):
+    """Per-gang segment record (the decode expands the rank blocks)."""
+
+    open_g: torch.Tensor  # [] i32 — first global claim id of the slice
+    n_opened: torch.Tensor  # [] i32 — hosts opened (0 = the gang did not place)
+    fill: torch.Tensor  # [] i32 — pods per host (the last host takes the rest)
+    tmpl: torch.Tensor  # [] i32 — slice template (-1 = none)
+    leftover: torch.Tensor  # [] i32 — 0 (placed) or the whole gang
+    status: torch.Tensor  # [] i32 — NO_CLAIM / NO_ROOM / GANG_SPILL (NO_ROOM when placed)
+
+
+def _gang_offd(it: InstanceTypeTensors, off_g: torch.Tensor, cmask: torch.Tensor, key_kid: int,
+               zone_kid: int, D: int) -> torch.Tensor:
+    """[D, T, GR] bool — an available offering exists if the block lands
+    in domain d: for the zone key the offerings of zone d in the admitted
+    capacity types, for another key the template's offering mask."""
+    T, GR, Z, C = it.zc_avail.shape
+    if key_kid != zone_kid:
+        return off_g[None].expand(D, T, GR)
+    if D > Z:
+        raise ValueError(f"solve_gang: zone key with D={D} > Z={Z}")
+    return (it.zc_avail[:, :, :D, :] & cmask[None, None, None, :C]).any(dim=-1).permute(2, 0, 1)
+
+
+def _gang_step(
+    state: SolverState,
+    x: KindXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    maxg: int,
+    key_kid: int,
+    D: int,
+    tk_idx: int,
+) -> tuple[SolverState, GangYs]:
+    """One gang segment (the reference's `_make_gang_step` step), plain."""
+    dev = state.used.device
+    NCAP = n_claims
+    G, T = templates.its.shape
+    E = exist.avail.shape[0]
+    has_key = key_kid >= 0
+    count = x.count
+    requests = x.requests
+    R = requests.shape[0]
+    self_conf = packed_conflict(x.ports, x.port_conf)
+    gate = x.vg_applies & topo.vg_valid
+    recs = x.vg_records & topo.vg_valid
+    rec_h = x.hg_records & topo.hg_valid
+    key_touched = torch.any(gate)
+    is_anti = topo.vg_type == TYPE_ANTI
+    zero = torch.zeros((), dtype=I32, device=dev)
+
+    # the slice template: the fill step's tier 3 (topology is never read
+    # here: a template whose blocks fail on topology spills the gang)
+    pod_g = broadcast_set(x.reqs, G)
+    comb0 = intersect_sets(templates.reqs, pod_g)
+    tmpl_compat = compatible_elemwise(templates.reqs, pod_g, well_known)
+    it_compat0 = kernels.intersects_plain(comb0, it.reqs)  # [G, T]
+    off_g = off_for_plain(comb0.mask, it, zone_kid, ct_kid)  # [G, T, GR]
+    daemon = templates.daemon_requests
+    fits_off0 = fits_off_counted_plain(daemon, torch.ones(G, dtype=I32, device=dev), requests, it, off_g)
+    cap_ok = torch.all(it.cap[None, :, :] <= state.budget[:, None, :], dim=-1)
+    its0 = templates.its & it_compat0 & fits_off0 & x.it_allow[None, :] & cap_ok
+    tmpl_feas = (
+        templates.valid & tmpl_compat & x.tmpl_ok & torch.any(its0, dim=-1) & (state.nodes_budget >= 1.0)
+    )
+    g = _pick_template(tmpl_feas, templates)
+    any_t = torch.any(tmpl_feas) & (count > 0)
+
+    # the slice shape: per-host capacity f, want = ceil(count / f) hosts
+    f0 = claim_fill_caps_plain(daemon, its0, requests, it, off_g)[g]
+    f = torch.where(self_conf, torch.clamp(f0, max=1), f0)
+    f = torch.where(any_t, torch.clamp(f, min=0), zero)
+    want = torch.where(f > 0, torch.div(count + f - 1, torch.clamp(f, min=1), rounding_mode="floor"), zero)
+    avail_cap = torch.clamp(NCAP - state.n_open, min=0)
+    budget_ok = state.nodes_budget[g] >= want.to(F32)
+    shaped = any_t & (f > 0)
+    try_place = shaped & (want <= avail_cap) & budget_ok
+
+    j = torch.arange(maxg, dtype=I32, device=dev)
+    c_j = torch.minimum(torch.clamp(count - j * f, min=0), f)  # [maxg] pods on host j
+    used_j = _madd(daemon[g][None, :], c_j[:, None], requests[None, :])
+    its0_g = its0[g]
+
+    # the rank blocks: block j lands on a fresh hostname with counts fixed
+    # within the block (records land after the block's add loop)
+    if has_key:
+        pd = x.strict_mask[key_kid, :D]
+        eval_candidates = vg_eval_plain(topo, gate, x.vg_self, pd, D)
+        admit = kscan_admit(it, key_kid, D)
+        grid_row = cap_res_grid_plain(daemon[g][None], requests, it)[0]  # [T, GR]
+        offd = _gang_offd(it, off_g[g], comb0.mask[g, ct_kid], key_kid, zone_kid, D)
+        capTd = torch.where(offd, grid_row[None], torch.zeros_like(grid_row)[None]).amax(dim=-1).T  # [T, D]
+        z0 = comb0.mask[g, key_kid, :D]
+        win_zinf = comb0.inf[g, key_kid] & ~key_touched
+    else:
+        fits_legacy = fits_off_counted_plain(
+            daemon[g][None, :], c_j, requests, it, off_g[g][None].expand((maxg,) + tuple(off_g.shape[1:]))
+        )  # [maxg, T]
+
+    cnt = state.vg_counts[:, :D].clone()
+    hgc = state.hg_counts.clone()
+    S = hgc.shape[1]
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    its_b = torch.zeros((maxg, T), dtype=torch.bool, device=dev)
+    z_b = torch.zeros((maxg, D), dtype=torch.bool, device=dev)
+    debit = torch.zeros(R, dtype=F32, device=dev)
+    neg_inf = torch.full_like(it.cap, float("-inf"))
+    for jj in range(maxg):
+        active = try_place & (jj < want)
+        cj = torch.minimum(torch.clamp(count - jj * f, min=0), f)
+        # the block's slot; past the hostname slots only when inactive
+        slot = torch.clamp(E + state.n_open + jj, max=S - 1).reshape(1)
+        hg_ok = hg_evaluate(topo, hgc, slot, x.hg_applies, x.hg_self)[0]
+        if has_key:
+            feas, newz = eval_candidates(z0[None], cnt)
+            zj = newz[0]
+            compat_j = torch.where(key_touched, torch.any(zj[None, :] & admit, dim=-1), True)
+            fits_j = torch.any(zj[None, :] & (capTd >= cj), dim=-1)
+            its_j = its0_g & compat_j & fits_j
+            vg_ok = feas[0]
+        else:
+            zj = torch.zeros(D, dtype=torch.bool, device=dev)
+            its_j = its0_g & fits_legacy[jj]
+            vg_ok = torch.ones((), dtype=torch.bool, device=dev)
+        blk_ok = vg_ok & hg_ok & torch.any(its_j)
+        commit = active & blk_ok & ok
+        if has_key:
+            single = zj.sum(dtype=I32) == 1
+            do = recs & ~win_zinf & (is_anti | single)
+            cnt = torch.where(commit, cnt + (do[:, None] & zj[None, :]).to(I32) * cj, cnt)
+        hgc2 = hgc.clone()
+        hgc2[:, slot.long()] += torch.where(rec_h, cj, zero)[:, None].to(hgc.dtype)
+        hgc = torch.where(commit, hgc2, hgc)
+        # the block's budget debit over its remaining types (subtractMax
+        # per opened claim)
+        max_cap_j = torch.where(its_j[:, None], it.cap, neg_inf).amax(dim=0)
+        max_cap_j = torch.where(torch.isfinite(max_cap_j), max_cap_j, torch.zeros_like(max_cap_j))
+        ok = ok & (blk_ok | ~active)
+        its_b[jj] = its_j
+        z_b[jj] = zj
+        debit = torch.where(commit, debit + max_cap_j, debit)
+    placed = try_place & ok
+
+    # NO_ROOM: bound by the claims axis (solve escalates it); GANG_SPILL:
+    # the nodes budget, or a rank block refused
+    status = torch.where(
+        shaped & ~budget_ok,
+        torch.full_like(zero, GANG_SPILL),
+        torch.where(
+            try_place & ~ok,
+            torch.full_like(zero, GANG_SPILL),
+            torch.where(shaped, torch.full_like(zero, NO_ROOM), torch.full_like(zero, NO_CLAIM)),
+        ),
+    )
+
+    # the atomic commit: block j -> global claim n_open + j, straight into
+    # the frozen bank (the reference's scatter to NCAP with mode="drop" is
+    # a mask of the active rows here)
+    rows = placed & (j < want)
+    gid = (state.n_open + j)[rows].long()
+    opened = torch.where(placed, want, zero)
+    g32 = g.to(I32)
+    bank_frozen = state.bank_frozen.clone()
+    bank_template = state.bank_template.clone()
+    bank_its = state.bank_its.clone()
+    bank_used = state.bank_used.clone()
+    bank_frozen[gid] = True
+    bank_template[gid] = g32
+    bank_its[gid] = its_b[rows]
+    bank_used[gid] = used_j[rows]
+    bank_tk = {}
+    if tk_idx >= 0:
+        V = comb0.mask.shape[2]
+        tk_rows = torch.cat([z_b, comb0.mask[g, key_kid, D:][None].expand(maxg, V - D)], dim=1)
+        tk_mask = state.bank_tk_mask.clone()
+        tk_inf = state.bank_tk_inf.clone()
+        tk_def = state.bank_tk_def.clone()
+        tk_mask[gid, tk_idx] = tk_rows[rows]
+        tk_inf[gid, tk_idx] = win_zinf
+        tk_def[gid, tk_idx] = comb0.defined[g, key_kid] | key_touched
+        bank_tk = dict(bank_tk_mask=tk_mask, bank_tk_inf=tk_inf, bank_tk_def=tk_def)
+    budget = state.budget.clone()
+    budget[g] = budget[g] + -torch.where(placed, debit, torch.zeros_like(debit))
+    nodes_budget = state.nodes_budget.clone()
+    nodes_budget[g] = nodes_budget[g] + -opened.to(F32)
+    vg_counts = state.vg_counts.clone()
+    vg_counts[:, :D] = torch.where(placed, cnt, state.vg_counts[:, :D])
+    new_state = state._replace(
+        bank_frozen=bank_frozen,
+        bank_template=bank_template,
+        bank_its=bank_its,
+        bank_used=bank_used,
+        n_open=state.n_open + opened,
+        budget=budget,
+        nodes_budget=nodes_budget,
+        vg_counts=vg_counts,
+        hg_counts=torch.where(placed, hgc, state.hg_counts),
+        **bank_tk,
+    )
+    ys = GangYs(
+        open_g=state.n_open.clone(),
+        n_opened=opened,
+        fill=f,
+        tmpl=torch.where(placed, g32, torch.full_like(zero, -1)),
+        leftover=torch.where(placed, zero, count),
+        status=status,
+    )
+    return new_state, ys
+
+
+class GangPre(NamedTuple):
+    """gang_scan's state-free per-segment inputs (`gang_precompute`), B
+    segments: nothing here reads the carry."""
+
+    its_base: torch.Tensor  # [B, G, T] bool — templates.its & it_compat0 & it_allow
+    tmpl_base: torch.Tensor  # [B, G] bool — valid & tmpl_compat & tmpl_ok
+    zmask: torch.Tensor  # [B, G, Z] bool — template ∩ pod zone rows
+    cmask: torch.Tensor  # [B, G, C] bool — template ∩ pod capacity-type rows
+    requests: torch.Tensor  # [B, R] f32
+    count: torch.Tensor  # [B] i32
+    self_conf: torch.Tensor  # [B] bool
+    zinf: torch.Tensor  # [B, G] bool — the key row's complement bit
+    zdef: torch.Tensor  # [B, G] bool
+    kmask: torch.Tensor  # [B, G, V] bool — the key row (its first D values: the domains)
+    pd: torch.Tensor  # [B, D] bool — strict domain mask
+    key_touched: torch.Tensor  # [B] bool
+    gate: torch.Tensor  # [B, NGv] bool
+    recs: torch.Tensor  # [B, NGv] bool
+    vg_self: torch.Tensor  # [B, NGv] bool
+    hg_applies: torch.Tensor  # [B, NGh] bool
+    hg_rec: torch.Tensor  # [B, NGh] bool — records & valid
+    hg_self: torch.Tensor  # [B, NGh] bool
+    admit: torch.Tensor  # [T, D] bool
+
+
+def gang_precompute(xs: KindXs, it: InstanceTypeTensors, templates: Templates, well_known, topo: TopologyTensors,
+                    zone_kid: int, ct_kid: int, key_kid: int, D: int) -> GangPre:
+    """The per-segment terms of the gang step that read no carry, batched
+    over the B segments: template ∩ pod (H1 for the type compatibility),
+    the template gates, the offering rows, and the key's rows."""
+    B = xs.count.shape[0]
+    G, T = templates.its.shape
+    K, V = templates.reqs.mask.shape[1], templates.reqs.mask.shape[2]
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+
+    tm = ReqSetTensors(*(c[None].expand((B,) + tuple(c.shape)).reshape((B * G,) + tuple(c.shape[1:]))
+                         for c in templates.reqs))
+    pod = ReqSetTensors(*(c[:, None].expand((B, G) + tuple(c.shape[1:])).reshape((B * G,) + tuple(c.shape[1:]))
+                          for c in xs.reqs))
+    comb0 = intersect_sets(tm, pod)
+    tmpl_compat = compatible_elemwise(tm, pod, well_known).reshape(B, G)
+    it_compat0 = kernels.intersects(ReqSetTensors(*(c.contiguous() for c in comb0)), it.reqs).reshape(B, G, T)
+    mask = comb0.mask.reshape(B, G, K, V)
+    gate = xs.vg_applies & topo.vg_valid[None]
+    has_key = key_kid >= 0
+    kk = key_kid if has_key else 0
+    dd = D if has_key else 1
+    return GangPre(
+        its_base=(templates.its[None] & it_compat0 & xs.it_allow[:, None, :]).contiguous(),
+        tmpl_base=(templates.valid[None] & tmpl_compat & xs.tmpl_ok).contiguous(),
+        zmask=mask[:, :, zone_kid, :Z].contiguous(),
+        cmask=mask[:, :, ct_kid, :C].contiguous(),
+        requests=xs.requests.contiguous(),
+        count=xs.count.contiguous(),
+        self_conf=packed_conflict(xs.ports, xs.port_conf).contiguous(),
+        zinf=comb0.inf.reshape(B, G, K)[:, :, kk].contiguous(),
+        zdef=comb0.defined.reshape(B, G, K)[:, :, kk].contiguous(),
+        kmask=mask[:, :, kk, :].contiguous(),
+        pd=xs.strict_mask[:, kk, :dd].contiguous(),
+        key_touched=torch.any(gate, dim=-1).contiguous(),
+        gate=gate.contiguous(),
+        recs=(xs.vg_records & topo.vg_valid[None]).contiguous(),
+        vg_self=xs.vg_self.contiguous(),
+        hg_applies=xs.hg_applies.contiguous(),
+        hg_rec=(xs.hg_records & topo.hg_valid[None]).contiguous(),
+        hg_self=xs.hg_self.contiguous(),
+        admit=kscan_admit(it, kk, dd).contiguous(),
+    )
+
+
+GANG_WRITES = ("n_open", "budget", "nodes_budget", "vg_counts", "hg_counts", "bank_frozen", "bank_template",
+               "bank_its", "bank_used", "bank_tk_mask", "bank_tk_inf", "bank_tk_def")
+
+
+def solve_gang(
+    state: SolverState,
+    xs: KindXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    maxg: int,
+    key_kid: int = -1,
+    n_domains: int = 1,
+    tk_idx: int = -1,
+    plain: bool = False,
+) -> tuple[SolverState, GangYs]:
+    """Gang-atomic slice placement over the B gang segments of xs (one
+    segment per gang, pods in rank order; count 0 pads), threading the
+    same SolverState as the other scans. `maxg` bounds the hosts of a
+    slice (a gang of N pods never needs more than N); `key_kid` /
+    `n_domains` name the ONE narrow vocab key the run's gang kinds
+    interact with (-1: none), `tk_idx` that key's row among the bank's
+    topo_kids columns. On CUDA (plain False) one launch of gang_scan (H9)
+    after the batched precompute; otherwise `_gang_step` per segment.
+    Functional: the input state is not modified."""
+    if plain or state.used.device.type == "cpu":
+        ys = []
+        for j in range(xs.count.shape[0]):
+            state, y = _gang_step(
+                state, _take_x(xs, j), exist, it, templates, well_known, topo, zone_kid, ct_kid,
+                n_claims, maxg, key_kid, n_domains, tk_idx,
+            )
+            ys.append(y)
+        if not ys:
+            raise ValueError("solve_gang needs at least one segment")
+        return state, GangYs(*(torch.stack(f) for f in zip(*ys)))
+    pre = gang_precompute(xs, it, templates, well_known, topo, zone_kid, ct_kid, key_kid, n_domains)
+    state = state._replace(**{f: getattr(state, f).clone() for f in GANG_WRITES})
+    ys = cuda.gang_scan(pre, state, exist, it, templates, topo, zone_kid, n_claims, maxg, key_kid,
+                        n_domains, tk_idx)
+    return state, GangYs(*ys)

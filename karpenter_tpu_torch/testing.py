@@ -13,9 +13,12 @@ bound pods, and the what-if scenarios the disruption methods submit.
 Karpenter's constraints (`reserved_catalog`, `constrained_templates`,
 `hostport_pods`, `attach_volumes`, `reserved_in_use`) build the
 constrained cells: reserved offerings, minValues floors, a host-port
-deployment, CSI attach limits and PVCs.
+deployment, CSI attach limits and PVCs. Gangs (`gang_storm_pods`,
+`spread_gang`, `gang_zonal_pods`) build the gang cells: a training-job
+burst beside services, and zone- or hostname-spread gangs in a pool with
+a spend limit.
 
-The consolidation fixture reads models only through a `side` namespace
+The consolidation fixture, the constraints and the gang builders reads models only through a `side` namespace
 (PORT by default), so the same code builds its twin from another
 package's classes."""
 
@@ -28,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from karpenter_tpu_torch.cloudprovider import fake
+from karpenter_tpu_torch.gang import make_gang_pods
 from karpenter_tpu_torch.cloudprovider.fake import instance_types
 from karpenter_tpu_torch.controllers.provisioning.host_scheduler import ExistingSimNode
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import build_templates
@@ -126,25 +130,26 @@ def mixed_pods(n: int):
     return pods
 
 
-def _spread_kinds(n: int, kinds: int, prefix: str, label: str, tag: str, keys: tuple):
+def _spread_kinds(n: int, kinds: int, prefix: str, label: str, tag: str, keys: tuple, side=None):
+    side = side or PORT
     pods = []
     per = max(n // kinds, 1)
     for i in range(n):
         k = min(i // per, kinds - 1)
-        p = make_pod(f"{prefix}-{i}", cpu=2.0, memory="1Gi")
+        p = side.make_pod(f"{prefix}-{i}", cpu=2.0, memory="1Gi")
         p.metadata.labels = {"grp": str(k), label: f"{tag}{k}"}
         p.spec.topology_spread_constraints = [
-            TopologySpreadConstraint(max_skew=1, topology_key=key, label_selector={label: f"{tag}{k}"})
+            side.TopologySpreadConstraint(max_skew=1, topology_key=key, label_selector={label: f"{tag}{k}"})
             for key in keys
         ]
         pods.append(p)
     return pods
 
 
-def zonal_pods(n: int, kinds: int = 4, prefix: str = "zb"):
+def zonal_pods(n: int, kinds: int = 4, prefix: str = "zb", side=None):
     """Kinds with a zone-spread constraint each, disjoint selectors (the
     kind-scan route)."""
-    return _spread_kinds(n, kinds, prefix, "spread", "z", (l.LABEL_TOPOLOGY_ZONE,))
+    return _spread_kinds(n, kinds, prefix, "spread", "z", ((side or PORT).l.LABEL_TOPOLOGY_ZONE,), side)
 
 
 def hostname_pods(n: int, kinds: int = 4, prefix: str = "hb"):
@@ -251,6 +256,7 @@ PORT = types.SimpleNamespace(
     ExistingSimNode=ExistingSimNode, Topology=Topology, build_universe_domains=build_universe_domains,
     template_universe_domains=template_universe_domains, fake=fake, NodePool=NodePool,
     build_templates=build_templates, HostPort=HostPort, VolumeUsage=VolumeUsage,
+    make_gang_pods=make_gang_pods, TopologySpreadConstraint=TopologySpreadConstraint,
 )
 
 
@@ -273,8 +279,9 @@ class Candidate:
     reschedulable_pods: list
 
 
-def pending_pods(n: int, seed: int = 1, side=PORT):
-    """selector_pods' shape from another seed, named pending-<i>."""
+def pending_pods(n: int, seed: int = 1, side=PORT, prefix: str = "pending"):
+    """selector_pods' shape from another seed, named <prefix>-<i> (seed 0
+    and prefix "p" give selector_pods itself)."""
     L = side.l
     rng = np.random.default_rng(seed)
     zones = ("test-zone-1", "test-zone-2", "test-zone-3", "test-zone-4")
@@ -288,7 +295,7 @@ def pending_pods(n: int, seed: int = 1, side=PORT):
         if i % 5 == 3:
             sel[L.CAPACITY_TYPE_LABEL_KEY] = L.CAPACITY_TYPE_ON_DEMAND
         pods.append(side.make_pod(
-            f"pending-{i}", cpu=float(rng.choice([0.1, 0.25, 0.5, 1.0, 2.0, 4.0])),
+            f"{prefix}-{i}", cpu=float(rng.choice([0.1, 0.25, 0.5, 1.0, 2.0, 4.0])),
             memory=f"{rng.choice([0.25, 0.5, 1.0, 2.0, 4.0])}Gi", node_selector=sel,
         ))
     return pods
@@ -568,4 +575,68 @@ def result_digest(result) -> str:
                        sorted(c.host_ports))).encode())
     for p, reason in result.unschedulable:
         h.update(repr((p.name, reason)).encode())
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# gangs: all-or-nothing multi-host slices
+# ---------------------------------------------------------------------------
+
+# the gang_zonal_budget cell's pool cpu limit: 75% of the cpu its problem
+# launches with no limit (the sum of each claim's launched type's cpu,
+# 9744 with TPUScheduler: python tests/test_torch_gang.py)
+GANG_ZONAL_CPU_LIMIT = 7308.0
+
+
+def gang_storm_pods(n_gangs: int, size: int, singles: int, side=PORT) -> list:
+    """A training-job burst (the JAX package's bench.py gang-storm stage):
+    n_gangs gangs of `size` members at 1.5 cpu, the whale gang of 4
+    members at 10000 cpu that no instance type can host (it must spill,
+    atomically), and `singles` selector pods."""
+    pods = []
+    for gi in range(n_gangs):
+        pods.extend(side.make_gang_pods(f"storm-{gi}", size, cpu=1.5))
+    pods.extend(side.make_gang_pods("whale", 4, cpu=10000.0))
+    return pods + pending_pods(singles, seed=0, side=side, prefix="p")
+
+
+def spread_gang(name: str, size: int, cpu: float, key: str, sel: str, side=PORT) -> list:
+    """A gang whose members carry one topology spread over `key` (max skew
+    1) with the shared selector spread=<sel>."""
+    pods = side.make_gang_pods(name, size, cpu=cpu)
+    for p in pods:
+        p.metadata.labels = dict(p.metadata.labels or {}, spread=sel)
+        p.spec.topology_spread_constraints = [
+            side.TopologySpreadConstraint(max_skew=1, topology_key=key, label_selector={"spread": sel})
+        ]
+    return pods
+
+
+def gang_zonal_pods(zonal_gangs: int = 32, zonal_size: int = 16, host_gangs: int = 8, host_size: int = 8,
+                    singles: int = 4096, kinds: int = 8, side=PORT) -> list:
+    """Zone-spread training jobs beside zonal services: `zonal_gangs`
+    gangs of `zonal_size` at 1.0 cpu, each spread over zones with its own
+    selector; `host_gangs` gangs of `host_size` at 2.0 cpu spread over
+    hostnames; zonal_pods(singles, kinds)."""
+    L = side.l
+    pods = []
+    for i in range(zonal_gangs):
+        pods += spread_gang(f"zg-{i}", zonal_size, 1.0, L.LABEL_TOPOLOGY_ZONE, f"zg{i}", side)
+    for i in range(host_gangs):
+        pods += spread_gang(f"hg-{i}", host_size, 2.0, L.LABEL_HOSTNAME, f"hg{i}", side)
+    return pods + zonal_pods(singles, kinds=kinds, side=side)
+
+
+def launched_cpu(result) -> float:
+    """The cpu a result launches: each claim's cheapest type's capacity."""
+    return sum(c.cheapest_launch()[0].capacity.get("cpu", 0.0) for c in result.claims)
+
+
+def slice_digest(result) -> str:
+    """sha256 of the slice hosts: per gang claim its slot, gang key and
+    pods in order."""
+    h = hashlib.sha256()
+    for c in result.claims:
+        if c.gang:
+            h.update(repr((c.slot, c.gang, [p.name for p in c.pods])).encode())
     return h.hexdigest()

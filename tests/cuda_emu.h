@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu
-// uses, so that its kernel can run on the host against the plain loop
-// (tests/test_torch_perpod_emulated.py). One std::thread per CUDA thread,
+// and gang_scan.cu use, so that their kernels can run on the host against
+// the plain loops (tests/test_torch_perpod_emulated.py,
+// tests/test_torch_gang_emulated.py). One std::thread per CUDA thread,
 // the blocks of a grid one after another; std::barrier stands in for
 // __syncthreads and for the warp collectives; __shared__ variables become
 // statics, which the blocks share, run in turn. The bulk copy and the
@@ -58,6 +59,10 @@ inline T min(T a, T b) { return a < b ? a : b; }
 template <class T>
 inline T max(T a, T b) { return a > b ? a : b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// IEEE single-rounding arithmetic (count_cell.cuh); never contracted here
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline uint32_t __cvta_generic_to_shared(const void*) { return 0; }
 

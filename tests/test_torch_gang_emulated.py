@@ -1,0 +1,166 @@
+"""The gang kernel's own source, csrc/gang_scan.cu, run on the CPU.
+
+The CUDA kernel cannot run here, so this file compiles it with the host's
+C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+barriers for __syncthreads) and routes ops/cuda.py's launch to that
+library. Each case is a whole TorchScheduler solve on the CPU in which
+every gang run goes through the plain loop (`_gang_step` per segment,
+whose result the solve keeps) and through the emulated kernel on the same
+inputs: every carry leaf the gang scan writes and every GangYs leaf
+equal. The cases are small versions of chip_smoke.py's two gang cells
+(a gang storm with its whale beside selector pods; zone- and
+hostname-spread gangs beside zonal pods under a pool cpu limit) and the
+routes around them: a tight nodes budget, a claims axis too small for a
+slice, a gang that binds a host port (one pod a host), and zone
+anti-affinity refusing a rank block (the whole gang spills). The emulation
+checks the kernel's logic, not its timing or what the GPU compiler does
+with it: chip_smoke.py holds the compiled kernel to the plain loop on the
+card. Tolerance: exact.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from karpenter_tpu_torch import testing as T
+from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+from karpenter_tpu_torch.models.pod import HostPort, PodAffinityTerm
+from karpenter_tpu_torch.ops import cuda as p_cuda
+from karpenter_tpu_torch.ops import solver as p_solver
+
+HERE = Path(__file__).resolve().parent
+
+
+def _emulated_source() -> str:
+    """gang_scan.cu with the CUDA-only constructs swapped for the
+    emulator's: the header, dynamic shared memory and the launch syntax."""
+    src = (p_cuda.CSRC / "gang_scan.cu").read_text()
+    src = src.replace(
+        "#include <cuda_runtime.h>",
+        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
+        "thread_local int tl_parity;",
+    )
+    src = src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
+    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
+    assert n == 1, "one kernel launch"
+    return src
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """ops/cuda.py's C-entry call routed to the emulated gang kernel."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build the emulated kernel")
+    d = tmp_path_factory.mktemp("gang_emu")
+    (d / "gang_scan.cpp").write_text(_emulated_source())
+    lib_path = d / "libgang_emu.so"
+    res = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", f"-I{p_cuda.CSRC}", "-o",
+         str(lib_path), str(d / "gang_scan.cpp")],
+        capture_output=True, text=True,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.gang_scan
+    fn.argtypes = p_cuda._ARGTYPES["gang_scan"]
+    fn.restype = ctypes.c_int
+
+    def invoke(source, entry, *args):
+        assert (source, entry) == ("gang_scan", "gang_scan")
+        rc = fn(*args, None)
+        if rc:
+            raise RuntimeError(f"emulated gang_scan: error {rc}")
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield invoke
+    torch.set_num_threads(n)
+
+
+def _leaves(x) -> dict:
+    return p_solver.to_numpy(x)
+
+
+@pytest.fixture
+def checked(emulated, monkeypatch):
+    """ops.solver.solve_gang run twice on every gang run of a solve — the
+    plain loop (kept) and the emulated kernel after the batched precompute
+    — with every written carry leaf and GangYs leaf compared; yields the
+    list of runs checked, (B, maxg, key_kid) each."""
+    runs = []
+    plain_solve_gang = p_solver.solve_gang
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+
+    def both(state, xs, exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, maxg,
+             key_kid=-1, n_domains=1, tk_idx=-1, plain=False):
+        st_p, ys_p = plain_solve_gang(state, xs, exist, it, templates, well_known, topo, zone_kid, ct_kid,
+                                      n_claims, maxg, key_kid, n_domains, tk_idx, plain=True)
+        pre = p_solver.gang_precompute(xs, it, templates, well_known, topo, zone_kid, ct_kid, key_kid, n_domains)
+        st_k = state._replace(**{f: getattr(state, f).clone() for f in p_solver.GANG_WRITES})
+        ys_k = p_solver.GangYs(*p_cuda.gang_scan(pre, st_k, exist, it, templates, topo, zone_kid, n_claims, maxg,
+                                                 key_kid, n_domains, tk_idx))
+        a, b = _leaves(st_p), _leaves(st_k)
+        assert set(a) == set(b)
+        bad = [k for k in a if not np.array_equal(a[k], b[k])]
+        assert not bad, bad
+        ya, yb = _leaves(ys_p), _leaves(ys_k)
+        bad = [k for k in ya if not np.array_equal(ya[k], yb[k])]
+        assert not bad, (bad, ya, yb)
+        runs.append((int(xs.count.shape[0]), maxg, key_kid))
+        return st_p, ys_p
+
+    monkeypatch.setattr(p_solver, "solve_gang", both)
+    yield runs
+
+
+def _host_port_gang(n: int = 4):
+    pods = T.make_gang_pods("ingress-gang", n, cpu=0.5)
+    for p in pods:
+        p.spec.host_ports = [HostPort(port=8443)]
+    return pods
+
+
+def _zone_anti_gang(n: int):
+    """One member a host, hosts in pairwise different zones: past the four
+    zones a rank block is refused and the gang spills."""
+    pods = _host_port_gang(n)
+    for p in pods:
+        p.metadata.labels = dict(p.metadata.labels or {}, anti="ingress-gang")
+        p.spec.pod_anti_affinity = [PodAffinityTerm(topology_key=T.l.LABEL_TOPOLOGY_ZONE,
+                                                    label_selector={"anti": "ingress-gang"})]
+    return pods
+
+
+CASES = {
+    # name: (templates, max_claims, pods, budgets, want a key run)
+    "gang_storm": lambda: (T.make_templates(24), 128, T.gang_storm_pods(6, 4, 48), None, False),
+    "gang_zonal_budget": lambda: (
+        T.make_templates(24), 128, T.gang_zonal_pods(4, 4, 2, 3, 48, 2), {"default": {"cpu": 60.0}}, True),
+    "gang_zonal": lambda: (T.make_templates(24), 128, T.gang_zonal_pods(5, 6, 3, 4, 24, 2), None, True),
+    "tight_nodes_budget": lambda: (
+        T.make_templates(16), 64, T.make_gang_pods("gt", 4, cpu=6.0) + T.selector_pods(6), {"default": {"nodes": 1.0}},
+        False),
+    "claims_axis_escalates": lambda: (T.make_templates(16), 4, T.gang_storm_pods(3, 6, 6), None, False),
+    "host_port_gang": lambda: (T.make_templates(16), 64, _host_port_gang() + T.selector_pods(8), None, False),
+    "zone_anti_affinity_spills": lambda: (T.make_templates(16), 64, _zone_anti_gang(6) + T.selector_pods(4), None,
+                                          True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gang_kernel_source_matches_plain_loop(case, checked):
+    """Every gang run of the solve: the kernel source's carry and records
+    equal the plain loop's (the solve itself keeps the plain result)."""
+    templates, max_claims, pods, budgets, keyed = CASES[case]()
+    sched = TorchScheduler(templates, max_claims=max_claims, device="cpu")
+    result = sched.solve(pods, budgets=budgets)
+    assert checked, "no gang run"
+    assert any(k >= 0 for _b, _m, k in checked) == keyed
+    assert any(c.gang for c in result.claims) or result.unschedulable

@@ -258,10 +258,16 @@ def _edge_pods(S, kind):
 
 @pytest.mark.parametrize("kind", ["gang", "host_ports", "dra"])
 def test_out_of_slice_problems_raise(kind):
-    """Gang members and DRA claims stay outside the port and raise
-    UnsupportedProblem. Host ports are inside it now: pods binding one
-    host port (each a node of its own) ride the fill scan and match the
-    reference, the claims' host ports included."""
+    """DRA claims stay outside the port and raise UnsupportedProblem. Host
+    ports are inside it now: pods binding one host port (each a node of
+    its own) ride the fill scan and match the reference, the claims' host
+    ports included. So are gangs: these members carry no rank, and both
+    engines report every one invalid before the solve."""
+    if kind == "gang":
+        rp, _ps = _compare(kind, lambda S: (S.templates(10), _edge_pods(S, kind), None), 16)
+        assert [r for _p, r in rp.unschedulable] == ["invalid gang annotations: bad name/size/rank"] * 4
+        assert not rp.claims
+        return
     if kind == "host_ports":
         rp, ps = _compare(kind, lambda S: (S.templates(10), _edge_pods(S, kind), None), 16)
         assert rp.node_count == 4 and all(c.host_ports == [("0.0.0.0", 8080, "TCP")] for c in rp.claims)
