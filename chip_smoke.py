@@ -30,7 +30,10 @@ Phases, any failure exits non-zero:
      capacities and held rows among the carry leaves); the gang kernel
      (gang_scan, H9) on the first gang run of each gang cell below from
      its empty carry, against the plain loop: every carry leaf it writes
-     and every GangYs leaf;
+     and every GangYs leaf; the retract kernel (retract_tail, H10) on
+     the resident state resident_retract_16380x63 holds after its 16
+     rounds (W = NB = 8192 rows), at the cuts n_open, every round's
+     boundary and 0, against its plain version: every state leaf;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -83,7 +86,19 @@ Phases, any failure exits non-zero:
      the JAX package's claims, unschedulable pods and reasons (the whale
      alone spills, whole), $/h, slice hosts and digests, gang_scan
      launched once per gang run of every round, one profiled warm solve
-     each;
+     each; then the resident session (TorchScheduler.resident_session()):
+     resident_retract_16380x63 (65 kinds x 252 pods of 1 cpu / 1Gi over
+     make_templates(100), max_claims=8192; 16 rounds of a fresh kind of
+     63 x max(1, Poisson(1)) pods, the newest batch departing first with
+     p = 0.35, seed 0; then 3 pops of the newest batch) and steady_16384x64
+     (the JAX package's bench.py steady stage: 64 kinds x 256, Poisson(64)
+     batches, 12 rounds, after its warm-up rounds), every round's mode,
+     reason, claims and digest and the final fingerprint held to the JAX
+     package's, retract_tail launched once per retract round (5 in the
+     retract cell, every round of which stays on the delta path), per
+     round the wall, encode / device split, fill dispatches and H10
+     launches, the delta p50 / p95 / max beside the p95 of a forced full
+     re-solve of the final union, and a profiled delta round's idle share;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
      usage, requirements), and the wall of phase 3's plain what-if
@@ -195,6 +210,62 @@ GANG_ZONAL_GOLDEN = dict(
     slice_digest="0fa701be3eda7c3bc3df33edb7f6ca18955cc709081a0babb68e507b3c99b0d5",
     result_digest="8e380e3f44788b502e03705e016894edff12fbaebeb348e62782e5f79e03891b",
 )
+# the resident cells (python tests/test_torch_resident.py prints them: the
+# JAX package's ResidentSession on the CPU, at 6fcc76f): per round of each
+# trace (testing.retract_trace / steady_trace) its label, mode, reason,
+# claims and digest(); the final fingerprint; and the retract_tail
+# dispatches over the trace
+RESIDENT_GOLDEN = {
+    "resident_retract_16380x63": dict(
+        rounds=[
+            ('cold', 'full', 'cold', 260, 'a6cae46e21c4502fcbed43ebfbafefa85e57e70df438c0df404b6f16d3fcf4fc'),
+            ('round 0', 'delta', 'delta', 261, '586ef36f2d89ff2d24fd1e4daa9aeb5bffd1c1d784715b90a5a5e7c562d62b6d'),
+            ('round 1', 'delta', 'delta', 261, '5d04a49e72b985bacdb851dfb3c441a347de9fa405dd518d92b2f832235f73be'),
+            ('round 2', 'delta', 'delta', 264, 'df05ab4050165be9d4894e5f0117d7fb41636ada33d061e4e50a895081e204c0'),
+            ('round 3', 'delta', 'delta', 265, '3b9f69e8646e21d1311f6e5ba02a15431eb8903f4c5e4ac10c073d0243bb4d21'),
+            ('round 4', 'delta', 'delta', 266, '5b57a2c4a76721815b8c74e0c99ecbfdfd8aad3fb18c0a45112c8d9f616de270'),
+            ('round 5', 'delta', 'delta', 267, '0ad4185fc781f7de67c95dfa4399c440c8d3962461f6c4b6cb4f6c3d51dcc7d6'),
+            ('round 6', 'delta', 'delta', 268, '78a5082d463fdb06f80915a878bb68f8b69fa8e6555a3445aa2c2e5b656a496b'),
+            ('round 7', 'delta', 'delta', 269, '84011465cb15a964d236d82c046ea848a535d2031439b62d57a7bacb455d6544'),
+            ('round 8', 'delta', 'delta', 270, 'bb0de4b2d3ea7969ebe732f0a5726de4286c844d52655aa189a66b2a2e9c1c56'),
+            ('round 9', 'delta', 'delta', 274, '7e1e5189c4b082e80dc436882df1717cf570011a36ae65015c41ccc41eda2349'),
+            ('round 10', 'delta', 'delta', 275, '827ec8c91ae2b4f265feeb677450ce47116d800c519c12a032943bd9f0031000'),
+            ('round 11', 'delta', 'delta', 276, '5973c96407f64dd21fc47d828e4064fa9fd03d7618f080054353fcfd5143f158'),
+            ('round 12', 'delta', 'delta', 278, '4f66c55d6c0251b792c2810980946a2171e5f9b34b96612f6d8dea383eaf23c1'),
+            ('round 13', 'delta', 'delta', 279, '992c66a37a3843451d350137fc9ea246d29cbc64d3e203faa1bdd1b39fcbc415'),
+            ('round 14', 'delta', 'delta', 280, 'cc979df84a6292c49e64e59a44d11a36256a5b25e12f97c70fef55774b90b431'),
+            ('round 15', 'delta', 'delta', 281, 'a7ef7f23d53eddcdff5cdc5cd73ea67f8676915504a69b44d72ae9d598d48ac6'),
+            ('pop 0', 'delta', 'delta', 280, 'cc979df84a6292c49e64e59a44d11a36256a5b25e12f97c70fef55774b90b431'),
+            ('pop 1', 'delta', 'delta', 279, '992c66a37a3843451d350137fc9ea246d29cbc64d3e203faa1bdd1b39fcbc415'),
+            ('pop 2', 'delta', 'delta', 278, '4f66c55d6c0251b792c2810980946a2171e5f9b34b96612f6d8dea383eaf23c1'),
+        ],
+        fingerprint='1189bbed3b4d791f',
+        retracts=5,
+    ),
+    "steady_16384x64": dict(
+        rounds=[
+            ('cold', 'full', 'cold', 261, 'f6f921ab5ce91dc503000e7fc3eb5bec5c8503b8f68925e6ff7d28a93069a47b'),
+            ('repeat', 'full', 'no_delta', 261, 'f6f921ab5ce91dc503000e7fc3eb5bec5c8503b8f68925e6ff7d28a93069a47b'),
+            ('warm+', 'delta', 'delta', 262, '4584211a7733302bbc828fe17b3a3ad49b564d1aeb88f7fe96e53c61924c73c3'),
+            ('warm-', 'full', 'retract_impure', 261, 'f6f921ab5ce91dc503000e7fc3eb5bec5c8503b8f68925e6ff7d28a93069a47b'),
+            ('round 0', 'delta', 'delta', 262, '5b4e9e16ec86cc8ddaedcc24e3f8e0bbf5e0b6b1b2535813ae524b5a207788fa'),
+            ('round 1', 'full', 'retract_impure', 262, '62e6a33b792823e99652ecc6d07a2a9411a159d12ddedcffe8764c046b0f35e3'),
+            ('round 2', 'delta', 'delta', 263, '692b460e6ad55b7f3dcc3e5458466e98e214992d4b1526951c9be95aa3022dec'),
+            ('round 3', 'delta', 'delta', 264, 'f40a75dafe2e1178e2fb50d35b290c8bdd7d60275574c9066f0551c3706bfaae'),
+            ('round 4', 'delta', 'delta', 265, 'b69b89c10762cab1016e4c40e167d3e9a1f7392eaf0e56e65bed1fc27a707c04'),
+            ('round 5', 'delta', 'delta', 266, '46c1343d6c798ba2a395e50a70d99e1aee3455e2b4f7eb741696bd3cf68d5904'),
+            ('round 6', 'delta', 'delta', 267, 'f95a57bc09717b2ae31e2d92f6a93a00af4a7fb4f504fe59d0fbfcfcd7a4ff69'),
+            ('round 7', 'delta', 'delta', 268, '6f445c3a8e640e655ad85e77c0b02020e88d0a169bf78099df5475340173e418'),
+            ('round 8', 'delta', 'delta', 269, '4a663c30c14fe6a458b1af6eb17176e160983874026b2ce3eefd4cb2547becf6'),
+            ('round 9', 'delta', 'delta', 270, '518b62be4a27c8d0727f932ab47bdb520784e8fc826753d44084a66160748cf4'),
+            ('round 10', 'full', 'retract_impure', 270, '605fc3bfa6234944b3252c0c7b638e3bd0964f39e9db08d7677db1abdfb94dc8'),
+            ('round 11', 'full', 'retract_base', 270, 'a11346514e77e7f4140411e15d55573ffc202989e82aa977a1181417c7fd536c'),
+        ],
+        fingerprint='33cb023dc8e9d7dc',
+        retracts=0,
+    ),
+}
+
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12  # f32 on the CUDA cores: the rate the scalar work runs at
@@ -1329,6 +1400,181 @@ def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
     return launches
 
 
+def resident_state(torch, T, TorchScheduler):
+    """The resident_retract_16380x63 session on the card after its cold
+    base and its 16 rounds (the pops left out), every round's mode held to
+    the JAX package's."""
+    session = TorchScheduler(T.make_templates(T.RESIDENT_TYPES), max_claims=T.RESIDENT_MAX_CLAIMS).resident_session()
+    golden = RESIDENT_GOLDEN["resident_retract_16380x63"]["rounds"]
+    for (label, union), want in zip(T.retract_trace(**T.RETRACT), golden):
+        if label.startswith("pop"):
+            break
+        session.solve(list(union))
+        if (session.last_mode, session.last_reason) != want[1:3]:
+            raise RuntimeError(f"resident_retract_16380x63 {label}: {session.last_mode}/{session.last_reason}, "
+                               f"the JAX package's {want[1]}/{want[2]}")
+    torch.cuda.synchronize()
+    return session
+
+
+def resident_kernel_phase(torch, cuda, T, TorchScheduler, results: list, profile_dir) -> None:
+    """Phase 3e: H10 retract_tail against its plain version on the resident
+    state of resident_retract_16380x63 (W = NB = 8192 rows), at the cuts
+    n_open (a no-op), every surviving round's boundary and 0: every state
+    leaf, exact. Times at the last round's boundary (one round's undo):
+    the kernel's device time per launch (torch.profiler over 20 launches:
+    CUDA events around launcher calls measure the launcher's host work,
+    ~0.24 ms, not the kernel; the phase fails when the profile holds no
+    launch of the kernel), the launcher call (CUDA events), the plain
+    version, and the bound: the bytes the out-of-place function must move,
+    over the card's memory rate — every window row written, the rows that
+    stay alive read, the open / slot_of flags read, the bank rows below
+    the cut copied and those at or past it cleared."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import solver
+
+    session = resident_state(torch, T, TorchScheduler)
+    r = session._r
+    state = r["state"]
+    cuts = sorted({r["n_open"], 0} | {int(rec["n_open_start"]) for rec in r["rounds"]}, reverse=True)
+    bad, err = [], 0.0
+    for cut in cuts:
+        got = solver.to_numpy(cuda.retract_tail(state, cut))
+        want = solver.to_numpy(solver.retract_tail_plain(state, cut))
+        for k, a in got.items():
+            b = want[k]
+            if a.shape != b.shape or not np.array_equal(a, b):
+                bad.append((cut, k))
+                if a.shape == b.shape and a.size:
+                    err = max(err, float(np.nan_to_num(np.abs(a.astype(np.float64) - b.astype(np.float64))).max()))
+    cut = int(r["rounds"][-1]["n_open_start"])
+    call_ms = time_ms(lambda: cuda.retract_tail(state, cut), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: solver.retract_tail_plain(state, cut), iters=10, warmup=2)
+    by_name = profile_run(lambda: [cuda.retract_tail(state, cut) for _ in range(20)], profile_dir,
+                          "retract_tail")["by_name"]
+    hits = [v for n, v in by_name.items() if "retract_tail_kernel" in n]
+    if not hits:
+        raise RuntimeError("kernel retract_tail: the profile of 20 launches holds no launch of "
+                           "retract_tail_kernel: its device time is not measured")
+    ms = hits[0][1] / hits[0][0]
+    W, NB = state.open.shape[0], state.bank_frozen.shape[0]
+    window = nbytes(*state.reqs, *(getattr(state, f) for f in solver.RETRACT_WINDOW if f != "reqs"))
+    alive = int((state.open & (state.slot_of < cut)).sum())
+    flags = nbytes(state.open, state.slot_of)
+    bank_row = sum(nbytes(getattr(state, f)) // NB for f in solver.RETRACT_BANK)
+    moved = dict(window_written=window, alive_read=alive * (window // W), flags_read=flags,
+                 bank_copied=2 * cut * bank_row, bank_cleared=(NB - cut) * bank_row)
+    b = bound(sum(moved.values()), 0.0)
+    print(f"kernel retract_tail (resident_retract_16380x63 after 16 rounds: W={W}, NB={NB}, n_open={r['n_open']}, "
+          f"cuts {cuts}): equal={not bad} (tolerance: exact; {len(got)} leaves a cut) ms={ms:.5f} (device, "
+          f"profiled, {hits[0][0]} launches seen; launcher call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
+          f"bound_ms={b[0]:.5f} ({b[1]}; cut {cut}, {alive} rows alive, bytes {json.dumps(moved)}) "
+          f"ms/bound={ms / b[0]:.1f}", flush=True)
+    if bad:
+        print(f"  retract_tail leaves that differ (cut, leaf): {bad[:20]}", flush=True)
+    results.append(dict(
+        name="retract_tail", route="cuda", source="karpenter_tpu_torch/ops/csrc/retract_tail.cu",
+        replaces="karpenter_tpu/ops/solver.py:899", launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None, equal=not bad,
+    ))
+
+
+def resident_path(torch, cuda, T, TorchScheduler, name: str, trace: list, batch: int, profile_dir) -> dict:
+    """Drive one resident cell through TorchScheduler.resident_session():
+    launch counts zeroed just before the first round and read just after
+    the last; every round's mode, reason, claims and digest and the final
+    fingerprint held to the JAX package's, H10 launched once per retract
+    round (the JAX package's retract_tail dispatches); per round the wall,
+    encode_s / device_s, fill dispatches and H10 launches; p50 / p95 / max
+    of the trace's delta rounds; the p95 of a warmed forced full re-solve
+    of the final union (4 solves), which must give the final round's
+    digest, and its ratio to the delta p95 (the reference's bench gate is
+    5x: printed, not enforced); one more arrival round of `batch` pods
+    under torch.profiler (idle share), and with it a retract round when the
+    cell retracts. Returns the launches or raises RuntimeError."""
+    import numpy as np
+
+    golden = RESIDENT_GOLDEN[name]
+    templates = T.make_templates(T.RESIDENT_TYPES)
+    sched = TorchScheduler(templates, max_claims=T.RESIDENT_MAX_CLAIMS)
+    session = sched.resident_session()
+    cuda.reset_launches()
+    lat = []
+    for (label, union), want in zip(trace, golden["rounds"]):
+        h0 = cuda.LAUNCHES["retract_tail"]
+        t0 = time.perf_counter()
+        result = session.solve(list(union))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h10 = cuda.LAUNCHES["retract_tail"] - h0
+        mode, reason = session.last_mode, session.last_reason
+        fills = session.last_delta["fill_dispatches"] if mode == "delta" else sched.last_stats.get("fill_dispatches")
+        tm = session.last_timings
+        got = (label, mode, reason, len(result.claims), digest(result))
+        print(f"{name} {label}: {mode}/{reason} pods={len(union)} wall={wall:.4f}s encode_s={tm['encode_s']:.4f} "
+              f"device_s={tm['device_s']:.4f} fill_dispatches={fills} retract_tail={h10} claims={got[3]} "
+              f"digest_equal={got[4] == want[4]}", flush=True)
+        if result.unschedulable:
+            raise RuntimeError(f"{name} {label}: {len(result.unschedulable)} pods unschedulable")
+        if got != tuple(want):
+            raise RuntimeError(f"{name} {label}: {got[1:4]} differs from the JAX package's {tuple(want[1:4])} "
+                               f"(or the digest does)")
+        if h10 != session.last_delta["retract_dispatches"]:
+            raise RuntimeError(f"{name} {label}: {h10} retract_tail launches for "
+                               f"{session.last_delta['retract_dispatches']} retracts")
+        if label.startswith(("round", "pop")):
+            lat.append((mode, wall))
+    launches = dict(cuda.LAUNCHES)
+    if session.fingerprint != golden["fingerprint"]:
+        raise RuntimeError(f"{name}: fingerprint {session.fingerprint}, the JAX package's {golden['fingerprint']}")
+    if launches["retract_tail"] != golden["retracts"]:
+        raise RuntimeError(f"{name}: {launches['retract_tail']} retract_tail launches, the JAX package dispatched "
+                           f"retract_tail {golden['retracts']} times")
+    idle = [k for k in ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter") if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"{name}: kernels never launched: {idle}")
+    print(f"{name}: every round equal to the JAX package's (modes, claims, digests), fingerprint "
+          f"{session.fingerprint}, launches={json.dumps(launches)}", flush=True)
+    delta = np.asarray([w for m, w in lat if m == "delta"] or [float("nan")])
+    union = list(trace[-1][1])
+    full_sched = TorchScheduler(templates, max_claims=T.RESIDENT_MAX_CLAIMS)
+    full_sched.solve(union)
+    full = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fres = full_sched.solve(union)
+        torch.cuda.synchronize()
+        full.append(time.perf_counter() - t0)
+        if digest(fres) != golden["rounds"][-1][4]:
+            raise RuntimeError(f"{name}: the forced full re-solve of the final union differs from the last round")
+    p95_delta, p95_full = float(np.percentile(delta, 95)), float(np.percentile(np.asarray(full), 95))
+    summary = dict(
+        cell=name, rounds=len(lat), delta_rounds=int(sum(m == "delta" for m, _w in lat)),
+        p50_delta_s=float(np.percentile(delta, 50)), p95_delta_s=p95_delta, max_delta_s=float(delta.max()),
+        p95_full_s=p95_full, full_over_delta_p95=p95_full / p95_delta, bench_gate_x=5.0,
+        retract_tail_launches=launches["retract_tail"],
+    )
+    print(f"{name} summary: {json.dumps(summary)}", flush=True)
+    extra = union + T.kind_batch("profiled", batch)
+    prof = profile_run(lambda: session.solve(extra), profile_dir, f"{name}_delta_append")
+    print(f"{name} profiled append round: {session.last_mode}/{session.last_reason} "
+          f"idle_share={prof.get('idle_share', 'not measured')}", flush=True)
+    if session.last_mode != "delta":
+        raise RuntimeError(f"{name}: the profiled append round left the delta path ({session.last_reason})")
+    if golden["retracts"]:
+        h0 = cuda.LAUNCHES["retract_tail"]
+        prof = profile_run(lambda: session.solve(union), profile_dir, f"{name}_delta_retract")
+        h10 = cuda.LAUNCHES["retract_tail"] - h0
+        print(f"{name} profiled retract round: {session.last_mode}/{session.last_reason} retract_tail={h10} "
+              f"idle_share={prof.get('idle_share', 'not measured')}", flush=True)
+        if session.last_mode != "delta":
+            raise RuntimeError(f"{name}: the profiled retract round left the delta path ({session.last_reason})")
+        if h10 != 1:
+            raise RuntimeError(f"{name}: the profiled retract round launched retract_tail {h10} times, not once")
+    return launches
+
+
 def record_chunks(cuda, fn) -> list:
     """Run fn with every single-scenario launch of the per-pod kernel
     recorded (its inputs, a copy of the carry before it, its assignment),
@@ -1426,13 +1672,9 @@ def profile_run(fn, out_dir, tag) -> dict:
 
 
 def digest(result) -> str:
-    h = hashlib.sha256()
-    for c in result.claims:
-        h.update(repr((c.slot, [p.name for p in c.pods], [i.name for i in c.instance_types],
-                       sorted(c.used.items()), str(c.requirements))).encode())
-    for p, reason in result.unschedulable:
-        h.update(repr((p.name, reason)).encode())
-    return h.hexdigest()
+    from karpenter_tpu_torch.testing import claims_digest
+
+    return claims_digest(result)
 
 
 def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_needed):
@@ -1541,6 +1783,11 @@ def main() -> int:
     # the gang cells: H9 on each cell's first gang run
     cells_g = gang_cells(T, TorchScheduler)
     gang_kernel_phase(torch, cuda, cells_g, kernels)
+    # the resident session's retract: H10 on a resident state of 8192 rows
+    try:
+        resident_kernel_phase(torch, cuda, T, TorchScheduler, kernels, os.path.join("build", "profile"))
+    except RuntimeError as err:
+        return fail(str(err))
     bad = [k["name"] for k in kernels + checks_c if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
@@ -1564,7 +1811,7 @@ def main() -> int:
         profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
-            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan",)],
+            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan", "retract_tail")],
         )
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
@@ -1654,6 +1901,14 @@ def main() -> int:
         launches_wc = whatif_path(torch, cuda, T, cell_wc, "prefix")
         # gangs: a training-job burst, zone-spread jobs under a spend limit
         launches_g = [gang_path(torch, cuda, T, cell, profile_dir) for cell in cells_g]
+        # the resident session: a retract trace of whole-claim batches, then
+        # the JAX package's steady stage
+        launches_r = [
+            resident_path(torch, cuda, T, TorchScheduler, "resident_retract_16380x63", T.retract_trace(**T.RETRACT),
+                          T.RETRACT["batch"], profile_dir),
+            resident_path(torch, cuda, T, TorchScheduler, "steady_16384x64", T.steady_trace(**T.STEADY),
+                          T.STEADY["delta_pods"], profile_dir),
+        ]
     except RuntimeError as err:
         return fail(str(err))
     pods_wc, specs_wc = cell_wc["batches"]["prefix"]
@@ -1666,7 +1921,7 @@ def main() -> int:
     profiled_kernel([], cuda.WHATIF_KERNELS[0], "true", by_name, [cell_wc["prefix_run"]], cell_wc["label"])
     for k in kernels:
         k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w, launches_c,
-                                                      launches_h, launches_wc, *launches_g])
+                                                      launches_h, launches_wc, *launches_g, *launches_r])
     for kind in ("prefix", "single"):
         pods_w, specs_w = cell_w["batches"][kind]
         sched_w = cell_w[f"{kind}_sched"]

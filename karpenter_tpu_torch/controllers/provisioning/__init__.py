@@ -1,4 +1,4 @@
-"""Provisioning: claim templates and the fill-path scheduler."""
+"""Provisioning: claim templates, the scheduler and its resident session."""
 
 from karpenter_tpu_torch.controllers.provisioning.nodeclaimtemplate import (  # noqa: F401
     ClaimTemplate,
@@ -9,3 +9,4 @@ from karpenter_tpu_torch.controllers.provisioning.scheduler import (  # noqa: F4
     TorchScheduler,
     UnsupportedProblem,
 )
+from karpenter_tpu_torch.controllers.provisioning.resident import ResidentSession  # noqa: F401,E402

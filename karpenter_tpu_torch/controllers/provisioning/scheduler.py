@@ -425,6 +425,23 @@ class TorchScheduler:
         self._volume_reqs: dict = {}
         self._pod_vols: dict = {}
         self._reserved_in_use: dict = {}
+        # resident-session capture: while a ResidentSession wraps this
+        # scheduler, full solves keep their final device state and decode
+        # bookkeeping here, so that delta rounds resume from them
+        self._capture = False
+        self._captured: Optional[dict] = None
+        # elementwise max of the r_min vectors boundary compaction used this
+        # solve — the session's eviction floor (an arrival below it could
+        # have fit a claim the solve evicted)
+        self._last_compact_rmin: Optional[np.ndarray] = None
+
+    def resident_session(self):
+        """Wrap this scheduler in a ResidentSession: the solver state stays
+        on the device across solve() calls and steady rounds feed only the
+        pod delta through it."""
+        from karpenter_tpu_torch.controllers.provisioning.resident import ResidentSession
+
+        return ResidentSession(self)
 
     # -- encoding ----------------------------------------------------------
 
@@ -729,6 +746,52 @@ class TorchScheduler:
             reqs.add(*alts[0].values())
         return reqs
 
+    def _kind_rows(self, reps: list, nodes: list, e_pad: int) -> dict:
+        """The per-kind encoded rows of the kind representatives `reps` at
+        the current pads: reqs / strict (numpy requirement encodings),
+        it_allow [U, T], requests [U, R], tol [U, G] (template taints
+        tolerated) and exist_ok [U, e_pad] (taints and the hostname /
+        instance-type selectors against `nodes`). Shared by _encode and a
+        resident session's arrival delta."""
+        enc = self.encoder
+        k_pad, v_pad = self._pads()
+        U = len(reps)
+        rep_reqs = [self._pod_reqs(p) for p in reps]
+        row_memo: dict = {}
+        reqs_np = encode_requirements_np(enc.vocab, rep_reqs, k_pad, v_pad, enc.skip_keys, row_memo=row_memo)
+        strict_np = encode_requirements_np(
+            enc.vocab, [Requirements.from_pod(p, include_preferred=False) for p in reps],
+            k_pad, v_pad, enc.skip_keys, row_memo=row_memo,
+        )
+        it_allow = enc.it_allow_mask(rep_reqs, self.catalog)
+        for u in range(U):
+            # hostname selectors can never match a not-yet-named node
+            if not enc.hostname_allows(rep_reqs[u], None):
+                it_allow[u, :] = False
+        requests = np.stack([enc.resources_vector(p.total_requests()) for p in reps]).astype(np.float32)
+        tol = np.array(
+            [[tolerates_all(t.taints, p.spec.tolerations) is None for t in self.templates] for p in reps],
+            dtype=bool,
+        ).reshape(U, len(self.templates))
+        exist_ok = np.zeros((U, e_pad), dtype=bool)
+        for e, n in enumerate(nodes):
+            hostname = n.requirements.get(l.LABEL_HOSTNAME).any_value() or None
+            it_name = (
+                n.requirements.get(l.LABEL_INSTANCE_TYPE).any_value() or None
+                if n.requirements.has(l.LABEL_INSTANCE_TYPE)
+                else None
+            )
+            for u, p in enumerate(reps):
+                rq = rep_reqs[u]
+                ok = tolerates_all(n.taints, p.spec.tolerations) is None
+                ok = ok and enc.hostname_allows(rq, hostname)
+                if ok and rq.has(l.LABEL_INSTANCE_TYPE):
+                    r = rq.get(l.LABEL_INSTANCE_TYPE)
+                    ok = r.has(it_name) if it_name is not None else r.is_lenient()
+                exist_ok[u, e] = ok
+        return dict(reqs=reqs_np, strict=strict_np, it_allow=it_allow, requests=requests, tol=tol,
+                    exist_ok=exist_ok)
+
     def _encode(self, pods: Sequence[Pod], budgets, topology: Optional[Topology] = None) -> tuple[list[Pod], dict]:
         """Encode one problem (the provisioning solve's, or the what-ifs'
         union problem). `topology` (seeded from bound pods by the caller) is
@@ -755,6 +818,11 @@ class TorchScheduler:
         n_gang = len(gang_prefix)
         P = len(pods_list)
         cap = self.max_claims or _next_pow2(max(P, 1))
+        if self._capture and not self.max_claims:
+            # a resident session's base solve keeps claim-axis headroom for
+            # the delta rounds that append into its claim space (results do
+            # not depend on the axis)
+            cap *= 2
         n_claims = self._n_claims_override or cap
         self._last_n_claims = n_claims
         if topology is None:
@@ -821,41 +889,11 @@ class TorchScheduler:
         E = _next_pow2(max(len(self.existing_nodes), 1), 1)
         exist_tensors = self._encode_existing(E)
         U = len(reps)
-        k_pad, v_pad = self._pads()
+        v_pad = self._pads()[1]
         enc = self.encoder
-        rep_reqs = [self._pod_reqs(p) for p in reps]
-        row_memo: dict = {}
-        reqs_np = encode_requirements_np(enc.vocab, rep_reqs, k_pad, v_pad, enc.skip_keys, row_memo=row_memo)
-        strict_np = encode_requirements_np(
-            enc.vocab, [Requirements.from_pod(p, include_preferred=False) for p in reps],
-            k_pad, v_pad, enc.skip_keys, row_memo=row_memo,
-        )
-        it_allow = enc.it_allow_mask(rep_reqs, self.catalog)
-        for u in range(U):
-            # hostname selectors can never match a not-yet-named node
-            if not enc.hostname_allows(rep_reqs[u], None):
-                it_allow[u, :] = False
-        requests = np.stack([enc.resources_vector(p.total_requests()) for p in reps]).astype(np.float32)
-        tol = np.array(
-            [[tolerates_all(t.taints, p.spec.tolerations) is None for t in self.templates] for p in reps],
-            dtype=bool,
-        ).reshape(U, len(self.templates))
-        exist_ok = np.zeros((U, E), dtype=bool)
-        for e, n in enumerate(self.existing_nodes):
-            hostname = n.requirements.get(l.LABEL_HOSTNAME).any_value() or None
-            it_name = (
-                n.requirements.get(l.LABEL_INSTANCE_TYPE).any_value() or None
-                if n.requirements.has(l.LABEL_INSTANCE_TYPE)
-                else None
-            )
-            for u, p in enumerate(reps):
-                rq = rep_reqs[u]
-                ok = tolerates_all(n.taints, p.spec.tolerations) is None
-                ok = ok and enc.hostname_allows(rq, hostname)
-                if ok and rq.has(l.LABEL_INSTANCE_TYPE):
-                    r = rq.get(l.LABEL_INSTANCE_TYPE)
-                    ok = r.has(it_name) if it_name is not None else r.is_lenient()
-                exist_ok[u, e] = ok
+        rows = self._kind_rows(reps, self.existing_nodes, E)
+        reqs_np, strict_np = rows["reqs"], rows["strict"]
+        requests, tol, exist_ok = rows["requests"], rows["tol"], rows["exist_ok"]
         # topology tensors; the hostname slot space gets one spare column so
         # tier 3's fresh-slot read stays in bounds when every slot is open
         topo, vg, hg = topo_ops.encode_topology(
@@ -886,7 +924,7 @@ class TorchScheduler:
             strict=ReqSetTensors.from_numpy(strict_np, dev),
             requests=as_tensor(requests, dev),
             tmpl_ok=as_tensor(tol, dev),
-            it_allow=as_tensor(it_allow, dev),
+            it_allow=as_tensor(rows["it_allow"], dev),
             exist_ok=as_tensor(exist_ok, dev),
             ports=as_tensor(ports_k, dev),
             port_conf=as_tensor(conf_k, dev),
@@ -909,6 +947,7 @@ class TorchScheduler:
             template_tensors=template_tensors,
             res_cap0=as_tensor(self._res_cap0(), dev),
             topo_tensors=topo,
+            topology=topology,
             vg_groups=vg,
             hg_groups=hg,
             topo_kids=topo_kids,
@@ -1158,6 +1197,8 @@ class TorchScheduler:
             if not compact or not (remaining > 0).any():
                 return st
             r_min = requests_np[remaining > 0].min(axis=0)
+            prev = self._last_compact_rmin
+            self._last_compact_rmin = r_min if prev is None else np.maximum(prev, r_min)
             st, _closed = ops_solver.compact_state(
                 st, self.it_tensors, as_tensor(r_min, self.device), n_claims,
                 plain=self.plain, topo_kids=topo_kids,
@@ -1221,6 +1262,7 @@ class TorchScheduler:
     def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets, topology=None) -> SchedulingResult:
         t0 = time.perf_counter()
         self.existing_nodes = existing_nodes
+        self._last_compact_rmin = None
         pods_sorted, enc = self._encode(pods, budgets, topology)
         t1 = time.perf_counter()
         state, outputs = self._run_solve(enc)
@@ -1250,7 +1292,7 @@ class TorchScheduler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
-        out = self._decode(pods_sorted, enc, outputs, fetched)
+        out = self._decode(pods_sorted, enc, outputs, fetched, state)
         t3 = time.perf_counter()
         self.last_timings = dict(encode_s=t1 - t0, device_s=t2 - t1, decode_s=t3 - t2)
         self.last_stats.update(
@@ -1272,6 +1314,7 @@ class TorchScheduler:
         reserved_mode: Optional[str] = None,
         reserved_in_use: Optional[dict[str, int]] = None,
         pod_volumes: Optional[dict] = None,
+        topology_factory=None,
     ) -> SchedulingResult:
         """Schedule pods onto existing nodes and new claims, with the
         preference relaxation ladder and NO_ROOM recovery of the reference
@@ -1279,7 +1322,9 @@ class TorchScheduler:
         had a real chance at a slot). `topology`, when given (seeded from
         the pods bound to the existing nodes, as a consolidation
         simulation builds it), replaces the one built from the pods; every
-        round solves on a pristine deep copy of it. `budgets` are the
+        round solves on a pristine deep copy of it; `topology_factory`,
+        when given instead, builds each round's topology from the round's
+        pods (the reference's argument of the same name). `budgets` are the
         pools' remaining limits ({pool: {resource or "nodes": amount}}),
         `volume_reqs` each pod uid's volume-topology alternatives,
         `pod_volumes` each pod uid's CSI volumes ({driver: {pvc}}),
@@ -1302,7 +1347,10 @@ class TorchScheduler:
 
         def solve_round(current: list[Pod]) -> SchedulingResult:
             while True:
-                topo = copy.deepcopy(topology) if topology is not None else None
+                if topology_factory is not None:
+                    topo = topology_factory(current)
+                else:
+                    topo = copy.deepcopy(topology) if topology is not None else None
                 result = self._solve_once(current, [n.clone() for n in base_existing], budgets, topo)
                 round_dispatches.append((self.last_stats["perpod_dispatches"], self.last_stats["gang_dispatches"]))
                 cap = _next_pow2(max(len(current), 1))
@@ -1467,7 +1515,7 @@ class TorchScheduler:
             cached = self._tmpl_it_idx[id(template)] = (its, idx)
         return cached
 
-    def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict) -> SchedulingResult:
+    def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict, state=None) -> SchedulingResult:
         """Claim-level decode from the fetched device state: replay the
         pod -> slot bookkeeping in dispatch order (fill grids expanded,
         kind-scan and per-pod assignments applied per pod), then finalize each claim's
@@ -1627,10 +1675,30 @@ class TorchScheduler:
                 node = by_name.get(node_name)
                 if vols and node is not None and node.volume_usage is not None:
                     node.volume_usage.add(uid, vols)
-        return SchedulingResult(
+        result = SchedulingResult(
             claims=claims,
             unschedulable=unschedulable,
             assignments=assignments,
             existing=self.existing_nodes,
             existing_assignments=existing_assignments,
         )
+        if self._capture:
+            # a resident session's adoption material: the final device state
+            # and the decode bookkeeping delta rounds extend; the relaxation
+            # and NO_ROOM loops overwrite it each round, so it always matches
+            # the returned result
+            self._captured = dict(
+                state=state,
+                enc=enc,
+                pods_sorted=list(pods_sorted),
+                claims=claims,
+                slot_to_claim=slot_to_claim,
+                claim_kinds=claim_kinds,
+                claim_pod_counts=ctx.claim_pod_counts,
+                assignments=assignments,
+                existing_assignments=existing_assignments,
+                node_kinds=node_kinds,
+                n_open=int(fetched["n_open"]),
+                compact_rmin=self._last_compact_rmin,
+            )
+        return result

@@ -16,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -29,7 +30,7 @@ PERPOD_KERNELS = ("perpod_scan_persistent",)
 WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
-    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan",
+    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan", "retract_tail",
 )
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
@@ -48,6 +49,15 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch."""
+
+
+class LaunchRefused(KernelError, ValueError):
+    """A launcher refused its arguments (device, dtype, layout or shape)
+    before launching its kernel."""
 
 
 def reset_launches() -> None:
@@ -107,7 +117,7 @@ def build() -> dict:
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed)
         )
@@ -130,6 +140,7 @@ _ARGTYPES = {
     "kscan_pod_loop": [_P, _I, _P, _P],
     "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "gang_scan": [_P, _I, _P, _P],
+    "retract_tail": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -154,7 +165,7 @@ def _invoke(source: str, entry: str, *args) -> None:
     rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = getattr(lib, f"{source}_error_string")(rc).decode()
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+        raise KernelError(f"{entry} launch failed: CUDA error {rc} ({msg})")
 
 
 def _call(name: str, *args) -> None:
@@ -165,11 +176,11 @@ def _call(name: str, *args) -> None:
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     if t.device != dev:
-        raise ValueError(f"{what}: on {t.device}, expected {dev}")
+        raise LaunchRefused(f"{what}: on {t.device}, expected {dev}")
     if t.dtype != dtype:
-        raise ValueError(f"{what}: dtype {t.dtype}, expected {dtype}")
+        raise LaunchRefused(f"{what}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{what}: not contiguous")
+        raise LaunchRefused(f"{what}: not contiguous")
     return t
 
 
@@ -188,15 +199,15 @@ def req_intersects(a, b) -> torch.Tensor:
     A, K, V = a.mask.shape
     B = b.mask.shape[0]
     if b.mask.shape[1:] != (K, V):
-        raise ValueError(f"req_intersects: key/value axes differ {a.mask.shape} vs {b.mask.shape}")
+        raise LaunchRefused(f"req_intersects: key/value axes differ {a.mask.shape} vs {b.mask.shape}")
     if V % 8:
-        raise ValueError(f"req_intersects: V={V} must be a multiple of 8")
+        raise LaunchRefused(f"req_intersects: V={V} must be a multiple of 8")
     args = []
     for side, r in (("a", a), ("b", b)):
         for f, dt in zip(r._fields, (torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.bool)):
             t = _check(getattr(r, f), f"{side}.{f}", dt, dev)
             if f == "mask" and t.data_ptr() % 8:
-                raise ValueError(f"req_intersects: {side}.mask is not 8-byte aligned")
+                raise LaunchRefused(f"req_intersects: {side}.mask is not 8-byte aligned")
             args.append(t.data_ptr())
     out = torch.empty((A, B), dtype=torch.bool, device=dev)
     _call("req_intersects", *args, A, B, K, V, out.data_ptr())
@@ -226,7 +237,7 @@ def fill_count_grid(
     _check(used, "used", torch.float32, dev)
     _check(req, "req", torch.float32, dev)
     if used.shape[1] != R or req.shape != (R,) or used.shape[0] not in (1, n_rows):
-        raise ValueError(f"fill_count_grid: used {tuple(used.shape)} / req {tuple(req.shape)} vs R={R}, rows={n_rows}")
+        raise LaunchRefused(f"fill_count_grid: used {tuple(used.shape)} / req {tuple(req.shape)} vs R={R}, rows={n_rows}")
     alloc = _check(it.alloc, "alloc", torch.float32, dev)
     gv = _check(it.group_valid, "group_valid", torch.bool, dev)
     zc = _check(it.zc_avail, "zc_avail", torch.bool, dev)
@@ -235,7 +246,7 @@ def fill_count_grid(
         _check(rows_mask, "rows_mask", torch.bool, dev)
         K, V = rows_mask.shape[1], rows_mask.shape[2]
         if rows_mask.shape[0] not in (1, n_rows) or Z > V or C > V:
-            raise ValueError(f"fill_count_grid: rows_mask {tuple(rows_mask.shape)} vs rows={n_rows}, Z={Z}, C={C}")
+            raise LaunchRefused(f"fill_count_grid: rows_mask {tuple(rows_mask.shape)} vs rows={n_rows}, Z={Z}, C={C}")
         base = rows_mask.data_ptr()
         zptr, cptr = base + zone_kid * V, base + ct_kid * V
         mask_stride = 0 if rows_mask.shape[0] == 1 else K * V
@@ -247,12 +258,12 @@ def fill_count_grid(
     if mode == 0:
         _check(viable, "viable", torch.bool, dev)
         if viable.shape != (n_rows, T):
-            raise ValueError(f"fill_count_grid: viable {tuple(viable.shape)} vs ({n_rows}, {T})")
+            raise LaunchRefused(f"fill_count_grid: viable {tuple(viable.shape)} vs ({n_rows}, {T})")
         out = torch.empty(n_rows, dtype=torch.int32, device=dev)
     else:
         _check(counts, "counts", torch.int32, dev)
         if counts.shape != (n_rows,):
-            raise ValueError(f"fill_count_grid: counts {tuple(counts.shape)} vs ({n_rows},)")
+            raise LaunchRefused(f"fill_count_grid: counts {tuple(counts.shape)} vs ({n_rows},)")
         out = torch.empty((n_rows, T), dtype=torch.bool, device=dev)
     _call(
         "fill_count_grid", mode, alloc.data_ptr(), gv.data_ptr(), zc.data_ptr(),
@@ -269,7 +280,7 @@ def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Ten
     _check(f, "f", torch.int32, dev)
     rem = _check(rem.reshape(1), "rem", torch.int32, dev)
     if f.shape != p.shape or p.dim() != 1:
-        raise ValueError(f"water_fill: p {tuple(p.shape)} vs f {tuple(f.shape)}")
+        raise LaunchRefused(f"water_fill: p {tuple(p.shape)} vs f {tuple(f.shape)}")
     out = torch.empty_like(p)
     _call("water_fill", p.data_ptr(), f.data_ptr(), rem.data_ptr(), p.shape[0], out.data_ptr())
     return out
@@ -288,16 +299,16 @@ def compact_scatter(
     n = sel.shape[0]
     _check(sel, "sel", torch.bool if mode == 0 else torch.int32, dev)
     if not srcs or len(srcs) != len(dsts) or len(tk_srcs) != len(tk_dsts):
-        raise ValueError("compact_scatter: need matching src/dst lists")
+        raise LaunchRefused("compact_scatter: need matching src/dst lists")
     if tk_srcs and not tk:
-        raise ValueError("compact_scatter: key-row fields need key ids")
+        raise LaunchRefused("compact_scatter: key-row fields need key ids")
     n_dst = dsts[0].shape[0]
     row_bytes, src_bytes, seg_bytes = [], [], []
     for s, d in zip(srcs, dsts):
         _check(s, "src", s.dtype, dev)
         _check(d, "dst", s.dtype, dev)
         if s.shape[0] != n or d.shape[0] != n_dst or s.shape[1:] != d.shape[1:]:
-            raise ValueError(f"compact_scatter: src {tuple(s.shape)} / dst {tuple(d.shape)} vs rows {n}/{n_dst}")
+            raise LaunchRefused(f"compact_scatter: src {tuple(s.shape)} / dst {tuple(d.shape)} vs rows {n}/{n_dst}")
         rb = s[0].numel() * s.element_size() if n else 0
         row_bytes.append(rb)
         src_bytes.append(rb)
@@ -307,7 +318,7 @@ def compact_scatter(
         _check(d, "tk dst", s.dtype, dev)
         if (s.shape[0] != n or d.shape[0] != n_dst or d.shape[1] != len(tk)
                 or s.shape[2:] != d.shape[2:] or max(tk) >= s.shape[1]):
-            raise ValueError(f"compact_scatter: tk src {tuple(s.shape)} / dst {tuple(d.shape)} vs tk {tk}")
+            raise LaunchRefused(f"compact_scatter: tk src {tuple(s.shape)} / dst {tuple(d.shape)} vs tk {tk}")
         seg = s[0, 0].numel() * s.element_size() if n else 0
         row_bytes.append(seg * len(tk))
         src_bytes.append(s[0].numel() * s.element_size() if n else 0)
@@ -347,7 +358,7 @@ def _kscan_common(it, key_kid: int, D: int, dev):
     Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
     K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
     if D < 1 or D > 16 or D > V:
-        raise ValueError(f"kscan_grid: D={D} outside [1, min(16, V={V})]")
+        raise LaunchRefused(f"kscan_grid: D={D} outside [1, min(16, V={V})]")
     alloc = _check(it.alloc, "alloc", torch.float32, dev)
     gv = _check(it.group_valid, "group_valid", torch.bool, dev)
     zc = _check(it.zc_avail, "zc_avail", torch.bool, dev)
@@ -371,16 +382,16 @@ def kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, g
     _check(viable, "viable", torch.bool, dev)
     _check(rows_mask, "rows_mask", torch.bool, dev)
     if used.shape != (N, R) or req.shape != (R,) or viable.shape != (N, T) or rows_mask.shape != (N, K, V):
-        raise ValueError(f"kscan_grid: used {tuple(used.shape)} viable {tuple(viable.shape)} mask {tuple(rows_mask.shape)}")
+        raise LaunchRefused(f"kscan_grid: used {tuple(used.shape)} viable {tuple(viable.shape)} mask {tuple(rows_mask.shape)}")
     if key_kid == zone_kid and D > Z:
-        raise ValueError(f"kscan_grid: zone key with D={D} > Z={Z}")
+        raise LaunchRefused(f"kscan_grid: zone key with D={D} > Z={Z}")
     mode = 0 if grid is None else 1
     if grid is None:
         grid = torch.empty((N, T, GR), dtype=torch.int32, device=dev)
     else:
         _check(grid, "grid", torch.int32, dev)
         if grid.shape != (N, T, GR):
-            raise ValueError(f"kscan_grid: grid {tuple(grid.shape)} vs ({N}, {T}, {GR})")
+            raise LaunchRefused(f"kscan_grid: grid {tuple(grid.shape)} vs ({N}, {T}, {GR})")
     capd = torch.empty((N, D), dtype=torch.int32, device=dev)
     base = rows_mask.data_ptr()
     _kscan_grid_call(
@@ -406,7 +417,7 @@ def kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, 
     _check(zmask, "zmask", torch.bool, dev)
     if (grid.shape != (N, T, GR) or placed.shape != (N,) or zset.shape != (N, D)
             or ct_mask.shape != (N, V) or zmask.shape != (N, V)):
-        raise ValueError("kscan_fits_final: shapes disagree")
+        raise LaunchRefused("kscan_fits_final: shapes disagree")
     out = torch.empty((N, T), dtype=torch.bool, device=dev)
     _kscan_grid_call(
         2,
@@ -447,7 +458,7 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> to
     NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
     S, V = carry.hgc.shape[1], topo.vg_domains.shape[1]
     if count > maxc:
-        raise ValueError(f"kscan_pod_loop: {count} pods > buffer {maxc}")
+        raise LaunchRefused(f"kscan_pod_loop: {count} pods > buffer {maxc}")
     shapes = dict(
         cap_e=(E,), zie0=(E,), open0=(W,), static_n0=(W,), pods0=(W,), zin0=(W,), static_g=(G,),
         capd_g=(G, D), z0_g=(G, D), zinf_g=(G,), w_open0=(), self_conf=(), key_touched=(),
@@ -460,7 +471,7 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> to
         for name, dt in fields:
             t = _check(getattr(group, name), name, dt, dev)
             if name in shapes and tuple(t.shape) != shapes[name]:
-                raise ValueError(f"kscan_pod_loop: {name} {tuple(t.shape)} vs {shapes[name]}")
+                raise LaunchRefused(f"kscan_pod_loop: {name} {tuple(t.shape)} vs {shapes[name]}")
             ptrs.append(t.data_ptr())
     out = torch.full((maxc,), -1, dtype=torch.int32, device=dev)
     ptrs.append(out.data_ptr())
@@ -507,7 +518,7 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
     J, M = tm.mv_it_values.shape[1], tm.mv_key.shape[1]
     RID, RZ = it.res_ofs.shape[1], it.res_ofs.shape[2]
     if Sl < E + NCAP + 1:
-        raise ValueError(f"perpod_scan: hostname slots {Sl} < E + n_claims + 1 = {E + NCAP + 1}")
+        raise LaunchRefused(f"perpod_scan: hostname slots {Sl} < E + n_claims + 1 = {E + NCAP + 1}")
     fields = (
         _set_fields("exist_reqs", state.exist_reqs, E, K, V)
         + [("exist_used", state.exist_used, f, (E, R))]
@@ -554,7 +565,7 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
             int(ctx.flags.res_active), int(ctx.flags.res_strict)]
     need = perpod_workspace(dims)
     if need > SMEM_BLOCK - SMEM_STATIC:
-        raise ValueError(
+        raise LaunchRefused(
             f"perpod_scan: K={K} keys x V={V} values with NGv={NGv} vocab-key groups need {need} B of shared "
             f"memory (the pod's terms and one warp's row scratch), above the {SMEM_BLOCK - SMEM_STATIC} B a "
             f"block has beside the kernel's static part"
@@ -633,9 +644,9 @@ def perpod_tables(it, t_its, mv_it_values: Optional[torch.Tensor] = None) -> tup
                                                        torch.float32, torch.bool, torch.bool, torch.bool)
     for name, t, dt in zip(TABLE_SOURCES, srcs, want):
         if t.dtype != dt or t.device != it.alloc.device:
-            raise ValueError(f"perpod_tables: {name} is {t.dtype} on {t.device}, expected {dt} on {it.alloc.device}")
+            raise LaunchRefused(f"perpod_tables: {name} is {t.dtype} on {t.device}, expected {dt} on {it.alloc.device}")
     if mv_it_values.shape[0] != T or mv_it_values.shape[2] != V:
-        raise ValueError(f"perpod_tables: mv_it_values {tuple(mv_it_values.shape)} vs T={T}, V={V}")
+        raise LaunchRefused(f"perpod_tables: mv_it_values {tuple(mv_it_values.shape)} vs T={T}, V={V}")
     Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
     RID, RZ = it.res_ofs.shape[1], it.res_ofs.shape[2]
     reqs = it.reqs
@@ -665,13 +676,13 @@ def _perpod_launch(fields, dims, strides, S: int, ctx, lo: int, hi: int, what: s
             continue
         _check(t, name, dt, dev)
         if tuple(t.shape) != shape:
-            raise ValueError(f"{what}: {name} {tuple(t.shape)} vs {shape}")
+            raise LaunchRefused(f"{what}: {name} {tuple(t.shape)} vs {shape}")
         ptrs.append(t.data_ptr())
     fl = ctx.flags
     if fl.res_active and not (0 <= fl.rid_kid < dims[4] and 0 <= fl.res_vid < dims[5]):
-        raise ValueError(f"{what}: reservations on with rid_kid={fl.rid_kid}, res_vid={fl.res_vid}")
+        raise LaunchRefused(f"{what}: reservations on with rid_kid={fl.rid_kid}, res_vid={fl.res_vid}")
     if not 0 <= lo <= hi <= dims[17]:
-        raise ValueError(f"{what}: steps [{lo}, {hi}) outside [0, {dims[17]})")
+        raise LaunchRefused(f"{what}: steps [{lo}, {hi}) outside [0, {dims[17]})")
     if lo == hi:
         return
     tables, offsets = ctx.tables if ctx.tables is not None else perpod_tables(
@@ -777,7 +788,7 @@ def perpod_whatif_steps(state, xs, ctx, pod_idx, valid, exist_valid, lo: int, hi
     fields, strides, dims = _whatif_fields(state, xs, ctx, row_max, assignment, pod_idx, valid, exist_valid)
     P = xs.requests.shape[0]
     if L and (int(pod_idx.min()) < 0 or int(pod_idx.max()) >= P):
-        raise ValueError(f"perpod_whatif: pod_idx outside the {P} pod rows")
+        raise LaunchRefused(f"perpod_whatif: pod_idx outside the {P} pod rows")
     _perpod_launch(fields, dims, strides, S, ctx, lo, hi, "perpod_whatif")
     return assignment
 
@@ -811,11 +822,11 @@ def gang_scan(pre, state, exist, it, templates, topo, zone_kid: int, n_claims: i
     has_key = key_kid >= 0
     Dk = D if has_key else 1
     if S < E + NCAP + 1:
-        raise ValueError(f"gang_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
+        raise LaunchRefused(f"gang_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
     if not 1 <= Dk <= 16 or (has_key and key_kid == zone_kid and Dk > Z):
-        raise ValueError(f"gang_scan: key domains D={Dk} outside [1, 16] (Z={Z} for the zone key)")
+        raise LaunchRefused(f"gang_scan: key domains D={Dk} outside [1, 16] (Z={Z} for the zone key)")
     if tk_idx >= TK or (tk_idx >= 0 and not has_key):
-        raise ValueError(f"gang_scan: tk_idx={tk_idx} with TK={TK}, key {key_kid}")
+        raise LaunchRefused(f"gang_scan: tk_idx={tk_idx} with TK={TK}, key {key_kid}")
     its_b = torch.empty((maxg, T), dtype=b, device=dev)
     capTd = torch.empty((T, Dk), dtype=i, device=dev)
     ys = torch.empty((6, B), dtype=i, device=dev)
@@ -851,7 +862,7 @@ def gang_scan(pre, state, exist, it, templates, topo, zone_kid: int, n_claims: i
             continue
         _check(t, name, dt, dev)
         if tuple(t.shape) != shape:
-            raise ValueError(f"gang_scan: {name} {tuple(t.shape)} vs {shape}")
+            raise LaunchRefused(f"gang_scan: {name} {tuple(t.shape)} vs {shape}")
         ptrs.append(t.data_ptr())
     dims = [B, G, T, GR, R, Z, C, V, Dk, NGv, NGh, S, E, NCAP, maxg, TK, tk_idx, int(has_key),
             int(has_key and key_kid == zone_kid)]
@@ -860,3 +871,71 @@ def gang_scan(pre, state, exist, it, templates, topo, zone_kid: int, n_claims: i
         ctypes.cast(_i64_array(dims), ctypes.c_void_p),
     )
     return list(ys)
+
+
+def _fill_word(x, dtype: torch.dtype) -> int:
+    """A column's unused-row value as the 4-byte pattern the kernel writes
+    (1-byte values repeated four times)."""
+    if dtype == torch.bool:
+        return 0x01010101 if x else 0
+    if dtype == torch.float32:
+        return struct.unpack("<I", struct.pack("<f", float(x)))[0]
+    if dtype == torch.int32:
+        return int(x) & 0xFFFFFFFF
+    raise LaunchRefused(f"retract_tail: no fill pattern for {dtype}")
+
+
+def _columns(state, names: tuple, rows: int, dev, fill: Optional[dict] = None) -> tuple:
+    """(srcs, fresh dsts, row bytes, fill words, {name: new column}) of the
+    named state columns, requirement sets split into their components."""
+    from karpenter_tpu_torch.ops.encode import ReqSetTensors
+
+    srcs, dsts, rbs, words, out = [], [], [], [], {}
+    for f in names:
+        v = getattr(state, f)
+        comps = list(v) if isinstance(v, ReqSetTensors) else [v]
+        fills = (list(fill[f]) if isinstance(v, ReqSetTensors) else [fill[f]]) if fill else [0] * len(comps)
+        new = []
+        for c, x in zip(comps, fills):
+            _check(c, f, c.dtype, dev)
+            if c.shape[0] != rows:
+                raise LaunchRefused(f"retract_tail: {f} has {c.shape[0]} rows, expected {rows}")
+            d = torch.empty_like(c)
+            srcs.append(c)
+            dsts.append(d)
+            rbs.append(c.numel() // max(rows, 1) * c.element_size())
+            words.append(_fill_word(x, c.dtype))
+            new.append(d)
+        out[f] = ReqSetTensors(*new) if isinstance(v, ReqSetTensors) else new[0]
+    return srcs, dsts, rbs, words, out
+
+
+def retract_tail(state, cut: int):
+    """H10: the resident session's suffix undo (ops.solver.retract_tail_plain)
+    in one launch. Returns a new SolverState whose window and bank columns
+    and n_open / w_open are fresh tensors; the input state is not
+    modified."""
+    from karpenter_tpu_torch.ops.solver import RETRACT_BANK, RETRACT_WINDOW, retract_fill
+
+    dev = state.used.device
+    W, NB = state.open.shape[0], state.bank_frozen.shape[0]
+    if not 0 <= int(cut) <= NB:
+        raise LaunchRefused(f"retract_tail: cut {cut} outside [0, {NB}]")
+    _check(state.open, "open", torch.bool, dev)
+    _check(state.slot_of, "slot_of", torch.int32, dev)
+    srcs, dsts, rbs, words, out = _columns(state, RETRACT_WINDOW, W, dev, retract_fill(state))
+    bsrcs, bdsts, brbs, _words, bout = _columns(state, RETRACT_BANK, NB, dev)
+    w_open = torch.empty((), dtype=torch.int32, device=dev)
+    n_open = torch.empty((), dtype=torch.int32, device=dev)
+
+    def arr(ctype, vals):
+        return ctypes.cast((ctype * max(len(vals), 1))(*vals), ctypes.c_void_p)
+
+    _call(
+        "retract_tail", W, NB, int(cut), len(srcs), arr(ctypes.c_void_p, [t.data_ptr() for t in srcs]),
+        arr(ctypes.c_void_p, [t.data_ptr() for t in dsts]), arr(ctypes.c_int64, rbs), arr(ctypes.c_uint32, words),
+        len(bsrcs), arr(ctypes.c_void_p, [t.data_ptr() for t in bsrcs]),
+        arr(ctypes.c_void_p, [t.data_ptr() for t in bdsts]), arr(ctypes.c_int64, brbs),
+        state.open.data_ptr(), state.slot_of.data_ptr(), w_open.data_ptr(), n_open.data_ptr(),
+    )
+    return state._replace(n_open=n_open, w_open=w_open, **out, **bout)

@@ -638,6 +638,68 @@ def compact_state(
     )
 
 
+# ---------------------------------------------------------------------------
+# H10 retract_tail: the resident session's suffix undo
+# ---------------------------------------------------------------------------
+
+# the window columns retract_tail compacts and the bank columns it clears
+RETRACT_WINDOW = ("reqs", "used", "its", "template", "open", "pods", "slot_of", "claim_ports", "held")
+RETRACT_BANK = (
+    "bank_frozen", "bank_template", "bank_its", "bank_used", "bank_held", "bank_tk_mask", "bank_tk_inf",
+    "bank_tk_def",
+)
+
+
+def retract_fill(state: SolverState) -> dict:
+    """The value each window column holds in a row no claim occupies:
+    identity requirements, zeros, and the NCAP sentinel in slot_of."""
+    NB = state.bank_frozen.shape[0]
+    fill = dict(used=0.0, its=False, template=0, open=False, pods=0, slot_of=NB, claim_ports=0, held=False)
+    fill["reqs"] = ReqSetTensors(mask=True, inf=True, excl=False, gte=INT_MIN, lte=INT_MAX, defined=False)
+    return fill
+
+
+def retract_tail_plain(state: SolverState, cut: int) -> SolverState:
+    """The plain version of H10 (the reference's retract_tail): undo every
+    claim with global id >= cut. Window rows that stay open with a global
+    id below the cut keep their order at the front (stable compaction),
+    the rows behind them take the unused-row values, bank rows at or past
+    the cut are cleared, n_open becomes cut and w_open the rows kept;
+    w_hw and spills stay as they are. Functional: the input state is not
+    modified, and the result shares no window or bank tensor with it."""
+    NB = state.bank_frozen.shape[0]
+    dev = state.used.device
+    alive = state.open & (state.slot_of < cut)
+    fill = retract_fill(state)
+    srcs, dsts, out = [], [], {}
+    for f in RETRACT_WINDOW:
+        v = getattr(state, f)
+        if f == "reqs":
+            dst = ReqSetTensors(*(torch.full_like(c, x) for c, x in zip(v, fill[f])))
+            srcs += list(v)
+            dsts += list(dst)
+        else:
+            dst = torch.full_like(v, fill[f])
+            srcs.append(v)
+            dsts.append(dst)
+        out[f] = dst
+    compact_scatter_plain(0, alive, srcs, dsts)
+    bkeep = torch.arange(NB, dtype=I32, device=dev) < cut
+    for f in RETRACT_BANK:
+        v = getattr(state, f)
+        keep = bkeep.reshape((NB,) + (1,) * (v.dim() - 1))
+        out[f] = torch.where(keep, v, torch.zeros_like(v))
+    return state._replace(n_open=_i32(cut, dev), w_open=alive.sum(dtype=I32), **out)
+
+
+def retract_tail(state: SolverState, cut: int, plain: bool = False) -> SolverState:
+    """H10: the kernel on CUDA, the plain version on the CPU (or with
+    plain=True). `cut` is a host int: the call reads nothing back."""
+    if plain or state.used.device.type == "cpu":
+        return retract_tail_plain(state, cut)
+    return cuda.retract_tail(state, cut)
+
+
 def global_claims(state: SolverState, plain: bool = False, topo_kids: tuple = ()) -> dict:
     """Merge the hot window over the frozen bank into global-slot-indexed
     decode columns (template/its/used/held, plus tk_mask/tk_inf/tk_def —

@@ -640,3 +640,88 @@ def slice_digest(result) -> str:
         if c.gang:
             h.update(repr((c.slot, c.gang, [p.name for p in c.pods])).encode())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# resident sessions: traces of delta rounds
+# ---------------------------------------------------------------------------
+
+# steady_16384x64: the JAX package's bench.py run_steady_stage at its
+# defaults (64 kinds x 256 pods of 1 cpu / 1Gi over make_templates(100),
+# max_claims=8192; Poisson(64) fresh-kind batches, the newest batch
+# departing first with p = 0.35; 12 rounds, seed 0) after its warm-up
+# rounds; resident_retract_16380x63: 65 kinds x 252 pods, each round a
+# fresh kind of 63 x max(1, Poisson(1)) pods (whole claims of the
+# 63-pod type the base fills), the same departures, 16 rounds and then 3
+# pops of the newest batch
+STEADY = dict(kinds=64, kind_size=256, delta_pods=64, rounds=12, depart_p=0.35, seed=0)
+RETRACT = dict(kinds=65, kind_size=252, batch=63, rounds=16, pops=3, depart_p=0.35, seed=0)
+RESIDENT_TYPES = 100
+RESIDENT_MAX_CLAIMS = 8192
+
+
+def kind_batch(name: str, n: int, cpu: float = 1.0, side=PORT) -> list:
+    """n identical pods of one deployment (label app=<name>), each with its
+    name as its uid, so that a session's fingerprint does not depend on
+    how many objects the process made before."""
+    out = []
+    for i in range(n):
+        p = side.make_pod(f"{name}-{i}", cpu=cpu, memory="1Gi")
+        p.metadata.labels = {"app": name}
+        p.metadata.uid = p.metadata.name
+        out.append(p)
+    return out
+
+
+def steady_trace(kinds: int = 64, kind_size: int = 256, delta_pods: int = 64, rounds: int = 12,
+                 depart_p: float = 0.35, seed: int = 0, side=PORT) -> list:
+    """[(label, union pods)] of the steady stage: the cold base, its
+    warm-up rounds (a repeat, one batch in, that batch out), then the
+    trace rounds, each a LIFO departure with p = depart_p and a fresh-kind
+    batch of max(1, Poisson(delta_pods)) pods."""
+    rng = np.random.default_rng(seed)
+    base = [p for k in range(kinds) for p in kind_batch(f"base-{k}", kind_size, side=side)]
+    warm = kind_batch("warmup", delta_pods, side=side)
+    out = [("cold", base), ("repeat", base), ("warm+", base + warm), ("warm-", base)]
+    live: list = []
+    for rnd in range(rounds):
+        if live and rng.random() < depart_p:
+            live.pop()
+        n_new = max(int(rng.poisson(delta_pods)), 1)
+        live.append(kind_batch(f"delta-{rnd}", n_new, side=side))
+        out.append((f"round {rnd}", base + [p for b in live for p in b]))
+    return out
+
+
+def retract_trace(kinds: int = 65, kind_size: int = 252, batch: int = 63, rounds: int = 16, pops: int = 3,
+                  depart_p: float = 0.35, seed: int = 0, side=PORT) -> list:
+    """[(label, union pods)] of the retract cell: the cold base, rounds of
+    a LIFO departure with p = depart_p and a fresh kind of batch x
+    max(1, Poisson(1)) pods, then `pops` rounds that only depart the
+    newest batch."""
+    rng = np.random.default_rng(seed)
+    base = [p for k in range(kinds) for p in kind_batch(f"base-{k}", kind_size, side=side)]
+    out = [("cold", base)]
+    live: list = []
+    for rnd in range(rounds):
+        if live and rng.random() < depart_p:
+            live.pop()
+        n_new = batch * max(1, int(rng.poisson(1)))
+        live.append(kind_batch(f"delta-{rnd}", n_new, side=side))
+        out.append((f"round {rnd}", base + [p for b in live for p in b]))
+    for i in range(pops):
+        live.pop()
+        out.append((f"pop {i}", base + [p for b in live for p in b]))
+    return out
+
+
+def claims_digest(result) -> str:
+    """sha256 of a result's claims (slot, pods, viable types, usage,
+    requirements) and unschedulable pods (chip_smoke.py's digest)."""
+    h = hashlib.sha256()
+    for c in result.claims:
+        h.update(repr((c.slot, [p.name for p in c.pods], [i.name for i in c.instance_types],
+                       sorted(c.used.items()), str(c.requirements))).encode())
+    for p, reason in result.unschedulable:
+        h.update(repr((p.name, reason)).encode())
+    return h.hexdigest()

@@ -1,7 +1,7 @@
-// A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu
-// and gang_scan.cu use, so that their kernels can run on the host against
-// the plain loops (tests/test_torch_perpod_emulated.py,
-// tests/test_torch_gang_emulated.py). One std::thread per CUDA thread,
+// A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu,
+// gang_scan.cu and retract_tail.cu use, so that their kernels can run on
+// the host against the plain versions (tests/test_torch_perpod_emulated.py,
+// tests/test_torch_gang_emulated.py, tests/test_torch_retract_emulated.py). One std::thread per CUDA thread,
 // the blocks of a grid one after another; std::barrier stands in for
 // __syncthreads and for the warp collectives; __shared__ variables become
 // statics, which the blocks share, run in turn. The bulk copy and the
@@ -51,6 +51,10 @@ inline const char* cudaGetErrorString(int e) { return e ? "invalid value" : "no 
 struct Dim {
   unsigned x, y, z;
 };
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 extern thread_local Dim threadIdx, blockIdx;
 extern Dim blockDim;
 
@@ -113,6 +117,14 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_emu->slot_f[w][l] = v;
   __syncwarp();
   const float r = g_emu->slot_f[w][l ^ o];
+  __syncwarp();
+  return r;
+}
+inline int __shfl_xor_sync(unsigned, int v, int o) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = v;
+  __syncwarp();
+  const int r = g_emu->slot_i[w][l ^ o];
   __syncwarp();
   return r;
 }

@@ -393,7 +393,8 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
     assert stats["kscan_dispatches"] > 0 and stats["compactions"] > 0
     # every launcher but the per-pod kernels' (no kind here routes there;
     # tests/test_torch_perpod.py holds that launcher to the solve), their
-    # scenario mode (tests/test_torch_whatif.py) and the gang kernel's (no
-    # gang here; tests/test_torch_gang_emulated.py)
+    # scenario mode (tests/test_torch_whatif.py), the gang kernel's (no
+    # gang here; tests/test_torch_gang_emulated.py) and the retract
+    # kernel's (no resident session here; tests/test_torch_retract_emulated.py)
     assert set(seen) == (set(p_cuda.KERNELS) - set(p_cuda.PERPOD_KERNELS) - set(p_cuda.WHATIF_KERNELS)
-                         - {"gang_scan"}), seen
+                         - {"gang_scan", "retract_tail"}), seen
