@@ -33,7 +33,15 @@ Phases, any failure exits non-zero:
      and every GangYs leaf; the retract kernel (retract_tail, H10) on
      the resident state resident_retract_16380x63 holds after its 16
      rounds (W = NB = 8192 rows), at the cuts n_open, every round's
-     boundary and 0, against its plain version: every state leaf;
+     boundary and 0, against its plain version: every state leaf; under
+     a placement objective's rank: H6 with cost_min's rank over the four
+     family pools, the per-pod kernel on objectives_perpod_4096x400 under
+     cost_min (one block) and in scenario mode on prefix100's shapes over
+     the four pools (S = 128 scenarios, 2 to the end); the objective
+     verdict kernel (objective_verdict, H11) at
+     objectives_mixed_16384x400's first cost_min round (K = 4 variants of
+     the first fill group), under each objective's formula and with every
+     type unpriced, scores bit for bit and the word;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then two warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -99,6 +107,16 @@ Phases, any failure exits non-zero:
      round the wall, encode / device split, fill dispatches and H10
      launches, the delta p50 / p95 / max beside the p95 of a forced full
      re-solve of the final union, and a profiled delta round's idle share;
+     then placement objectives: objectives_mixed_16384x400
+     (mixed_pods(16384) over the four family pools of
+     testing.mixed_pool_templates(400), max_claims=4096,
+     KTPU_OBJECTIVE_K=4) under each of the five policies and
+     objectives_perpod_4096x400 (perpod_pods(4096, kinds=8) over the same
+     pools) under lexical and cost_min, each a cold solve held to the JAX
+     package's claims, unschedulable pods, $/h, digest and objective-round
+     counts, objective_verdict launched once per objective round, the cost
+     gate (cost_min no pricier than lexical), a warm lexical and cost_min
+     solve, and a profiled warm cost_min solve;
   5. the three main-path solves with the kernels' plain versions on the
      card, which must give the identical digest (claims, pods, types,
      usage, requirements), and the wall of phase 3's plain what-if
@@ -116,6 +134,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 # the JAX package's result for selector_pods(100_000) x make_templates(1000),
 # max_claims=4096 (TPUScheduler.solve on the CPU at commit 153c45d)
@@ -264,6 +283,32 @@ RESIDENT_GOLDEN = {
         fingerprint='33cb023dc8e9d7dc',
         retracts=0,
     ),
+}
+
+# the objective cells (python tests/test_torch_objectives.py prints them:
+# TPUScheduler on the CPU, mesh None, a fresh scheduler per solve, the JAX
+# package at df8eb8b): objectives_mixed_16384x400 — mixed_pods(16384) over
+# testing.mixed_pool_templates(400) (four family pools over
+# instance_types(400), priciest first), max_claims=4096,
+# KTPU_OBJECTIVE_K=4, under each policy; objectives_perpod_4096x400 —
+# perpod_pods(4096, kinds=8) over the same pools, lexical and cost_min.
+# Per policy: claims, unschedulable pods, $/h (objectives.oracle
+# total_price_per_hour), claims_digest, and the objective rounds committed
+# / replayed with their canonical / perturbed wins
+OBJ_TYPES, OBJ_MAX_CLAIMS, OBJ_K = 400, 4096, 4
+OBJ_MIXED_PODS = 16384
+OBJ_PERPOD_PODS, OBJ_PERPOD_KINDS = 4096, 8
+OBJ_MIXED_GOLDEN = {
+    "lexical": (3277, 0, 1015.6989, "19bddc3295f40da9a8e3672174c8b173ff15c5a43ccd5a84488e663765f424eb", 0, 0, 0, 0),
+    "cost_min": (3277, 0, 395.2077, "b8a5bd75e77e8902d452443ad81988eb039033249112b2647e10b816d1d22da4", 31, 0, 23, 8),
+    "frag_aware": (3277, 0, 443.7228, "53b91bde4a12901929733dcbc9cc5772a91f3a24e7111861873e75753589dc66", 31, 0, 31, 0),
+    "topo_spread": (3277, 0, 1015.6989, "19bddc3295f40da9a8e3672174c8b173ff15c5a43ccd5a84488e663765f424eb", 31, 0, 31, 0),
+    "gang_slice": (3277, 0, 1015.6989, "19bddc3295f40da9a8e3672174c8b173ff15c5a43ccd5a84488e663765f424eb", 31, 0, 31, 0),
+}
+OBJ_PERPOD_GOLDEN = {
+    "lexical": (136, 0, 404.9006, "4a27bb66dcffd70eef273203b33adae0ee7b8ad64bc43a5b03869957cdc87a44", 0, 0, 0, 0),
+    # every kind per-pod: no fill group, so no objective round
+    "cost_min": (136, 0, 117.844, "d4995ed13516c978f5e0b0a23425fd1626615e022bf1b2e597013c9cf8a83276", 0, 0, 0, 0),
 }
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
@@ -454,7 +499,7 @@ def kernel_phase(sched) -> list[dict]:
     return results
 
 
-def kscan_kernel_phase(sched, enc, results: list) -> None:
+def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = None) -> None:
     """Phase 3b: H4's topology-key mode, H5 and H6 against their plain
     versions at the kind scan's shapes on the mixed_pods path: the real
     encoded catalog of make_templates(400) and its topology tensors (NGv 2,
@@ -462,7 +507,9 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
     segment of 256 pods over seeded counts and domain sets, with open
     rows, fresh rows opening during the segment, and the claim-slot
     capacity running out, and once more with the zone counts past 2^15
-    (where the rank key wraps). Exact equality."""
+    (where the rank key wraps), and once with tier 3 under cost_min's
+    template rank over the four family pools (`rank_enc`, an encode of
+    objectives_mixed_16384x400's scheduler). Exact equality."""
     import torch
 
     from karpenter_tpu_torch.ops import kernels, solver
@@ -580,18 +627,24 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
               + W * 2 * V, cells * (2 * R + 9 * R + D * C)),
     )
 
-    # H6 kscan_pod_loop: one segment of 256 pods
-    E, G = enc["E"], templates.its.shape[0]
-    NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
-    S = topo.hg_counts0.shape[1]
+    # H6 kscan_pod_loop: one segment of 256 pods; last, tier 3 under a
+    # placement objective's rank (cost_min's over the four family pools,
+    # rank_enc: the weight order reversed)
     count = maxc = 256
     w_open0, n_open0 = 3800, NCAP - 30  # 30 claim slots left
     ar = torch.arange(W, device=dev)
     slot_of = torch.where(ar < w_open0, ar + n_open0 - w_open0, torch.full_like(ar, NCAP)).to(torch.int32)
     checks = []
     times = []
-    for variant, grp, big in (("zone spread", 0, 0), ("zone affinity", 1, 0),
-                              ("zone spread, counts past 2^15", 0, BIG_COUNT)):
+    timed = None
+    cases = [("zone spread", 0, 0, enc), ("zone affinity", 1, 0, enc), ("zone spread, counts past 2^15", 0, BIG_COUNT, enc)]
+    if rank_enc is not None:
+        cases.append(("zone spread, cost_min rank over four pools", 0, 0, rank_enc))
+    for variant, grp, big, c_enc in cases:
+        templates, topo = c_enc["template_tensors"], c_enc["topo_tensors"]
+        E, G = c_enc["E"], templates.its.shape[0]
+        NGv, NGh = topo.vg_type.shape[0], topo.hg_type.shape[0]
+        S = topo.hg_counts0.shape[1]
         one = torch.zeros(NGv, dtype=torch.bool, device=dev)
         one[grp] = True
         inp = solver.PodLoopIn(
@@ -625,10 +678,14 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
         ak = solver.kscan_pod_loop(inp, ck, topo, templates, count, maxc, NCAP)
         ap = solver.kscan_pod_loop_plain(inp, cp, topo, templates, count, maxc, NCAP)
         eq = torch.equal(ak, ap) and all(torch.equal(a, b) for a, b in zip(ck, cp))
+        opened_t = ck.tmpl_n[w_open0:int(ck.w_open)].tolist()
         hist = {k: int(v) for k, v in (
             ("existing", ((ak >= 0) & (ak < E)).sum()), ("claims", (ak >= E).sum()),
             ("no_room", (ak == solver.NO_ROOM).sum()), ("no_claim", (ak == solver.NO_CLAIM).sum()),
             ("opened", ck.n_open - n_open0))}
+        hist["opened_templates"] = sorted(set(opened_t))
+        if templates.rank is not None:
+            hist["rank"] = templates.rank.tolist()
         print(f"kernel kscan_pod_loop ({variant}): equal={eq} {json.dumps(hist)}", flush=True)
         checks.append(eq)
         if big:
@@ -642,7 +699,18 @@ def kscan_kernel_phase(sched, enc, results: list) -> None:
             solver.kscan_pod_loop(inp, c, topo, templates, count, maxc, NCAP)
             b.record()
         torch.cuda.synchronize()
-        times.append(sum(a.elapsed_time(b) for a, b in ev) / len(ev))
+        t = sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+        if c_enc is not enc:
+            # the same launch in weight order, for the rank's cost
+            lex = templates._replace(rank=None)
+            t_lex = launch_ms(lambda c: solver.kscan_pod_loop(inp, c, topo, lex, count, maxc, NCAP),
+                              [clone(carry0) for _ in range(10)])
+            print(f"kernel kscan_pod_loop ({variant}): ms={t:.4f}; the same inputs in weight order "
+                  f"ms={t_lex:.4f}", flush=True)
+            continue
+        times.append(t)
+        timed = timed or (inp, carry0, topo, templates, E, G, NGv, NGh)
+    inp, carry0, topo, templates, E, G, NGv, NGh = timed
     plain_ms = time_ms(lambda: solver.kscan_pod_loop_plain(
         inp, clone(carry0), topo, templates, count, maxc, NCAP), iters=2, warmup=1)
     # per pod, one pass over the candidate rows: domain bits, capacity row,
@@ -837,7 +905,7 @@ def perpod_step_bounds(chunks: list) -> tuple:
     each tier the step reaches (tier 2 when no existing node takes the
     pod, tier 3 when no claim does either: the kernel's order, which the
     pick makes exact; tiers 1 and 3 only up to the chosen row, since the
-    least feasible index decides) each candidate row's live flag; a live
+    least feasible index — tier 3's position in the rank order — decides) each candidate row's live flag; a live
     row's scalar tests (free resources or a claim's resource ceilings,
     ports, volumes, the hostname counts of the groups that apply); and
     only for a row that passes them its requirement row and, for claims
@@ -867,6 +935,9 @@ def perpod_step_bounds(chunks: list) -> tuple:
         ev = ch["exist_valid"] if scen else exist.valid[None]
         valid = (ch["valid"] if scen else xs.valid[None]) & (idx >= 0)
         amax = torch.where(it.group_valid[..., None], it.alloc, torch.tensor(float("-inf"), device=dev)).amax(1)
+        # each template's position in tier 3's try order
+        pos3 = (torch.arange(G, device=dev) if tm.rank is None
+                else torch.argsort(kc.rank_order(tm.rank).long()))
         run = solver.own_perpod_writes(ch["state0"])
         got = torch.full((S, n), -1, dtype=torch.int32, device=dev)
         req_row = K * V + 11 * K
@@ -904,7 +975,9 @@ def perpod_step_bounds(chunks: list) -> tuple:
             upto1 = torch.arange(E, device=dev)[None] <= cut1[:, None]
             tmpl_after = st.template.gather(1, w_open0.clamp(max=st.template.shape[1] - 1)[:, None])[:, 0]
             cut3 = torch.where(opened, tmpl_after.long(), torch.full_like(a, G - 1))
-            upto3 = (torch.arange(G, device=dev)[None] <= cut3[:, None]) & reach3[:, None]
+            # (under a rank, up to the chosen template's position in the try order)
+            cutp = torch.where(opened, pos3[cut3], torch.full_like(a, G - 1))
+            upto3 = (pos3[None] <= cutp[:, None]) & reach3[:, None]
             Wn = p2.shape[1]
             rows2 = (torch.arange(Wn, device=dev)[None] < w_open0[:, None]) & reach2[:, None]
             t1, f1 = (g1 & upto1 & v[:, None]), (p1 & upto1 & v[:, None])
@@ -943,7 +1016,7 @@ def perpod_step_bounds(chunks: list) -> tuple:
     return bound(total_bytes / max(steps, 1), 0.0), {**stats, **per}
 
 
-def whatif_kernel_phase(cell, results: list) -> tuple:
+def whatif_kernel_phase(cell, results: list, n_sub: int = 4) -> tuple:
     """Phase 3d: the per-pod kernel in scenario mode against the plain
     per-scenario loop, on a what-if prefix cell's encode (S = 128
     scenarios, each its own pods, surviving nodes and topology seeds; the
@@ -993,9 +1066,9 @@ def whatif_kernel_phase(cell, results: list) -> tuple:
         eq1 = eq1 and int(ap) == int(a_k[s]) and same(solver.scenario_state(k_state, s), sp)
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t0) * 1e3
-    # 4 scenarios to the end, the largest prefix among them
+    # n_sub scenarios to the end, the largest prefix among them
     n_real = len(specs)
-    pick = torch.tensor([0, n_real // 3, 2 * n_real // 3, n_real - 1], device=idx.device)
+    pick = torch.tensor(sorted({(n_real - 1) * j // (n_sub - 1) for j in range(n_sub)}), device=idx.device)
     sub = (*(a[pick] for a in args[:6]), *args[6:])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1016,7 +1089,7 @@ def whatif_kernel_phase(cell, results: list) -> tuple:
             "sub_held_rows": [int(st.held.any(-1).sum()) for st in out_k[3]]}
     label = cell.get("label", "whatif_prefix100")
     print(f"kernel perpod_scan_persistent (scenario mode, {label}): one step of {S} scenarios == plain: {eq1}; "
-          f"4 scenarios x {L} steps == plain: {eq_sub} {json.dumps(hist)}", flush=True)
+          f"{len(pick)} scenarios x {L} steps == plain: {eq_sub} {json.dumps(hist)}", flush=True)
 
     # one launch of the whole batch on private copies made outside the events
     copies = [solver.stack_scenarios(st0, S, vg0, hg0) for _ in range(3)]
@@ -1575,6 +1648,200 @@ def resident_path(torch, cuda, T, TorchScheduler, name: str, trace: list, batch:
     return launches
 
 
+def objective_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
+    """Phase 3e: H11 objective_verdict against its plain version at the
+    first objective round of objectives_mixed_16384x400 under cost_min: the
+    round's first fill group (a quarter of the 16384 pods) solved under
+    the K = 4 rank variants from the empty state (H1-H3), then the verdict
+    over those four outcomes scored by each non-lexical objective's
+    formula, and once with every type unpriced (every cost_min score +inf:
+    the winner is 0). Scores bit for bit and the word equal. Times: the
+    launcher call (CUDA events) and the plain version, cost_min; bound: the
+    bytes the function moves on this round's data (each variant's opened
+    rows of its viable-type slab, their open flags, its leftovers and
+    scalars, the price column, the scores and the word)."""
+    from karpenter_tpu_torch import objectives
+    from karpenter_tpu_torch.ops import solver
+
+    sched = TorchScheduler(T.mixed_pool_templates(OBJ_TYPES), max_claims=OBJ_MAX_CLAIMS, objective="cost_min")
+    _sorted, enc = sched._encode(T.mixed_pods(OBJ_MIXED_PODS), None)
+    segs = next(s for m, s in sched._runs(enc) if m[0] == "fill")
+    state = sched._initial_state(enc)
+    xs = sched._gather_fill_xs(enc, segs)
+    ranks = sched._objective_variant_ranks("cost_min", OBJ_K)
+    price = sched._objective_price_t()
+    tm = enc["template_tensors"]
+    outs = []
+    for v in range(ranks.shape[0]):
+        st, ys = solver.solve_fill(state, xs, enc["exist_tensors"], sched.it_tensors, tm._replace(rank=ranks[v]),
+                                   sched.well_known, enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"],
+                                   enc["n_claims"])
+        outs.append(solver.variant_out(st, ys))
+    G = len(sched.templates)
+    args = (state.w_open, state.spills, outs)
+    checks = {}
+    for name, p_t in [(n, price) for n in objectives.POLICIES[1:]] + [("cost_min, every type unpriced",
+                                                                        torch.full_like(price, float("inf")))]:
+        oid = objectives.objective_id(name.split(",")[0])
+        sk, wk = cuda.objective_verdict(*args, p_t, oid, G)
+        sp, wp = solver.objective_verdict_plain(*args, p_t, oid, G)
+        w = int(wk[0]) & 0xFFFFFFFF
+        ok = torch.equal(wk, wp) and torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+        if p_t is not price:
+            ok = ok and (w >> 24) == 0 and bool(torch.isinf(sk).all())
+        checks[name] = ok
+        print(f"kernel objective_verdict ({name}): equal={ok} word=0x{w:08x} winner={(w >> 24) & 0xFF} "
+              f"scores={sk.tolist()}", flush=True)
+    cost = objectives.objective_id("cost_min")
+    base = int(state.w_open)
+    moved, ops = verdict_bytes(base, outs, price.shape[0])
+    ms = time_ms(lambda: cuda.objective_verdict(*args, price, cost, G), iters=50)
+    plain_ms = time_ms(lambda: solver.objective_verdict_plain(*args, price, cost, G), iters=10)
+    b = bound(moved, ops)
+    ok = all(checks.values())
+    print(f"kernel objective_verdict: equal={ok} (tolerance: exact) ms={ms:.5f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b[0]:.6f} ({b[1]}) {len(segs)} segments, {len(outs)} variants, opened "
+          f"{[int(o.w_open) - base for o in outs]} rows, {moved} bytes", flush=True)
+    results.append(dict(
+        name="objective_verdict", route="cuda", source="karpenter_tpu_torch/ops/csrc/objective_verdict.cu",
+        replaces="karpenter_tpu/ops/solver.py:1960", launches=0, max_abs_err=0.0 if ok else 1.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
+    ))
+
+
+def verdict_bytes(base_w_open: int, outs: list, T: int) -> tuple[int, int]:
+    """(bytes, operations) H11's function needs on one round's data: each
+    variant's opened rows of its viable-type slab (cost_min's row minimum,
+    T operations a row), the open flags of the rows it opened, its
+    leftovers and two scalars; the price column, the base scalars, the
+    scores and the word."""
+    moved, ops = T * 4 + 8 + len(outs) * 4 + 4, 0
+    for o in outs:
+        w_v = int(o.w_open)
+        opened = int(o.open[base_w_open:w_v].sum())
+        moved += opened * T + (w_v - base_w_open) + 8 + o.leftover.numel() * 4
+        ops += opened * T
+    return moved, ops
+
+
+def objective_whatif_cell(torch, T, TorchScheduler) -> dict:
+    """The per-pod kernel's scenario mode under a rank at prefix100's
+    shapes: mixed_pods(4096) provisioned over the four family pools and
+    launched, 64 pending pods, the prefixes 1..100 of the cheapest
+    candidates, batched under cost_min (whose rank reverses the pools'
+    weight order)."""
+    templates = T.mixed_pool_templates(OBJ_TYPES)
+    cl = T.bound_cluster(T.mixed_pods(WHATIF_PODS), templates)
+    pending = T.pending_pods(WHATIF_PENDING)
+    return dict(cluster=cl, factory=T.topology_factory(cl), sched=TorchScheduler(templates, objective="cost_min"),
+                batches={"prefix": T.prefix_scenarios(T.candidates(cl), WHATIF_CANDS, pending)},
+                label=f"whatif_prefix{WHATIF_CANDS} under cost_min over the four family pools")
+
+
+def objective_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels: list) -> tuple:
+    """Phase 4: objectives_mixed_16384x400 under each policy and
+    objectives_perpod_4096x400 under lexical and cost_min, each a cold
+    solve on a fresh scheduler with the launch counts zeroed just before
+    and read just after, held to the JAX package's claims, unschedulable
+    pods, $/h, digest and objective-round counts; H11 launched once per
+    objective round (every fill group of a non-lexical policy), H6 with
+    the rank; the cost gate (cost_min no pricier than lexical). Then one
+    warm solve each of lexical and cost_min on the mixed cell (device_s
+    side by side) and a profiled warm cost_min solve (H11's device time
+    per launch, set on its entry of `kernels`; the idle share). Returns (the launches of every cold
+    solve, {policy: $/h}) or raises RuntimeError."""
+    from karpenter_tpu_torch import objectives
+    from karpenter_tpu_torch.objectives.oracle import total_price_per_hour
+
+    os.environ["KTPU_OBJECTIVE_K"] = str(OBJ_K)
+    launches_all, prices, scheds = [], {}, {}
+    cells = [("objectives_mixed_16384x400", OBJ_MIXED_GOLDEN, objectives.POLICIES,
+              lambda: T.mixed_pods(OBJ_MIXED_PODS)),
+             ("objectives_perpod_4096x400", OBJ_PERPOD_GOLDEN, tuple(OBJ_PERPOD_GOLDEN),
+              lambda: T.perpod_pods(OBJ_PERPOD_PODS, kinds=OBJ_PERPOD_KINDS))]
+    for cell, golden, policies, make_pods in cells:
+        pods = make_pods()
+        for policy in policies:
+            sched = TorchScheduler(T.mixed_pool_templates(OBJ_TYPES), max_claims=OBJ_MAX_CLAIMS, objective=policy)
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            r = sched.solve(pods)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda.LAUNCHES)
+            launches_all.append(launches)
+            st = sched.last_stats
+            got = (r.node_count, len(r.unschedulable), round(total_price_per_hour(r), 4), digest(r),
+                   st["objective_committed"], st["objective_replayed"], st["wins_canonical"], st["wins_perturbed"])
+            print(f"{cell} {policy}: wall={wall:.3f}s {json.dumps(sched.last_timings)} claims={got[0]} "
+                  f"unschedulable={got[1]} total_price_per_hour={got[2]:.4f} digest={got[3][:16]}... "
+                  f"rounds committed={got[4]} replayed={got[5]} wins canonical={got[6]} perturbed={got[7]} "
+                  f"stats={json.dumps(st)} launches={json.dumps(launches)}", flush=True)
+            want = golden[policy]
+            if got[:2] != want[:2] or abs(got[2] - want[2]) >= 1e-3 or got[3] != want[3] or got[4:] != want[4:]:
+                raise RuntimeError(f"{cell} {policy}: {got} differs from the JAX package's {want}")
+            n_rounds = st["objective_committed"] + st["objective_replayed"]
+            mixed = cell.startswith("objectives_mixed")
+            if launches["objective_verdict"] != n_rounds or (mixed and policy != "lexical" and not n_rounds):
+                raise RuntimeError(f"{cell} {policy}: {launches['objective_verdict']} objective_verdict launches "
+                                   f"for {n_rounds} objective rounds")
+            if mixed and not launches["kscan_pod_loop"]:
+                raise RuntimeError(f"{cell} {policy}: no kscan_pod_loop launch")
+            if not mixed and launches[cuda.PERPOD_KERNELS[0]] != st["perpod_dispatches"]:
+                raise RuntimeError(f"{cell} {policy}: per-pod kernel launches differ from its chunks")
+            prices[(cell, policy)] = got[2]
+            scheds[(cell, policy)] = (sched, pods)
+        print(f"{cell}: digests equal to the JAX package's under {', '.join(policies)}", flush=True)
+    for cell in ("objectives_mixed_16384x400", "objectives_perpod_4096x400"):
+        lex, cmin = prices[(cell, "lexical")], prices[(cell, "cost_min")]
+        print(f"{cell} cost gate: cost_min {cmin:.4f} $/h <= lexical {lex:.4f} $/h: {cmin <= lex + 1e-6}", flush=True)
+        if cmin > lex + 1e-6:
+            raise RuntimeError(f"{cell}: cost_min buys a pricier fleet than lexical")
+    for policy in ("lexical", "cost_min"):
+        sched, pods = scheds[("objectives_mixed_16384x400", policy)]
+        t0 = time.perf_counter()
+        r = sched.solve(pods)
+        torch.cuda.synchronize()
+        print(f"objectives_mixed_16384x400 {policy} warm: wall={time.perf_counter() - t0:.3f}s "
+              f"{json.dumps(sched.last_timings)}", flush=True)
+        if digest(r) != OBJ_MIXED_GOLDEN[policy][3]:
+            raise RuntimeError(f"objectives_mixed_16384x400 {policy}: warm solve differs from the cold solve")
+    sched, pods = scheds[("objectives_mixed_16384x400", "cost_min")]
+    # the bytes each round's verdict needs, from one more warm solve (the
+    # solve is deterministic: the profiled one runs the same rounds)
+    real, rounds_b = cuda.objective_verdict, []
+
+    def recording(base_w_open, base_spills, outs, price, objective, G):
+        rounds_b.append(verdict_bytes(int(base_w_open), outs, price.shape[0]))
+        return real(base_w_open, base_spills, outs, price, objective, G)
+
+    cuda.objective_verdict = recording
+    try:
+        sched.solve(pods)
+    finally:
+        cuda.objective_verdict = real
+    cuda.reset_launches()
+    by_name = profile_run(lambda: sched.solve(pods), profile_dir, "objectives_cost_min")["by_name"]
+    rounds = sched.last_stats["verdict_fetches"]
+    hits = [(c, d) for n, (c, d) in by_name.items() if "objective_verdict_kernel" in n]
+    if not hits or hits[0][0] != rounds or cuda.LAUNCHES["objective_verdict"] != rounds:
+        raise RuntimeError(f"objectives_mixed_16384x400 cost_min: the profiled solve's {rounds} objective rounds "
+                           f"show {hits[0][0] if hits else 0} objective_verdict device events and "
+                           f"{cuda.LAUNCHES['objective_verdict']} launches")
+    c, d = hits[0]
+    b = bound(sum(x for x, _o in rounds_b) / len(rounds_b), sum(o for _x, o in rounds_b) / len(rounds_b))
+    print(f"kernel objective_verdict (objectives_mixed_16384x400 cost_min, profiled warm solve): "
+          f"{d / c:.5f} ms per launch on the device ({c} launches), bound {b[0]:.6f} ms per launch ({b[1]}) "
+          f"over the same rounds, {sum(x for x, _o in rounds_b)} bytes in all", flush=True)
+    # the kernels line carries the kernel's own device time over the main
+    # path's rounds (the events around a launcher call also hold its zeroed
+    # ticket's fill) beside its bound over the same rounds
+    for k in kernels:
+        if k["name"] == "objective_verdict":
+            k.update(ms=d / c, bound_ms=b[0], bound_by=b[1])
+    return launches_all, prices
+
+
 def record_chunks(cuda, fn) -> list:
     """Run fn with every single-scenario launch of the per-pod kernel
     recorded (its inputs, a copy of the carry before it, its assignment),
@@ -1760,11 +2027,30 @@ def main() -> int:
     templates_m = make_templates(400)
     sched_m = TorchScheduler(templates_m, max_claims=4096)
     _sorted, enc_m = sched_m._encode(mixed_pods(64), None)
-    kscan_kernel_phase(sched_m, enc_m, kernels)
+    # H6's tier 3 under cost_min's rank: an encode of the objective cell's scheduler
+    pool_templates = T.mixed_pool_templates(OBJ_TYPES)
+    _sorted, enc_o = TorchScheduler(pool_templates, max_claims=OBJ_MAX_CLAIMS, objective="cost_min")._encode(
+        mixed_pods(64), None)
+    kscan_kernel_phase(sched_m, enc_m, kernels, rank_enc=enc_o)
     pods_p = perpod_pods(PERPOD_PODS, kinds=PERPOD_KINDS)
     sched_p = TorchScheduler(templates_m, max_claims=4096)
     _sorted, enc_p = sched_p._encode(pods_p, None)
     perpod_kernel_phase(sched_p, enc_p, kernels)
+    # the per-pod kernel under cost_min's rank (objectives_perpod_4096x400),
+    # one block and, at prefix100's shapes over the four pools, scenario mode
+    sched_op = TorchScheduler(pool_templates, max_claims=OBJ_MAX_CLAIMS, objective="cost_min")
+    _sorted, enc_op = sched_op._encode(pods_p, None)
+    checks_o = [perpod_kernel_phase(sched_op, enc_op, None, cell="objectives_perpod_4096x400 under cost_min")["entry"],
+                # the same encode in weight order, for the rank's cost
+                perpod_kernel_phase(sched_op, dict(enc_op, template_tensors=enc_op["template_tensors"]._replace(
+                    rank=None)), None, cell="objectives_perpod_4096x400, the same encode in weight order")["entry"]]
+    try:
+        cell_wo = objective_whatif_cell(torch, T, TorchScheduler)
+    except RuntimeError as err:
+        return fail(str(err))
+    checks_o.append(whatif_kernel_phase(cell_wo, None, n_sub=2)[1]["entry"])
+    # H11 at the objective cell's first round
+    objective_kernel_phase(torch, cuda, T, TorchScheduler, kernels)
     try:
         cell_w = whatif_cell(torch, T, templates_m)
     except RuntimeError as err:
@@ -1788,7 +2074,7 @@ def main() -> int:
         resident_kernel_phase(torch, cuda, T, TorchScheduler, kernels, os.path.join("build", "profile"))
     except RuntimeError as err:
         return fail(str(err))
-    bad = [k["name"] for k in kernels + checks_c if not k["equal"]]
+    bad = [k["name"] for k in kernels + checks_c + checks_o if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
     if kernels_only:
@@ -1811,7 +2097,8 @@ def main() -> int:
         profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
-            [k for k in cuda.KERNELS if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan", "retract_tail")],
+            [k for k in cuda.KERNELS
+             if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan", "retract_tail", "objective_verdict")],
         )
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
@@ -1909,6 +2196,8 @@ def main() -> int:
             resident_path(torch, cuda, T, TorchScheduler, "steady_16384x64", T.steady_trace(**T.STEADY),
                           T.STEADY["delta_pods"], profile_dir),
         ]
+        # placement objectives: the four family pools under every policy
+        launches_o, _prices = objective_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels)
     except RuntimeError as err:
         return fail(str(err))
     pods_wc, specs_wc = cell_wc["batches"]["prefix"]
@@ -1921,7 +2210,8 @@ def main() -> int:
     profiled_kernel([], cuda.WHATIF_KERNELS[0], "true", by_name, [cell_wc["prefix_run"]], cell_wc["label"])
     for k in kernels:
         k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w, launches_c,
-                                                      launches_h, launches_wc, *launches_g, *launches_r])
+                                                      launches_h, launches_wc, *launches_g, *launches_r,
+                                                      *launches_o])
     for kind in ("prefix", "single"):
         pods_w, specs_w = cell_w["batches"][kind]
         sched_w = cell_w[f"{kind}_sched"]

@@ -18,6 +18,13 @@ gangs the reference sends to its host oracle (under enforced minValues or
 reservations, vocab-key groups over several keys or a key wider than
 KSCAN_D, hostname affinity or anti-affinity) raise UnsupportedProblem;
 nothing falls back to another engine.
+
+A placement objective (the `objective=` keyword, else KTPU_OBJECTIVE, else
+lexical) puts its canonical template rank on every engine's tier-3 pick
+and, unless lexical, solves each fill group under KTPU_OBJECTIVE_K rank
+variants, committing the feasible variant of least score off one 4-byte
+verdict word per group (H11) and replaying the group when none is
+feasible.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import gang as gang_mod
+from karpenter_tpu_torch import objectives
 from karpenter_tpu_torch.cloudprovider.instancetype import InstanceType
 from karpenter_tpu_torch.controllers.provisioning import preferences as prefs
 from karpenter_tpu_torch.controllers.provisioning.host_scheduler import (
@@ -56,11 +64,13 @@ from karpenter_tpu_torch.models.pod import Pod
 from karpenter_tpu_torch.ops import cuda as ops_cuda
 from karpenter_tpu_torch.ops import solver as ops_solver
 from karpenter_tpu_torch.ops import topology as topo_ops
+from karpenter_tpu_torch.objectives import scoring as obj_scoring
 from karpenter_tpu_torch.ops.encode import (
     ProblemEncoder,
     ReqSetTensors,
     as_tensor,
     encode_requirements_np,
+    type_price_column,
 )
 from karpenter_tpu_torch.ops.kernels import fetch_tree, pack_bool_np
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
@@ -68,6 +78,11 @@ from karpenter_tpu_torch.scheduling import hostports
 from karpenter_tpu_torch.scheduling.reservations import ReservationManager
 from karpenter_tpu_torch.scheduling.taints import tolerates_all
 from karpenter_tpu_torch.utils import resources as res
+
+# last_stats counters of the K-variant objective dispatch (the reference's
+# OBJECTIVE_ROUNDS / OBJECTIVE_VARIANT_WINS / verdict byte counters)
+OBJECTIVE_STATS = ("objective_committed", "objective_replayed", "wins_canonical", "wins_perturbed",
+                   "verdict_fetches", "verdict_bytes", "variant_solves")
 
 # NO_ROOM is a device-shape artifact: solve() grows the claims axis and
 # re-solves, so this reason only surfaces if recovery is impossible
@@ -368,8 +383,10 @@ class TorchScheduler:
     default; raises when CUDA is absent — pass device="cpu" for the plain
     CPU path). plain=True runs the kernels' plain versions on the device
     (a comparison run). reserved_mode ("fallback" or "strict"),
-    reserved_capacity_enabled and min_values_policy ("Strict" or
-    "BestEffort") are the reference's settings of the same names."""
+    reserved_capacity_enabled, min_values_policy ("Strict" or
+    "BestEffort") and objective (a placement objective of
+    objectives.POLICIES; None: KTPU_OBJECTIVE, else lexical) are the
+    reference's settings of the same names."""
 
     def __init__(
         self,
@@ -380,6 +397,7 @@ class TorchScheduler:
         reserved_mode: str = "fallback",
         reserved_capacity_enabled: bool = True,
         min_values_policy: str = "Strict",
+        objective: Optional[str] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -434,6 +452,12 @@ class TorchScheduler:
         # solve — the session's eviction floor (an arrival below it could
         # have fit a claim the solve evicted)
         self._last_compact_rmin: Optional[np.ndarray] = None
+        # placement objective: resolved per solve; the rank and price
+        # columns derive from the catalog encode and reset with it
+        self.objective = objective
+        self._active_policy = "lexical"
+        self._objective_ranks: dict = {}
+        self._price_t: Optional[torch.Tensor] = None
 
     def resident_session(self):
         """Wrap this scheduler in a ResidentSession: the solver state stays
@@ -534,6 +558,8 @@ class TorchScheduler:
             self.reserved_capacity_enabled and self._rid_kid >= 0 and self._res_vid >= 0
             and bool(self.it_tensors.res_ofs.any())
         )
+        self._objective_ranks = {}
+        self._price_t = None
         self._vocab_sig = self._sig()
 
     def _encode_budgets(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -886,6 +912,11 @@ class TorchScheduler:
         self.budgets = {k: dict(v) for k, v in (budgets or {}).items()}
         budget, nodes_budget = self._encode_budgets()
         template_tensors = self.template_tensors._replace(budget=budget, nodes_budget=nodes_budget)
+        # the placement objective, resolved per solve: its canonical rank on
+        # every engine's tier-3 pick (lexical keeps weight order, no rank)
+        self._active_policy = objectives.active_policy(self.objective)
+        if self._active_policy != "lexical":
+            template_tensors = template_tensors._replace(rank=self._objective_rank(self._active_policy))
         E = _next_pow2(max(len(self.existing_nodes), 1), 1)
         exist_tensors = self._encode_existing(E)
         U = len(reps)
@@ -1191,6 +1222,7 @@ class TorchScheduler:
         outputs = []
         n_compactions = 0
         n_fill = n_kscan = n_perpod = n_gang = 0
+        obj = dict.fromkeys(OBJECTIVE_STATS, 0)
 
         def maybe_compact(st):
             nonlocal n_compactions
@@ -1235,7 +1267,10 @@ class TorchScheduler:
                 continue
             if mode[0] == "fill":
                 xs = self._gather_fill_xs(enc, segs)
-                state, ys = ops_solver.solve_fill(state, xs, *common, plain=self.plain)
+                if self._active_policy != "lexical":
+                    state, ys = self._run_fill_objective(enc, state, xs, common, obj)
+                else:
+                    state, ys = ops_solver.solve_fill(state, xs, *common, plain=self.plain)
                 outputs.append(("fill", segs, ys, state.slot_of))
                 n_fill += 1
             else:
@@ -1255,9 +1290,64 @@ class TorchScheduler:
         self.last_stats = dict(
             segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n_fill,
             kscan_dispatches=n_kscan, perpod_dispatches=n_perpod, gang_dispatches=n_gang,
-            compactions=n_compactions,
+            compactions=n_compactions, policy=self._active_policy, **obj,
         )
         return state, outputs
+
+    # -- placement objectives ------------------------------------------------
+
+    def _objective_price_t(self) -> torch.Tensor:
+        """[T] f32 per-type min offering price (+inf unpriced), cached until
+        the next catalog encode."""
+        if self._price_t is None:
+            self._price_t = type_price_column(self.it_tensors)
+        return self._price_t
+
+    def _objective_rank(self, policy: str) -> torch.Tensor:
+        """The policy's canonical [G] int32 rank on the device, cached per
+        policy until the next catalog encode."""
+        r = self._objective_ranks.get(policy)
+        if r is None:
+            r = self._objective_ranks[policy] = as_tensor(obj_scoring.canonical_rank(policy, self.templates),
+                                                          self.device)
+        return r
+
+    def _objective_variant_ranks(self, policy: str, kv: int) -> torch.Tensor:
+        """[KV, G] int32 rank variants (row 0 canonical), cached per (policy,
+        kv); KV clamps to G."""
+        key = (policy, "variants", kv)
+        r = self._objective_ranks.get(key)
+        if r is None:
+            base = obj_scoring.canonical_rank(policy, self.templates)
+            r = self._objective_ranks[key] = as_tensor(obj_scoring.variant_ranks(base, kv), self.device)
+        return r
+
+    def _run_fill_objective(self, enc: dict, state, xs, common: tuple, stats: dict):
+        """One fill group under the K-variant objective dispatch (the
+        reference's _run_fill_objective with one device): KV rank variants
+        solved from the same base (solve_fill_variants), one 4-byte verdict
+        word fetched; the winner commits (w_hw = max(w_hw, its w_open)) and
+        its FillYs decode against the committed slot_of; with no feasible
+        variant the group replays through solve_fill under the canonical
+        rank. Returns (state, ys)."""
+        policy = self._active_policy
+        kv = objectives.variant_count(1)
+        ranks = self._objective_variant_ranks(policy, kv)
+        states, yss, word, _scores = ops_solver.solve_fill_variants(
+            state, xs, *common[:5], ranks, self._objective_price_t(), *common[5:],
+            objective=objectives.objective_id(policy), plain=self.plain,
+        )
+        w = int(fetch_tree(dict(word=word))["word"][0]) & 0xFFFFFFFF
+        stats["verdict_fetches"] += 1
+        stats["verdict_bytes"] += 4
+        stats["variant_solves"] += ranks.shape[0]
+        if w & ((1 << 24) - 1):
+            winner = (w >> 24) & 0xFF
+            stats["objective_committed"] += 1
+            stats["wins_canonical" if winner == 0 else "wins_perturbed"] += 1
+            return ops_solver.commit_variant(state, states[winner]), yss[winner]
+        stats["objective_replayed"] += 1
+        return ops_solver.solve_fill(state, xs, *common, plain=self.plain)
 
     def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets, topology=None) -> SchedulingResult:
         t0 = time.perf_counter()

@@ -16,8 +16,10 @@
 //      row's domain set (a D-bit mask) and the hostname groups at the
 //      row's slot, and keep three running minimums: tier 1 the earliest
 //      feasible node, tier 2 the feasible claim with the least
-//      (pods + placed) * W + row, tier 3 the first feasible template
-//      (the lexical pick: argmax of the mask, 0 when none);
+//      (pods + placed) * W + row, tier 3 the first feasible template in
+//      the try order (weight order, or the rank's: t_order lists the
+//      templates by rank, ties to the lowest index, and the key is a
+//      template's position in it; 0 when none is feasible);
 //   3. block reductions give the three picks; thread 0 commits the winner
 //      (assignment, narrowed domain set, capacity row, counters, vg and
 //      hg counts) and the block syncs before the next pod.
@@ -98,6 +100,7 @@ struct Loop {
   int32_t* slot_of;           // [W]
   int32_t* spills;            // []
   int32_t* assignment;        // [maxc]
+  const int32_t* t_order;     // [G] templates in rank order; null = index order
   int E, W, G, D, NGv, NGh, S, V, NCAP, count;
 };
 
@@ -348,7 +351,8 @@ __global__ void __launch_bounds__(kThreads) pod_loop_kernel(Loop p) {
         if (!fits || !hg_ok(sh, p, E + p.slot_of[r])) continue;
         best_n = min(best_n, (p.pods0[r] + placed) * W + r);
       } else {
-        const int g = c - E - W;
+        const int pos = c - E - W;  // the tier-3 key: position in the try order
+        const int g = p.t_order ? p.t_order[pos] : pos;
         if (!p.static_g[g]) continue;
         zs = load_bits(p.z0_g + (int64_t)g * D, D);
         if (!vg_eval(sh, p, zs, &newz)) continue;
@@ -356,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) pod_loop_kernel(Loop p) {
         for (int d = 0; d < D && !fits; ++d)
           fits = ((newz >> d) & 1u) && p.capd_g[(int64_t)g * D + d] >= 1;
         if (!fits || !hg_ok(sh, p, E + n_open)) continue;
-        best_g = min(best_g, g);
+        best_g = min(best_g, pos);
       }
     }
     block_min3(sh, best_e, best_n, best_g);
@@ -368,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) pod_loop_kernel(Loop p) {
       const bool found = !found_e && sh.red[1][0] < kBig;
       const int pick = found ? sh.red[1][0] % W : 0;
       const bool any_tf = sh.red[2][0] < kBig;
-      const int g = any_tf ? sh.red[2][0] : 0;
+      const int g = any_tf ? (p.t_order ? p.t_order[sh.red[2][0]] : sh.red[2][0]) : 0;
       const bool any_t = any_tf && !found_e && !found;
       const bool can_open = any_t && w_open < W && n_open < p.NCAP;
       const bool spilled = any_t && !can_open && n_open < p.NCAP;
@@ -435,11 +439,12 @@ __global__ void __launch_bounds__(kThreads) pod_loop_kernel(Loop p) {
 
 }  // namespace
 
-// ptrs: a host array of the 42 device pointers in Loop's field order;
+// ptrs: a host array of the 43 device pointers in Loop's field order
+// (t_order null for weight order);
 // dims: E, W, G, D, NGv, NGh, S, V, NCAP, count.
 extern "C" int kscan_pod_loop(const int64_t* ptrs, int n_ptrs, const int64_t* dims,
                               void* stream) {
-  constexpr int kPtrs = 42;
+  constexpr int kPtrs = 43;
   static_assert(offsetof(Loop, E) == kPtrs * sizeof(void*), "Loop: pointers first");
   if (n_ptrs != kPtrs) return (int)cudaErrorInvalidValue;
   Loop p;

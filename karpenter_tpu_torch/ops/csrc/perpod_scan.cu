@@ -37,9 +37,11 @@
 //      far (a shared hint, read through one lane so the warp agrees). The
 //      least key is a minimum over the warps' slots in shared memory; keys
 //      are distinct, so no tie can arise. Tier 1's key is the node index
-//      and tier 3's the template index, so those tiers stop at the first
-//      list chunk with a feasible row; tier 2's key (pods·W + row) needs
-//      every live row;
+//      and tier 3's the template's position in the try order (t_order:
+//      the templates by rank, ties to the lowest index; null for weight
+//      order, where the position is the index), and the list is walked in
+//      that order, so those tiers stop at the first list chunk with a
+//      feasible row; tier 2's key (pods·W + row) needs every live row;
 //   3. the pick (the reference's merge of the tiers); the winner's row is
 //      in its warp's kept scratch, computed with the pre-commit counts.
 //      The block writes its viable types (tier 2 narrows its own row in
@@ -172,6 +174,7 @@ struct P {
   Set tr;                  // [G] template requirements
   float* daemon;           // [G, R]
   uint8_t* t_valid;        // [G]
+  int32_t* t_order;        // [G] the templates in rank order; null = index order
   int32_t* mv_key;         // [G, M] minValues keys: -1 names, j >= 0 min-keyed key j, -2 none
   int32_t* mv_min;         // [G, M] their floors
   uint8_t* well_known;     // [K]
@@ -218,7 +221,7 @@ struct P {
   int E, W, G, T, K, V, R, GR, Z, C, NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid;
   int J, M, RID, RZ, rid_kid, res_vid, mv_active, res_active, res_strict;
 };
-constexpr int kPtrs = 82;
+constexpr int kPtrs = 83;
 constexpr int kDims = 29;
 
 // The kernel's parameter: the block of scenario 0 and each pointer's byte
@@ -1036,7 +1039,9 @@ __device__ int32_t scan_tier(const P& p, const Tabs& tb, const Pod& pa, WS (*ws)
   if (tid == 0) *hint = kBig;
   for (int base = 0; base < n; base += kThreads) {
     const int c = base + tid;
-    const bool live = c < n && row_cheap(p, pa, pod, kTier, c);
+    // tier 3 walks the templates in the try order, keyed by position
+    const int row = kTier == 3 && p.t_order && c < n ? p.t_order[c] : c;
+    const bool live = c < n && row_cheap(p, pa, pod, kTier, row);
     const int32_t key = !live ? kBig : (kTier == 2 ? p.pods[c] * p.W + c : c);
     const unsigned m = __ballot_sync(kFull, live);
     if (lane == 0) wcount[warp] = __popc(m);
@@ -1048,7 +1053,7 @@ __device__ int32_t scan_tier(const P& p, const Tabs& tb, const Pod& pa, WS (*ws)
     }
     if (live) {
       const int at = off + __popc(m & ((1u << lane) - 1u));
-      pa.list[at] = c;
+      pa.list[at] = row;
       pa.lkey[at] = key;
     }
     __syncthreads();
@@ -1151,7 +1156,8 @@ __device__ __forceinline__ Pick pick(const P& p, const Pod& pa, bool valid, int3
   const bool found = !found_e && m2 < kBig;
   const int pk = found ? m2 % p.W : 0;
   const bool any_t = m3 < kBig && valid && !found_e && !found;
-  const int g = m3 < kBig ? m3 : 0;  // the first feasible template (index 0 when none is)
+  // the first feasible template in the try order (index 0 when none is)
+  const int g = m3 < kBig ? (p.t_order ? p.t_order[m3] : m3) : 0;
   const bool can_open = any_t && w_open < p.W && n_open < p.NCAP;
   w.spilled = any_t && !can_open && n_open < p.NCAP;
   w.place = found_e || found || can_open;
@@ -1363,10 +1369,10 @@ int launch(const PS& ps, const TabArgs& ta_in, int S, int lo, int hi, cudaStream
 
 }  // namespace
 
-// ptrs: a host array of the 82 device pointers in P's field order (pod_idx
-// null in the single-scenario entry); dims: E, W, G, T, K, V, R, GR, Z, C,
+// ptrs: a host array of the 83 device pointers in P's field order (t_order
+// null for weight order, pod_idx null in the single-scenario entry); dims: E, W, G, T, K, V, R, GR, Z, C,
 // NGv, NGh, Sl, NPp, NVp, ND, NCAP, L, zone_kid, ct_kid, J, M, RID, RZ,
-// rid_kid, res_vid, mv_active, res_active, res_strict; strides: 82 byte
+// rid_kid, res_vid, mv_active, res_active, res_strict; strides: 83 byte
 // strides per scenario, or null for one scenario read in place (S = 1);
 // tables: the packed type tables in device memory (16-byte aligned) and
 // the byte offset of each of the 13 tables and the total (each 16-byte

@@ -30,7 +30,7 @@ PERPOD_KERNELS = ("perpod_scan_persistent",)
 WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
-    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan", "retract_tail",
+    "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan", "retract_tail", "objective_verdict",
 )
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
@@ -141,6 +141,7 @@ _ARGTYPES = {
     "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "gang_scan": [_P, _I, _P, _P],
     "retract_tail": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "objective_verdict": [_P, _I, _P],
 }
 
 
@@ -447,10 +448,20 @@ _LOOP_CARRY = (
 )
 
 
-def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> torch.Tensor:
+def rank_order(rank: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The templates in the order tier 3 tries them: [G] int32, a stable
+    argsort of the rank column (ties to the lowest index); None (weight
+    order) for no rank. The kernels key tier 3 on a template's position in
+    it, so a rank is compared as a signed value and never used as an
+    index."""
+    return None if rank is None else torch.argsort(rank, stable=True).to(torch.int32)
+
+
+def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int, rank=None) -> torch.Tensor:
     """H6: the kind scan's pod loop for one segment in one launch. `inp`
     (ops.solver.PodLoopIn) is read, `carry` (PodLoopCarry) updated in
-    place; returns the [maxc] int32 assignment row."""
+    place; returns the [maxc] int32 assignment row. `rank` (the
+    templates' [G] int32 rank, None for weight order) orders tier 3."""
     dev = carry.zn.device
     W, D = carry.zn.shape
     E = carry.ze.shape[0]
@@ -475,6 +486,10 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int) -> to
             ptrs.append(t.data_ptr())
     out = torch.full((maxc,), -1, dtype=torch.int32, device=dev)
     ptrs.append(out.data_ptr())
+    order = rank_order(rank)
+    if order is not None and (tuple(order.shape) != (G,) or order.device != dev):
+        raise LaunchRefused(f"kscan_pod_loop: rank {tuple(rank.shape)} on {rank.device} vs ({G},) on {dev}")
+    ptrs.append(0 if order is None else order.data_ptr())
     _call(
         "kscan_pod_loop", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
         ctypes.cast(_i64_array([E, W, G, D, NGv, NGh, S, V, n_claims, count]), ctypes.c_void_p),
@@ -498,11 +513,12 @@ def _set_fields(prefix: str, r, n: int, K: int, V: int) -> list:
 
 
 def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
-    """The 82 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
+    """The 83 (name, tensor, dtype, shape) fields of csrc/perpod_scan.cu's
     parameter block, in its order, and its 29 dims. `row_max` [W, R] f32 is
-    the kernel's scratch. The last, pod_idx, is None (a null pointer: step
-    i reads pod row i); scenario mode sets it. The type tables travel
-    packed (`perpod_tables`)."""
+    the kernel's scratch. t_order (rank_order of the templates' rank) is
+    None for weight order (a null pointer). The last, pod_idx, is None (a
+    null pointer: step i reads pod row i); scenario mode sets it. The type
+    tables travel packed (`perpod_tables`)."""
     b, i, f = torch.bool, torch.int32, torch.float32
     exist, it, tm, topo = ctx.exist, ctx.it, ctx.templates, ctx.topo
     W, T = state.its.shape
@@ -538,7 +554,8 @@ def _perpod_fields(state, xs, ctx, row_max, assignment) -> tuple[list, list]:
         + _set_fields("templates.reqs", tm.reqs, G, K, V)
         + [
             ("daemon_requests", tm.daemon_requests, f, (G, R)),
-            ("templates.valid", tm.valid, b, (G,)), ("mv_key", tm.mv_key, i, (G, M)),
+            ("templates.valid", tm.valid, b, (G,)), ("t_order", rank_order(tm.rank), i, (G,)),
+            ("mv_key", tm.mv_key, i, (G, M)),
             ("mv_min", tm.mv_min, i, (G, M)), ("well_known", ctx.well_known, b, (K,)),
             ("vg_key", topo.vg_key, i, (NGv,)), ("vg_type", topo.vg_type, i, (NGv,)),
             ("vg_skew", topo.vg_skew, i, (NGv,)), ("vg_min_domains", topo.vg_min_domains, i, (NGv,)),
@@ -724,9 +741,9 @@ def perpod_scan(state, xs, ctx) -> torch.Tensor:
 
 def _whatif_fields(state, xs, ctx, row_max, assignment, pod_idx, valid, exist_valid) -> tuple[list, list, list]:
     """csrc/perpod_scan.cu's scenario-mode block: the single-scenario
-    block's 82 (name, tensor, dtype, shape) fields with each scenario
+    block's 83 (name, tensor, dtype, shape) fields with each scenario
     field (`_scenario_tensors`) stacked on a leading S axis and pod_idx
-    [S, L] set, their 82 byte strides per scenario (0 for the shared
+    [S, L] set, their 83 byte strides per scenario (0 for the shared
     tables), and the 29 dims (L = steps per scenario). `xs` holds the
     union's pod rows, which step i of scenario s reads at pod_idx[s, i]."""
     S, L = pod_idx.shape
@@ -939,3 +956,49 @@ def retract_tail(state, cut: int):
         state.open.data_ptr(), state.slot_of.data_ptr(), w_open.data_ptr(), n_open.data_ptr(),
     )
     return state._replace(n_open=n_open, w_open=w_open, **out, **bout)
+
+
+# ---------------------------------------------------------------------------
+# placement objectives: objective_verdict, one launch per objective round
+# ---------------------------------------------------------------------------
+
+
+def objective_verdict(base_w_open, base_spills, outs: list, price_t, objective: int, G: int):
+    """H11: the KV variants' scores and the verdict word of one objective
+    round (ops.solver.objective_verdict_plain) in one launch. `outs` are
+    the variants' ops.solver.VariantOut, read where they lie (no stacking).
+    Returns (scores [KV] f32, word [1] int32)."""
+    b, i, f = torch.bool, torch.int32, torch.float32
+    dev = price_t.device
+    KV = len(outs)
+    if not 1 <= KV <= 24:
+        raise LaunchRefused(f"objective_verdict: {KV} variants outside [1, 24]")
+    if not 0 <= objective <= 4:
+        raise LaunchRefused(f"objective_verdict: objective id {objective}")
+    W, T = outs[0].its.shape
+    B = outs[0].leftover.shape[0]
+    shapes = dict(its=((W, T), b), open=((W,), b), pods=((W,), i), template=((W,), i), w_open=((), i),
+                  spills=((), i), leftover=((B,), i))
+    ptrs = []
+    for name, (shape, dt) in shapes.items():
+        for v, out in enumerate(outs):
+            t = _check(getattr(out, name), f"{name}[{v}]", dt, dev)
+            if tuple(t.shape) != shape:
+                raise LaunchRefused(f"objective_verdict: {name}[{v}] {tuple(t.shape)} vs {shape}")
+            ptrs.append(t.data_ptr())
+    for name, t, dt, shape in (("base_w_open", base_w_open, i, ()), ("base_spills", base_spills, i, ()),
+                               ("price_t", price_t, f, (T,))):
+        _check(t, name, dt, dev)
+        if tuple(t.shape) != shape:
+            raise LaunchRefused(f"objective_verdict: {name} {tuple(t.shape)} vs {shape}")
+        ptrs.append(t.data_ptr())
+    scores = torch.empty(KV, dtype=f, device=dev)
+    word = torch.empty(1, dtype=i, device=dev)
+    feas = torch.empty(KV, dtype=i, device=dev)
+    ticket = torch.zeros(1, dtype=i, device=dev)
+    ptrs += [scores.data_ptr(), word.data_ptr(), feas.data_ptr(), ticket.data_ptr()]
+    _call(
+        "objective_verdict", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
+        ctypes.cast(_i64_array([KV, W, T, B, G, objective]), ctypes.c_void_p),
+    )
+    return scores, word

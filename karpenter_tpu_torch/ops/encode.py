@@ -397,3 +397,11 @@ class ProblemEncoder:
             res_vid = self.vocab.values[ct_kid].index(l.CAPACITY_TYPE_RESERVED)
         rid_names = list(self.vocab.values[rid_kid]) if rid_kid >= 0 else []
         return rid_kid, res_vid, rid_names
+
+
+def type_price_column(itt: InstanceTypeTensors) -> torch.Tensor:
+    """[T] f32: each type's min available offering price over every (zone,
+    capacity type) cell, +inf when the catalog never priced it (the
+    reference's type_price_column): the cost objective's per-claim price
+    floor is the min of it over the claim's viable types."""
+    return itt.price_zc.amin(dim=(1, 2))

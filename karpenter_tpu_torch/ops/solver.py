@@ -33,6 +33,9 @@ ops/cuda.py):
                       perpod_steps, solve_from,  of steps, or every step of
                       solve_whatif               S what-if scenarios, in
                                                  one launch
+  H11 objective_verdict objective_verdict        the K-variant fill
+                      (solve_fill_variants)      dispatch's scores and
+                                                 verdict word
 
 Each wrapper runs the kernel on CUDA tensors and its plain version (same
 module, `*_plain`) on CPU tensors. `plain=True` on the solve entry points,
@@ -1029,6 +1032,156 @@ def solve_fill(
 
 
 # ---------------------------------------------------------------------------
+# placement objectives: K rank variants of one fill group and their verdict
+# (the JAX package's solve_fill_variants / _objective_score)
+# ---------------------------------------------------------------------------
+# A non-lexical policy solves each fill group under KV template ranks
+# (variant 0 the policy's canonical rank, variant k the k-th best template
+# promoted to the front), every variant from the same base state, and
+# folds the outcomes into one verdict word: bits [0, KV) the variants whose
+# group placed every pod without a window spill, bits [24, 32) the
+# feasible variant of least score (ties to the lowest index; 0 when none is
+# feasible, or when every feasible score is +inf). The caller fetches the
+# word, commits the winner's state or replays the group.
+
+# objective ids (objectives/registry.py POLICIES order)
+OBJ_LEXICAL = 0
+OBJ_COST_MIN = 1
+OBJ_FRAG_AWARE = 2
+OBJ_TOPO_SPREAD = 3
+OBJ_GANG_SLICE = 4
+
+# the verdict word keeps its top byte for the winner, so at most 24 rank
+# variants ride one 32-bit word
+VARIANT_MAX = 24
+
+# the SolverState fields a variant's commit takes from the winner (the
+# reference's ShardFillState); w_hw becomes max(base w_hw, winner w_open)
+FILL_COMMIT = (
+    "reqs", "used", "its", "template", "open", "pods", "slot_of", "claim_ports", "held", "n_open", "w_open",
+    "spills", "exist_reqs", "exist_used", "exist_ports", "exist_vols", "hg_counts",
+)
+
+
+class VariantOut(NamedTuple):
+    """What the verdict reads of one variant's fill solve."""
+
+    its: torch.Tensor  # [W, T] bool
+    open: torch.Tensor  # [W] bool
+    pods: torch.Tensor  # [W] i32
+    template: torch.Tensor  # [W] i32
+    w_open: torch.Tensor  # [] i32
+    spills: torch.Tensor  # [] i32
+    leftover: torch.Tensor  # [B] i32 — per segment
+
+
+def variant_out(state: SolverState, ys: FillYs) -> VariantOut:
+    return VariantOut(state.its, state.open, state.pods, state.template, state.w_open, state.spills, ys.leftover)
+
+
+def objective_score_plain(base_w_open, v: VariantOut, price_t: torch.Tensor, objective: int, G: int) -> torch.Tensor:
+    """[] f32: the realized score of the claims one variant opened (window
+    rows [base_w_open, v.w_open) that are open), the reference's
+    _objective_score formulas. Sums are taken in f64 and rounded to f32
+    once: integer sums are exact either way, and cost_min's sum of f32
+    prices is exact in f64 while the prices span less than 2^17 and at most
+    2^12 rows open, so its value does not depend on the order of the sum
+    (XLA's f32 order is not reproducible: scores agree with the
+    reference's to a relative 1e-6, not bit for bit). frag_aware's
+    n·1e6 − landed is one rounding, as XLA contracts it into an fma."""
+    W = v.open.shape[0]
+    rows = torch.arange(W, dtype=I32, device=v.open.device)
+    opened = (rows >= base_w_open) & (rows < v.w_open) & v.open
+    n_opened = (v.w_open - base_w_open).double()
+    if objective == OBJ_COST_MIN:
+        row_price = torch.where(v.its, price_t[None, :], float("inf")).amin(dim=1).double()
+        return torch.where(opened, row_price, 0.0).sum().float()
+    if objective == OBJ_FRAG_AWARE:
+        landed = torch.where(opened, v.pods, torch.zeros_like(v.pods)).sum(dtype=torch.int64).double()
+        return (n_opened * 1e6 - landed).float()
+    if objective == OBJ_TOPO_SPREAD:
+        cnt = torch.zeros(G, dtype=torch.int64, device=v.open.device)
+        cnt.index_add_(0, v.template.long(), opened.to(torch.int64))
+        return (cnt * cnt).sum().double().float()
+    if objective == OBJ_GANG_SLICE:
+        zero = torch.zeros_like(v.pods)
+        p_max = torch.where(opened, v.pods, zero).max()
+        slack = torch.where(opened, p_max - v.pods, zero).sum(dtype=torch.int64).double()
+        return (slack + n_opened).float()
+    return torch.zeros((), dtype=F32, device=v.open.device)
+
+
+def objective_verdict_plain(base_w_open, base_spills, outs: list, price_t: torch.Tensor, objective: int,
+                            G: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores [KV] f32, verdict word [1] i32): each variant's score, its
+    feasibility bit (its segments' leftovers sum to 0 and its spill count
+    is the base's) in bit v, and the argmin of the feasible scores in bits
+    [24, 32) — the first index of the least value of where(feasible,
+    scores, +inf), 0 when no variant is feasible. Every score +inf makes
+    that argmin 0 even where variant 0 is infeasible, as in the
+    reference."""
+    KV = len(outs)
+    if not 1 <= KV <= VARIANT_MAX:
+        raise ValueError(f"objective_verdict: {KV} variants outside [1, {VARIANT_MAX}]")
+    scores = torch.stack([objective_score_plain(base_w_open, v, price_t, objective, G) for v in outs])
+    feasible = torch.stack([(v.leftover.sum() == 0) & (v.spills == base_spills) for v in outs])
+    masked = torch.where(feasible, scores, torch.full_like(scores, float("inf")))
+    winner = torch.where(feasible.any(), torch.argmin(masked), torch.zeros((), dtype=torch.int64, device=scores.device))
+    bits = (feasible.to(torch.int64) << torch.arange(KV, device=scores.device)).sum()
+    return scores, (bits | (winner << 24)).to(I32).reshape(1)
+
+
+def objective_verdict(base_w_open, base_spills, outs: list, price_t: torch.Tensor, objective: int, G: int):
+    """H11: the verdict in one launch on CUDA, the plain version on CPU."""
+    if price_t.device.type == "cpu":
+        return objective_verdict_plain(base_w_open, base_spills, outs, price_t, objective, G)
+    return cuda.objective_verdict(base_w_open, base_spills, outs, price_t, objective, G)
+
+
+def solve_fill_variants(
+    state: SolverState,
+    xs: FillXs,
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    ranks: torch.Tensor,  # [KV, G] i32 — row 0 the policy's canonical rank
+    price_t: torch.Tensor,  # [T] f32 — per-type min offering price (+inf unpriced)
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    objective: int,
+    plain: bool = False,
+) -> tuple[list, list, torch.Tensor, torch.Tensor]:
+    """KV rank variants of ONE fill group, each the group's full fill solve
+    from `state` under templates._replace(rank=ranks[v]) (one after
+    another; the fill step works out of place, so no variant writes into
+    the base or another variant), then the verdict (H11). Returns
+    (the KV states, the KV FillYs, verdict word [1] i32, scores [KV] f32);
+    no host sync."""
+    states, yss = [], []
+    for v in range(ranks.shape[0]):
+        st, ys = solve_fill(
+            state, xs, exist, it, templates._replace(rank=ranks[v]), well_known, topo, zone_kid, ct_kid,
+            n_claims, plain=plain,
+        )
+        states.append(st)
+        yss.append(ys)
+    outs = [variant_out(st, ys) for st, ys in zip(states, yss)]
+    G = templates.its.shape[0]
+    verdict = objective_verdict_plain if plain else objective_verdict
+    scores, word = verdict(state.w_open, state.spills, outs, price_t, objective, G)
+    return states, yss, word, scores
+
+
+def commit_variant(state: SolverState, win: SolverState) -> SolverState:
+    """The base state with the winner's fill fields (FILL_COMMIT) and
+    w_hw = max(base w_hw, winner w_open): the reference's commit."""
+    return state._replace(**{f: getattr(win, f) for f in FILL_COMMIT}, w_hw=torch.maximum(state.w_hw, win.w_open))
+
+
+# ---------------------------------------------------------------------------
 # the zonal kind scan: same-kind batched placement for vocab-key topology
 # kinds (the JAX package's solve_kind_scan / _make_kind_step)
 # ---------------------------------------------------------------------------
@@ -1372,9 +1525,7 @@ def kscan_pod_loop(inp, c, topo, templates, count, maxc, n_claims) -> torch.Tens
     """H6: the pod loop in one launch on CUDA, the plain loop on CPU."""
     if c.zn.device.type == "cpu":
         return kscan_pod_loop_plain(inp, c, topo, templates, count, maxc, n_claims)
-    if templates.rank is not None:
-        raise ValueError("kscan_pod_loop: the kernel picks templates in weight order only (rank is set)")
-    return cuda.kscan_pod_loop(inp, c, topo, count, maxc, n_claims)
+    return cuda.kscan_pod_loop(inp, c, topo, count, maxc, n_claims, templates.rank)
 
 
 def _kind_step(
@@ -2053,8 +2204,6 @@ def perpod_loop_kernels(state: SolverState, xs: PodXs, c: PerPodCtx):
     """The chunk as one launch of perpod_scan_persistent. The kernel
     updates the carry in place (the JAX package's scan cannot), into
     private copies of the fields it writes."""
-    if c.templates.rank is not None:
-        raise ValueError("solve_from: the per-pod kernel picks templates in weight order only (rank is set)")
     state = own_perpod_writes(state)
     return state, cuda.perpod_scan(state, xs, c)
 
@@ -2065,8 +2214,6 @@ def perpod_steps(state: SolverState, xs: PodXs, c: PerPodCtx, lo: int, hi: int):
     fields; the plain step in a Python loop on the CPU."""
     if state.used.device.type == "cpu":
         return perpod_loop_plain(state, _take_x(xs, slice(lo, hi)), c)
-    if c.templates.rank is not None:
-        raise ValueError("perpod_steps: the per-pod kernel picks templates in weight order only (rank is set)")
     state = own_perpod_writes(state)
     return state, cuda.perpod_steps(state, xs, c, lo, hi)[lo:hi]
 
@@ -2177,8 +2324,6 @@ def whatif_loop_kernels(state0, xs: PodXs, ctx: PerPodCtx, idx, valid, exist_val
     (one block per scenario), into a stacked carry (stack_scenarios); the
     same outputs as whatif_loop_plain (the final carries are views of the
     stacked one)."""
-    if ctx.templates.rank is not None:
-        raise ValueError("solve_whatif: the per-pod kernel picks templates in weight order only (rank is set)")
     S = idx.shape[0]
     stacked = stack_scenarios(state0, S, vg0, hg0)
     assignment = cuda.perpod_whatif(

@@ -16,7 +16,8 @@ constrained cells: reserved offerings, minValues floors, a host-port
 deployment, CSI attach limits and PVCs. Gangs (`gang_storm_pods`,
 `spread_gang`, `gang_zonal_pods`) build the gang cells: a training-job
 burst beside services, and zone- or hostname-spread gangs in a pool with
-a spend limit.
+a spend limit. `mixed_pool_templates` builds the placement objectives'
+four family pools.
 
 The consolidation fixture, the constraints and the gang builders reads models only through a `side` namespace
 (PORT by default), so the same code builds its twin from another
@@ -87,6 +88,25 @@ def make_templates(n_types: int):
     pool = NodePool()
     pool.metadata.name = "default"
     return build_templates([(pool, instance_types(n_types))])
+
+
+def mixed_pool_templates(n_types: int = 48, families=("m", "s", "c", "e"), side=None):
+    """One pool per instance family over instance_types(n_types), the
+    priciest family first, so that lexical's weight order is the expensive
+    choice (the fake catalog's price multipliers: m 1.2, s 1.0, c 0.8, e
+    0.6): the JAX package's objective fixture (tests/test_objectives.py
+    mixed_pool_templates, bench.py run_objective_stage)."""
+    side = side or PORT
+    catalog = side.fake.instance_types(n_types)
+    pools = []
+    for fam in families:
+        p = side.NodePool()
+        p.metadata.name = f"{fam}-pool"
+        p.spec.template.spec.requirements = [
+            {"key": "karpenter-tpu.sh/instance-family", "operator": "In", "values": [fam]},
+        ]
+        pools.append((p, catalog))
+    return side.build_templates(pools)
 
 
 def mixed_pods(n: int):

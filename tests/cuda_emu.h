@@ -1,4 +1,5 @@
 // A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu,
+// objective_verdict.cu, kscan_pod_loop.cu,
 // gang_scan.cu and retract_tail.cu use, so that their kernels can run on
 // the host against the plain versions (tests/test_torch_perpod_emulated.py,
 // tests/test_torch_gang_emulated.py, tests/test_torch_retract_emulated.py). One std::thread per CUDA thread,
@@ -155,4 +156,17 @@ void emu_launch(F fn, int grid, int threads, size_t smem, A... args) {
     for (auto& t : ts) t.join();
     g_emu = nullptr;
   }
+}
+
+// atomics and fences (objective_verdict.cu's last-block fold); the
+// emulator runs a grid's blocks one after another
+inline int atomicAdd(int* p, int v) { return reinterpret_cast<std::atomic<int>*>(p)->fetch_add(v); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline int __shfl_down_sync(unsigned, int v, int d) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = v;
+  __syncwarp();
+  const int r = l + d < 32 ? g_emu->slot_i[w][l + d] : v;
+  __syncwarp();
+  return r;
 }

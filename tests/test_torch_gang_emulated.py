@@ -151,6 +151,12 @@ CASES = {
     "host_port_gang": lambda: (T.make_templates(16), 64, _host_port_gang() + T.selector_pods(8), None, False),
     "zone_anti_affinity_spills": lambda: (T.make_templates(16), 64, _zone_anti_gang(6) + T.selector_pods(4), None,
                                           True),
+    # a placement objective's rank on the slice template (cost_min reverses
+    # the four family pools' weight order), with and without a key
+    "gang_storm_cost_min_rank": lambda: (T.mixed_pool_templates(24), 128, T.gang_storm_pods(6, 4, 48), None, False,
+                                         "cost_min"),
+    "gang_zonal_cost_min_rank": lambda: (T.mixed_pool_templates(24), 128, T.gang_zonal_pods(5, 6, 3, 4, 24, 2), None,
+                                         True, "cost_min"),
 }
 
 
@@ -158,9 +164,11 @@ CASES = {
 def test_gang_kernel_source_matches_plain_loop(case, checked):
     """Every gang run of the solve: the kernel source's carry and records
     equal the plain loop's (the solve itself keeps the plain result)."""
-    templates, max_claims, pods, budgets, keyed = CASES[case]()
-    sched = TorchScheduler(templates, max_claims=max_claims, device="cpu")
+    templates, max_claims, pods, budgets, keyed, *objective = CASES[case]()
+    sched = TorchScheduler(templates, max_claims=max_claims, device="cpu", objective=(objective or [None])[0])
     result = sched.solve(pods, budgets=budgets)
     assert checked, "no gang run"
     assert any(k >= 0 for _b, _m, k in checked) == keyed
     assert any(c.gang for c in result.claims) or result.unschedulable
+    if objective:
+        assert {c.template.nodepool_name for c in result.claims if c.gang} == {"e-pool"}

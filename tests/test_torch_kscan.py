@@ -386,7 +386,8 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
         checked(p_cuda.req_intersects, K.intersects),
         checked(p_cuda.kscan_grid, K.kscan_grid),
         checked(p_cuda.kscan_fits_final, K.kscan_fits_final),
-        checked(lambda inp, c, topo, t, n, m, nc: p_cuda.kscan_pod_loop(inp, c, topo, n, m, nc), K.kscan_pod_loop),
+        checked(lambda inp, c, topo, t, n, m, nc: p_cuda.kscan_pod_loop(inp, c, topo, n, m, nc, t.rank),
+                K.kscan_pod_loop),
     ))
     got, stats = solve()
     assert got == want
@@ -394,7 +395,9 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
     # every launcher but the per-pod kernels' (no kind here routes there;
     # tests/test_torch_perpod.py holds that launcher to the solve), their
     # scenario mode (tests/test_torch_whatif.py), the gang kernel's (no
-    # gang here; tests/test_torch_gang_emulated.py) and the retract
+    # gang here; tests/test_torch_gang_emulated.py), the retract
     # kernel's (no resident session here; tests/test_torch_retract_emulated.py)
+    # and the objective verdict's (a lexical solve has no objective round;
+    # tests/test_torch_objective_emulated.py)
     assert set(seen) == (set(p_cuda.KERNELS) - set(p_cuda.PERPOD_KERNELS) - set(p_cuda.WHATIF_KERNELS)
-                         - {"gang_scan", "retract_tail"}), seen
+                         - {"gang_scan", "retract_tail", "objective_verdict"}), seen

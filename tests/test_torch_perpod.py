@@ -676,11 +676,12 @@ def _read(p, n):
 
 
 def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
-    """The CUDA path's one launch per chunk, with the C entry stubbed: 82
+    """The CUDA path's one launch per chunk, with the C entry stubbed: 83
     pointers in the kernel's field order (each the data of the tensor the
     field names, checked for device, dtype, shape and contiguity; the
-    kernel's scratch a fresh [W, R] buffer; the last, the scenario mode's
-    pod_idx, null), the 29 dims (the minValues and reservation flags off),
+    kernel's scratch a fresh [W, R] buffer; t_order null with no rank, and
+    under a rank the templates in rank order, ties to the lowest index; the
+    last, the scenario mode's pod_idx, null), the 29 dims (the minValues and reservation flags off),
     no strides and one
     block, the packed type tables and their offsets, the steps [0, L); one
     launch counted; a launch of steps [3, 4) alone; nothing launched for
@@ -705,14 +706,23 @@ def test_perpod_launcher_passes_the_parameter_block(monkeypatch):
     (source, entry, ptrs, dims, strides, S, tables, offsets, lo, hi, raw), = seen
     assert (source, entry, strides, S, lo, hi) == ("perpod_scan", "perpod_steps", None, 1, 0, 16)
     fields, want_dims = p_cuda._perpod_fields(st, xs, ctx, torch.empty(st.used.shape), assignment)
-    assert len(fields) == len(ptrs) == 82
+    assert len(fields) == len(ptrs) == 83
     assert fields[-1][:2] == ("pod_idx", None) and ptrs[-1] == 0
     i_row_max = [f[0] for f in fields].index("row_max")
-    for (name, t, _dt, _shape), got in zip(fields[:81], ptrs[:81]):
+    for (name, t, _dt, _shape), got in zip(fields[:82], ptrs[:82]):
         if name == "row_max":
             assert got and got not in ptrs[:i_row_max], name  # a buffer of its own
+        elif name == "t_order":
+            assert t is None and got == 0, name  # weight order: no rank
         else:
             assert got == t.data_ptr(), name
+    # under a rank: the field is the templates in the order tier 3 tries
+    # them (signed ranks, ties to the lowest index)
+    i_order = [f[0] for f in fields].index("t_order")
+    ranked = ctx._replace(templates=ctx.templates._replace(rank=torch.tensor([-1], dtype=torch.int32)))
+    order = p_cuda._perpod_fields(st, xs, ranked, torch.empty(st.used.shape), assignment)[0][i_order][1]
+    assert order.dtype == torch.int32 and order.tolist() == [0]
+    assert p_cuda.rank_order(torch.tensor([2, -1, 2, 0], dtype=torch.int32)).tolist() == [1, 3, 0, 2]
     E, W, G = prob.enc["E"], pst.open.shape[0], prob.p_args[2].its.shape[0]
     T, K, V = prob.p_args[1].reqs.mask.shape
     assert dims == want_dims and dims[:6] == [E, W, G, T, K, V] and dims[16:18] == [prob.enc["n_claims"], 16]

@@ -10,7 +10,9 @@ and every carry leaf equal (the reservation capacities and held rows
 included); and what-if batches whose scenario-mode launch equals the
 plain per-scenario loop. Among them: minValues floors, reservations
 (fallback and strict), budgets and host ports; a spread count past 2^15
-(the rank key wraps); 40 allocatable groups. The emulation checks the kernel's
+(the rank key wraps); 40 allocatable groups; a placement objective's
+template rank on tier 3 (cost_min's, which reverses the weight order; a
+signed rank with ties), in single and scenario mode. The emulation checks the kernel's
 logic, not its timing or what the GPU compiler does with it: chip_smoke.py
 holds the compiled kernel to the plain loop on the card. Tolerance: exact.
 """
@@ -156,6 +158,19 @@ SOLVES = {
         {"topology": seeded_topology(T.perpod_pods(24, kinds=2), T.make_templates(24))}),
     # GR = 40 allocatable groups, past a word of group bits
     "allocatable_groups_40": lambda: (many_groups_templates(40), 32, T.perpod_pods(24, kinds=2), []),
+    # a placement objective's rank on tier 3: cost_min over the four family
+    # pools (priciest first) tries them in reverse weight order (e, c, s,
+    # m), so the tier's walk in rank order and its early stop are exercised
+    "objective_cost_min_reverses_weight": lambda: (
+        T.mixed_pool_templates(24), 64, T.perpod_pods(40, kinds=4), [], {}, {"objective": "cost_min"}),
+    "objective_topo_spread_mixed": lambda: (
+        T.mixed_pool_templates(24), 64, T.mixed_pods(30) + T.perpod_pods(24, kinds=2), [], {},
+        {"objective": "topo_spread"}),
+    # a rank with negative values and ties (a promoted variant's -1 and
+    # equal ranks, ties to the lowest index): signed, never an index
+    "objective_rank_signed_with_ties": lambda: (
+        T.mixed_pool_templates(24), 64, T.perpod_pods(40, kinds=4), [], {},
+        {"objective": "cost_min", "_rank": [1, -1, 1, -3]}),
 }
 
 
@@ -182,10 +197,15 @@ def test_emulated_kernel_equals_plain_loop(case, emulated, monkeypatch):
         assert not _same(sk, sp), (case, len(checked), _same(sk, sp))
         checked.append(L)
         flags.append((ctx.flags.mv_active, ctx.flags.res_active, bool(sp.held.any()), int(ctx.it.zc_avail.shape[1]),
-                      int(sp.vg_counts.max())))
+                      int(sp.vg_counts.max()), ctx.templates.rank))
         return sp, ap
 
     monkeypatch.setattr(p_solver, "perpod_loop_plain", both)
+    sched_kw = dict(sched_kw)
+    rank = sched_kw.pop("_rank", None)
+    if rank is not None:
+        monkeypatch.setattr(TorchScheduler, "_objective_rank",
+                            lambda self, policy: torch.tensor(rank, dtype=torch.int32))
     s = TorchScheduler(templates, max_claims=max_claims, device="cpu", **sched_kw)
     r = s.solve(pods, existing_nodes=nodes, **solve_kw)
     # a NO_ROOM re-solve with a larger window runs its chunks again
@@ -198,6 +218,10 @@ def test_emulated_kernel_equals_plain_loop(case, emulated, monkeypatch):
         assert flags[0][3] >= 40  # the base group and the 40 overrides
     if case == "rank_key_past_2_15":
         assert min(f[4] for f in flags) >= T.BIG_COUNT
+    if case.startswith("objective_"):
+        assert flags[0][5] is not None and r.claims
+        if case == "objective_cost_min_reverses_weight":  # the cheapest family's pool, not the first
+            assert {c.template.nodepool_name for c in r.claims} == {"e-pool"}
 
 
 @pytest.fixture(scope="module")
@@ -226,16 +250,30 @@ def constrained_cluster():
     return templates, cl, T.candidates(cl), pending, factory, kw
 
 
-@pytest.mark.parametrize("kind", ["prefix", "single", "constrained_prefix", "constrained_strict"])
-def test_emulated_kernel_whatif_equals_plain_loop(kind, emulated, cluster, constrained_cluster, monkeypatch):
+@pytest.fixture(scope="module")
+def pool_cluster():
+    """A cluster over the four family pools, provisioned under cost_min."""
+    templates = T.mixed_pool_templates(24)
+    res = TorchScheduler(templates, device="cpu", objective="cost_min").solve(T.mixed_pods(48))
+    cl = T.launch_claims(res, templates)
+    return templates, cl, T.candidates(cl), T.pending_pods(6), T.topology_factory(cl)
+
+
+@pytest.mark.parametrize("kind", ["prefix", "single", "constrained_prefix", "constrained_strict", "rank_prefix"])
+def test_emulated_kernel_whatif_equals_plain_loop(kind, emulated, cluster, constrained_cluster, pool_cluster,
+                                                  monkeypatch):
     """A what-if batch whose one scenario-mode launch (a block per
     scenario) equals the plain loop run per scenario: assignments and every
     scenario's final carry (reservation capacities and held rows
     included). The constrained batches carry minValues, reservations (in
     use; strict in one), CSI limits and PVCs, host ports and zone counts
-    past 2^15."""
+    past 2^15; the rank batch cost_min's template rank."""
     kw, sched_kw = {}, {}
-    if kind.startswith("constrained"):
+    if kind == "rank_prefix":  # cost_min's rank on every scenario's tier 3
+        templates, cl, cands, pending, factory = pool_cluster
+        sched_kw = {"objective": "cost_min"}
+        kind = "prefix"
+    elif kind.startswith("constrained"):
         templates, cl, cands, pending, factory, kw = constrained_cluster
         sched_kw = {"reserved_mode": "strict"} if kind.endswith("strict") else {}
         kind = "prefix"
@@ -246,6 +284,7 @@ def test_emulated_kernel_whatif_equals_plain_loop(kind, emulated, cluster, const
     seen = []
 
     def both(state0, xs, ctx, idx, valid, ev, vg0, hg0):
+        assert (ctx.templates.rank is not None) == ("objective" in sched_kw)
         ap, sp = plain(state0, xs, ctx, idx, valid, ev, vg0, hg0)
         ak, sk = p_solver.whatif_loop_kernels(state0, xs, ctx, idx, valid, ev, vg0, hg0)
         assert torch.equal(ak, ap)

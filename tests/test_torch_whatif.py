@@ -522,7 +522,7 @@ def test_whatif_kernel_path_composes(monkeypatch):
 
 def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
     """The scenario-mode launch with the C entry stubbed: the single-
-    scenario block's 82 pointers, each scenario field stacked on a leading
+    scenario block's 83 pointers, each scenario field stacked on a leading
     S axis and pod_idx set, each pointer's byte stride per scenario (the
     stacked fields' row stride, 0 for the shared tables; the reservation
     capacities and held rows among the stacked), the 29 dims with
@@ -558,16 +558,18 @@ def test_whatif_launcher_passes_the_parameter_block(monkeypatch):
     assert tables == p_cuda.perpod_tables(it, tm.its, tm.mv_it_values)[0].numpy().tobytes()
     row_max = torch.empty(stacked.used.shape)
     fields, want_strides, want_dims = p_cuda._whatif_fields(stacked, xs, ctx, row_max, assignment, idx, valid, ev)
-    assert len(fields) == len(ptrs) == len(strides) == 82 and strides == want_strides
+    assert len(fields) == len(ptrs) == len(strides) == 83 and strides == want_strides
     assert fields[-1][0] == "pod_idx" and ptrs[-1] == idx.data_ptr()
     scen = set(p_cuda._scenario_tensors(stacked, row_max, assignment, idx, valid, ev))
     # every field the step writes has a stride: none shares one carry across the blocks
     assert {f"{f}.mask" if f.endswith("reqs") else f for f in p_solver.PERPOD_WRITES} <= scen
     for (name, t, _dt, shape), got, stride in zip(fields, ptrs, strides):
-        assert got == t.data_ptr() or name == "row_max", name
+        # t_order: null, no placement objective's rank (shared, stride 0)
+        assert got == (0 if t is None else t.data_ptr()) or name == "row_max", name
         stacked_field = name in scen
         assert stride == (t.stride(0) * t.element_size() if stacked_field else 0), name
         assert shape[0] == S if stacked_field else True
+    assert ptrs[[f[0] for f in fields].index("t_order")] == 0
     E, W, G = exist.avail.shape[0], stacked.open.shape[1], tm.its.shape[0]
     assert dims == want_dims and dims[:3] == [E, W, G] and dims[17] == L
     assert strides[[f[0] for f in fields].index("vg_counts")] == vg0[0].numel() * 4
