@@ -21,7 +21,7 @@ Phases, any failure exits non-zero:
      step, 8 steps and a 256-pod chunk through the kernel against the same
      steps through the plain step; its scenario mode on the what-if prefix
      cell's encode (S=128 scenarios): one step of every scenario in one
-     launch, and 4 scenarios (the largest prefix among them) run to the end
+     launch, and WHATIF_SUB scenarios (the largest prefix among them) run to the end
      through the kernel and through the plain loop; assignments and every
      carry leaf equal; the same two checks with the kernel's minValues and
      reservation branches on: one step, 8 steps and a 256-pod chunk of
@@ -41,9 +41,13 @@ Phases, any failure exits non-zero:
      verdict kernel (objective_verdict, H11) at
      objectives_mixed_16384x400's first cost_min round (K = 4 variants of
      the first fill group), under each objective's formula and with every
-     type unpriced, scores bit for bit and the word;
+     type unpriced, scores bit for bit and the word; the dp kernels
+     (dp_dead H12, dp_verdict H13, merge_shard H14) on the first merge
+     round and first commit of three dp cells below (SHARD_KERNEL_CELLS:
+     fill with existing-node debits, the kind scan, the per-pod scan at
+     DP = 4), the deadness matrix, the word and every merged leaf;
   4. the main paths, each with the launch counts zeroed just before its
-     cold solve and read just after, then two warm solves: the fill path,
+     cold solve and read just after, then WARM_CALLS warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
      selector_pods(100_000), held to the JAX package's result (2273
      claims, 0 unschedulable, 3149.6813 $/h) with H1-H4 launched; the
@@ -67,7 +71,7 @@ Phases, any failure exits non-zero:
      bound pods, 64 pending pods, and TorchScheduler.whatif_batch on
      multi-node consolidation's batch (the prefixes 1..100 of the cheapest
      candidates) and single-node consolidation's (each of them alone),
-     cold and twice warm, held to the JAX package's signals, with the
+     cold and warm (WARM_CALLS), held to the JAX package's signals, with the
      per-pod kernel in scenario mode launched once per batch; one more warm
      call of each batch under torch.profiler; the sequential confirm of
      prefixes 1, 10 and 100 (TorchScheduler.solve(topology=...)) held to
@@ -75,7 +79,7 @@ Phases, any failure exits non-zero:
      (mixed_pods(4096) and a 64-pod deployment on host port 443 over
      constrained_templates(400): minValues 2 on instance-type names and
      families, reserved offerings on 4 types, a pool cpu limit that binds;
-     max_claims=4096), cold and twice warm, held to the JAX package's
+     max_claims=4096), cold and warm, held to the JAX package's
      claims, unschedulable pods, $/h and result digest, every kind on the
      per-pod kernel (once per chunk, no fill or kind-scan dispatch), its
      kernel ms per step from a profiled warm solve beside its bound;
@@ -90,7 +94,7 @@ Phases, any failure exits non-zero:
      10000 cpu, selector_pods(2048) over make_templates(400),
      max_claims=2048) and gang_zonal_budget_4096x400 (32 zone-spread gangs
      x 16, 8 hostname-spread gangs x 8, zonal_pods(4096, kinds=8), a pool
-     cpu limit that binds, max_claims=4096), cold and twice warm, held to
+     cpu limit that binds, max_claims=4096), cold and warm, held to
      the JAX package's claims, unschedulable pods and reasons (the whale
      alone spills, whole), $/h, slice hosts and digests, gang_scan
      launched once per gang run of every round, one profiled warm solve
@@ -116,11 +120,22 @@ Phases, any failure exits non-zero:
      package's claims, unschedulable pods, $/h, digest and objective-round
      counts, objective_verdict launched once per objective round, the cost
      gate (cost_min no pricier than lexical), a warm lexical and cost_min
-     solve, and a profiled warm cost_min solve;
-  5. the three main-path solves with the kernels' plain versions on the
-     card, which must give the identical digest (claims, pods, types,
-     usage, requirements), and the wall of phase 3's plain what-if
-     sub-batch.
+     solve, and a profiled warm cost_min solve; then dp speculation
+     (TorchScheduler(dp=N), shard_cells): the JAX package's bench shard
+     stage, selector_pods(8192) x make_templates(200) at dp 2, and its
+     zonal, hostname, existing-node, per-pod and minValues + budget
+     twins at 512 pods, the north star and zonal_pods(4096) x 400 at dp 2,
+     the per-pod and constrained cells at dp 4, each a cold solve held to
+     the JAX package's result and merge counters (SHARD_GOLDEN), dp_dead
+     and dp_verdict launched once per merge round, merge_shard once per
+     commit and the per-pod kernel's scenario mode once per per-pod
+     round, a warm solve, and a profiled warm solve of the per-pod dp
+     cell (H12-H14's device time);
+  5. the north star and mixed solves and perpod_pods(1024, kinds=8) with
+     the kernels' plain versions on the card, which must give the digest
+     of the card's kernel solve (claims, pods, types, usage,
+     requirements), and the wall of phase 3's plain what-if sub-batch.
+The run prints each phase's seconds.
 The second-to-last line is one JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -157,6 +172,9 @@ PERPOD_CLAIMS = 136
 PERPOD_PRICE = 143.0965
 PERPOD_DIGEST = "f40733bccab8f8d5e928195a48f32abeb61a6629511dc59ca1190979f9a0f261"
 PERPOD_STATS = {"perpod_dispatches": 4, "compactions": 3}
+# phase 5's plain per-pod solve on the card: perpod_pods at this depth,
+# held to the card's kernel solve of the same problem
+PLAIN_PERPOD_PODS = 1024
 # ... for the consolidation what-ifs (`python tests/test_torch_whatif.py`:
 # TPUScheduler.whatif_batch and TPUScheduler.solve(topology=...) on the CPU,
 # the JAX package at 05db391): mixed_pods(4096) x make_templates(400)
@@ -310,6 +328,67 @@ OBJ_PERPOD_GOLDEN = {
     # every kind per-pod: no fill group, so no objective round
     "cost_min": (136, 0, 117.844, "d4995ed13516c978f5e0b0a23425fd1626615e022bf1b2e597013c9cf8a83276", 0, 0, 0, 0),
 }
+
+# dp speculation (TorchScheduler(dp=N)): shard_8192x200 is the JAX
+# package's bench.py shard stage (selector_pods(8192) x make_templates(200),
+# max_claims=2048, pipeline_min_pods=1024) with its twins at 512 pods
+# (pipeline_min_pods=256): zonal, hostname, 2-cpu "eb" pods over two part-
+# full existing nodes, per-pod kinds at solve_chunk 128, and the same per-
+# pod kinds over minValues templates under a cpu budget; then the north
+# star, the zonal kind scan and the per-pod cell at dp 2 / 2 / 4 and the
+# constrained cell at dp 4. Each cell's (claims, unschedulable, $/h,
+# digest) and the JAX package's last_timings["shard"] counters on the
+# virtual 8-device mesh split as the cell's dp (python
+# tests/test_torch_shard.py); the results equal the sequential goldens.
+def shard_golden(dp: int, family: str, rounds: tuple) -> dict:
+    """testing.shard_counters of a cell whose groups all speculate in one
+    family: rounds = (merge rounds, groups committed, groups replayed, dp
+    rows committed, replayed, idle)."""
+    n, com, rep, rc, rr, ri = rounds
+    fams = ("fill", "existing", "topo_fill", "kscan", "perpod")
+    return dict(merge_rounds=n, groups_committed=com, groups_replayed=rep, verdict_fetches=n, verdict_bytes=4 * n,
+                dp_rows_total=dp * n, dp_rows_committed=rc, dp_rows_replayed=rr, dp_rows_idle=ri,
+                families={f: [com, rep] if f == family else [0, 0] for f in fams},
+                coverage={f: [com + rep, 0] if f == family else [0, 0] for f in fams})
+
+
+# every cell: 4 groups in 3 rounds, the first row committed
+_R2, _R4 = (3, 1, 3, 1, 4, 1), (3, 1, 3, 1, 6, 5)
+SHARD_GOLDEN = {  # label: (claims, unschedulable, $/h, digest, dp, family, rounds)
+    "shard_8192x200": (187, 0, 289.8397, "490e0b4e6c3961442cd582338264949cc682659fbe88b2d5509550e38288bbc5", 2,
+                       "fill", _R2),
+    "shard_8192x200 zonal twin": (20, 0, 15.1482, "29f2720cd360ed2f953973ca0e439827137d12dc06fc7da3755a4e2c7e5f3b6d",
+                                  2, "kscan", _R2),
+    "shard_8192x200 hostname twin": (64, 0, 28.5146,
+                                     "baaa3880015c0b2d09148d32d4c38ff3c075d9e2592883ca6f20ca201438b14f", 2,
+                                     "topo_fill", _R2),
+    "shard_8192x200 existing twin": (17, 0, 14.7027,
+                                     "4c808b7af781d1bcda1f66eecafa2ee157ce2cbba0bbc28a873bf655cdd9741b", 2,
+                                     "existing", _R2),
+    "shard_8192x200 perpod twin": (20, 0, 18.3943, "82c9b741d97c8e63fc2eca2d790aa6d51b96dc522c7b510f95c39c762bad9265",
+                                   2, "perpod", _R2),
+    "shard_8192x200 mv+budget twin": (20, 0, 18.3943,
+                                      "4a005c4badac3d7b40c8ada3c88a4bc4dd685c19f0f35d29e15007c8d6e7c863", 2, "perpod",
+                                      _R2),
+    "shard_northstar_100000x1000_dp2": (2273, 0, 3149.6813,
+                                        "f93e2d85fcf69919951f92ceefffd3f24a1195d89061a47340507bc1713e72de", 2, "fill",
+                                        _R2),
+    "shard_zonal_4096x400_dp2": (136, 0, 117.844, "7078c3cd9aa7581c7822d44ed5008830fb70eb904b03b82541745bc4d2641058",
+                                 2, "kscan", _R2),
+    "shard_perpod_4096x400_dp4": (136, 0, 143.0965, PERPOD_DIGEST, 4, "perpod", _R4),
+    "shard_constrained_4096x400_dp4": (*CONSTRAINED_GOLDEN, 4, "perpod", _R4),
+}
+# the cells whose first round and first commit phase 3 holds H12-H14 to
+# (fill with existing-node debits, kind scan, per-pod: each of H12's modes
+# and H14's); the first one's round is timed
+SHARD_KERNEL_CELLS = ("shard_8192x200 existing twin", "shard_8192x200 zonal twin", "shard_perpod_4096x400_dp4")
+
+# warm calls after a cell's cold call, each held to the cold result (one,
+# so that the whole run stays well inside its time limit on a slow host)
+WARM_CALLS = 1
+# scenarios of the what-if cells' batch run to the end through the
+# per-pod kernel and the plain loop in phase 3 (the plain loop is slow)
+WHATIF_SUB = 2
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1016,7 +1095,7 @@ def perpod_step_bounds(chunks: list) -> tuple:
     return bound(total_bytes / max(steps, 1), 0.0), {**stats, **per}
 
 
-def whatif_kernel_phase(cell, results: list, n_sub: int = 4) -> tuple:
+def whatif_kernel_phase(cell, results: list, n_sub: int = WHATIF_SUB) -> tuple:
     """Phase 3d: the per-pod kernel in scenario mode against the plain
     per-scenario loop, on a what-if prefix cell's encode (S = 128
     scenarios, each its own pods, surviving nodes and topology seeds; the
@@ -1140,7 +1219,7 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
     """Drive one what-if batch: launch counts zeroed just before a cold
     whatif_batch and read just after, the signals held to the JAX
     package's (cell["golden"][kind]: the signals or None, their digest, the
-    placements digest), two warm calls that must agree. Returns the
+    placements digest), WARM_CALLS warm calls that must agree. Returns the
     launches or raises RuntimeError."""
     from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 
@@ -1189,7 +1268,7 @@ def whatif_path(torch, cuda, T, cell, kind: str) -> dict:
     if launches[cuda.WHATIF_KERNELS[0]] != 1 or any(launches[k] for k in cuda.PERPOD_KERNELS):
         raise RuntimeError(f"{label}: expected one launch of the per-pod kernel in scenario mode, got "
                            f"{json.dumps(launches)}")
-    for i in range(2):
+    for i in range(WARM_CALLS):
         sig_w, wall = run()
         print(f"{label} warm {i}: wall={wall:.3f}s {json.dumps(sched.last_timings)}", flush=True)
         if sig_w != sig:
@@ -1260,7 +1339,7 @@ def constrained_path(torch, cuda, cell, kernels, profile_dir) -> dict:
     solve and read just after, the result held to the JAX package's
     (claims, unschedulable pods, $/h, result_digest), every kind on the
     per-pod scan (no fill or kind-scan dispatch, the per-pod kernel once
-    per chunk), two warm solves with the same digest, one more under
+    per chunk), WARM_CALLS warm solves with the same digest, one more under
     torch.profiler with the kernel's ms per step beside its bound. Returns
     the launches or raises RuntimeError."""
     from karpenter_tpu_torch import testing as T
@@ -1293,7 +1372,7 @@ def constrained_path(torch, cuda, cell, kernels, profile_dir) -> dict:
                            f"kernel for {n_chunks} chunks over {st['rounds']} rounds")
     if any(launches[k] for k in ("water_fill", "kscan_grid", "kscan_pod_loop")):
         raise RuntimeError(f"constrained_4096x400: fill or kind-scan kernels launched {json.dumps(launches)}")
-    for i in range(2):
+    for i in range(WARM_CALLS):
         t0 = time.perf_counter()
         r = sched.solve(pods, budgets=budgets)
         torch.cuda.synchronize()
@@ -1431,7 +1510,7 @@ def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
     and read just after, the result held to the JAX package's (claims,
     unschedulable pods and reasons, the gangs that spilled, $/h, slice
     hosts, slice and result digests), gang_scan launched once per gang run
-    of every round, two warm solves with the same digest, one more under
+    of every round, WARM_CALLS warm solves with the same digest, one more under
     torch.profiler (idle share, gang_scan's device ms per launch). Returns
     the launches or raises RuntimeError."""
     label, sched, pods, budgets = cell["label"], cell["sched"], cell["pods"], cell["budgets"]
@@ -1455,7 +1534,7 @@ def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
     if not st["gang_dispatches_all"] or launches["gang_scan"] != st["gang_dispatches_all"]:
         raise RuntimeError(f"{label}: {launches['gang_scan']} gang_scan launches for {st['gang_dispatches_all']} "
                            f"gang runs over {st['rounds']} rounds")
-    for i in range(2):
+    for i in range(WARM_CALLS):
         t0 = time.perf_counter()
         r = sched.solve(pods, budgets=budgets)
         torch.cuda.synchronize()
@@ -1938,6 +2017,302 @@ def profile_run(fn, out_dir, tag) -> dict:
     return dict(summary, by_name={n: (c, d / 1e3) for n, (c, d) in by_name.items()})
 
 
+def shard_cells(T) -> list:
+    """The dp cells: (label, templates, pods, existing nodes, budgets,
+    max_claims, scheduler attributes), in SHARD_GOLDEN's order."""
+    eb = dict(pipeline_min_pods=256)
+    pp = dict(pipeline_min_pods=256, solve_chunk=128)
+    return [
+        ("shard_8192x200", T.make_templates(200), T.selector_pods(8192), [], None, 2048,
+         dict(pipeline_min_pods=1024)),
+        ("shard_8192x200 zonal twin", T.make_templates(200), T.zonal_pods(512, kinds=8), [], None, None, eb),
+        ("shard_8192x200 hostname twin", T.make_templates(200), T.hostname_pods(512, kinds=8), [], None, None, eb),
+        ("shard_8192x200 existing twin", T.make_templates(200),
+         T.sized_kind_pods(512, kinds=8, prefix="eb", mixed=False), T.existing_sim_nodes(), None, None, eb),
+        ("shard_8192x200 perpod twin", T.make_templates(200), T.perpod_pods(512, kinds=8), [], None, None, pp),
+        ("shard_8192x200 mv+budget twin", T.mv_templates(200), T.perpod_pods(512, kinds=8, prefix="bb"), [],
+         {"default": {"cpu": 1e6}}, None, pp),
+        ("shard_northstar_100000x1000_dp2", T.make_templates(1000), T.selector_pods(100_000), [], None, 4096, {}),
+        ("shard_zonal_4096x400_dp2", T.make_templates(400), T.zonal_pods(4096, kinds=8), [], None, 4096, {}),
+        ("shard_perpod_4096x400_dp4", T.make_templates(400), T.perpod_pods(PERPOD_PODS, kinds=PERPOD_KINDS), [], None,
+         4096, {}),
+        ("shard_constrained_4096x400_dp4", T.constrained_templates(CONSTRAINED_TYPES),
+         T.mixed_pods(CONSTRAINED_PODS) + T.hostport_pods(CONSTRAINED_INGRESS), [],
+         {"default": {"cpu": CONSTRAINED_CPU_LIMIT}}, 4096, {}),
+    ]
+
+
+def shard_sched(TorchScheduler, cell):
+    """A fresh scheduler for a dp cell at its dp extent and attributes."""
+    label, templates, _pods, _nodes, _budgets, max_claims, attrs = cell
+    sched = TorchScheduler(templates, max_claims=max_claims, dp=SHARD_GOLDEN[label][4])
+    for k, v in attrs.items():
+        setattr(sched, k, v)
+    return sched
+
+
+def shard_solve(sched, cell):
+    """One solve of a dp cell's problem (its existing nodes cloned)."""
+    _label, _templates, pods, nodes, budgets, _mc, _attrs = cell
+    kw = dict(budgets={p: dict(b) for p, b in budgets.items()}) if budgets else {}
+    return sched.solve(pods, [n.clone() for n in nodes], **kw)
+
+
+DP_FUNCS = ("dp_dead", "dp_verdict", "merge_shard_fill", "merge_shard_kscan")
+
+
+def record_dp_round(TorchScheduler, cell) -> dict:
+    """A cold solve of a dp cell with the first call of each dp function
+    recorded ({name: (args, kwargs)}): the inputs of its first merge round
+    and first commit."""
+    from karpenter_tpu_torch.ops import solver
+
+    rec, real = {}, {n: getattr(solver, n) for n in DP_FUNCS}
+
+    def wrap(n):
+        def f(*a, **k):
+            rec.setdefault(n, (a, k))
+            return real[n](*a, **k)
+        return f
+
+    for n in DP_FUNCS:
+        setattr(solver, n, wrap(n))
+    try:
+        shard_solve(shard_sched(TorchScheduler, cell), cell)
+    finally:
+        for n in DP_FUNCS:
+            setattr(solver, n, real[n])
+    return rec
+
+
+def _leaves(st) -> list:
+    return [t for v in st for t in (v if isinstance(v, tuple) else (v,))]
+
+
+def dead_bytes(base, specs, it) -> int:
+    """The bytes H12's function needs on a round's data: the viable-type
+    bytes and usage of each source's live rows (the base's open rows, each
+    row's fresh opens), the open flags, the catalog's alloc and group
+    flags (and for the kind scan its key rows and offerings), r_min, the
+    matrix out."""
+    from karpenter_tpu_torch.ops import solver
+
+    T, GR, R = it.alloc.shape
+    rows = int(base.open.sum()) + sum(int(solver.opened_rows(base, s).sum()) for s in specs)
+    return (rows * (T + 4 * R) + (1 + len(specs)) * base.open.shape[0] + nbytes(it.alloc, it.group_valid)
+            + len(specs) * (4 * R + 1 + len(specs)))
+
+
+def verdict_dp_bytes(base, specs, vin) -> int:
+    """The bytes H13's function needs: each row's fill grid below the
+    base's w_open (or its pods column there), leftovers, existing-node
+    fields, budgets and reservations, the base's, the per-row masks, the
+    word."""
+    bw = int(base.w_open)
+    per = 0
+    for q, s in enumerate(specs):
+        per += 4 * bw * (vin.fill_c[q].shape[0] if vin.fill_c is not None else 1)
+        per += nbytes(vin.leftover[q]) if vin.leftover is not None else 0
+        per += nbytes(s.exist_used, s.exist_ports, s.exist_vols, *s.exist_reqs, s.w_open, s.n_open, s.spills)
+        if vin.apply_tmpl is not None:
+            per += nbytes(s.budget, s.nodes_budget, s.res_cap)
+    masks = [m for m in (vin.r_min, vin.exist_ok_rows, vin.rec_v, vin.app_v, vin.rec_h, vin.app_h, vin.apply_tmpl)
+             if m is not None]
+    return per + nbytes(base.exist_used, base.exist_ports, base.exist_vols, *base.exist_reqs, *masks) + 4 * bw + 4
+
+
+def merge_bytes(committed, spec, assignment) -> int:
+    """The bytes H14's function needs: every window column read once (the
+    committed row or the grafted one) and written once, slot_of and the
+    shifted map, the existing-node fields of three states and the result,
+    the counts and debits likewise, the assignment in and out."""
+    from karpenter_tpu_torch.ops.solver import GRAFT_WINDOW, exist_leaves
+
+    win = [t for f in GRAFT_WINDOW for t in _leaves([getattr(committed, f)])] + [committed.open]
+    ex = exist_leaves(committed)
+    cnt = [committed.hg_counts]
+    if assignment is not None:
+        cnt += [committed.vg_counts, committed.budget, committed.nodes_budget, committed.res_cap]
+    return (2 * nbytes(*win) + 4 * nbytes(committed.slot_of) + 4 * nbytes(*ex) + 4 * nbytes(*cnt)
+            + (2 * nbytes(assignment) if assignment is not None else 0))
+
+
+def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
+    """Phase 3f: H12 dp_dead, H13 dp_verdict and H14 merge_shard against
+    their plain versions on real rounds (SHARD_KERNEL_CELLS): the first
+    merge round and first commit of shard_8192x200's existing twin (fill:
+    H12's fill mode, H13 with the fill grids, leftovers and existing-node
+    debits, H14's fill mode), of its zonal twin (H12's kscan mode, H14's
+    kscan mode) and of shard_perpod_4096x400_dp4 (DP = 4 rows of the
+    per-pod kernel's scenario mode, H13 with the budget / reservation
+    bit). Matrix, word and every merged leaf equal; times (CUDA events
+    around the launcher call) and bounds from the first cell's round."""
+    from karpenter_tpu_torch.ops import solver
+
+    cells = {c[0]: c for c in shard_cells(T)}
+    checks, timed = {}, {}
+    for label in SHARD_KERNEL_CELLS:
+        rec = record_dp_round(TorchScheduler, cells[label])
+        missing = [n for n in ("dp_dead", "dp_verdict") if n not in rec]
+        merge = "merge_shard_fill" if "merge_shard_fill" in rec else "merge_shard_kscan"
+        if missing or merge not in rec:
+            raise RuntimeError(f"{label}: no dp round or commit recorded ({missing}, {sorted(rec)})")
+        (base, specs, r_min, it, *key), _kw = rec["dp_dead"]
+        key = key[0] if key else None
+        dk = cuda.dp_dead(base, specs, r_min, it, key)
+        dp = solver.dp_dead_plain(base, specs, r_min, it, key)
+        (vb, vs, dead, exist, n_claims, vin), _kw = rec["dp_verdict"]
+        wk = cuda.dp_verdict(vb, vs, dead, exist, n_claims, vin)
+        wp = solver.dp_verdict_plain(vb, vs, dead, exist, n_claims, vin)
+        args, _kw = rec[merge]
+        if merge == "merge_shard_fill":
+            committed, spec, mbase = args
+            assign = None
+            mk = cuda.merge_shard(committed, spec, mbase, None)
+            mp = solver.merge_shard_fill_plain(committed, spec, mbase) + (None,)
+        else:
+            committed, spec, assign, mbase = args
+            mk = cuda.merge_shard(committed, spec, mbase, assign)
+            mp = solver.merge_shard_kscan_plain(committed, spec, assign, mbase)
+        m_eq = all(torch.equal(a, b) for a, b in zip(_leaves(mk[0]), _leaves(mp[0]))) and torch.equal(mk[1], mp[1])
+        m_eq = m_eq and (assign is None or torch.equal(mk[2], mp[2]))
+        checks[label] = dict(dp_dead=torch.equal(dk, dp), dp_verdict=torch.equal(wk, wp), merge_shard=m_eq)
+        print(f"kernel dp (first round of {label}): DP={len(specs)} kscan mode={key is not None} "
+              f"dead={dk.to(torch.int32).tolist()} word=0x{int(wk[0]) & 0xFFFFFFFF:08x} "
+              f"equal={json.dumps(checks[label])} (tolerance: exact) merge={merge}", flush=True)
+        if label == SHARD_KERNEL_CELLS[0]:
+            timed = dict(
+                dp_dead=(lambda: cuda.dp_dead(base, specs, r_min, it, key),
+                         lambda: solver.dp_dead_plain(base, specs, r_min, it, key), dead_bytes(base, specs, it)),
+                dp_verdict=(lambda: cuda.dp_verdict(vb, vs, dead, exist, n_claims, vin),
+                            lambda: solver.dp_verdict_plain(vb, vs, dead, exist, n_claims, vin),
+                            verdict_dp_bytes(vb, vs, vin)),
+                merge_shard=(lambda: cuda.merge_shard(committed, spec, mbase, None),
+                             lambda: solver.merge_shard_fill_plain(committed, spec, mbase),
+                             merge_bytes(committed, spec, None)),
+            )
+    sources = dict(dp_dead=("dp_dead.cu", "karpenter_tpu/ops/solver.py:2030"),
+                   dp_verdict=("dp_verdict.cu", "karpenter_tpu/ops/solver.py:2100"),
+                   merge_shard=("merge_shard.cu", "karpenter_tpu/ops/solver.py:2287"))
+    for name, (kfn, pfn, moved) in timed.items():
+        ms = time_ms(kfn, iters=50)
+        plain_ms = time_ms(pfn, iters=5)
+        b = bound(moved, 0.0)
+        ok = all(c[name] for c in checks.values())
+        print(f"kernel {name}: equal={ok} (tolerance: exact) ms={ms:.5f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b[0]:.6f} ({b[1]}, {moved} bytes)", flush=True)
+        results.append(dict(
+            name=name, route="cuda", source=f"karpenter_tpu_torch/ops/csrc/{sources[name][0]}",
+            replaces=sources[name][1], launches=0, max_abs_err=0.0 if ok else 1.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
+        ))
+
+
+def shard_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels: list) -> list:
+    """Phase 4: the dp cells, each a cold solve of TorchScheduler(dp=N) on a
+    fresh scheduler with the launch counts zeroed just before and read just
+    after, held to the JAX package's claims, unschedulable pods, $/h,
+    digest and merge counters (last_stats["shard"], the last relaxation
+    round's, as the reference's); H12 and H13 launched once per merge round
+    and H14 once per commit over every round of the solve, the per-pod
+    kernel's scenario mode once per per-pod merge round and its single
+    mode once per sequential chunk or replay; a cell with no merge round
+    fails. One warm solve each (the same digest), and a profiled warm
+    solve of the per-pod dp cell (H12-H14's device time per launch, set on
+    their entries of `kernels`). Returns the launches of every cold solve
+    or raises RuntimeError."""
+    out = []
+    for cell in shard_cells(T):
+        label = cell[0]
+        claims, unsched, price, want_digest, dp, family, rounds = SHARD_GOLDEN[label]
+        sched = shard_sched(TorchScheduler, cell)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        r = shard_solve(sched, cell)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        out.append(launches)
+        st = sched.last_stats
+        counters = T.shard_counters(st["shard"])
+        dg = (T.result_digest if label.startswith("shard_constrained") else digest)(r)
+        got = (r.node_count, len(r.unschedulable), round(r.total_price(), 4), dg)
+        print(f"{label}: wall={wall:.3f}s {json.dumps(sched.last_timings)} claims={got[0]} unschedulable={got[1]} "
+              f"total_price={got[2]:.4f} digest={dg[:16]}... shard={json.dumps(counters)} "
+              f"all-rounds merge_rounds={st['merge_rounds_all']} commits={st['dp_commits_all']} "
+              f"per-pod dp rounds={st['perpod_dp_rounds_all']} chunks={st['perpod_dispatches_all']} "
+              f"launches={json.dumps(launches)}", flush=True)
+        if got[:2] != (claims, unsched) or abs(got[2] - price) >= 1e-2 or dg != want_digest:
+            raise RuntimeError(f"{label}: {got} differs from the JAX package's {(claims, unsched, price, want_digest)}")
+        if counters != shard_golden(dp, family, rounds):
+            raise RuntimeError(f"{label}: merge counters {counters} differ from the JAX package's "
+                               f"{shard_golden(dp, family, rounds)}")
+        if not st["merge_rounds_all"]:
+            raise RuntimeError(f"{label}: the dp path ran no merge round")
+        fams = {f: c for f, c in counters["families"].items() if c != [0, 0]}
+        print(f"{label}: families committed / replayed {json.dumps(fams)}", flush=True)
+        want = dict(dp_dead=st["merge_rounds_all"], dp_verdict=st["merge_rounds_all"],
+                    merge_shard=st["dp_commits_all"])
+        want[cuda.WHATIF_KERNELS[0]] = st["perpod_dp_rounds_all"]
+        want[cuda.PERPOD_KERNELS[0]] = st["perpod_dispatches_all"]
+        bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        if bad:
+            raise RuntimeError(f"{label}: launches (got, expected) {bad}")
+        if family == "perpod" and st["perpod_dp_rounds_all"] != st["merge_rounds_all"]:
+            raise RuntimeError(f"{label}: {st['perpod_dp_rounds_all']} scenario-mode launches for "
+                               f"{st['merge_rounds_all']} merge rounds")
+        t0 = time.perf_counter()
+        r2 = shard_solve(sched, cell)
+        torch.cuda.synchronize()
+        print(f"{label} warm: wall={time.perf_counter() - t0:.3f}s {json.dumps(sched.last_timings)}", flush=True)
+        if digest(r2) != digest(r):
+            raise RuntimeError(f"{label}: warm solve differs from the cold solve")
+        if label == "shard_perpod_4096x400_dp4":
+            profiled_dp_kernels(cuda, kernels, lambda: shard_solve(sched, cell), profile_dir)
+    return out
+
+
+def profiled_dp_kernels(cuda, kernels: list, solve, profile_dir) -> None:
+    """H12-H14's device time per launch in a profiled warm solve of the
+    per-pod dp cell, beside their bounds over the same rounds (the bytes
+    each launch's function needs, recorded in one more warm solve: the
+    solve is deterministic); set on their entries of `kernels`."""
+    real = dict(dp_dead=cuda.dp_dead, dp_verdict=cuda.dp_verdict, merge_shard=cuda.merge_shard)
+    moved = {n: [] for n in real}
+
+    def dead(base, specs, r_min, it, key=None):
+        moved["dp_dead"].append(dead_bytes(base, specs, it))
+        return real["dp_dead"](base, specs, r_min, it, key)
+
+    def verdict(base, specs, d, exist, n_claims, vin):
+        moved["dp_verdict"].append(verdict_dp_bytes(base, specs, vin))
+        return real["dp_verdict"](base, specs, d, exist, n_claims, vin)
+
+    def merge(committed, spec, base, assignment=None):
+        moved["merge_shard"].append(merge_bytes(committed, spec, assignment))
+        return real["merge_shard"](committed, spec, base, assignment)
+
+    cuda.dp_dead, cuda.dp_verdict, cuda.merge_shard = dead, verdict, merge
+    try:
+        solve()
+    finally:
+        cuda.dp_dead, cuda.dp_verdict, cuda.merge_shard = real["dp_dead"], real["dp_verdict"], real["merge_shard"]
+    by_name = profile_run(solve, profile_dir, "shard_perpod_dp4")["by_name"]
+    for name, sizes in moved.items():
+        hits = [(c, d) for n, (c, d) in by_name.items() if f"{name}_kernel" in n]
+        if not hits or hits[0][0] != len(sizes):
+            print(f"kernel {name} (shard_perpod_4096x400_dp4, profiled warm solve): device time not measured "
+                  f"({hits[0][0] if hits else 0} device events for {len(sizes)} launches)", flush=True)
+            continue
+        c, d = hits[0]
+        b = bound(sum(sizes) / len(sizes), 0.0)
+        print(f"kernel {name} (shard_perpod_4096x400_dp4, profiled warm solve): {d / c:.5f} ms per launch on the "
+              f"device ({c} launches), bound {b[0]:.7f} ms per launch ({b[1]}) over the same launches", flush=True)
+        for k in kernels:
+            if k["name"] == name:
+                k.update(ms=d / c, bound_ms=b[0], bound_by=b[1])
+
+
 def digest(result) -> str:
     from karpenter_tpu_torch.testing import claims_digest
 
@@ -1947,7 +2322,7 @@ def digest(result) -> str:
 def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_needed):
     """Drive one main path: launch counts zeroed just before a cold solve
     and read just after, the result held to the JAX package's (claims,
-    price, nothing unschedulable) and to its dispatch counts, two warm
+    price, nothing unschedulable) and to its dispatch counts, WARM_CALLS warm
     solves that must give the same digest. Returns (result, launches) or
     raises RuntimeError."""
     cuda.reset_launches()
@@ -1970,7 +2345,7 @@ def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_ne
     idle = [k for k in kernels_needed if launches[k] <= 0]
     if idle:
         raise RuntimeError(f"{label}: kernels never launched: {idle}")
-    for i in range(2):
+    for i in range(WARM_CALLS):
         t0 = time.perf_counter()
         r = sched.solve(pods)
         torch.cuda.synchronize()
@@ -2019,6 +2394,8 @@ def main() -> int:
     if static and max(static) > cuda.SMEM_STATIC:
         return fail(f"perpod_scan: {max(static)} B of static shared memory, above cuda.SMEM_STATIC")
 
+    phase_s = {"1-2": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
     # phase 3 (the schedulers' encodes supply the real catalog and topology tensors)
     templates = make_templates(1000)
     sched = TorchScheduler(templates, max_claims=4096)
@@ -2074,9 +2451,17 @@ def main() -> int:
         resident_kernel_phase(torch, cuda, T, TorchScheduler, kernels, os.path.join("build", "profile"))
     except RuntimeError as err:
         return fail(str(err))
+    # dp speculation: H12-H14 on the first rounds of three dp cells
+    try:
+        shard_kernel_phase(torch, cuda, T, TorchScheduler, kernels)
+    except RuntimeError as err:
+        return fail(str(err))
     bad = [k["name"] for k in kernels + checks_c + checks_o if not k["equal"]]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
+    phase_s["3"] = time.perf_counter() - t_phase
+    print(f"phase 3: {phase_s['3']:.1f}s (phases 1-2: {phase_s['1-2']:.1f}s)", flush=True)
+    t_phase = time.perf_counter()
     if kernels_only:
         print(f"kernels only: stopping after phase 3 ({time.perf_counter() - t_start:.1f}s)", flush=True)
         return 0
@@ -2098,7 +2483,8 @@ def main() -> int:
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
             [k for k in cuda.KERNELS
-             if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS + ("gang_scan", "retract_tail", "objective_verdict")],
+             if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS
+             + ("gang_scan", "retract_tail", "objective_verdict", "dp_dead", "dp_verdict", "merge_shard")],
         )
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
         result_p, launches_p = solve_path(
@@ -2149,13 +2535,15 @@ def main() -> int:
          lambda: wide_zone_pods(32, extra_zones=2100), [existing_node(cpu=1.0)]),
         ("40 resources (past a warp's 32 lanes)", small_t24, 32, many_resources_pods, []),
     ):
+        t0 = time.perf_counter()
         s_gpu = TorchScheduler(tmpl, max_claims=mc)
         r_gpu = s_gpu.solve(make(), existing_nodes=nodes)
         r_cpu = TorchScheduler(tmpl, max_claims=mc, device="cpu").solve(make(), existing_nodes=nodes)
         if digest(r_gpu) != digest(r_cpu) or not s_gpu.last_stats["perpod_dispatches"]:
             return fail(f"{label} on the card differs from the CPU solve (or ran no per-pod chunk)")
         print(f"small check: {label}, {r_gpu.node_count} claims, {len(r_gpu.existing_assignments)} on existing "
-              f"nodes, {len(r_gpu.unschedulable)} unschedulable, card == CPU", flush=True)
+              f"nodes, {len(r_gpu.unschedulable)} unschedulable, card == CPU ({time.perf_counter() - t0:.1f}s)",
+              flush=True)
     # zone counts past 2^15 through solve(topology=) on the kind scan: H6's
     # rank key wraps as the plain version's does
     def seeded(pods):
@@ -2198,6 +2586,8 @@ def main() -> int:
         ]
         # placement objectives: the four family pools under every policy
         launches_o, _prices = objective_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels)
+        # dp speculation: the shard stage and its twins, the dp cells
+        launches_s = shard_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels)
     except RuntimeError as err:
         return fail(str(err))
     pods_wc, specs_wc = cell_wc["batches"]["prefix"]
@@ -2211,7 +2601,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = sum(ln[k["name"]] for ln in [launches_n, launches_m, launches_p, *launches_w, launches_c,
                                                       launches_h, launches_wc, *launches_g, *launches_r,
-                                                      *launches_o])
+                                                      *launches_o, *launches_s])
     for kind in ("prefix", "single"):
         pods_w, specs_w = cell_w["batches"][kind]
         sched_w = cell_w[f"{kind}_sched"]
@@ -2232,9 +2622,17 @@ def main() -> int:
         if got != want:
             return fail(f"sequential confirm of prefix {n_cands}: {got}, the JAX package's {want}")
 
-    # phase 5: plain versions on the card
+    phase_s["4"] = time.perf_counter() - t_phase
+    print(f"phase 4: {phase_s['4']:.1f}s", flush=True)
+    t_phase = time.perf_counter()
+
+    # phase 5: plain versions on the card; the per-pod path at 1024 pods,
+    # held to the card's kernel solve of the same problem
+    pods_p5 = perpod_pods(PLAIN_PERPOD_PODS, kinds=PERPOD_KINDS)
+    result_p5 = TorchScheduler(templates_m, max_claims=4096).solve(pods_p5)
     for label, tmpl, ps, ref in (("north star", templates, pods, result), ("mixed path", templates_m, pods_m, result_m),
-                                 ("perpod path", templates_m, pods_p, result_p)):
+                                 (f"perpod_pods({PLAIN_PERPOD_PODS}, kinds={PERPOD_KINDS})", templates_m, pods_p5,
+                                  result_p5)):
         t0 = time.perf_counter()
         r_plain = TorchScheduler(tmpl, max_claims=4096, plain=True).solve(ps)
         torch.cuda.synchronize()
@@ -2242,9 +2640,11 @@ def main() -> int:
         print(f"plain on card, {label}: wall={time.perf_counter() - t0:.3f}s digest_equal={same}", flush=True)
         if not same:
             return fail(f"plain-version solve of the {label} on the card gives another assignment")
-    print(f"plain on card, what-if sub-batch (4 scenarios of whatif_prefix{WHATIF_CANDS}, phase 3): "
+    print(f"plain on card, what-if sub-batch ({WHATIF_SUB} scenarios of whatif_prefix{WHATIF_CANDS}, phase 3): "
           f"wall={whatif_plain_wall:.3f}s; of {cell_wc['label']}: wall={whatif_c_plain_wall:.3f}s", flush=True)
 
+    phase_s["5"] = time.perf_counter() - t_phase
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     for k in kernels:
         k.pop("equal")

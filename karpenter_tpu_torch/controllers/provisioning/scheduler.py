@@ -25,11 +25,21 @@ and, unless lexical, solves each fill group under KTPU_OBJECTIVE_K rank
 variants, committing the feasible variant of least score off one 4-byte
 verdict word per group (H11) and replaying the group when none is
 feasible.
+
+With dp > 1 (`TorchScheduler(dp=N)`, the reference's mesh dp extent) the
+pipeline's consecutive fill groups, a kind-scan run's chunk groups and a
+per-pod run's chunks speculate dp at a time from one round base and merge
+in order: a row commits (a graft, H14) when the round's verdict word (H12,
+H13; one 4-byte fetch per round) proves it independent of every earlier
+row, the first refused row replays sequentially. The result is the dp = 1
+result bit for bit; last_stats["shard"] counts the reference's merge
+events.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 from types import SimpleNamespace
 from typing import Optional, Sequence
@@ -72,7 +82,7 @@ from karpenter_tpu_torch.ops.encode import (
     encode_requirements_np,
     type_price_column,
 )
-from karpenter_tpu_torch.ops.kernels import fetch_tree, pack_bool_np
+from karpenter_tpu_torch.ops.kernels import fetch_tree, leading_ones, pack_bool_np
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.scheduling import hostports
 from karpenter_tpu_torch.scheduling.reservations import ReservationManager
@@ -99,6 +109,24 @@ class UnsupportedProblem(ValueError):
     def __init__(self, reason: str):
         super().__init__(reason)
         self.reason = reason
+
+
+# the dp speculation families of last_stats["shard"] (the reference's
+# _SHARD_FAMILIES): fill groups split by what shared state the verdict
+# proved disjoint (plain capacity, existing-node debits, hostname-group
+# counts), then the kind-scan and per-pod engines
+SHARD_FAMILIES = ("fill", "existing", "topo_fill", "kscan", "perpod")
+
+
+def _new_shard_stats(dp: int) -> dict:
+    """last_stats["shard"] of a solve with dp rows: the reference's merge
+    counters (last_timings["shard"]) for the same events."""
+    return dict(
+        dp=dp, merge_rounds=0, groups_committed=0, groups_replayed=0, verdict_fetches=0, verdict_bytes=0,
+        dp_rows_total=0, dp_rows_committed=0, dp_rows_replayed=0, dp_rows_idle=0,
+        families={f: {"committed": 0, "replayed": 0} for f in SHARD_FAMILIES},
+        coverage={f: {"dp": 0, "sequential": 0} for f in SHARD_FAMILIES},
+    )
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -386,7 +414,9 @@ class TorchScheduler:
     reserved_capacity_enabled, min_values_policy ("Strict" or
     "BestEffort") and objective (a placement objective of
     objectives.POLICIES; None: KTPU_OBJECTIVE, else lexical) are the
-    reference's settings of the same names."""
+    reference's settings of the same names; dp is its mesh's dp extent
+    (1: no speculation; KTPU_SHARD_DP / _KSCAN / _EXISTING / _PERPOD = 0
+    opt out as in the reference)."""
 
     def __init__(
         self,
@@ -398,6 +428,7 @@ class TorchScheduler:
         reserved_capacity_enabled: bool = True,
         min_values_policy: str = "Strict",
         objective: Optional[str] = None,
+        dp: int = 1,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -458,6 +489,16 @@ class TorchScheduler:
         self._active_policy = "lexical"
         self._objective_ranks: dict = {}
         self._price_t: Optional[torch.Tensor] = None
+        # dp speculation: the reference's mesh dp extent (1 = none) and its
+        # opt-outs, read as the reference reads them
+        if dp < 1:
+            raise ValueError(f"TorchScheduler: dp={dp} must be at least 1")
+        self.dp = dp
+        self.shard_dp = os.environ.get("KTPU_SHARD_DP", "1") not in ("0", "false")
+        self.shard_kscan = os.environ.get("KTPU_SHARD_KSCAN", "1") not in ("0", "false")
+        self.shard_existing = os.environ.get("KTPU_SHARD_EXISTING", "1") not in ("0", "false")
+        self.shard_perpod = os.environ.get("KTPU_SHARD_PERPOD", "1") not in ("0", "false")
+        self._shard_stats: Optional[dict] = None
 
     def resident_session(self):
         """Wrap this scheduler in a ResidentSession: the solver state stays
@@ -972,6 +1013,7 @@ class TorchScheduler:
             gang_kind=gang_kind,
             gang_vg_key=gang_vg_key,
             gang_key_of_kind=gang_key_of_kind,
+            kind_hg=(rel["hga"] | rel["hgr"]).any(axis=1),
             pre_unsched=pre_unsched,
             reps=reps,
             exist_tensors=exist_tensors,
@@ -1198,9 +1240,11 @@ class TorchScheduler:
 
     def _run_solve(self, enc: dict):
         """One dispatch per run (fill scan or kind scan) or per chunk of a
-        per-pod run, with boundary compaction; returns the final state and
-        the per-dispatch outputs ("fill", segs, ys, slot_of) / ("kscan",
-        segs, ys) / ("pods", lo, hi, assignment)."""
+        per-pod run, with boundary compaction; with dp > 1 the dp merge
+        loops take consecutive fill groups, split kind-scan runs and per-pod
+        chunks. Returns the final state and the per-dispatch outputs
+        ("fill", segs, ys, slot_of) / ("kscan", segs, ys) / ("pods", lo,
+        hi, assignment) / ("gang", segs, ys)."""
         n_claims = enc["n_claims"]
         topo_kids = enc["topo_kids"]
         state = self._initial_state(enc)
@@ -1221,8 +1265,9 @@ class TorchScheduler:
         )
         outputs = []
         n_compactions = 0
-        n_fill = n_kscan = n_perpod = n_gang = 0
+        n = dict.fromkeys(("fill", "kscan", "perpod", "gang", "perpod_dp"), 0)
         obj = dict.fromkeys(OBJECTIVE_STATS, 0)
+        self._shard_stats = shard = _new_shard_stats(self.dp) if self.dp > 1 else None
 
         def maybe_compact(st):
             nonlocal n_compactions
@@ -1238,61 +1283,313 @@ class TorchScheduler:
             n_compactions += 1
             return st
 
+        def done(st, out, pods_of):
+            """Record one dispatch's output, count its pods off and compact."""
+            outputs.append(out)
+            if isinstance(pods_of, tuple):
+                np.subtract.at(remaining, kind_of[pods_of[0]:pods_of[1]], 1)
+            else:
+                for lo_, hi_, k_ in pods_of:
+                    remaining[k_] -= hi_ - lo_
+            return maybe_compact(st)
+
+        def fill_seq(st, segs):
+            n["fill"] += 1
+            xs = self._gather_fill_xs(enc, segs)
+            if self._active_policy != "lexical":
+                return self._run_fill_objective(enc, st, xs, common, obj)
+            return ops_solver.solve_fill(st, xs, *common, plain=self.plain)
+
+        def kscan_seq(st, segs, key):
+            n["kscan"] += 1
+            counts = [hi - lo for lo, hi, _k in segs]
+            return ops_solver.solve_kind_scan(
+                st, self._gather_kind_xs(enc, segs), *common,
+                key_kid=key, n_domains=len(self.encoder.vocab.values[key]),
+                maxc=self._kscan_maxc(max(counts)), counts=counts,
+                requests_np=requests_np[[k for _lo, _hi, k in segs]], plain=self.plain,
+            )
+
+        def perpod_seq(st, clo, chi):
+            n["perpod"] += 1
+            L = chi - clo
+            kidx = np.zeros(self._pad("perpod_pods", L, 8), dtype=np.int64)
+            kidx[:L] = kind_of[clo:chi]
+            *rows, pod_topo = self._gather_pod_chunk(enc, kidx, L)
+            return ops_solver.solve_from(
+                st, *rows, *common[:5], pod_topo, *common[5:], topo_kids=topo_kids, plain=self.plain,
+                tables=self.perpod_tables, flags=self._flags(),
+            )
+
+        reasons = self._dp_reasons(enc)
+        runs = self._dp_runs(runs, enc, reasons)
+        dp_ctx = SimpleNamespace(enc=enc, common=common, done=done, fill_seq=fill_seq, kscan_seq=kscan_seq,
+                                 perpod_seq=perpod_seq, n=n)
         for mode, segs in runs:
             if mode[0] == "gang":
+                self._shard_eligible("gang", "sequential", "gang_atomic")
                 xs, maxg, gang_kw = self._gang_args(enc, segs, mode[1])
                 state, ys = ops_solver.solve_gang(state, xs, *common, maxg=maxg, plain=self.plain, **gang_kw)
-                outputs.append(("gang", segs, ys))
-                n_gang += 1
-                for lo, hi, k in segs:
-                    remaining[k] -= hi - lo
-                state = maybe_compact(state)
-                continue
-            if mode[0] == "perpod":
+                n["gang"] += 1
+                state = done(state, ("gang", segs, ys), segs)
+            elif mode[0] == "perpod":
                 lo, hi = segs[0][0], segs[-1][1]
-                for clo in range(lo, hi, chunk):
-                    chi = min(clo + chunk, hi)
-                    L = chi - clo
-                    kidx = np.zeros(self._pad("perpod_pods", L, 8), dtype=np.int64)
-                    kidx[:L] = kind_of[clo:chi]
-                    *rows, pod_topo = self._gather_pod_chunk(enc, kidx, L)
-                    state, assignment = ops_solver.solve_from(
-                        state, *rows, *common[:5], pod_topo, *common[5:], topo_kids=topo_kids, plain=self.plain,
-                        tables=self.perpod_tables, flags=self._flags(),
-                    )
-                    outputs.append(("pods", clo, chi, assignment))
-                    n_perpod += 1
-                    np.subtract.at(remaining, kind_of[clo:chi], 1)
-                    state = maybe_compact(state)
-                continue
-            if mode[0] == "fill":
-                xs = self._gather_fill_xs(enc, segs)
-                if self._active_policy != "lexical":
-                    state, ys = self._run_fill_objective(enc, state, xs, common, obj)
-                else:
-                    state, ys = ops_solver.solve_fill(state, xs, *common, plain=self.plain)
-                outputs.append(("fill", segs, ys, state.slot_of))
-                n_fill += 1
+                chunks = [(clo, min(clo + chunk, hi)) for clo in range(lo, hi, chunk)]
+                if not reasons["perpod"] and len(chunks) >= 2:
+                    state = self._run_perpod_dp(dp_ctx, state, chunks)
+                    continue
+                for clo, chi in chunks:
+                    self._shard_eligible("perpod", "sequential", reasons["perpod"] or "single_chunk")
+                    state, assignment = perpod_seq(state, clo, chi)
+                    state = done(state, ("pods", clo, chi, assignment), (clo, chi))
+            elif mode[0] in ("fill", "fill_dp"):
+                groups = segs if mode[0] == "fill_dp" else [segs]
+                if mode[0] == "fill_dp" and self._active_policy == "lexical":
+                    state = self._run_fill_dp(dp_ctx, state, groups)
+                    continue
+                for g in groups:
+                    if self._active_policy == "lexical":
+                        self._shard_eligible(self._fill_family(enc, g), "sequential",
+                                             reasons["fill"] or "single_group")
+                    state, ys = fill_seq(state, g)
+                    state = done(state, ("fill", g, ys, state.slot_of), g)
+            elif mode[0] == "kscan_dp":
+                state = self._run_kscan_dp(dp_ctx, state, mode[1], segs)
             else:
-                key = mode[1]
-                counts = [hi - lo for lo, hi, _k in segs]
-                state, ys = ops_solver.solve_kind_scan(
-                    state, self._gather_kind_xs(enc, segs), *common,
-                    key_kid=key, n_domains=len(self.encoder.vocab.values[key]),
-                    maxc=self._kscan_maxc(max(counts)), counts=counts,
-                    requests_np=requests_np[[k for _lo, _hi, k in segs]], plain=self.plain,
-                )
-                outputs.append(("kscan", segs, ys))
-                n_kscan += 1
-            for lo, hi, k in segs:
-                remaining[k] -= hi - lo
-            state = maybe_compact(state)
+                self._shard_eligible("kscan", "sequential", reasons["kscan"] or "single_group")
+                state, ys = kscan_seq(state, segs, mode[1])
+                state = done(state, ("kscan", segs, ys), segs)
         self.last_stats = dict(
-            segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n_fill,
-            kscan_dispatches=n_kscan, perpod_dispatches=n_perpod, gang_dispatches=n_gang,
-            compactions=n_compactions, policy=self._active_policy, **obj,
+            segments=len(enc["segments"]), groups=len(runs), fill_dispatches=n["fill"],
+            kscan_dispatches=n["kscan"], perpod_dispatches=n["perpod"], perpod_dp_rounds=n["perpod_dp"],
+            gang_dispatches=n["gang"], compactions=n_compactions, policy=self._active_policy, **obj,
         )
+        if shard is not None:
+            self.last_stats["shard"] = shard
         return state, outputs
+
+    # -- dp speculation ------------------------------------------------------
+
+    def _dp_reasons(self, enc: dict) -> dict:
+        """Per family ("fill", "kscan", "perpod") the first failed dp-
+        eligibility conjunct ("" when eligible; the reference's
+        _dp_block_reason without its quarantine conjunct)."""
+
+        def reason(family_flag: bool, optout: str) -> str:
+            if not self._pipeline_target(enc):
+                return "no_pipeline"
+            if self.dp <= 1:
+                return "no_dp_mesh"
+            if not self.shard_dp:
+                return "shard_dp_off"
+            if not family_flag:
+                return optout
+            if not (self.shard_existing or not self.existing_nodes):
+                return "existing_optout"
+            return ""
+
+        return dict(fill=reason(True, ""), kscan=reason(self.shard_kscan, "kscan_optout"),
+                    perpod=reason(self.shard_perpod, "perpod_optout"))
+
+    def _dp_runs(self, runs: list, enc: dict, reasons: dict) -> list:
+        """Consecutive fill runs (the pipeline's groups) merge into one
+        ("fill_dp",) item holding their segment lists; a kind-scan run
+        splits into ("kscan_dp", key) chunk groups by a pod target sized to
+        the run (reference scheduler.py:2596-2648)."""
+        if not reasons["fill"]:
+            merged, i = [], 0
+            while i < len(runs):
+                j = i
+                while j < len(runs) and runs[j][0][0] == "fill":
+                    j += 1
+                if j - i >= 2:
+                    merged.append((("fill_dp",), [segs for _m, segs in runs[i:j]]))
+                    i = j
+                    continue
+                merged.append(runs[i])
+                i += 1
+            runs = merged
+        if reasons["kscan"]:
+            return runs
+        out = []
+        for mode, segs in runs:
+            if mode[0] != "kscan" or len(segs) <= 1:
+                out.append((mode, segs))
+                continue
+            target = max(-(-sum(hi - lo for lo, hi, _k in segs) // self.pipeline_chunks), 1)
+            groups, cur, cur_pods = [], [], 0
+            for seg in segs:
+                cur.append(seg)
+                cur_pods += seg[1] - seg[0]
+                if cur_pods >= target:
+                    groups.append(cur)
+                    cur, cur_pods = [], 0
+            if cur:
+                groups.append(cur)
+            out.append((("kscan_dp", mode[1]), groups) if len(groups) >= 2 else (mode, segs))
+        return out
+
+    def _fill_family(self, enc: dict, segs: list) -> str:
+        """The speculation family of a fill group: "existing" when the solve
+        has real existing nodes, else "topo_fill" when a kind of the group
+        interacts with a hostname group, else "fill"."""
+        if self.existing_nodes:
+            return "existing"
+        if any(bool(enc["kind_hg"][k]) for _lo, _hi, k in segs):
+            return "topo_fill"
+        return "fill"
+
+    def _shard_eligible(self, family: str, path: str, reason: str = "") -> None:
+        """Count a group's route in last_stats["shard"]["coverage"]: "dp"
+        when it entered a merge round, "sequential" otherwise."""
+        if self._shard_stats is not None:
+            self._shard_stats["coverage"].setdefault(family, {"dp": 0, "sequential": 0})[path] += 1
+
+    def _shard_round(self, n_rows: int, n_commit: int, word) -> None:
+        """Count one merge round: its verdict fetch and the dp rows it
+        committed, replayed and left idle."""
+        st = self._shard_stats
+        st["merge_rounds"] += 1
+        st["verdict_fetches"] += 1
+        st["verdict_bytes"] += int(word.nbytes)
+        st["dp_rows_total"] += self.dp
+        st["dp_rows_committed"] += n_commit
+        st["dp_rows_replayed"] += n_rows - n_commit
+        st["dp_rows_idle"] += self.dp - n_rows
+
+    def _shard_account(self, family: str, committed: bool) -> None:
+        self._shard_eligible(family, "dp")
+        st = self._shard_stats
+        st["groups_committed" if committed else "groups_replayed"] += 1
+        st["families"][family]["committed" if committed else "replayed"] += 1
+
+    def _fetch_verdict(self, word, n_rows: int) -> int:
+        """The round's one host sync: fetch the packed word, count the round,
+        return how many leading rows commit."""
+        w = fetch_tree(dict(word=word))["word"]
+        n_commit = leading_ones(w, n_rows)
+        self._shard_round(n_rows, n_commit, w)
+        return n_commit
+
+    def _merge_loop(self, state, items: list, speculate, commit, replay, family):
+        """The dp merge rounds shared by the three families: up to dp items
+        speculate from the round base (padded to dp rows), one verdict word
+        is fetched, the leading-ones prefix commits in order (each followed
+        by compaction), exactly one refused item replays sequentially, and
+        the next round starts from there."""
+        gi = 0
+        while gi < len(items):
+            round_items = items[gi: gi + self.dp]
+            base = state
+            rows, word = speculate(base, round_items)
+            n_commit = self._fetch_verdict(word, len(round_items))
+            for r in range(n_commit):
+                state = commit(state, base, rows, r, round_items[r])
+                self._shard_account(family(round_items[r]), True)
+            if n_commit < len(round_items):
+                state = replay(state, round_items[n_commit])
+                self._shard_account(family(round_items[n_commit]), False)
+                gi += n_commit + 1
+            else:
+                gi += n_commit
+        return state
+
+    def _run_fill_dp(self, c, state, groups: list):
+        """Consecutive fill groups through the dp merge loop (the
+        reference's _run_fill_dp): a round's groups solve from the base
+        (solve_fill_dp, short rounds padded with a count-0 group), commits
+        graft through H14 (merge_shard_fill; the output's slot map is the
+        row's shifted slot_of), a refusal replays through solve_fill."""
+        enc = c.enc
+
+        def speculate(base, round_groups):
+            pad = [(0, 0, round_groups[0][0][2])]
+            xs_rows = [self._gather_fill_xs(enc, g) for g in round_groups]
+            xs_rows += [self._gather_fill_xs(enc, pad)] * (self.dp - len(round_groups))
+            specs, yss, word = ops_solver.solve_fill_dp(base, xs_rows, *c.common, plain=self.plain)
+            return (specs, yss), word
+
+        def commit(state, base, rows, r, segs):
+            merged, shifted = ops_solver.merge_shard_fill(state, rows[0][r], base, plain=self.plain)
+            c.n["fill"] += 1
+            return c.done(merged, ("fill", segs, rows[1][r], shifted), segs)
+
+        def replay(state, segs):
+            state, ys = c.fill_seq(state, segs)
+            return c.done(state, ("fill", segs, ys, state.slot_of), segs)
+
+        return self._merge_loop(state, groups, speculate, commit, replay, lambda g: self._fill_family(enc, g))
+
+    def _run_kscan_dp(self, c, state, key: int, groups: list):
+        """Kind-scan chunk groups of vocab key `key` through the dp merge
+        loop (the reference's _run_kscan_dp): rows scan from the base with a
+        fresh grid each (solve_kscan_dp), commits graft through H14's kscan
+        mode (the assignment re-based), a refusal replays."""
+        enc = c.enc
+        requests_np = enc["requests_np"]
+        D = len(self.encoder.vocab.values[key])
+
+        def speculate(base, round_groups):
+            rows = list(round_groups) + [[(0, 0, round_groups[0][0][2])]] * (self.dp - len(round_groups))
+            counts = [[hi - lo for lo, hi, _k in g] for g in rows]
+            maxc = self._kscan_maxc(max(max(cs) for cs in counts))
+            specs, yss, word = ops_solver.solve_kscan_dp(
+                base, [self._gather_kind_xs(enc, g) for g in rows], *c.common, key_kid=key, n_domains=D,
+                maxc=maxc, counts_rows=counts, requests_rows=[requests_np[[k for _lo, _hi, k in g]] for g in rows],
+                plain=self.plain,
+            )
+            return (specs, yss), word
+
+        def commit(state, base, rows, r, segs):
+            ys = rows[1][r]
+            merged, _shifted, assign = ops_solver.merge_shard_kscan(state, rows[0][r], ys.assignment, base,
+                                                                    plain=self.plain)
+            c.n["kscan"] += 1
+            return c.done(merged, ("kscan", segs, ys._replace(assignment=assign)), segs)
+
+        def replay(state, segs):
+            state, ys = c.kscan_seq(state, segs, key)
+            return c.done(state, ("kscan", segs, ys), segs)
+
+        return self._merge_loop(state, groups, speculate, commit, replay, lambda _g: "kscan")
+
+    def _run_perpod_dp(self, c, state, chunks: list):
+        """Consecutive per-pod chunks through the dp merge loop (the
+        reference's _run_perpod_dp): a round's chunks run in one launch of
+        the per-pod kernel in scenario mode (solve_perpod_dp, row r's pods
+        at pod_idx[r] of one gathered block, zero-valid rows padding a
+        short round), commits graft through H14's kscan mode, a refusal
+        replays through solve_from."""
+        enc = c.enc
+        kind_of = enc["kind_of"]
+
+        def speculate(base, round_chunks):
+            L = self._pad("perpod_pods_dp", max(chi - clo for clo, chi in round_chunks), 8)
+            kidx = np.zeros(self.dp * L, dtype=np.int64)
+            valid = np.zeros((self.dp, L), dtype=bool)
+            for r, (clo, chi) in enumerate(round_chunks):
+                kidx[r * L: r * L + chi - clo] = kind_of[clo:chi]
+                valid[r, : chi - clo] = True
+            *rows, pod_topo = self._gather_pod_chunk(enc, kidx, self.dp * L)
+            pod_idx = np.arange(self.dp * L, dtype=np.int32).reshape(self.dp, L)
+            specs, assignment, word = ops_solver.solve_perpod_dp(
+                base, *rows, as_tensor(pod_idx, self.device), as_tensor(valid, self.device), *c.common[:5],
+                pod_topo, *c.common[5:], topo_kids=enc["topo_kids"], plain=self.plain, tables=self.perpod_tables,
+                flags=self._flags(),
+            )
+            c.n["perpod_dp"] += 1
+            return (specs, assignment), word
+
+        def commit(state, base, rows, r, ch):
+            merged, _shifted, assign = ops_solver.merge_shard_kscan(state, rows[0][r], rows[1][r], base,
+                                                                    plain=self.plain)
+            return c.done(merged, ("pods", ch[0], ch[1], assign), ch)
+
+        def replay(state, ch):
+            state, assignment = c.perpod_seq(state, *ch)
+            return c.done(state, ("pods", ch[0], ch[1], assignment), ch)
+
+        return self._merge_loop(state, chunks, speculate, commit, replay, lambda _ch: "perpod")
 
     # -- placement objectives ------------------------------------------------
 
@@ -1329,9 +1626,10 @@ class TorchScheduler:
         word fetched; the winner commits (w_hw = max(w_hw, its w_open)) and
         its FillYs decode against the committed slot_of; with no feasible
         variant the group replays through solve_fill under the canonical
-        rank. Returns (state, ys)."""
+        rank; with dp > 1 each round counts as a merge round in
+        last_stats["shard"] and the variants default to dp. Returns (state, ys)."""
         policy = self._active_policy
-        kv = objectives.variant_count(1)
+        kv = objectives.variant_count(self.dp)
         ranks = self._objective_variant_ranks(policy, kv)
         states, yss, word, _scores = ops_solver.solve_fill_variants(
             state, xs, *common[:5], ranks, self._objective_price_t(), *common[5:],
@@ -1340,6 +1638,9 @@ class TorchScheduler:
         w = int(fetch_tree(dict(word=word))["word"][0]) & 0xFFFFFFFF
         stats["verdict_fetches"] += 1
         stats["verdict_bytes"] += 4
+        if self._shard_stats is not None:
+            for k, v in (("merge_rounds", 1), ("verdict_fetches", 1), ("verdict_bytes", 4)):
+                self._shard_stats[k] += v
         stats["variant_solves"] += ranks.shape[0]
         if w & ((1 << 24) - 1):
             winner = (w >> 24) & 0xFF
@@ -1442,7 +1743,10 @@ class TorchScheduler:
                 else:
                     topo = copy.deepcopy(topology) if topology is not None else None
                 result = self._solve_once(current, [n.clone() for n in base_existing], budgets, topo)
-                round_dispatches.append((self.last_stats["perpod_dispatches"], self.last_stats["gang_dispatches"]))
+                st = self.last_stats
+                shard = st.get("shard") or {}
+                round_dispatches.append((st["perpod_dispatches"], st["gang_dispatches"], st["perpod_dp_rounds"],
+                                         shard.get("merge_rounds", 0), shard.get("groups_committed", 0)))
                 cap = _next_pow2(max(len(current), 1))
                 used = self._last_n_claims or self.max_claims or cap
                 leftover = sum(1 for _, reason in result.unschedulable if reason == NO_ROOM_REASON)
@@ -1460,11 +1764,15 @@ class TorchScheduler:
             result = prefs.run_with_relaxation(list(pods), solve_round)
         finally:
             self.reserved_mode = prev_mode
-        # last_stats describe the last round; these count every round
+        # last_stats describe the last round (last_stats["shard"] too); these
+        # count every round
         self.last_stats.update(
             rounds=len(round_dispatches),
             perpod_dispatches_all=sum(r[0] for r in round_dispatches),
             gang_dispatches_all=sum(r[1] for r in round_dispatches),
+            perpod_dp_rounds_all=sum(r[2] for r in round_dispatches),
+            merge_rounds_all=sum(r[3] for r in round_dispatches),
+            dp_commits_all=sum(r[4] for r in round_dispatches),
         )
         return result
 

@@ -59,14 +59,13 @@ class TopologyGroup:
 
     def ident(self) -> tuple:
         """Group identity (topologygroup.go Hash)."""
-        return (
-            self.type,
-            self.key,
-            tuple(sorted(self.selector.items())),
-            self.max_skew,
-            self.min_domains,
-            tuple(sorted(self.namespaces)),
-        )
+        return self.make_ident(self.type, self.key, self.selector, self.max_skew, self.min_domains, self.namespaces)
+
+    @staticmethod
+    def make_ident(ttype, key, selector, max_skew, min_domains, namespaces) -> tuple:
+        """The identity a group of these settings would have, without
+        building it (and copying its domain set)."""
+        return (ttype, key, tuple(sorted(selector.items())), max_skew, min_domains, tuple(sorted(namespaces)))
 
     def register(self, *domains: str) -> None:
         for d in domains:
@@ -195,25 +194,26 @@ class Topology:
         return topo
 
     def _ensure(self, ttype, key, selector, max_skew, min_domains, pod, domains) -> TopologyGroup:
-        g = TopologyGroup(
-            ttype, key, selector, max_skew, min_domains, frozenset({pod.metadata.namespace}), domains
-        )
-        existing = self._by_ident.get(g.ident())
+        # the identity is looked up before a group is built: building one
+        # copies the key's whole domain set
+        namespaces = frozenset({pod.metadata.namespace})
+        ident = TopologyGroup.make_ident(ttype, key, selector, max_skew, min_domains, namespaces)
+        existing = self._by_ident.get(ident)
         if existing is not None:
             return existing
-        self._by_ident[g.ident()] = g
+        g = self._by_ident[ident] = TopologyGroup(ttype, key, selector, max_skew, min_domains, namespaces, domains)
         self.groups.append(g)
         return g
 
     def _ensure_inverse(self, key, selector, domains, namespace: str) -> TopologyGroup:
-        g = TopologyGroup(
-            TopologyType.ANTI_AFFINITY, key, selector, 1, None, frozenset({namespace}), domains
-        )
-        ident = ("inverse",) + g.ident()
+        namespaces = frozenset({namespace})
+        ident = ("inverse",) + TopologyGroup.make_ident(TopologyType.ANTI_AFFINITY, key, selector, 1, None, namespaces)
         existing = self._by_ident.get(ident)
         if existing is not None:
             return existing
-        self._by_ident[ident] = g
+        g = self._by_ident[ident] = TopologyGroup(
+            TopologyType.ANTI_AFFINITY, key, selector, 1, None, namespaces, domains
+        )
         self.inverse_groups.append(g)
         return g
 

@@ -31,6 +31,7 @@ WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
     "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan", "retract_tail", "objective_verdict",
+    "dp_dead", "dp_verdict", "merge_shard",
 )
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
@@ -142,6 +143,9 @@ _ARGTYPES = {
     "gang_scan": [_P, _I, _P, _P],
     "retract_tail": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "objective_verdict": [_P, _I, _P],
+    "dp_dead": [_P, _I, _P, _P],
+    "dp_verdict": [_P, _I, _P, _P],
+    "merge_shard": [_P, _I, _P, _P],
 }
 
 
@@ -1002,3 +1006,207 @@ def objective_verdict(base_w_open, base_spills, outs: list, price_t, objective: 
         ctypes.cast(_i64_array([KV, W, T, B, G, objective]), ctypes.c_void_p),
     )
     return scores, word
+
+
+# ---------------------------------------------------------------------------
+# dp speculation: dp_dead (H12), dp_verdict (H13), merge_shard (H14)
+# ---------------------------------------------------------------------------
+
+
+def _checked(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev) -> int:
+    """t's device pointer after the launcher's checks."""
+    _check(t, name, dtype, dev)
+    if tuple(t.shape) != tuple(shape):
+        raise LaunchRefused(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return t.data_ptr()
+
+
+def _table(rows: list, dev) -> torch.Tensor:
+    """A [DP, F] int64 table of device pointers (and counts) on `dev`."""
+    return torch.tensor(rows, dtype=torch.int64).to(dev)
+
+
+def _launch(name: str, ptrs: list, dims: list) -> None:
+    _call(name, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs), ctypes.cast(_i64_array(dims), ctypes.c_void_p))
+
+
+def dp_dead(base, specs: list, r_min, it, key=None) -> torch.Tensor:
+    """H12: the [DP, 1 + DP] deadness matrix of a dp round (ops.solver.
+    dp_dead_plain) in one launch; `key` (ops.solver.DpKey) selects the kind
+    scan's predicate. The row states are read where they lie."""
+    b, i, f = torch.bool, torch.int32, torch.float32
+    dev = r_min.device
+    DP = len(specs)
+    W, R = base.used.shape
+    T, GR = it.alloc.shape[:2]
+    K, V = it.reqs.mask.shape[1:]
+    Z, C = it.zc_avail.shape[2:]
+    rows = []
+    for q, s in enumerate(specs):
+        rows.append([_checked(f"used[{q}]", s.used, f, (W, R), dev), _checked(f"its[{q}]", s.its, b, (W, T), dev),
+                     _checked(f"open[{q}]", s.open, b, (W,), dev), _checked(f"w_open[{q}]", s.w_open, i, (), dev)])
+    table = _table(rows, dev)
+    dead = torch.empty((DP, 1 + DP), dtype=b, device=dev)
+    if key is not None and (not 0 <= key.key_kid < K or key.D > V or T * GR > 16384):
+        raise LaunchRefused(f"dp_dead: key {key} outside K={K}, V={V} (or T*GR={T * GR} > 16384)")
+    ptrs = [
+        _checked("base.used", base.used, f, (W, R), dev), _checked("base.its", base.its, b, (W, T), dev),
+        _checked("base.open", base.open, b, (W,), dev), _checked("base.w_open", base.w_open, i, (), dev),
+        table.data_ptr(), _checked("r_min", r_min, f, (DP, R), dev),
+        _checked("alloc", it.alloc, f, (T, GR, R), dev), _checked("group_valid", it.group_valid, b, (T, GR), dev),
+        _checked("it.reqs.mask", it.reqs.mask, b, (T, K, V), dev),
+        _checked("it.reqs.defined", it.reqs.defined, b, (T, K), dev),
+        _checked("zc_avail", it.zc_avail, b, (T, GR, Z, C), dev), dead.data_ptr(),
+    ]
+    kscan = key is not None
+    _launch("dp_dead", ptrs, [DP, W, T, GR, R, int(kscan), key.key_kid if kscan else -1,
+                              key.zone_kid if kscan else -1, key.D if kscan else 0, K, V, Z, C])
+    return dead
+
+
+def _node_bytes(t: torch.Tensor) -> int:
+    n = 1
+    for d in t.shape[1:]:
+        n *= d
+    return n * t.element_size()
+
+
+def dp_verdict(base, specs: list, dead, exist, n_claims: int, vin) -> torch.Tensor:
+    """H13: the packed verdict word of a dp round (ops.solver.
+    dp_verdict_plain) in one launch, reading H12's matrix `dead` and the
+    round's ops.solver.DpVerdictIn. Returns [ceil(DP / 32)] int32."""
+    from karpenter_tpu_torch.ops.solver import exist_leaves
+
+    b, i, f = torch.bool, torch.int32, torch.float32
+    dev = dead.device
+    DP = len(specs)
+    W, R = base.used.shape
+    E = base.exist_used.shape[0]
+    G = base.budget.shape[0]
+    RID = base.res_cap.shape[0]
+    NGv, NGh = vin.rec_v.shape[1], vin.rec_h.shape[1]
+    fill = vin.fill_c is not None
+    bex = exist_leaves(base)
+    rows = []
+    for q, s in enumerate(specs):
+        sc = [_checked(f"{n}[{q}]", getattr(s, n), i, (), dev) for n in ("w_open", "n_open", "spills")]
+        if fill:
+            fc, lo = vin.fill_c[q], vin.leftover[q]
+            B = fc.shape[0]
+            touch = [_checked(f"fill_c[{q}]", fc, i, (B, W), dev), B, _checked(f"leftover[{q}]", lo, i, (B,), dev)]
+        else:
+            touch = [_checked(f"pods[{q}]", s.pods, i, (W,), dev), 0, 0]
+        ex = [_checked(f"exist[{q}]", t, bt.dtype, tuple(bt.shape), dev) for t, bt in zip(exist_leaves(s), bex)]
+        deb = [_checked(f"budget[{q}]", s.budget, f, (G, R), dev), _checked(f"nodes_budget[{q}]", s.nodes_budget, f,
+                                                                            (G,), dev),
+               _checked(f"res_cap[{q}]", s.res_cap, i, (RID,), dev)]
+        rows.append(sc + touch + ex + deb)
+    table = _table(rows, dev)
+    u8 = torch.uint8
+    touch_e = torch.empty((DP, E), dtype=u8, device=dev)
+    touch_b = torch.empty((DP, G), dtype=u8, device=dev)
+    viable = torch.empty((DP, E), dtype=u8, device=dev)
+    rowbits = torch.empty((DP, 4), dtype=i, device=dev)
+    ticket = torch.zeros(1, dtype=i, device=dev)
+    word = torch.empty((DP + 31) // 32, dtype=i, device=dev)
+    at = vin.apply_tmpl
+    ptrs = [
+        table.data_ptr(), _checked("base.w_open", base.w_open, i, (), dev),
+        _checked("base.n_open", base.n_open, i, (), dev), _checked("base.spills", base.spills, i, (), dev),
+        _checked("base.pods", base.pods, i, (W,), dev),
+        *(_checked("base.exist", t, t.dtype, tuple(t.shape), dev) for t in bex),
+        _checked("base.budget", base.budget, f, (G, R), dev),
+        _checked("base.nodes_budget", base.nodes_budget, f, (G,), dev),
+        _checked("base.res_cap", base.res_cap, i, (RID,), dev), _checked("dead", dead, b, (DP, 1 + DP), dev),
+        _checked("r_min", vin.r_min, f, (DP, R), dev), _checked("exist_ok_rows", vin.exist_ok_rows, b, (DP, E), dev),
+        _checked("rec_v", vin.rec_v, b, (DP, NGv), dev), _checked("app_v", vin.app_v, b, (DP, NGv), dev),
+        _checked("rec_h", vin.rec_h, b, (DP, NGh), dev), _checked("app_h", vin.app_h, b, (DP, NGh), dev),
+        0 if at is None else _checked("apply_tmpl", at, b, (DP, G), dev),
+        _checked("exist.valid", exist.valid, b, (E,), dev), _checked("exist.avail", exist.avail, f, (E, R), dev),
+        touch_e.data_ptr(), touch_b.data_ptr(), viable.data_ptr(), rowbits.data_ptr(), ticket.data_ptr(),
+        word.data_ptr(),
+    ]
+    _launch("dp_verdict", ptrs, [DP, W, E, R, NGv, NGh, G, RID, n_claims, int(fill), *(_node_bytes(t) for t in bex)])
+    return word
+
+
+def merge_shard(committed, spec, base, assignment=None) -> tuple:
+    """H14: one dp commit out of place (ops.solver.merge_shard_fill_plain,
+    or merge_shard_kscan_plain with `assignment`) in one launch. Returns
+    (merged state, shifted slot map, shifted assignment or None); every
+    field the commit writes is a fresh tensor."""
+    from karpenter_tpu_torch.ops.encode import ReqSetTensors
+    from karpenter_tpu_torch.ops.solver import GRAFT_WINDOW, exist_leaves
+
+    i = torch.int32
+    dev = committed.used.device
+    W = committed.open.shape[0]
+    NB = committed.bank_frozen.shape[0]
+    E, R = committed.exist_used.shape
+    NGh, S = committed.hg_counts.shape
+    NGv, V = committed.vg_counts.shape
+    G = committed.budget.shape[0]
+    RID = committed.res_cap.shape[0]
+    kscan = assignment is not None
+    ptrs, row_bytes, out = [], [], {}
+
+    def col(name, c, s, d):
+        ptrs.extend([_checked(f"committed.{name}", c, c.dtype, tuple(c.shape), dev),
+                     _checked(f"spec.{name}", s, c.dtype, tuple(c.shape), dev), d.data_ptr()])
+        row_bytes.append(_node_bytes(c))
+
+    for name in GRAFT_WINDOW:
+        c, s = getattr(committed, name), getattr(spec, name)
+        if isinstance(c, ReqSetTensors):
+            d = ReqSetTensors(*(torch.empty_like(t) for t in c))
+            for comp, (ct, st, dt) in enumerate(zip(c, s, d)):
+                col(f"{name}.{comp}", ct, st, dt)
+        else:
+            d = torch.empty_like(c)
+            col(name, c, s, d)
+        out[name] = d
+    n_win = len(row_bytes)
+    ex_c, ex_s, ex_b = exist_leaves(committed), exist_leaves(spec), exist_leaves(base)
+    ex_d = [torch.empty_like(t) for t in ex_c]
+    for n, (c, s, bb, d) in enumerate(zip(ex_c, ex_s, ex_b, ex_d)):
+        ptrs += [_checked(f"committed.exist[{n}]", c, c.dtype, tuple(c.shape), dev),
+                 _checked(f"spec.exist[{n}]", s, c.dtype, tuple(c.shape), dev),
+                 _checked(f"base.exist[{n}]", bb, c.dtype, tuple(c.shape), dev), d.data_ptr()]
+    open_d = torch.empty_like(committed.open)
+    slot_d = torch.empty_like(committed.slot_of)
+    shifted = torch.empty_like(committed.slot_of)
+    ptrs += [_checked("committed.open", committed.open, torch.bool, (W,), dev), open_d.data_ptr(),
+             _checked("committed.slot_of", committed.slot_of, i, (W,), dev),
+             _checked("spec.slot_of", spec.slot_of, i, (W,), dev), slot_d.data_ptr(), shifted.data_ptr()]
+    quads = {"hg_counts": (i, (NGh, S))}
+    if kscan:
+        quads.update(vg_counts=(i, (NGv, V)), budget=(torch.float32, (G, R)), nodes_budget=(torch.float32, (G,)),
+                     res_cap=(i, (RID,)))
+    new = {}
+    for name in ("hg_counts", "vg_counts", "budget", "nodes_budget", "res_cap"):
+        if name not in quads:
+            ptrs += [0, 0, 0, 0]
+            continue
+        dt, shape = quads[name]
+        new[name] = torch.empty(shape, dtype=dt, device=dev)
+        ptrs += [_checked(f"{w}.{name}", getattr(st, name), dt, shape, dev) for w, st in
+                 (("committed", committed), ("spec", spec), ("base", base))] + [new[name].data_ptr()]
+    assign = None
+    if kscan:
+        assign = torch.empty_like(assignment)
+        ptrs += [_checked("assignment", assignment, i, tuple(assignment.shape), dev), assign.data_ptr()]
+    else:
+        ptrs += [0, 0]
+    for name, st in (("n_open", committed), ("w_open", committed), ("w_hw", committed), ("n_open", spec),
+                     ("w_open", spec), ("n_open", base), ("w_open", base)):
+        ptrs.append(_checked(name, getattr(st, name), i, (), dev))
+    scalars = [torch.empty((), dtype=i, device=dev) for _ in range(3)]
+    ptrs += [t.data_ptr() for t in scalars]
+    NA = assignment.numel() if kscan else 0
+    _launch("merge_shard", ptrs, [n_win, W, NB, E, R, NGh, S, NGv, V, G, RID, NA, int(kscan), *row_bytes,
+                                  *(_node_bytes(t) for t in ex_c)])
+    merged = committed._replace(
+        **out, open=open_d, slot_of=slot_d, n_open=scalars[0], w_open=scalars[1], w_hw=scalars[2],
+        exist_used=ex_d[0], exist_ports=ex_d[1], exist_vols=ex_d[2], exist_reqs=ReqSetTensors(*ex_d[3:]), **new,
+    )
+    return merged, shifted, assign

@@ -205,6 +205,52 @@ def pack_bool_np(a) -> np.ndarray:
     return (bits * weights).sum(axis=-1, dtype=np.uint32).view(np.int32)
 
 
+def pack_bool(a: torch.Tensor) -> torch.Tensor:
+    """Device-side twin of pack_bool_np (same lane and bit layout): [..., N]
+    bool -> [..., ceil(N/32)] int32 (the reference's uint32 lanes, same
+    bits)."""
+    n = a.shape[-1]
+    lanes = packed_width(n)
+    pad = lanes * PACK_LANE - n
+    if pad:
+        a = torch.cat([a, torch.zeros(a.shape[:-1] + (pad,), dtype=torch.bool, device=a.device)], dim=-1)
+    bits = a.reshape(a.shape[:-1] + (lanes, PACK_LANE)).to(torch.int64)
+    weights = torch.ones(PACK_LANE, dtype=torch.int64, device=a.device) << torch.arange(
+        PACK_LANE, dtype=torch.int64, device=a.device)
+    return ((bits * weights).sum(dim=-1) & 0xFFFFFFFF).to(torch.uint32).view(torch.int32)
+
+
+def unpack_bool_np(packed, n: int) -> np.ndarray:
+    """[..., L] 32-bit lanes -> [..., n] bool (inverse of pack_bool_np)."""
+    packed = np.asarray(packed).view(np.uint32)
+    shifts = np.arange(PACK_LANE, dtype=np.uint32)
+    bits = (packed[..., :, None] >> shifts) & np.uint32(1)
+    flat = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * PACK_LANE,))
+    return flat[..., :n].astype(bool)
+
+
+def leading_ones(packed, n: int) -> int:
+    """The host's decode of a dp verdict word: the number of leading set
+    bits among the first n columns of a packed [L] word — the groups that
+    commit (the device already prefix-ANDs the rows; decode stops at the
+    first clear bit either way)."""
+    k = 0
+    for b in unpack_bool_np(packed, n).reshape(-1)[:n]:
+        if not b:
+            break
+        k += 1
+    return k
+
+
+def pairwise_commit_ok(conflict: torch.Tensor) -> torch.Tensor:
+    """[DP] bool from a [q, r] conflict matrix: row r passes iff no EARLIER
+    row q < r conflicts with it (conflicts at q >= r are ignored: the
+    sequential replay only ever commits prefixes)."""
+    n = conflict.shape[0]
+    qi = torch.arange(n, device=conflict.device)
+    return (~conflict | (qi[:, None] >= qi[None, :])).all(dim=0)
+
+
 def packed_conflict(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[...] bool — any(a & b) over the packed trailing axis."""
     return torch.any((a & b) != 0, dim=-1)

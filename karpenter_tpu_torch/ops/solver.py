@@ -36,6 +36,11 @@ ops/cuda.py):
   H11 objective_verdict objective_verdict        the K-variant fill
                       (solve_fill_variants)      dispatch's scores and
                                                  verdict word
+  H12 dp_dead         dp_dead                    a dp round's deadness
+                                                 matrix (fill / kscan)
+  H13 dp_verdict      dp_verdict                 a dp round's packed word
+  H14 merge_shard     merge_shard_fill,          one dp commit's graft
+                      merge_shard_kscan
 
 Each wrapper runs the kernel on CUDA tensors and its plain version (same
 module, `*_plain`) on CPU tensors. `plain=True` on the solve entry points,
@@ -2748,3 +2753,513 @@ def solve_gang(
     ys = cuda.gang_scan(pre, state, exist, it, templates, topo, zone_kid, n_claims, maxg, key_kid,
                         n_domains, tk_idx)
     return state, GangYs(*ys)
+
+
+# ---------------------------------------------------------------------------
+# dp speculation (the JAX package's solve_fill_dp / solve_kscan_dp /
+# solve_perpod_dp, their verdict word and merge_shard_fill /
+# merge_shard_kscan)
+# ---------------------------------------------------------------------------
+# DP chunk groups (fill or kind-scan segments, or per-pod chunks) solve
+# from the SAME round base; the host merges them in order. Row r commits
+# without a re-solve iff every live open claim of the base, and every
+# claim an earlier row q < r opened, is capacity-dead for r's elementwise-
+# min request (fits is total-based and monotone in the request, so no pod
+# of r could have landed on them), r filled no pre-base window row, its
+# topology records / existing-node debits / budget debits are disjoint
+# from what later rows read, nothing spilled, and the cumulative graft
+# offsets stay inside the window and the claims axis. A commit grafts the
+# row's fresh window rows at the committed w_open with global ids shifted
+# by the claim-id offset, and adds its count and debit deltas; the first
+# refused row replays sequentially. Either way the result equals the
+# sequential solve bit for bit.
+#
+# On one card the rows are not a mesh: the fill and kind-scan rows run
+# one after another through H1-H3 / H5-H6, the per-pod rows as one launch
+# of the per-pod kernel in scenario mode (a block per row). H12 dp_dead
+# computes the deadness matrix, H13 dp_verdict the packed word and H14
+# merge_shard the graft; each has its plain version here.
+
+# the window columns a graft copies (slot_of and open get their own rule)
+GRAFT_WINDOW = ("reqs", "used", "its", "template", "pods", "claim_ports", "held")
+
+
+def rows_dead_plain(used, its, open_mask, it: InstanceTypeTensors, r_min) -> torch.Tensor:
+    """[] bool — every row of open_mask is capacity-dead for r_min: used +
+    r_min (one f32 add) fits no viable (type, allocatable group) cell (the
+    reference's `_rows_dead`, compact_state's eviction rule as a
+    predicate). r_min = +inf rows fit nothing (a padding row)."""
+    total = used + r_min[None, :]  # [W, R]
+    fit = it.group_valid[None] & its[:, :, None]
+    for r in range(total.shape[1]):
+        t = total[:, None, None, r]
+        fit = fit & ((t <= it.alloc[None, :, :, r]) | (t == 0.0))
+    return ~(open_mask & fit.flatten(1).any(dim=1)).any()
+
+
+def kscan_rows_dead_plain(used, its, open_mask, it: InstanceTypeTensors, r_min, key_kid: int, zone_kid: int,
+                          D: int) -> torch.Tensor:
+    """[] bool — every row of open_mask is per-domain capacity-dead for
+    r_min: the grid count at (used, r_min) admits no pod in any domain of
+    the key over the all-admitting zone / capacity-type masks (the
+    reference's `_kscan_rows_dead`)."""
+    W = used.shape[0]
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    grid = cap_res_grid_plain(used, r_min, it)
+    ones = dict(dtype=torch.bool, device=used.device)
+    capd = kscan_capd_plain(grid, its, torch.ones((W, C), **ones), torch.ones((W, Z), **ones), it, key_kid,
+                            zone_kid, D)
+    return ~(open_mask & (capd > 0).any(dim=-1)).any()
+
+
+def window_live_dead(state: SolverState, it: InstanceTypeTensors, r_min) -> torch.Tensor:
+    """[] bool — every live open window claim is capacity-dead for r_min."""
+    return rows_dead_plain(state.used, state.its, state.open, it, r_min)
+
+
+def fill_touched_below(fill_c: torch.Tensor, w_lo) -> torch.Tensor:
+    """[] bool — a fill landed on a window row below w_lo ([B, W] fill_c)."""
+    rows = torch.arange(fill_c.shape[-1], dtype=I32, device=fill_c.device)
+    return ((fill_c > 0) & (rows < w_lo)[None, :]).any()
+
+
+def group_r_min(count: torch.Tensor, requests: torch.Tensor) -> torch.Tensor:
+    """[R] — the elementwise-min request over a group's live (count > 0)
+    segments or valid pods; +inf for a group with none (padding)."""
+    inf = torch.full_like(requests, float("inf"))
+    return torch.where((count > 0)[:, None], requests, inf).amin(dim=0)
+
+
+def opened_rows(base: SolverState, spec: SolverState) -> torch.Tensor:
+    """[W] bool — the claims a speculative row opened: window rows
+    [base.w_open, spec.w_open) that are open."""
+    rows = torch.arange(spec.open.shape[0], dtype=I32, device=spec.open.device)
+    return (rows >= base.w_open) & (rows < spec.w_open) & spec.open
+
+
+def exist_leaves(st: SolverState) -> list:
+    """The existing-node fields a row's touch is read from, in H13's and
+    H14's order: usage (f32), ports, volumes, the six requirement
+    components."""
+    return [st.exist_used, st.exist_ports, st.exist_vols, *st.exist_reqs]
+
+
+def exist_touched(spec: SolverState, base: SolverState) -> torch.Tensor:
+    """[E] bool — existing nodes whose state the row changed: any field
+    delta against the round base (the reference's `_exist_touched`)."""
+    E = base.exist_used.shape[0]
+    d = torch.zeros(E, dtype=torch.bool, device=base.exist_used.device)
+    for a, b in zip(exist_leaves(spec), exist_leaves(base)):
+        d = d | (a != b).reshape(E, -1).any(dim=1)
+    return d
+
+
+def exist_conflict(base: SolverState, specs: list, exist: ExistingNodes, exist_ok_rows, r_min) -> torch.Tensor:
+    """[q, r] bool — row q touched an existing node row r could use:
+    viable = valid & exist_ok_rows & _count_cap_seq(base used, r_min,
+    avail) > 0 (a conservative superset; the reference's
+    `_exist_conflict_ok` before its triangular reduction)."""
+    touched = torch.stack([exist_touched(s, base) for s in specs])  # [DP, E]
+    cap = _count_cap_seq(base.exist_used[None], r_min[:, None, :], exist.avail[None])  # [DP, E]
+    viable = exist.valid[None, :] & exist_ok_rows & (cap > 0)
+    return (touched[:, None, :] & viable[None, :, :]).any(dim=-1)
+
+
+def budget_res_conflict(base: SolverState, specs: list, apply_tmpl) -> torch.Tensor:
+    """[q, r] bool — row q changed template g's budget or node count and
+    row r's pods may consider g, or row q changed any reservation capacity
+    (the reference's `_budget_res_conflict`)."""
+    touch_b = torch.stack([(s.budget != base.budget).any(dim=-1) | (s.nodes_budget != base.nodes_budget)
+                           for s in specs])  # [DP, G]
+    touch_res = torch.stack([(s.res_cap != base.res_cap).any() for s in specs])  # [DP]
+    return (touch_b[:, None, :] & apply_tmpl[None, :, :]).any(dim=-1) | touch_res[:, None]
+
+
+def topo_conflict(rec_v, app_v, rec_h, app_h) -> torch.Tensor:
+    """[q, r] bool — row q records into a vocab-key or hostname group row r
+    applies."""
+    return (rec_v[:, None, :] & app_v[None, :, :]).any(dim=-1) | (rec_h[:, None, :] & app_h[None, :, :]).any(dim=-1)
+
+
+class DpKey(NamedTuple):
+    """The kind scan's vocab key (H12's kscan mode)."""
+
+    key_kid: int
+    zone_kid: int
+    D: int
+
+
+def dp_dead_plain(base: SolverState, specs: list, r_min, it: InstanceTypeTensors,
+                  key: Optional[DpKey] = None) -> torch.Tensor:
+    """[DP, 1 + DP] bool — entry [r, 0]: every live open claim of the base
+    is dead for r_min[r]; entry [r, 1 + q]: every claim row q opened is.
+    `key` None: the fill / per-pod predicate (rows_dead_plain), else the
+    kind scan's (kscan_rows_dead_plain)."""
+
+    def dead(used, its, om, rm):
+        if key is None:
+            return rows_dead_plain(used, its, om, it, rm)
+        return kscan_rows_dead_plain(used, its, om, it, rm, *key)
+
+    opened = [opened_rows(base, s) for s in specs]
+    out = []
+    for r in range(len(specs)):
+        out.append(torch.stack([dead(base.used, base.its, base.open, r_min[r])]
+                               + [dead(s.used, s.its, o, r_min[r]) for s, o in zip(specs, opened)]))
+    return torch.stack(out)
+
+
+def dp_dead(base: SolverState, specs: list, r_min, it: InstanceTypeTensors, key: Optional[DpKey] = None,
+            plain: bool = False) -> torch.Tensor:
+    """H12: the deadness matrix in one launch on CUDA, the plain version on
+    the CPU (or with plain=True)."""
+    if plain or r_min.device.type == "cpu":
+        return dp_dead_plain(base, specs, r_min, it, key)
+    return cuda.dp_dead(base, specs, r_min, it, key)
+
+
+class DpVerdictIn(NamedTuple):
+    """The per-row terms the verdict reads besides the states: each row's
+    min request, its existing-node gate, the topology groups it records
+    into / applies, the templates its pods may consider (per-pod family,
+    else None), and the fill family's fill grids and leftovers (else
+    None: the touch is read from the pods columns)."""
+
+    r_min: torch.Tensor  # [DP, R] f32
+    exist_ok_rows: torch.Tensor  # [DP, E] bool
+    rec_v: torch.Tensor  # [DP, NGv] bool (zero-width for fill rows)
+    app_v: torch.Tensor  # [DP, NGv]
+    rec_h: torch.Tensor  # [DP, NGh]
+    app_h: torch.Tensor  # [DP, NGh]
+    apply_tmpl: Optional[torch.Tensor] = None  # [DP, G] bool
+    fill_c: Optional[list] = None  # DP x [B_r, W] i32
+    leftover: Optional[list] = None  # DP x [B_r] i32
+
+
+def dp_verdict_word_plain(base: SolverState, specs: list, dead, n_claims: int, touched, extra_ok) -> torch.Tensor:
+    """[lanes] int32 — the packed commit verdict (the reference's
+    `_dp_verdict_word`): row r's bit is set iff r and every row before it
+    pass: base dead and every earlier row's opens dead for r (`dead`),
+    nothing touched below the base's w_open, the family extra, no new
+    spill, and the cumulative window / claims-axis graft offsets in
+    bounds."""
+    DP = len(specs)
+    W = base.open.shape[0]
+    qi = torch.arange(DP, device=dead.device)
+    cross_ok = (dead[:, 1:] | (qi[None, :] >= qi[:, None])).all(dim=1)
+    spills = torch.stack([s.spills for s in specs])
+    w_open = torch.stack([s.w_open for s in specs])
+    n_open = torch.stack([s.n_open for s in specs])
+    fit_w = base.w_open + torch.cumsum(w_open - base.w_open, 0) <= W
+    fit_n = base.n_open + torch.cumsum(n_open - base.n_open, 0) <= n_claims
+    ok = dead[:, 0] & cross_ok & ~touched & extra_ok & (spills == base.spills) & fit_w & fit_n
+    prefix = torch.cumsum((~ok).to(I32), 0) == 0
+    return kernels.pack_bool(prefix)
+
+
+def dp_verdict_plain(base: SolverState, specs: list, dead, exist: ExistingNodes, n_claims: int,
+                     vin: DpVerdictIn) -> torch.Tensor:
+    """The plain version of H13: each row's touched bit (fill: a fill below
+    the base's w_open; else more pods than the base on a row below it), the
+    family extra (fill: zero leftovers; every family: the vg / hg record-
+    vs-apply bit and the existing-node debit bit; per-pod: the budget /
+    reservation bit), then the word."""
+    W = base.open.shape[0]
+    below = torch.arange(W, dtype=I32, device=base.open.device) < base.w_open
+    if vin.fill_c is not None:
+        touched = torch.stack([fill_touched_below(fc, base.w_open) for fc in vin.fill_c])
+    else:
+        touched = torch.stack([((s.pods > base.pods) & below).any() for s in specs])
+    conflict = topo_conflict(vin.rec_v, vin.app_v, vin.rec_h, vin.app_h)
+    conflict = conflict | exist_conflict(base, specs, exist, vin.exist_ok_rows, vin.r_min)
+    if vin.apply_tmpl is not None:
+        conflict = conflict | budget_res_conflict(base, specs, vin.apply_tmpl)
+    extra = kernels.pairwise_commit_ok(conflict)
+    if vin.leftover is not None:
+        extra = extra & torch.stack([lo.sum() == 0 for lo in vin.leftover])
+    return dp_verdict_word_plain(base, specs, dead, n_claims, touched, extra)
+
+
+def dp_verdict(base: SolverState, specs: list, dead, exist: ExistingNodes, n_claims: int, vin: DpVerdictIn,
+               plain: bool = False) -> torch.Tensor:
+    """H13: the verdict word in one launch on CUDA, the plain version on the
+    CPU (or with plain=True)."""
+    if plain or dead.device.type == "cpu":
+        return dp_verdict_plain(base, specs, dead, exist, n_claims, vin)
+    return cuda.dp_verdict(base, specs, dead, exist, n_claims, vin)
+
+
+def _row_masks(live, xs, topo: TopologyTensors, vg: bool) -> dict:
+    """Per-row any over a row's live segments / valid pods ([DP, N] masks
+    `live`) of the record / apply / existing-node gates."""
+    def any_live(m):
+        return (live[:, :, None] & m).any(dim=1)
+
+    dp = live.shape[0]
+    out = dict(exist_ok_rows=any_live(xs["exist_ok"]), rec_h=any_live(xs["hg_records"]) & topo.hg_valid[None],
+               app_h=any_live(xs["hg_applies"]) & topo.hg_valid[None])
+    if vg:
+        out.update(rec_v=any_live(xs["vg_records"]) & topo.vg_valid[None],
+                   app_v=any_live(xs["vg_applies"]) & topo.vg_valid[None])
+    else:
+        z = torch.zeros((dp, 0), dtype=torch.bool, device=live.device)
+        out.update(rec_v=z, app_v=z)
+    return out
+
+
+def _stack_rows(xs_rows: list, fields: tuple) -> tuple:
+    """Rows of different segment counts padded with count-0 segments and
+    stacked: (live [DP, Bmax], {field: [DP, Bmax, ...]}, r_min [DP, R])."""
+    Bm = max(x.count.shape[0] for x in xs_rows)
+
+    def pad(t):
+        n = Bm - t.shape[0]
+        return torch.cat([t, t.new_zeros((n,) + tuple(t.shape[1:]))]) if n else t
+
+    live = torch.stack([pad(x.count) > 0 for x in xs_rows])
+    out = {f: torch.stack([pad(getattr(x, f)) for x in xs_rows]) for f in fields}
+    r_min = torch.stack([group_r_min(x.count, x.requests) for x in xs_rows])
+    return live, out, r_min
+
+
+def solve_fill_dp(
+    state: SolverState,
+    xs_rows: list,  # DP FillXs, one chunk group each (count-0 segments pad)
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    plain: bool = False,
+) -> tuple[list, list, torch.Tensor]:
+    """Speculative dp fan-out of fill chunk groups: every row's group solves
+    from the same base `state` (one after another through H1-H3, out of
+    place), then H12 and H13. Returns (DP row states, DP FillYs, verdict
+    word [lanes] int32); no host sync."""
+    specs, yss = [], []
+    for xs in xs_rows:
+        st, ys = solve_fill(state, xs, exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims,
+                            plain=plain)
+        specs.append(st)
+        yss.append(ys)
+    live, xs_b, r_min = _stack_rows(xs_rows, ("exist_ok", "hg_records", "hg_applies"))
+    vin = DpVerdictIn(r_min=r_min, **_row_masks(live, xs_b, topo, vg=False),
+                      fill_c=[ys.fill_c for ys in yss], leftover=[ys.leftover for ys in yss])
+    dead = dp_dead(state, specs, r_min, it, plain=plain)
+    return specs, yss, dp_verdict(state, specs, dead, exist, n_claims, vin, plain=plain)
+
+
+def solve_kscan_dp(
+    state: SolverState,
+    xs_rows: list,  # DP KindXs, one chunk group each
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    key_kid: int,
+    n_domains: int,
+    maxc: int,
+    counts_rows: list,  # DP host lists of the rows' segment counts
+    requests_rows: list,  # DP host [B_r, R] request rows
+    grid_incremental: bool = True,
+    plain: bool = False,
+) -> tuple[list, list, torch.Tensor]:
+    """Speculative dp fan-out of kind-scan chunk groups: each row's segments
+    scan from the base with a fresh grid (H5 / H6, rows one after
+    another), then H12 in its kscan mode and H13 with the vg / hg record-
+    vs-apply bit. Returns (DP row states, DP KindYs, verdict word)."""
+    specs, yss = [], []
+    for xs, counts, req in zip(xs_rows, counts_rows, requests_rows):
+        st, ys = solve_kind_scan(state, xs, exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims,
+                                 key_kid, n_domains, maxc, counts, req, grid_incremental, plain)
+        specs.append(st)
+        yss.append(ys)
+    live, xs_b, r_min = _stack_rows(xs_rows, ("exist_ok", "hg_records", "hg_applies", "vg_records", "vg_applies"))
+    vin = DpVerdictIn(r_min=r_min, **_row_masks(live, xs_b, topo, vg=True))
+    dead = dp_dead(state, specs, r_min, it, DpKey(key_kid, zone_kid, n_domains), plain=plain)
+    return specs, yss, dp_verdict(state, specs, dead, exist, n_claims, vin, plain=plain)
+
+
+def solve_perpod_dp(
+    state: SolverState,
+    pods: PodTensors,  # the round's gathered pod block
+    pod_tmpl_ok: torch.Tensor,
+    pod_it_allow: torch.Tensor,
+    pod_exist_ok: torch.Tensor,
+    pod_ports: torch.Tensor,
+    pod_port_conf: torch.Tensor,
+    pod_vols: torch.Tensor,
+    pod_idx: torch.Tensor,  # [DP, L] — row r's step i reads block row pod_idx[r, i]
+    valid: torch.Tensor,  # [DP, L] bool — False past a row's chunk
+    exist: ExistingNodes,
+    it: InstanceTypeTensors,
+    templates: Templates,
+    well_known: torch.Tensor,
+    topo: TopologyTensors,
+    pod_topo: topo_ops.PodTopology,
+    zone_kid: int,
+    ct_kid: int,
+    n_claims: int,
+    topo_kids: tuple = (),
+    plain: bool = False,
+    tables: Optional[tuple] = None,
+    flags: PerPodFlags = PerPodFlags(),
+) -> tuple[list, torch.Tensor, torch.Tensor]:
+    """Speculative dp fan-out of per-pod chunks: every row scans its chunk
+    from the same base. On CUDA the DP rows run in ONE launch of the
+    per-pod kernel in scenario mode (a block per row) over a stacked copy
+    of the base (its own vg / hg counts on every row; the problem's
+    topology seeds stay the solve's), reading the base's existing nodes on
+    every row; the plain version loops perpod_loop_plain from the base per
+    row. Then H12 and H13 with the budget / reservation bit. Returns (DP
+    row states, assignment [DP, L] int32, verdict word)."""
+    DP, L = pod_idx.shape
+    idx = pod_idx.long()
+    xs = pod_xs(pods, pod_tmpl_ok, pod_it_allow, pod_exist_ok, pod_ports, pod_port_conf, pod_vols, pod_topo)
+    ctx = PerPodCtx(exist, it, templates, well_known, topo, zone_kid, ct_kid, n_claims, tuple(topo_kids), tables,
+                    flags)
+    if plain or valid.device.type == "cpu":
+        specs, rows = [], []
+        for r in range(DP):
+            st, a = perpod_loop_plain(state, _take_x(xs, idx[r])._replace(valid=valid[r]), ctx)
+            specs.append(st)
+            rows.append(a)
+        assignment = torch.stack(rows)
+    else:
+        stacked = stack_scenarios(state, DP, state.vg_counts.expand((DP,) + tuple(state.vg_counts.shape)),
+                                  state.hg_counts.expand((DP,) + tuple(state.hg_counts.shape)))
+        exist_valid = exist.valid.expand(DP, exist.valid.shape[0]).contiguous()
+        assignment = cuda.perpod_whatif(stacked, xs, ctx, pod_idx.to(I32).contiguous(), valid.contiguous(),
+                                        exist_valid)
+        specs = [scenario_state(stacked, r) for r in range(DP)]
+    inf = torch.full((DP, L, pods.requests.shape[1]), float("inf"), dtype=F32, device=valid.device)
+    r_min = torch.where(valid[:, :, None], pods.requests[idx], inf).amin(dim=1)
+    rows_x = dict(exist_ok=pod_exist_ok[idx], hg_records=pod_topo.hg_records[idx],
+                  hg_applies=pod_topo.hg_applies[idx], vg_records=pod_topo.vg_records[idx],
+                  vg_applies=pod_topo.vg_applies[idx])
+    vin = DpVerdictIn(r_min=r_min, **_row_masks(valid, rows_x, topo, vg=True),
+                      apply_tmpl=(valid[:, :, None] & pod_tmpl_ok[idx]).any(dim=1))
+    dead = dp_dead(state, specs, r_min, it, plain=plain)
+    return specs, assignment, dp_verdict(state, specs, dead, exist, n_claims, vin, plain=plain)
+
+
+# ---- the graft (H14's plain version) ---------------------------------------
+
+
+def graft_window_fields(committed: SolverState, spec: SolverState, base_n_open, base_w_open) -> tuple:
+    """The window graft shared by every family (the reference's
+    `_graft_window_fields`): spec rows [base_w_open, spec.w_open) land at
+    committed.w_open.. with global ids shifted by delta = committed.n_open
+    - base_n_open. Returns (field updates, shifted slot map, delta)."""
+    W = committed.open.shape[0]
+    NB = committed.bank_frozen.shape[0]
+    dev = committed.open.device
+    k = spec.w_open - base_w_open
+    delta = committed.n_open - base_n_open
+    pos = torch.arange(W, dtype=I32, device=dev) - committed.w_open
+    grab = (pos >= 0) & (pos < k)
+    src = torch.clamp(base_w_open + pos, 0, W - 1).long()
+    shifted = torch.where((spec.slot_of >= base_n_open) & (spec.slot_of < NB), spec.slot_of + delta, spec.slot_of)
+
+    def take(cf, sf):
+        g = grab.reshape(grab.shape + (1,) * (cf.dim() - 1))
+        return torch.where(g, sf[src], cf)
+
+    w_open = committed.w_open + k
+    fields = dict(
+        reqs=select_set(grab, take_set(spec.reqs, src), committed.reqs),
+        **{f: take(getattr(committed, f), getattr(spec, f)) for f in GRAFT_WINDOW if f != "reqs"},
+        open=committed.open | grab,
+        slot_of=torch.where(grab, shifted[src], committed.slot_of),
+        n_open=committed.n_open + (spec.n_open - base_n_open),
+        w_open=w_open,
+        w_hw=torch.maximum(committed.w_hw, w_open),
+    )
+    return fields, shifted, delta
+
+
+def graft_exist_fields(committed: SolverState, spec: SolverState, base: SolverState) -> dict:
+    """Whole-field graft of every existing node the row touched (a field
+    delta against the round base; the reference's `_graft_exist_fields`)."""
+    touched = exist_touched(spec, base)
+
+    def sel(a, b):
+        return torch.where(touched.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return dict(
+        exist_reqs=select_set(touched, spec.exist_reqs, committed.exist_reqs),
+        exist_used=sel(spec.exist_used, committed.exist_used),
+        exist_ports=sel(spec.exist_ports, committed.exist_ports),
+        exist_vols=sel(spec.exist_vols, committed.exist_vols),
+    )
+
+
+def merge_hg_delta(committed: SolverState, spec_hg, base: SolverState, delta, spec_n_open) -> torch.Tensor:
+    """The hostname-group count merge (the reference's `_merge_hg_delta`):
+    existing-node columns [0, E) add the row's delta in place, fresh-claim
+    columns add it shifted by the claim-id delta."""
+    E = committed.exist_used.shape[0]
+    S = committed.hg_counts.shape[1]
+    cols = torch.arange(S, dtype=I32, device=spec_hg.device)
+    src_c = torch.clamp(cols - delta, 0, S - 1).long()
+    dh = spec_hg - base.hg_counts
+    in_rng = (cols - delta >= E + base.n_open) & (cols - delta < E + spec_n_open)
+    zero = torch.zeros_like(dh)
+    return committed.hg_counts + torch.where(in_rng[None, :], dh[:, src_c], zero) + torch.where(
+        (cols < E)[None, :], dh, zero)
+
+
+def merge_shard_fill_plain(committed: SolverState, spec: SolverState, base: SolverState) -> tuple:
+    """The plain version of H14's fill mode (the reference's
+    merge_shard_fill): (merged state, shifted slot map). Out of place."""
+    fields, shifted, delta = graft_window_fields(committed, spec, base.n_open, base.w_open)
+    hg = merge_hg_delta(committed, spec.hg_counts, base, delta, spec.n_open)
+    return committed._replace(hg_counts=hg, **graft_exist_fields(committed, spec, base), **fields), shifted
+
+
+def merge_shard_kscan_plain(committed: SolverState, spec: SolverState, assignment, base: SolverState) -> tuple:
+    """The plain version of H14's kscan / per-pod mode (the reference's
+    merge_shard_kscan): the fill graft plus the vg delta, the finite
+    budget and node-count deltas, the reservation delta and the assignment
+    shift (slots >= E + base.n_open move by the claim-id delta; existing
+    nodes and the < 0 sentinels pass). (merged, shifted, assignment')."""
+    fields, shifted, delta = graft_window_fields(committed, spec, base.n_open, base.w_open)
+    E = committed.exist_used.shape[0]
+    zb = torch.zeros_like(base.budget)
+    zn = torch.zeros_like(base.nodes_budget)
+    merged = committed._replace(
+        vg_counts=committed.vg_counts + (spec.vg_counts - base.vg_counts),
+        hg_counts=merge_hg_delta(committed, spec.hg_counts, base, delta, spec.n_open),
+        budget=committed.budget + torch.where(torch.isfinite(base.budget), spec.budget - base.budget, zb),
+        nodes_budget=committed.nodes_budget + torch.where(
+            torch.isfinite(base.nodes_budget), spec.nodes_budget - base.nodes_budget, zn),
+        res_cap=committed.res_cap + (spec.res_cap - base.res_cap),
+        **graft_exist_fields(committed, spec, base),
+        **fields,
+    )
+    assign = torch.where(assignment >= E + base.n_open, assignment + delta, assignment)
+    return merged, shifted, assign
+
+
+def merge_shard_fill(committed: SolverState, spec: SolverState, base: SolverState, plain: bool = False) -> tuple:
+    """H14 fill mode: one commit out of place in one launch on CUDA, the
+    plain version on the CPU (or with plain=True)."""
+    if plain or committed.used.device.type == "cpu":
+        return merge_shard_fill_plain(committed, spec, base)
+    merged, shifted, _assign = cuda.merge_shard(committed, spec, base, None)
+    return merged, shifted
+
+
+def merge_shard_kscan(committed: SolverState, spec: SolverState, assignment, base: SolverState,
+                      plain: bool = False) -> tuple:
+    """H14 kscan / per-pod mode (see merge_shard_kscan_plain)."""
+    if plain or committed.used.device.type == "cpu":
+        return merge_shard_kscan_plain(committed, spec, assignment, base)
+    return cuda.merge_shard(committed, spec, base, assignment)

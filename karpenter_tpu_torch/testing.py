@@ -277,7 +277,120 @@ PORT = types.SimpleNamespace(
     template_universe_domains=template_universe_domains, fake=fake, NodePool=NodePool,
     build_templates=build_templates, HostPort=HostPort, VolumeUsage=VolumeUsage,
     make_gang_pods=make_gang_pods, TopologySpreadConstraint=TopologySpreadConstraint,
+    PodAffinityTerm=PodAffinityTerm,
 )
+
+
+# ---------------------------------------------------------------------------
+# dp speculation workloads (the JAX package's tests/test_shard.py builders
+# and bench.py's shard stage helpers)
+# ---------------------------------------------------------------------------
+
+
+def existing_sim_nodes(n: int = 2, cpu_avail: float = 4.0, side=PORT) -> list:
+    """Part-full on-demand nodes exist-<i> in test-zone-1 (bench.py's
+    existing_sim_nodes): dp rows racing to debit them exercise the
+    existing-node debit bit."""
+    L, R = side.l, side.res
+    nodes = []
+    for i in range(n):
+        name = f"exist-{i}"
+        labels = {
+            L.LABEL_TOPOLOGY_ZONE: "test-zone-1", L.LABEL_INSTANCE_TYPE: "s-4x-amd64",
+            L.CAPACITY_TYPE_LABEL_KEY: L.CAPACITY_TYPE_ON_DEMAND, L.LABEL_ARCH: L.ARCH_AMD64, L.LABEL_OS: "linux",
+            L.LABEL_HOSTNAME: name, L.NODEPOOL_LABEL_KEY: "default",
+        }
+        nodes.append(side.ExistingSimNode(
+            name=name, index=i, requirements=side.Requirements.from_labels(labels),
+            available={R.CPU: cpu_avail, R.MEMORY: float(8 * 2**30), R.PODS: 50.0},
+        ))
+    return nodes
+
+
+def mv_templates(n_types: int, mv: int = 2, side=PORT):
+    """One default pool over instance_types(n_types) whose requirements
+    carry an instance-type minValues floor (bench.py's mv_templates)."""
+    pool = side.NodePool()
+    pool.metadata.name = "default"
+    pool.spec.template.spec.requirements = [
+        {"key": side.l.LABEL_INSTANCE_TYPE, "operator": "Exists", "minValues": mv}
+    ]
+    return side.build_templates([(pool, side.fake.instance_types(n_types))])
+
+
+def sized_kind_pods(n: int = 256, kinds: int = 8, prefix: str = "m", mixed: bool = True, side=PORT) -> list:
+    """Kinds of n // kinds pods each. mixed: distinct sizes, so later
+    (smaller) kinds still fit earlier kinds' part-full claims and dp rows
+    replay; else 2 cpu / 1Gi pods labelled grp=<kind>, whose claims fill to
+    capacity, so dp rows graft (tests/test_shard.py mixed_kind_pods /
+    saturating_kind_pods)."""
+    per = n // kinds
+    pods = []
+    for i in range(n):
+        k = i // per
+        if mixed:
+            pods.append(side.make_pod(f"{prefix}-{i}", cpu=[0.25, 0.5, 1.0][k % 3], memory=f"{[0.5, 1.0][k % 2]}Gi"))
+            continue
+        p = side.make_pod(f"{prefix}-{i}", cpu=2.0, memory="1Gi")
+        p.metadata.labels = {"grp": str(k)}
+        pods.append(p)
+    return pods
+
+
+def spread_kind_pods(n: int, kinds: int, prefix: str, keys: tuple, label: str = "spread", shared: bool = False,
+                     mixed: bool = False, side=PORT) -> list:
+    """Kinds spread over `keys` (topology keys) by their own selector, or
+    one selector shared by every kind; 2 cpu / 1Gi pods, or mixed sizes
+    (tests/test_shard.py zonal_kind_pods, hostname_spread_pods,
+    perpod_kind_pods)."""
+    per = n // kinds
+    pods = []
+    for i in range(n):
+        k = i // per
+        sel = prefix if shared else f"{prefix}{k}"
+        if mixed:
+            p = side.make_pod(f"{prefix}-{i}", cpu=[0.25, 0.5, 1.0][k % 3], memory=f"{[0.5, 1.0][k % 2]}Gi")
+        else:
+            p = side.make_pod(f"{prefix}-{i}", cpu=2.0, memory="1Gi")
+        p.metadata.labels = {"grp": str(k), label: sel}
+        p.spec.topology_spread_constraints = [
+            side.TopologySpreadConstraint(max_skew=1, topology_key=key, label_selector={label: sel}) for key in keys
+        ]
+        pods.append(p)
+    return pods
+
+
+# the dp merge counters both packages keep (the reference's
+# last_timings["shard"], the port's last_stats["shard"])
+SHARD_KEYS = ("merge_rounds", "groups_committed", "groups_replayed", "verdict_fetches", "verdict_bytes",
+              "dp_rows_total", "dp_rows_committed", "dp_rows_replayed", "dp_rows_idle")
+
+
+def shard_counters(stats: dict) -> dict:
+    """A shard record cut to the counters both packages keep: the merge
+    counters, per family (committed, replayed) and per family routing
+    coverage (dp, sequential)."""
+    from karpenter_tpu_torch.controllers.provisioning.scheduler import SHARD_FAMILIES
+
+    out = {k: stats[k] for k in SHARD_KEYS}
+    out["families"] = {f: [stats["families"][f]["committed"], stats["families"][f]["replayed"]]
+                       for f in SHARD_FAMILIES}
+    out["coverage"] = {f: [c["dp"], c["sequential"]] for f, c in stats["coverage"].items()}
+    return out
+
+
+def anti_affinity_pods(n: int = 96, per: int = 24, prefix: str = "ta", side=PORT) -> list:
+    """Self-anti-affinity kinds on the hostname key, n // per of them
+    (tests/test_shard.py test_shared_hg_selector_conflict_replays)."""
+    pods = []
+    for i in range(n):
+        p = side.make_pod(f"{prefix}-{i}", cpu=0.5, memory="0.5Gi")
+        p.metadata.labels = {"app": f"db{i // per}"}
+        p.spec.pod_anti_affinity = [
+            side.PodAffinityTerm(topology_key=side.l.LABEL_HOSTNAME, label_selector={"app": f"db{i // per}"})
+        ]
+        pods.append(p)
+    return pods
 
 
 @dataclass

@@ -68,6 +68,7 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline uint32_t __cvta_generic_to_shared(const void*) { return 0; }
 

@@ -397,7 +397,9 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
     # scenario mode (tests/test_torch_whatif.py), the gang kernel's (no
     # gang here; tests/test_torch_gang_emulated.py), the retract
     # kernel's (no resident session here; tests/test_torch_retract_emulated.py)
-    # and the objective verdict's (a lexical solve has no objective round;
-    # tests/test_torch_objective_emulated.py)
+    # the objective verdict's (a lexical solve has no objective round;
+    # tests/test_torch_objective_emulated.py) and the dp kernels' (a dp = 1
+    # solve has no merge round; tests/test_torch_shard_emulated.py)
     assert set(seen) == (set(p_cuda.KERNELS) - set(p_cuda.PERPOD_KERNELS) - set(p_cuda.WHATIF_KERNELS)
-                         - {"gang_scan", "retract_tail", "objective_verdict"}), seen
+                         - {"gang_scan", "retract_tail", "objective_verdict", "dp_dead", "dp_verdict",
+                            "merge_shard"}), seen

@@ -1,0 +1,248 @@
+"""The dp speculation kernels' own sources, csrc/dp_dead.cu (H12),
+csrc/dp_verdict.cu (H13) and csrc/merge_shard.cu (H14), run on the CPU.
+
+The CUDA kernels cannot run here, so this file compiles each with the
+host's C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+barriers for __syncthreads and the warp collectives, the blocks of a grid
+one after another) and routes ops/cuda.py's launches to those libraries.
+The launchers then run on CPU tensors and are held to the plain versions
+(ops/solver.py dp_dead_plain, dp_verdict_plain, merge_shard_fill_plain /
+merge_shard_kscan_plain):
+- inside CPU solves with dp = 2 and 4 (fill, kind scan, per-pod, existing
+  nodes, hostname groups, minValues under a budget), every round's
+  deadness matrix, verdict word and every commit through the kernel and
+  the plain version, equal, and the solve's result equal to the plain
+  solve's;
+- on a captured round widened to DP = 1, 5 and 33 (two lanes of the
+  word), with padding rows (r_min = +inf) among the rows, in both of
+  H12's modes.
+The emulation checks the kernels' logic, not their timing or what the
+GPU compiler does with them: chip_smoke.py holds the compiled kernels to
+the plain versions on the card. Tolerance: exact.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+from karpenter_tpu_torch import testing as T
+from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+from karpenter_tpu_torch.ops import cuda as p_cuda
+from karpenter_tpu_torch.ops import solver as p_solver
+
+from test_torch_scheduler import _view
+
+HERE = Path(__file__).resolve().parent
+SOURCES = ("dp_dead", "dp_verdict", "merge_shard")
+L_ZONE, L_CT, L_HOST = T.l.LABEL_TOPOLOGY_ZONE, T.l.CAPACITY_TYPE_LABEL_KEY, T.l.LABEL_HOSTNAME
+
+
+def _emulated_source(name: str) -> str:
+    """csrc/<name>.cu with the CUDA header and launch syntax swapped for
+    the emulator's."""
+    src = (p_cuda.CSRC / f"{name}.cu").read_text()
+    src = src.replace(
+        "#include <cuda_runtime.h>",
+        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
+        "thread_local int tl_parity;",
+    )
+    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
+    assert n == 1, "one kernel launch"
+    return src
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """ops/cuda.py's C-entry calls routed to the emulated dp kernels."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build the emulated kernels")
+    d = tmp_path_factory.mktemp("shard_emu")
+    fns = {}
+    for name in SOURCES:
+        (d / f"{name}.cpp").write_text(_emulated_source(name))
+        lib_path = d / f"lib{name}_emu.so"
+        res = subprocess.run(
+            [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", f"-I{p_cuda.CSRC}", "-o",
+             str(lib_path), str(d / f"{name}.cpp")],
+            capture_output=True, text=True,
+        )
+        assert res.returncode == 0, res.stderr[-4000:]
+        fn = getattr(ctypes.CDLL(str(lib_path)), name)
+        fn.argtypes = p_cuda._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    calls = {n: 0 for n in SOURCES}
+
+    def invoke(source, entry, *args):
+        assert source == entry and source in fns, (source, entry)
+        rc = fns[source](*args, None)
+        if rc:
+            raise RuntimeError(f"emulated {source}: error {rc}")
+        calls[source] += 1
+
+    invoke.calls = calls
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield invoke
+    torch.set_num_threads(n)
+
+
+def _same_state(a, b, what):
+    for f in p_solver.SolverState._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        xs, ys = (list(x), list(y)) if isinstance(x, tuple) else ([x], [y])
+        for i, (u, v) in enumerate(zip(xs, ys)):
+            assert u.dtype == v.dtype and u.shape == v.shape and torch.equal(u, v), (what, f, i)
+
+
+def _both_ways(monkeypatch, emulated, rounds: list):
+    """Route the dp wrappers through the emulated kernels AND the plain
+    versions, assert they agree, return the plain results; each round's
+    H12 / H13 inputs are appended to `rounds`."""
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+    plain_dead, plain_verdict = p_solver.dp_dead_plain, p_solver.dp_verdict_plain
+    plain_fill, plain_kscan = p_solver.merge_shard_fill_plain, p_solver.merge_shard_kscan_plain
+
+    def dead(base, specs, r_min, it, key=None, plain=False):
+        want = plain_dead(base, specs, r_min, it, key)
+        got = p_cuda.dp_dead(base, specs, r_min, it, key)
+        assert torch.equal(got, want), (got, want)
+        rounds.append(dict(base=base, specs=specs, r_min=r_min, it=it, key=key))
+        return want
+
+    def verdict(base, specs, dead_m, exist, n_claims, vin, plain=False):
+        want = plain_verdict(base, specs, dead_m, exist, n_claims, vin)
+        got = p_cuda.dp_verdict(base, specs, dead_m, exist, n_claims, vin)
+        assert torch.equal(got, want), (got, want)
+        rounds[-1].update(dead=dead_m, exist=exist, n_claims=n_claims, vin=vin)
+        return want
+
+    def fill(committed, spec, base, plain=False):
+        want = plain_fill(committed, spec, base)
+        got, shifted, _none = p_cuda.merge_shard(committed, spec, base, None)
+        _same_state(got, want[0], "merge_shard fill")
+        assert torch.equal(shifted, want[1])
+        return want
+
+    def kscan(committed, spec, assignment, base, plain=False):
+        want = plain_kscan(committed, spec, assignment, base)
+        got, shifted, assign = p_cuda.merge_shard(committed, spec, base, assignment)
+        _same_state(got, want[0], "merge_shard kscan")
+        assert torch.equal(shifted, want[1]) and torch.equal(assign, want[2])
+        return want
+
+    monkeypatch.setattr(p_solver, "dp_dead", dead)
+    monkeypatch.setattr(p_solver, "dp_verdict", verdict)
+    monkeypatch.setattr(p_solver, "merge_shard_fill", fill)
+    monkeypatch.setattr(p_solver, "merge_shard_kscan", kscan)
+
+
+SOLVES = {
+    "fill_graft": (lambda: T.sized_kind_pods(128, kinds=4, prefix="s", mixed=False), 2, None, None, None),
+    "fill_replay": (lambda: T.sized_kind_pods(128, kinds=4, prefix="m"), 2, None, None, None),
+    "existing": (lambda: T.sized_kind_pods(128, kinds=4, prefix="e"), 2, None,
+                 lambda: T.existing_sim_nodes(cpu_avail=8.0), None),
+    "hostname_spread": (lambda: T.spread_kind_pods(96, 4, "h", (L_HOST,), label="hspread"), 2, None, None, None),
+    "kscan": (lambda: T.spread_kind_pods(96, 4, "z", (L_ZONE,)), 2, None, None, None),
+    "kscan_shared": (lambda: T.spread_kind_pods(96, 4, "zs", (L_ZONE,), shared=True), 2, None, None, None),
+    "perpod_dp4": (lambda: T.spread_kind_pods(128, 4, "pp", (L_ZONE, L_CT)), 4, 32, None, None),
+    "perpod_mv_budget": (lambda: T.spread_kind_pods(128, 4, "pb", (L_ZONE, L_CT), mixed=True), 2, 32, None,
+                         {"default": {"cpu": 1e6}}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SOLVES))
+def test_emulated_kernels_inside_cpu_solves(case, emulated, monkeypatch):
+    pods_fn, dp, chunk, existing_fn, budgets = SOLVES[case]
+    templates = T.mv_templates(24) if case == "perpod_mv_budget" else T.make_templates(24)
+
+    def solve(dp_n):
+        s = TorchScheduler(templates, device="cpu", dp=dp_n)
+        s.pipeline_min_pods = 32
+        if chunk:
+            s.solve_chunk = chunk
+        kw = dict(budgets={p: dict(b) for p, b in budgets.items()}) if budgets else {}
+        return s.solve(pods_fn(), existing_fn() if existing_fn else [], **kw), s.last_stats
+
+    want, _stats = solve(1)
+    rounds = []
+    _both_ways(monkeypatch, emulated, rounds)
+    got, stats = solve(dp)
+    assert _view(got) == _view(want)
+    assert stats["shard"]["merge_rounds"] == len(rounds) >= 1
+    assert emulated.calls["dp_dead"] >= len(rounds) and emulated.calls["dp_verdict"] >= len(rounds)
+
+
+def _captured_round(monkeypatch, pods, dp, chunk=None):
+    """The H12 / H13 inputs of a CPU dp solve's first round (plain
+    versions throughout)."""
+    rounds = []
+    dead_plain, verdict_plain = p_solver.dp_dead, p_solver.dp_verdict
+
+    def dead(base, specs, r_min, it, key=None, plain=False):
+        rounds.append(dict(base=base, specs=specs, r_min=r_min, it=it, key=key))
+        return dead_plain(base, specs, r_min, it, key)
+
+    def verdict(base, specs, dead_m, exist, n_claims, vin, plain=False):
+        rounds[-1].update(dead=dead_m, exist=exist, n_claims=n_claims, vin=vin)
+        return verdict_plain(base, specs, dead_m, exist, n_claims, vin)
+
+    with monkeypatch.context() as m:
+        m.setattr(p_solver, "dp_dead", dead)
+        m.setattr(p_solver, "dp_verdict", verdict)
+        s = TorchScheduler(T.make_templates(24), device="cpu", dp=dp)
+        s.pipeline_min_pods = 32
+        if chunk:
+            s.solve_chunk = chunk
+        s.solve(pods)
+    return rounds[0]
+
+
+def _widen(rnd: dict, DP: int, pad_every: int):
+    """The round's rows repeated to DP rows, every pad_every-th a padding
+    row (r_min = +inf)."""
+    n = len(rnd["specs"])
+    pick = [r % n for r in range(DP)]
+    r_min = rnd["r_min"][pick].clone()
+    for r in range(DP):
+        if pad_every and r % pad_every == pad_every - 1:
+            r_min[r] = float("inf")
+    vin = rnd["vin"]
+    rows = {f: (getattr(vin, f)[pick] if getattr(vin, f) is not None else None)
+            for f in ("exist_ok_rows", "rec_v", "app_v", "rec_h", "app_h", "apply_tmpl")}
+    lists = {f: ([getattr(vin, f)[i] for i in pick] if getattr(vin, f) is not None else None)
+             for f in ("fill_c", "leftover")}
+    return [rnd["specs"][i] for i in pick], r_min, vin._replace(r_min=r_min, **rows, **lists)
+
+
+@pytest.mark.parametrize("family", ["fill", "kscan", "perpod"])
+@pytest.mark.parametrize("DP", [1, 5, 33])
+def test_emulated_round_widened(family, DP, emulated, monkeypatch):
+    """A captured round's rows repeated to DP = 1, 5 and 33 (the word's
+    second lane), every third row a padding row: H13 equals its plain
+    version, and H12 (its kscan mode on the kind-scan round) at DP 1 and 5
+    (33 x 34 emulated blocks would take minutes)."""
+    if family == "fill":
+        rnd = _captured_round(monkeypatch, T.sized_kind_pods(128, kinds=4, prefix="w", mixed=False), 2)
+    elif family == "kscan":
+        rnd = _captured_round(monkeypatch, T.spread_kind_pods(96, 4, "wz", (L_ZONE,)), 2)
+    else:
+        rnd = _captured_round(monkeypatch, T.spread_kind_pods(128, 4, "wp", (L_ZONE, L_CT)), 4, chunk=32)
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+    specs, r_min, vin = _widen(rnd, DP, 3)
+    base, it, key = rnd["base"], rnd["it"], rnd["key"]
+    assert (key is not None) == (family == "kscan")
+    want_dead = p_solver.dp_dead_plain(base, specs, r_min, it, key)
+    if DP <= 5:
+        assert torch.equal(p_cuda.dp_dead(base, specs, r_min, it, key), want_dead)
+    if DP > 2:
+        assert bool(want_dead[2].all())  # a padding row: everything dead for +inf
+    want = p_solver.dp_verdict_plain(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
+    got = p_cuda.dp_verdict(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
+    assert got.shape == ((DP + 31) // 32,) and torch.equal(got, want)
