@@ -2313,26 +2313,161 @@ def profiled_dp_kernels(cuda, kernels: list, solve, profile_dir) -> None:
                 k.update(ms=d / c, bound_ms=b[0], bound_by=b[1])
 
 
+def record_fetches(cuda, fn) -> list:
+    """Run fn with the leaves of every wire fetch recorded (what the wire
+    kernel, H15, packed), in order."""
+    rec = []
+    real = cuda.wire_pack
+
+    def recording(leaves):
+        rec.append(list(leaves))
+        return real(leaves)
+
+    cuda.wire_pack = recording
+    try:
+        fn()
+    finally:
+        cuda.wire_pack = real
+    return rec
+
+
+def wire_read_bytes(leaves) -> int:
+    """The bytes the wire kernel must read for a fetch: each leaf's live
+    elements, each max source whole."""
+    from karpenter_tpu_torch.ops import kernels
+
+    total = 0
+    for t in leaves:
+        if isinstance(t, kernels.WireMax):
+            total += sum(nbytes(s) for s in t.srcs)
+        elif isinstance(t, kernels.WireLeaf):
+            total += t.src[: t.rows].numel() * t.src.element_size()
+        else:
+            total += nbytes(t)
+    return total
+
+
+def wire_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
+    """H15 wire_pack against pack_wire_plain on the card, byte for byte, on
+    three real fetches: the north star's first pipeline group, the mixed
+    cell's last group with its final state reads, and a dp verdict word
+    (the existing-node twin of shard_8192x200). Per fetch: ms per call of
+    the launcher under CUDA events (its descriptor table included), device
+    ms per launch from torch.profiler, the bound (bytes read and written
+    once) and the plain version's ms. The kernels line carries the
+    largest fetch's numbers."""
+    from karpenter_tpu_torch.ops import kernels
+
+    picks = []
+    north = record_fetches(cuda, lambda: TorchScheduler(T.make_templates(1000), max_claims=4096).solve(
+        T.selector_pods(100_000)))
+    picks.append(("north star, first pipeline group", north[0]))
+    mixed = record_fetches(cuda, lambda: TorchScheduler(T.make_templates(400), max_claims=4096).solve(
+        T.mixed_pods(MIXED_PODS)))
+    picks.append(("mixed, last group with the final state reads", mixed[-1]))
+    cell = next(c for c in shard_cells(T) if c[0] == "shard_8192x200 existing twin")
+    dp = record_fetches(cuda, lambda: shard_solve(shard_sched(TorchScheduler, cell), cell))
+    words = [f for f in dp if len(f) == 1 and isinstance(f[0], torch.Tensor) and nbytes(f[0]) == 4]
+    if not words:
+        raise RuntimeError("wire: the dp cell made no 4-byte verdict fetch")
+    picks.append(("dp verdict word (shard_8192x200 existing twin)", words[0]))
+    best = None
+    for label, leaves in picks:
+        got = cuda.wire_pack(leaves)
+        want = kernels.pack_wire_plain(leaves)
+        equal = got.shape == want.shape and torch.equal(got, want)
+        err = 0.0 if equal else 1.0
+        ms = time_ms(lambda: cuda.wire_pack(leaves), iters=20)
+        plain_ms = time_ms(lambda: kernels.pack_wire_plain(leaves), iters=5)
+        read = wire_read_bytes(leaves)
+        b = bound(read + want.numel(), 0.0)
+        by_name = profile_run(lambda: [cuda.wire_pack(leaves) for _ in range(10)], os.path.join("build", "profile"),
+                              "wire")["by_name"]
+        hits = [v for n, v in by_name.items() if "wire_pack_kernel" in n]
+        dev_ms = hits[0][1] / hits[0][0] if hits else None
+        dev_txt = f"{dev_ms:.5f}" if dev_ms is not None else "not measured"
+        print(f"kernel wire_pack ({label}): equal={equal} (tolerance: exact) leaves={len(leaves)} "
+              f"wire_bytes={want.numel()} read_bytes={read} ms={ms:.4f} device_ms={dev_txt} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+        entry = dict(name="wire_pack", route="cuda", source="karpenter_tpu_torch/ops/csrc/wire_pack.cu",
+                     replaces="karpenter_tpu/ops/kernels.py:362", launches=0, max_abs_err=err,
+                     ms=dev_ms if dev_ms is not None else ms, launcher_ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                     bound_by=b[1], library_ms=None, equal=equal)
+        if not equal:
+            results.append(entry)
+            return
+        if best is None or want.numel() > best[0]:
+            best = (want.numel(), entry)
+    results.append(best[1])
+
+
+def sync_points(torch, sched, fn, label: str) -> None:
+    """Run fn with CUDA's sync debug mode on inside the scheduler's
+    dispatch loop (_run_solve): print each line that made the host wait
+    for the card between dispatches, with its count."""
+    import warnings
+    from collections import Counter
+
+    real = sched._run_solve
+    seen = Counter()
+
+    def watched(enc):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(enc)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                for w in caught:
+                    if "synchroniz" in str(w.message):
+                        seen[f"{os.path.relpath(w.filename)}:{w.lineno}"] += 1
+
+    sched._run_solve = watched
+    try:
+        fn()
+    finally:
+        del sched._run_solve
+    print(f"sync points in {label}'s dispatch loop: {sum(seen.values())} {json.dumps(dict(seen.most_common()))}",
+          flush=True)
+
+
 def digest(result) -> str:
     from karpenter_tpu_torch.testing import claims_digest
 
     return claims_digest(result)
 
 
-def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_needed):
+def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_needed, pipelined=False,
+               stream=False):
     """Drive one main path: launch counts zeroed just before a cold solve
     and read just after, the result held to the JAX package's (claims,
     price, nothing unschedulable) and to its dispatch counts, WARM_CALLS warm
-    solves that must give the same digest. Returns (result, launches) or
-    raises RuntimeError."""
+    solves that must give the same digest. With `pipelined` the solve must
+    decode in two or more chunk groups; with `stream` the first warm solve
+    streams through a chunk_sink whose deltas must add up to the result.
+    Returns (result, launches) or raises RuntimeError."""
+    from karpenter_tpu_torch.ops import kernels
+
     cuda.reset_launches()
+    kernels.reset_wire_stats()
     t0 = time.perf_counter()
     result = sched.solve(pods)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
+    wire = dict(kernels.WIRE_STATS)
     print(f"{label} cold: wall={wall:.3f}s {json.dumps(sched.last_timings)} "
           f"stats={json.dumps(sched.last_stats)} launches={json.dumps(launches)}", flush=True)
+    print(f"{label} wire: {wire['fetches']} fetches, {wire['wire_bytes']} bytes on the wire, "
+          f"{wire['raw_bytes']} bytes in their leaves whole", flush=True)
+    pl = sched.last_timings.get("pipeline")
+    if pipelined:
+        if not pl or pl["n_chunks"] < 2:
+            raise RuntimeError(f"{label}: the decode did not pipeline ({pl and pl['n_chunks']} chunk groups)")
+        print(f"{label} pipeline: n_chunks={pl['n_chunks']} overlap_frac={pl['overlap_frac']} "
+              f"true_overlap_groups={pl['true_overlap_groups']} sync_wire_s={pl['sync_wire_s']} "
+              f"wire_s={pl['wire_s']} host_decode_s={pl['host_decode_s']}", flush=True)
     claims, unsched, price = result.node_count, len(result.unschedulable), result.total_price()
     print(f"{label} result: claims={claims} unschedulable={unsched} total_price={price:.4f}", flush=True)
     if unsched:
@@ -2346,14 +2481,39 @@ def solve_path(torch, cuda, label, sched, pods, golden, expect_stats, kernels_ne
     if idle:
         raise RuntimeError(f"{label}: kernels never launched: {idle}")
     for i in range(WARM_CALLS):
+        msgs: list = []
         t0 = time.perf_counter()
-        r = sched.solve(pods)
+        r = sched.solve(pods, chunk_sink=msgs.append if stream and i == 0 else None)
         torch.cuda.synchronize()
         print(f"{label} warm {i}: wall={time.perf_counter() - t0:.3f}s "
               f"{json.dumps(sched.last_timings)}", flush=True)
         if digest(r) != digest(result):
             raise RuntimeError(f"{label}: warm solve differs from the cold solve")
+        if msgs:
+            check_stream(label, msgs, r)
     return result, launches
+
+
+def check_stream(label: str, msgs: list, result) -> None:
+    """The chunk_sink deltas after the last ("reset", None) must add up to
+    the result: every claim's pods in order, the existing-node assignments
+    and the unschedulable pods."""
+    last = max(i for i, (kind, _d) in enumerate(msgs) if kind == "reset")
+    claims: dict = {}
+    existing, unsched = [], []
+    chunks = msgs[last + 1:]
+    for _kind, d in chunks:
+        for slot, uids in d["claims"]:
+            claims.setdefault(slot, []).extend(uids)
+        existing += d["existing"]
+        unsched += d["unsched"]
+    ok = (claims == {c.slot: [p.uid for p in c.pods] for c in result.claims}
+          and existing == list(result.existing_assignments.items())
+          and unsched == [(p.uid, r) for p, r in result.unschedulable])
+    print(f"{label} chunk_sink: {len(chunks)} chunks after the last reset, {len(claims)} claims, "
+          f"{sum(len(v) for v in claims.values())} pods; deltas add up to the result: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{label}: the chunk_sink deltas do not add up to the result")
 
 
 def main() -> int:
@@ -2454,6 +2614,8 @@ def main() -> int:
     # dp speculation: H12-H14 on the first rounds of three dp cells
     try:
         shard_kernel_phase(torch, cuda, T, TorchScheduler, kernels)
+        # the wire: H15 on three real fetches
+        wire_kernel_phase(torch, cuda, T, TorchScheduler, kernels)
     except RuntimeError as err:
         return fail(str(err))
     bad = [k["name"] for k in kernels + checks_c + checks_o if not k["equal"]]
@@ -2471,22 +2633,25 @@ def main() -> int:
     # line are the sum over the three cold solves, each counted from zero
     pods = selector_pods(100_000)
     sched = TorchScheduler(templates, max_claims=4096)
-    fill_kernels = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter")
+    fill_kernels = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "wire_pack")
     pods_m = mixed_pods(MIXED_PODS)
     sched_m = TorchScheduler(templates_m, max_claims=4096)
     sched_p = TorchScheduler(templates_m, max_claims=4096)
     profile_dir = os.path.join("build", "profile")
     try:
         result, launches_n = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
-                                        fill_kernels)
+                                        fill_kernels, pipelined=True)
         profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
+        sync_points(torch, sched, lambda: sched.solve(pods), "north star")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
             [k for k in cuda.KERNELS
              if k not in cuda.PERPOD_KERNELS + cuda.WHATIF_KERNELS
              + ("gang_scan", "retract_tail", "objective_verdict", "dp_dead", "dp_verdict", "merge_shard")],
+            pipelined=True, stream=True,
         )
         profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
+        sync_points(torch, sched_m, lambda: sched_m.solve(pods_m), "mixed")
         result_p, launches_p = solve_path(
             torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,
             (*cuda.PERPOD_KERNELS, "fill_count_grid", "compact_scatter"),

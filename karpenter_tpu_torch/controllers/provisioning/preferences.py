@@ -85,11 +85,13 @@ def relax_pod(pod: Pod, applied: int) -> Pod:
     return relaxed
 
 
-def run_with_relaxation(pods: list[Pod], solve_round):
+def run_with_relaxation(pods: list[Pod], solve_round, should_stop=None):
     """The outer relax-and-retry loop: each failing pod sheds one rung per
     round and the whole problem re-solves, until every pod places or no
     failing pod has a rung left. solve_round(current_pods) ->
-    SchedulingResult, with fresh state per call."""
+    SchedulingResult, with fresh state per call. should_stop() is polled
+    after each round: when it reports True (the Solve deadline passed) the
+    round's result is returned without further relaxation."""
     originals = None
     applied: dict = {}
     current = list(pods)
@@ -103,6 +105,8 @@ def run_with_relaxation(pods: list[Pod], solve_round):
 
     while True:
         result = solve_round(current)
+        if should_stop is not None and should_stop():
+            return _with_provenance(result)
         if not result.unschedulable:
             return _with_provenance(result)
         if originals is None:

@@ -177,10 +177,16 @@ class ResidentSession:
         pod_volumes=None,
         topology_factory=None,
         bound_pods=None,
+        deadline=None,
+        now=None,
+        chunk_sink=None,
     ) -> SchedulingResult:
-        """TorchScheduler.solve's arguments, plus `bound_pods` ((pod, ...)
+        """TorchScheduler.solve's arguments; `bound_pods` ((pod, ...)
         entries of the pods bound to the cluster; any with pod
-        anti-affinity keeps the round off the delta path)."""
+        anti-affinity keeps the round off the delta path) also reaches the
+        snapshot solve. `chunk_sink` stays supported: full rounds stream
+        through it, delta rounds emit no chunk (the caller's final result
+        carries everything)."""
         pods = list(pods)
         kwargs = dict(
             budgets=budgets,
@@ -190,6 +196,10 @@ class ResidentSession:
             reserved_mode=reserved_mode,
             reserved_in_use=reserved_in_use,
             pod_volumes=pod_volumes,
+            deadline=deadline,
+            now=now,
+            bound_pods=bound_pods,
+            chunk_sink=chunk_sink,
         )
         if not resident_enabled():
             self._r = None
@@ -207,7 +217,7 @@ class ResidentSession:
             if not supported:
                 raise _DeltaUnsafe("full", "unsupported_args")
             plan = self._classify(pods, existing_nodes, topology, topology_factory, bound_pods)
-            result = self._solve_delta(plan, t0)
+            result = self._solve_delta(plan, t0, deadline=deadline, now=now)
             mode, reason = "delta", "delta"
         except _DeltaUnsafe as gate:
             mode, reason = gate.mode, gate.reason
@@ -441,11 +451,12 @@ class ResidentSession:
 
     # -- delta path --------------------------------------------------------
 
-    def _solve_delta(self, plan, t0: float) -> SchedulingResult:
+    def _solve_delta(self, plan, t0: float, deadline=None, now=None) -> SchedulingResult:
         """Validate and encode the arrivals (host only, nothing mutated),
         then retract and append on the device. last_timings: encode_s the
         host work up to the first device call, device_s the retract, the
-        append and its decode."""
+        append and its decode. `deadline` / `now` are accepted and unused,
+        as in the reference: a delta round has no relaxation ladder."""
         r = self._r
         sched = self.sched
         arrivals = plan["arrivals"]

@@ -80,14 +80,16 @@ from karpenter_tpu_torch.ops.encode import (
     ReqSetTensors,
     as_tensor,
     encode_requirements_np,
+    to_device,
     type_price_column,
 )
-from karpenter_tpu_torch.ops.kernels import fetch_tree, leading_ones, pack_bool_np
+from karpenter_tpu_torch.ops.kernels import WireLeaf, WireMax, fetch_async, fetch_tree, leading_ones, pack_bool_np
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.scheduling import hostports
 from karpenter_tpu_torch.scheduling.reservations import ReservationManager
 from karpenter_tpu_torch.scheduling.taints import tolerates_all
 from karpenter_tpu_torch.utils import resources as res
+from karpenter_tpu_torch.utils.sampler import read_cpu_seconds, read_rss_bytes
 
 # last_stats counters of the K-variant objective dispatch (the reference's
 # OBJECTIVE_ROUNDS / OBJECTIVE_VARIANT_WINS / verdict byte counters)
@@ -133,6 +135,144 @@ def _next_pow2(n: int, floor: int = 8) -> int:
     out = floor
     while out < n:
         out *= 2
+    return out
+
+
+def _slim_outputs(specs: tuple, flat) -> tuple[list, list]:
+    """Shared output slimming of the fetch preps (the reference's
+    _slim_outputs): every output sliced to its live rows and the fill
+    grids narrowed to int16, as WireLeaf views that the wire kernel reads
+    in place. Returns the leaves plus the full fill grids whose max guards
+    the narrowing (empty fill_e grids are kept as leaves, not maxed)."""
+    proc: list = []
+    maxes: list = []
+    i = 0
+    for spec in specs:
+        if spec[0] == "pods":
+            proc.append(flat[i])
+            i += 1
+        elif spec[0] == "kscan":
+            proc.append(WireLeaf(flat[i], spec[1]))
+            proc.append(WireLeaf(flat[i + 1], spec[1]))  # per-segment grid_reused
+            i += 2
+        elif spec[0] == "gang":
+            proc.extend(WireLeaf(a, spec[1]) for a in flat[i : i + 5])
+            i += 5
+        else:
+            B = spec[1]
+            fc, fe, os_, no_, st_, sm = flat[i : i + 6]
+            i += 6
+            maxes.append(fc)
+            if fe.numel():
+                maxes.append(fe)
+            proc.extend(
+                [
+                    WireLeaf(fc, B, narrow=True),
+                    WireLeaf(fe, B, narrow=True),
+                    WireLeaf(os_, B),
+                    WireLeaf(no_, B),
+                    WireLeaf(st_, B),
+                    sm,  # the dispatch's window -> global slot map
+                ]
+            )
+    return proc, maxes
+
+
+# scalar/column head every decode fetch starts with (before the tk rows)
+_STATE_HEAD = ("template", "its", "used", "held", "n_open", "w_open", "w_hw", "spills")
+# the topology-key rows that follow the head when the solve has topo keys
+_TK_NAMES = ("c_mask", "c_inf", "c_def", "e_mask", "e_inf", "e_def")
+
+
+def _state_reads(state, tk: tuple, plain: bool = False) -> list:
+    """The final-state reads every decode needs: global-slot claim
+    finalization columns (hot window merged over the frozen bank), the
+    n_open / window scalars and, with topology keys, the topo-key
+    requirement rows of claims and existing nodes."""
+    g = ops_solver.global_claims(state, plain=plain, topo_kids=tk)
+    proc = [g["template"], g["its"], g["used"], g["held"], state.n_open, state.w_open, state.w_hw, state.spills]
+    if tk:
+        kid = list(tk)
+        proc.extend(
+            [
+                g["tk_mask"],
+                g["tk_inf"],
+                g["tk_def"],
+                state.exist_reqs.mask[:, kid, :],
+                state.exist_reqs.inf[:, kid],
+                state.exist_reqs.defined[:, kid],
+            ]
+        )
+    return proc
+
+
+def _with_max(proc: list, maxes: list) -> list:
+    if maxes:
+        proc.append(WireMax(maxes))
+    return proc
+
+
+def _make_fetch_prep(specs: tuple, tk: tuple, plain: bool = False):
+    """The single fetch's prep: state head, the slimmed outputs in order,
+    fill_max, then the topo-key rows (the reference's _make_fetch_prep;
+    a plain function: nothing is compiled)."""
+    n_head = len(_STATE_HEAD)
+
+    def _prep(state, flat):
+        reads = _state_reads(state, tk, plain)
+        out, maxes = _slim_outputs(specs, flat)
+        return _with_max(reads[:n_head] + out, maxes) + reads[n_head:]
+
+    return _prep
+
+
+def _make_group_prep(specs: tuple):
+    """One pipeline group's prep: the post-group template snapshot, the
+    group's slimmed outputs and its own fill_max."""
+
+    def _prep(tmpl, flat):
+        out, maxes = _slim_outputs(specs, flat)
+        return _with_max([tmpl] + out, maxes)
+
+    return _prep
+
+
+def _make_final_prep(tk: tuple, plain: bool = False):
+    """The final-state reads alone."""
+
+    def _prep(state):
+        return _state_reads(state, tk, plain)
+
+    return _prep
+
+
+def _make_group_final_prep(specs: tuple, tk: tuple, plain: bool = False):
+    """The last pipeline group's prep: its outputs AND the final-state
+    reads ride one wire, so the pipelined decode pays no trailing fetch."""
+
+    def _prep(tmpl, flat, state):
+        out, maxes = _slim_outputs(specs, flat)
+        return _with_max([tmpl] + out, maxes) + _state_reads(state, tk, plain)
+
+    return _prep
+
+
+def _partition_ranges(weights: Sequence, n_groups: int) -> list[tuple[int, int]]:
+    """Split [0, len(weights)) into <= n_groups contiguous ranges with
+    roughly balanced total weight (the pipelined decode's chunk groups)."""
+    n = len(weights)
+    n_groups = max(min(n_groups, n), 1)
+    total = float(sum(weights)) or 1.0
+    out: list[tuple[int, int]] = []
+    lo = 0
+    acc = 0.0
+    for i, w in enumerate(weights):
+        acc += w
+        if len(out) < n_groups - 1 and acc >= total * (len(out) + 1) / n_groups:
+            out.append((lo, i + 1))
+            lo = i + 1
+    if lo < n:
+        out.append((lo, n))
     return out
 
 
@@ -452,8 +592,8 @@ class TorchScheduler:
         self._tmpl_it_idx: dict = {}
         # pipeline chunking and boundary compaction (the reference's rule:
         # ~4 dispatch groups at P >= 4096, compaction from P >= 1024)
-        self.pipeline_chunks = 4
-        self.pipeline_min_pods = 4096
+        self.pipeline_chunks = int(os.environ.get("KTPU_PIPELINE_CHUNKS", "4"))
+        self.pipeline_min_pods = int(os.environ.get("KTPU_PIPELINE_MIN_PODS", "4096"))
         self.compact_min_pods = 1024
         self.solve_chunk = 2048  # per-pod chunk length (the reference's KTPU_SOLVE_CHUNK default)
         self._n_claims_override: Optional[int] = None
@@ -499,6 +639,14 @@ class TorchScheduler:
         self.shard_existing = os.environ.get("KTPU_SHARD_EXISTING", "1") not in ("0", "false")
         self.shard_perpod = os.environ.get("KTPU_SHARD_PERPOD", "1") not in ("0", "false")
         self._shard_stats: Optional[dict] = None
+        # the pipelined decode: the solve's chunk sink, its per-dispatch
+        # events (on the card), the side stream its fetches run on
+        self._chunk_sink = None
+        self._dispatch_events: list = []
+        self._side_stream = None
+        self._t_fetch_done: Optional[float] = None
+        self._pipeline_stats: Optional[dict] = None
+        self._last_fetched: dict = {}
 
     def resident_session(self):
         """Wrap this scheduler in a ResidentSession: the solver state stays
@@ -1112,8 +1260,8 @@ class TorchScheduler:
 
     def _gather(self, enc: dict, segs: list) -> tuple[dict, torch.Tensor, ReqSetTensors]:
         k = enc["kinds"]
-        kid = torch.as_tensor([s[2] for s in segs], dtype=torch.long).to(self.device)
-        counts = torch.as_tensor([s[1] - s[0] for s in segs], dtype=torch.int32).to(self.device)
+        kid = to_device(torch.as_tensor([s[2] for s in segs], dtype=torch.long), self.device)
+        counts = to_device(torch.as_tensor([s[1] - s[0] for s in segs], dtype=torch.int32), self.device)
         rows = {f: k[f][kid] for f in ("requests", "tmpl_ok", "it_allow", "exist_ok", "ports", "port_conf", "vols")}
         rows["topo"] = topo_ops.take_pod_topology(k["topo"], kid)
         return rows, counts, ReqSetTensors(*(c[kid] for c in k["reqs"]))
@@ -1155,7 +1303,7 @@ class TorchScheduler:
         """Kind -> pod row gather for one per-pod chunk (the reference's
         `_gather_pod_chunk`); rows past n_valid are padding (valid False)."""
         k = enc["kinds"]
-        kid = torch.as_tensor(kidx, dtype=torch.long).to(self.device)
+        kid = to_device(torch.as_tensor(kidx, dtype=torch.long), self.device)
         pods = ops_solver.PodTensors(
             reqs=ReqSetTensors(*(c[kid] for c in k["reqs"])),
             strict_reqs=ReqSetTensors(*(c[kid] for c in k["strict"])),
@@ -1244,7 +1392,8 @@ class TorchScheduler:
         loops take consecutive fill groups, split kind-scan runs and per-pod
         chunks. Returns the final state and the per-dispatch outputs
         ("fill", segs, ys, slot_of) / ("kscan", segs, ys) / ("pods", lo,
-        hi, assignment) / ("gang", segs, ys)."""
+        hi, assignment) / ("gang", segs, ys), and per output the global
+        template snapshot after it when the solve pipelines its decode."""
         n_claims = enc["n_claims"]
         topo_kids = enc["topo_kids"]
         state = self._initial_state(enc)
@@ -1264,6 +1413,10 @@ class TorchScheduler:
             enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], n_claims,
         )
         outputs = []
+        # per output, the global template column after it (the pipelined
+        # decode's snapshots; None when the solve fetches once)
+        tmpl_snaps: Optional[list] = [] if target else None
+        self._dispatch_events = []
         n_compactions = 0
         n = dict.fromkeys(("fill", "kscan", "perpod", "gang", "perpod_dp"), 0)
         obj = dict.fromkeys(OBJECTIVE_STATS, 0)
@@ -1277,15 +1430,23 @@ class TorchScheduler:
             prev = self._last_compact_rmin
             self._last_compact_rmin = r_min if prev is None else np.maximum(prev, r_min)
             st, _closed = ops_solver.compact_state(
-                st, self.it_tensors, as_tensor(r_min, self.device), n_claims,
+                st, self.it_tensors, to_device(torch.from_numpy(np.array(r_min, order="C")), self.device), n_claims,
                 plain=self.plain, topo_kids=topo_kids,
             )
             n_compactions += 1
             return st
 
         def done(st, out, pods_of):
-            """Record one dispatch's output, count its pods off and compact."""
+            """Record one dispatch's output (with the pipelined decode's
+            template snapshot and, on the card, an event after it), count its
+            pods off and compact."""
             outputs.append(out)
+            if tmpl_snaps is not None:
+                tmpl_snaps.append(ops_solver.global_template(st))
+                if st.template.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    self._dispatch_events.append(ev)
             if isinstance(pods_of, tuple):
                 np.subtract.at(remaining, kind_of[pods_of[0]:pods_of[1]], 1)
             else:
@@ -1366,7 +1527,7 @@ class TorchScheduler:
         )
         if shard is not None:
             self.last_stats["shard"] = shard
-        return state, outputs
+        return state, outputs, tmpl_snaps
 
     # -- dp speculation ------------------------------------------------------
 
@@ -1651,41 +1812,26 @@ class TorchScheduler:
         return ops_solver.solve_fill(state, xs, *common, plain=self.plain)
 
     def _solve_once(self, pods: Sequence[Pod], existing_nodes, budgets, topology=None) -> SchedulingResult:
+        if self._chunk_sink is not None:
+            # a fresh round invalidates every chunk streamed so far
+            self._chunk_sink(("reset", None))
         t0 = time.perf_counter()
         self.existing_nodes = existing_nodes
         self._last_compact_rmin = None
         pods_sorted, enc = self._encode(pods, budgets, topology)
         t1 = time.perf_counter()
-        state, outputs = self._run_solve(enc)
-        tk = list(enc["topo_kids"])
-        fetch = dict(
-            claims=ops_solver.global_claims(state, plain=self.plain, topo_kids=enc["topo_kids"]),
-            n_open=state.n_open, w_open=state.w_open, w_hw=state.w_hw, spills=state.spills,
-            outputs=[
-                dict(
-                    fill_c=o[2].fill_c, fill_e=o[2].fill_e, open_start=o[2].open_start,
-                    n_opened=o[2].n_opened, status=o[2].status, slot_map=o[3],
-                )
-                if o[0] == "fill"
-                else dict(assignment=o[3]) if o[0] == "pods"
-                else o[2]._asdict() if o[0] == "gang"
-                else dict(assignment=o[2].assignment, grid_reused=o[2].grid_reused)
-                for o in outputs
-            ],
-        )
-        if tk:
-            fetch.update(
-                e_mask=state.exist_reqs.mask[:, tk, :],
-                e_inf=state.exist_reqs.inf[:, tk],
-                e_def=state.exist_reqs.defined[:, tk],
-            )
-        fetched = fetch_tree(fetch)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
-        out = self._decode(pods_sorted, enc, outputs, fetched, state)
+        state, outputs, tmpl_snaps = self._run_solve(enc)
+        self._t_fetch_done = None
+        self._pipeline_stats = None
+        out = self._decode(pods_sorted, enc, outputs, state, tmpl_snaps)
         t3 = time.perf_counter()
+        # on the pipelined path device_s ends at the first group's fetch, so
+        # decode_s holds the later groups' (hidden) device time
+        t2 = self._t_fetch_done or t1
         self.last_timings = dict(encode_s=t1 - t0, device_s=t2 - t1, decode_s=t3 - t2)
+        if self._pipeline_stats is not None:
+            self.last_timings["pipeline"] = self._pipeline_stats
+        fetched = self._last_fetched
         self.last_stats.update(
             n_open=int(fetched["n_open"]),
             live_hw=int(fetched["w_hw"]),
@@ -1706,6 +1852,10 @@ class TorchScheduler:
         reserved_in_use: Optional[dict[str, int]] = None,
         pod_volumes: Optional[dict] = None,
         topology_factory=None,
+        deadline: Optional[float] = None,
+        now=None,
+        bound_pods=None,
+        chunk_sink=None,
     ) -> SchedulingResult:
         """Schedule pods onto existing nodes and new claims, with the
         preference relaxation ladder and NO_ROOM recovery of the reference
@@ -1720,8 +1870,17 @@ class TorchScheduler:
         `volume_reqs` each pod uid's volume-topology alternatives,
         `pod_volumes` each pod uid's CSI volumes ({driver: {pvc}}),
         `reserved_in_use` the reservation ids held by claims not launched
-        yet, and `reserved_mode` overrides the scheduler's for this solve."""
+        yet, and `reserved_mode` overrides the scheduler's for this solve.
+        `deadline` (on the clock `now`, time.monotonic by default) stops the
+        relaxation ladder after the round that reaches it (the device solve
+        itself is atomic); `bound_pods`, the data form of topology seeding,
+        is accepted and unused by the in-process solve, as in the reference;
+        `chunk_sink` is called with ("reset", None) at the start of every
+        round and ("chunk", delta) after each decoded chunk group, a delta
+        holding the claims' new pods as (slot, [uids]) and the new existing
+        and unschedulable entries."""
         norm_vol = normalize_volume_reqs(volume_reqs)
+        now_fn = now if now is not None else time.monotonic
         if any(len(alts) > 1 for alts in norm_vol.values()):
             # the reference's host oracle tries each alternative per pod
             raise UnsupportedProblem("volume topologies with several alternatives")
@@ -1757,13 +1916,18 @@ class TorchScheduler:
                 est = int(used * len(current) / placed * 1.25) + 32
                 self._n_claims_override = min(max(used * 2, -(-est // 256) * 256), cap)
 
+        def should_stop() -> bool:
+            return deadline is not None and now_fn() >= deadline
+
         prev_mode = self.reserved_mode
         if reserved_mode is not None:
             self.reserved_mode = reserved_mode
+        self._chunk_sink = chunk_sink
         try:
-            result = prefs.run_with_relaxation(list(pods), solve_round)
+            result = prefs.run_with_relaxation(list(pods), solve_round, should_stop)
         finally:
             self.reserved_mode = prev_mode
+            self._chunk_sink = None
         # last_stats describe the last round (last_stats["shard"] too); these
         # count every round
         self.last_stats.update(
@@ -1913,20 +2077,130 @@ class TorchScheduler:
             cached = self._tmpl_it_idx[id(template)] = (its, idx)
         return cached
 
-    def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, fetched: dict, state=None) -> SchedulingResult:
-        """Claim-level decode from the fetched device state: replay the
-        pod -> slot bookkeeping in dispatch order (fill grids expanded,
-        kind-scan and per-pod assignments applied per pod), then finalize each claim's
+    def _decode_pipelined(self, groups, specs, flat, flat_spans, weights, tmpl_snaps, state, tk, read_group) -> dict:
+        """The pipelined path (the reference's, scheduler.py:4181-4300):
+        fetch and decode chunk group i while the card may still run the
+        later groups. On the card each group's wire is packed (H15) and
+        copied into pinned memory on a side stream that waits on the
+        event recorded after the group's last dispatch, and the host waits
+        on that copy alone. The last group's wire carries the final state
+        reads. Returns last_timings["pipeline"]: the reference's keys
+        (overlap_frac counts by position, in_flight = G - 1 - gi) and
+        `true_overlap_groups`, the groups fetched and decoded before the
+        solve's last dispatch had finished on the card (None on the CPU)."""
+        G = len(groups)
+        events = self._dispatch_events
+        side = None
+        if self.device.type == "cuda":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(device=self.device)
+            side = self._side_stream
+        chunk_stats: list[dict] = []
+        true_overlap = 0
+        for gi, (glo, ghi) in enumerate(groups):
+            in_flight = G - 1 - gi
+            last_group = gi == G - 1
+            cpu0 = read_cpu_seconds()
+            sg = tuple(specs[glo:ghi])
+            f_lo, f_hi = flat_spans[glo][0], flat_spans[ghi - 1][1]
+            t0 = time.perf_counter()
+            after = events[ghi - 1] if events else None
+            if last_group:
+                leaves = _make_group_final_prep(sg, tk, self.plain)(tmpl_snaps[ghi - 1], flat[f_lo:f_hi], state)
+                if side is not None:
+                    # the state reads were just issued on the solve's stream
+                    after = torch.cuda.Event()
+                    after.record()
+            else:
+                leaves = _make_group_prep(sg)(tmpl_snaps[ghi - 1], flat[f_lo:f_hi])
+            fetched_flat = fetch_async(leaves, after=after, stream=side).wait()
+            t1 = time.perf_counter()
+            if self._t_fetch_done is None:
+                self._t_fetch_done = t1
+            read_group(fetched_flat, glo, ghi, last_group, False)
+            t2 = time.perf_counter()
+            if events and not events[-1].query():
+                true_overlap += 1
+            chunk_stats.append(
+                {
+                    "idx": gi,
+                    "pods": int(sum(weights[glo:ghi])),
+                    "in_flight": in_flight,
+                    "wire_s": t1 - t0,
+                    "decode_s": t2 - t1,
+                    "host_rss_mb": round(read_rss_bytes() / 2**20, 1),
+                    "cpu_s": round(read_cpu_seconds() - cpu0, 4),
+                }
+            )
+        # the reference's attribution: a chunk's wire + decode time is
+        # overlapped when later groups were still in flight; chunk 0's wire
+        # time (the wait for the card to finish it) counts on neither side
+        t_final = 0.0
+
+        def _chunk_cost(st):
+            return (st["wire_s"] if st["idx"] > 0 else 0.0) + st["decode_s"]
+
+        overlapped = sum(_chunk_cost(st) for st in chunk_stats if st["in_flight"])
+        total = sum(_chunk_cost(st) for st in chunk_stats) + t_final
+        return {
+            "n_chunks": G,
+            "overlap_frac": round(overlapped / total, 4) if total > 0 else 0.0,
+            "fused_final": True,
+            "sync_wire_s": round(chunk_stats[0]["wire_s"], 4),
+            "wire_s": round(sum(st["wire_s"] for st in chunk_stats) + t_final, 4),
+            "host_decode_s": round(sum(st["decode_s"] for st in chunk_stats), 4),
+            "final_fetch_s": round(t_final, 4),
+            "chunks": [
+                {**st, "wire_s": round(st["wire_s"], 4), "decode_s": round(st["decode_s"], 4)}
+                for st in chunk_stats
+            ],
+            "true_overlap_groups": true_overlap if events else None,
+        }
+
+    def _decode(self, pods_sorted: list[Pod], enc: dict, outputs: list, state, tmpl_snaps=None) -> SchedulingResult:
+        """Claim-level decode (the reference's _decode): fetch the dispatch
+        outputs, slimmed by the fetch preps, and replay the pod -> slot
+        bookkeeping in dispatch order (fill grids expanded, kind-scan and
+        per-pod assignments applied per pod), then finalize each claim's
         requirements (template + its pod kinds + hostname + the device's
         topology narrowing), usage (device carry) and viable instance types
-        (device mask)."""
+        (device mask). A solve of P >= pipeline_min_pods with two or more
+        outputs fetches and decodes group by group (rehydrate, apply_output,
+        widen_fill, flush_chunk), the last group's wire carrying the final
+        state reads; any other solve fetches once."""
         E = enc["E"]
         kind_of = enc["kind_of"]
         topo_kids = enc["topo_kids"]
+        tk = tuple(topo_kids)
         vocab = self.encoder.vocab
         reps: list[Pod] = enc["reps"]
-        claims_cols = fetched["claims"]
-        claim_template = claims_cols["template"]
+        flat: list = []  # device tensors, in prep order
+        specs: list = []  # the outputs' structure, for the preps
+        flat_spans: list = []  # per-output [lo, hi) into flat
+        weights: list = []  # per-output decode weight (pods covered)
+        for o in outputs:
+            lo_f = len(flat)
+            if o[0] == "pods":
+                flat.append(o[3])
+                specs.append(("pods",))
+                weights.append(o[2] - o[1])
+            elif o[0] == "kscan":
+                flat.extend([o[2].assignment, o[2].grid_reused])
+                specs.append(("kscan", len(o[1])))
+                weights.append(sum(hi - lo for lo, hi, _ in o[1]))
+            elif o[0] == "gang":
+                ys = o[2]
+                flat.extend([ys.open_g, ys.n_opened, ys.fill, ys.leftover, ys.status])
+                specs.append(("gang", len(o[1])))
+                weights.append(sum(hi - lo for lo, hi, _ in o[1]))
+            else:
+                ys = o[2]
+                flat.extend([ys.fill_c, ys.fill_e, ys.open_start, ys.n_opened, ys.status, o[3]])
+                specs.append(("fill", len(o[1])))
+                weights.append(sum(hi - lo for lo, hi, _ in o[1]))
+            flat_spans.append((lo_f, len(flat)))
+        fetched: dict = {}
+        tmpl_ref: list = [None]  # the template column in effect (a snapshot or the final one)
         claims: list[SimClaim] = []
         slot_to_claim: dict[int, SimClaim] = {}
         claim_kinds: dict[int, dict[int, int]] = {}
@@ -1961,7 +2235,7 @@ class TorchScheduler:
             nonlocal hostname_seq
             claim = slot_to_claim.get(slot)
             if claim is None:
-                tmpl = self.templates[int(claim_template[slot])]
+                tmpl = self.templates[int(tmpl_ref[0][slot])]
                 hostname_seq += 1
                 hostname = hostname_placeholder(hostname_seq)
                 requirements = tmpl.requirements.copy()
@@ -1997,22 +2271,116 @@ class TorchScheduler:
             kind_ports=kind_ports,
             kind_of=kind_of,
         )
-        for o, f in zip(outputs, fetched["outputs"]):
-            if o[0] == "fill":
-                _decode_fill_segments(ctx, o[1], f)
-                continue
-            if o[0] == "pods":
-                _apply_assignments(ctx, o[1], np.asarray(f["assignment"][: o[2] - o[1]], dtype=np.int64))
-                continue
-            if o[0] == "gang":
-                _decode_gang_segments(ctx, o[1], f, enc["gang_key_of_kind"])
-                continue
-            for j, (lo, hi, _kind) in enumerate(o[1]):
-                _apply_assignments(ctx, lo, np.asarray(f["assignment"][j][: hi - lo], dtype=np.int64))
 
-        its_mask = claims_cols["its"]
-        used_np = claims_cols["used"]
-        held = claims_cols["held"]
+        def apply_output(out) -> None:
+            if out[0] == "pods":
+                _, lo, hi, assignment = out
+                _apply_assignments(ctx, lo, np.asarray(assignment[: hi - lo], dtype=np.int64))
+            elif out[0] == "gang":
+                _decode_gang_segments(ctx, out[1], out[2], enc["gang_key_of_kind"])
+            elif out[0] == "kscan":
+                _, segs, assign, _grid_reused = out
+                for j, (lo, hi, _kind) in enumerate(segs):
+                    _apply_assignments(ctx, lo, np.asarray(assign[j][: hi - lo], dtype=np.int64))
+            else:
+                _decode_fill_segments(ctx, out[1], out[2])
+
+        def rehydrate(o, spec, it_f):
+            """Rebuild one output from its fetched host arrays (the preps'
+            emission order); returns (output, is_fill)."""
+            if spec[0] == "pods":
+                return (o[0], o[1], o[2], next(it_f)), False
+            if spec[0] == "kscan":
+                return (o[0], o[1], next(it_f), next(it_f)), False
+            names = ("open_g", "n_opened", "fill", "leftover", "status") if spec[0] == "gang" else (
+                "fill_c", "fill_e", "open_start", "n_opened", "status", "slot_map")
+            return (o[0], o[1], {n: next(it_f) for n in names}), spec[0] == "fill"
+
+        def widen_fill(idx_range, new_outs) -> None:
+            # a fill count overflowed the int16 narrowing (a claim admitted
+            # >32k identical pods): refetch those grids at full width
+            wide = {
+                i: (WireLeaf(outputs[i][2].fill_c, len(o[1])), WireLeaf(outputs[i][2].fill_e, len(o[1])))
+                for i, o in zip(idx_range, new_outs)
+                if o[0] == "fill"
+            }
+            got = fetch_tree(wide)
+            for i, o in zip(idx_range, new_outs):
+                if o[0] == "fill":
+                    o[2]["fill_c"], o[2]["fill_e"] = got[i]
+
+        # chunk-sink deltas (the SolveStream): only rows appended since the
+        # previous flush
+        sink = self._chunk_sink
+        emitted_claim: dict[int, int] = {}
+        sink_marks = [0, 0]  # existing_assignments, unschedulable
+
+        def flush_chunk() -> None:
+            if sink is None:
+                return
+            delta_claims = []
+            for claim in claims:
+                n0 = emitted_claim.get(claim.slot, 0)
+                if len(claim.pods) > n0:
+                    delta_claims.append((claim.slot, [p.uid for p in claim.pods[n0:]]))
+                    emitted_claim[claim.slot] = len(claim.pods)
+            ea = list(existing_assignments.items())
+            delta_exist = ea[sink_marks[0] :]
+            sink_marks[0] = len(ea)
+            delta_unsched = [(p.uid, r) for p, r in unschedulable[sink_marks[1] :]]
+            sink_marks[1] = len(unschedulable)
+            if delta_claims or delta_exist or delta_unsched:
+                sink(("chunk", {"claims": delta_claims, "existing": delta_exist, "unsched": delta_unsched}))
+
+        def read_group(fetched_flat, lo: int, hi: int, state_reads: bool, head: bool):
+            """Rehydrate outputs [lo, hi) from one fetch; the state reads
+            sit before them (`head`) or after them."""
+            it_f = iter(fetched_flat)
+            if state_reads and head:
+                fetched.update((name, next(it_f)) for name in _STATE_HEAD)
+            else:
+                tmpl_ref[0] = next(it_f)
+            new_outs = []
+            any_fill = False
+            for o, spec in zip(outputs[lo:hi], specs[lo:hi]):
+                out, is_fill = rehydrate(o, spec, it_f)
+                any_fill |= is_fill
+                new_outs.append(out)
+            fill_max = next(it_f) if any_fill else None
+            if state_reads:
+                if not head:
+                    fetched.update((name, next(it_f)) for name in _STATE_HEAD)
+                if tk:
+                    fetched.update((name, next(it_f)) for name in _TK_NAMES)
+                tmpl_ref[0] = fetched["template"]
+            if fill_max is not None and int(fill_max) >= 2**15:
+                widen_fill(range(lo, hi), new_outs)
+            for out in new_outs:
+                apply_output(out)
+            flush_chunk()
+
+        groups = None
+        if tmpl_snaps is not None and len(outputs) >= 2:
+            K = self.pipeline_chunks if self._pipeline_target(enc) else 0
+            if K >= 2:
+                groups = _partition_ranges(weights, K)
+                if len(groups) < 2:
+                    groups = None
+        if groups is None:
+            # single fetch: one wire, the state reads included
+            prep = _make_fetch_prep(tuple(specs), tk, self.plain)
+            fetched_flat = fetch_tree(prep(state, flat))
+            self._t_fetch_done = time.perf_counter()
+            read_group(fetched_flat, 0, len(outputs), True, True)
+        else:
+            self._pipeline_stats = self._decode_pipelined(
+                groups, specs, flat, flat_spans, weights, tmpl_snaps, state, tk, read_group
+            )
+        self._last_fetched = fetched
+
+        its_mask = fetched["its"]
+        used_np = fetched["used"]
+        held = fetched["held"]
         n_rid = len(self._rid_names)
         rids = self.encoder._resource_ids
         proto_cache: dict = {}
@@ -2037,8 +2405,8 @@ class TorchScheduler:
             claim.requirements = reqs
             if topo_kids:
                 _fold_narrowing(
-                    vocab, topo_kids, reqs, claims_cols["tk_mask"][s], claims_cols["tk_inf"][s],
-                    claims_cols["tk_def"][s], f"claim slot {s}",
+                    vocab, topo_kids, reqs, fetched["c_mask"][s], fetched["c_inf"][s],
+                    fetched["c_def"][s], f"claim slot {s}",
                 )
             claim.used = dict(zip(names, used_np[s][ridx].tolist()))
             row = np.asarray(its_mask[s])

@@ -31,7 +31,7 @@ WHATIF_KERNELS = ("perpod_scan_persistent_whatif",)
 KERNELS = (
     "req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid",
     "kscan_pod_loop", *PERPOD_KERNELS, *WHATIF_KERNELS, "gang_scan", "retract_tail", "objective_verdict",
-    "dp_dead", "dp_verdict", "merge_shard",
+    "dp_dead", "dp_verdict", "merge_shard", "wire_pack",
 )
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
@@ -146,6 +146,7 @@ _ARGTYPES = {
     "dp_dead": [_P, _I, _P, _P],
     "dp_verdict": [_P, _I, _P, _P],
     "merge_shard": [_P, _I, _P, _P],
+    "wire_pack": [_P, _I, _I, _I, _I64, _I, _I64, _P, _I, _P],
 }
 
 
@@ -1210,3 +1211,98 @@ def merge_shard(committed, spec, base, assignment=None) -> tuple:
         exist_used=ex_d[0], exist_ports=ex_d[1], exist_vols=ex_d[2], exist_reqs=ReqSetTensors(*ex_d[3:]), **new,
     )
     return merged, shifted, assign
+
+
+# ---------------------------------------------------------------------------
+# the wire: wire_pack (H15), one launch per fetch
+# ---------------------------------------------------------------------------
+
+WIRE_THREADS = 256
+WIRE_MAX_BLOCKS = 132 * 8
+
+
+def wire_table(leaves: list) -> tuple:
+    """The descriptor table of csrc/wire_pack.cu for fetch leaves (tensors,
+    ops.kernels.WireLeaf, ops.kernels.WireMax) and the wire's layout:
+    (int64 numpy table, n_tasks, n_members, n_sources, work items, max
+    leaf's byte offset or -1, wire bytes). Pointers are the leaves' data
+    pointers; leaves with no elements take no task."""
+    import math
+
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import kernels
+
+    metas = [(t.shape, t.dtype) for t in leaves]
+    groups, total_bytes = kernels.wire_layout(metas)
+    tasks: list = []
+    members: list = []
+    sources: list = []
+    work = 0
+    max_off = -1
+    for dt, idx, goff, n in groups:
+        if dt == torch.bool:
+            first = len(members)
+            e = 0
+            for i in idx:
+                leaf = leaves[i]
+                cnt = math.prod(metas[i][0])
+                if cnt:
+                    src = leaf.src if isinstance(leaf, kernels.WireLeaf) else leaf
+                    members += (_checked_src(src, "bool leaf"), e, cnt)
+                e += cnt
+            if n:
+                tasks += (2, first // 3, (len(members) - first) // 3, goff, 1, -(-n // 8), work, n)
+                work += -(-n // 8)
+            continue
+        es = dt.itemsize
+        e = 0
+        for i in idx:
+            leaf = leaves[i]
+            cnt = math.prod(metas[i][0])
+            off = goff + e * es
+            e += cnt
+            if isinstance(leaf, kernels.WireMax):
+                if max_off >= 0:
+                    raise LaunchRefused("wire_pack: more than one max leaf in a fetch")
+                max_off = off
+                first = len(sources)
+                w = 0
+                for s in leaf.srcs:
+                    sources += (_checked_src(s, "max source"), w, s.numel())
+                    w += s.numel()
+                tasks += (3, first // 3, (len(sources) - first) // 3, off, 4, w, work, 0)
+                work += w
+            elif cnt:
+                narrow = isinstance(leaf, kernels.WireLeaf) and leaf.narrow
+                src = leaf.src if isinstance(leaf, kernels.WireLeaf) else leaf
+                tasks += (1 if narrow else 0, _checked_src(src, "leaf"), cnt, off, es, cnt, work, 0)
+                work += cnt
+    table = np.array(tasks + members + sources + [0, np.iinfo(np.int32).min], dtype=np.int64)
+    return table, len(tasks) // 8, len(members) // 3, len(sources) // 3, work, max_off, total_bytes
+
+
+def _checked_src(t: torch.Tensor, what: str) -> int:
+    if not t.is_contiguous():
+        raise LaunchRefused(f"wire_pack: {what} not contiguous")
+    return t.data_ptr()
+
+
+def wire_pack(leaves: list) -> torch.Tensor:
+    """H15: the fetch's whole wire (ops.kernels.pack_wire_plain's layout) in
+    one launch on torch's current stream. The descriptor table goes to the
+    device in one copy from pinned memory; the output is allocated once.
+    Returns the uint8 wire on the leaves' device."""
+    from karpenter_tpu_torch.ops import kernels
+
+    dev = kernels.wire_sources(leaves[0])[0].device
+    table, n_tasks, n_members, n_sources, work, max_off, nbytes = wire_table(leaves)
+    host = torch.from_numpy(table)
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    table_d = host.to(dev, non_blocking=True)
+    wire = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    grid = max(1, min(-(-work // WIRE_THREADS), WIRE_MAX_BLOCKS))
+    _call("wire_pack", table_d.data_ptr(), n_tasks, n_members, n_sources, work, int(max_off >= 0),
+          max(max_off, 0), wire.data_ptr(), grid)
+    return wire

@@ -45,6 +45,17 @@ def as_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device` without making the host wait: torch
+    synchronizes the stream after a copy from pageable memory, which in the
+    dispatch loop would hold the host until the card drained every queued
+    dispatch. On the card the copy goes through pinned memory, queued."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class Vocab:
     """Per-key value vocabulary for one problem instance."""
 

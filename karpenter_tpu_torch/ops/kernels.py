@@ -12,9 +12,17 @@ Semantics (golden-tested against karpenter_tpu_torch/scheduling):
 csrc/req_intersects.cu, on a CPU tensor it runs `intersects_plain`.
 `set_eq_rows`, `per_key_ok_table` and `update_set_at` serve the plain
 per-pod step only (the per-pod kernel, H7/H8, inlines the same tests).
+
+The wire: every fetch packs its leaves into one uint8 buffer with the JAX
+package's _pack_wire layout. On a CUDA tensor that is kernel H15
+(csrc/wire_pack.cu, one launch per fetch, reading each leaf in place,
+slicing and narrowing included); on a CPU tensor `pack_wire_plain`.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -271,12 +279,156 @@ def packed_count_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# One-copy fetch
+# The wire: one packed uint8 buffer per fetch (kernel H15 on the card)
 # ---------------------------------------------------------------------------
 
 
+class WireLeaf:
+    """A fetch leaf read in place: the first `rows` rows of `src` (all of
+    them when None), narrowed int32 -> int16 when `narrow` (the fetch
+    preps' live-row slice and fill-grid narrowing). The wire kernel reads
+    `src` where it lies, so the slice and the narrowing cost no launch."""
+
+    __slots__ = ("src", "rows", "narrow")
+
+    def __init__(self, src: torch.Tensor, rows: Optional[int] = None, narrow: bool = False):
+        if narrow and src.dtype != torch.int32:
+            raise ValueError(f"WireLeaf: only int32 narrows to int16, not {src.dtype}")
+        self.src = src
+        self.rows = src.shape[0] if rows is None else min(int(rows), src.shape[0])
+        self.narrow = narrow
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows,) + tuple(self.src.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.int16 if self.narrow else self.src.dtype
+
+    def tensor(self) -> torch.Tensor:
+        t = self.src[: self.rows]
+        return t.to(torch.int16) if self.narrow else t
+
+
+class WireMax:
+    """A 0-d int32 fetch leaf: the max over every element of `srcs`, each
+    read at full size (the fetch preps' `fill_max` overflow guard over the
+    whole fill grids)."""
+
+    __slots__ = ("srcs",)
+    shape = ()
+    dtype = torch.int32
+
+    def __init__(self, srcs):
+        self.srcs = tuple(srcs)
+        if not self.srcs or any(s.dtype != torch.int32 or s.numel() == 0 for s in self.srcs):
+            raise ValueError("WireMax: one or more non-empty int32 sources")
+
+    def tensor(self) -> torch.Tensor:
+        return torch.stack([s.max() for s in self.srcs]).max()
+
+
+_WIRE_TYPES = (torch.Tensor, WireLeaf, WireMax)
+
+_NP_DTYPES = {
+    torch.bool: np.bool_,
+    torch.uint8: np.uint8,
+    torch.int16: np.int16,
+    torch.int32: np.int32,
+    torch.uint32: np.uint32,
+    torch.int64: np.int64,
+    torch.float32: np.float32,
+}
+
+
+def materialize(leaf) -> torch.Tensor:
+    """The plain tensor a fetch leaf stands for."""
+    return leaf if isinstance(leaf, torch.Tensor) else leaf.tensor()
+
+
+def dtype_groups(dtypes) -> dict:
+    """{dtype: [leaf positions]} in order of first appearance — the wire's
+    group order (the JAX package's _pack_wire)."""
+    groups: dict = {}
+    for i, dt in enumerate(dtypes):
+        groups.setdefault(dt, []).append(i)
+    return groups
+
+
+def packbits_plain(bits: torch.Tensor) -> torch.Tensor:
+    """np.packbits of a flat bool tensor: big-endian bits in each byte, the
+    last byte zero-padded."""
+    n = bits.numel()
+    pad = -n % 8
+    b = bits.reshape(-1).to(torch.int32)
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=b.device)
+    return (b.reshape(-1, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
+
+
+def pack_wire_plain(leaves: list) -> torch.Tensor:
+    """The plain version of the wire kernel (H15), with the JAX package's
+    _pack_wire byte layout: the leaves' dtype groups in order of first
+    appearance, each the concatenation of its raveled leaves; bools
+    packbits'ed across the whole group (one byte may straddle two leaves),
+    every other dtype as its little-endian bytes. One uint8 tensor on the
+    leaves' device."""
+    ts = [materialize(t) for t in leaves]
+    parts = []
+    for dt, idx in dtype_groups([t.dtype for t in ts]).items():
+        if dt == torch.bool:
+            parts.append(packbits_plain(torch.cat([ts[i].reshape(-1) for i in idx])))
+        else:
+            parts.extend(ts[i].contiguous().reshape(-1).view(torch.uint8) for i in idx if ts[i].numel())
+    if not parts:
+        return torch.empty(0, dtype=torch.uint8, device=ts[0].device)
+    return torch.cat(parts) if len(parts) > 1 else parts[0].clone()
+
+
+def wire_layout(metas: list) -> tuple[list, int]:
+    """[(dtype, [leaf positions], group byte offset, group elements)] and
+    the wire's total bytes, for leaves of (shape, torch dtype) `metas`."""
+    groups = []
+    off = 0
+    for dt, idx in dtype_groups([dt for _shape, dt in metas]).items():
+        n = sum(math.prod(metas[i][0]) for i in idx)
+        groups.append((dt, idx, off, n))
+        off += -(-n // 8) if dt == torch.bool else n * dt.itemsize
+    return groups, off
+
+
+def unpack_wire(wire: np.ndarray, metas: list) -> list:
+    """The host side of the wire: numpy arrays of (shape, torch dtype)
+    `metas` from a packed uint8 buffer (the JAX package's
+    _fetch_tree_impl decode, np.unpackbits(seg, count=n) included). Non-bool
+    arrays are views of `wire`."""
+    out: list = [None] * len(metas)
+    groups, _total = wire_layout(metas)
+    for dt, idx, woff, n in groups:
+        npdt = np.dtype(_NP_DTYPES[dt])
+        nbytes = -(-n // 8) if dt == torch.bool else n * npdt.itemsize
+        seg = wire[woff : woff + nbytes]
+        host = np.unpackbits(seg, count=n).astype(bool) if dt == torch.bool else seg.view(npdt)[:n]
+        off = 0
+        for i in idx:
+            shape = tuple(metas[i][0])
+            size = math.prod(shape)
+            out[i] = host[off : off + size].reshape(shape)
+            off += size
+    return out
+
+
+def canonicalize_for_wire(leaves: list) -> list:
+    """The JAX package's _canonicalize_for_wire re-lays leaves partitioned
+    over a device mesh as replicated before its packer. The port runs on
+    one card, where every leaf is whole already: the identity."""
+    return leaves
+
+
 def _leaves(tree, out: list):
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, _WIRE_TYPES):
         out.append(tree)
     elif isinstance(tree, dict):
         for v in tree.values():
@@ -287,7 +439,7 @@ def _leaves(tree, out: list):
 
 
 def _rebuild(tree, it):
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, _WIRE_TYPES):
         return next(it)
     if isinstance(tree, dict):
         return {k: _rebuild(v, it) for k, v in tree.items()}
@@ -298,32 +450,89 @@ def _rebuild(tree, it):
     return tree
 
 
-_NP_DTYPES = {
-    torch.bool: np.bool_,
-    torch.uint8: np.uint8,
-    torch.int16: np.int16,
-    torch.int32: np.int32,
-    torch.int64: np.int64,
-    torch.float32: np.float32,
-}
+def wire_sources(leaf) -> tuple:
+    """The tensors a fetch leaf reads."""
+    if isinstance(leaf, torch.Tensor):
+        return (leaf,)
+    return (leaf.src,) if isinstance(leaf, WireLeaf) else leaf.srcs
 
 
-def fetch_tree(tree):
-    """Device->host transfer of a nested dict/list/tuple of tensors with
-    ONE copy: every leaf's bytes are concatenated on the device, copied
-    once, and re-sliced into numpy arrays on the host. Non-tensor leaves
-    pass through."""
+# fetches since the last reset_wire_stats(): wire bytes moved, and the bytes
+# the same leaves take whole (unsliced, unnarrowed, a bool per byte)
+WIRE_STATS = dict(fetches=0, wire_bytes=0, raw_bytes=0)
+
+
+def reset_wire_stats() -> None:
+    for k in WIRE_STATS:
+        WIRE_STATS[k] = 0
+
+
+def _raw_bytes(leaf) -> int:
+    if isinstance(leaf, WireMax):
+        return 4
+    return sum(s.numel() * s.element_size() for s in wire_sources(leaf))
+
+
+class PendingFetch:
+    """A fetch in flight: wait() blocks until its wire is on the host and
+    returns the tree with numpy arrays in place of its leaves."""
+
+    def __init__(self, tree, host: Optional[torch.Tensor], metas: list, done=None, ready=None):
+        self._tree, self._host, self._metas, self._done, self._ready = tree, host, metas, done, ready
+        self.nbytes = 0 if host is None else host.numel()
+
+    def wait(self):
+        if self._ready is not None:
+            return self._ready
+        if self._done is not None:
+            self._done.synchronize()
+        host = unpack_wire(self._host.numpy(), self._metas) if self._metas else []
+        self._ready = _rebuild(self._tree, iter(host))
+        return self._ready
+
+
+def fetch_async(tree, after=None, stream=None) -> PendingFetch:
+    """Start the device->host transfer of a nested dict/list/tuple of
+    tensors, WireLeaf and WireMax leaves as ONE packed wire. On the card,
+    the wire kernel (H15) packs every leaf in one launch on `stream`
+    (torch's current stream when None), after CUDA event `after`, and the
+    wire is copied into its own pinned host buffer; every tensor the
+    launch reads is marked as used on that stream. On the CPU the plain
+    version packs. Non-tensor leaves pass through."""
     leaves: list = []
     _leaves(tree, leaves)
     if not leaves:
-        return tree
-    wire = torch.cat(
-        [t.contiguous().reshape(-1).view(torch.uint8) for t in leaves]
-    ).cpu().numpy()
-    host = []
-    off = 0
-    for t in leaves:
-        n = t.numel() * t.element_size()
-        host.append(wire[off : off + n].view(_NP_DTYPES[t.dtype]).reshape(tuple(t.shape)))
-        off += n
-    return _rebuild(tree, iter(host))
+        return PendingFetch(tree, None, [], ready=tree)
+    leaves = canonicalize_for_wire(leaves)
+    metas = [(tuple(t.shape), t.dtype) for t in leaves]
+    dev = wire_sources(leaves[0])[0].device
+    if any(s.device != dev for t in leaves for s in wire_sources(t)):
+        raise ValueError("fetch: leaves on more than one device")
+    WIRE_STATS["fetches"] += 1
+    WIRE_STATS["raw_bytes"] += sum(_raw_bytes(t) for t in leaves)
+    if dev.type == "cpu":
+        host = pack_wire_plain(leaves)
+        WIRE_STATS["wire_bytes"] += host.numel()
+        return PendingFetch(tree, host, metas)
+    stream = stream or torch.cuda.current_stream(dev)
+    with torch.cuda.stream(stream):
+        if after is not None:
+            stream.wait_event(after)
+        wire = cuda.wire_pack(leaves)
+        host = torch.empty(wire.numel(), dtype=torch.uint8, pin_memory=True)
+        host.copy_(wire, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    if stream != torch.cuda.current_stream(dev):
+        for t in leaves:
+            for s in wire_sources(t):
+                s.record_stream(stream)
+    WIRE_STATS["wire_bytes"] += host.numel()
+    return PendingFetch(tree, host, metas, done=done)
+
+
+def fetch_tree(tree):
+    """Device->host transfer of a nested dict/list/tuple of tensors (and
+    WireLeaf / WireMax leaves) as one packed wire, waited for: every leaf
+    comes back as a numpy array in place. Non-tensor leaves pass through."""
+    return fetch_async(tree).wait()

@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.ops import cuda, kernels
-from karpenter_tpu_torch.ops.encode import INT_MAX, INT_MIN, InstanceTypeTensors, ReqSetTensors, as_tensor
+from karpenter_tpu_torch.ops.encode import INT_MAX, INT_MIN, InstanceTypeTensors, ReqSetTensors, as_tensor, to_device
 from karpenter_tpu_torch.ops.kernels import (
     broadcast_set,
     compatible_elemwise,
@@ -706,6 +706,20 @@ def retract_tail(state: SolverState, cut: int, plain: bool = False) -> SolverSta
     if plain or state.used.device.type == "cpu":
         return retract_tail_plain(state, cut)
     return cuda.retract_tail(state, cut)
+
+
+def global_template(state: SolverState) -> torch.Tensor:
+    """[NCAP] i32 — the global template column alone (the JAX package's
+    global_template, solver.py:952): the pipelined decode's snapshot after
+    a dispatch. A claim's template is fixed when it opens, so window rows
+    over the bank give every opened slot's template. A fresh tensor, never
+    a view of the state: later dispatches rewrite the window."""
+    NB = state.bank_template.shape[0]
+    out = torch.empty(NB + 1, dtype=I32, device=state.template.device)
+    out[:NB].copy_(state.bank_template)
+    # unused rows carry the NCAP sentinel and land on the spare element
+    out.scatter_(0, state.slot_of.long(), state.template)
+    return out[:NB]
 
 
 def global_claims(state: SolverState, plain: bool = False, topo_kids: tuple = ()) -> dict:
@@ -1795,7 +1809,7 @@ def solve_kind_scan(
         raise ValueError("solve_kind_scan needs at least one segment")
     return state, KindYs(
         assignment=torch.stack(rows),
-        grid_reused=torch.as_tensor(reuse, dtype=torch.bool).to(state.used.device),
+        grid_reused=to_device(torch.as_tensor(reuse, dtype=torch.bool), state.used.device),
     )
 
 

@@ -1,5 +1,5 @@
 // A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu,
-// objective_verdict.cu, kscan_pod_loop.cu,
+// objective_verdict.cu, kscan_pod_loop.cu, wire_pack.cu,
 // gang_scan.cu and retract_tail.cu use, so that their kernels can run on
 // the host against the plain versions (tests/test_torch_perpod_emulated.py,
 // tests/test_torch_gang_emulated.py, tests/test_torch_retract_emulated.py). One std::thread per CUDA thread,
@@ -162,6 +162,13 @@ void emu_launch(F fn, int grid, int threads, size_t smem, A... args) {
 // atomics and fences (objective_verdict.cu's last-block fold); the
 // emulator runs a grid's blocks one after another
 inline int atomicAdd(int* p, int v) { return reinterpret_cast<std::atomic<int>*>(p)->fetch_add(v); }
+inline int atomicMax(int* p, int v) {
+  auto* a = reinterpret_cast<std::atomic<int>*>(p);
+  int old = a->load();
+  while (old < v && !a->compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline int __shfl_down_sync(unsigned, int v, int d) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;

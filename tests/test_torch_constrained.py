@@ -52,6 +52,7 @@ from karpenter_tpu.utils import resources as j_res  # noqa: E402
 from karpenter_tpu_torch import testing as T  # noqa: E402
 from karpenter_tpu_torch.controllers.provisioning import TorchScheduler  # noqa: E402
 from karpenter_tpu_torch.ops import solver as p_solver  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, res=j_res, Operator=JOp, Requirement=JReq, Requirements=JReqs,

@@ -23,6 +23,7 @@ from karpenter_tpu_torch.ops import kernels as p_kernels
 from karpenter_tpu_torch.scheduling import Operator as POp
 from karpenter_tpu_torch.scheduling import Requirement as PReq
 from karpenter_tpu_torch.scheduling import Requirements as PReqs
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 KEYS = ["zone", "arch", "team", jl.LABEL_TOPOLOGY_ZONE, "tier"]
 VALUES = ["a", "b", "c", "1", "5", "17", "x"]

@@ -51,6 +51,7 @@ from karpenter_tpu_torch.models import pod as p_pod  # noqa: E402
 from karpenter_tpu_torch.ops import solver as p_solver  # noqa: E402
 from karpenter_tpu_torch.ops.encode import InstanceTypeTensors  # noqa: E402
 from karpenter_tpu_torch.ops.topology import TopologyTensors  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, make_gang_pods=j_gang.make_gang_pods, TopologySpreadConstraint=j_pod.TopologySpreadConstraint,

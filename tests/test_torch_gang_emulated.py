@@ -18,12 +18,6 @@ with it: chip_smoke.py holds the compiled kernel to the plain loop on the
 card. Tolerance: exact.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -33,44 +27,19 @@ from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.models.pod import HostPort, PodAffinityTerm
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
+from cuda_emu_build import c_entry, emulated_library
 
-HERE = Path(__file__).resolve().parent
 
-
-def _emulated_source() -> str:
-    """gang_scan.cu with the CUDA-only constructs swapped for the
-    emulator's: the header, dynamic shared memory and the launch syntax."""
-    src = (p_cuda.CSRC / "gang_scan.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
-    src = src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
-    return src
+def _rewrite(src: str) -> str:
+    """Dynamic shared memory for the emulator's."""
+    return src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry call routed to the emulated gang kernel."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernel")
-    d = tmp_path_factory.mktemp("gang_emu")
-    (d / "gang_scan.cpp").write_text(_emulated_source())
-    lib_path = d / "libgang_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", f"-I{p_cuda.CSRC}", "-o",
-         str(lib_path), str(d / "gang_scan.cpp")],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.gang_scan
-    fn.argtypes = p_cuda._ARGTYPES["gang_scan"]
-    fn.restype = ctypes.c_int
+    lib = emulated_library(tmp_path_factory, "gang_scan", rewrite=_rewrite)
+    fn = c_entry(lib, "gang_scan")
 
     def invoke(source, entry, *args):
         assert (source, entry) == ("gang_scan", "gang_scan")

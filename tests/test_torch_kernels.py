@@ -19,6 +19,7 @@ from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import encode as p_encode
 from karpenter_tpu_torch.ops import kernels as p_kernels
 from karpenter_tpu_torch.ops import solver as p_solver
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from karpenter_tpu_torch.ops import kernels as p_kernels
 from karpenter_tpu_torch.ops import solver as p_solver
 from karpenter_tpu_torch.ops.encode import InstanceTypeTensors, ReqSetTensors
 from karpenter_tpu_torch.ops.topology import TopologyTensors
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -389,6 +390,8 @@ def test_launchers_accept_what_the_solve_passes(monkeypatch):
         checked(lambda inp, c, topo, t, n, m, nc: p_cuda.kscan_pod_loop(inp, c, topo, n, m, nc, t.rank),
                 K.kscan_pod_loop),
     ))
+    # every fetch's leaves through the wire kernel's launcher (H15)
+    monkeypatch.setattr(p_kernels, "pack_wire_plain", checked(p_cuda.wire_pack, p_kernels.pack_wire_plain))
     got, stats = solve()
     assert got == want
     assert stats["kscan_dispatches"] > 0 and stats["compactions"] > 0

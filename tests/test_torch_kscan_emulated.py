@@ -15,12 +15,6 @@ compiler does with it: chip_smoke.py holds the compiled kernel to the
 plain loop on the card. Tolerance: exact.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import pytest
 import torch
 
@@ -28,43 +22,14 @@ from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
-
-HERE = Path(__file__).resolve().parent
-
-
-def _emulated_source() -> str:
-    """kscan_pod_loop.cu with the CUDA header and launch syntax swapped for
-    the emulator's."""
-    src = (p_cuda.CSRC / "kscan_pod_loop.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
-    return src
+from cuda_emu_build import c_entry, emulated_library
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry call routed to the emulated pod-loop kernel."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernel")
-    d = tmp_path_factory.mktemp("kscan_emu")
-    (d / "kscan_pod_loop.cpp").write_text(_emulated_source())
-    lib_path = d / "libkscan_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", "-o", str(lib_path),
-         str(d / "kscan_pod_loop.cpp")],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.kscan_pod_loop
-    fn.argtypes = p_cuda._ARGTYPES["kscan_pod_loop"]
-    fn.restype = ctypes.c_int
+    lib = emulated_library(tmp_path_factory, "kscan_pod_loop")
+    fn = c_entry(lib, "kscan_pod_loop")
 
     def invoke(source, entry, *args):
         assert (source, entry) == ("kscan_pod_loop", "kscan_pod_loop")

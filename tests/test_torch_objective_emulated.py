@@ -16,12 +16,6 @@ kernel to the plain version on the card. Tolerance: exact (the scores
 bit for bit).
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -30,43 +24,14 @@ from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
-
-HERE = Path(__file__).resolve().parent
-
-
-def _emulated_source() -> str:
-    """objective_verdict.cu with the CUDA header and launch syntax swapped
-    for the emulator's."""
-    src = (p_cuda.CSRC / "objective_verdict.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
-    return src
+from cuda_emu_build import c_entry, emulated_library
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry call routed to the emulated verdict kernel."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernel")
-    d = tmp_path_factory.mktemp("objective_emu")
-    (d / "objective_verdict.cpp").write_text(_emulated_source())
-    lib_path = d / "libobjective_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", "-o", str(lib_path),
-         str(d / "objective_verdict.cpp")],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.objective_verdict
-    fn.argtypes = p_cuda._ARGTYPES["objective_verdict"]
-    fn.restype = ctypes.c_int
+    lib = emulated_library(tmp_path_factory, "objective_verdict")
+    fn = c_entry(lib, "objective_verdict")
     calls = []
 
     def invoke(source, entry, *args):

@@ -80,6 +80,7 @@ from test_torch_resident import assert_round  # noqa: E402
 from test_torch_scheduler import _view  # noqa: E402
 from test_torch_solver import _assert_leaves_equal, _tonp  # noqa: E402
 from test_torch_whatif import JAX as WJAX  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JS = types.SimpleNamespace(**vars(WJAX), fake=j_fake, NodePool=JNodePool, build_templates=j_build_templates,
                            TSC=j_pod.TopologySpreadConstraint, make_gang_pods=j_gang.make_gang_pods)
@@ -159,6 +160,18 @@ def _solve_both(policy, workload, monkeypatch, k=None, objective_kw=True):
                     objective=policy if objective_kw else None, **kw)
         out.append((sched, sched.solve(make(S))))
     return out
+
+
+# (policy, workload, K) -> _solve_both's pair, for the cases that solve the
+# same problem (a scheduler case and the cost gate); the schedulers and
+# results are only read
+_SHARED: dict = {}
+
+
+def _solve_shared(policy, workload, monkeypatch, k):
+    if (policy, workload, k) not in _SHARED:
+        _SHARED[(policy, workload, k)] = _solve_both(policy, workload, monkeypatch, k)
+    return _SHARED[(policy, workload, k)]
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +429,7 @@ def test_frag_aware_one_rounding_matches_xla():
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("policy", NON_LEXICAL)
 def test_scheduler_matches_reference(policy, k, workload, monkeypatch):
-    (js, rj), (ps, rp) = _solve_both(policy, workload, monkeypatch, k)
+    (js, rj), (ps, rp) = _solve_shared(policy, workload, monkeypatch, k)
     assert ps._active_policy == js._active_policy == policy
     assert _view(rj) == _view(rp)
     assert T.claims_digest(rp) == T.claims_digest(rj)
@@ -454,7 +467,7 @@ def test_cost_gate_and_perturbed_wins(monkeypatch):
     variants win rounds, and the prices equal the reference's."""
     prices = {}
     for policy in ("lexical", "cost_min"):
-        (js, rj), (ps, rp) = _solve_both(policy, "bench_mixed_pods_192", monkeypatch, 4)
+        (js, rj), (ps, rp) = _solve_shared(policy, "bench_mixed_pods_192", monkeypatch, 4)
         assert not rp.unschedulable and _view(rj) == _view(rp)
         prices[policy] = p_oracle.total_price_per_hour(rp)
         assert prices[policy] == j_oracle.total_price_per_hour(rj)

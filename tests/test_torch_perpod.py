@@ -38,6 +38,7 @@ from karpenter_tpu_torch.ops import kernels as p_kernels
 from karpenter_tpu_torch.ops import solver as p_solver
 from karpenter_tpu_torch.ops import topology as p_topo
 from karpenter_tpu_torch.ops.encode import InstanceTypeTensors, ReqSetTensors
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 TIER = "example.com/tier"
 

@@ -20,6 +20,7 @@ from karpenter_tpu_torch.models.pod import NodeAffinity as PNodeAffinity
 from karpenter_tpu_torch.models.pod import NodeSelectorTerm as PNodeSelectorTerm
 from test_torch_perpod import JAX_MODELS, tier_pods, tier_templates
 from test_torch_scheduler import JAX_SIDE, _compare, _edge_pods, _node_a
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

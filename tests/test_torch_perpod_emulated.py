@@ -18,11 +18,6 @@ holds the compiled kernel to the plain loop on the card. Tolerance: exact.
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -31,23 +26,13 @@ from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
+from cuda_emu_build import c_entry, emulated_library
 
-HERE = Path(__file__).resolve().parent
 
-
-def _emulated_source() -> str:
-    """perpod_scan.cu with the CUDA-only constructs swapped for the
-    emulator's: the headers, dynamic shared memory, the launch syntax, the
-    bulk copy and its mbarrier (a memcpy and a barrier)."""
-    src = (p_cuda.CSRC / "perpod_scan.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
+def _rewrite(src: str) -> str:
+    """Dynamic shared memory, the bulk copy and its mbarrier for the
+    emulator's (a memcpy and a barrier)."""
     src = src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
     a = src.index("__device__ __forceinline__ void stage_tables(")
     b = src.index("struct Pick {")
     return src[:a] + (
@@ -61,22 +46,8 @@ def _emulated_source() -> str:
 def emulated(tmp_path_factory):
     """ops/cuda.py with its per-pod launches routed to the emulated kernel
     (its library as .lib)."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernel")
-    d = tmp_path_factory.mktemp("perpod_emu")
-    (d / "perpod_scan.cpp").write_text(_emulated_source())
-    lib_path = d / "libperpod_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", "-o", str(lib_path),
-         str(d / "perpod_scan.cpp")],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.perpod_steps
-    fn.argtypes = p_cuda._ARGTYPES["perpod_steps"]
-    fn.restype = ctypes.c_int
+    lib = emulated_library(tmp_path_factory, "perpod_scan", rewrite=_rewrite)
+    fn = c_entry(lib, "perpod_steps")
 
     def invoke(source, entry, *args):
         assert (source, entry) == ("perpod_scan", "perpod_steps")

@@ -54,6 +54,7 @@ from karpenter_tpu_torch.ops import cuda as p_cuda  # noqa: E402
 from karpenter_tpu_torch.ops import solver as p_solver  # noqa: E402
 
 from test_solver import assert_same_packing  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, Node=j_host.ExistingSimNode, Req=JReq, Reqs=JReqs,

@@ -16,12 +16,6 @@ chip_smoke.py holds the compiled kernel to the plain version on the card.
 Tolerance: exact.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -31,43 +25,14 @@ from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
 from karpenter_tpu_torch.ops.encode import ReqSetTensors
-
-HERE = Path(__file__).resolve().parent
-
-
-def _emulated_source() -> str:
-    """retract_tail.cu with the CUDA header and launch syntax swapped for
-    the emulator's."""
-    src = (p_cuda.CSRC / "retract_tail.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
-    return src
+from cuda_emu_build import c_entry, emulated_library
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry call routed to the emulated retract kernel."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernel")
-    d = tmp_path_factory.mktemp("retract_emu")
-    (d / "retract_tail.cpp").write_text(_emulated_source())
-    lib_path = d / "libretract_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", "-o", str(lib_path),
-         str(d / "retract_tail.cpp")],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.retract_tail
-    fn.argtypes = p_cuda._ARGTYPES["retract_tail"]
-    fn.restype = ctypes.c_int
+    lib = emulated_library(tmp_path_factory, "retract_tail")
+    fn = c_entry(lib, "retract_tail")
 
     def invoke(source, entry, *args):
         assert (source, entry) == ("retract_tail", "retract_tail")

@@ -35,6 +35,7 @@ from karpenter_tpu_torch.models import pod as p_pod
 from karpenter_tpu_torch.scheduling import Operator as POp
 from karpenter_tpu_torch.scheduling import Requirement as PReq
 from karpenter_tpu_torch.scheduling import Requirements as PReqs
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -65,6 +65,7 @@ from karpenter_tpu_torch.ops.encode import InstanceTypeTensors  # noqa: E402
 from test_torch_scheduler import _view  # noqa: E402
 from test_torch_solver import _tonp  # noqa: E402
 from test_torch_whatif import JAX as WJAX  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JS = types.SimpleNamespace(**vars(WJAX), fake=j_fake, NodePool=JNodePool, build_templates=j_build_templates,
                            TopologySpreadConstraint=j_pod.TopologySpreadConstraint,
@@ -81,22 +82,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _no_persistent_compile_cache():
-    """The reference's programs compile here without the JAX package's
-    persistent compilation cache: TPUScheduler points every test worker at
-    one shared cache directory, and a worker that reads an entry another
-    is writing dies in the cache read."""
-    from jax._src import compilation_cache
-
-    was = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    compilation_cache.reset_cache()
-    yield
-    jax.config.update("jax_enable_compilation_cache", was)
-    compilation_cache.reset_cache()
 
 
 @pytest.fixture(autouse=True)

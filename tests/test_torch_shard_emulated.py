@@ -21,12 +21,6 @@ GPU compiler does with them: chip_smoke.py holds the compiled kernels to
 the plain versions on the card. Tolerance: exact.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import pytest
 import torch
 
@@ -35,48 +29,17 @@ from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.ops import cuda as p_cuda
 from karpenter_tpu_torch.ops import solver as p_solver
 
+from cuda_emu_build import c_entry, emulated_library
 from test_torch_scheduler import _view
 
-HERE = Path(__file__).resolve().parent
 SOURCES = ("dp_dead", "dp_verdict", "merge_shard")
 L_ZONE, L_CT, L_HOST = T.l.LABEL_TOPOLOGY_ZONE, T.l.CAPACITY_TYPE_LABEL_KEY, T.l.LABEL_HOSTNAME
-
-
-def _emulated_source(name: str) -> str:
-    """csrc/<name>.cu with the CUDA header and launch syntax swapped for
-    the emulator's."""
-    src = (p_cuda.CSRC / f"{name}.cu").read_text()
-    src = src.replace(
-        "#include <cuda_runtime.h>",
-        '#include "cuda_emu.h"\nthread_local Dim threadIdx, blockIdx;\nDim blockDim;\nEmuBlock* g_emu;\n'
-        "thread_local int tl_parity;",
-    )
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^)]*)\);", r"emu_launch(\1, \2, \3, \4, \6);", src)
-    assert n == 1, "one kernel launch"
-    return src
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry calls routed to the emulated dp kernels."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the emulated kernels")
-    d = tmp_path_factory.mktemp("shard_emu")
-    fns = {}
-    for name in SOURCES:
-        (d / f"{name}.cpp").write_text(_emulated_source(name))
-        lib_path = d / f"lib{name}_emu.so"
-        res = subprocess.run(
-            [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{HERE}", f"-I{p_cuda.CSRC}", "-o",
-             str(lib_path), str(d / f"{name}.cpp")],
-            capture_output=True, text=True,
-        )
-        assert res.returncode == 0, res.stderr[-4000:]
-        fn = getattr(ctypes.CDLL(str(lib_path)), name)
-        fn.argtypes = p_cuda._ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    fns = {name: c_entry(emulated_library(tmp_path_factory, name), name) for name in SOURCES}
     calls = {n: 0 for n in SOURCES}
 
     def invoke(source, entry, *args):

@@ -21,6 +21,7 @@ from karpenter_tpu.scheduling import Operator, Requirement, Requirements
 from karpenter_tpu_torch.ops import solver as p_solver
 from karpenter_tpu_torch.ops.encode import InstanceTypeTensors
 from karpenter_tpu_torch.ops.topology import TopologyTensors
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -17,6 +17,7 @@ from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
 from karpenter_tpu_torch.controllers.provisioning.topology import Topology as PTopology
 from karpenter_tpu_torch.controllers.provisioning.topology import build_universe_domains as p_universe
 from karpenter_tpu_torch.ops import topology as p_topo
+from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -57,6 +57,7 @@ from karpenter_tpu_torch.ops.encode import InstanceTypeTensors  # noqa: E402
 from karpenter_tpu.ops import kernels as j_kernels  # noqa: E402
 from test_torch_perpod import _assert_leaves_equal, _pt, _tonp  # noqa: E402
 from test_torch_scheduler import _view  # noqa: E402
+from reference_compile_cache import no_persistent_compile_cache  # noqa: E402,F401
 
 JAX = types.SimpleNamespace(
     make_pod=j_pod.make_pod, l=jl, res=j_res, Operator=JOp, Requirement=JReq, Requirements=JReqs,
