@@ -10,10 +10,16 @@ Phases, any failure exits non-zero:
   3. each kernel against its plain PyTorch version on the card, exact
      equality, with times for kernel, plain version and the least time
      the card could take (bound): H1-H4 at the north-star shapes (W=4096
-     claims, T=1000 types, GR=1, R=4, Z=4, C=2, K=V=8); H4's topology-key
+     claims, T=1000 types, GR=1, R=4, Z=4, C=2, K=V=8), H2 in each call
+     shape of the fill step and the compaction (tier 2's caps and
+     fits_final, tier 3's G-row, one-row and broadcast calls, the
+     liveness test), each with its device time from torch.profiler beside
+     the CUDA-event and launcher times; H4's topology-key
      mode, H5 and H6 at the kind scan's (W=4096, T=400, D=4 zones, the
      encoded topology of mixed_pods: NGv 2, NGh 4; H6 over one segment of
-     256 pods); seeded inputs, the catalog tensors being the real encoded
+     256 pods, its device time profiled, and one seeded segment at W=8192,
+     D=16 whose live rows overflow its shared-memory staging); seeded
+     inputs, the catalog tensors being the real encoded
      ones; the per-pod kernel (perpod_scan_persistent, H7 + H8 in one
      launch per chunk) on the per-pod cell's real encoded problem
      (perpod_pods(4096, kinds=8) x make_templates(400): W=4096 claim rows,
@@ -434,6 +440,113 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# the device kernels of H2 and H6 by name
+H2_NAMES = ("fill_grid_kernel",)
+H6_NAMES = ("pod_loop_kernel",)
+
+
+def kernel_device(by_name: dict, names: tuple) -> tuple[int, float]:
+    """(launches, device ms) of the profiled kernels whose name holds one of `names`."""
+    hits = [v for n, v in by_name.items() if any(k in n for k in names)]
+    return sum(c for c, _ms in hits), sum(ms for _c, ms in hits)
+
+
+def launch_times(run, names: tuple, setups: list, tag: str) -> dict:
+    """One launcher call timed three ways, each over the prepared inputs
+    `setups` (run(x) once per x; their set-up is outside every timer):
+    launcher_ms, the host's time per call with nothing waited for; event_ms,
+    CUDA events around the back-to-back calls, per call (the larger of the
+    launcher and the kernel); device_ms, the kernel's device time per launch
+    from torch.profiler over the calls (None when the profile holds no
+    launch)."""
+    import torch
+
+    run(setups[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in setups:
+        run(x)
+    host = (time.perf_counter() - t0) / len(setups) * 1e3
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for x in setups:
+        run(x)
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / len(setups)
+    by_name = profile_run(lambda: [run(x) for x in setups], os.path.join("build", "profile"), tag,
+                          quiet=True)["by_name"]
+    n, ms = kernel_device(by_name, names)
+    return dict(launcher_ms=host, event_ms=ev, device_ms=ms / n if n else None, device_launches=n)
+
+
+def fmt_times(t: dict) -> str:
+    dev = f"{t['device_ms']:.5f}" if t["device_ms"] is not None else "not measured"
+    return f"device_ms={dev} event_ms={t['event_ms']:.4f} launcher_ms={t['launcher_ms']:.4f}"
+
+
+def h2_cases(sched, comb, g) -> list:
+    """H2's call shapes on the north star's catalog (T = 1000) and a window
+    of W = 4096 claim rows: (label, kernel call, plain call, bytes, ops)
+    for the tier-2 caps (mode 0, W rows) and fits_final (mode 1, W rows),
+    tier 3's fits_off0 (mode 1, G template rows), f_new0 (mode 0, one row)
+    and fits_new (mode 1, W rows on one broadcast usage and mask row), and
+    the compaction's liveness test (mode 1, W rows, no offering gate).
+    Bytes: each input read once and the output written once; operations:
+    per cell the count's R subtract-and-divide and two R-wide fma checks
+    plus the Z x C offering test (mode 0, viable cells), one R-wide fma
+    check and the offering test (mode 1)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+    from karpenter_tpu_torch.testing import selector_pods
+
+    dev = torch.device("cuda")
+    it = sched.it_tensors
+    T, GR, R = it.alloc.shape
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    W = comb.mask.shape[0]
+    zone_kid, ct_kid = sched.encoder.zone_ct_key_ids()
+    _sorted, enc = sched._encode(selector_pods(16), None)
+    tm = enc["template_tensors"]
+    G = tm.its.shape[0]
+    daemon, tmask = tm.daemon_requests.contiguous(), tm.reqs.mask.contiguous()
+    used = (torch.rand((W, R), generator=g) * it.alloc[:, 0, :].max(0).values.cpu() * 0.5).to(dev)
+    req = (it.alloc[int(torch.randint(0, T, (1,), generator=g))][0] * 0.03).contiguous()
+    viable = (torch.rand((W, T), generator=g) < 0.5).to(dev)
+    counts = torch.randint(0, 8, (W,), generator=g, dtype=torch.int32).to(dev)
+    ones_w, ones_g = torch.ones(W, dtype=torch.int32, device=dev), torch.ones(G, dtype=torch.int32, device=dev)
+    cat = nbytes(it.alloc, it.zc_avail, it.group_valid)
+
+    def off(mask):
+        return None if mask is None else solver.off_for_plain(mask, it, zone_kid, ct_kid)
+
+    def caps(u, v, m):
+        return (lambda: solver.claim_fill_caps(u, v, req, it, m, zone_kid, ct_kid),
+                lambda: solver.claim_fill_caps_plain(u, v, req, it, off(m)),
+                nbytes(u, v, req) + cat + (m.shape[0] * 2 * m.shape[2]) + 4 * v.shape[0],
+                int(v.sum().item()) * GR * (2 * R + 6 * R + Z * C))
+
+    def fits(u, n, m, q=req):
+        kid = (zone_kid, ct_kid) if m is not None else (0, 0)
+        rows = n.shape[0]
+        return (lambda: solver.fits_off_counted(u, n, q, it, m, *kid),
+                lambda: solver.fits_off_counted_plain(u, n, q, it, off(m)),
+                nbytes(u, n, q) + cat + (0 if m is None else m.shape[0] * 2 * m.shape[2]) + rows * T,
+                rows * T * GR * (3 * R + (Z * C if m is not None else 0)))
+
+    r_min = (req * 0.5).contiguous()
+    return [
+        ("tier-2 caps (mode 0, W rows)", 0, *caps(used, viable, comb.mask)),
+        ("tier-2 fits_final (mode 1, W rows)", 1, *fits(used, counts, comb.mask)),
+        (f"tier-3 fits_off0 (mode 1, G = {G} rows)", 1, *fits(daemon, ones_g, tmask)),
+        ("tier-3 f_new0 (mode 0, one row)", 0, *caps(daemon[:1], viable[:1].contiguous(), tmask[:1])),
+        ("tier-3 fits_new (mode 1, W rows, broadcast used and mask)", 1, *fits(daemon[:1], counts, tmask[:1])),
+        ("compaction liveness (mode 1, W rows, no offering gate)", 1, *fits(used, ones_w, None, r_min)),
+    ]
+
+
 def kernel_phase(sched) -> list[dict]:
     """Phase 3: each kernel vs its plain version on seeded inputs at the
     north-star shapes, the catalog tensors being the real encoded ones."""
@@ -486,35 +599,33 @@ def kernel_phase(sched) -> list[dict]:
         bound(nbytes(*comb, *it.reqs, out_k), 15.0 * shared),
     )
 
-    # H2 fill_count_grid (max-count mode, the tier-2 caps call)
-    used = (torch.rand((W, R), generator=g) * it.alloc[:, 0, :].max(0).values.cpu() * 0.5).to(dev)
-    req = (it.alloc[pick[:1], 0, :][0] * 0.03).contiguous()
-    viable = rand_bool(W, T, p=0.5)
-    out_k = solver.claim_fill_caps(used, viable, req, it, comb.mask, zone_kid, ct_kid)
-    out_p = solver.claim_fill_caps_plain(
-        used, viable, req, it, solver.off_for_plain(comb.mask, it, zone_kid, ct_kid)
-    )
-    cells = int(viable.sum().item()) * GR
-    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    # H2 fill_count_grid: every call shape of the fill step and the
+    # compaction, each exact against its plain version; the kernels line
+    # carries the tier-2 caps call's device time
+    h2_equal, h2_main = True, None
+    for label, mode, run_k, run_p, nb, nops in h2_cases(sched, comb, g):
+        out_k, out_p = run_k(), run_p()
+        eq = torch.equal(out_k, out_p)
+        h2_equal = h2_equal and eq
+        t = launch_times(lambda _x: run_k(), H2_NAMES, [None] * 20, "fill_count_grid")
+        b = bound(nb, nops)
+        print(f"kernel fill_count_grid ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
+              f"bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+        if h2_main is None:
+            plain_ms = time_ms(run_p, iters=3)
+            h2_main = (out_k, out_p, t, plain_ms, b)
+    out_k, out_p, t, plain_ms, b = h2_main
     record(
         "fill_count_grid", "karpenter_tpu_torch/ops/csrc/fill_count_grid.cu",
         "karpenter_tpu/ops/solver.py:1355", out_k, out_p,
-        time_ms(lambda: solver.claim_fill_caps(used, viable, req, it, comb.mask, zone_kid, ct_kid)),
-        time_ms(lambda: solver._claim_fill_caps_from_mask_plain(
-            used, viable, req, it, comb.mask, zone_kid, ct_kid), iters=3),
-        bound(nbytes(viable, used, req, it.alloc, it.zc_avail, it.group_valid, out_k)
-              + W * 2 * Z, cells * (2 * R + 9 * R + Z * C)),
+        t["device_ms"] if t["device_ms"] is not None else t["event_ms"], plain_ms, b,
     )
-    # its fits-at-count mode, checked too (the same kernel)
-    counts = torch.randint(0, 8, (W,), generator=g, dtype=torch.int32).to(dev)
-    fk = solver.fits_off_counted(used, counts, req, it, comb.mask, zone_kid, ct_kid)
-    fp = solver.fits_off_counted_plain(
-        used, counts, req, it, solver.off_for_plain(comb.mask, it, zone_kid, ct_kid)
-    )
-    if not torch.equal(fk, fp):
+    results[-1].update(event_ms=t["event_ms"], launcher_ms=t["launcher_ms"])
+    if not h2_equal:
         results[-1]["equal"] = False
         results[-1]["max_abs_err"] = 1.0
-    print(f"kernel fill_count_grid (fits mode): equal={torch.equal(fk, fp)}", flush=True)
+    used = (torch.rand((W, R), generator=g) * it.alloc[:, 0, :].max(0).values.cpu() * 0.5).to(dev)
+    viable = rand_bool(W, T, p=0.5)
 
     # H3 water_fill on the window
     p = torch.randint(0, 40, (W,), generator=g, dtype=torch.int32).to(dev)
@@ -788,20 +899,134 @@ def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = Non
                   f"ms={t_lex:.4f}", flush=True)
             continue
         times.append(t)
-        timed = timed or (inp, carry0, topo, templates, E, G, NGv, NGh)
-    inp, carry0, topo, templates, E, G, NGv, NGh = timed
+        timed = timed or (inp, carry0, topo, templates, ck)
+    inp, carry0, topo, templates, ck = timed
     plain_ms = time_ms(lambda: solver.kscan_pod_loop_plain(
         inp, clone(carry0), topo, templates, count, maxc, NCAP), iters=2, warmup=1)
-    # per pod, one pass over the candidate rows: domain bits, capacity row,
-    # placed / pods / slot counters and the hostname counts at each slot;
-    # operations: the NGv x D group terms per candidate
-    rows = E + W + G
-    row_bytes = (E * (D + 8) + W * (5 * D + 14) + G * (5 * D + 2)) + NGh * rows * 4
+    th6 = launch_times(lambda c: solver.kscan_pod_loop(inp, c, topo, templates, count, maxc, NCAP), H6_NAMES,
+                       [clone(carry0) for _ in range(10)], "kscan_pod_loop")
+    print(f"kernel kscan_pod_loop (zone spread, {count} pods, W={W}, D={D}): {fmt_times(th6)} "
+          f"(events around each launch alone: {sum(times) / len(times):.4f})", flush=True)
+    b, live = h6_bound(inp, carry0, ck, topo, count)
+    print(f"kernel kscan_pod_loop (zone spread): {live} live rows, bound_ms={b[0]:.7f} ({b[1]})", flush=True)
+    # a segment whose live rows overflow the kernel's shared-memory staging
+    # (W = 8192, D = 16: 8192 records staged, the rest in its workspace)
+    eq_o = overflow_phase(g)
+    checks.append(eq_o)
     entry(
         "kscan_pod_loop", "karpenter_tpu_torch/ops/csrc/kscan_pod_loop.cu",
-        "karpenter_tpu/ops/solver.py:3093", all(checks), sum(times) / len(times), plain_ms,
-        bound(count * row_bytes, count * rows * NGv * D * 4.0),
+        "karpenter_tpu/ops/solver.py:3093", all(checks),
+        th6["device_ms"] if th6["device_ms"] is not None else sum(times) / len(times), plain_ms,
+        b,
     )
+    results[-1].update(event_ms=th6["event_ms"], launcher_ms=th6["launcher_ms"])
+
+
+def h6_bound(inp, carry0, carry1, topo, count: int) -> tuple:
+    """H6's bound on one segment, (bound, live rows). Bytes: the segment's
+    inputs and the topology leaves the kernel reads, read once; the carry
+    read once and written once; the assignment written once (none of it
+    grows with the pods: the pods of a segment need each row's state only
+    once, the kernel keeps it on chip). Operations: per pod, the NGv x D
+    group terms of each live row, the rows this run's data makes
+    candidates: existing nodes with room, the templates that pass the
+    static test, the open window rows that pass it with capacity left, and
+    the claims opened in the segment (from carry1, the kernel's carry)."""
+    from karpenter_tpu_torch.ops import cuda
+
+    live = (int((carry0.pl_e < inp.cap_e).sum()) + int(inp.static_g.sum())
+            + int((inp.open0 & inp.static_n0 & (carry0.capd > 0).any(dim=1)).sum())
+            + int(carry1.w_open) - int(inp.w_open0))
+    NGv, D = carry0.cnt.shape
+    moved = (nbytes(*inp) + nbytes(*(getattr(topo, n) for n, _dt in cuda._LOOP_TOPO))
+             + 2 * nbytes(*carry0) + 4 * count)
+    return bound(moved, count * live * NGv * D * 4.0), live
+
+
+def overflow_segment(g, E: int = 512, W: int = 8192, G: int = 400, D: int = 16, count: int = 64):
+    """A seeded kind-scan segment on the card whose live rows overflow
+    H6's shared-memory staging: E existing nodes (caps 0-2), W window rows
+    (the first W - 64 open, 95% static), G templates, a D-value zone key
+    with a spread group (applies) and an affinity group (records), four
+    hostname groups (spread and anti-affinity apply; counts at 5% of the
+    slots in use). Returns (PodLoopIn, PodLoopCarry, topology, templates,
+    count, n_claims)."""
+    import types
+
+    import torch
+
+    from karpenter_tpu_torch.ops import solver, topology
+
+    dev = torch.device("cuda")
+    NGv, NGh, V = 2, 4, D + 4
+    NCAP = W + 8
+    S = E + NCAP + 1
+    w_open0 = W - 64
+    n_open0 = w_open0 + 8
+
+    def b(*shape, p=0.5):
+        return (torch.rand(shape, generator=g) < p).to(dev)
+
+    def i(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(dev)
+
+    def t(x, dt=torch.int32):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    topo = topology.TopologyTensors(
+        vg_key=t([0, 0]), vg_type=t([0, 1]), vg_skew=t([2, 1]), vg_min_domains=t([0, 0]), vg_domains=b(NGv, V, p=0.9),
+        vg_counts0=torch.zeros((NGv, V), dtype=torch.int32, device=dev), vg_rank=i(0, 8, NGv, V),
+        vg_valid=t([True, True], torch.bool), hg_type=t([0, 2, 1, 0]), hg_skew=t([2, 1, 1, 3]),
+        hg_counts0=torch.zeros((NGh, S), dtype=torch.int32, device=dev),
+        hg_extra_nonempty=torch.zeros(NGh, dtype=torch.bool, device=dev), hg_valid=t([True] * NGh, torch.bool),
+    )
+    ar = torch.arange(W, device=dev)
+    inp = solver.PodLoopIn(
+        cap_e=i(0, 3, E), zie0=b(E, p=0.2), open0=ar < w_open0, static_n0=b(W, p=0.95), pods0=i(0, 20, W),
+        zin0=b(W, p=0.1), static_g=b(G, p=0.9), capd_g=i(1, 6, G, D), z0_g=b(G, D, p=0.9), zinf_g=b(G, p=0.2),
+        w_open0=t(w_open0), self_conf=t(False, torch.bool), key_touched=t(True, torch.bool),
+        gate=t([True, False], torch.bool), recs=t([True, True], torch.bool), vg_self=t([True, True], torch.bool),
+        pd=b(D, p=0.9), hg_applies=t([True, True, False, False], torch.bool), hg_records=t([True] * NGh, torch.bool),
+        hg_self=t([True, False, True, True], torch.bool),
+    )
+    carry = solver.PodLoopCarry(
+        zn=b(W, D, p=0.6), ze=b(E, D, p=0.6), capd=i(0, 4, W, D), pl_n=torch.zeros(W, dtype=torch.int32, device=dev),
+        pl_e=torch.zeros(E, dtype=torch.int32, device=dev), tmpl_n=torch.zeros(W, dtype=torch.int32, device=dev),
+        cnt=i(0, 3, NGv, D),
+        hgc=((torch.rand((NGh, S), generator=g) < 0.05) & (torch.arange(S) < E + n_open0)).to(torch.int32).to(dev),
+        n_open=t(n_open0), w_open=t(w_open0),
+        slot_of=torch.where(ar < w_open0, ar + n_open0 - w_open0, torch.full_like(ar, NCAP)).to(torch.int32),
+        spills=t(0),
+    )
+    return inp, carry, topo, types.SimpleNamespace(rank=None), count, NCAP
+
+
+def overflow_phase(g) -> bool:
+    """H6 on overflow_segment against the plain loop (assignment and every
+    carry leaf, exact), with its times and the count of live rows past
+    the kernel's 8192 staged records."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+
+    inp, carry0, topo, tm, count, NCAP = overflow_segment(g)
+    W, D = carry0.zn.shape
+    E, G = carry0.ze.shape[0], inp.static_g.shape[0]
+
+    def clone(c):
+        return solver.PodLoopCarry(*(x.clone() for x in c))
+
+    ck, cp = clone(carry0), clone(carry0)
+    ak = solver.kscan_pod_loop(inp, ck, topo, tm, count, count, NCAP)
+    ap = solver.kscan_pod_loop_plain(inp, cp, topo, tm, count, count, NCAP)
+    eq = torch.equal(ak, ap) and all(torch.equal(a, b) for a, b in zip(ck, cp))
+    t = launch_times(lambda c: solver.kscan_pod_loop(inp, c, topo, tm, count, count, NCAP), H6_NAMES,
+                     [clone(carry0) for _ in range(5)], "kscan_pod_loop_overflow")
+    b, live = h6_bound(inp, carry0, ck, topo, count)
+    print(f"kernel kscan_pod_loop (overflow segment: W={W}, D={D}, E={E}, G={G}, {count} pods, about {live} live "
+          f"rows, past the 8192 staged): equal={eq} (tolerance: exact) placed={int((ak >= 0).sum())} "
+          f"{fmt_times(t)} bound_ms={b[0]:.7f} ({b[1]})", flush=True)
+    return eq
 
 
 def launch_ms(run_once, setups: list) -> float:
@@ -1965,7 +2190,7 @@ def profiled_kernel(kernels: list, name: str, inst: str, by_name: dict, launches
             k.update(ms=ms / steps, bound_ms=b[0], bound_by=b[1])
 
 
-def profile_run(fn, out_dir, tag) -> dict:
+def profile_run(fn, out_dir, tag, quiet: bool = False) -> dict:
     """One more warm call of fn under torch.profiler: device busy share
     over the call's wall, and device time by kernel name (from the chrome
     trace, so launches of one name are summed and overlaps counted once).
@@ -2010,11 +2235,23 @@ def profile_run(fn, out_dir, tag) -> dict:
     )
     with open(os.path.join(out_dir, f"{tag}_profile.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
-    print(f"profile {tag}: wall={wall:.3f}s device_busy={busy / 1e6:.4f}s "
-          f"idle_share={summary['idle_share']:.4f} device_events={len(dev)}", flush=True)
-    for t in summary["top"]:
-        print(f"  device {t['ms']:9.3f} ms  x{t['launches']:6d}  {t['name']}", flush=True)
+    if not quiet:
+        print(f"profile {tag}: wall={wall:.3f}s device_busy={busy / 1e6:.4f}s "
+              f"idle_share={summary['idle_share']:.4f} device_events={len(dev)}", flush=True)
+        for t in summary["top"]:
+            print(f"  device {t['ms']:9.3f} ms  x{t['launches']:6d}  {t['name']}", flush=True)
     return dict(summary, by_name={n: (c, d / 1e3) for n, (c, d) in by_name.items()})
+
+
+def profiled_h2_h6(tag: str, prof: dict) -> None:
+    """H2's and H6's device time and launches in a profiled warm solve."""
+    if not prof["by_name"]:
+        return
+    for name, names in (("fill_count_grid", H2_NAMES), ("kscan_pod_loop", H6_NAMES)):
+        n, ms = kernel_device(prof["by_name"], names)
+        per = f"{ms / n:.5f}" if n else "-"
+        print(f"profile {tag}: {name} device {ms:.3f} ms over {n} launches ({per} ms a launch) of "
+              f"{prof['device_busy_s'] * 1e3:.1f} ms device-busy", flush=True)
 
 
 def shard_cells(T) -> list:
@@ -2641,7 +2878,7 @@ def main() -> int:
     try:
         result, launches_n = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
                                         fill_kernels, pipelined=True)
-        profile_run(lambda: sched.solve(pods), profile_dir, "northstar")
+        profiled_h2_h6("northstar", profile_run(lambda: sched.solve(pods), profile_dir, "northstar"))
         sync_points(torch, sched, lambda: sched.solve(pods), "north star")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
@@ -2650,7 +2887,7 @@ def main() -> int:
              + ("gang_scan", "retract_tail", "objective_verdict", "dp_dead", "dp_verdict", "merge_shard")],
             pipelined=True, stream=True,
         )
-        profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed")
+        profiled_h2_h6("mixed", profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed"))
         sync_points(torch, sched_m, lambda: sched_m.solve(pods_m), "mixed")
         result_p, launches_p = solve_path(
             torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,

@@ -21,33 +21,48 @@ namespace ktpu {
 constexpr float kCountCap = 4194304.0f;  // 2^22, COUNT_CAP
 constexpr int kMaxR = 16;
 
-__device__ __forceinline__ bool fits_at(const float* used, const float* req,
-                                        const float* alloc, int R, int c) {
+// One implementation for both operand forms: P is `const float*` (kN = 0,
+// the loops run to R) or `float[kN]` held in registers (kN >= R, the loops
+// unrolled to kN with the entries past R skipped; H2). The checks are
+// pure, so the count runs only the ones its verdict reads: c0, then c0 + 1
+// when c0 fits, else c0 - 1.
+template <int kN, class P>
+__device__ __forceinline__ bool fits_at_t(const P& u, const P& q, const P& al, int R, int c) {
   const float cf = (float)c;
   bool ok = true;
-  for (int r = 0; r < R; ++r) {
-    const float t = __fmaf_rn(cf, req[r], used[r]);
-    ok = ok && ((t <= alloc[r]) || (t == 0.0f));
+#pragma unroll
+  for (int r = 0; r < (kN > 0 ? kN : R); ++r) {
+    if (kN > 0 && r >= R) break;
+    const float t = __fmaf_rn(cf, q[r], u[r]);
+    ok = ok && ((t <= al[r]) || (t == 0.0f));
   }
   return ok;
 }
 
-__device__ __forceinline__ int cell_count(const float* u, const float* q,
-                                          const float* al, int R) {
+template <int kN, class P>
+__device__ __forceinline__ int cell_count_t(const P& u, const P& q, const P& al, int R) {
   float est = kCountCap;
-  for (int r = 0; r < R; ++r) {
-    const float ratio =
-        q[r] > 0.0f ? __fdiv_rn(__fsub_rn(al[r], u[r]), q[r]) : INFINITY;
+#pragma unroll
+  for (int r = 0; r < (kN > 0 ? kN : R); ++r) {
+    if (kN > 0 && r >= R) break;
+    const float ratio = q[r] > 0.0f ? __fdiv_rn(__fsub_rn(al[r], u[r]), q[r]) : INFINITY;
     est = fminf(est, ratio);
   }
   float e = isfinite(est) ? est : kCountCap;
   e = fminf(fmaxf(floorf(e), 0.0f), kCountCap);
   const int c0 = (int)e;
-  const bool up = fits_at(u, q, al, R, c0 + 1);
-  const bool mid = fits_at(u, q, al, R, c0);
+  if (fits_at_t<kN>(u, q, al, R, c0)) return fits_at_t<kN>(u, q, al, R, c0 + 1) ? c0 + 1 : c0;
   const int cdn = max(c0 - 1, 0);
-  const bool dn = fits_at(u, q, al, R, cdn);
-  return mid ? (up ? c0 + 1 : c0) : (dn ? cdn : 0);
+  return fits_at_t<kN>(u, q, al, R, cdn) ? cdn : 0;
+}
+
+// the pointer form (H5, H9, the dp kernels)
+__device__ __forceinline__ bool fits_at(const float* used, const float* req, const float* alloc, int R, int c) {
+  return fits_at_t<0, const float*>(used, req, alloc, R, c);
+}
+
+__device__ __forceinline__ int cell_count(const float* u, const float* q, const float* al, int R) {
+  return cell_count_t<0, const float*>(u, q, al, R);
 }
 
 }  // namespace ktpu

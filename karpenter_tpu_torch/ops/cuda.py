@@ -133,8 +133,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _ARGTYPES = {
     "req_intersects": [_P] * 12 + [_I] * 4 + [_P, _P],
-    "fill_count_grid": [_I, _P, _P, _P, _P, _P, _I64, _P, _P, _I64, _I, _P, _P]
-    + [_I] * 6 + [_P, _P],
+    "fill_count_grid": [_I, _P, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _I, _P, _P],
     "water_fill": [_P, _P, _P, _I, _P, _P],
     "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "kscan_grid": [_I, _P, _P, _P],
@@ -220,6 +219,102 @@ def req_intersects(a, b) -> torch.Tensor:
     return out
 
 
+# H2's packed catalog: the bytes of shared memory a block stages a tile of
+# it into (csrc/fill_count_grid.cu adds its per-warp scratch beside it)
+FILL_GRID_SMEM = 200 * 1024
+_FILL_GRID_CATALOGS: dict = {}
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fill_grid_r_bucket(R: int) -> int:
+    """The floats a packed catalog cell holds: R rounded up to 4, 8 or 16
+    (csrc/fill_count_grid.cu r_bucket)."""
+    return 4 if R <= 4 else 8 if R <= 8 else 16
+
+
+def fill_grid_tile_bytes(TT: int, GR: int, R: int, NWZ: int) -> int:
+    """Bytes of one tile of TT types of the packed catalog (its three
+    sections, each padded to 16 bytes, as csrc/fill_count_grid.cu lays
+    them out)."""
+    cells = GR * TT
+    return _pad16(4 * fill_grid_r_bucket(R) * cells) + _pad16(8 * NWZ * cells) + _pad16(cells)
+
+
+class FillGridCatalog:
+    """csrc/fill_count_grid.cu's packed catalog of one InstanceTypeTensors:
+    ceil(T / TT) tiles of TT types, each [GR][TT][RB] f32 allocatable (R
+    padded to RB = fill_grid_r_bucket(R), so that a cell is whole 16-byte
+    loads), [NWZ][GR][TT] 64-bit words of available (zone, capacity-type)
+    pairs (bit z*C + c) and [GR][TT] validity bytes; TT is the most types whose
+    tile fits FILL_GRID_SMEM (staged = 0: one tile of all T types, read
+    from device memory, when not even one type fits). `dims` is the C
+    entry's (T, GR, R, Z, C, NWZ, TT, staged) as a ctypes array."""
+
+    def __init__(self, it):
+        alloc, gv, zc = it.alloc, it.group_valid, it.zc_avail
+        dev = alloc.device
+        _check(alloc, "alloc", torch.float32, dev)
+        _check(gv, "group_valid", torch.bool, dev)
+        _check(zc, "zc_avail", torch.bool, dev)
+        T, GR, R = alloc.shape
+        Z, C = zc.shape[2], zc.shape[3]
+        if tuple(gv.shape) != (T, GR) or tuple(zc.shape[:2]) != (T, GR):
+            raise LaunchRefused(f"fill_count_grid: catalog shapes {tuple(alloc.shape)} {tuple(gv.shape)} "
+                                f"{tuple(zc.shape)}")
+        if R > 16:
+            raise LaunchRefused(f"fill_count_grid: R={R} resources, the kernel takes at most 16")
+        NWZ = max(1, -(-(Z * C) // 64))
+        per_type = fill_grid_tile_bytes(1, GR, R, NWZ)
+        TT = T
+        while TT > 1 and fill_grid_tile_bytes(TT, GR, R, NWZ) > FILL_GRID_SMEM:
+            TT = max(1, min(TT - 1, FILL_GRID_SMEM * TT // fill_grid_tile_bytes(TT, GR, R, NWZ)))
+        staged = int(T > 0 and per_type <= FILL_GRID_SMEM)
+        if not staged:
+            TT = max(T, 1)
+        nt = -(-T // TT) if T else 0
+        Tp = nt * TT
+        RB = fill_grid_r_bucket(R)
+        a = torch.zeros((Tp, GR, RB), dtype=torch.float32, device=dev)
+        a[:T, :, :R] = alloc
+        bits = torch.zeros((Tp, GR, NWZ * 64), dtype=torch.int64, device=dev)
+        bits[:T, :, :Z * C] = zc.reshape(T, GR, Z * C).to(torch.int64)
+        shifts = torch.arange(64, dtype=torch.int64, device=dev)
+        words = (bits.view(Tp, GR, NWZ, 64) << shifts).sum(dim=-1)  # distinct bits: the sum is their OR
+        v = torch.zeros((Tp, GR), dtype=torch.uint8, device=dev)
+        v[:T] = gv.to(torch.uint8)
+
+        def section(x: torch.Tensor) -> torch.Tensor:  # [nt, ...] -> [nt, bytes padded to 16]
+            flat = x.contiguous().view(torch.uint8).reshape(nt, -1)
+            pad = _pad16(flat.shape[1]) - flat.shape[1]
+            return torch.cat([flat, torch.zeros((nt, pad), dtype=torch.uint8, device=dev)], dim=1)
+
+        self.packed = torch.cat([
+            section(a.view(nt, TT, GR, RB).permute(0, 2, 1, 3)),
+            section(words.view(nt, TT, GR, NWZ).permute(0, 3, 2, 1)),
+            section(v.view(nt, TT, GR).permute(0, 2, 1)),
+        ], dim=1).contiguous() if nt else torch.zeros((0,), dtype=torch.uint8, device=dev)
+        self.keep = (alloc, gv, zc)  # the ids in the cache key stay these tensors'
+        self.device, self.T, self.R, self.Z, self.C = dev, T, R, Z, C
+        self.ntiles, self.staged = nt, staged
+        self.dims = (ctypes.c_int * 8)(T, GR, R, Z, C, NWZ, TT, staged)
+        self.dims_ptr = ctypes.cast(self.dims, ctypes.c_void_p)
+
+
+def fill_grid_catalog(it) -> FillGridCatalog:
+    """The packed catalog of `it`, built once per catalog (cached on the
+    identity of its alloc / group_valid / zc_avail tensors)."""
+    key = (id(it.alloc), id(it.group_valid), id(it.zc_avail), FILL_GRID_SMEM)
+    cat = _FILL_GRID_CATALOGS.get(key)
+    if cat is None:
+        if len(_FILL_GRID_CATALOGS) >= 8:
+            _FILL_GRID_CATALOGS.pop(next(iter(_FILL_GRID_CATALOGS)))
+        cat = _FILL_GRID_CATALOGS[key] = FillGridCatalog(it)
+    return cat
+
+
 def fill_count_grid(
     mode: int,
     used: torch.Tensor,
@@ -236,23 +331,20 @@ def fill_count_grid(
     [n_rows, T] bool fits at counts[b]. `used` is [n_rows, R] or [1, R]
     (broadcast); `rows_mask` is the [n_rows or 1, K, V] requirement mask
     whose zone / capacity-type rows gate the offering test, or None for no
-    offering gate."""
-    dev = used.device
-    T, GR, R = it.alloc.shape
-    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    offering gate. The catalog is checked and packed once
+    (fill_grid_catalog); a call checks its own tensors."""
+    cat = fill_grid_catalog(it)
+    dev, T, R = cat.device, cat.T, cat.R
     _check(used, "used", torch.float32, dev)
     _check(req, "req", torch.float32, dev)
     if used.shape[1] != R or req.shape != (R,) or used.shape[0] not in (1, n_rows):
         raise LaunchRefused(f"fill_count_grid: used {tuple(used.shape)} / req {tuple(req.shape)} vs R={R}, rows={n_rows}")
-    alloc = _check(it.alloc, "alloc", torch.float32, dev)
-    gv = _check(it.group_valid, "group_valid", torch.bool, dev)
-    zc = _check(it.zc_avail, "zc_avail", torch.bool, dev)
     used_stride = 0 if used.shape[0] == 1 else R
     if rows_mask is not None:
         _check(rows_mask, "rows_mask", torch.bool, dev)
         K, V = rows_mask.shape[1], rows_mask.shape[2]
-        if rows_mask.shape[0] not in (1, n_rows) or Z > V or C > V:
-            raise LaunchRefused(f"fill_count_grid: rows_mask {tuple(rows_mask.shape)} vs rows={n_rows}, Z={Z}, C={C}")
+        if rows_mask.shape[0] not in (1, n_rows) or cat.Z > V or cat.C > V:
+            raise LaunchRefused(f"fill_count_grid: rows_mask {tuple(rows_mask.shape)} vs rows={n_rows}, Z={cat.Z}, C={cat.C}")
         base = rows_mask.data_ptr()
         zptr, cptr = base + zone_kid * V, base + ct_kid * V
         mask_stride = 0 if rows_mask.shape[0] == 1 else K * V
@@ -272,9 +364,8 @@ def fill_count_grid(
             raise LaunchRefused(f"fill_count_grid: counts {tuple(counts.shape)} vs ({n_rows},)")
         out = torch.empty((n_rows, T), dtype=torch.bool, device=dev)
     _call(
-        "fill_count_grid", mode, alloc.data_ptr(), gv.data_ptr(), zc.data_ptr(),
-        req.data_ptr(), used.data_ptr(), used_stride, zptr, cptr, mask_stride,
-        gate, _ptr(viable), _ptr(counts), n_rows, T, GR, R, Z, C, out.data_ptr(),
+        "fill_count_grid", mode, cat.packed.data_ptr(), req.data_ptr(), used.data_ptr(), used_stride, zptr, cptr,
+        mask_stride, gate, _ptr(viable), _ptr(counts), out.data_ptr(), n_rows, cat.dims_ptr,
     )
     return out
 
@@ -495,6 +586,11 @@ def kscan_pod_loop(inp, carry, topo, count: int, maxc: int, n_claims: int, rank=
     if order is not None and (tuple(order.shape) != (G,) or order.device != dev):
         raise LaunchRefused(f"kscan_pod_loop: rank {tuple(rank.shape)} on {rank.device} vs ({G},) on {dev}")
     ptrs.append(0 if order is None else order.data_ptr())
+    # the kernel's workspace: live-row records past its shared memory
+    # [E+G+W][4], hostname slot words past it [S], row -> record [W], the
+    # records' next-room words [E+G+W]
+    ws = torch.empty(5 * (E + G + W) + S + W, dtype=torch.int32, device=dev)
+    ptrs.append(ws.data_ptr())
     _call(
         "kscan_pod_loop", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
         ctypes.cast(_i64_array([E, W, G, D, NGv, NGh, S, V, n_claims, count]), ctypes.c_void_p),

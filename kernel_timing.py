@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Time H2 fill_count_grid and H6 kscan_pod_loop of one checkout of this
+repository on one NVIDIA GPU.
+
+    python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells]
+
+DIR is the checkout whose karpenter_tpu_torch is imported (default: the
+one holding this script); it builds its own kernels. The script runs
+chip_smoke.py's (the one next to this script) phase-3 checks of H1-H6
+against DIR's package: H2 in each call shape of the fill step and the
+compaction at the north star's catalog (T = 1000) and a window of 4096
+rows, H6 over a 256-pod segment at the mixed cell's shapes and over one
+segment at W = 8192, D = 16 past its shared-memory staging; each line
+gives the kernel's device ms per launch (torch.profiler), the CUDA-event
+ms and the launcher's host ms per call, and whether the kernel equals its
+plain version. --cells runs, in place of the kernel checks, the north
+star (selector_pods(100_000) x make_templates(1000)) and
+mixed_pods(16384) x make_templates(400) at max_claims=4096: a cold
+solve, three warm ones (their walls and device_s), and one more under
+torch.profiler (device busy, idle share, H2's and H6's device ms and
+launches). Prints the card's name and power limit first and one JSON
+line last. To compare two checkouts,
+run both in one call on one card, in turns (A, B, B, A).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+def cells(smoke, card: str, repo: str, tag: str) -> int:
+    """The north star and mixed cells' warm walls and profiles (--cells)."""
+    import tempfile
+    import time
+
+    import torch
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+
+    out = {}
+    for name, templates, pods in (("northstar", T.make_templates(1000), T.selector_pods(100_000)),
+                                  ("mixed", T.make_templates(400), T.mixed_pods(smoke.MIXED_PODS))):
+        sched = TorchScheduler(templates, max_claims=4096)
+        sched.solve(pods)
+        walls, device_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sched.solve(pods)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            device_s.append(sched.last_timings["device_s"])
+        with tempfile.TemporaryDirectory() as d:
+            prof = smoke.profile_run(lambda: sched.solve(pods), d, f"{name}_{tag}", quiet=True)
+        row = dict(warm_walls=walls, warm_device_s=device_s)
+        if prof["by_name"]:
+            row.update(device_busy_s=prof["device_busy_s"], idle_share=prof["idle_share"])
+            for k, names in (("fill_count_grid", smoke.H2_NAMES), ("kscan_pod_loop", smoke.H6_NAMES)):
+                n, ms = smoke.kernel_device(prof["by_name"], names)
+                row[k] = dict(launches=n, device_ms=ms)
+        out[name] = row
+        print(f"cell {name}: {json.dumps(row)}", flush=True)
+    print(json.dumps(dict(card=card, repo=repo, tag=tag, cells=out)), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--cells", action="store_true")
+    args = ap.parse_args()
+    repo = os.path.abspath(args.repo)
+    sys.path.insert(0, repo)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: this script needs a CUDA card", flush=True)
+        return 1
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
+    from karpenter_tpu_torch.ops import cuda
+
+    if not os.path.abspath(cuda.__file__).startswith(repo):
+        print(f"FAIL: imported {cuda.__file__}, not from {repo}", flush=True)
+        return 1
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{card} | repo {repo} {args.tag}", flush=True)
+    cuda.build()
+    if args.cells:
+        return cells(smoke, card, repo, args.tag)
+    sched = TorchScheduler(T.make_templates(1000), max_claims=4096)
+    sched._encode(T.selector_pods(16), None)
+    results = smoke.kernel_phase(sched)
+    sched_m = TorchScheduler(T.make_templates(400), max_claims=4096)
+    _sorted, enc_m = sched_m._encode(T.mixed_pods(64), None)
+    smoke.kscan_kernel_phase(sched_m, enc_m, results)
+    keep = {r["name"]: {k: r.get(k) for k in ("ms", "event_ms", "launcher_ms", "plain_ms", "bound_ms", "equal")}
+            for r in results if r["name"] in ("fill_count_grid", "kscan_pod_loop")}
+    print(json.dumps(dict(card=card, repo=repo, tag=args.tag,
+                          nvcc_regs={k: re.findall(r"Used (\d+) registers", v)
+                                     for k, v in cuda.BUILD_INFO.get("logs", {}).items()
+                                     if k in ("fill_count_grid", "kscan_pod_loop")},
+                          kernels=keep)), flush=True)
+    bad = [n for n, r in keep.items() if not r["equal"]]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,7 @@
 // A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu,
-// objective_verdict.cu, kscan_pod_loop.cu, wire_pack.cu,
+// objective_verdict.cu, kscan_pod_loop.cu, fill_count_grid.cu, wire_pack.cu,
 // gang_scan.cu and retract_tail.cu use, so that their kernels can run on
-// the host against the plain versions (tests/test_torch_perpod_emulated.py,
-// tests/test_torch_gang_emulated.py, tests/test_torch_retract_emulated.py). One std::thread per CUDA thread,
+// the host against the plain versions (tests/test_torch_*_emulated.py). One std::thread per CUDA thread,
 // the blocks of a grid one after another; std::barrier stands in for
 // __syncthreads and for the warp collectives; __shared__ variables become
 // statics, which the blocks share, run in turn. The bulk copy and the
@@ -17,6 +16,7 @@
 #include <cstdio>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -47,6 +47,21 @@ inline int cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline int cudaGetLastError() { return cudaSuccess; }
+// the device: two SMs, so that a persistent grid still has several blocks
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline int cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? 2 : 0;
+  return cudaSuccess;
+}
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(int e) { return e ? "invalid value" : "no error"; }
 
 struct Dim {
@@ -56,6 +71,9 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+struct float4 {
+  float x, y, z, w;
+};
 extern thread_local Dim threadIdx, blockIdx;
 extern Dim blockDim;
 
@@ -80,6 +98,9 @@ struct EmuBlock {
   int slot_i[64][32];
   float slot_f[64][32];
   std::vector<char> smem;
+  // a named barrier (bar.sync 1, n): built by its first caller with its count
+  std::mutex named_mu;
+  std::unique_ptr<std::barrier<>> named;
 };
 extern EmuBlock* g_emu;
 extern thread_local int tl_parity;
@@ -131,6 +152,17 @@ inline int __shfl_xor_sync(unsigned, int v, int o) {
   return r;
 }
 inline char* emu_smem() { return g_emu->smem.data(); }
+// bar.sync 1, n: the n threads that reach it (the rest of the block may
+// have returned); every call of a launch passes the same n
+inline void emu_named_sync(int n) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lk(g_emu->named_mu);
+    if (!g_emu->named) g_emu->named = std::make_unique<std::barrier<>>(n);
+    b = g_emu->named.get();
+  }
+  b->arrive_and_wait();
+}
 
 // fn<<<grid, threads, smem>>>(args...): the blocks in turn, each with its
 // own threads; dynamic shared memory starts filled with a byte pattern, so
@@ -169,7 +201,19 @@ inline int atomicMax(int* p, int v) {
   }
   return old;
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return reinterpret_cast<std::atomic<unsigned>*>(p)->fetch_or(v);
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline int __reduce_min_sync(unsigned, int v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = v;
+  __syncwarp();
+  int m = g_emu->slot_i[w][0];
+  for (int i = 1; i < 32; ++i) m = m < g_emu->slot_i[w][i] ? m : g_emu->slot_i[w][i];
+  __syncwarp();
+  return m;
+}
 inline int __shfl_down_sync(unsigned, int v, int d) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
