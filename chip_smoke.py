@@ -10,11 +10,18 @@ Phases, any failure exits non-zero:
   3. each kernel against its plain PyTorch version on the card, exact
      equality, with times for kernel, plain version and the least time
      the card could take (bound): H1-H4 at the north-star shapes (W=4096
-     claims, T=1000 types, GR=1, R=4, Z=4, C=2, K=V=8), H2 in each call
-     shape of the fill step and the compaction (tier 2's caps and
-     fits_final, tier 3's G-row, one-row and broadcast calls, the
-     liveness test), each with its device time from torch.profiler beside
-     the CUDA-event and launcher times; H4's topology-key
+     claims, T=1000 types, GR=1, R=4, Z=4, C=2, K=V=8), H1, H2 and H4 in
+     each of their call shapes, each with its device time from
+     torch.profiler beside the CUDA-event and launcher times: H1 at tier
+     2 (W rows) and tier 3 (G template rows) and on seeded catalogs of
+     K=70 keys (three key words; 4096 x 1000 at V=16, 37 x 400 at V=64);
+     H2 in each call shape of the fill step and the compaction (tier 2's
+     caps and fits_final, tier 3's G-row, one-row and broadcast calls,
+     the liveness test); H4 in the compaction (the 14 window fields),
+     compact_state's bank columns, the drop scatter, global_claims and a
+     compaction at W=131072, each launched twice (the look-back
+     workspace must come back zeroed); H1 at the kind step's tier 2 and
+     tier 3, H4's topology-key
      mode, H5 and H6 at the kind scan's (W=4096, T=400, D=4 zones, the
      encoded topology of mixed_pods: NGv 2, NGh 4; H6 over one segment of
      256 pods, its device time profiled, and one seeded segment at W=8192,
@@ -150,6 +157,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -440,8 +448,14 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-# the device kernels of H2 and H6 by name
+# one record per call shape phase 3 times (kernel, label, equal, times,
+# bound): kernel_timing.py prints them
+CALL_SHAPES: list = []
+
+# the device kernels of H1, H2, H4 and H6 by name
+H1_NAMES = ("req_intersects_kernel",)
 H2_NAMES = ("fill_grid_kernel",)
+H4_NAMES = ("compact_scatter_kernel",)
 H6_NAMES = ("pod_loop_kernel",)
 
 
@@ -476,13 +490,16 @@ def launch_times(run, names: tuple, setups: list, tag: str) -> dict:
     torch.cuda.synchronize()
     ev = a.elapsed_time(b) / len(setups)
     by_name = profile_run(lambda: [run(x) for x in setups], os.path.join("build", "profile"), tag,
-                          quiet=True)["by_name"]
+                          quiet=True, tries=3)["by_name"]
     n, ms = kernel_device(by_name, names)
-    return dict(launcher_ms=host, event_ms=ev, device_ms=ms / n if n else None, device_launches=n)
+    return dict(launcher_ms=host, event_ms=ev, device_ms=ms / n if n else None, device_launches=n,
+                calls=len(setups), device_call_ms=ms / len(setups) if n else None)
 
 
 def fmt_times(t: dict) -> str:
     dev = f"{t['device_ms']:.5f}" if t["device_ms"] is not None else "not measured"
+    if t["device_ms"] is not None and t["device_launches"] != t["calls"]:
+        dev += f" device_call_ms={t['device_call_ms']:.5f} ({t['device_launches']} launches, {t['calls']} calls)"
     return f"device_ms={dev} event_ms={t['event_ms']:.4f} launcher_ms={t['launcher_ms']:.4f}"
 
 
@@ -547,6 +564,61 @@ def h2_cases(sched, comb, g) -> list:
     ]
 
 
+def h1_bound(a, b, out) -> tuple[float, str]:
+    """H1's least time: each input read once and the output written once,
+    or 15 operations a shared (row, type, key) triple."""
+    shared = (a.defined[:, None, :] & b.defined[None, :, :]).sum().item()
+    return bound(nbytes(*a, *b, out), 15.0 * shared)
+
+
+def h1_multiword(g, dev) -> list:
+    """Seeded claim rows and catalogs past one 32-key word: K = 70 keys
+    (three words) at V = 16 and V = 64 values, about two keys shared a
+    pair, NotIn / DoesNotExist keys and bounds down to INT_MIN."""
+    import torch
+
+    from karpenter_tpu_torch.ops.encode import INT_MAX, INT_MIN, ReqSetTensors
+
+    def sets(n, K, V, p_def):
+        kind = torch.randint(0, 5, (n, K), generator=g)
+        mask = torch.rand((n, K, V), generator=g) < 0.3
+        mask[kind == 2] = ~mask[kind == 2]
+        mask[kind == 4] = False
+        inf = (kind >= 2) & (kind != 4)
+        gte = torch.randint(-6, 6, (n, K), generator=g, dtype=torch.int32)
+        lte = gte + torch.randint(-3, 8, (n, K), generator=g, dtype=torch.int32)
+        wide = torch.rand((n, K), generator=g) < 0.3
+        gte[wide], lte[wide] = INT_MIN, INT_MAX
+        defined = torch.rand((n, K), generator=g) < p_def
+        return ReqSetTensors(*(x.contiguous().to(dev) for x in (mask, inf, kind == 2, gte, lte, defined)))
+
+    return [(f"K = 70 keys, V = {V} (three key words; seeded, {A} x {B})", sets(A, 70, V, 3.0 / 70),
+             sets(B, 70, V, 0.7)) for A, B, V in ((4096, 1000, 16), (37, 400, 64))]
+
+
+def h1_cases(cases: list) -> dict:
+    """H1 in each call shape (label, a, b): exact against the plain version,
+    with device, event and launcher ms and the bound; "main" holds the
+    first case's (out_k, out_p, times, plain ms, bound)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import kernels
+
+    equal, main = True, None
+    for label, a, b in cases:
+        out_k, out_p = kernels.intersects(a, b), kernels.intersects_plain(a, b)
+        eq = torch.equal(out_k, out_p)
+        equal = equal and eq
+        t = launch_times(lambda _x: kernels.intersects(a, b), H1_NAMES, [None] * 20, "req_intersects")
+        bd = h1_bound(a, b, out_k)
+        print(f"kernel req_intersects ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
+              f"bound_ms={bd[0]:.5f} ({bd[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="req_intersects", label=label, equal=eq, bound_ms=bd[0], **t))
+        if main is None:
+            main = (out_k, out_p, t, time_ms(lambda: kernels.intersects_plain(a, b), iters=5), bd)
+    return dict(equal=equal, main=main)
+
+
 def kernel_phase(sched) -> list[dict]:
     """Phase 3: each kernel vs its plain version on seeded inputs at the
     north-star shapes, the catalog tensors being the real encoded ones."""
@@ -587,17 +659,26 @@ def kernel_phase(sched) -> list[dict]:
         print(f"kernel {name}: equal={equal} (tolerance: exact) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
 
-    # H1 req_intersects: [W, K, V] claim sets x [T, K, V] catalog
-    out_k = kernels.intersects(comb, it.reqs)
-    out_p = kernels.intersects_plain(comb, it.reqs)
-    shared = (comb.defined[:, None, :] & it.reqs.defined[None, :, :]).sum().item()
+    # H1 req_intersects in each call shape: tier 2's W claim rows and tier
+    # 3's G template rows against the catalog, and a seeded multi-word
+    # catalog; the kernels line carries tier 2's device time
+    from karpenter_tpu_torch.testing import selector_pods
+
+    _sorted, enc = sched._encode(selector_pods(16), None)
+    tm = ReqSetTensors(*(x.contiguous() for x in enc["template_tensors"].reqs))
+    h1 = h1_cases([("tier 2 (W = 4096 claim rows, T = 1000)", comb, it.reqs),
+                   (f"tier 3 (G = {tm.mask.shape[0]} template rows, T = 1000)", tm, it.reqs),
+                   *h1_multiword(g, dev)])
+    out_k, out_p, t, plain_ms, b = h1["main"]
     record(
         "req_intersects", "karpenter_tpu_torch/ops/csrc/req_intersects.cu",
         "karpenter_tpu/ops/kernels.py:54", out_k, out_p,
-        time_ms(lambda: kernels.intersects(comb, it.reqs)),
-        time_ms(lambda: kernels.intersects_plain(comb, it.reqs), iters=5),
-        bound(nbytes(*comb, *it.reqs, out_k), 15.0 * shared),
+        t["device_ms"] if t["device_ms"] is not None else t["event_ms"], plain_ms, b,
     )
+    results[-1].update(event_ms=t["event_ms"], launcher_ms=t["launcher_ms"])
+    if not h1["equal"]:
+        results[-1]["equal"] = False
+        results[-1]["max_abs_err"] = 1.0
 
     # H2 fill_count_grid: every call shape of the fill step and the
     # compaction, each exact against its plain version; the kernels line
@@ -611,6 +692,7 @@ def kernel_phase(sched) -> list[dict]:
         b = bound(nb, nops)
         print(f"kernel fill_count_grid ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
               f"bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="fill_count_grid", label=label, equal=eq, bound_ms=b[0], **t))
         if h2_main is None:
             plain_ms = time_ms(run_p, iters=3)
             h2_main = (out_k, out_p, t, plain_ms, b)
@@ -650,43 +732,87 @@ def kernel_phase(sched) -> list[dict]:
         results[-1]["max_abs_err"] = 1.0
     print(f"kernel water_fill (N=131072): equal={eqw}", flush=True)
 
-    # H4 compact_scatter: compaction of every window field
+    # H4 compact_scatter in each call shape of compact_state and
+    # global_claims at the north star's window, and a compaction at W =
+    # 131072 (100k pods without max_claims); the kernels line carries the
+    # compaction's device time
     NB = W
     alive = rand_bool(W, p=0.5)
-    srcs = list(comb) + [
-        used, viable, f, alive.clone(), p, torch.arange(W, dtype=torch.int32, device=dev),
-        torch.zeros((W, 1), dtype=torch.int32, device=dev), torch.zeros((W, 1), dtype=torch.bool, device=dev),
-    ]
-
-    def fresh():
-        return [torch.zeros_like(s) for s in srcs]
-
-    dk, dp = fresh(), fresh()
-    solver.compact_scatter(0, alive, srcs, dk)
-    solver.compact_scatter_plain(0, alive, srcs, dp)
-    eq = all(torch.equal(a, b) for a, b in zip(dk, dp))
-    moved = int(alive.sum().item())
-    row_bytes = sum(s[0].numel() * s.element_size() for s in srcs)
-    dk2 = fresh()
-    record(
-        "compact_scatter", "karpenter_tpu_torch/ops/csrc/compact_scatter.cu",
-        "karpenter_tpu/ops/solver.py:843", torch.tensor(eq), torch.tensor(True),
-        time_ms(lambda: solver.compact_scatter(0, alive, srcs, dk2)),
-        time_ms(lambda: solver.compact_scatter_plain(0, alive, srcs, dk2), iters=5),
-        bound(2 * moved * row_bytes + W, 0.0),
-    )
-    # its drop-scatter mode (bank / global_claims), checked too
     ids = torch.where(alive, torch.randperm(W, generator=g).to(dev).to(torch.int32),
                       torch.full((W,), NB, dtype=torch.int32, device=dev))
-    dk, dp = fresh(), fresh()
-    solver.compact_scatter(1, ids, srcs, dk)
-    solver.compact_scatter_plain(1, ids, srcs, dp)
-    eq1 = all(torch.equal(a, b) for a, b in zip(dk, dp))
-    if not eq1:
+    template = torch.arange(W, dtype=torch.int32, device=dev)
+    held = torch.zeros((W, 1), dtype=torch.bool, device=dev)
+    window = list(comb) + [used, viable, f, alive.clone(), p, template,
+                           torch.zeros((W, 1), dtype=torch.int32, device=dev), held]
+    Wl = 131072
+    big = [rand_bool(Wl, K, V), torch.rand((Wl, R), generator=g).to(dev), rand_bool(Wl, T),
+           torch.randint(0, 99, (Wl,), generator=g, dtype=torch.int32).to(dev)]
+    h4 = h4_cases([
+        ("compaction (mode 0, the 14 window fields, W = 4096)", 0, alive, window, W),
+        ("bank (mode 1, compact_state's 5 bank columns)", 1, ids,
+         [torch.ones(W, dtype=torch.bool, device=dev), template, viable, used, held], NB),
+        ("drop scatter (mode 1, the 14 window fields)", 1, ids, window, NB),
+        ("global_claims (mode 1, 4 columns over the bank)", 1, ids, [template, viable, used, held], NB),
+        (f"compaction (mode 0, W = {Wl})", 0, rand_bool(Wl, p=0.5), big, Wl),
+    ])
+    out_k, out_p, t, plain_ms, b = h4["main"]
+    record(
+        "compact_scatter", "karpenter_tpu_torch/ops/csrc/compact_scatter.cu",
+        "karpenter_tpu/ops/solver.py:843", out_k, out_p,
+        t["device_call_ms"] if t["device_call_ms"] is not None else t["event_ms"], plain_ms, b,
+    )
+    results[-1].update(event_ms=t["event_ms"], launcher_ms=t["launcher_ms"])
+    if not h4["equal"]:
         results[-1]["equal"] = False
         results[-1]["max_abs_err"] = 1.0
-    print(f"kernel compact_scatter (drop mode): equal={eq1}", flush=True)
     return results
+
+
+def h4_cases(cases: list) -> dict:
+    """H4 in each call shape (label, mode, sel, srcs, destination rows[,
+    tk, tk_srcs]): the destinations start filled with a pattern (the rows
+    nobody writes must keep it), the kernel twice against the plain
+    version, with device (per call), event and launcher ms and the bound
+    (each moved row read once and written once); "main" holds the first
+    case's (equal as a tensor, True, times, plain ms, bound)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+
+    equal, main = True, None
+    for label, mode, sel, srcs, n_dst, *rest in cases:
+        tk, tk_srcs = rest if rest else ((), [])
+
+        def filled(shape, dtype):
+            n = math.prod(shape)
+            return torch.arange(n, device=sel.device).remainder(3).to(dtype).reshape(shape)
+
+        def fresh():
+            return ([filled((n_dst,) + tuple(s.shape[1:]), s.dtype) for s in srcs],
+                    [filled((n_dst, len(tk)) + tuple(s.shape[2:]), s.dtype) for s in tk_srcs])
+
+        dk, tdk = fresh()
+        dk2, tdk2 = [d.clone() for d in dk], [d.clone() for d in tdk]
+        dp, tdp = [d.clone() for d in dk], [d.clone() for d in tdk]
+        solver.compact_scatter(mode, sel, srcs, dk, tk, tk_srcs, tdk)
+        solver.compact_scatter(mode, sel, srcs, dk2, tk, tk_srcs, tdk2)  # a second launch: the workspace reset
+        solver.compact_scatter_plain(mode, sel, srcs, dp, tk, tk_srcs, tdp)
+        eq = all(torch.equal(x, y) for x, y in zip(dk + tdk, dp + tdp))
+        eq = eq and all(torch.equal(x, y) for x, y in zip(dk2 + tdk2, dp + tdp))
+        equal = equal and eq
+        t = launch_times(lambda _x: solver.compact_scatter(mode, sel, srcs, dk, tk, tk_srcs, tdk), H4_NAMES,
+                         [None] * 20, "compact_scatter")
+        keep = sel if mode == 0 else (sel >= 0) & (sel < n_dst)
+        moved = int(keep.sum().item())
+        row_bytes = sum(d[0].numel() * d.element_size() for d in dk + tdk)
+        bd = bound(2 * moved * row_bytes + nbytes(sel), 0.0)
+        print(f"kernel compact_scatter ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
+              f"bound_ms={bd[0]:.5f} ({bd[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="compact_scatter", label=label, equal=eq, bound_ms=bd[0], **t))
+        if main is None:
+            plain_ms = time_ms(lambda: solver.compact_scatter_plain(mode, sel, srcs, dp, tk, tk_srcs, tdp), iters=5)
+            main = (torch.tensor(eq), torch.tensor(True), t, plain_ms, bd)
+    return dict(equal=equal, main=main)
 
 
 def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = None) -> None:
@@ -749,26 +875,17 @@ def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = Non
     srcs = [rand_bool(W), rand_int(0, 3, W), rand_bool(W, T), used]
     tk_srcs = [comb.mask, comb.inf, comb.defined]
 
-    def fresh():
-        return ([torch.zeros_like(s) for s in srcs],
-                [torch.zeros((W, len(tk)) + tuple(s.shape[2:]), dtype=s.dtype, device=dev) for s in tk_srcs])
-
-    (dk, tdk), (dp, tdp) = fresh(), fresh()
-    solver.compact_scatter(1, ids, srcs, dk, tk, tk_srcs, tdk)
-    solver.compact_scatter_plain(1, ids, srcs, dp, tk, tk_srcs, tdp)
-    eq_tk = all(torch.equal(a, b) for a, b in zip(dk + tdk, dp + tdp))
-    print(f"kernel compact_scatter (topology-key mode, tk={tk}): equal={eq_tk}", flush=True)
-    h4 = next(r for r in results if r["name"] == "compact_scatter")
-    if not eq_tk:
-        h4["equal"], h4["max_abs_err"] = False, 1.0
-    moved = int(((ids >= 0) & (ids < NCAP)).sum().item())
-    row_bytes = sum(d[0].numel() * d.element_size() for d in dk + tdk)
-    mode_line(
-        "compact_scatter (topology-key mode)",
-        time_ms(lambda: solver.compact_scatter(1, ids, srcs, dk, tk, tk_srcs, tdk)),
-        time_ms(lambda: solver.compact_scatter_plain(1, ids, srcs, dp, tk, tk_srcs, tdp), iters=5),
-        bound(2 * moved * row_bytes + nbytes(ids), 0.0),
-    )
+    h4t = h4_cases([(f"topology-key bank (mode 1, 4 columns + 3 key-row fields, tk={tk})", 1, ids, srcs, NCAP,
+                     tk, tk_srcs)])
+    # H1 at the kind step's shapes: tier 2's W claim rows and tier 3's G
+    # template rows against the mixed cell's catalog (T = 400)
+    tm = ReqSetTensors(*(x.contiguous() for x in templates.reqs))
+    h1 = h1_cases([("kind step tier 2 (W = 4096 claim rows, T = 400)", comb, it.reqs),
+                   (f"kind step tier 3 (G = {tm.mask.shape[0]} template rows, T = 400)", tm, it.reqs)])
+    for name, ok in (("compact_scatter", h4t["equal"]), ("req_intersects", h1["equal"])):
+        if not ok:
+            row = next(r for r in results if r["name"] == name)
+            row["equal"], row["max_abs_err"] = False, 1.0
 
     # H5 kscan_grid: grid + capd, capd from a reused grid, fits-final
     req = enc["kinds"]["requests"][1].contiguous()
@@ -1829,7 +1946,7 @@ def resident_kernel_phase(torch, cuda, T, TorchScheduler, results: list, profile
     call_ms = time_ms(lambda: cuda.retract_tail(state, cut), iters=50, warmup=5)
     plain_ms = time_ms(lambda: solver.retract_tail_plain(state, cut), iters=10, warmup=2)
     by_name = profile_run(lambda: [cuda.retract_tail(state, cut) for _ in range(20)], profile_dir,
-                          "retract_tail")["by_name"]
+                          "retract_tail", tries=3)["by_name"]
     hits = [v for n, v in by_name.items() if "retract_tail_kernel" in n]
     if not hits:
         raise RuntimeError("kernel retract_tail: the profile of 20 launches holds no launch of "
@@ -2124,8 +2241,8 @@ def objective_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels: list) 
         sched.solve(pods)
     finally:
         cuda.objective_verdict = real
-    cuda.reset_launches()
-    by_name = profile_run(lambda: sched.solve(pods), profile_dir, "objectives_cost_min")["by_name"]
+    by_name = profile_run(lambda: (cuda.reset_launches(), sched.solve(pods)), profile_dir, "objectives_cost_min",
+                          tries=3)["by_name"]
     rounds = sched.last_stats["verdict_fetches"]
     hits = [(c, d) for n, (c, d) in by_name.items() if "objective_verdict_kernel" in n]
     if not hits or hits[0][0] != rounds or cuda.LAUNCHES["objective_verdict"] != rounds:
@@ -2190,27 +2307,35 @@ def profiled_kernel(kernels: list, name: str, inst: str, by_name: dict, launches
             k.update(ms=ms / steps, bound_ms=b[0], bound_by=b[1])
 
 
-def profile_run(fn, out_dir, tag, quiet: bool = False) -> dict:
+def profile_run(fn, out_dir, tag, quiet: bool = False, tries: int = 1) -> dict:
     """One more warm call of fn under torch.profiler: device busy share
     over the call's wall, and device time by kernel name (from the chrome
     trace, so launches of one name are summed and overlaps counted once).
     Returns the summary (wall_s, device_busy_s, idle_share, ...) with
     by_name {kernel name: (launches, device ms)}; by_name alone, empty, when
-    not measured."""
+    not measured. The profiler now and then records no device activity at
+    all for a call whose kernels ran: with tries > 1, fn (which must then be
+    safe to repeat) is profiled again, up to `tries` calls in all, while
+    the trace holds no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{tag}_trace.json")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    prof.export_chrome_trace(path)
-    with open(path) as fh:
-        events = json.load(fh).get("traceEvents", [])
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        if dev:
+            break
+        if attempt + 1 < tries:
+            print(f"profile {tag}: the trace holds no device events; profiling again", flush=True)
     if not dev:
         print(f"profile {tag}: not measured (the trace holds no device events)", flush=True)
         return dict(by_name={})
@@ -2243,11 +2368,18 @@ def profile_run(fn, out_dir, tag, quiet: bool = False) -> dict:
     return dict(summary, by_name={n: (c, d / 1e3) for n, (c, d) in by_name.items()})
 
 
-def profiled_h2_h6(tag: str, prof: dict) -> None:
-    """H2's and H6's device time and launches in a profiled warm solve."""
+# the kernels whose device time phase 4 reports from its profiled warm
+# solves of the north star and mixed
+PROFILED_KERNELS = (("req_intersects", H1_NAMES), ("fill_count_grid", H2_NAMES),
+                    ("compact_scatter", H4_NAMES), ("kscan_pod_loop", H6_NAMES))
+
+
+def profiled_kernels(tag: str, prof: dict) -> None:
+    """H1's, H2's, H4's and H6's device time and launches in a profiled
+    warm solve."""
     if not prof["by_name"]:
         return
-    for name, names in (("fill_count_grid", H2_NAMES), ("kscan_pod_loop", H6_NAMES)):
+    for name, names in PROFILED_KERNELS:
         n, ms = kernel_device(prof["by_name"], names)
         per = f"{ms / n:.5f}" if n else "-"
         print(f"profile {tag}: {name} device {ms:.3f} ms over {n} launches ({per} ms a launch) of "
@@ -2619,7 +2751,7 @@ def wire_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
         read = wire_read_bytes(leaves)
         b = bound(read + want.numel(), 0.0)
         by_name = profile_run(lambda: [cuda.wire_pack(leaves) for _ in range(10)], os.path.join("build", "profile"),
-                              "wire")["by_name"]
+                              "wire", tries=3)["by_name"]
         hits = [v for n, v in by_name.items() if "wire_pack_kernel" in n]
         dev_ms = hits[0][1] / hits[0][0] if hits else None
         dev_txt = f"{dev_ms:.5f}" if dev_ms is not None else "not measured"
@@ -2878,7 +3010,7 @@ def main() -> int:
     try:
         result, launches_n = solve_path(torch, cuda, "north star", sched, pods, (GOLDEN_CLAIMS, GOLDEN_PRICE), {},
                                         fill_kernels, pipelined=True)
-        profiled_h2_h6("northstar", profile_run(lambda: sched.solve(pods), profile_dir, "northstar"))
+        profiled_kernels("northstar", profile_run(lambda: sched.solve(pods), profile_dir, "northstar"))
         sync_points(torch, sched, lambda: sched.solve(pods), "north star")
         result_m, launches_m = solve_path(
             torch, cuda, "mixed path", sched_m, pods_m, (MIXED_CLAIMS, MIXED_PRICE), MIXED_STATS,
@@ -2887,7 +3019,7 @@ def main() -> int:
              + ("gang_scan", "retract_tail", "objective_verdict", "dp_dead", "dp_verdict", "merge_shard")],
             pipelined=True, stream=True,
         )
-        profiled_h2_h6("mixed", profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed"))
+        profiled_kernels("mixed", profile_run(lambda: sched_m.solve(pods_m), profile_dir, "mixed"))
         sync_points(torch, sched_m, lambda: sched_m.solve(pods_m), "mixed")
         result_p, launches_p = solve_path(
             torch, cuda, "perpod path", sched_p, pods_p, (PERPOD_CLAIMS, PERPOD_PRICE), PERPOD_STATS,

@@ -132,10 +132,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _ARGTYPES = {
-    "req_intersects": [_P] * 12 + [_I] * 4 + [_P, _P],
+    "req_intersects": [_P] * 8 + [_I, _P, _P],
     "fill_count_grid": [_I, _P, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _I, _P, _P],
     "water_fill": [_P, _P, _P, _I, _P, _P],
-    "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "compact_scatter": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P],
     "kscan_grid": [_I, _P, _P, _P],
     "kscan_pod_loop": [_P, _I, _P, _P],
     "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
@@ -198,31 +198,112 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 
+_REQ_DTYPES = (torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.bool)
+# the types of one of csrc/req_intersects.cu's many-row tiles (a warp, four
+# types a lane): the packed catalog's type axis is padded to a multiple of
+# it, so that each tile's slice of a row starts on a 512-byte boundary
+REQ_TILE_TYPES = 128
+
+
+class ReqCatalog:
+    """csrc/req_intersects.cu's packed form of one ReqSetTensors `b` (the
+    catalog side, B types), with the type axis innermost and padded to Bp,
+    a multiple of REQ_TILE_TYPES: [4][NKW][Bp] 32-bit words of key
+    bits (defined, lenient, infinite, any mask value; bit k % 32 of word
+    k // 32), then gte / lte [K][Bp] int32 and the mask [K][V/8][Bp] as
+    8-byte words of V/8 values each, every section 16-byte aligned. The
+    padding types define no key. `dims` is the C entry's (B, Bp, K, V, NKW)
+    as a ctypes array."""
+
+    def __init__(self, b):
+        dev = b.mask.device
+        for f, dt in zip(b._fields, _REQ_DTYPES):
+            _check(getattr(b, f), f"b.{f}", dt, dev)
+        B, K, V = b.mask.shape
+        if V % 8:
+            raise LaunchRefused(f"req_intersects: V={V} must be a multiple of 8")
+        if any(tuple(getattr(b, f).shape) != (B, K) for f in b._fields[1:]):
+            raise LaunchRefused(f"req_intersects: catalog shapes {[tuple(x.shape) for x in b]}")
+        NKW = max(1, -(-K // 32))
+        Bp = -(-B // REQ_TILE_TYPES) * REQ_TILE_TYPES
+        any_m = b.mask.any(dim=-1)
+        lenient = b.defined & ((b.inf & b.excl) | (~b.inf & ~any_m))
+        bits = torch.stack([b.defined, lenient, b.inf, any_m])  # [4, B, K]
+        if K == 0:
+            bits = torch.zeros((4, B, 1), dtype=torch.bool, device=dev)
+        words = bit_words(bits).permute(0, 2, 1)  # [4, NKW, B]
+
+        def typed_last(x: torch.Tensor) -> torch.Tensor:  # [..., B] -> [..., Bp] bytes
+            out = torch.zeros(tuple(x.shape[:-1]) + (Bp,), dtype=x.dtype, device=dev)
+            out[..., :B] = x
+            raw = out.contiguous().view(torch.uint8).reshape(-1)
+            return torch.cat([raw, torch.zeros(-raw.numel() % 16, dtype=torch.uint8, device=dev)])
+
+        mask8 = torch.zeros((K, V // 8, Bp, 8), dtype=torch.bool, device=dev)
+        mask8[:, :, :B] = b.mask.reshape(B, K, V // 8, 8).permute(1, 2, 0, 3)
+        self.packed = torch.cat([
+            typed_last(words), typed_last(b.gte.T), typed_last(b.lte.T),
+            mask8.view(torch.uint8).reshape(-1),
+        ])
+        self.device, self.B, self.K, self.V = dev, B, K, V
+        self.dims = (ctypes.c_int * 5)(B, Bp, K, V, NKW)
+        self.dims_ptr = ctypes.cast(self.dims, ctypes.c_void_p)
+
+
+def req_catalog(b) -> ReqCatalog:
+    """The packed catalog of requirement sets `b`, built and checked once
+    per catalog (packed_catalog)."""
+    return packed_catalog("req_intersects", tuple(b), lambda: ReqCatalog(b))
+
+
 def req_intersects(a, b) -> torch.Tensor:
-    """H1: [A, B] bool intersects(a, b) for two ReqSetTensors on CUDA."""
-    dev = a.mask.device
+    """H1: [A, B] bool intersects(a, b) for two ReqSetTensors on CUDA. The
+    catalog side `b` is packed and checked once per catalog (req_catalog);
+    every call checks the claim side `a`."""
+    cat = req_catalog(b)
     A, K, V = a.mask.shape
-    B = b.mask.shape[0]
-    if b.mask.shape[1:] != (K, V):
+    if (K, V) != (cat.K, cat.V):
         raise LaunchRefused(f"req_intersects: key/value axes differ {a.mask.shape} vs {b.mask.shape}")
-    if V % 8:
-        raise LaunchRefused(f"req_intersects: V={V} must be a multiple of 8")
-    args = []
-    for side, r in (("a", a), ("b", b)):
-        for f, dt in zip(r._fields, (torch.bool, torch.bool, torch.bool, torch.int32, torch.int32, torch.bool)):
-            t = _check(getattr(r, f), f"{side}.{f}", dt, dev)
-            if f == "mask" and t.data_ptr() % 8:
-                raise LaunchRefused(f"req_intersects: {side}.mask is not 8-byte aligned")
-            args.append(t.data_ptr())
-    out = torch.empty((A, B), dtype=torch.bool, device=dev)
-    _call("req_intersects", *args, A, B, K, V, out.data_ptr())
+    for f, dt in zip(a._fields, _REQ_DTYPES):
+        t = _check(getattr(a, f), f"a.{f}", dt, cat.device)
+        if f != "mask" and tuple(t.shape) != (A, K):
+            raise LaunchRefused(f"req_intersects: a.{f} {tuple(t.shape)} vs ({A}, {K})")
+    if a.mask.data_ptr() % 8:
+        raise LaunchRefused("req_intersects: a.mask is not 8-byte aligned")
+    out = torch.empty((A, cat.B), dtype=torch.bool, device=cat.device)
+    _call("req_intersects", *[t.data_ptr() for t in a], cat.packed.data_ptr(), cat.dims_ptr, A, out.data_ptr())
     return out
+
+
+# Packed catalogs (H1's ReqCatalog, H2's FillGridCatalog), each built once
+# per catalog: keyed on its kind, its parameters and the identity of its
+# source tensors. An entry holds those tensors, so their ids stay theirs
+# while it lives, and their version counters, so a catalog changed in
+# place is packed anew. The oldest of PACKED_CATALOG_CAP entries goes first:
+# a catalog holds two (one of each kind), so 8 live catalogs stay packed.
+PACKED_CATALOG_CAP = 16
+_PACKED_CATALOGS: dict = {}
+
+
+def packed_catalog(kind: str, sources: tuple, build, *params):
+    """build()'s packed catalog of the tensors `sources`, cached (see
+    _PACKED_CATALOGS)."""
+    key = (kind, *params, *map(id, sources))
+    versions = tuple(t._version for t in sources)
+    hit = _PACKED_CATALOGS.get(key)
+    if hit is not None and hit[0] == versions:
+        return hit[1]
+    _PACKED_CATALOGS.pop(key, None)
+    if len(_PACKED_CATALOGS) >= PACKED_CATALOG_CAP:
+        _PACKED_CATALOGS.pop(next(iter(_PACKED_CATALOGS)))
+    cat = build()
+    _PACKED_CATALOGS[key] = (versions, cat, sources)
+    return cat
 
 
 # H2's packed catalog: the bytes of shared memory a block stages a tile of
 # it into (csrc/fill_count_grid.cu adds its per-warp scratch beside it)
 FILL_GRID_SMEM = 200 * 1024
-_FILL_GRID_CATALOGS: dict = {}
 
 
 def _pad16(n: int) -> int:
@@ -296,7 +377,6 @@ class FillGridCatalog:
             section(words.view(nt, TT, GR, NWZ).permute(0, 3, 2, 1)),
             section(v.view(nt, TT, GR).permute(0, 2, 1)),
         ], dim=1).contiguous() if nt else torch.zeros((0,), dtype=torch.uint8, device=dev)
-        self.keep = (alloc, gv, zc)  # the ids in the cache key stay these tensors'
         self.device, self.T, self.R, self.Z, self.C = dev, T, R, Z, C
         self.ntiles, self.staged = nt, staged
         self.dims = (ctypes.c_int * 8)(T, GR, R, Z, C, NWZ, TT, staged)
@@ -304,15 +384,10 @@ class FillGridCatalog:
 
 
 def fill_grid_catalog(it) -> FillGridCatalog:
-    """The packed catalog of `it`, built once per catalog (cached on the
-    identity of its alloc / group_valid / zc_avail tensors)."""
-    key = (id(it.alloc), id(it.group_valid), id(it.zc_avail), FILL_GRID_SMEM)
-    cat = _FILL_GRID_CATALOGS.get(key)
-    if cat is None:
-        if len(_FILL_GRID_CATALOGS) >= 8:
-            _FILL_GRID_CATALOGS.pop(next(iter(_FILL_GRID_CATALOGS)))
-        cat = _FILL_GRID_CATALOGS[key] = FillGridCatalog(it)
-    return cat
+    """The packed catalog of `it`, built once per catalog (packed_catalog,
+    on its alloc / group_valid / zc_avail tensors)."""
+    return packed_catalog("fill_count_grid", (it.alloc, it.group_valid, it.zc_avail),
+                          lambda: FillGridCatalog(it), FILL_GRID_SMEM)
 
 
 def fill_count_grid(
@@ -383,6 +458,64 @@ def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Ten
     return out
 
 
+# csrc/compact_scatter.cu kTile: the rows a block owns, one look-back flag each
+H4_TILE = 32
+
+
+class _ScatterLayout:
+    """One checked compact_scatter layout: each field's (row bytes, source
+    row bytes, key-row segment bytes) and the key ids as the C entry's host
+    arrays, and the pointer array a call fills."""
+
+    def __init__(self, mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts):
+        dev = sel.device
+        n = sel.shape[0]
+        _check(sel, "sel", torch.bool if mode == 0 else torch.int32, dev)
+        if not srcs or len(srcs) != len(dsts) or len(tk_srcs) != len(tk_dsts):
+            raise LaunchRefused("compact_scatter: need matching src/dst lists")
+        if tk_srcs and not tk:
+            raise LaunchRefused("compact_scatter: key-row fields need key ids")
+        n_dst = dsts[0].shape[0]
+        layout = []
+        for s, d in zip(srcs, dsts):
+            _check(s, "src", s.dtype, dev)
+            _check(d, "dst", s.dtype, dev)
+            if s.shape[0] != n or d.shape[0] != n_dst or s.shape[1:] != d.shape[1:]:
+                raise LaunchRefused(f"compact_scatter: src {tuple(s.shape)} / dst {tuple(d.shape)} vs rows {n}/{n_dst}")
+            rb = s[0].numel() * s.element_size() if n else 0
+            layout += [rb, rb, 0]
+        for s, d in zip(tk_srcs, tk_dsts):
+            _check(s, "tk src", s.dtype, dev)
+            _check(d, "tk dst", s.dtype, dev)
+            if (s.shape[0] != n or d.shape[0] != n_dst or d.shape[1] != len(tk)
+                    or s.shape[2:] != d.shape[2:] or max(tk) >= s.shape[1]):
+                raise LaunchRefused(f"compact_scatter: tk src {tuple(s.shape)} / dst {tuple(d.shape)} vs tk {tk}")
+            seg = s[0, 0].numel() * s.element_size() if n else 0
+            layout += [seg * len(tk), s[0].numel() * s.element_size() if n else 0, seg]
+        k = len(srcs) + len(tk_srcs)
+        self.n, self.n_dst, self.k = n, n_dst, k
+        self.n_tk = len(tk) if tk_srcs else 0
+        self.layout = (ctypes.c_int64 * (3 * k))(*layout)
+        self.tk = (ctypes.c_int * max(len(tk), 1))(*tk)
+        self.ptrs = (ctypes.c_int64 * (2 * k))()
+        self.args = [ctypes.cast(x, ctypes.c_void_p) for x in (self.ptrs, self.layout, self.tk)]
+
+
+_SCATTER_LAYOUTS: dict = {}
+# mode 0's look-back workspaces, one per (device, stream): [2 + tiles]
+# int32, zeroed once; every launch leaves it zeroed
+_SCATTER_WS: dict = {}
+
+
+def _scatter_workspace(sel: torch.Tensor, tiles: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(sel.device).cuda_stream if sel.is_cuda else None
+    key = (sel.device, stream)
+    ws = _SCATTER_WS.get(key)
+    if ws is None or ws.numel() < 2 + tiles:
+        ws = _SCATTER_WS[key] = torch.zeros(2 + max(tiles, 4096 // H4_TILE), dtype=torch.int32, device=sel.device)
+    return ws
+
+
 def compact_scatter(
     mode: int, sel: torch.Tensor, srcs: list, dsts: list,
     tk: tuple = (), tk_srcs: list = (), tk_dsts: list = (),
@@ -391,51 +524,28 @@ def compact_scatter(
     mode 0: to the stable-compacted position of the alive rows (sel =
     [n] bool); mode 1: to sel[i] (int32 ids), dropping out-of-range ids.
     Each tk_src [n, K, ...] moves only its key rows `tk` into its tk_dst
-    [n_dst, len(tk), ...], in the same launch."""
-    dev = sel.device
-    n = sel.shape[0]
-    _check(sel, "sel", torch.bool if mode == 0 else torch.int32, dev)
-    if not srcs or len(srcs) != len(dsts) or len(tk_srcs) != len(tk_dsts):
-        raise LaunchRefused("compact_scatter: need matching src/dst lists")
-    if tk_srcs and not tk:
-        raise LaunchRefused("compact_scatter: key-row fields need key ids")
-    n_dst = dsts[0].shape[0]
-    row_bytes, src_bytes, seg_bytes = [], [], []
-    for s, d in zip(srcs, dsts):
-        _check(s, "src", s.dtype, dev)
-        _check(d, "dst", s.dtype, dev)
-        if s.shape[0] != n or d.shape[0] != n_dst or s.shape[1:] != d.shape[1:]:
-            raise LaunchRefused(f"compact_scatter: src {tuple(s.shape)} / dst {tuple(d.shape)} vs rows {n}/{n_dst}")
-        rb = s[0].numel() * s.element_size() if n else 0
-        row_bytes.append(rb)
-        src_bytes.append(rb)
-        seg_bytes.append(0)
-    for s, d in zip(tk_srcs, tk_dsts):
-        _check(s, "tk src", s.dtype, dev)
-        _check(d, "tk dst", s.dtype, dev)
-        if (s.shape[0] != n or d.shape[0] != n_dst or d.shape[1] != len(tk)
-                or s.shape[2:] != d.shape[2:] or max(tk) >= s.shape[1]):
-            raise LaunchRefused(f"compact_scatter: tk src {tuple(s.shape)} / dst {tuple(d.shape)} vs tk {tk}")
-        seg = s[0, 0].numel() * s.element_size() if n else 0
-        row_bytes.append(seg * len(tk))
-        src_bytes.append(s[0].numel() * s.element_size() if n else 0)
-        seg_bytes.append(seg)
-    fields = list(srcs) + list(tk_srcs)
-    outs = list(dsts) + list(tk_dsts)
-    k = len(fields)
-    src_arr = (ctypes.c_void_p * k)(*[s.data_ptr() for s in fields])
-    dst_arr = (ctypes.c_void_p * k)(*[d.data_ptr() for d in outs])
-    rb_arr = (ctypes.c_int64 * k)(*row_bytes)
-    sb_arr = (ctypes.c_int64 * k)(*src_bytes)
-    seg_arr = (ctypes.c_int64 * k)(*seg_bytes)
-    tk_arr = (ctypes.c_int * max(len(tk), 1))(*tk)
-    pos = torch.empty(n, dtype=torch.int32, device=dev) if mode == 0 else None
+    [n_dst, len(tk), ...], in the same launch. One launch, no allocation
+    (mode 0's workspace is allocated once per stream): a layout of field
+    shapes and dtypes is checked in full the first time it is seen, later
+    calls by one pass over device and contiguity."""
+    ts = (sel, *srcs, *tk_srcs, *dsts, *tk_dsts)
+    key = (mode, tuple(tk), len(srcs), len(tk_srcs),
+           *[(t.shape, t.dtype, t.get_device(), t.is_contiguous()) for t in ts])
+    lay = _SCATTER_LAYOUTS.get(key)
+    if lay is None:
+        lay = _ScatterLayout(mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts)
+        if len(_SCATTER_LAYOUTS) >= 64:
+            _SCATTER_LAYOUTS.pop(next(iter(_SCATTER_LAYOUTS)))
+        _SCATTER_LAYOUTS[key] = lay
+    k = lay.k
+    ptrs = [t.data_ptr() for t in ts]
+    lay.ptrs[0::2] = ptrs[1:1 + k]
+    lay.ptrs[1::2] = ptrs[1 + k:]
+    tiles = -(-lay.n // H4_TILE)
+    ws = _scatter_workspace(sel, tiles) if mode == 0 else None
     _call(
-        "compact_scatter", mode, n, sel.data_ptr(), n_dst, k,
-        ctypes.cast(src_arr, ctypes.c_void_p), ctypes.cast(dst_arr, ctypes.c_void_p),
-        ctypes.cast(rb_arr, ctypes.c_void_p), ctypes.cast(sb_arr, ctypes.c_void_p),
-        ctypes.cast(seg_arr, ctypes.c_void_p), len(tk) if tk_srcs else 0,
-        ctypes.cast(tk_arr, ctypes.c_void_p), _ptr(pos),
+        "compact_scatter", mode, lay.n, ptrs[0], lay.n_dst, k, *lay.args[:2], lay.n_tk, lay.args[2],
+        _ptr(ws), ws.numel() - 2 if ws is not None else 0,
     )
 
 

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Time H2 fill_count_grid and H6 kscan_pod_loop of one checkout of this
-repository on one NVIDIA GPU.
+"""Time H1 req_intersects, H2 fill_count_grid, H4 compact_scatter and H6
+kscan_pod_loop of one checkout of this repository on one NVIDIA GPU.
 
     python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells]
 
 DIR is the checkout whose karpenter_tpu_torch is imported (default: the
 one holding this script); it builds its own kernels. The script runs
 chip_smoke.py's (the one next to this script) phase-3 checks of H1-H6
-against DIR's package: H2 in each call shape of the fill step and the
-compaction at the north star's catalog (T = 1000) and a window of 4096
-rows, H6 over a 256-pod segment at the mixed cell's shapes and over one
-segment at W = 8192, D = 16 past its shared-memory staging; each line
-gives the kernel's device ms per launch (torch.profiler), the CUDA-event
-ms and the launcher's host ms per call, and whether the kernel equals its
-plain version. --cells runs, in place of the kernel checks, the north
-star (selector_pods(100_000) x make_templates(1000)) and
-mixed_pods(16384) x make_templates(400) at max_claims=4096: a cold
-solve, three warm ones (their walls and device_s), and one more under
-torch.profiler (device busy, idle share, H2's and H6's device ms and
-launches). Prints the card's name and power limit first and one JSON
-line last. To compare two checkouts,
-run both in one call on one card, in turns (A, B, B, A).
+against DIR's package, each in its call shapes at the north star's
+catalog (T = 1000) and a window of 4096 rows: H1 at tier 2 (W claim
+rows), tier 3 (G template rows) and a seeded catalog of 70 keys (three
+key words), and at the kind step's tier 2 and tier 3 (T = 400); H2 in
+each call shape of the fill step and the compaction; H4 in the
+compaction (14 window fields), compact_state's bank columns, the drop
+scatter, global_claims, the topology-key bank and a compaction at W =
+131072; H6 over a 256-pod segment at the mixed cell's shapes and over
+one segment at W = 8192, D = 16 past its shared-memory staging. Each
+call shape's line (chip_smoke.CALL_SHAPES) gives the kernel's device ms
+per launch and per call (torch.profiler, over every `__global__` function
+of DIR's source of that kernel, so an older design that launched two
+kernels a call is counted whole), the CUDA-event ms and the launcher's host ms per
+call, the bound, and whether the kernel equals its plain version.
+--cells runs, in place of the kernel checks, the north star
+(selector_pods(100_000) x make_templates(1000)) and mixed_pods(16384) x
+make_templates(400) at max_claims=4096: a cold solve, three warm ones
+(their walls and device_s), and one more under torch.profiler (device
+busy, idle share, and H1's, H2's, H4's and H6's device ms and launches).
+Prints the card's name and power limit first and one JSON line last. To
+compare two checkouts, run both in one call on one card, in turns (A, B,
+B, A).
 """
 
 from __future__ import annotations
@@ -32,6 +40,21 @@ import os
 import re
 import subprocess
 import sys
+
+def use_checkout_kernels(smoke, repo: str) -> None:
+    """Point chip_smoke's profiled kernel names at DIR's own: every
+    `__global__` function of the source of H1, H2, H4 and H6."""
+    csrc = os.path.join(repo, "karpenter_tpu_torch", "ops", "csrc")
+    for attr, source in (("H1_NAMES", "req_intersects"), ("H2_NAMES", "fill_count_grid"),
+                         ("H4_NAMES", "compact_scatter"), ("H6_NAMES", "kscan_pod_loop")):
+        with open(os.path.join(csrc, f"{source}.cu")) as f:
+            names = tuple(dict.fromkeys(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                                   f.read())))
+        assert names, f"no kernel in {source}.cu"
+        setattr(smoke, attr, names)
+    smoke.PROFILED_KERNELS = (("req_intersects", smoke.H1_NAMES), ("fill_count_grid", smoke.H2_NAMES),
+                              ("compact_scatter", smoke.H4_NAMES), ("kscan_pod_loop", smoke.H6_NAMES))
+
 
 def cells(smoke, card: str, repo: str, tag: str) -> int:
     """The north star and mixed cells' warm walls and profiles (--cells)."""
@@ -61,7 +84,7 @@ def cells(smoke, card: str, repo: str, tag: str) -> int:
         row = dict(warm_walls=walls, warm_device_s=device_s)
         if prof["by_name"]:
             row.update(device_busy_s=prof["device_busy_s"], idle_share=prof["idle_share"])
-            for k, names in (("fill_count_grid", smoke.H2_NAMES), ("kscan_pod_loop", smoke.H6_NAMES)):
+            for k, names in smoke.PROFILED_KERNELS:
                 n, ms = smoke.kernel_device(prof["by_name"], names)
                 row[k] = dict(launches=n, device_ms=ms)
         out[name] = row
@@ -94,6 +117,7 @@ def main() -> int:
         "chip_smoke_here", os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    use_checkout_kernels(smoke, repo)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"{card} | repo {repo} {args.tag}", flush=True)
@@ -106,14 +130,17 @@ def main() -> int:
     sched_m = TorchScheduler(T.make_templates(400), max_claims=4096)
     _sorted, enc_m = sched_m._encode(T.mixed_pods(64), None)
     smoke.kscan_kernel_phase(sched_m, enc_m, results)
+    timed = ("req_intersects", "fill_count_grid", "compact_scatter", "kscan_pod_loop")
     keep = {r["name"]: {k: r.get(k) for k in ("ms", "event_ms", "launcher_ms", "plain_ms", "bound_ms", "equal")}
-            for r in results if r["name"] in ("fill_count_grid", "kscan_pod_loop")}
+            for r in results if r["name"] in timed}
+    shapes = [{k: v for k, v in c.items() if k in ("kernel", "label", "equal", "device_ms", "device_call_ms",
+                                                     "device_launches", "calls", "event_ms", "launcher_ms",
+                                                     "bound_ms")} for c in smoke.CALL_SHAPES]
     print(json.dumps(dict(card=card, repo=repo, tag=args.tag,
                           nvcc_regs={k: re.findall(r"Used (\d+) registers", v)
-                                     for k, v in cuda.BUILD_INFO.get("logs", {}).items()
-                                     if k in ("fill_count_grid", "kscan_pod_loop")},
-                          kernels=keep)), flush=True)
-    bad = [n for n, r in keep.items() if not r["equal"]]
+                                     for k, v in cuda.BUILD_INFO.get("logs", {}).items() if k in timed},
+                          kernels=keep, shapes=shapes)), flush=True)
+    bad = [n for n, r in keep.items() if not r["equal"]] + [c["label"] for c in shapes if not c["equal"]]
     return 1 if bad else 0
 
 

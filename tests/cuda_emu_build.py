@@ -21,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import pytest
@@ -77,8 +78,43 @@ def emulated_library(tmp_path_factory, source: str, rewrite=None) -> ctypes.CDLL
 
 
 def c_entry(lib: ctypes.CDLL, entry: str):
-    """C entry `entry` of an emulated build, with ops/cuda.py's argtypes."""
+    """C entry `entry` of an emulated build, with ops/cuda.py's argtypes;
+    a call fails its test when one of its launches deadlocked (cuda_emu.h
+    emu_error)."""
     fn = getattr(lib, entry)
     fn.argtypes = p_cuda._ARGTYPES[entry]
     fn.restype = ctypes.c_int
-    return fn
+    err = ctypes.c_int.in_dll(lib, "emu_error")
+
+    def call(*args) -> int:
+        rc = fn(*args)
+        if err.value:
+            err.value = 0
+            pytest.fail(f"emulated {entry}: a launch deadlocked (every unfinished CUDA thread waits at a barrier)")
+        return rc
+
+    return call
+
+
+def limited_call(fn, *args, limit_s: float = 60.0) -> int:
+    """fn(*args) (an emulated C entry) on a thread of its own; fails the
+    test when it has not returned within limit_s seconds, so that a
+    kernel stuck in a spin-wait fails its test and does not hang the suite
+    (the stuck thread is left behind; a launch whose CUDA threads all wait
+    at barriers ends at once, and c_entry fails its test)."""
+    box = {}
+
+    def run():
+        try:
+            box["rc"] = fn(*args)
+        except BaseException as e:  # raised again on the test's thread
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(limit_s)
+    if th.is_alive():
+        pytest.fail(f"emulated kernel still running after {limit_s} s: a deadlock?")
+    if "error" in box:
+        raise box["error"]
+    return box["rc"]

@@ -11,7 +11,12 @@ compiles the reference's programs imports the fixture:
     from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 and compiles in memory for the module's duration; the setting and the
-cache's state are restored after it.
+cache's state are restored after it, and the module's compiled programs
+are dropped (jax.clear_caches). Each compiled program holds memory
+mappings of its own: a worker that kept every module's programs reached
+tens of thousands of them, near the kernel's limit per process
+(vm.max_map_count, 65530), where a mapping fails and the worker raises
+MemoryError or dies inside XLA.
 """
 
 import jax
@@ -28,3 +33,4 @@ def no_persistent_compile_cache():
     yield
     jax.config.update("jax_enable_compilation_cache", was)
     compilation_cache.reset_cache()
+    jax.clear_caches()

@@ -1,7 +1,7 @@
 """The fill grid kernel (H2), csrc/fill_count_grid.cu, run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads and the warp collectives, two SMs, the bulk
 copy of a catalog tile replaced by a memcpy) and routes ops/cuda.py's
 launch to that library. ops/cuda.py's launcher packs the catalog as on

@@ -1,7 +1,7 @@
 """The gang kernel's own source, csrc/gang_scan.cu, run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads) and routes ops/cuda.py's launch to that
 library. Each case is a whole TorchScheduler solve on the CPU in which
 every gang run goes through the plain loop (`_gang_step` per segment,

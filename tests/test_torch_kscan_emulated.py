@@ -2,7 +2,7 @@
 the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads, the named barrier and the warp collectives)
 and routes ops/cuda.py's launch to that library. In CPU solves with
 kind-scan kinds, every segment's pod loop runs through the emulated kernel

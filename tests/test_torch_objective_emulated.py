@@ -2,7 +2,7 @@
 run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads and the warp collectives, the blocks of a grid
 one after another) and routes ops/cuda.py's launch to that library. The
 launcher then runs on CPU tensors and is held to the plain version

@@ -1,7 +1,7 @@
 """The per-pod kernel's own source, csrc/perpod_scan.cu, run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread, barriers
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread, barriers
 for __syncthreads and the warp collectives) and routes ops/cuda.py's launch
 to that library. Each case is a whole TorchScheduler solve on the CPU in
 which every per-pod chunk runs through the emulated kernel, in three

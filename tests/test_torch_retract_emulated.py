@@ -1,7 +1,7 @@
 """The retract kernel's own source, csrc/retract_tail.cu, run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads and the warp collectives) and routes
 ops/cuda.py's launch to that library. ops/cuda.py's launcher then runs on
 CPU tensors and is held to the plain version (ops/solver.py

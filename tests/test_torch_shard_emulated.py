@@ -2,7 +2,7 @@
 csrc/dp_verdict.cu (H13) and csrc/merge_shard.cu (H14), run on the CPU.
 
 The CUDA kernels cannot run here, so this file compiles each with the
-host's C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+host's C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads and the warp collectives, the blocks of a grid
 one after another) and routes ops/cuda.py's launches to those libraries.
 The launchers then run on CPU tensors and are held to the plain versions

@@ -1,7 +1,7 @@
 """The wire kernel's own source, csrc/wire_pack.cu, run on the CPU.
 
 The CUDA kernel cannot run here, so this file compiles it with the host's
-C++ compiler against tests/cuda_emu.h (one thread per CUDA thread,
+C++ compiler against tests/cuda_emu.h (one fiber per CUDA thread,
 barriers for __syncthreads and the warp collectives, std::atomic for the
 atomics) and routes ops/cuda.py's launch to that library. ops/cuda.py's
 launcher (its descriptor table included) then runs on CPU tensors and is
