@@ -452,10 +452,12 @@ def nbytes(*ts) -> int:
 # bound): kernel_timing.py prints them
 CALL_SHAPES: list = []
 
-# the device kernels of H1, H2, H4 and H6 by name
+# the device kernels of H1-H6 by name
 H1_NAMES = ("req_intersects_kernel",)
 H2_NAMES = ("fill_grid_kernel",)
+H3_NAMES = ("water_fill_rows", "water_fill_chunks")
 H4_NAMES = ("compact_scatter_kernel",)
+H5_NAMES = ("kscan_grid_kernel",)
 H6_NAMES = ("pod_loop_kernel",)
 
 
@@ -709,28 +711,21 @@ def kernel_phase(sched) -> list[dict]:
     used = (torch.rand((W, R), generator=g) * it.alloc[:, 0, :].max(0).values.cpu() * 0.5).to(dev)
     viable = rand_bool(W, T, p=0.5)
 
-    # H3 water_fill on the window
-    p = torch.randint(0, 40, (W,), generator=g, dtype=torch.int32).to(dev)
-    f = torch.randint(0, 6, (W,), generator=g, dtype=torch.int32).to(dev)
-    rem = torch.tensor(3000, dtype=torch.int32, device=dev)
-    out_k = solver.water_fill(p, f, rem)
-    out_p = solver.water_fill_plain(p, f, rem)
+    # H3 water_fill in each call shape: the fill step's window, a window of
+    # 131072 rows, and the edges of its closed form; the kernels line
+    # carries the window's device time
+    h3 = h3_cases(g, dev)
+    p, f = h3["window"]
+    out_k, out_p, t, plain_ms, b = h3["main"]
     record(
         "water_fill", "karpenter_tpu_torch/ops/csrc/water_fill.cu",
         "karpenter_tpu/ops/solver.py:1402", out_k, out_p,
-        time_ms(lambda: solver.water_fill(p, f, rem), iters=50),
-        time_ms(lambda: solver.water_fill_plain(p, f, rem), iters=10),
-        bound(nbytes(p, f, out_k) + 4, 24.0 * W * 4 + 10.0 * W),
+        t["device_ms"] if t["device_ms"] is not None else t["event_ms"], plain_ms, b,
     )
-    # any window size: 100k pods without max_claims give W = 131072
-    pw = torch.randint(0, 40, (131072,), generator=g, dtype=torch.int32).to(dev)
-    fw = torch.randint(0, 6, (131072,), generator=g, dtype=torch.int32).to(dev)
-    remw = torch.tensor(200_000, dtype=torch.int32, device=dev)
-    eqw = torch.equal(solver.water_fill(pw, fw, remw), solver.water_fill_plain(pw, fw, remw))
-    if not eqw:
+    results[-1].update(event_ms=t["event_ms"], launcher_ms=t["launcher_ms"])
+    if not h3["equal"]:
         results[-1]["equal"] = False
         results[-1]["max_abs_err"] = 1.0
-    print(f"kernel water_fill (N=131072): equal={eqw}", flush=True)
 
     # H4 compact_scatter in each call shape of compact_state and
     # global_claims at the north star's window, and a compaction at W =
@@ -766,6 +761,54 @@ def kernel_phase(sched) -> list[dict]:
         results[-1]["equal"] = False
         results[-1]["max_abs_err"] = 1.0
     return results
+
+
+def h3_cases(g, dev) -> dict:
+    """H3 in each call shape, exact against water_fill_plain, with device,
+    event and launcher ms and the bound (p and f read once, the result
+    written once; 24 bisection steps of 4 operations a row and 10 a row
+    for the final pass): the fill step's window (W = 4096: counts 0-39,
+    capacities 0-5, 3000 pods), W = 131072 (100k pods without
+    max_claims), counts up to 2^25 (max(p) + rem + 1 past 2^24: the 24
+    steps stop short of the level), counts up to 2^31 - 1 (every sum and
+    level wraps in two's complement), rem = 0, and sum(f) <= rem. "main"
+    holds the window's (out_k, out_p, times, plain ms, bound), "window" its
+    (p, f)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32).to(dev)
+
+    def rem_of(n):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    W, Wl = 4096, 131072
+    cases = [
+        ("the window (W = 4096, 3000 pods)", ints(0, 40, W), ints(0, 6, W), rem_of(3000)),
+        (f"W = {Wl}, 200000 pods", ints(0, 40, Wl), ints(0, 6, Wl), rem_of(200_000)),
+        ("W = 4096, counts up to 2^25 (the bisection stops short)", ints(0, 1 << 25, W), ints(0, 6, W),
+         rem_of(3000)),
+        ("W = 4096, counts up to 2^31 - 1 (sums and levels wrap)", ints(0, (1 << 31) - 1, W), ints(0, 6, W),
+         rem_of(3000)),
+        ("W = 4096, rem = 0", ints(0, 40, W), ints(0, 6, W), rem_of(0)),
+        ("W = 4096, sum(f) <= rem", ints(0, 40, W), ints(0, 6, W), rem_of(100_000)),
+    ]
+    equal, main = True, None
+    for label, p, f, rem in cases:
+        out_k, out_p = solver.water_fill(p, f, rem), solver.water_fill_plain(p, f, rem)
+        eq = torch.equal(out_k, out_p)
+        equal = equal and eq
+        t = launch_times(lambda _x: solver.water_fill(p, f, rem), H3_NAMES, [None] * 20, "water_fill")
+        n = p.shape[0]
+        bd = bound(nbytes(p, f, out_k) + 4, 24.0 * n * 4 + 10.0 * n)
+        print(f"kernel water_fill ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
+              f"bound_ms={bd[0]:.7f} ({bd[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="water_fill", label=label, equal=eq, bound_ms=bd[0], **t))
+        if main is None:
+            main = (out_k, out_p, t, time_ms(lambda: solver.water_fill_plain(p, f, rem), iters=10), bd)
+    return dict(equal=equal, main=main, window=cases[0][1:3])
 
 
 def h4_cases(cases: list) -> dict:
@@ -850,9 +893,6 @@ def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = Non
     def rand_int(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(dev)
 
-    def mode_line(label, ms, plain_ms, b):
-        print(f"kernel {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
-
     def entry(name, source, replaces, equal, ms, plain_ms, b):
         results.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=0,
@@ -887,52 +927,17 @@ def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = Non
             row = next(r for r in results if r["name"] == name)
             row["equal"], row["max_abs_err"] = False, 1.0
 
-    # H5 kscan_grid: grid + capd, capd from a reused grid, fits-final
+    # H5 kscan_grid in each call shape of the kind step, on the zone key and
+    # on the capacity-type key; the kernels line carries mode 0's device
+    # time at tier 2 on the zone key
     req = enc["kinds"]["requests"][1].contiguous()
-    viable = rand_bool(W, T, p=0.6)
-    grid_k, capd_k = solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)
-    grid_p, capd_p = solver._kscan_grid_plain(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)
-    eq5 = torch.equal(grid_k, grid_p) and torch.equal(capd_k, capd_p)
-    debited = torch.clamp(grid_p - rand_int(0, 3, W, 1, 1), min=0).contiguous()
-    _, capd_rk = solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)
-    _, capd_rp = solver._kscan_grid_plain(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)
-    eq5r = torch.equal(capd_rk, capd_rp)
-    placed = rand_int(0, 6, W)
-    zset = rand_bool(W, D, p=0.5)
-    ct_m, z_m = comb.mask[:, ct_kid, :].contiguous(), comb.mask[:, zone_kid, :].contiguous()
-    fits_k = solver.kscan_fits_final(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)
-    fits_p = solver.kscan_fits_final_plain(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)
-    eq5f = torch.equal(fits_k, fits_p)
-    print(f"kernel kscan_grid: grid+capd equal={eq5}, capd of a reused grid equal={eq5r}, "
-          f"fits-final equal={eq5f}", flush=True)
-    cells = W * T * GR
-    mode_line(
-        "kscan_grid (capd of a reused grid)",
-        time_ms(lambda: solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited)),
-        time_ms(lambda: solver._kscan_grid_plain(
-            used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D, debited), iters=3),
-        bound(nbytes(debited, viable, it.zc_avail, capd_p) + W * V, cells * D * C),
-    )
-    mode_line(
-        "kscan_grid (fits-final)",
-        time_ms(lambda: solver.kscan_fits_final(grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D)),
-        time_ms(lambda: solver.kscan_fits_final_plain(
-            grid_p, placed, zset, ct_m, z_m, it, zone_kid, zone_kid, D), iters=3),
-        bound(nbytes(grid_p, placed, zset, ct_m, it.zc_avail, fits_p), cells * (1 + Z * C)),
-    )
+    h5 = h5_cases(sched, enc, comb, used, req, g)
+    t, plain_ms, b = h5["main"]
     entry(
         "kscan_grid", "karpenter_tpu_torch/ops/csrc/kscan_grid.cu", "karpenter_tpu/ops/solver.py:2751",
-        eq5 and eq5r and eq5f,
-        time_ms(lambda: solver.kscan_grid(used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D)),
-        time_ms(lambda: solver._kscan_grid_plain(
-            used, req, it, viable, comb.mask, zone_kid, ct_kid, zone_kid, D), iters=3),
-        # reads: usage, viable mask, the rows' zone / capacity-type rows and
-        # the catalog; writes: the grid and capd. Operations: the count of
-        # count_cell.cuh per cell (R subtract+divide, three R-wide fma
-        # checks) and the D x C per-zone offering test.
-        bound(nbytes(used, req, viable, it.alloc, it.zc_avail, it.group_valid, grid_p, capd_p)
-              + W * 2 * V, cells * (2 * R + 9 * R + D * C)),
+        h5["equal"], t["device_ms"] if t["device_ms"] is not None else t["event_ms"], plain_ms, b,
     )
+    results[-1].update(event_ms=t["event_ms"], launcher_ms=t["launcher_ms"])
 
     # H6 kscan_pod_loop: one segment of 256 pods; last, tier 3 under a
     # placement objective's rank (cost_min's over the four family pools,
@@ -1037,6 +1042,87 @@ def kscan_kernel_phase(sched, enc, results: list, rank_enc: Optional[dict] = Non
         b,
     )
     results[-1].update(event_ms=th6["event_ms"], launcher_ms=th6["launcher_ms"])
+
+
+def h5_cases(sched, enc, comb, used, req, g) -> dict:
+    """H5 in each call shape of the kind step at the mixed cell's catalog
+    (T = 400), each exact against its plain version, with device, event and
+    launcher ms and the bound: mode 0 (grid and capd) on tier 2's W = 4096
+    claim rows and on tier 3's G template rows, mode 1 (capd of a reused,
+    debited grid) and mode 2 (fits-final), each on the zone key (D = the
+    zones) and on the capacity-type key (D = C). Bytes: each input read
+    once (a row's zone and capacity-type mask rows, the catalog) and each
+    output written once; operations: per cell the count of count_cell.cuh
+    (R subtract+divide, three R-wide fma checks) and the D x C offering
+    test (modes 0 / 1), the Z x C one (mode 2). "main" holds mode 0's at
+    tier 2 on the zone key: (times, plain ms, bound)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import solver
+
+    dev = used.device
+    it = sched.it_tensors
+    T, GR, R = it.alloc.shape
+    V = it.reqs.mask.shape[2]
+    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+    zone_kid, ct_kid = enc["zone_kid"], enc["ct_kid"]
+    tm = enc["template_tensors"]
+    W, G = used.shape[0], tm.its.shape[0]
+    tmask = tm.reqs.mask.contiguous()
+
+    def rand_bool(*shape, p=0.5):
+        return (torch.rand(shape, generator=g) < p).to(dev)
+
+    cat = nbytes(it.alloc, it.zc_avail, it.group_valid, it.reqs.defined[:, 0], it.reqs.mask[:, 0, :16])
+    viable, viable_g = rand_bool(W, T, p=0.6), rand_bool(G, T, p=0.6)
+    placed = torch.randint(0, 6, (W,), generator=g, dtype=torch.int32).to(dev)
+    ct_m, z_m = comb.mask[:, ct_kid, :].contiguous(), comb.mask[:, zone_kid, :].contiguous()
+    cases = []
+    for key, key_kid, D in (("zone key", zone_kid, len(sched.encoder.vocab.values[zone_kid])),
+                            ("capacity-type key", ct_kid, C)):
+        kid = (zone_kid, ct_kid, key_kid, D)
+        grid_p, capd_p = solver._kscan_grid_plain(used, req, it, viable, comb.mask, *kid)
+        debited = torch.clamp(grid_p - torch.randint(0, 3, (W, 1, 1), generator=g, dtype=torch.int32).to(dev),
+                              min=0).contiguous()
+        zset = rand_bool(W, D, p=0.5)
+        cells, cells_g = W * T * GR, G * T * GR
+        grid_ops = 2 * R + 9 * R + D * C
+        for label, run_k, run_p, nb, nops in (
+            (f"mode 0, tier 2 (W = {W} claim rows), {key}, D = {D}",
+             lambda u=used, v=viable, m=comb.mask, kid=kid: solver.kscan_grid(u, req, it, v, m, *kid),
+             lambda u=used, v=viable, m=comb.mask, kid=kid: solver._kscan_grid_plain(u, req, it, v, m, *kid),
+             nbytes(used, req, viable, grid_p, capd_p) + cat + W * 2 * V, cells * grid_ops),
+            (f"mode 0, tier 3 (G = {G} template rows), {key}, D = {D}",
+             lambda kid=kid: solver.kscan_grid(tm.daemon_requests, req, it, viable_g, tmask, *kid),
+             lambda kid=kid: solver._kscan_grid_plain(tm.daemon_requests, req, it, viable_g, tmask, *kid),
+             nbytes(tm.daemon_requests, req, viable_g) + G * T * GR * 4 + G * D * 4 + cat + G * 2 * V,
+             cells_g * grid_ops),
+            (f"mode 1 (capd of a reused grid, W = {W}), {key}, D = {D}",
+             lambda kid=kid, d=debited: solver.kscan_grid(used, req, it, viable, comb.mask, *kid, d),
+             lambda kid=kid, d=debited: solver._kscan_grid_plain(used, req, it, viable, comb.mask, *kid, d),
+             nbytes(debited, viable, capd_p) + cat + W * 2 * V, cells * D * C),
+            (f"mode 2 (fits-final, W = {W}), {key}, D = {D}",
+             lambda zs=zset, kk=key_kid, D=D, gp=grid_p: solver.kscan_fits_final(
+                 gp, placed, zs, ct_m, z_m, it, kk, zone_kid, D),
+             lambda zs=zset, kk=key_kid, D=D, gp=grid_p: solver.kscan_fits_final_plain(
+                 gp, placed, zs, ct_m, z_m, it, kk, zone_kid, D),
+             nbytes(grid_p, placed, zset, ct_m, z_m) + cat + W * T, cells * (1 + Z * C)),
+        ):
+            cases.append((label, run_k, run_p, nb, nops))
+    equal, main = True, None
+    for label, run_k, run_p, nb, nops in cases:
+        out_k, out_p = run_k(), run_p()
+        pairs = zip(out_k, out_p) if isinstance(out_k, tuple) else ((out_k, out_p),)
+        eq = all(torch.equal(a, b) for a, b in pairs)
+        equal = equal and eq
+        t = launch_times(lambda _x: run_k(), H5_NAMES, [None] * 20, "kscan_grid")
+        bd = bound(nb, nops)
+        print(f"kernel kscan_grid ({label}): equal={eq} (tolerance: exact) {fmt_times(t)} "
+              f"bound_ms={bd[0]:.5f} ({bd[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="kscan_grid", label=label, equal=eq, bound_ms=bd[0], **t))
+        if main is None:
+            main = (t, time_ms(run_p, iters=3), bd)
+    return dict(equal=equal, main=main)
 
 
 def h6_bound(inp, carry0, carry1, topo, count: int) -> tuple:
@@ -2370,13 +2456,12 @@ def profile_run(fn, out_dir, tag, quiet: bool = False, tries: int = 1) -> dict:
 
 # the kernels whose device time phase 4 reports from its profiled warm
 # solves of the north star and mixed
-PROFILED_KERNELS = (("req_intersects", H1_NAMES), ("fill_count_grid", H2_NAMES),
-                    ("compact_scatter", H4_NAMES), ("kscan_pod_loop", H6_NAMES))
+PROFILED_KERNELS = (("req_intersects", H1_NAMES), ("fill_count_grid", H2_NAMES), ("water_fill", H3_NAMES),
+                    ("compact_scatter", H4_NAMES), ("kscan_grid", H5_NAMES), ("kscan_pod_loop", H6_NAMES))
 
 
 def profiled_kernels(tag: str, prof: dict) -> None:
-    """H1's, H2's, H4's and H6's device time and launches in a profiled
-    warm solve."""
+    """H1-H6's device time and launches in a profiled warm solve."""
     if not prof["by_name"]:
         return
     for name, names in PROFILED_KERNELS:

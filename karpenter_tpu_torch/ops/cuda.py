@@ -275,12 +275,14 @@ def req_intersects(a, b) -> torch.Tensor:
     return out
 
 
-# Packed catalogs (H1's ReqCatalog, H2's FillGridCatalog), each built once
-# per catalog: keyed on its kind, its parameters and the identity of its
-# source tensors. An entry holds those tensors, so their ids stay theirs
-# while it lives, and their version counters, so a catalog changed in
-# place is packed anew. The oldest of PACKED_CATALOG_CAP entries goes first:
-# a catalog holds two (one of each kind), so 8 live catalogs stay packed.
+# Packed catalogs (H1's ReqCatalog, H2's FillGridCatalog, H5's
+# KScanCatalog), each built once per catalog: keyed on its kind, its
+# parameters and the identity of its source tensors. An entry holds those
+# tensors, so their ids stay theirs while it lives, and their version
+# counters, so a catalog changed in place is packed anew. The oldest of
+# PACKED_CATALOG_CAP entries goes first: a catalog holds one of H1's, one
+# of H2's and one of H5's for each (key, D) the kind scan reads it on, so
+# at one such pair 5 live catalogs stay packed.
 PACKED_CATALOG_CAP = 16
 _PACKED_CATALOGS: dict = {}
 
@@ -446,12 +448,17 @@ def fill_count_grid(
 
 
 def water_fill(p: torch.Tensor, f: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
-    """H3: [N] int32 water-fill of `rem` (a device int32 scalar) pods."""
+    """H3: [N] int32 water-fill of `rem` (a device int32 scalar) pods. One
+    pass checks device, dtype, layout and shape; only the output is
+    allocated."""
     dev = p.device
-    _check(p, "p", torch.int32, dev)
-    _check(f, "f", torch.int32, dev)
-    rem = _check(rem.reshape(1), "rem", torch.int32, dev)
-    if f.shape != p.shape or p.dim() != 1:
+    i32 = torch.int32
+    if not (p.dtype == i32 and f.dtype == i32 and rem.dtype == i32 and p.dim() == 1 and f.shape == p.shape
+            and rem.numel() == 1 and f.device == dev and rem.device == dev and p.is_contiguous()
+            and f.is_contiguous()):
+        _check(p, "p", i32, dev)
+        _check(f, "f", i32, dev)
+        _check(rem.reshape(1), "rem", i32, dev)
         raise LaunchRefused(f"water_fill: p {tuple(p.shape)} vs f {tuple(f.shape)}")
     out = torch.empty_like(p)
     _call("water_fill", p.data_ptr(), f.data_ptr(), rem.data_ptr(), p.shape[0], out.data_ptr())
@@ -553,36 +560,106 @@ def _i64_array(vals) -> ctypes.Array:
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
-def _kscan_grid_call(mode, ptrs: list, dims: list) -> None:
-    _call(
-        "kscan_grid", mode, ctypes.cast(_i64_array([p or 0 for p in ptrs]), ctypes.c_void_p),
-        ctypes.cast(_i64_array(dims), ctypes.c_void_p),
+class KScanCatalog:
+    """csrc/kscan_grid.cu's catalog side for one (catalog, key, D): H2's
+    packed catalog (fill_grid_catalog, shared with H2) and a [T] int32
+    column of each type's admitted domains of the key, bit d of
+    ~defined[t, key] | mask[t, key, d] for d < D. Built and checked once
+    (kscan_catalog). It keeps the checked launch layouts read through it
+    (layout), so they go with it."""
+
+    def __init__(self, it, key_kid: int, D: int):
+        dev = it.alloc.device
+        K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
+        if D < 1 or D > 16 or D > V:
+            raise LaunchRefused(f"kscan_grid: D={D} outside [1, min(16, V={V})]")
+        _check(it.alloc, "alloc", torch.float32, dev)
+        _check(it.group_valid, "group_valid", torch.bool, dev)
+        _check(it.zc_avail, "zc_avail", torch.bool, dev)
+        _check(it.reqs.defined, "it.defined", torch.bool, dev)
+        _check(it.reqs.mask, "it.mask", torch.bool, dev)
+        self.fill = fill_grid_catalog(it)
+        bits = ~it.reqs.defined[:, key_kid, None] | it.reqs.mask[:, key_kid, :D]  # [T, D]
+        shifts = torch.arange(D, dtype=torch.int64, device=dev)
+        self.admit = (bits.to(torch.int64) << shifts).sum(dim=-1).to(torch.int32).contiguous()
+        T, GR, R, Z, C, NWZ, TT, staged = self.fill.dims
+        self.device, self.T, self.GR, self.R, self.Z, self.K, self.V = dev, T, GR, R, Z, K, V
+        self.dims = (T, GR, R, Z, C, D, NWZ, TT, staged)
+        self.layouts: dict = {}
+
+    def layout(self, key, build) -> "_KScanLayout":
+        """The layout of `key` (mode, keys, shapes and dtypes): cached, the
+        oldest of 16 going first, or built (checked in full) by build()."""
+        lay = self.layouts.get(key)
+        if lay is None:
+            if len(self.layouts) >= 16:
+                self.layouts.pop(next(iter(self.layouts)))
+            lay = self.layouts[key] = build()
+        return lay
+
+
+def kscan_catalog(it, key_kid: int, D: int) -> KScanCatalog:
+    """The catalog side of H5 for (it, key_kid, D), built once
+    (packed_catalog, on it's alloc / group_valid / zc_avail and
+    requirement tensors)."""
+    return packed_catalog(
+        "kscan_grid", (it.alloc, it.group_valid, it.zc_avail, it.reqs.defined, it.reqs.mask),
+        lambda: KScanCatalog(it, key_kid, D), key_kid, D, FILL_GRID_SMEM,
     )
 
 
-def _kscan_common(it, key_kid: int, D: int, dev):
-    T, GR, R = it.alloc.shape
-    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
-    K, V = it.reqs.mask.shape[1], it.reqs.mask.shape[2]
-    if D < 1 or D > 16 or D > V:
-        raise LaunchRefused(f"kscan_grid: D={D} outside [1, min(16, V={V})]")
-    alloc = _check(it.alloc, "alloc", torch.float32, dev)
-    gv = _check(it.group_valid, "group_valid", torch.bool, dev)
-    zc = _check(it.zc_avail, "zc_avail", torch.bool, dev)
-    idef = _check(it.reqs.defined, "it.defined", torch.bool, dev)
-    imask = _check(it.reqs.mask, "it.mask", torch.bool, dev)
-    ptrs = [alloc.data_ptr(), gv.data_ptr(), zc.data_ptr()]
-    key_ptrs = [idef.data_ptr() + key_kid, imask.data_ptr() + key_kid * V]
-    return T, GR, R, Z, C, K, V, ptrs, key_ptrs
+class _KScanLayout:
+    """One checked kscan_grid / kscan_fits_final layout: the C entry's dims
+    and the pointer array a call fills (csrc/kscan_grid.cu's order)."""
+
+    def __init__(self, cat: KScanCatalog, N: int, zone: bool, mask_stride: int):
+        T, GR, R, Z, C, D, NWZ, TT, staged = cat.dims
+        self.N = N
+        self.ptrs = (ctypes.c_int64 * 11)(cat.fill.packed.data_ptr(), cat.admit.data_ptr())
+        self.dims = (ctypes.c_int64 * 12)(N, T, GR, R, Z, C, D, int(zone), NWZ, TT, staged, mask_stride)
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), ctypes.cast(self.dims, ctypes.c_void_p))
+
+
+def _check_place(dev, names: tuple, ts: tuple) -> None:
+    """Device and contiguity of a layout's tensors in one pass; a failure
+    raises _check's LaunchRefused."""
+    if not all(t.device == dev and t.is_contiguous() for t in ts):
+        for name, t in zip(names, ts):
+            _check(t, name, t.dtype, dev)
 
 
 def kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, grid=None):
     """H5 grid mode: (grid [N, T, GR] int32, capd [N, D] int32) for the
     rows of `used` [N, R], the viable mask [N, T] and the rows' [N, K, V]
     requirement mask (its zone / capacity-type rows gate offerings). With
-    `grid` given, only capd is computed from it."""
-    dev = used.device
-    T, GR, R, Z, C, K, V, ptrs, key_ptrs = _kscan_common(it, key_kid, D, dev)
+    `grid` given, only capd is computed from it. The catalog side is
+    packed once (kscan_catalog), each layout of shapes, dtypes and keys
+    checked in full once; a call checks device and contiguity in one pass
+    and allocates only its outputs."""
+    cat = kscan_catalog(it, key_kid, D)
+    dev = cat.device
+    mode = 0 if grid is None else 1
+    ts = (used, req, viable, rows_mask) if grid is None else (used, req, viable, rows_mask, grid)
+    key = (mode, zone_kid, ct_kid, used.shape, used.dtype, req.shape, req.dtype, viable.shape, viable.dtype,
+           rows_mask.shape, rows_mask.dtype, None if grid is None else (grid.shape, grid.dtype))
+    lay = cat.layout(key, lambda: _kscan_grid_layout(cat, used, req, viable, rows_mask, zone_kid, key_kid, D, grid))
+    _check_place(dev, ("used", "req", "viable", "rows_mask", "grid"), ts)
+    N, V = lay.N, cat.V
+    if grid is None:
+        grid = torch.empty((N, cat.T, cat.GR), dtype=torch.int32, device=dev)
+    capd = torch.empty((N, D), dtype=torch.int32, device=dev)
+    base = rows_mask.data_ptr()
+    p = lay.ptrs
+    p[2], p[3], p[4] = req.data_ptr(), used.data_ptr(), viable.data_ptr()
+    p[5], p[6] = base + zone_kid * V, base + ct_kid * V
+    p[9], p[10] = grid.data_ptr(), capd.data_ptr()
+    _call("kscan_grid", mode, *lay.args)
+    return grid, capd
+
+
+def _kscan_grid_layout(cat, used, req, viable, rows_mask, zone_kid, key_kid, D, grid) -> _KScanLayout:
+    dev = cat.device
+    T, GR, R, Z, K, V = cat.T, cat.GR, cat.R, cat.Z, cat.K, cat.V
     N = used.shape[0]
     _check(used, "used", torch.float32, dev)
     _check(req, "req", torch.float32, dev)
@@ -592,30 +669,36 @@ def kscan_grid(used, req, it, viable, rows_mask, zone_kid, ct_kid, key_kid, D, g
         raise LaunchRefused(f"kscan_grid: used {tuple(used.shape)} viable {tuple(viable.shape)} mask {tuple(rows_mask.shape)}")
     if key_kid == zone_kid and D > Z:
         raise LaunchRefused(f"kscan_grid: zone key with D={D} > Z={Z}")
-    mode = 0 if grid is None else 1
-    if grid is None:
-        grid = torch.empty((N, T, GR), dtype=torch.int32, device=dev)
-    else:
+    if grid is not None:
         _check(grid, "grid", torch.int32, dev)
         if grid.shape != (N, T, GR):
             raise LaunchRefused(f"kscan_grid: grid {tuple(grid.shape)} vs ({N}, {T}, {GR})")
-    capd = torch.empty((N, D), dtype=torch.int32, device=dev)
-    base = rows_mask.data_ptr()
-    _kscan_grid_call(
-        mode,
-        ptrs + [req.data_ptr(), used.data_ptr(), viable.data_ptr(), base + zone_kid * V,
-                base + ct_kid * V] + key_ptrs + [0, 0, grid.data_ptr(), capd.data_ptr()],
-        [N, T, GR, R, Z, C, D, int(key_kid == zone_kid), K * V, K, K * V],
-    )
-    return grid, capd
+    return _KScanLayout(cat, N, key_kid == zone_kid, K * V)
 
 
 def kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, D) -> torch.Tensor:
     """H5 fits-final mode: [N, T] bool any over g of grid >= placed[n] with
     an offering in the final domains zset [N, D] (zone key) or the zone
-    mask rows zmask [N, V]; ct_mask [N, V] gates capacity types."""
-    dev = grid.device
-    T, GR, R, Z, C, K, V, ptrs, key_ptrs = _kscan_common(it, key_kid, D, dev)
+    mask rows zmask [N, V]; ct_mask [N, V] gates capacity types. Checked
+    and launched as kscan_grid."""
+    cat = kscan_catalog(it, key_kid, D)
+    dev = cat.device
+    ts = (grid, placed, zset, ct_mask, zmask)
+    key = (2, zone_kid, grid.shape, grid.dtype, placed.shape, placed.dtype, zset.shape, zset.dtype,
+           ct_mask.shape, ct_mask.dtype, zmask.shape, zmask.dtype)
+    lay = cat.layout(key, lambda: _fits_final_layout(cat, grid, placed, zset, ct_mask, zmask, key_kid, zone_kid, D))
+    _check_place(dev, ("grid", "placed", "zset", "ct_mask", "zmask"), ts)
+    out = torch.empty((lay.N, cat.T), dtype=torch.bool, device=dev)
+    p = lay.ptrs
+    p[5], p[6], p[7], p[8] = zmask.data_ptr(), ct_mask.data_ptr(), zset.data_ptr(), placed.data_ptr()
+    p[9], p[10] = grid.data_ptr(), out.data_ptr()
+    _call("kscan_grid", 2, *lay.args)
+    return out
+
+
+def _fits_final_layout(cat, grid, placed, zset, ct_mask, zmask, key_kid, zone_kid, D) -> _KScanLayout:
+    dev = cat.device
+    T, GR, V = cat.T, cat.GR, cat.V
     N = grid.shape[0]
     _check(grid, "grid", torch.int32, dev)
     _check(placed, "placed", torch.int32, dev)
@@ -625,14 +708,7 @@ def kscan_fits_final(grid, placed, zset, ct_mask, zmask, it, key_kid, zone_kid, 
     if (grid.shape != (N, T, GR) or placed.shape != (N,) or zset.shape != (N, D)
             or ct_mask.shape != (N, V) or zmask.shape != (N, V)):
         raise LaunchRefused("kscan_fits_final: shapes disagree")
-    out = torch.empty((N, T), dtype=torch.bool, device=dev)
-    _kscan_grid_call(
-        2,
-        ptrs + [0, 0, 0, zmask.data_ptr(), ct_mask.data_ptr()] + key_ptrs
-        + [zset.data_ptr(), placed.data_ptr(), grid.data_ptr(), out.data_ptr()],
-        [N, T, GR, R, Z, C, D, int(key_kid == zone_kid), V, K, K * V],
-    )
-    return out
+    return _KScanLayout(cat, N, key_kid == zone_kid, V)
 
 
 _LOOP_IN = (

@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA features karpenter_tpu_torch/ops/csrc/perpod_scan.cu,
 // objective_verdict.cu, kscan_pod_loop.cu, fill_count_grid.cu, wire_pack.cu,
-// gang_scan.cu, retract_tail.cu, req_intersects.cu and compact_scatter.cu use, so that their kernels can run on
+// gang_scan.cu, retract_tail.cu, req_intersects.cu, compact_scatter.cu,
+// water_fill.cu and kscan_grid.cu use, so that their kernels can run on
 // the host against the plain versions (tests/test_torch_*_emulated.py).
 // One fiber per CUDA thread, all on the thread that launches the grid, the
 // blocks of a grid one after another. A fiber runs until it waits at a
@@ -233,6 +234,24 @@ inline int __shfl_xor_sync(unsigned, int v, int o) {
   return r;
 }
 inline char* emu_smem() { return g_emu->smem.data(); }
+// give way up to `rounds` times, how many drawn from the fixed seed: each
+// time the running fiber goes behind every runnable one (the fibers
+// released at a barrier too), so that the fibers interleave where a test's
+// rewrite of a source calls it. Around each write of a copy to shared
+// memory, a read that lacks the copy's barrier then runs before some
+// writes, and a read of the old contents that the barrier before the copy
+// should protect runs after some.
+inline void emu_yield(int rounds) {
+  EmuSched& s = *g_sched;
+  s.rng ^= s.rng << 13;
+  s.rng ^= s.rng >> 7;
+  s.rng ^= s.rng << 17;
+  const int n = (int)(s.rng % (uint64_t)(rounds + 1));
+  for (int r = 0; r < n && !s.run.empty(); ++r) {
+    s.run.insert(s.run.begin(), s.cur);
+    emu_switch(false);
+  }
+}
 // bar.sync 1, n: the n threads that reach it (the rest of the block may
 // have returned); every call of a launch passes the same n
 inline void emu_named_sync(int n) {
@@ -339,4 +358,36 @@ inline int __shfl_down_sync(unsigned, int v, int d) {
   const int r = l + d < 32 ? g_emu->slot_i[w][l + d] : v;
   __syncwarp();
   return r;
+}
+inline int __shfl_up_sync(unsigned, int v, int d) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = v;
+  __syncwarp();
+  const int r = l >= d ? g_emu->slot_i[w][l - d] : v;
+  __syncwarp();
+  return r;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = (int)v;
+  __syncwarp();
+  unsigned s = 0;
+  for (int i = 0; i < 32; ++i) s += (unsigned)g_emu->slot_i[w][i];
+  __syncwarp();
+  return s;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = v;
+  __syncwarp();
+  int m = g_emu->slot_i[w][0];
+  for (int i = 1; i < 32; ++i) m = m > g_emu->slot_i[w][i] ? m : g_emu->slot_i[w][i];
+  __syncwarp();
+  return m;
+}
+// Hopper DPX: max(min(a + b, c), 0), the add in 32 bits
+inline int __viaddmin_s32_relu(int a, int b, int c) {
+  const int s = (int)((unsigned)a + (unsigned)b);
+  const int m = s < c ? s : c;
+  return m > 0 ? m : 0;
 }

@@ -11,12 +11,14 @@ compiles the reference's programs imports the fixture:
     from reference_compile_cache import no_persistent_compile_cache  # noqa: F401
 
 and compiles in memory for the module's duration; the setting and the
-cache's state are restored after it, and the module's compiled programs
-are dropped (jax.clear_caches). Each compiled program holds memory
-mappings of its own: a worker that kept every module's programs reached
-tens of thousands of them, near the kernel's limit per process
-(vm.max_map_count, 65530), where a mapping fails and the worker raises
-MemoryError or dies inside XLA.
+cache's state are restored after it. The compiled programs are dropped
+(jax.clear_caches) when the module starts and when it ends. Each compiled
+program holds memory mappings of its own: a worker that kept every
+module's programs reached tens of thousands of them, near the kernel's
+limit per process (vm.max_map_count, 65530), where a mapping fails and
+the worker raises MemoryError or dies inside XLA. The JAX package's own
+suites keep theirs (tests/test_shard.py alone left a worker at 61k), so
+a port suite drops them before it compiles.
 """
 
 import jax
@@ -30,6 +32,7 @@ def no_persistent_compile_cache():
     was = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)
     compilation_cache.reset_cache()
+    jax.clear_caches()
     yield
     jax.config.update("jax_enable_compilation_cache", was)
     compilation_cache.reset_cache()
