@@ -41,9 +41,12 @@ Phases, any failure exits non-zero:
      constrained_4096x400 from the state after 1024 pods, and in scenario
      mode on whatif_constrained_prefix100's encode (reservation
      capacities and held rows among the carry leaves); the gang kernel
-     (gang_scan, H9) on the first gang run of each gang cell below from
-     its empty carry, against the plain loop: every carry leaf it writes
-     and every GangYs leaf; the retract kernel (retract_tail, H10) on
+     (gang_scan, H9) on the leading gang runs of each gang cell below
+     (gang_storm's one run; gang_zonal_budget's zone-key run from the
+     empty carry and its hostname run from the carry the first leaves),
+     against the plain loop: every carry leaf it writes and every GangYs
+     leaf, with device (profiler), event and launcher ms, each launch on
+     a fresh copy of the carry; the retract kernel (retract_tail, H10) on
      the resident state resident_retract_16380x63 holds after its 16
      rounds (W = NB = 8192 rows), at the cuts n_open, every round's
      boundary and 0, against its plain version: every state leaf; under
@@ -459,6 +462,8 @@ H3_NAMES = ("water_fill_rows", "water_fill_chunks")
 H4_NAMES = ("compact_scatter_kernel",)
 H5_NAMES = ("kscan_grid_kernel",)
 H6_NAMES = ("pod_loop_kernel",)
+H9_NAMES = ("gang_scan_kernel",)
+H15_NAMES = ("wire_pack_kernel",)
 
 
 def kernel_device(by_name: dict, names: tuple) -> tuple[int, float]:
@@ -1871,66 +1876,92 @@ def gang_golden(T, result) -> dict:
 
 def gang_kernel_phase(torch, cuda, cells: list, results: list) -> None:
     """Phase 3d: H9 gang_scan against its plain version (`_gang_step` per
-    segment) on the first gang run of each gang cell's real encoded
-    problem, from the empty carry: every carry leaf the scan writes
-    (bank rows, n_open, budgets, vg / hg counts, the bank's key rows) and
-    every GangYs leaf, exact. Times: the kernel per launch (CUDA events,
-    each launch on a fresh copy of the carry), the plain loop per run, the
-    bound (the run's inputs read once, the bank rows it writes written
-    once). The first cell's numbers go into the kernels line."""
+    segment) on the leading gang runs of each gang cell's real encoded
+    problem (the runs before its first run of another kind), the first
+    from the empty carry and each later one from the carry the one before
+    it leaves: every carry leaf the scan writes (bank rows, n_open,
+    budgets, vg / hg counts, the bank's key rows) and every GangYs leaf,
+    exact. Times per run: the kernel's device ms per launch (torch.profiler),
+    CUDA-event and launcher ms per call (launch_times; every launch on its
+    own copy of the carry, cloned before the timed window), the bound
+    (the run's inputs read once, the bank rows it writes written once).
+    The first cell's first run goes into the kernels line, with the plain
+    loop's time (the other runs' plain loops are held, not timed). One more problem, gang_storm's with every gang
+    its own cpu request, has no segment whose state-free terms equal the
+    one before's (the kernel reuses them where they do: 63 of
+    gang_storm's 65 live segments, 31 of 32 and 7 of 8 in
+    gang_zonal_budget's runs); it is held and timed alike."""
+    from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import solver
 
-    for cell in cells:
+    storm = cells[0]["sched"]
+    varied = dict(label="gang_storm_64x16x400, every gang its own cpu request",
+                  pods=[p for i in range(GANG_STORM["n_gangs"])
+                        for p in T.make_gang_pods(f"v{i}", GANG_STORM["size"], cpu=1.0 + 0.01 * i)],
+                  budgets=None, sched=type(storm)(T.make_templates(GANG_TYPES), max_claims=GANG_STORM["max_claims"],
+                                                  device=storm.device))
+    for cell in [*cells, varied]:
         sched = cell["sched"]
         _sorted, enc = sched._encode(cell["pods"], cell["budgets"])
-        mode, segs = next(r for r in sched._runs(enc) if r[0][0] == "gang")
-        xs, maxg, kw = sched._gang_args(enc, segs, mode[1])
-        state0 = sched._initial_state(enc)
         common = (enc["exist_tensors"], sched.it_tensors, enc["template_tensors"], sched.well_known,
                   enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], enc["n_claims"])
-        st_k, ys_k = solver.solve_gang(state0, xs, *common, maxg=maxg, **kw)
-        st_p, ys_p = solver.solve_gang(state0, xs, *common, maxg=maxg, plain=True, **kw)
-        torch.cuda.synchronize()
-        pairs = [(f, getattr(st_k, f), getattr(st_p, f)) for f in solver.GANG_WRITES]
-        pairs += [(f, getattr(ys_k, f), getattr(ys_p, f)) for f in solver.GangYs._fields]
-        bad = [f for f, a, b in pairs if not torch.equal(a, b)]
-        err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().nan_to_num(0.0).max())
-                  if a.numel() else 0.0 for _f, a, b in pairs)
-        pre = solver.gang_precompute(xs, sched.it_tensors, enc["template_tensors"], sched.well_known,
-                                     enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], kw["key_kid"],
-                                     kw["n_domains"])
-        carries = iter([state0._replace(**{f: getattr(state0, f).clone() for f in solver.GANG_WRITES})
-                        for _ in range(23)])
-        args = (sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], enc["zone_kid"], enc["n_claims"],
-                maxg, kw["key_kid"], kw["n_domains"], kw["tk_idx"])
-        ms = time_ms(lambda: cuda.gang_scan(pre, next(carries), enc["exist_tensors"], *args), iters=20, warmup=3)
-        plain_ms = time_ms(lambda: solver.solve_gang(state0, xs, *common, maxg=maxg, plain=True, **kw),
-                           iters=2, warmup=1)
-        it = sched.it_tensors
-        T_, GR, R = it.alloc.shape
-        Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
-        B = xs.count.shape[0]
-        hosts = int(ys_k.n_opened.sum())
-        tk = st_k.bank_tk_mask.shape[2] + 2 if kw["tk_idx"] >= 0 else 0
-        b = bound(
-            nbytes(*pre, it.alloc, it.group_valid, it.zc_avail, it.cap, enc["template_tensors"].daemon_requests,
-                   state0.budget, state0.nodes_budget, state0.vg_counts) + hosts * (T_ + 4 * R + 5 + tk) + 24 * B,
-            float(B * T_ * GR * (9 * R + Z * C) + hosts * T_ * GR * 2 * R),
-        )
-        print(f"kernel gang_scan ({cell['label']}, first gang run: B={B} segments, maxg={maxg}, key {kw['key_kid']}, "
-              f"{hosts} slice hosts): equal={not bad} (tolerance: exact; {len(pairs)} leaves) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
-        if bad:
-            print(f"  gang_scan leaves that differ: {bad}", flush=True)
-        if cell is cells[0]:
-            results.append(dict(
-                name="gang_scan", route="cuda", source="karpenter_tpu_torch/ops/csrc/gang_scan.cu",
-                replaces="karpenter_tpu/ops/solver.py:2657", launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b[0], bound_by=b[1], library_ms=None, equal=not bad,
-            ))
-        elif bad:
-            results[-1]["equal"] = False
-            results[-1]["max_abs_err"] = max(results[-1]["max_abs_err"], err)
+        state = sched._initial_state(enc)
+        for n_run, (mode, segs) in enumerate(sched._runs(enc)):
+            if mode[0] != "gang":
+                break
+            xs, maxg, kw = sched._gang_args(enc, segs, mode[1])
+            st_k, ys_k = solver.solve_gang(state, xs, *common, maxg=maxg, **kw)
+            st_p, ys_p = solver.solve_gang(state, xs, *common, maxg=maxg, plain=True, **kw)
+            torch.cuda.synchronize()
+            pairs = [(f, getattr(st_k, f), getattr(st_p, f)) for f in solver.GANG_WRITES]
+            pairs += [(f, getattr(ys_k, f), getattr(ys_p, f)) for f in solver.GangYs._fields]
+            bad = [f for f, a, b in pairs if not torch.equal(a, b)]
+            err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().nan_to_num(0.0).max())
+                      if a.numel() else 0.0 for _f, a, b in pairs)
+            pre = solver.gang_precompute(xs, sched.it_tensors, enc["template_tensors"], sched.well_known,
+                                         enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], kw["key_kid"],
+                                         kw["n_domains"])
+            n_calls = 20
+            carries = iter([state._replace(**{f: getattr(state, f).clone() for f in solver.GANG_WRITES})
+                            for _ in range(3 * n_calls + 1)])
+            args = (sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], enc["zone_kid"],
+                    enc["n_claims"], maxg, kw["key_kid"], kw["n_domains"], kw["tk_idx"])
+            t = launch_times(lambda _x: cuda.gang_scan(pre, next(carries), enc["exist_tensors"], *args), H9_NAMES,
+                             [None] * n_calls, "gang_scan")
+            first = cell is cells[0] and n_run == 0
+            plain_ms = (time_ms(lambda: solver.solve_gang(state, xs, *common, maxg=maxg, plain=True, **kw),
+                                iters=2, warmup=1) if first else None)
+            it = sched.it_tensors
+            T_, GR, R = it.alloc.shape
+            Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+            B = xs.count.shape[0]
+            hosts = int(ys_k.n_opened.sum())
+            tk = st_k.bank_tk_mask.shape[2] + 2 if kw["tk_idx"] >= 0 else 0
+            b = bound(
+                nbytes(*pre, it.alloc, it.group_valid, it.zc_avail, it.cap, enc["template_tensors"].daemon_requests,
+                       state.budget, state.nodes_budget, state.vg_counts) + hosts * (T_ + 4 * R + 5 + tk) + 24 * B,
+                float(B * T_ * GR * (9 * R + Z * C) + hosts * T_ * GR * 2 * R),
+            )
+            label = (f"{cell['label']}, gang run {n_run} (B={B} segments, maxg={maxg}, key {kw['key_kid']}, "
+                     f"{hosts} slice hosts, Z x C = {Z * C})")
+            plain_txt = f" plain_ms={plain_ms:.4f}" if plain_ms is not None else ""
+            print(f"kernel gang_scan ({label}): equal={not bad} (tolerance: exact; {len(pairs)} leaves) "
+                  f"{fmt_times(t)}{plain_txt} bound_ms={b[0]:.5f} ({b[1]})", flush=True)
+            if bad:
+                print(f"  gang_scan leaves that differ: {bad}", flush=True)
+            CALL_SHAPES.append(dict(kernel="gang_scan", label=label, equal=not bad, bound_ms=b[0], **t))
+            if first:
+                results.append(dict(
+                    name="gang_scan", route="cuda", source="karpenter_tpu_torch/ops/csrc/gang_scan.cu",
+                    replaces="karpenter_tpu/ops/solver.py:2657", launches=0, max_abs_err=err,
+                    ms=t["device_ms"] if t["device_ms"] is not None else t["event_ms"], event_ms=t["event_ms"],
+                    launcher_ms=t["launcher_ms"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None, equal=not bad,
+                ))
+            elif bad:
+                results[-1]["equal"] = False
+                results[-1]["max_abs_err"] = max(results[-1]["max_abs_err"], err)
+            state = st_p
 
 
 def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
@@ -1970,9 +2001,8 @@ def gang_path(torch, cuda, T, cell, profile_dir) -> dict:
         if T.result_digest(r) != got["result_digest"] or T.slice_digest(r) != got["slice_digest"]:
             raise RuntimeError(f"{label}: warm solve differs from the cold solve")
     by_name = profile_run(lambda: sched.solve(pods, budgets=budgets), profile_dir, label)["by_name"]
-    hits = [v for n, v in by_name.items() if "gang_scan_kernel" in n]
-    if hits:
-        n, ms = hits[0]
+    n, ms = kernel_device(by_name, H9_NAMES)
+    if n:
         print(f"kernel gang_scan ({label}): {ms / n:.4f} ms per launch on the device ({n} launches profiled)",
               flush=True)
     else:
@@ -2457,11 +2487,12 @@ def profile_run(fn, out_dir, tag, quiet: bool = False, tries: int = 1) -> dict:
 # the kernels whose device time phase 4 reports from its profiled warm
 # solves of the north star and mixed
 PROFILED_KERNELS = (("req_intersects", H1_NAMES), ("fill_count_grid", H2_NAMES), ("water_fill", H3_NAMES),
-                    ("compact_scatter", H4_NAMES), ("kscan_grid", H5_NAMES), ("kscan_pod_loop", H6_NAMES))
+                    ("compact_scatter", H4_NAMES), ("kscan_grid", H5_NAMES), ("kscan_pod_loop", H6_NAMES),
+                    ("gang_scan", H9_NAMES), ("wire_pack", H15_NAMES))
 
 
 def profiled_kernels(tag: str, prof: dict) -> None:
-    """H1-H6's device time and launches in a profiled warm solve."""
+    """H1-H6's, H9's and H15's device time and launches in a profiled warm solve."""
     if not prof["by_name"]:
         return
     for name, names in PROFILED_KERNELS:
@@ -2805,9 +2836,9 @@ def wire_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
     """H15 wire_pack against pack_wire_plain on the card, byte for byte, on
     three real fetches: the north star's first pipeline group, the mixed
     cell's last group with its final state reads, and a dp verdict word
-    (the existing-node twin of shard_8192x200). Per fetch: ms per call of
-    the launcher under CUDA events (its descriptor table included), device
-    ms per launch from torch.profiler, the bound (bytes read and written
+    (the existing-node twin of shard_8192x200). Per fetch: the kernel's
+    device ms per launch (torch.profiler), CUDA-event and
+    launcher ms per call (launch_times), the bound (bytes read and written
     once) and the plain version's ms. The kernels line carries the
     largest fetch's numbers."""
     from karpenter_tpu_torch.ops import kernels
@@ -2831,22 +2862,19 @@ def wire_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
         want = kernels.pack_wire_plain(leaves)
         equal = got.shape == want.shape and torch.equal(got, want)
         err = 0.0 if equal else 1.0
-        ms = time_ms(lambda: cuda.wire_pack(leaves), iters=20)
+        t = launch_times(lambda _x: cuda.wire_pack(leaves), H15_NAMES, [None] * 20, "wire_pack")
         plain_ms = time_ms(lambda: kernels.pack_wire_plain(leaves), iters=5)
         read = wire_read_bytes(leaves)
         b = bound(read + want.numel(), 0.0)
-        by_name = profile_run(lambda: [cuda.wire_pack(leaves) for _ in range(10)], os.path.join("build", "profile"),
-                              "wire", tries=3)["by_name"]
-        hits = [v for n, v in by_name.items() if "wire_pack_kernel" in n]
-        dev_ms = hits[0][1] / hits[0][0] if hits else None
-        dev_txt = f"{dev_ms:.5f}" if dev_ms is not None else "not measured"
         print(f"kernel wire_pack ({label}): equal={equal} (tolerance: exact) leaves={len(leaves)} "
-              f"wire_bytes={want.numel()} read_bytes={read} ms={ms:.4f} device_ms={dev_txt} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+              f"wire_bytes={want.numel()} read_bytes={read} {fmt_times(t)} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+        CALL_SHAPES.append(dict(kernel="wire_pack", label=label, equal=equal, bound_ms=b[0], **t))
         entry = dict(name="wire_pack", route="cuda", source="karpenter_tpu_torch/ops/csrc/wire_pack.cu",
                      replaces="karpenter_tpu/ops/kernels.py:362", launches=0, max_abs_err=err,
-                     ms=dev_ms if dev_ms is not None else ms, launcher_ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                     bound_by=b[1], library_ms=None, equal=equal)
+                     ms=t["device_ms"] if t["device_ms"] is not None else t["event_ms"], event_ms=t["event_ms"],
+                     launcher_ms=t["launcher_ms"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                     library_ms=None, equal=equal)
         if not equal:
             results.append(entry)
             return

@@ -10,178 +10,302 @@
 // bools packbits'ed across the whole group (big-endian bits in each byte,
 // the last byte zero-padded, one byte may straddle two leaves); every other
 // dtype as its little-endian bytes. A leaf is read where it lies: its first
-// `count` elements (the live-row slice of a row-major tensor), narrowed
-// int32 -> int16 by truncation where asked (astype(int16)). The `fill_max`
-// leaf, a 0-d int32 in the int32 group, is the max over every element of
-// its sources (the FULL fill grids, before the live-row slice): each warp
-// folds its elements into one atomicMax on a scratch word, and the last
-// block (a ticket) writes the max into its place in the wire.
+// elements (the live-row slice of a row-major tensor), narrowed int32 ->
+// int16 by truncation where asked (astype(int16)). The `fill_max` leaf, a
+// 0-d int32 in the int32 group, is the max over every element of its
+// sources (the FULL fill grids, before the live-row slice).
 //
-// The host builds a descriptor table (int64 words) and uploads it in one
-// copy; its last two words are the scratch (ticket 0, max INT32_MIN):
-//   tasks   [n_tasks][8]: type, a, b, out byte offset, element bytes, work
-//                         items, first work item, group elements
-//     type 0 copy:    a = source pointer, b = elements; one item a element
-//     type 1 narrow:  a = int32 source pointer, b = elements; 2 bytes out
-//     type 2 bools:   a = first member, b = members; one item an out byte
-//     type 3 max:     a = first source, b = sources; one item a source element
-//   members [n_members][3]: pointer, first group element, elements
-//   sources [n_sources][3]: pointer, first work item in the task, elements
-// Tasks (and members, sources) with no elements are left out by the host.
+// The launcher builds the fetch's descriptor blob once per leaf signature
+// (ops/cuda.py, as the reference jits _pack_wire per signature) and fills
+// in the pointers each call; the blob travels in the kernel's parameters
+// (4 KB, or 32 KB with CUDA 12.1 and later), a larger one is copied to a
+// device buffer on the stream first. A block finds its work by blockIdx
+// alone: the blob's chunk table names its task, and its rank within the
+// task gives its range.
+//   copy    16-byte output lines, a thread a line: aligned 16-byte loads
+//           and stores where source and wire share an alignment, else two
+//           aligned loads and a funnel shift; the ragged head and tail
+//           line byte by byte;
+//   narrow  int32 -> int16, 8 elements a 16-byte store;
+//   bool    a member leaf's bytes that lie wholly within it, 16 output
+//           bytes (128 elements) a thread: eight 16-byte loads, a byte's
+//           bits formed in registers, big-endian within the byte; the
+//           bytes a leaf boundary (or the group's end) cuts are "edge"
+//           bytes, each assembled by one thread from the members its
+//           descriptor names;
+//   max     16-byte loads, a warp max, one atomicMax a block on a scratch
+//           word, and the last block (a ticket) writes the max into the
+//           wire and resets the scratch for the next launch.
 //
 // Bound on an H100: bytes — each leaf's live elements read once, the fill
-// grids read whole for the max, the wire written once; the fetches of the
-// north-star cell move a few MB (a few microseconds at 3.35 TB/s). Design:
-// a flat work space, grid-stride, one item a thread; each item finds its
-// task (and member or source) by a binary search in the table (L1-resident,
-// at most a few hundred tasks). The kernel's time at these sizes is its
-// launch; the launcher's host work (the table) is what a fetch pays.
+// grids read whole for the max, the wire written once (a few MB a fetch,
+// a few microseconds at 3.35 TB/s); at these sizes a launch of a few
+// hundred blocks is latency, and the launcher's host work is what a fetch
+// pays.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCopy = 0, kNarrow = 1, kBool = 2, kEdge = 3, kMax = 4, kNop = 5;
 
-struct Params {
-  const int64_t* tasks;
-  const int64_t* members;
-  const int64_t* sources;
-  int32_t* ticket;
-  int32_t* maxv;
-  uint8_t* wire;
-  int64_t total;    // work items over every task
-  int64_t max_off;  // the max leaf's byte offset in the wire (has_max)
-  int n_tasks, has_max, grid;
+// the blob (ops/cuda.py _WireLayout writes it): a header, tasks, members,
+// edges, then the chunk table (a uint16 task index per block)
+struct Header {
+  uint32_t n_tasks, n_blocks, n_members, n_edges;
+  uint64_t wire;     // the output
+  uint64_t scratch;  // int32 [2]: the ticket (0) and the max (INT32_MIN) between launches
+  uint32_t max_off;  // the max leaf's byte offset in the wire
+  uint32_t n_max_blocks;
+  uint32_t off_members, off_edges, off_chunks, pad;
+};
+struct Task {
+  uint64_t src;          // the source's device pointer
+  uint32_t dst;          // copy / narrow: the wire byte of the first element; bool: the group's first byte
+  uint32_t n;            // copy: bytes; narrow, bool, max: elements; edge: edges
+  uint32_t first_block;  // the task's blocks are first_block ...
+  uint32_t e0;           // bool: the group element of the leaf's first element
+  uint32_t kind, per;    // per: items (lines, units, edges) a block takes
+};
+struct Member {
+  uint64_t src;
+  uint32_t e0, pad;
+};
+struct Edge {
+  uint32_t dst;   // the byte's wire offset
+  uint32_t e8;    // the group element of its bit 7 (8 x its group byte)
+  uint32_t base;  // the first member it reads
+  uint32_t rel;   // per bit b (nibble b): the member, base + nibble, or 0xF past the group's end
 };
 
-// the last row r of `rows` (stride `w` words, key at word `k`) whose key is
-// at most `x`; rows are sorted by key and row `lo` has key <= x
-__device__ __forceinline__ int last_at_most(const int64_t* rows, int w, int k, int lo, int hi, int64_t x) {
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (rows[(int64_t)mid * w + k] <= x)
-      lo = mid;
-    else
-      hi = mid - 1;
+template <int N>
+struct Blob {
+  alignas(16) unsigned char b[N];
+};
+
+__device__ __forceinline__ uint4 ld16(const unsigned char* p) { return *reinterpret_cast<const uint4*>(p); }
+
+// bytes [sh, sh + 16) of the 32 bytes a:b, 0 < sh < 16
+__device__ __forceinline__ uint4 funnel(uint4 a, uint4 b, int sh) {
+  const uint32_t u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = sh >> 2;
+  const uint32_t sel = 0x3210u + 0x1111u * (uint32_t)(sh & 3);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = q == 0 ? u[i] : q == 1 ? u[i + 1] : q == 2 ? u[i + 2] : u[i + 3];
+    const uint32_t hi = q == 0 ? u[i + 1] : q == 1 ? u[i + 2] : q == 2 ? u[i + 3] : u[i + 4];
+    o[i] = __byte_perm(lo, hi, sel);
   }
-  return lo;
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-__device__ __forceinline__ void put_bytes(uint8_t* d, const uint8_t* s, int n) {
-  for (int k = 0; k < n; ++k) d[k] = s[k];
+// 16 bytes at p, any alignment: one aligned load, or two and a funnel shift
+__device__ __forceinline__ uint4 load16(const unsigned char* p) {
+  const int sh = (int)((uintptr_t)p & 15);
+  if (!sh) return ld16(p);
+  const unsigned char* a = p - sh;
+  return funnel(ld16(a), ld16(a + 16), sh);
 }
 
-__global__ void __launch_bounds__(kThreads) wire_pack_kernel(const __grid_constant__ Params p) {
-  int32_t local_max = INT32_MIN;
-  const int64_t stride = (int64_t)p.grid * kThreads;
-  for (int64_t w = (int64_t)blockIdx.x * kThreads + threadIdx.x; w < p.total; w += stride) {
-    const int ti = last_at_most(p.tasks, 8, 6, 0, p.n_tasks - 1, w);
-    const int64_t* t = p.tasks + (int64_t)ti * 8;
-    const int64_t j = w - t[6];
-    uint8_t* out = p.wire + t[3];
-    switch ((int)t[0]) {
-      case 0: {  // copy one element of t[4] bytes
-        const int es = (int)t[4];
-        const uint8_t* s = reinterpret_cast<const uint8_t*>(t[1]) + j * es;
-        uint8_t* d = out + j * es;
-        if (((uintptr_t)d % es) != 0) {
-          put_bytes(d, s, es);
-        } else if (es == 4) {
-          *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
-        } else if (es == 8) {
-          *reinterpret_cast<uint64_t*>(d) = *reinterpret_cast<const uint64_t*>(s);
-        } else if (es == 2) {
-          *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(s);
-        } else {
-          put_bytes(d, s, es);
-        }
-        break;
+// bit i: byte i of the 4 bytes of x is non-zero
+__device__ __forceinline__ uint32_t nz4(uint32_t x) {
+  const uint32_t h = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((h >> 7) & 1u) | ((h >> 14) & 2u) | ((h >> 21) & 4u) | ((h >> 28) & 8u);
+}
+
+// the two packed bytes of 16 bool bytes (element 0 the high bit of the
+// first), as a little-endian 16-bit value
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+  const uint32_t m = nz4(v.x) | nz4(v.y) << 4 | nz4(v.z) << 8 | nz4(v.w) << 12;
+  return __byte_perm(__brev(m), 0u, 0x4423u);
+}
+
+__device__ __forceinline__ uint8_t pack8(const unsigned char* s) {
+  uint32_t byte = 0;
+  for (int k = 0; k < 8; ++k) byte |= (uint32_t)(s[k] != 0) << (7 - k);
+  return (uint8_t)byte;
+}
+
+__device__ void copy_task(const Task& t, uint8_t* wire, uint32_t k) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(t.src);
+  const uint64_t d0 = t.dst, d1 = d0 + t.n;
+  const uint64_t l0 = (d0 >> 4) + (uint64_t)k * t.per, l1 = min(l0 + t.per, (d1 + 15) >> 4);
+  for (uint64_t line = l0 + threadIdx.x; line < l1; line += kThreads) {
+    const uint64_t a = max(line << 4, d0), b = min((line << 4) + 16, d1);
+    const unsigned char* s = src + (a - d0);
+    if (b - a == 16) {
+      *reinterpret_cast<uint4*>(wire + a) = load16(s);
+    } else {
+      for (uint64_t x = a; x < b; ++x) wire[x] = s[x - a];
+    }
+  }
+}
+
+__device__ void narrow_task(const Task& t, uint8_t* wire, uint32_t k) {
+  const int32_t* src = reinterpret_cast<const int32_t*>(t.src);
+  const uint64_t d0 = t.dst, d1 = d0 + 2ull * t.n;
+  const uint64_t l0 = (d0 >> 4) + (uint64_t)k * t.per, l1 = min(l0 + t.per, (d1 + 15) >> 4);
+  for (uint64_t line = l0 + threadIdx.x; line < l1; line += kThreads) {
+    const uint64_t a = max(line << 4, d0), b = min((line << 4) + 16, d1);
+    if (b - a == 16 && !(d0 & 1)) {
+      const int32_t* s = src + ((a - d0) >> 1);
+      uint32_t v[8];
+      if (!((uintptr_t)s & 15)) {
+        const uint4 p = *reinterpret_cast<const uint4*>(s), q = *reinterpret_cast<const uint4*>(s + 4);
+        v[0] = p.x, v[1] = p.y, v[2] = p.z, v[3] = p.w, v[4] = q.x, v[5] = q.y, v[6] = q.z, v[7] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = (uint32_t)s[i];
       }
-      case 1: {  // int32 -> int16, truncating
-        const int32_t v = reinterpret_cast<const int32_t*>(t[1])[j];
-        const uint16_t h = (uint16_t)(uint32_t)v;
-        uint8_t* d = out + j * 2;
-        if (((uintptr_t)d & 1) == 0) {
-          *reinterpret_cast<uint16_t*>(d) = h;
-        } else {
-          d[0] = (uint8_t)(h & 0xff);
-          d[1] = (uint8_t)(h >> 8);
-        }
-        break;
-      }
-      case 2: {  // one packed byte: group elements 8j .. 8j+7
-        const int64_t n = t[7];
-        const int64_t e0 = j * 8;
-        int m = last_at_most(p.members, 3, 1, (int)t[1], (int)(t[1] + t[2] - 1), e0);
-        const int m_end = (int)(t[1] + t[2]);
-        uint32_t byte = 0;
-        for (int k = 0; k < 8; ++k) {
-          const int64_t e = e0 + k;
-          if (e >= n) break;
-          while (m + 1 < m_end && e >= p.members[(int64_t)(m + 1) * 3 + 1]) ++m;
-          const int64_t* mm = p.members + (int64_t)m * 3;
-          const uint8_t b = reinterpret_cast<const uint8_t*>(mm[0])[e - mm[1]];
-          byte |= (uint32_t)(b != 0) << (7 - k);
-        }
-        out[j] = (uint8_t)byte;
-        break;
-      }
-      default: {  // an element of a max source
-        const int s = last_at_most(p.sources, 3, 1, (int)t[1], (int)(t[1] + t[2] - 1), j);
-        const int64_t* ss = p.sources + (int64_t)s * 3;
-        const int32_t v = reinterpret_cast<const int32_t*>(ss[0])[j - ss[1]];
-        local_max = v > local_max ? v : local_max;
-        break;
+      *reinterpret_cast<uint4*>(wire + a) = make_uint4(__byte_perm(v[0], v[1], 0x5410u), __byte_perm(v[2], v[3], 0x5410u),
+                                                      __byte_perm(v[4], v[5], 0x5410u), __byte_perm(v[6], v[7], 0x5410u));
+    } else {
+      for (uint64_t x = a; x < b; ++x) {
+        const uint64_t e = (x - d0) >> 1;
+        wire[x] = (uint8_t)((uint32_t)src[e] >> (8 * ((x - d0) & 1)));
       }
     }
   }
-  if (!p.has_max) return;
-  for (int off = 16; off > 0; off >>= 1) {
-    const int32_t o = __shfl_xor_sync(0xffffffffu, local_max, off);
-    local_max = o > local_max ? o : local_max;
+}
+
+// a member leaf's whole bytes: group bytes [ceil(e0 / 8), floor((e0 + n) / 8))
+__device__ void bool_task(const Task& t, uint8_t* wire, uint32_t k) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(t.src);
+  const uint64_t d0 = t.dst + (t.e0 + 7) / 8, d1 = t.dst + ((uint64_t)t.e0 + t.n) / 8;
+  const uint64_t l0 = (d0 >> 4) + (uint64_t)k * t.per, l1 = min(l0 + t.per, (d1 + 15) >> 4);
+  for (uint64_t line = l0 + threadIdx.x; line < l1; line += kThreads) {
+    const uint64_t a = max(line << 4, d0), b = min((line << 4) + 16, d1);
+    // the source byte of group element 8 * (group byte a)
+    const unsigned char* s = src + (8 * (a - t.dst) - t.e0);
+    if (b - a == 16) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = pack16(load16(s + 32 * i)) | pack16(load16(s + 32 * i + 16)) << 16;
+      *reinterpret_cast<uint4*>(wire + a) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      for (uint64_t x = a; x < b; ++x) wire[x] = pack8(s + 8 * (x - a));
+    }
   }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(p.maxv, local_max);
-    __threadfence();
+}
+
+__device__ void edge_task(const Task& t, const Member* members, const Edge* edges, uint8_t* wire, uint32_t k) {
+  const uint32_t i = k * t.per + threadIdx.x;
+  if (threadIdx.x >= t.per || i >= t.n) return;
+  const Edge e = edges[i];
+  uint32_t byte = 0;
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t rel = (e.rel >> (4 * b)) & 0xfu;
+    if (rel == 0xfu) continue;
+    const Member m = members[e.base + rel];
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(m.src);
+    byte |= (uint32_t)(src[e.e8 + b - m.e0] != 0) << (7 - b);
   }
-  __syncthreads();
+  wire[e.dst] = (uint8_t)byte;
+}
+
+__device__ void max_task(const Task& t, const Header& h, uint8_t* wire, uint32_t k) {
+  __shared__ int32_t warp_max[kThreads / 32];
   __shared__ int last;
+  // elements as 16-byte units from the aligned address at or below the source
+  const int32_t* src = reinterpret_cast<const int32_t*>(t.src);
+  const int head = (int)(((uintptr_t)src & 15) >> 2);
+  const int32_t* base = src - head;
+  const uint64_t n = t.n, units = (n + head + 3) / 4;
+  const uint64_t u0 = (uint64_t)k * t.per, u1 = min(u0 + t.per, units);
+  int32_t m = INT32_MIN;
+  for (uint64_t u = u0 + threadIdx.x; u < u1; u += kThreads) {
+    const int4 v = *reinterpret_cast<const int4*>(base + 4 * u);
+    const int32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t e = (int64_t)(4 * u + i) - head;
+      if (e >= 0 && e < (int64_t)n) m = max(m, x[i]);
+    }
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  int32_t* scratch = reinterpret_cast<int32_t*>(h.scratch);
   if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    atomicMax(scratch + 1, m);
     __threadfence();
-    last = atomicAdd(p.ticket, 1) == p.grid - 1;
+    last = atomicAdd(scratch, 1) == (int)h.n_max_blocks - 1;
   }
   __syncthreads();
   if (last && threadIdx.x == 0) {
-    const uint32_t v = (uint32_t)atomicAdd(p.maxv, 0);
-    uint8_t* d = p.wire + p.max_off;
-    for (int k = 0; k < 4; ++k) d[k] = (uint8_t)(v >> (8 * k));
+    __threadfence();
+    const uint32_t v = (uint32_t)atomicAdd(scratch + 1, 0);
+    for (int i = 0; i < 4; ++i) wire[h.max_off + i] = (uint8_t)(v >> (8 * i));
+    scratch[1] = INT32_MIN;  // ready for the next launch
+    scratch[0] = 0;
   }
+}
+
+__device__ __forceinline__ void pack(const unsigned char* blob) {
+  const Header& h = *reinterpret_cast<const Header*>(blob);
+  const Task* tasks = reinterpret_cast<const Task*>(blob + sizeof(Header));
+  const Member* members = reinterpret_cast<const Member*>(blob + h.off_members);
+  const Edge* edges = reinterpret_cast<const Edge*>(blob + h.off_edges);
+  const uint16_t* chunks = reinterpret_cast<const uint16_t*>(blob + h.off_chunks);
+  const Task t = tasks[chunks[blockIdx.x]];
+  const uint32_t k = blockIdx.x - t.first_block;
+  uint8_t* wire = reinterpret_cast<uint8_t*>(h.wire);
+  switch (t.kind) {
+    case kCopy: copy_task(t, wire, k); break;
+    case kNarrow: narrow_task(t, wire, k); break;
+    case kBool: bool_task(t, wire, k); break;
+    case kEdge: edge_task(t, members, edges, wire, k); break;
+    case kMax: max_task(t, h, wire, k); break;
+    default: break;
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads) wire_pack_kernel(const __grid_constant__ Blob<N> p) {
+  pack(p.b);
+}
+
+// a blob past the parameter space, read from device memory
+__global__ void __launch_bounds__(kThreads) wire_pack_kernel_table(const unsigned char* blob) { pack(blob); }
+
+template <int N>
+int launch(const void* blob, int64_t nbytes, int grid, cudaStream_t stream) {
+  Blob<N> b;
+  memcpy(b.b, blob, (size_t)nbytes);
+  auto* k = wire_pack_kernel<N>;
+  k<<<grid, kThreads, 0, stream>>>(b);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// table: the DEVICE descriptor table (tasks, members, sources, then the two
-// scratch words); wire: the device output of `total_bytes`; grid: blocks.
-extern "C" int wire_pack(const void* table, int n_tasks, int n_members, int n_sources, int64_t total,
-                         int has_max, int64_t max_off, void* wire, int grid, void* stream) {
-  if (n_tasks < 0 || n_members < 0 || n_sources < 0 || total < 0 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.tasks = (const int64_t*)table;
-  p.members = p.tasks + (int64_t)n_tasks * 8;
-  p.sources = p.members + (int64_t)n_members * 3;
-  int64_t* scratch = const_cast<int64_t*>(p.sources + (int64_t)n_sources * 3);
-  p.ticket = reinterpret_cast<int32_t*>(scratch);
-  p.maxv = reinterpret_cast<int32_t*>(scratch + 1);
-  p.wire = (uint8_t*)wire;
-  p.total = total;
-  p.max_off = max_off;
-  p.n_tasks = n_tasks;
-  p.has_max = has_max;
-  p.grid = grid;
-  wire_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+// blob: the HOST descriptor blob of nbytes (ops/cuda.py _WireLayout, its
+// pointers filled); table: a device buffer of nbytes for a blob past the
+// parameter space (4 KB, or 32 KB with CUDA 12.1 and later), else unused.
+extern "C" int wire_pack(const void* blob, int64_t nbytes, void* table, void* stream) {
+  if (nbytes < (int64_t)sizeof(Header)) return (int)cudaErrorInvalidValue;
+  const Header* h = static_cast<const Header*>(blob);
+  const int grid = (int)h->n_blocks;
+  if (grid < 1 || h->off_chunks + 2 * (int64_t)grid > nbytes) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nbytes <= 1024) return launch<1024>(blob, nbytes, grid, st);
+  if (nbytes <= 4000) return launch<4000>(blob, nbytes, grid, st);
+#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
+  if (nbytes <= 16384) return launch<16384>(blob, nbytes, grid, st);
+  if (nbytes <= 32000) return launch<32000>(blob, nbytes, grid, st);
+#endif
+  if (!table) return (int)cudaErrorInvalidValue;
+  // from pageable memory: the call returns once the blob is staged
+  cudaError_t e = cudaMemcpyAsync(table, blob, (size_t)nbytes, cudaMemcpyHostToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned char* tab = static_cast<const unsigned char*>(table);
+  wire_pack_kernel_table<<<grid, kThreads, 0, st>>>(tab);
   return (int)cudaGetLastError();
 }
 

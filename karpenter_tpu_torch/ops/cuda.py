@@ -12,8 +12,11 @@ No launcher ever falls back to a plain version.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import hashlib
+import math
+import operator
 import os
 import shutil
 import struct
@@ -22,6 +25,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 # the per-pod scan's kernel, csrc/perpod_scan.cu: one launch per chunk of
@@ -36,7 +40,7 @@ KERNELS = (
 # csrc/<source>.cu of each kernel (its own name unless listed), and the C
 # entry points of each source (its own name unless listed)
 SOURCE = {k: ("perpod_scan" if k in PERPOD_KERNELS + WHATIF_KERNELS else k) for k in KERNELS}
-ENTRIES = {"perpod_scan": ("perpod_steps",)}
+ENTRIES = {"perpod_scan": ("perpod_steps",), "gang_scan": ("gang_scan", "gang_scan_workspace")}
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,12 +144,13 @@ _ARGTYPES = {
     "kscan_pod_loop": [_P, _I, _P, _P],
     "perpod_steps": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "gang_scan": [_P, _I, _P, _P],
+    "gang_scan_workspace": [_P, _P, _P],
     "retract_tail": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "objective_verdict": [_P, _I, _P],
     "dp_dead": [_P, _I, _P, _P],
     "dp_verdict": [_P, _I, _P, _P],
     "merge_shard": [_P, _I, _P, _P],
-    "wire_pack": [_P, _I, _I, _I, _I64, _I, _I64, _P, _I, _P],
+    "wire_pack": [_P, _I64, _P, _P],
 }
 
 
@@ -191,6 +196,24 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dev: torch.device) ->
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+class LayoutCache:
+    """A launcher's checked launch layouts by key (shapes, dtypes, the
+    parameters that fix the kernel's dims): a layout is built, and checked
+    in full, the first time its key is seen; the oldest of `cap` goes first."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.items: dict = {}
+
+    def get(self, key, build):
+        lay = self.items.get(key)
+        if lay is None:
+            if len(self.items) >= self.cap:
+                self.items.pop(next(iter(self.items)))
+            lay = self.items[key] = build()
+        return lay
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +531,7 @@ class _ScatterLayout:
         self.args = [ctypes.cast(x, ctypes.c_void_p) for x in (self.ptrs, self.layout, self.tk)]
 
 
-_SCATTER_LAYOUTS: dict = {}
+_SCATTER_LAYOUTS = LayoutCache(64)
 # mode 0's look-back workspaces, one per (device, stream): [2 + tiles]
 # int32, zeroed once; every launch leaves it zeroed
 _SCATTER_WS: dict = {}
@@ -538,12 +561,7 @@ def compact_scatter(
     ts = (sel, *srcs, *tk_srcs, *dsts, *tk_dsts)
     key = (mode, tuple(tk), len(srcs), len(tk_srcs),
            *[(t.shape, t.dtype, t.get_device(), t.is_contiguous()) for t in ts])
-    lay = _SCATTER_LAYOUTS.get(key)
-    if lay is None:
-        lay = _ScatterLayout(mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts)
-        if len(_SCATTER_LAYOUTS) >= 64:
-            _SCATTER_LAYOUTS.pop(next(iter(_SCATTER_LAYOUTS)))
-        _SCATTER_LAYOUTS[key] = lay
+    lay = _SCATTER_LAYOUTS.get(key, lambda: _ScatterLayout(mode, sel, srcs, dsts, tk, tk_srcs, tk_dsts))
     k = lay.k
     ptrs = [t.data_ptr() for t in ts]
     lay.ptrs[0::2] = ptrs[1:1 + k]
@@ -585,17 +603,12 @@ class KScanCatalog:
         T, GR, R, Z, C, NWZ, TT, staged = self.fill.dims
         self.device, self.T, self.GR, self.R, self.Z, self.K, self.V = dev, T, GR, R, Z, K, V
         self.dims = (T, GR, R, Z, C, D, NWZ, TT, staged)
-        self.layouts: dict = {}
+        self.layouts = LayoutCache(16)
 
     def layout(self, key, build) -> "_KScanLayout":
-        """The layout of `key` (mode, keys, shapes and dtypes): cached, the
-        oldest of 16 going first, or built (checked in full) by build()."""
-        lay = self.layouts.get(key)
-        if lay is None:
-            if len(self.layouts) >= 16:
-                self.layouts.pop(next(iter(self.layouts)))
-            lay = self.layouts[key] = build()
-        return lay
+        """The layout of `key` (mode, keys, shapes and dtypes): cached, or
+        built (checked in full) by build()."""
+        return self.layouts.get(key, build)
 
 
 def kscan_catalog(it, key_kid: int, D: int) -> KScanCatalog:
@@ -620,10 +633,11 @@ class _KScanLayout:
         self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), ctypes.cast(self.dims, ctypes.c_void_p))
 
 
-def _check_place(dev, names: tuple, ts: tuple) -> None:
+def _check_place(dev, names: tuple, ts) -> None:
     """Device and contiguity of a layout's tensors in one pass; a failure
     raises _check's LaunchRefused."""
-    if not all(t.device == dev and t.is_contiguous() for t in ts):
+    index = dev.index if dev.type == "cuda" else -1
+    if not (all(map(torch.Tensor.is_contiguous, ts)) and set(map(torch.Tensor.get_device, ts)) == {index}):
         for name, t in zip(names, ts):
             _check(t, name, t.dtype, dev)
 
@@ -1107,74 +1121,109 @@ def perpod_whatif(state, xs, ctx, pod_idx, valid, exist_valid) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# the gang kernel's inputs and carry in csrc/gang_scan.cu's order (its
+# `Gang` struct; the outputs ys and the workspace follow)
+_GANG_FIELDS = (
+    "its_base", "tmpl_base", "zmask", "cmask", "requests", "count", "self_conf", "zinf", "zdef", "kmask", "pd",
+    "key_touched", "gate", "recs", "vg_self", "hg_applies", "hg_rec", "hg_self", "alloc", "group_valid", "zc_avail",
+    "cap", "admit", "daemon_requests", "rank", "vg_type", "vg_skew", "vg_min_domains", "vg_domains", "vg_rank",
+    "hg_type", "hg_skew", "hg_valid", "hg_extra_nonempty", "n_open", "budget", "nodes_budget", "vg_counts",
+    "hg_counts", "bank_frozen", "bank_template", "bank_its", "bank_used", "bank_tk_mask", "bank_tk_inf",
+    "bank_tk_def",
+)
+_GANG_RANK = _GANG_FIELDS.index("rank")
+_GANG_LAYOUTS = LayoutCache(16)
+_SHAPE, _DTYPE = operator.attrgetter("shape"), operator.attrgetter("dtype")
+
+
+class _GangLayout:
+    """One checked gang_scan layout: every field's dtype and shape checked,
+    the C entry's dims, the workspace and shared-memory bytes the kernel
+    plans for them (C entry gang_scan_workspace), and the pointer array a
+    call fills."""
+
+    def __init__(self, ts: tuple, dims: list, dev):
+        B, G, T, GR, R, Z, C, V, D, NGv, NGh, S, E, NCAP, maxg, TK, tk_idx, has_key, _zone = dims
+        b, i, f = torch.bool, torch.int32, torch.float32
+        want = (
+            (b, (B, G, T)), (b, (B, G)), (b, (B, G, Z)), (b, (B, G, C)), (f, (B, R)), (i, (B,)), (b, (B,)),
+            (b, (B, G)), (b, (B, G)), (b, (B, G, V)), (b, (B, D)), (b, (B,)), (b, (B, NGv)), (b, (B, NGv)),
+            (b, (B, NGv)), (b, (B, NGh)), (b, (B, NGh)), (b, (B, NGh)), (f, (T, GR, R)), (b, (T, GR)),
+            (b, (T, GR, Z, C)), (f, (T, R)), (b, (T, D)), (f, (G, R)), (i, (G,)), (i, (NGv,)), (i, (NGv,)),
+            (i, (NGv,)), (b, (NGv, V)), (i, (NGv, V)), (i, (NGh,)), (i, (NGh,)), (b, (NGh,)), (b, (NGh,)),
+            (i, ()), (f, (G, R)), (f, (G,)), (i, (NGv, V)), (i, (NGh, S)), (b, (NCAP,)), (i, (NCAP,)),
+            (b, (NCAP, T)), (f, (NCAP, R)), (b, (NCAP, TK, V)), (b, (NCAP, TK)), (b, (NCAP, TK)),
+        )
+        for name, t, (dt, shape) in zip(_GANG_FIELDS, ts, want):
+            if t is None:  # rank: lexical order
+                continue
+            _check(t, name, dt, dev)
+            if tuple(t.shape) != shape:
+                raise LaunchRefused(f"gang_scan: {name} {tuple(t.shape)} vs {shape}")
+        if S < E + NCAP + 1:
+            raise LaunchRefused(f"gang_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
+        if tk_idx >= TK or (tk_idx >= 0 and not has_key):
+            raise LaunchRefused(f"gang_scan: tk_idx={tk_idx} with TK={TK}")
+        if Z * C > 64:
+            raise LaunchRefused(f"gang_scan: Z x C = {Z * C} offerings past the 64-bit offering mask")
+        self.B = B
+        self.names = tuple(n for n, t in zip(_GANG_FIELDS, ts) if t is not None)
+        self.dims = _i64_array(dims)
+        sizes = (ctypes.c_int64 * 2)()
+        try:
+            _invoke("gang_scan", "gang_scan_workspace", ctypes.cast(self.dims, ctypes.c_void_p),
+                    ctypes.cast(sizes, ctypes.c_void_p))
+        except KernelError as e:
+            raise LaunchRefused(f"gang_scan: dims {dims} refused ({e})") from None
+        self.ws_bytes, self.smem = int(sizes[0]), int(sizes[1])
+        self.ptrs = (ctypes.c_int64 * (len(_GANG_FIELDS) + 2))()
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), len(self.ptrs), ctypes.cast(self.dims, ctypes.c_void_p))
+
+
 def gang_scan(pre, state, exist, it, templates, topo, zone_kid: int, n_claims: int, maxg: int, key_kid: int,
-              D: int, tk_idx: int) -> list:
+              D: int, tk_idx: int) -> tuple:
     """H9: every gang segment of `pre` (ops.solver.GangPre, B rows) in one
     launch. The carry fields of `state` it writes (ops.solver.GANG_WRITES,
     private to the caller) are updated in place; returns the six [B]
-    int32 GangYs rows (open_g, n_opened, fill, tmpl, leftover, status)."""
+    int32 GangYs rows (open_g, n_opened, fill, tmpl, leftover, status),
+    views of one [6, B] tensor.
+    A layout of shapes, dtypes and key parameters is checked in full the
+    first time it is seen; a call checks device and contiguity in one pass
+    and allocates its outputs and the kernel's workspace."""
     dev = state.used.device
-    b, i, f = torch.bool, torch.int32, torch.float32
-    B, G, T = pre.its_base.shape
-    GR, R = it.alloc.shape[1], it.alloc.shape[2]
-    Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
-    NGv, V = state.vg_counts.shape
-    NGh, S = state.hg_counts.shape
-    E = exist.avail.shape[0]
-    NCAP = n_claims
-    TK = state.bank_tk_inf.shape[1]
     has_key = key_kid >= 0
     Dk = D if has_key else 1
-    if S < E + NCAP + 1:
-        raise LaunchRefused(f"gang_scan: hostname slots {S} < E + n_claims + 1 = {E + NCAP + 1}")
-    if not 1 <= Dk <= 16 or (has_key and key_kid == zone_kid and Dk > Z):
-        raise LaunchRefused(f"gang_scan: key domains D={Dk} outside [1, 16] (Z={Z} for the zone key)")
-    if tk_idx >= TK or (tk_idx >= 0 and not has_key):
-        raise LaunchRefused(f"gang_scan: tk_idx={tk_idx} with TK={TK}, key {key_kid}")
-    its_b = torch.empty((maxg, T), dtype=b, device=dev)
-    capTd = torch.empty((T, Dk), dtype=i, device=dev)
-    ys = torch.empty((6, B), dtype=i, device=dev)
-    fields = [
-        ("its_base", pre.its_base, b, (B, G, T)), ("tmpl_base", pre.tmpl_base, b, (B, G)),
-        ("zmask", pre.zmask, b, (B, G, Z)), ("cmask", pre.cmask, b, (B, G, C)),
-        ("requests", pre.requests, f, (B, R)), ("count", pre.count, i, (B,)), ("self_conf", pre.self_conf, b, (B,)),
-        ("zinf", pre.zinf, b, (B, G)), ("zdef", pre.zdef, b, (B, G)),
-        ("kmask", pre.kmask, b, (B, G, V)), ("pd", pre.pd, b, (B, Dk)), ("key_touched", pre.key_touched, b, (B,)),
-        ("gate", pre.gate, b, (B, NGv)), ("recs", pre.recs, b, (B, NGv)), ("vg_self", pre.vg_self, b, (B, NGv)),
-        ("hg_applies", pre.hg_applies, b, (B, NGh)), ("hg_rec", pre.hg_rec, b, (B, NGh)),
-        ("hg_self", pre.hg_self, b, (B, NGh)),
-        ("alloc", it.alloc, f, (T, GR, R)), ("group_valid", it.group_valid, b, (T, GR)),
-        ("zc_avail", it.zc_avail, b, (T, GR, Z, C)), ("cap", it.cap, f, (T, R)), ("admit", pre.admit, b, (T, Dk)),
-        ("daemon_requests", templates.daemon_requests, f, (G, R)), ("rank", templates.rank, i, (G,)),
-        ("vg_type", topo.vg_type, i, (NGv,)), ("vg_skew", topo.vg_skew, i, (NGv,)),
-        ("vg_min_domains", topo.vg_min_domains, i, (NGv,)), ("vg_domains", topo.vg_domains, b, (NGv, V)),
-        ("vg_rank", topo.vg_rank, i, (NGv, V)), ("hg_type", topo.hg_type, i, (NGh,)),
-        ("hg_skew", topo.hg_skew, i, (NGh,)), ("hg_valid", topo.hg_valid, b, (NGh,)),
-        ("hg_extra_nonempty", topo.hg_extra_nonempty, b, (NGh,)),
-        ("n_open", state.n_open, i, ()), ("budget", state.budget, f, (G, R)),
-        ("nodes_budget", state.nodes_budget, f, (G,)), ("vg_counts", state.vg_counts, i, (NGv, V)),
-        ("hg_counts", state.hg_counts, i, (NGh, S)), ("bank_frozen", state.bank_frozen, b, (NCAP,)),
-        ("bank_template", state.bank_template, i, (NCAP,)), ("bank_its", state.bank_its, b, (NCAP, T)),
-        ("bank_used", state.bank_used, f, (NCAP, R)), ("bank_tk_mask", state.bank_tk_mask, b, (NCAP, TK, V)),
-        ("bank_tk_inf", state.bank_tk_inf, b, (NCAP, TK)), ("bank_tk_def", state.bank_tk_def, b, (NCAP, TK)),
-        ("ys", ys, i, (6, B)), ("its_b", its_b, b, (maxg, T)), ("capTd", capTd, i, (T, Dk)),
-    ]
-    ptrs = []
-    for name, t, dt, shape in fields:
-        if t is None:  # rank: lexical order
-            ptrs.append(0)
-            continue
-        _check(t, name, dt, dev)
-        if tuple(t.shape) != shape:
-            raise LaunchRefused(f"gang_scan: {name} {tuple(t.shape)} vs {shape}")
-        ptrs.append(t.data_ptr())
-    dims = [B, G, T, GR, R, Z, C, V, Dk, NGv, NGh, S, E, NCAP, maxg, TK, tk_idx, int(has_key),
-            int(has_key and key_kid == zone_kid)]
-    _call(
-        "gang_scan", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
-        ctypes.cast(_i64_array(dims), ctypes.c_void_p),
-    )
-    return list(ys)
+    if not 1 <= Dk <= 16:
+        raise LaunchRefused(f"gang_scan: key domains D={Dk} outside [1, 16]")
+    ts = (*pre[:18], it.alloc, it.group_valid, it.zc_avail, it.cap, pre.admit, templates.daemon_requests,
+          templates.rank, topo.vg_type, topo.vg_skew, topo.vg_min_domains, topo.vg_domains, topo.vg_rank,
+          topo.hg_type, topo.hg_skew, topo.hg_valid, topo.hg_extra_nonempty, state.n_open, state.budget,
+          state.nodes_budget, state.vg_counts, state.hg_counts, state.bank_frozen, state.bank_template,
+          state.bank_its, state.bank_used, state.bank_tk_mask, state.bank_tk_inf, state.bank_tk_def)
+    present = [t for t in ts if t is not None]  # rank is None in lexical order
+    key = (n_claims, maxg, key_kid, Dk, tk_idx, key_kid == zone_kid, exist.avail.shape[0], templates.rank is None,
+           tuple(map(_SHAPE, present)), tuple(map(_DTYPE, present)))
+
+    def build():
+        B, G, T = pre.its_base.shape
+        Z, C = it.zc_avail.shape[2], it.zc_avail.shape[3]
+        if has_key and key_kid == zone_kid and Dk > Z:
+            raise LaunchRefused(f"gang_scan: zone key with D={Dk} > Z={Z}")
+        dims = [B, G, T, it.alloc.shape[1], it.alloc.shape[2], Z, C, state.vg_counts.shape[1], Dk,
+                state.vg_counts.shape[0], state.hg_counts.shape[0], state.hg_counts.shape[1], exist.avail.shape[0],
+                n_claims, maxg, state.bank_tk_inf.shape[1], tk_idx, int(has_key), int(has_key and key_kid == zone_kid)]
+        return _GangLayout(ts, dims, dev)
+
+    lay = _GANG_LAYOUTS.get(key, build)
+    _check_place(dev, lay.names, present)
+    ys = torch.empty((6, lay.B), dtype=torch.int32, device=dev)
+    ws = torch.empty(lay.ws_bytes, dtype=torch.uint8, device=dev)
+    ptrs = list(map(torch.Tensor.data_ptr, present))
+    if templates.rank is None:
+        ptrs.insert(_GANG_RANK, 0)
+    lay.ptrs[:] = ptrs + [ys.data_ptr(), ws.data_ptr()]
+    _call("gang_scan", *lay.args)
+    return ys.unbind(0)
 
 
 def _fill_word(x, dtype: torch.dtype) -> int:
@@ -1499,92 +1548,184 @@ def merge_shard(committed, spec, base, assignment=None) -> tuple:
 # the wire: wire_pack (H15), one launch per fetch
 # ---------------------------------------------------------------------------
 
-WIRE_THREADS = 256
-WIRE_MAX_BLOCKS = 132 * 8
+# items a block of csrc/wire_pack.cu takes per task kind: 16-byte output
+# lines (copy, narrow, bool), 16-byte source units (max), edge bytes
+_WIRE_KIND = {"copy": 0, "narrow": 1, "bool": 2, "edge": 3, "max": 4, "nop": 5}
+_WIRE_PER = {"copy": 1024, "narrow": 512, "bool": 256, "edge": 256, "max": 2048, "nop": 1}
+_WIRE_HEADER = np.dtype([("n_tasks", "<u4"), ("n_blocks", "<u4"), ("n_members", "<u4"), ("n_edges", "<u4"),
+                         ("wire", "<u8"), ("scratch", "<u8"), ("max_off", "<u4"), ("n_max_blocks", "<u4"),
+                         ("off_members", "<u4"), ("off_edges", "<u4"), ("off_chunks", "<u4"), ("pad", "<u4")])
+_WIRE_TASK = np.dtype([("src", "<u8"), ("dst", "<u4"), ("n", "<u4"), ("first_block", "<u4"), ("e0", "<u4"),
+                       ("kind", "<u4"), ("per", "<u4")])
+_WIRE_MEMBER = np.dtype([("src", "<u8"), ("e0", "<u4"), ("pad", "<u4")])
+_WIRE_EDGE = np.dtype([("dst", "<u4"), ("e8", "<u4"), ("base", "<u4"), ("rel", "<u4")])
+# a blob past this goes to the device before the launch (the parameter
+# space of CUDA before 12.1; csrc/wire_pack.cu takes up to 32000 bytes in
+# its parameters with 12.1 and later)
+WIRE_PARAM_BYTES = 4000
 
 
-def wire_table(leaves: list) -> tuple:
-    """The descriptor table of csrc/wire_pack.cu for fetch leaves (tensors,
-    ops.kernels.WireLeaf, ops.kernels.WireMax) and the wire's layout:
-    (int64 numpy table, n_tasks, n_members, n_sources, work items, max
-    leaf's byte offset or -1, wire bytes). Pointers are the leaves' data
-    pointers; leaves with no elements take no task."""
-    import math
+def _lines(a: int, b: int) -> int:
+    """16-byte lines of the byte range [a, b)."""
+    return (b + 15) // 16 - a // 16 if b > a else 0
 
-    import numpy as np
 
-    from karpenter_tpu_torch.ops import kernels
+class _WireLayout:
+    """One fetch signature's descriptor blob for csrc/wire_pack.cu (its
+    Header, Task, Member and Edge structs, then a uint16 task index per
+    block), built from the leaves' shapes, dtypes, live rows and narrowing
+    once; a call copies it, writes the sources' pointers into the slots
+    `slot_u64` (u64 positions) from its pointer list at `slot_src`, the
+    wire's and the scratch's, and launches. Raises LaunchRefused on a
+    source that is not contiguous."""
 
-    metas = [(t.shape, t.dtype) for t in leaves]
-    groups, total_bytes = kernels.wire_layout(metas)
-    tasks: list = []
-    members: list = []
-    sources: list = []
-    work = 0
-    max_off = -1
-    for dt, idx, goff, n in groups:
-        if dt == torch.bool:
-            first = len(members)
+    def __init__(self, leaves: list):
+        from karpenter_tpu_torch.ops import kernels
+
+        metas = [(tuple(t.shape), t.dtype) for t in leaves]
+        groups, self.nbytes = kernels.wire_layout(metas)
+        first_src, n_src = [], 0
+        for t in leaves:
+            for s in kernels.wire_sources(t):
+                if not s.is_contiguous():
+                    raise LaunchRefused("wire_pack: a source is not contiguous")
+            first_src.append(n_src)
+            n_src += len(kernels.wire_sources(t))
+        tasks: list = []  # (kind, source index or -1, dst, n, e0, blocks)
+        members: list = []  # (source index, group element offset)
+        edges: list = []  # (dst, e8, base, rel)
+        self.max_off = 0
+
+        def add(kind: str, src: int, dst: int, n: int, e0: int, items: int) -> None:
+            blocks = -(-items // _WIRE_PER[kind])
+            if blocks:
+                tasks.append((kind, src, dst, n, e0, blocks))
+
+        for dt, idx, goff, n in groups:
+            if dt == torch.bool:
+                base = len(members)
+                starts = []
+                e = 0
+                cut = set()  # group bytes a member boundary or the group's end cuts
+                for i in idx:
+                    cnt = math.prod(metas[i][0])
+                    if not cnt:
+                        continue
+                    members.append((first_src[i], e))
+                    starts.append(e)
+                    j0, j1 = -(-e // 8), (e + cnt) // 8
+                    if j1 > j0:
+                        add("bool", first_src[i], goff, cnt, e, _lines(goff + j0, goff + j1))
+                    if e % 8:
+                        cut.add(e // 8)
+                    if (e + cnt) % 8:
+                        cut.add((e + cnt) // 8)
+                    e += cnt
+                for j in sorted(cut):
+                    first = bisect.bisect_right(starts, 8 * j) - 1
+                    rel = 0
+                    for b in range(8):
+                        el = 8 * j + b
+                        r = 0xF if el >= n else bisect.bisect_right(starts, el) - 1 - first
+                        rel |= r << (4 * b)
+                    edges.append((goff + j, 8 * j, base + first, rel))
+                continue
+            es = dt.itemsize
             e = 0
             for i in idx:
-                leaf = leaves[i]
+                t = leaves[i]
                 cnt = math.prod(metas[i][0])
-                if cnt:
-                    src = leaf.src if isinstance(leaf, kernels.WireLeaf) else leaf
-                    members += (_checked_src(src, "bool leaf"), e, cnt)
+                off = goff + e * es
                 e += cnt
-            if n:
-                tasks += (2, first // 3, (len(members) - first) // 3, goff, 1, -(-n // 8), work, n)
-                work += -(-n // 8)
-            continue
-        es = dt.itemsize
-        e = 0
-        for i in idx:
-            leaf = leaves[i]
-            cnt = math.prod(metas[i][0])
-            off = goff + e * es
-            e += cnt
-            if isinstance(leaf, kernels.WireMax):
-                if max_off >= 0:
-                    raise LaunchRefused("wire_pack: more than one max leaf in a fetch")
-                max_off = off
-                first = len(sources)
-                w = 0
-                for s in leaf.srcs:
-                    sources += (_checked_src(s, "max source"), w, s.numel())
-                    w += s.numel()
-                tasks += (3, first // 3, (len(sources) - first) // 3, off, 4, w, work, 0)
-                work += w
-            elif cnt:
-                narrow = isinstance(leaf, kernels.WireLeaf) and leaf.narrow
-                src = leaf.src if isinstance(leaf, kernels.WireLeaf) else leaf
-                tasks += (1 if narrow else 0, _checked_src(src, "leaf"), cnt, off, es, cnt, work, 0)
-                work += cnt
-    table = np.array(tasks + members + sources + [0, np.iinfo(np.int32).min], dtype=np.int64)
-    return table, len(tasks) // 8, len(members) // 3, len(sources) // 3, work, max_off, total_bytes
+                if isinstance(t, kernels.WireMax):
+                    self.max_off = off
+                    for k, src in enumerate(t.srcs):
+                        add("max", first_src[i] + k, 0, src.numel(), 0, (src.numel() + 6) // 4)
+                elif cnt and isinstance(t, kernels.WireLeaf) and t.narrow:
+                    add("narrow", first_src[i], off, cnt, 0, _lines(off, off + 2 * cnt))
+                elif cnt:
+                    add("copy", first_src[i], off, cnt * es, 0, _lines(off, off + cnt * es))
+        if edges:
+            add("edge", -1, 0, len(edges), 0, len(edges))
+        if not tasks:
+            add("nop", -1, 0, 0, 0, 1)
+        if len(tasks) > 0xFFFF:
+            raise LaunchRefused(f"wire_pack: {len(tasks)} tasks past the chunk table's uint16")
+        t_arr = np.zeros(len(tasks), dtype=_WIRE_TASK)
+        chunks = []
+        for x, (kind, _src, dst, n, e0, blocks) in enumerate(tasks):
+            t_arr[x] = (0, dst, n, len(chunks), e0, _WIRE_KIND[kind], _WIRE_PER[kind])
+            chunks += [x] * blocks
+        m_arr = np.zeros(len(members), dtype=_WIRE_MEMBER)
+        m_arr["e0"] = [e0 for _s, e0 in members]
+        e_arr = np.array(edges, dtype=_WIRE_EDGE) if edges else np.zeros(0, dtype=_WIRE_EDGE)
+        off_members = _WIRE_HEADER.itemsize + t_arr.nbytes
+        off_edges = off_members + m_arr.nbytes
+        off_chunks = off_edges + e_arr.nbytes
+        head = np.zeros(1, dtype=_WIRE_HEADER)
+        head[0] = (len(tasks), len(chunks), len(members), len(edges), 0, 0, self.max_off,
+                   sum(b for kind, *_r, b in tasks if kind == "max"), off_members, off_edges, off_chunks, 0)
+        c_arr = np.array(chunks, dtype="<u2")
+        raw = b"".join(a.tobytes() for a in (head, t_arr, m_arr, e_arr, c_arr))
+        self.blob = np.zeros(-(-len(raw) // 16) * 16, dtype=np.uint8)
+        self.blob[: len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+        # the pointer slots: each task's source, each member's
+        t0 = _WIRE_HEADER.itemsize // 8
+        slots = [(t0 + 4 * x, src) for x, (_k, src, *_r) in enumerate(tasks) if src >= 0]
+        slots += [(off_members // 8 + 2 * x, src) for x, (src, _e0) in enumerate(members)]
+        self.slot_u64 = np.array([a for a, _b in slots], dtype=np.int64)
+        self.slot_src = np.array([b for _a, b in slots], dtype=np.int64)
+        self.has_max = any(kind == "max" for kind, *_r in tasks)
 
 
-def _checked_src(t: torch.Tensor, what: str) -> int:
-    if not t.is_contiguous():
-        raise LaunchRefused(f"wire_pack: {what} not contiguous")
-    return t.data_ptr()
+_WIRE_LAYOUTS = LayoutCache(64)
+# the max's scratch, one per (device, stream): [ticket 0, max INT32_MIN],
+# left so by every launch
+_WIRE_SCRATCH: dict = {}
+
+
+def _wire_scratch(dev) -> torch.Tensor:
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    key = (dev, stream)
+    ws = _WIRE_SCRATCH.get(key)
+    if ws is None:
+        ws = _WIRE_SCRATCH[key] = torch.tensor([0, -(2**31)], dtype=torch.int32, device=dev)
+    return ws
 
 
 def wire_pack(leaves: list) -> torch.Tensor:
     """H15: the fetch's whole wire (ops.kernels.pack_wire_plain's layout) in
-    one launch on torch's current stream. The descriptor table goes to the
-    device in one copy from pinned memory; the output is allocated once.
+    one launch on torch's current stream. The descriptor blob of the
+    leaves' signature (types, shapes, dtypes, live rows, narrowing) is
+    built once (_WireLayout); a call checks the sources' contiguity, writes
+    their pointers into a copy and passes it in the kernel's parameters.
     Returns the uint8 wire on the leaves' device."""
-    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.ops.kernels import WireLeaf
 
-    dev = kernels.wire_sources(leaves[0])[0].device
-    table, n_tasks, n_members, n_sources, work, max_off, nbytes = wire_table(leaves)
-    host = torch.from_numpy(table)
-    if dev.type == "cuda":
-        host = host.pin_memory()
-    table_d = host.to(dev, non_blocking=True)
-    wire = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    grid = max(1, min(-(-work // WIRE_THREADS), WIRE_MAX_BLOCKS))
-    _call("wire_pack", table_d.data_ptr(), n_tasks, n_members, n_sources, work, int(max_off >= 0),
-          max(max_off, 0), wire.data_ptr(), grid)
+    srcs, meta = [], []
+    for t in leaves:
+        c = t.__class__
+        if c is torch.Tensor:
+            srcs.append(t)
+            meta.append(None)
+        elif c is WireLeaf:
+            srcs.append(t.src)
+            meta.append((t.rows, t.narrow))
+        else:  # WireMax
+            srcs.extend(t.srcs)
+            meta.append(len(t.srcs))
+    key = (tuple(map(_SHAPE, srcs)), tuple(map(_DTYPE, srcs)), tuple(meta))
+    if not all(map(torch.Tensor.is_contiguous, srcs)):
+        raise LaunchRefused("wire_pack: a source is not contiguous")
+    lay = _WIRE_LAYOUTS.get(key, lambda: _WireLayout(leaves))
+    dev = srcs[0].device
+    wire = torch.empty(lay.nbytes, dtype=torch.uint8, device=dev)
+    blob = lay.blob.copy()
+    b64 = blob.view(np.uint64)
+    b64[lay.slot_u64] = np.fromiter(map(torch.Tensor.data_ptr, srcs), dtype=np.uint64, count=len(srcs))[lay.slot_src]
+    b64[2] = wire.data_ptr()
+    if lay.has_max:
+        b64[3] = _wire_scratch(dev).data_ptr()
+    table = torch.empty(blob.nbytes, dtype=torch.uint8, device=dev) if blob.nbytes > WIRE_PARAM_BYTES else None
+    _call("wire_pack", blob.ctypes.data, blob.nbytes, _ptr(table))
     return wire

@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
 """Time H1 req_intersects, H2 fill_count_grid, H3 water_fill, H4
-compact_scatter, H5 kscan_grid and H6 kscan_pod_loop of one checkout of
-this repository on one NVIDIA GPU.
+compact_scatter, H5 kscan_grid, H6 kscan_pod_loop, H9 gang_scan and H15
+wire_pack of one checkout of this repository on one NVIDIA GPU.
 
     python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells]
 
 DIR is the checkout whose karpenter_tpu_torch is imported (default: the
 one holding this script); it builds its own kernels. The script runs
-chip_smoke.py's (the one next to this script) phase-3 checks of H1-H6
-against DIR's package, each in its call shapes at the north star's
-catalog (T = 1000) and a window of 4096 rows: H1 at tier 2 (W claim
-rows), tier 3 (G template rows) and a seeded catalog of 70 keys (three
-key words), and at the kind step's tier 2 and tier 3 (T = 400); H2 in
-each call shape of the fill step and the compaction; H3 on the window,
-at W = 131072, with counts past 2^24 (the bisection stops short), rem =
-0 and sum(f) <= rem; H4 in the
+chip_smoke.py's (the one next to this script) phase-3 checks of H1-H6,
+H9 and H15 against DIR's package, each in its call shapes at the north
+star's catalog (T = 1000) and a window of 4096 rows: H1 at tier 2 (W
+claim rows), tier 3 (G template rows) and a seeded catalog of 70 keys
+(three key words), and at the kind step's tier 2 and tier 3 (T = 400);
+H2 in each call shape of the fill step and the compaction; H3 on the
+window, at W = 131072, with counts past 2^24 (the bisection stops
+short), rem = 0 and sum(f) <= rem; H4 in the
 compaction (14 window fields), compact_state's bank columns, the drop
 scatter, global_claims, the topology-key bank and a compaction at W =
 131072; H5 in modes 0 (tier 2's W rows and tier 3's G rows), 1 and 2,
 each on the zone key and on the capacity-type key (T = 400); H6 over a
 256-pod segment at the mixed cell's shapes and over
-one segment at W = 8192, D = 16 past its shared-memory staging. Each
-call shape's line (chip_smoke.CALL_SHAPES) gives the kernel's device ms
+one segment at W = 8192, D = 16 past its shared-memory staging; H9 on
+the gang runs of the two gang cells (gang_storm_64x16x400's run of 72
+segments; gang_zonal_budget_4096x400's zone-key run of 32 and its
+hostname run of 8) and on gang_storm with every gang its own cpu
+request (64 segments, none reusing the one before's terms), each launch
+on its own copy of the carry, cloned before the timed window; H15 on
+three recorded fetches (the north
+star's first pipeline group, mixed's last group with its final state
+reads, a dp verdict word of 4 bytes). Each call shape's line
+(chip_smoke.CALL_SHAPES) gives the kernel's device ms
 per launch and per call (torch.profiler, over every `__global__` function
 of DIR's source of that kernel, so an older design that launched two
 kernels a call is counted whole), the CUDA-event ms and the launcher's host ms per
@@ -30,7 +38,7 @@ call, the bound, and whether the kernel equals its plain version.
 (selector_pods(100_000) x make_templates(1000)) and mixed_pods(16384) x
 make_templates(400) at max_claims=4096: a cold solve, three warm ones
 (their walls and device_s), and one more under torch.profiler (device
-busy, idle share, and H1-H6's device ms and launches).
+busy, idle share, and H1-H6's, H9's and H15's device ms and launches).
 Prints the card's name and power limit first and one JSON line last. To
 compare two checkouts, run both in one call on one card, in turns (A, B,
 B, A).
@@ -48,10 +56,11 @@ import sys
 
 def use_checkout_kernels(smoke, repo: str) -> None:
     """Point chip_smoke's profiled kernel names at DIR's own: every
-    `__global__` function of the source of H1-H6."""
+    `__global__` function of the source of H1-H6, H9 and H15."""
     csrc = os.path.join(repo, "karpenter_tpu_torch", "ops", "csrc")
     sources = (("req_intersects", "H1_NAMES"), ("fill_count_grid", "H2_NAMES"), ("water_fill", "H3_NAMES"),
-               ("compact_scatter", "H4_NAMES"), ("kscan_grid", "H5_NAMES"), ("kscan_pod_loop", "H6_NAMES"))
+               ("compact_scatter", "H4_NAMES"), ("kscan_grid", "H5_NAMES"), ("kscan_pod_loop", "H6_NAMES"),
+               ("gang_scan", "H9_NAMES"), ("wire_pack", "H15_NAMES"))
     for source, attr in sources:
         with open(os.path.join(csrc, f"{source}.cu")) as f:
             names = tuple(dict.fromkeys(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
@@ -135,7 +144,10 @@ def main() -> int:
     sched_m = TorchScheduler(T.make_templates(400), max_claims=4096)
     _sorted, enc_m = sched_m._encode(T.mixed_pods(64), None)
     smoke.kscan_kernel_phase(sched_m, enc_m, results)
-    timed = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid", "kscan_pod_loop")
+    smoke.gang_kernel_phase(torch, cuda, smoke.gang_cells(T, TorchScheduler), results)
+    smoke.wire_kernel_phase(torch, cuda, T, TorchScheduler, results)
+    timed = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid", "kscan_pod_loop",
+             "gang_scan", "wire_pack")
     keep = {r["name"]: {k: r.get(k) for k in ("ms", "event_ms", "launcher_ms", "plain_ms", "bound_ms", "equal")}
             for r in results if r["name"] in timed}
     shapes = [{k: v for k, v in c.items() if k in ("kernel", "label", "equal", "device_ms", "device_call_ms",

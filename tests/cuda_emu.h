@@ -13,9 +13,19 @@
 // cudaGetLastError and the library's emu_error report it. __shared__
 // variables become statics, which the blocks share, run in turn. The bulk
 // copy and the mbarrier are replaced by a memcpy and a barrier in the
-// test's rewrite of the source. No fiber is preempted, so each barrier
-// orders the writes before it before the reads after it, as
-// __syncthreads and __syncwarp do.
+// test's rewrite of the source, or, where warps hand work to each other,
+// by the emulator's mbarrier (emu_mbar_*: a wait blocks its fiber until
+// the phase completes). No fiber is preempted, so each barrier orders the
+// writes before it before the reads after it, as __syncthreads and
+// __syncwarp do. The warp collectives (ballots, shuffles, reductions)
+// make a warp's lanes meet as on the card, but on the card they do not
+// order memory: a lane's store after a ballot may land before another
+// lane's load before it. The emulator cannot run a load late, so it
+// checks that rule where a test's rewrite names the accesses
+// (emu_note_read / emu_note_write): two accesses to one address by two
+// lanes of a warp, one of them a store, with no __syncwarp or
+// __syncthreads between them, set emu_race, which fails the test; so does
+// an mbarrier used before its init.
 #pragma once
 #include <atomic>
 #include <cmath>
@@ -25,6 +35,7 @@
 #include <memory>
 #include <sys/mman.h>
 #include <ucontext.h>
+#include <unordered_map>
 #include <utility>
 #include <vector>
 
@@ -54,11 +65,13 @@ template <class F>
 inline int cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
-// 1 once a launch of the library deadlocked, until the test reads it
+// 1 once a launch of the library deadlocked, until the test reads it;
+// emu_race: 1 once two lanes of a warp raced on a noted address
 extern "C" {
 inline int emu_error = 0;
+inline int emu_race = 0;
 }
-inline int cudaGetLastError() { return emu_error ? cudaErrorInvalidValue : cudaSuccess; }
+inline int cudaGetLastError() { return emu_error || emu_race ? cudaErrorInvalidValue : cudaSuccess; }
 // the device: two SMs, so that a persistent grid still has several blocks
 constexpr int cudaDevAttrMultiProcessorCount = 16;
 inline int cudaGetDevice(int* d) {
@@ -75,6 +88,11 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t)
   return cudaSuccess;
 }
 inline const char* cudaGetErrorString(int e) { return e ? "invalid value" : "no error"; }
+constexpr int cudaMemcpyHostToDevice = 1;
+inline int cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int, cudaStream_t) {
+  memcpy(dst, src, bytes);
+  return cudaSuccess;
+}
 
 struct Dim {
   unsigned x, y, z;
@@ -86,6 +104,7 @@ inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 struct uint4 {
   unsigned x, y, z, w;
 };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 struct float4 {
   float x, y, z, w;
 };
@@ -97,12 +116,36 @@ inline T min(T a, T b) { return a < b ? a : b; }
 template <class T>
 inline T max(T a, T b) { return a > b ? a : b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline unsigned __brev(unsigned x) {
+  x = ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+  x = ((x >> 2) & 0x33333333u) | ((x & 0x33333333u) << 2);
+  x = ((x >> 4) & 0x0f0f0f0fu) | ((x & 0x0f0f0f0fu) << 4);
+  return __builtin_bswap32(x);
+}
+// byte i of the result is byte (s >> 4i) & 7 of the 8 bytes y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 // IEEE single-rounding arithmetic (count_cell.cuh); never contracted here
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __float_as_int(float x) {
+  int i;
+  memcpy(&i, &x, 4);
+  return i;
+}
+inline float __int_as_float(int i) {
+  float x;
+  memcpy(&x, &i, 4);
+  return x;
+}
 inline uint32_t __cvta_generic_to_shared(const void*) { return 0; }
 
 extern thread_local int tl_parity;
@@ -155,13 +198,16 @@ struct EmuBarrier {
   explicit EmuBarrier(int n) : n(n) {}
   int n, count = 0;
   std::vector<int> waiters;
-  void arrive_and_wait() {
+  // on_done: run by the last to arrive before it releases the others (a
+  // barrier that orders memory starts a new epoch there)
+  void arrive_and_wait(void (*on_done)() = nullptr) {
     EmuSched& s = *g_sched;
     if (++count < n) {
       waiters.push_back(s.cur);
       emu_switch(false);
       return;
     }
+    if (on_done) on_done();
     count = 0;
     for (size_t i = waiters.size(); i > 1; --i) {
       s.rng ^= s.rng << 13;
@@ -174,10 +220,33 @@ struct EmuBarrier {
   }
 };
 
+// an mbarrier: `count` arrivals complete a phase; a wait on a parity
+// blocks while the barrier's current phase has that parity
+struct EmuMbar {
+  int count = 1, pending = 1, phase = 0;
+  int64_t tx = 0;  // bytes the phase still expects from bulk copies
+  std::vector<int> waiters;
+  struct Copy {
+    void* dst;
+    const void* src;
+    size_t bytes;
+  };
+  std::vector<Copy> copies;  // bulk copies issued, not landed yet
+};
+// the last accesses to a noted address (emu_note_*): the warp's epoch of
+// the last store and its lane, and the lanes that loaded in that epoch
+struct EmuAccess {
+  int warp = -1, w_lane = -1, w_epoch = -1, r_epoch = -1;
+  uint32_t r_lanes = 0;
+};
+
 // one block's synchronisation state and dynamic shared memory
 struct EmuBlock {
   std::unique_ptr<EmuBarrier> block;
   std::vector<std::unique_ptr<EmuBarrier>> warp;
+  std::vector<int> epoch;  // per warp: barriers that ordered its memory
+  std::unordered_map<const void*, EmuMbar> mbar;
+  std::unordered_map<const void*, EmuAccess> access;
   std::atomic<int> acc[2];
   int slot_i[64][32];
   float slot_f[64][32];
@@ -187,7 +256,11 @@ struct EmuBlock {
 };
 extern EmuBlock* g_emu;
 
-inline void __syncthreads() { g_emu->block->arrive_and_wait(); }
+inline void emu_new_epoch_all() {
+  for (int& e : g_emu->epoch) ++e;
+}
+inline void emu_new_epoch_warp() { ++g_emu->epoch[threadIdx.x / 32]; }
+inline void __syncthreads() { g_emu->block->arrive_and_wait(emu_new_epoch_all); }
 inline int __syncthreads_or(int x) {
   const int g = (tl_parity ^= 1);
   if (x) g_emu->acc[g].store(1);
@@ -197,40 +270,43 @@ inline int __syncthreads_or(int x) {
   if (threadIdx.x == 0) g_emu->acc[g].store(0);
   return r;
 }
-inline void __syncwarp() { g_emu->warp[threadIdx.x / 32]->arrive_and_wait(); }
+// the lanes of a warp meet (the collectives below, which do not order memory)
+inline void emu_warp_meet() { g_emu->warp[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncwarp() { g_emu->warp[threadIdx.x / 32]->arrive_and_wait(emu_new_epoch_warp); }
 inline unsigned __ballot_sync(unsigned, int x) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = x != 0;
-  __syncwarp();
+  emu_warp_meet();
   unsigned m = 0;
   for (int i = 0; i < 32; ++i) m |= (unsigned)g_emu->slot_i[w][i] << i;
-  __syncwarp();
+  emu_warp_meet();
   return m;
 }
+inline int __all_sync(unsigned mask, int x) { return __ballot_sync(mask, x) == 0xffffffffu; }
 inline int __any_sync(unsigned mask, int x) { return __ballot_sync(mask, x) != 0; }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = (int)v;
-  __syncwarp();
+  emu_warp_meet();
   const T r = (T)g_emu->slot_i[w][src];
-  __syncwarp();
+  emu_warp_meet();
   return r;
 }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_f[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   const float r = g_emu->slot_f[w][l ^ o];
-  __syncwarp();
+  emu_warp_meet();
   return r;
 }
 inline int __shfl_xor_sync(unsigned, int v, int o) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   const int r = g_emu->slot_i[w][l ^ o];
-  __syncwarp();
+  emu_warp_meet();
   return r;
 }
 inline char* emu_smem() { return g_emu->smem.data(); }
@@ -257,6 +333,95 @@ inline void emu_yield(int rounds) {
 inline void emu_named_sync(int n) {
   if (!g_emu->named) g_emu->named = std::make_unique<EmuBarrier>(n);
   g_emu->named->arrive_and_wait();
+}
+
+// an mbarrier in shared memory (the kernel's 64-bit word), for the
+// helpers a test's rewrite swaps in: init with the arrivals a phase
+// takes; a phase completes when they have arrived and the bytes announced
+// by emu_mbar_arrive_tx have landed, and its waiters become runnable, in a
+// shuffled order; a wait on `parity` gives way first (up to 8 rounds),
+// then blocks while the current phase has that parity (the PTX
+// try_wait.parity loop). A bulk copy (emu_bulk_copy) lands only when a
+// fiber waits on its barrier: a read of its bytes that lacks the wait
+// meets the old contents, as it may on the card.
+inline void emu_mbar_init(const void* bar, int count) {
+  EmuMbar& m = g_emu->mbar[bar];
+  m = EmuMbar();
+  m.count = m.pending = count;
+}
+inline void emu_mbar_complete(EmuMbar& m) {
+  if (m.pending > 0 || m.tx > 0) return;
+  m.pending = m.count;
+  ++m.phase;
+  EmuSched& s = *g_sched;
+  for (size_t i = m.waiters.size(); i > 1; --i) {
+    s.rng ^= s.rng << 13;
+    s.rng ^= s.rng >> 7;
+    s.rng ^= s.rng << 17;
+    std::swap(m.waiters[i - 1], m.waiters[s.rng % i]);
+  }
+  s.run.insert(s.run.begin(), m.waiters.begin(), m.waiters.end());
+  m.waiters.clear();
+}
+// a barrier by its address; one used before its init (a race with the
+// thread that initialises it) sets emu_race
+inline EmuMbar& emu_mbar_at(const void* bar) {
+  auto it = g_emu->mbar.find(bar);
+  if (it != g_emu->mbar.end()) return it->second;
+  emu_race = 1;
+  return g_emu->mbar[bar];
+}
+inline void emu_mbar_arrive(const void* bar) {
+  EmuMbar& m = emu_mbar_at(bar);
+  --m.pending;
+  emu_mbar_complete(m);
+}
+inline void emu_mbar_arrive_tx(const void* bar, size_t bytes) {
+  EmuMbar& m = emu_mbar_at(bar);
+  m.tx += (int64_t)bytes;
+  --m.pending;
+  emu_mbar_complete(m);
+}
+inline void emu_bulk_copy(void* dst, const void* src, size_t bytes, const void* bar) {
+  emu_mbar_at(bar).copies.push_back(EmuMbar::Copy{dst, src, bytes});
+}
+inline void emu_mbar_wait(const void* bar, unsigned parity) {
+  emu_yield(8);
+  EmuMbar& m = emu_mbar_at(bar);
+  if (!m.copies.empty()) {
+    for (const EmuMbar::Copy& c : m.copies) {
+      memcpy(c.dst, c.src, c.bytes);
+      m.tx -= (int64_t)c.bytes;
+    }
+    m.copies.clear();
+    emu_mbar_complete(m);
+  }
+  while ((unsigned)(m.phase & 1) == parity) {
+    m.waiters.push_back(g_sched->cur);
+    emu_switch(false);
+  }
+}
+
+// the memory-order check of the lanes of one warp (see the top of this
+// file): a load of p after another lane's store to p, or a store to p
+// after another lane's load or store of p, within one epoch of the warp
+inline void emu_note_write(const void* p) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, e = g_emu->epoch[w];
+  EmuAccess& a = g_emu->access[p];
+  if (a.warp == w && ((a.w_epoch == e && a.w_lane != l) || (a.r_epoch == e && (a.r_lanes & ~(1u << l)))))
+    emu_race = 1;
+  a.warp = w;
+  a.w_lane = l;
+  a.w_epoch = e;
+}
+inline void emu_note_read(const void* p) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, e = g_emu->epoch[w];
+  EmuAccess& a = g_emu->access[p];
+  if (a.warp == w && a.w_epoch == e && a.w_lane != l) emu_race = 1;
+  if (a.warp != w || a.r_epoch != e) a.r_lanes = 0;
+  a.warp = w;
+  a.r_epoch = e;
+  a.r_lanes |= 1u << l;
 }
 
 // a fiber's stack: 8 MB as a std::thread's, only the pages it touches
@@ -297,6 +462,7 @@ void emu_launch(F fn, int grid, int threads, size_t smem, A... args) {
     EmuBlock e;
     e.block = std::make_unique<EmuBarrier>(threads);
     for (int w = 0; w < threads / 32; ++w) e.warp.push_back(std::make_unique<EmuBarrier>(32));
+    e.epoch.assign((threads + 31) / 32, 0);
     e.acc[0] = 0;
     e.acc[1] = 0;
     e.smem.assign(smem + 64, (char)0xCD);
@@ -345,44 +511,62 @@ inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst
 inline int __reduce_min_sync(unsigned, int v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   int m = g_emu->slot_i[w][0];
   for (int i = 1; i < 32; ++i) m = m < g_emu->slot_i[w][i] ? m : g_emu->slot_i[w][i];
-  __syncwarp();
+  emu_warp_meet();
   return m;
 }
 inline int __shfl_down_sync(unsigned, int v, int d) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   const int r = l + d < 32 ? g_emu->slot_i[w][l + d] : v;
-  __syncwarp();
+  emu_warp_meet();
   return r;
 }
 inline int __shfl_up_sync(unsigned, int v, int d) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   const int r = l >= d ? g_emu->slot_i[w][l - d] : v;
-  __syncwarp();
+  emu_warp_meet();
   return r;
 }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = (int)v;
-  __syncwarp();
+  emu_warp_meet();
   unsigned s = 0;
   for (int i = 0; i < 32; ++i) s += (unsigned)g_emu->slot_i[w][i];
-  __syncwarp();
+  emu_warp_meet();
   return s;
+}
+inline unsigned __reduce_and_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = (int)v;
+  emu_warp_meet();
+  unsigned r = ~0u;
+  for (int i = 0; i < 32; ++i) r &= (unsigned)g_emu->slot_i[w][i];
+  emu_warp_meet();
+  return r;
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_i[w][l] = (int)v;
+  emu_warp_meet();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= (unsigned)g_emu->slot_i[w][i];
+  emu_warp_meet();
+  return r;
 }
 inline int __reduce_max_sync(unsigned, int v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;
-  __syncwarp();
+  emu_warp_meet();
   int m = g_emu->slot_i[w][0];
   for (int i = 1; i < 32; ++i) m = m > g_emu->slot_i[w][i] ? m : g_emu->slot_i[w][i];
-  __syncwarp();
+  emu_warp_meet();
   return m;
 }
 // Hopper DPX: max(min(a + b, c), 0), the add in 32 bits

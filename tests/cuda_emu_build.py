@@ -80,17 +80,24 @@ def emulated_library(tmp_path_factory, source: str, rewrite=None) -> ctypes.CDLL
 def c_entry(lib: ctypes.CDLL, entry: str):
     """C entry `entry` of an emulated build, with ops/cuda.py's argtypes;
     a call fails its test when one of its launches deadlocked (cuda_emu.h
-    emu_error)."""
+    emu_error) or two lanes of a warp raced on a noted address
+    (emu_race)."""
     fn = getattr(lib, entry)
     fn.argtypes = p_cuda._ARGTYPES[entry]
     fn.restype = ctypes.c_int
     err = ctypes.c_int.in_dll(lib, "emu_error")
+    race = ctypes.c_int.in_dll(lib, "emu_race")
 
     def call(*args) -> int:
         rc = fn(*args)
         if err.value:
             err.value = 0
             pytest.fail(f"emulated {entry}: a launch deadlocked (every unfinished CUDA thread waits at a barrier)")
+        if race.value:
+            race.value = 0
+            pytest.fail(f"emulated {entry}: a race — two lanes of a warp accessed one address, one of them storing, "
+                        "with no __syncwarp or __syncthreads between them (cuda_emu.h emu_note_*), or an mbarrier "
+                        "was used before its init")
         return rc
 
     return call

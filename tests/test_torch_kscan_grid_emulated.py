@@ -36,6 +36,16 @@ from cuda_emu_build import c_entry, emulated_library, limited_call
 
 COPY = "i += kThreads) dst[i] = src[i];"
 READ = "          const int tl_idx = t - t_lo;\n"
+# the row's pair words: lane 0's store of each 32-bit half, every lane's loads
+WORD_STORE = "if (lane == 0) reinterpret_cast<uint32_t*>(words)[base / 32 + h] = m;"
+WORD_LOADS = ("w0 = words[0];", "& words[w]")
+NOTE_WORDS = """
+__device__ __forceinline__ int emu_note_words(const uint64_t* words, int w) {
+  emu_note_read(reinterpret_cast<const uint32_t*>(words + w));
+  emu_note_read(reinterpret_cast<const uint32_t*>(words + w) + 1);
+  return w;
+}
+"""
 
 
 def _rewrite(src: str) -> str:
@@ -44,11 +54,22 @@ def _rewrite(src: str) -> str:
     of the catalog tile's copy into it and before each type's reads of
     the tile: a read that lacks the barrier after the copy, or a read of
     tile k - 1 that lacks the barrier before the copy of tile k, then
-    meets the wrong bytes."""
-    assert src.count(COPY) == 1 and src.count(READ) == 1
-    return (src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
-            .replace(COPY, "i += kThreads) { emu_yield(8); dst[i] = src[i]; emu_yield(8); }")
-            .replace(READ, "          emu_yield(64);\n" + READ))
+    meets the wrong bytes. The row's pair words are noted for the
+    emulator's memory-order check (emu_note_read / emu_note_write): a
+    ballot orders no memory, so a lane's load of a row's words and lane
+    0's store of the next row's must have a __syncwarp between them."""
+    assert src.count(COPY) == 1 and src.count(READ) == 1 and src.count(WORD_STORE) == 1
+    assert src.count(WORD_LOADS[0]) == 1 and src.count(WORD_LOADS[1]) == 2
+    src = (src.replace("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();")
+           .replace(COPY, "i += kThreads) { emu_yield(8); dst[i] = src[i]; emu_yield(8); }")
+           .replace(READ, "          emu_yield(64);\n" + READ)
+           .replace(WORD_STORE, "if (lane == 0) { emu_note_write(reinterpret_cast<uint32_t*>(words) + base / 32 + h); "
+                                "reinterpret_cast<uint32_t*>(words)[base / 32 + h] = m; }")
+           .replace(WORD_LOADS[0], "w0 = words[emu_note_words(words, 0)];")
+           .replace(WORD_LOADS[1], "& words[emu_note_words(words, w)]"))
+    anchor = "// any offering of a cell within the row's pair words"
+    assert src.count(anchor) == 1
+    return src.replace(anchor, NOTE_WORDS + anchor)
 
 
 @pytest.fixture(scope="module")
