@@ -57,11 +57,13 @@ Phases, any failure exits non-zero:
      verdict kernel (objective_verdict, H11) at
      objectives_mixed_16384x400's first cost_min round (K = 4 variants of
      the first fill group), under each objective's formula and with every
-     type unpriced, scores bit for bit and the word; the dp kernels
+     type unpriced, scores bit for bit and the word, each of those five
+     call shapes timed (device, event and launcher ms); the dp kernels
      (dp_dead H12, dp_verdict H13, merge_shard H14) on the first merge
      round and first commit of three dp cells below (SHARD_KERNEL_CELLS:
      fill with existing-node debits, the kind scan, the per-pod scan at
-     DP = 4), the deadness matrix, the word and every merged leaf;
+     DP = 4), the deadness matrix, the word and every merged leaf, H12 and
+     H13 timed on each cell's round;
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then WARM_CALLS warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -146,7 +148,9 @@ Phases, any failure exits non-zero:
      and dp_verdict launched once per merge round, merge_shard once per
      commit and the per-pod kernel's scenario mode once per per-pod
      round, a warm solve, and a profiled warm solve of the per-pod dp
-     cell (H12-H14's device time);
+     cell (H12-H14's device time); shard_8192x200's and the per-pod dp
+     cell's warm solves also list the lines that made the host wait
+     (sync_points);
   5. the north star and mixed solves and perpod_pods(1024, kinds=8) with
      the kernels' plain versions on the card, which must give the digest
      of the card's kernel solve (claims, pods, types, usage,
@@ -158,6 +162,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import math
@@ -399,6 +404,9 @@ SHARD_GOLDEN = {  # label: (claims, unschedulable, $/h, digest, dp, family, roun
 # (fill with existing-node debits, kind scan, per-pod: each of H12's modes
 # and H14's); the first one's round is timed
 SHARD_KERNEL_CELLS = ("shard_8192x200 existing twin", "shard_8192x200 zonal twin", "shard_perpod_4096x400_dp4")
+# the dp cells whose warm solve also lists the lines that made the host
+# wait (sync_points): the fill family's and the per-pod family's
+SYNC_DP_CELLS = ("shard_8192x200", "shard_perpod_4096x400_dp4")
 
 # warm calls after a cell's cold call, each held to the cold result (one,
 # so that the whole run stays well inside its time limit on a slow host)
@@ -463,6 +471,9 @@ H4_NAMES = ("compact_scatter_kernel",)
 H5_NAMES = ("kscan_grid_kernel",)
 H6_NAMES = ("pod_loop_kernel",)
 H9_NAMES = ("gang_scan_kernel",)
+H11_NAMES = ("objective_verdict_kernel",)
+H12_NAMES = ("dp_dead_kernel",)
+H13_NAMES = ("dp_verdict_kernel",)
 H15_NAMES = ("wire_pack_kernel",)
 
 
@@ -1922,8 +1933,10 @@ def gang_kernel_phase(torch, cuda, cells: list, results: list) -> None:
                                          enc["topo_tensors"], enc["zone_kid"], enc["ct_kid"], kw["key_kid"],
                                          kw["n_domains"])
             n_calls = 20
+            # launch_times calls once, then n_calls three ways; its profile
+            # may run up to 3 times when the trace holds no device event
             carries = iter([state._replace(**{f: getattr(state, f).clone() for f in solver.GANG_WRITES})
-                            for _ in range(3 * n_calls + 1)])
+                            for _ in range(5 * n_calls + 1)])
             args = (sched.it_tensors, enc["template_tensors"], enc["topo_tensors"], enc["zone_kid"],
                     enc["n_claims"], maxg, kw["key_kid"], kw["n_domains"], kw["tk_idx"])
             t = launch_times(lambda _x: cuda.gang_scan(pre, next(carries), enc["exist_tensors"], *args), H9_NAMES,
@@ -2192,11 +2205,12 @@ def objective_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> Non
     the K = 4 rank variants from the empty state (H1-H3), then the verdict
     over those four outcomes scored by each non-lexical objective's
     formula, and once with every type unpriced (every cost_min score +inf:
-    the winner is 0). Scores bit for bit and the word equal. Times: the
-    launcher call (CUDA events) and the plain version, cost_min; bound: the
-    bytes the function moves on this round's data (each variant's opened
-    rows of its viable-type slab, their open flags, its leftovers and
-    scalars, the price column, the scores and the word)."""
+    the winner is 0). Scores bit for bit and the word equal. Each of the
+    five call shapes is timed (launch_times: the kernel's device ms per
+    launch, CUDA-event and launcher ms per call) beside its bound, the
+    bytes (and, for cost_min, operations) the function needs on this
+    round's data (verdict_bytes); the kernels line carries cost_min's,
+    with the plain version's time."""
     from karpenter_tpu_torch import objectives
     from karpenter_tpu_torch.ops import solver
 
@@ -2216,6 +2230,7 @@ def objective_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> Non
         outs.append(solver.variant_out(st, ys))
     G = len(sched.templates)
     args = (state.w_open, state.spills, outs)
+    base = int(state.w_open)
     checks = {}
     for name, p_t in [(n, price) for n in objectives.POLICIES[1:]] + [("cost_min, every type unpriced",
                                                                         torch.full_like(price, float("inf")))]:
@@ -2227,37 +2242,45 @@ def objective_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> Non
         if p_t is not price:
             ok = ok and (w >> 24) == 0 and bool(torch.isinf(sk).all())
         checks[name] = ok
-        print(f"kernel objective_verdict ({name}): equal={ok} word=0x{w:08x} winner={(w >> 24) & 0xFF} "
-              f"scores={sk.tolist()}", flush=True)
+        t = launch_times(lambda _x: cuda.objective_verdict(*args, p_t, oid, G), H11_NAMES, [None] * 20,
+                         "objective_verdict")
+        moved, ops = verdict_bytes(base, outs, price.shape[0], oid)
+        b = bound(moved, ops)
+        label = f"{name} (objectives_mixed_16384x400's first round, {len(outs)} variants)"
+        print(f"kernel objective_verdict ({name}): equal={ok} (tolerance: exact) word=0x{w:08x} "
+              f"winner={(w >> 24) & 0xFF} scores={sk.tolist()} {fmt_times(t)} bound_ms={b[0]:.6f} ({b[1]}, "
+              f"{moved} bytes)", flush=True)
+        CALL_SHAPES.append(dict(kernel="objective_verdict", label=label, equal=ok, bound_ms=b[0], **t))
+        if name == "cost_min":
+            timed, b_cost = t, b
     cost = objectives.objective_id("cost_min")
-    base = int(state.w_open)
-    moved, ops = verdict_bytes(base, outs, price.shape[0])
-    ms = time_ms(lambda: cuda.objective_verdict(*args, price, cost, G), iters=50)
     plain_ms = time_ms(lambda: solver.objective_verdict_plain(*args, price, cost, G), iters=10)
-    b = bound(moved, ops)
     ok = all(checks.values())
-    print(f"kernel objective_verdict: equal={ok} (tolerance: exact) ms={ms:.5f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b[0]:.6f} ({b[1]}) {len(segs)} segments, {len(outs)} variants, opened "
-          f"{[int(o.w_open) - base for o in outs]} rows, {moved} bytes", flush=True)
+    print(f"kernel objective_verdict: equal={ok} (tolerance: exact) plain_ms={plain_ms:.4f} {len(segs)} segments, "
+          f"{len(outs)} variants, opened {[int(o.w_open) - base for o in outs]} rows", flush=True)
     results.append(dict(
         name="objective_verdict", route="cuda", source="karpenter_tpu_torch/ops/csrc/objective_verdict.cu",
-        replaces="karpenter_tpu/ops/solver.py:1960", launches=0, max_abs_err=0.0 if ok else 1.0, ms=ms,
-        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
+        replaces="karpenter_tpu/ops/solver.py:1960", launches=0, max_abs_err=0.0 if ok else 1.0,
+        ms=timed["device_ms"] if timed["device_ms"] is not None else timed["event_ms"], event_ms=timed["event_ms"],
+        launcher_ms=timed["launcher_ms"], plain_ms=plain_ms, bound_ms=b_cost[0], bound_by=b_cost[1],
+        library_ms=None, equal=ok,
     ))
 
 
-def verdict_bytes(base_w_open: int, outs: list, T: int) -> tuple[int, int]:
+def verdict_bytes(base_w_open: int, outs: list, T: int, objective: int = 1) -> tuple[int, int]:
     """(bytes, operations) H11's function needs on one round's data: each
-    variant's opened rows of its viable-type slab (cost_min's row minimum,
-    T operations a row), the open flags of the rows it opened, its
-    leftovers and two scalars; the price column, the base scalars, the
-    scores and the word."""
-    moved, ops = T * 4 + 8 + len(outs) * 4 + 4, 0
+    variant's opened rows of its viable-type slab under cost_min (its row
+    minimum, T operations a row) or their pods / template entries under
+    the other objectives, the open flags of the rows it opened, its
+    leftovers and two scalars; the price column (cost_min), the base
+    scalars, the scores and the word."""
+    cost = objective == 1  # cost_min's id (objectives.POLICIES order)
+    moved, ops = (T * 4 if cost else 0) + 8 + len(outs) * 4 + 4, 0
     for o in outs:
         w_v = int(o.w_open)
         opened = int(o.open[base_w_open:w_v].sum())
-        moved += opened * T + (w_v - base_w_open) + 8 + o.leftover.numel() * 4
-        ops += opened * T
+        moved += opened * (T if cost else 4) + (w_v - base_w_open) + 8 + o.leftover.numel() * 4
+        ops += opened * (T if cost else 1)
     return moved, ops
 
 
@@ -2630,8 +2653,10 @@ def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
     debits, H14's fill mode), of its zonal twin (H12's kscan mode, H14's
     kscan mode) and of shard_perpod_4096x400_dp4 (DP = 4 rows of the
     per-pod kernel's scenario mode, H13 with the budget / reservation
-    bit). Matrix, word and every merged leaf equal; times (CUDA events
-    around the launcher call) and bounds from the first cell's round."""
+    bit). Matrix, word and every merged leaf equal. H12 and H13 are timed
+    on each cell's round (launch_times: device ms per launch, CUDA-event
+    and launcher ms per call) beside their bounds; H14 (CUDA events around
+    the launcher call) and the plain versions on the first cell's."""
     from karpenter_tpu_torch.ops import solver
 
     cells = {c[0]: c for c in shard_cells(T)}
@@ -2665,31 +2690,44 @@ def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
         print(f"kernel dp (first round of {label}): DP={len(specs)} kscan mode={key is not None} "
               f"dead={dk.to(torch.int32).tolist()} word=0x{int(wk[0]) & 0xFFFFFFFF:08x} "
               f"equal={json.dumps(checks[label])} (tolerance: exact) merge={merge}", flush=True)
-        if label == SHARD_KERNEL_CELLS[0]:
-            timed = dict(
-                dp_dead=(lambda: cuda.dp_dead(base, specs, r_min, it, key),
-                         lambda: solver.dp_dead_plain(base, specs, r_min, it, key), dead_bytes(base, specs, it)),
-                dp_verdict=(lambda: cuda.dp_verdict(vb, vs, dead, exist, n_claims, vin),
-                            lambda: solver.dp_verdict_plain(vb, vs, dead, exist, n_claims, vin),
-                            verdict_dp_bytes(vb, vs, vin)),
-                merge_shard=(lambda: cuda.merge_shard(committed, spec, mbase, None),
-                             lambda: solver.merge_shard_fill_plain(committed, spec, mbase),
-                             merge_bytes(committed, spec, None)),
+        shapes = dict(
+            dp_dead=(lambda _x: cuda.dp_dead(base, specs, r_min, it, key), H12_NAMES, dead_bytes(base, specs, it)),
+            dp_verdict=(lambda _x: cuda.dp_verdict(vb, vs, dead, exist, n_claims, vin), H13_NAMES,
+                        verdict_dp_bytes(vb, vs, vin)),
+        )
+        for name, (run, names, moved) in shapes.items():
+            t = launch_times(run, names, [None] * 20, name)
+            b = bound(moved, 0.0)
+            shape = (f"first round of {label} (DP={len(specs)}, {'kscan' if key is not None else 'fill / per-pod'} "
+                     f"mode)")
+            print(f"kernel {name} ({shape}): equal={checks[label][name]} {fmt_times(t)} bound_ms={b[0]:.6f} "
+                  f"({b[1]}, {moved} bytes)", flush=True)
+            CALL_SHAPES.append(dict(kernel=name, label=shape, equal=checks[label][name], bound_ms=b[0], **t))
+            if label == SHARD_KERNEL_CELLS[0]:
+                timed[name] = (t, b)
+        if label == SHARD_KERNEL_CELLS[0]:  # bound now: the loop's names move on to the next cell
+            plain = dict(
+                dp_dead=functools.partial(solver.dp_dead_plain, base, specs, r_min, it, key),
+                dp_verdict=functools.partial(solver.dp_verdict_plain, vb, vs, dead, exist, n_claims, vin),
+                merge_shard=functools.partial(solver.merge_shard_fill_plain, committed, spec, mbase),
             )
+            merge_run = (functools.partial(cuda.merge_shard, committed, spec, mbase, None),
+                         merge_bytes(committed, spec, None))
     sources = dict(dp_dead=("dp_dead.cu", "karpenter_tpu/ops/solver.py:2030"),
                    dp_verdict=("dp_verdict.cu", "karpenter_tpu/ops/solver.py:2100"),
                    merge_shard=("merge_shard.cu", "karpenter_tpu/ops/solver.py:2287"))
-    for name, (kfn, pfn, moved) in timed.items():
-        ms = time_ms(kfn, iters=50)
-        plain_ms = time_ms(pfn, iters=5)
-        b = bound(moved, 0.0)
+    ms_m = time_ms(merge_run[0], iters=50)
+    timed["merge_shard"] = (dict(device_ms=None, event_ms=ms_m, launcher_ms=None), bound(merge_run[1], 0.0))
+    for name, (t, b) in timed.items():
+        plain_ms = time_ms(plain[name], iters=5)
         ok = all(c[name] for c in checks.values())
+        ms = t["device_ms"] if t["device_ms"] is not None else t["event_ms"]
         print(f"kernel {name}: equal={ok} (tolerance: exact) ms={ms:.5f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b[0]:.6f} ({b[1]}, {moved} bytes)", flush=True)
+              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
         results.append(dict(
             name=name, route="cuda", source=f"karpenter_tpu_torch/ops/csrc/{sources[name][0]}",
-            replaces=sources[name][1], launches=0, max_abs_err=0.0 if ok else 1.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
+            replaces=sources[name][1], launches=0, max_abs_err=0.0 if ok else 1.0, ms=ms, event_ms=t["event_ms"],
+            launcher_ms=t["launcher_ms"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None, equal=ok,
         ))
 
 
@@ -2752,6 +2790,8 @@ def shard_paths(torch, cuda, T, TorchScheduler, profile_dir, kernels: list) -> l
         print(f"{label} warm: wall={time.perf_counter() - t0:.3f}s {json.dumps(sched.last_timings)}", flush=True)
         if digest(r2) != digest(r):
             raise RuntimeError(f"{label}: warm solve differs from the cold solve")
+        if label in SYNC_DP_CELLS:
+            sync_points(torch, sched, lambda: shard_solve(sched, cell), label)
         if label == "shard_perpod_4096x400_dp4":
             profiled_dp_kernels(cuda, kernels, lambda: shard_solve(sched, cell), profile_dir)
     return out

@@ -1299,44 +1299,89 @@ def retract_tail(state, cut: int):
 # ---------------------------------------------------------------------------
 
 
+# csrc/objective_verdict.cu's work item (window rows and leftover entries)
+# and its partial's bytes: the launcher sizes the workspace by them, the C
+# entry refuses a smaller one
+OBJ_ROWS = 64
+OBJ_PART_BYTES = 40
+_OBJ_FIELDS = ("its", "open", "pods", "template", "w_open", "spills", "leftover")
+_OBJ_LAYOUTS = LayoutCache(32)
+# H11's workspace, one per (device, stream): the work items' partials, the
+# [KV, G] template counts and the ticket; every launch leaves the counts
+# and the ticket at 0 for the next one on its stream
+_OBJ_WORKSPACES: dict = {}
+
+
+class _ObjLayout:
+    """One checked objective_verdict layout (KV variants' shapes and dtypes,
+    the objective, G): the C entry's dims, the workspace it needs and the
+    pointer array a call fills."""
+
+    def __init__(self, srcs: list, KV: int, objective: int, G: int, dev):
+        b, i, f = torch.bool, torch.int32, torch.float32
+        W, T = srcs[0].shape if srcs[0].dim() == 2 else (-1, -1)
+        B = srcs[6 * KV].shape[0] if srcs[6 * KV].dim() == 1 else -1
+        want = dict(its=((W, T), b), open=((W,), b), pods=((W,), i), template=((W,), i), w_open=((), i),
+                    spills=((), i), leftover=((B,), i))
+        names = [f"{n}[{v}]" for n in _OBJ_FIELDS for v in range(KV)] + ["base_w_open", "base_spills", "price_t"]
+        shapes = [want[n] for n in _OBJ_FIELDS for _v in range(KV)] + [((), i), ((), i), ((T,), f)]
+        for name, t, (shape, dt) in zip(names, srcs, shapes):
+            _check(t, name, dt, dev)
+            if tuple(t.shape) != shape:
+                raise LaunchRefused(f"objective_verdict: {name} {tuple(t.shape)} vs {shape}")
+        nc = -(-max(W, B, 1) // OBJ_ROWS)
+        self.names = tuple(names)
+        self.parts, self.hist = KV * nc * OBJ_PART_BYTES, KV * G
+        self.dims = _i64_array([KV, W, T, B, G, objective, self.parts, self.hist])
+        self.ptrs = (ctypes.c_int64 * (len(srcs) + 5))()
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), len(self.ptrs), ctypes.cast(self.dims, ctypes.c_void_p))
+
+
+def _stream_key(dev) -> tuple:
+    """(dev, its current stream's handle): the key of a launcher's
+    per-stream workspace (None for the stream on the CPU)."""
+    return dev, torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+
+
+def _objective_workspace(dev, parts: int, hist: int) -> tuple:
+    """(parts, hist, ticket) of (dev, the current stream), grown to hold
+    `parts` bytes and `hist` counts (a grown workspace starts zeroed)."""
+    key = _stream_key(dev)
+    ws = _OBJ_WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < parts or ws[1].numel() < hist:
+        have = (ws[0].numel(), ws[1].numel()) if ws is not None else (0, 0)
+        ws = _OBJ_WORKSPACES[key] = (
+            torch.empty(max(parts, have[0]), dtype=torch.uint8, device=dev),
+            torch.zeros(max(hist, have[1], 1), dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+        )
+    return ws
+
+
 def objective_verdict(base_w_open, base_spills, outs: list, price_t, objective: int, G: int):
     """H11: the KV variants' scores and the verdict word of one objective
     round (ops.solver.objective_verdict_plain) in one launch. `outs` are
     the variants' ops.solver.VariantOut, read where they lie (no stacking).
-    Returns (scores [KV] f32, word [1] int32)."""
-    b, i, f = torch.bool, torch.int32, torch.float32
-    dev = price_t.device
+    A layout of shapes, dtypes, objective and G is checked in full once; a
+    call checks device and contiguity in one pass and allocates only the
+    scores and the word (the workspace is the stream's). Returns (scores
+    [KV] f32, word [1] int32)."""
     KV = len(outs)
     if not 1 <= KV <= 24:
         raise LaunchRefused(f"objective_verdict: {KV} variants outside [1, 24]")
     if not 0 <= objective <= 4:
         raise LaunchRefused(f"objective_verdict: objective id {objective}")
-    W, T = outs[0].its.shape
-    B = outs[0].leftover.shape[0]
-    shapes = dict(its=((W, T), b), open=((W,), b), pods=((W,), i), template=((W,), i), w_open=((), i),
-                  spills=((), i), leftover=((B,), i))
-    ptrs = []
-    for name, (shape, dt) in shapes.items():
-        for v, out in enumerate(outs):
-            t = _check(getattr(out, name), f"{name}[{v}]", dt, dev)
-            if tuple(t.shape) != shape:
-                raise LaunchRefused(f"objective_verdict: {name}[{v}] {tuple(t.shape)} vs {shape}")
-            ptrs.append(t.data_ptr())
-    for name, t, dt, shape in (("base_w_open", base_w_open, i, ()), ("base_spills", base_spills, i, ()),
-                               ("price_t", price_t, f, (T,))):
-        _check(t, name, dt, dev)
-        if tuple(t.shape) != shape:
-            raise LaunchRefused(f"objective_verdict: {name} {tuple(t.shape)} vs {shape}")
-        ptrs.append(t.data_ptr())
-    scores = torch.empty(KV, dtype=f, device=dev)
-    word = torch.empty(1, dtype=i, device=dev)
-    feas = torch.empty(KV, dtype=i, device=dev)
-    ticket = torch.zeros(1, dtype=i, device=dev)
-    ptrs += [scores.data_ptr(), word.data_ptr(), feas.data_ptr(), ticket.data_ptr()]
-    _call(
-        "objective_verdict", ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs),
-        ctypes.cast(_i64_array([KV, W, T, B, G, objective]), ctypes.c_void_p),
-    )
+    srcs = [t for field in zip(*outs) for t in field] + [base_w_open, base_spills, price_t]
+    dev = price_t.device
+    key = (objective, G, tuple(map(_SHAPE, srcs)), tuple(map(_DTYPE, srcs)))
+    lay = _OBJ_LAYOUTS.get(key, lambda: _ObjLayout(srcs, KV, objective, G, dev))
+    _check_place(dev, lay.names, srcs)
+    parts, hist, ticket = _objective_workspace(dev, lay.parts, lay.hist)
+    scores = torch.empty(KV, dtype=torch.float32, device=dev)
+    word = torch.empty(1, dtype=torch.int32, device=dev)
+    lay.ptrs[:] = [*map(torch.Tensor.data_ptr, srcs), scores.data_ptr(), word.data_ptr(), parts.data_ptr(),
+                   hist.data_ptr(), ticket.data_ptr()]
+    _call("objective_verdict", *lay.args)
     return scores, word
 
 
@@ -1354,45 +1399,156 @@ def _checked(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev) 
 
 
 def _table(rows: list, dev) -> torch.Tensor:
-    """A [DP, F] int64 table of device pointers (and counts) on `dev`."""
-    return torch.tensor(rows, dtype=torch.int64).to(dev)
+    """A [DP, F] int64 table of device pointers (and counts) on `dev`,
+    uploaded from pinned memory without blocking the host (the caching
+    host allocator keeps the pinned block until the copy has run)."""
+    host = torch.tensor(rows, dtype=torch.int64)
+    if dev.type != "cuda":
+        return host
+    pinned = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(dev, non_blocking=True)
 
 
 def _launch(name: str, ptrs: list, dims: list) -> None:
     _call(name, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs), ctypes.cast(_i64_array(dims), ctypes.c_void_p))
 
 
+class DpCatalog:
+    """csrc/dp_dead.cu's catalog side for one catalog and mode: the cells
+    the mode may use as [T, ceil(GR / 32)] int32 bit words (bit g % 32 of
+    word g // 32: group_valid, and in the kind scan's mode (`key`) some
+    domain d < D of the key admits the cell — the type's key requirement
+    holds d and, for the zone key, an available offering in zone d; for
+    another key, any available offering), and each resource's ceiling, the
+    largest allocatable over valid cells (-inf with none, NaN where one is
+    NaN: csrc/dp_dead.cu's ceiling test then never fires). Built once per
+    (catalog, key) (dp_catalog); it keeps the checked launch layouts read
+    through it."""
+
+    def __init__(self, it, key):
+        dev = it.alloc.device
+        _check(it.alloc, "alloc", torch.float32, dev)
+        _check(it.group_valid, "group_valid", torch.bool, dev)
+        T, GR, R = it.alloc.shape
+        if tuple(it.group_valid.shape) != (T, GR):
+            raise LaunchRefused(f"dp_dead: group_valid {tuple(it.group_valid.shape)} vs ({T}, {GR})")
+        usable = it.group_valid
+        if key is not None:
+            K, V = it.reqs.mask.shape[1:]
+            _check(it.zc_avail, "zc_avail", torch.bool, dev)
+            _check(it.reqs.defined, "it.reqs.defined", torch.bool, dev)
+            _check(it.reqs.mask, "it.reqs.mask", torch.bool, dev)
+            if not 0 <= key.key_kid < K or not 1 <= key.D <= V:
+                raise LaunchRefused(f"dp_dead: key {key} outside K={K}, V={V}")
+            dom = ~it.reqs.defined[:, key.key_kid, None] | it.reqs.mask[:, key.key_kid, :key.D]  # [T, D]
+            av = it.zc_avail  # [T, GR, Z, C]
+            if key.key_kid == key.zone_kid:
+                dz = min(key.D, av.shape[2])
+                admit = (dom[:, None, :dz] & av.any(dim=-1)[:, :, :dz]).any(dim=-1)
+            else:
+                admit = dom.any(dim=-1)[:, None] & av.flatten(2).any(dim=-1)
+            usable = usable & admit
+        self.cells = bit_words(usable).contiguous()
+        self.ceiling = torch.where(it.group_valid[:, :, None], it.alloc, float("-inf")).amax(dim=(0, 1)).contiguous()
+        self.device, self.T, self.GR, self.R, self.kscan = dev, T, GR, R, int(key is not None)
+        self.alloc = it.alloc
+        self.layouts = LayoutCache(16)
+
+
+def dp_catalog(it, key) -> DpCatalog:
+    """H12's catalog side of `it` in the mode of `key` (None: fill /
+    per-pod; an ops.solver.DpKey: the kind scan's), built once
+    (packed_catalog)."""
+    if key is None:
+        return packed_catalog("dp_dead", (it.alloc, it.group_valid), lambda: DpCatalog(it, None))
+    return packed_catalog("dp_dead", (it.alloc, it.group_valid, it.zc_avail, it.reqs.defined, it.reqs.mask),
+                          lambda: DpCatalog(it, key), key.key_kid, key.zone_kid, key.D)
+
+
+# the dp rows whose pointers ride H12's kernel parameters (csrc/dp_dead.cu
+# kParamRows); past it they go in a [DP, 4] table uploaded from pinned
+# memory without blocking
+DP_PARAM_ROWS = 32
+_DP_ROW_FIELDS = ("used", "its", "open", "w_open")
+# H12's workspace, one per (device, stream): the alive words and the
+# ticket, which every launch leaves at 0 for the next one on its stream
+_DP_WORKSPACES: dict = {}
+
+
+class _DpLayout:
+    """One checked dp_dead layout (DP, the rows' shapes and dtypes): the C
+    entry's dims and the pointer array a call fills."""
+
+    def __init__(self, cat: DpCatalog, srcs: list, DP: int):
+        b, i, f = torch.bool, torch.int32, torch.float32
+        W, R = srcs[0].shape if srcs[0].dim() == 2 else (-1, -1)
+        T = cat.T
+        want = dict(used=((W, R), f), its=((W, T), b), open=((W,), b), w_open=((), i))
+        names = [f"base.{n}" for n in _DP_ROW_FIELDS] + [f"{n}[{q}]" for q in range(DP) for n in _DP_ROW_FIELDS]
+        shapes = [want[n] for _q in range(DP + 1) for n in _DP_ROW_FIELDS] + [((DP, R), f)]
+        names.append("r_min")
+        if R != cat.R:
+            raise LaunchRefused(f"dp_dead: {R} resources in the rows, {cat.R} in the catalog")
+        for name, t, (shape, dt) in zip(names, srcs, shapes):
+            _check(t, name, dt, cat.device)
+            if tuple(t.shape) != shape:
+                raise LaunchRefused(f"dp_dead: {name} {tuple(t.shape)} vs {shape}")
+        self.names = tuple(names)
+        self.nwr = -(-DP // 32)
+        self.words = (1 + DP) * self.nwr
+        self.params = DP <= DP_PARAM_ROWS
+        self.dims = _i64_array([DP, W, T, cat.GR, R, cat.kscan, cat.cells.shape[1], self.words])
+        self.ptrs = (ctypes.c_int64 * (12 + (4 * DP if self.params else 0)))()
+        self.ptrs[5], self.ptrs[6], self.ptrs[7] = cat.alloc.data_ptr(), cat.cells.data_ptr(), cat.ceiling.data_ptr()
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), len(self.ptrs), ctypes.cast(self.dims, ctypes.c_void_p))
+
+
+def _dp_workspace(dev, words: int) -> tuple:
+    """(alive words, ticket) of (dev, the current stream), grown to hold
+    `words` (a grown workspace starts zeroed)."""
+    key = _stream_key(dev)
+    ws = _DP_WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < words:
+        ws = _DP_WORKSPACES[key] = (torch.zeros(max(words, 64), dtype=torch.int32, device=dev),
+                                    torch.zeros(1, dtype=torch.int32, device=dev))
+    return ws
+
+
 def dp_dead(base, specs: list, r_min, it, key=None) -> torch.Tensor:
     """H12: the [DP, 1 + DP] deadness matrix of a dp round (ops.solver.
     dp_dead_plain) in one launch; `key` (ops.solver.DpKey) selects the kind
-    scan's predicate. The row states are read where they lie."""
-    b, i, f = torch.bool, torch.int32, torch.float32
-    dev = r_min.device
+    scan's predicate. The row states are read where they lie. The catalog
+    side is built once per (catalog, key) (dp_catalog) and each layout of
+    DP, shapes and dtypes checked in full once; a call checks device and
+    contiguity in one pass, passes up to DP_PARAM_ROWS rows' pointers in
+    the kernel's parameters (more in a table uploaded from pinned memory)
+    and allocates only the matrix."""
+    cat = dp_catalog(it, key)
+    dev = cat.device
     DP = len(specs)
-    W, R = base.used.shape
-    T, GR = it.alloc.shape[:2]
-    K, V = it.reqs.mask.shape[1:]
-    Z, C = it.zc_avail.shape[2:]
-    rows = []
-    for q, s in enumerate(specs):
-        rows.append([_checked(f"used[{q}]", s.used, f, (W, R), dev), _checked(f"its[{q}]", s.its, b, (W, T), dev),
-                     _checked(f"open[{q}]", s.open, b, (W,), dev), _checked(f"w_open[{q}]", s.w_open, i, (), dev)])
-    table = _table(rows, dev)
-    dead = torch.empty((DP, 1 + DP), dtype=b, device=dev)
-    if key is not None and (not 0 <= key.key_kid < K or key.D > V or T * GR > 16384):
-        raise LaunchRefused(f"dp_dead: key {key} outside K={K}, V={V} (or T*GR={T * GR} > 16384)")
-    ptrs = [
-        _checked("base.used", base.used, f, (W, R), dev), _checked("base.its", base.its, b, (W, T), dev),
-        _checked("base.open", base.open, b, (W,), dev), _checked("base.w_open", base.w_open, i, (), dev),
-        table.data_ptr(), _checked("r_min", r_min, f, (DP, R), dev),
-        _checked("alloc", it.alloc, f, (T, GR, R), dev), _checked("group_valid", it.group_valid, b, (T, GR), dev),
-        _checked("it.reqs.mask", it.reqs.mask, b, (T, K, V), dev),
-        _checked("it.reqs.defined", it.reqs.defined, b, (T, K), dev),
-        _checked("zc_avail", it.zc_avail, b, (T, GR, Z, C), dev), dead.data_ptr(),
-    ]
-    kscan = key is not None
-    _launch("dp_dead", ptrs, [DP, W, T, GR, R, int(kscan), key.key_kid if kscan else -1,
-                              key.zone_kid if kscan else -1, key.D if kscan else 0, K, V, Z, C])
+    if not 1 <= DP <= 1024:
+        raise LaunchRefused(f"dp_dead: DP={DP} outside [1, 1024]")
+    srcs = [base.used, base.its, base.open, base.w_open]
+    for s in specs:
+        srcs += (s.used, s.its, s.open, s.w_open)
+    srcs.append(r_min)
+    lay = cat.layouts.get((DP, tuple(map(_SHAPE, srcs)), tuple(map(_DTYPE, srcs))),
+                          lambda: _DpLayout(cat, srcs, DP))
+    _check_place(dev, lay.names, srcs)
+    alive, ticket = _dp_workspace(dev, lay.words)
+    dead = torch.empty((DP, 1 + DP), dtype=torch.bool, device=dev)
+    ptrs = list(map(torch.Tensor.data_ptr, srcs))
+    p = lay.ptrs
+    p[0], p[1], p[2], p[3] = ptrs[:4]
+    p[4], p[8], p[9], p[10] = r_min.data_ptr(), dead.data_ptr(), alive.data_ptr(), ticket.data_ptr()
+    if lay.params:
+        p[11] = 0
+        p[12:] = ptrs[4:-1]
+    else:
+        table = _table([ptrs[4 + 4 * q:8 + 4 * q] for q in range(DP)], dev)
+        p[11] = table.data_ptr()
+    _call("dp_dead", *lay.args)
     return dead
 
 
@@ -1685,8 +1841,7 @@ _WIRE_SCRATCH: dict = {}
 
 
 def _wire_scratch(dev) -> torch.Tensor:
-    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
-    key = (dev, stream)
+    key = _stream_key(dev)
     ws = _WIRE_SCRATCH.get(key)
     if ws is None:
         ws = _WIRE_SCRATCH[key] = torch.tensor([0, -(2**31)], dtype=torch.int32, device=dev)

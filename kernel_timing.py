@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time H1 req_intersects, H2 fill_count_grid, H3 water_fill, H4
-compact_scatter, H5 kscan_grid, H6 kscan_pod_loop, H9 gang_scan and H15
-wire_pack of one checkout of this repository on one NVIDIA GPU.
+compact_scatter, H5 kscan_grid, H6 kscan_pod_loop, H9 gang_scan, H11
+objective_verdict, H12 dp_dead, H13 dp_verdict and H15 wire_pack of one
+checkout of this repository on one NVIDIA GPU.
 
-    python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells]
+    python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells] [--only KERNEL,...]
 
 DIR is the checkout whose karpenter_tpu_torch is imported (default: the
 one holding this script); it builds its own kernels. The script runs
@@ -28,7 +29,13 @@ request (64 segments, none reusing the one before's terms), each launch
 on its own copy of the carry, cloned before the timed window; H15 on
 three recorded fetches (the north
 star's first pipeline group, mixed's last group with its final state
-reads, a dp verdict word of 4 bytes). Each call shape's line
+reads, a dp verdict word of 4 bytes); H11 at objectives_mixed_16384x400's
+first round under each of the four non-lexical policies and with every
+type unpriced; H12 and H13 on the first round of each of
+chip_smoke.SHARD_KERNEL_CELLS (fill, kind-scan and per-pod modes), after
+which the warm solves of chip_smoke.SYNC_DP_CELLS list the lines that
+made the host wait (chip_smoke.sync_points). --only runs the phases of
+the named kernels alone (e.g. --only objective_verdict,dp_dead). Each call shape's line
 (chip_smoke.CALL_SHAPES) gives the kernel's device ms
 per launch and per call (torch.profiler, over every `__global__` function
 of DIR's source of that kernel, so an older design that launched two
@@ -56,11 +63,12 @@ import sys
 
 def use_checkout_kernels(smoke, repo: str) -> None:
     """Point chip_smoke's profiled kernel names at DIR's own: every
-    `__global__` function of the source of H1-H6, H9 and H15."""
+    `__global__` function of the source of H1-H6, H9, H11-H13 and H15."""
     csrc = os.path.join(repo, "karpenter_tpu_torch", "ops", "csrc")
     sources = (("req_intersects", "H1_NAMES"), ("fill_count_grid", "H2_NAMES"), ("water_fill", "H3_NAMES"),
                ("compact_scatter", "H4_NAMES"), ("kscan_grid", "H5_NAMES"), ("kscan_pod_loop", "H6_NAMES"),
-               ("gang_scan", "H9_NAMES"), ("wire_pack", "H15_NAMES"))
+               ("gang_scan", "H9_NAMES"), ("objective_verdict", "H11_NAMES"), ("dp_dead", "H12_NAMES"),
+               ("dp_verdict", "H13_NAMES"), ("wire_pack", "H15_NAMES"))
     for source, attr in sources:
         with open(os.path.join(csrc, f"{source}.cu")) as f:
             names = tuple(dict.fromkeys(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
@@ -112,6 +120,7 @@ def main() -> int:
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--tag", default="")
     ap.add_argument("--cells", action="store_true")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
@@ -138,21 +147,43 @@ def main() -> int:
     cuda.build()
     if args.cells:
         return cells(smoke, card, repo, args.tag)
-    sched = TorchScheduler(T.make_templates(1000), max_claims=4096)
-    sched._encode(T.selector_pods(16), None)
-    results = smoke.kernel_phase(sched)
-    sched_m = TorchScheduler(T.make_templates(400), max_claims=4096)
-    _sorted, enc_m = sched_m._encode(T.mixed_pods(64), None)
-    smoke.kscan_kernel_phase(sched_m, enc_m, results)
-    smoke.gang_kernel_phase(torch, cuda, smoke.gang_cells(T, TorchScheduler), results)
-    smoke.wire_kernel_phase(torch, cuda, T, TorchScheduler, results)
+    only = set(filter(None, args.only.split(",")))
     timed = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid", "kscan_pod_loop",
-             "gang_scan", "wire_pack")
+             "gang_scan", "objective_verdict", "dp_dead", "dp_verdict", "wire_pack")
+    if only - set(timed):
+        print(f"FAIL: --only names no timed kernel: {sorted(only - set(timed))}", flush=True)
+        return 1
+
+    def wanted(*names) -> bool:
+        return not only or bool(only.intersection(names))
+
+    results = []
+    if wanted("req_intersects", "fill_count_grid", "water_fill", "compact_scatter"):
+        sched = TorchScheduler(T.make_templates(1000), max_claims=4096)
+        sched._encode(T.selector_pods(16), None)
+        results += smoke.kernel_phase(sched)
+    if wanted("kscan_grid", "kscan_pod_loop"):
+        sched_m = TorchScheduler(T.make_templates(400), max_claims=4096)
+        _sorted, enc_m = sched_m._encode(T.mixed_pods(64), None)
+        smoke.kscan_kernel_phase(sched_m, enc_m, results)
+    if wanted("gang_scan"):
+        smoke.gang_kernel_phase(torch, cuda, smoke.gang_cells(T, TorchScheduler), results)
+    if wanted("objective_verdict"):
+        smoke.objective_kernel_phase(torch, cuda, T, TorchScheduler, results)
+    if wanted("dp_dead", "dp_verdict"):
+        smoke.shard_kernel_phase(torch, cuda, T, TorchScheduler, results)
+        dp_cells = {c[0]: c for c in smoke.shard_cells(T)}
+        for label in smoke.SYNC_DP_CELLS:
+            sched_s = smoke.shard_sched(TorchScheduler, dp_cells[label])
+            smoke.shard_solve(sched_s, dp_cells[label])
+            smoke.sync_points(torch, sched_s, lambda: smoke.shard_solve(sched_s, dp_cells[label]), label)
+    if wanted("wire_pack"):
+        smoke.wire_kernel_phase(torch, cuda, T, TorchScheduler, results)
     keep = {r["name"]: {k: r.get(k) for k in ("ms", "event_ms", "launcher_ms", "plain_ms", "bound_ms", "equal")}
-            for r in results if r["name"] in timed}
+            for r in results if r["name"] in timed and wanted(r["name"])}
     shapes = [{k: v for k, v in c.items() if k in ("kernel", "label", "equal", "device_ms", "device_call_ms",
                                                      "device_launches", "calls", "event_ms", "launcher_ms",
-                                                     "bound_ms")} for c in smoke.CALL_SHAPES]
+                                                     "bound_ms")} for c in smoke.CALL_SHAPES if wanted(c["kernel"])]
     print(json.dumps(dict(card=card, repo=repo, tag=args.tag,
                           nvcc_regs={k: re.findall(r"Used (\d+) registers", v)
                                      for k, v in cuda.BUILD_INFO.get("logs", {}).items() if k in timed},

@@ -156,8 +156,20 @@ struct EmuFiber {
   char* stack;
   int parity;  // the fiber's tl_parity while another runs
 };
+// a store, an integer add or a bitwise or to device memory that other
+// blocks read after a ticket (emu_xstore / emu_xadd / emu_xor), not yet
+// visible to them
+struct EmuPending {
+  void* dst;
+  std::vector<char> bytes;  // the stored value, or the 32-bit operand
+  int op;                   // 0 store, 1 add, 2 or
+};
 struct EmuSched {
   ucontext_t launcher;
+  // the cross-block memory model (emu_xstore and below): stores that land
+  // only when the launch ends, and each landed store's previous bytes
+  std::vector<EmuPending> late;
+  std::vector<EmuPending> stale;
   std::vector<EmuFiber> f;
   std::vector<int> run;  // runnable fibers, taken from the back
   int cur = -1, live = 0;
@@ -253,6 +265,11 @@ struct EmuBlock {
   std::vector<char> smem;
   // a named barrier (bar.sync 1, n): built by its first caller with its count
   std::unique_ptr<EmuBarrier> named;
+  // the cross-block memory model: per thread, its stores not yet fenced
+  // and whether it fenced after the block took its ticket
+  std::vector<std::vector<EmuPending>> pending;
+  std::vector<char> acquired;
+  bool ticketed = false;
 };
 extern EmuBlock* g_emu;
 
@@ -308,6 +325,18 @@ inline int __shfl_xor_sync(unsigned, int v, int o) {
   const int r = g_emu->slot_i[w][l ^ o];
   emu_warp_meet();
   return r;
+}
+inline long long __shfl_xor_sync(unsigned m, long long v, int o) {
+  const unsigned lo = (unsigned)__shfl_xor_sync(m, (int)(v & 0xffffffff), o);
+  const unsigned hi = (unsigned)__shfl_xor_sync(m, (int)(v >> 32), o);
+  return (long long)(((unsigned long long)hi << 32) | lo);
+}
+inline double __shfl_xor_sync(unsigned m, double v, int o) {
+  long long b;
+  memcpy(&b, &v, 8);
+  b = __shfl_xor_sync(m, b, o);
+  memcpy(&v, &b, 8);
+  return v;
 }
 inline char* emu_smem() { return g_emu->smem.data(); }
 // give way up to `rounds` times, how many drawn from the fixed seed: each
@@ -424,6 +453,82 @@ inline void emu_note_read(const void* p) {
   a.r_lanes |= 1u << l;
 }
 
+// The memory model between blocks, for kernels whose last block folds what
+// the others stored (a ticket): the blocks run one after another, so every
+// store would be visible in time; the suites' rewrites route a kernel's
+// cross-block stores, adds, ors, ticket and loads through these instead.
+// A store (an add, an or) waits in its thread's list until that thread
+// runs __threadfence; one its thread never fences, or one made after its block
+// took the ticket, lands only when the launch ends. A load by a thread that
+// has not fenced since its block took the ticket returns the bytes the
+// address held before this launch's first store there. So a missing fence
+// on either side, or a ticket taken before the stores, gives the last
+// block stale partials, as it may on the card.
+inline void emu_land(EmuPending& x) {
+  EmuPending old{x.dst, std::vector<char>(x.bytes.size()), 0};
+  memcpy(old.bytes.data(), x.dst, x.bytes.size());
+  g_sched->stale.push_back(std::move(old));
+  if (x.op) {
+    unsigned v, d;
+    memcpy(&v, x.dst, 4);
+    memcpy(&d, x.bytes.data(), 4);
+    v = x.op == 1 ? v + d : v | d;
+    memcpy(x.dst, &v, 4);
+  } else {
+    memcpy(x.dst, x.bytes.data(), x.bytes.size());
+  }
+}
+inline std::vector<EmuPending>& emu_pending() {
+  if (g_emu->pending.size() < blockDim.x) {
+    g_emu->pending.resize(blockDim.x);
+    g_emu->acquired.resize(blockDim.x, 0);
+  }
+  return g_emu->pending[threadIdx.x];
+}
+inline void emu_defer(EmuPending x) {
+  if (g_emu->ticketed) {
+    g_sched->late.push_back(std::move(x));
+  } else {
+    emu_pending().push_back(std::move(x));
+  }
+}
+template <class T>
+inline void emu_xstore(T* p, T v) {
+  EmuPending x{p, std::vector<char>(sizeof(T)), 0};
+  memcpy(x.bytes.data(), &v, sizeof(T));
+  emu_defer(std::move(x));
+}
+inline void emu_xadd(int* p, int v) {
+  EmuPending x{p, std::vector<char>(4), 1};
+  memcpy(x.bytes.data(), &v, 4);
+  emu_defer(std::move(x));
+}
+inline void emu_xor(unsigned* p, unsigned v) {
+  EmuPending x{p, std::vector<char>(4), 2};
+  memcpy(x.bytes.data(), &v, 4);
+  emu_defer(std::move(x));
+}
+inline unsigned emu_ticket(unsigned* t) {
+  g_emu->ticketed = true;
+  return reinterpret_cast<std::atomic<unsigned>*>(t)->fetch_add(1u);
+}
+template <class T>
+inline T emu_xload(const T* p) {
+  emu_pending();
+  T v;
+  memcpy(&v, p, sizeof(T));
+  if (g_emu->acquired[threadIdx.x]) return v;
+  const char* a = reinterpret_cast<const char*>(p);
+  for (const EmuPending& x : g_sched->stale) {
+    const char* d = static_cast<const char*>(x.dst);
+    if (a >= d && a + sizeof(T) <= d + x.bytes.size()) {
+      memcpy(&v, x.bytes.data() + (a - d), sizeof(T));
+      break;
+    }
+  }
+  return v;
+}
+
 // a fiber's stack: 8 MB as a std::thread's, only the pages it touches
 // backed, and a guard page below it. A launch maps its fibers' stacks and
 // unmaps them when it ends, as threads' stacks come and go: a process that
@@ -486,8 +591,11 @@ void emu_launch(F fn, int grid, int threads, size_t smem, A... args) {
     threadIdx = Dim{(unsigned)s.cur, 0, 0};
     tl_parity = 0;
     swapcontext(&s.launcher, &s.f[s.cur].ctx);
+    for (auto& p : e.pending)  // a store no fence of its thread published lands when the launch ends
+      s.late.insert(s.late.end(), p.begin(), p.end());
     g_emu = nullptr;
   }
+  for (EmuPending& x : s.late) emu_land(x);
   if (s.deadlock) emu_error = 1;
   g_sched = outer;
   munmap(stacks, stacks_bytes);
@@ -507,7 +615,21 @@ inline int atomicMax(int* p, int v) {
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return reinterpret_cast<std::atomic<unsigned>*>(p)->fetch_or(v);
 }
-inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+  if (!g_emu) return;
+  std::vector<EmuPending>& mine = emu_pending();
+  for (EmuPending& x : mine) emu_land(x);
+  mine.clear();
+  g_emu->acquired[threadIdx.x] = g_emu->ticketed;
+}
+inline int atomicExch(int* p, int v) { return reinterpret_cast<std::atomic<int>*>(p)->exchange(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return reinterpret_cast<std::atomic<unsigned>*>(p)->fetch_add(v); }
+// a load through L2 (ld.global.cg)
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 inline int __reduce_min_sync(unsigned, int v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_i[w][l] = v;

@@ -10,10 +10,19 @@ launcher then runs on CPU tensors and is held to the plain version
 on seeded variant outcomes, for each objective, KV 1 to 24, every variant
 infeasible, every feasible score +inf, and tied scores; and inside CPU
 solves, every objective round of which goes through the kernel and the
-plain version. The emulation checks the kernel's logic, not its timing or
-what the GPU compiler does with it: chip_smoke.py holds the compiled
-kernel to the plain version on the card. Tolerance: exact (the scores
-bit for bit).
+plain version. The kernel spreads each variant's window rows over blocks
+of 64 rows and folds their partials in the block that takes the last
+ticket; the rewrite routes its cross-block stores, adds, ticket and loads
+through cuda_emu.h's memory model (a store not fenced before the ticket,
+or a load not fenced after it, meets stale bytes), and cases reach what
+only that layout has: opened rows across chunk boundaries, the only
+opened row last in the last chunk, two launches on one workspace (the
+ticket and the counts reset), more templates than threads and than the
+shared histogram, gang_slice's p_max in another block, columns off their
+16-byte alignment. The emulation checks the kernel's logic, not its
+timing or what the GPU compiler does with it: chip_smoke.py holds the
+compiled kernel to the plain version on the card. Tolerance: exact (the
+scores bit for bit).
 """
 
 import numpy as np
@@ -27,10 +36,31 @@ from karpenter_tpu_torch.ops import solver as p_solver
 from cuda_emu_build import c_entry, emulated_library
 
 
+# the kernel's dynamic shared memory and cross-block helpers, their cuda_emu.h
+# stand-ins, and a place where its threads give way
+REWRITES = (
+    ("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();"),
+    ("  *p = v;\n}", "  emu_xstore(p, v);\n}"),
+    ("  return __ldcg(p);", "  return emu_xload(p);"),
+    ("{ atomicAdd(p, v); }", "{ emu_xadd(p, v); }"),
+    ("{ return atomicAdd(t, 1u); }", "{ return emu_ticket(t); }"),
+    # a thread gives way between its histogram add and its exchange, so an
+    # add that lacks the barrier after the zeroing meets a later zero
+    ("          atomicAdd(&s_hist[g], 1);\n", "          atomicAdd(&s_hist[g], 1);\n          emu_yield(8);\n"),
+)
+
+
+def rewrite(src: str) -> str:
+    for old, new in REWRITES:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry call routed to the emulated verdict kernel."""
-    lib = emulated_library(tmp_path_factory, "objective_verdict")
+    lib = emulated_library(tmp_path_factory, "objective_verdict", rewrite)
     fn = c_entry(lib, "objective_verdict")
     calls = []
 
@@ -49,15 +79,15 @@ def emulated(tmp_path_factory):
 
 
 def _outcomes(seed: int, KV: int, W: int = 96, T_: int = 40, B: int = 3, G: int = 5, *, feasible=0.6,
-              unpriced=0.0, tie=False):
-    """KV seeded variant outcomes over one base (w_open 20, spills 1): each
-    opened a few rows past the base, some with leftovers or a spill; a
+              unpriced=0.0, tie=False, base_w: int = 20):
+    """KV seeded variant outcomes over one base (w_open base_w, spills 1):
+    each opened a few rows past the base, some with leftovers or a spill; a
     price column with `unpriced` of its types at +inf. `tie` copies
     variant 0 into every odd variant."""
     rng = np.random.default_rng(seed)
     price = rng.uniform(0.01, 9.0, T_).astype(np.float32)
     price[rng.random(T_) < unpriced] = np.inf
-    base_w, base_sp = 20, 1
+    base_sp = 1
     outs = []
     for v in range(KV):
         w_open = base_w + int(rng.integers(0, W - base_w + 1))
@@ -138,9 +168,9 @@ def test_emulated_verdict_edges(case, emulated, monkeypatch):
 
 
 def test_emulated_frag_aware_past_2_24(emulated, monkeypatch):
-    """frag_aware with 1075 opened rows: n·1e6 is not a float, and the one
-    rounding (fma) differs from two; the kernel's __fmaf_rn equals the
-    plain f64-rounded-once value."""
+    """frag_aware with 1075 opened rows: n·1e6 is not a float, and one
+    rounding differs from two; the kernel's n·1e6 − landed in double,
+    rounded once, equals the plain f64-rounded-once value."""
     W = 1600
     base_w = torch.tensor(0, dtype=torch.int32)
     out = p_solver.VariantOut(
@@ -179,3 +209,96 @@ def test_emulated_verdict_inside_cpu_solves(policy, emulated, monkeypatch):
     got = TorchScheduler(T.mixed_pool_templates(24), max_claims=128, device="cpu", objective=policy).solve(pods)
     assert rounds and T.claims_digest(got) == T.claims_digest(want)
     assert all(w & 0xF for w in rounds)
+
+
+def _out(W: int, T_: int, opened: dict, *, w_open: int, leftover=(0,), spills: int = 0, seed: int = 0):
+    """One variant outcome whose open rows are exactly `opened`
+    ({row: (pods, template)}), each with a seeded viable-type row."""
+    rng = np.random.default_rng(seed)
+    open_ = np.zeros(W, bool)
+    pods = np.zeros(W, np.int32)
+    tmpl = np.zeros(W, np.int32)
+    for r, (p, g) in opened.items():
+        open_[r], pods[r], tmpl[r] = True, p, g
+    return p_solver.VariantOut(
+        its=torch.from_numpy(rng.random((W, T_)) < 0.4), open=torch.from_numpy(open_), pods=torch.from_numpy(pods),
+        template=torch.from_numpy(tmpl), w_open=torch.tensor(w_open, dtype=torch.int32),
+        spills=torch.tensor(spills, dtype=torch.int32), leftover=torch.tensor(leftover, dtype=torch.int32),
+    )
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary."""
+    flat = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    off = 1 if flat.data_ptr() % 16 == 0 else 0
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+LAYOUT_CASES = ("straddle", "straddle_wide", "last_row_last_chunk", "pmax_other_block", "misaligned",
+                "leftover_past_window")
+
+
+@pytest.mark.parametrize("objective", sorted(OBJECTIVES))
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_emulated_verdict_layouts(case, objective, emulated, monkeypatch):
+    """Cases only the work-item layout reaches: opened rows across the
+    64-row chunks (W = 300 from base 50; W = 1000 with T = 400, rows of 25
+    16-byte vectors); a variant whose only opened row is the window's last
+    (W = 200, the last chunk's 8th row) beside one with none; gang_slice's
+    p_max on a row of another chunk than the rest; every column and the
+    price row a byte or an element off their 16-byte alignment; more
+    leftover entries than window rows (the leftover chunks past W)."""
+    oid = OBJECTIVES[objective]
+    if case == "straddle":
+        args = _outcomes(101, 4, W=300, base_w=50, G=7)
+    elif case == "straddle_wide":
+        args = _outcomes(102, 3, W=1000, T_=400, base_w=10, G=9)
+    elif case == "last_row_last_chunk":
+        W = 200
+        outs = [_out(W, 40, {W - 1: (7, 2)}, w_open=W, seed=1), _out(W, 40, {}, w_open=W, seed=2),
+                _out(W, 40, {W - 1: (3, 1), 5: (1, 0)}, w_open=W - 1, seed=3)]
+        args = (torch.tensor(10, dtype=torch.int32), torch.tensor(0, dtype=torch.int32), outs,
+                torch.from_numpy(np.random.default_rng(4).uniform(0.1, 5.0, 40).astype(np.float32)), 3)
+    elif case == "pmax_other_block":
+        W = 256
+        outs = [_out(W, 24, {70: (2, 0), 130: (3, 1), 250: (41, 2), 251: (5, 1)}, w_open=W, seed=5),
+                _out(W, 24, {3: (90, 0), 64: (1, 0), 127: (2, 2), 128: (4, 1)}, w_open=200, seed=6)]
+        args = (torch.tensor(0, dtype=torch.int32), torch.tensor(0, dtype=torch.int32), outs,
+                torch.from_numpy(np.random.default_rng(7).uniform(0.1, 5.0, 24).astype(np.float32)), 3)
+    elif case == "misaligned":
+        base_w, base_sp, outs, price, G = _outcomes(103, 3, W=150, T_=37, base_w=30)
+        outs = [o._replace(its=_misaligned(o.its), open=_misaligned(o.open), pods=_misaligned(o.pods),
+                           template=_misaligned(o.template), leftover=_misaligned(o.leftover)) for o in outs]
+        args = (base_w, base_sp, outs, _misaligned(price), G)
+    else:
+        args = _outcomes(104, 5, W=40, B=150, base_w=5, feasible=0.5)
+    _both(emulated, monkeypatch, *args[:4], oid, args[4])
+
+
+@pytest.mark.parametrize("G", [300, 2100])
+def test_emulated_topo_spread_many_templates(G, emulated, monkeypatch):
+    """topo_spread with more templates than the block's 256 threads (G =
+    300, counted in the shared histogram) and than that histogram (G =
+    2100, counted straight into the [KV, G] scratch)."""
+    base_w, base_sp, outs, price, _G = _outcomes(105 + G, 4, W=260, base_w=3, G=G)
+    _both(emulated, monkeypatch, base_w, base_sp, outs, price, p_solver.OBJ_TOPO_SPREAD, G)
+
+
+def test_emulated_two_launches_share_the_workspace(emulated, monkeypatch):
+    """Launches in a row on one workspace (the stream's): each equals the
+    plain version, so the last block left the ticket and the template
+    counts at 0 for the next; a smaller layout after a larger one reuses
+    the grown workspace, and the layouts alternate."""
+    first = _outcomes(201, 6, W=300, base_w=40, G=40)
+    second = _outcomes(202, 6, W=300, base_w=40, G=40)
+    small = _outcomes(203, 2, W=64, base_w=0, G=4)
+    for args, obj in ((first, p_solver.OBJ_TOPO_SPREAD), (second, p_solver.OBJ_TOPO_SPREAD),
+                      (small, p_solver.OBJ_COST_MIN), (first, p_solver.OBJ_GANG_SLICE),
+                      (second, p_solver.OBJ_TOPO_SPREAD)):
+        _both(emulated, monkeypatch, *args[:4], obj, args[4])
+    parts, hist, ticket = p_cuda._OBJ_WORKSPACES[(torch.device("cpu"), None)]
+    assert int(ticket[0]) == 0 and not bool(hist.any())

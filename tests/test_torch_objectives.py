@@ -36,6 +36,7 @@ import os
 import sys
 import time
 import types
+from typing import NamedTuple
 
 if __name__ == "__main__":
     os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
@@ -418,6 +419,108 @@ def test_frag_aware_one_rounding_matches_xla():
     two = np.float32(np.float32(np.float32(n) * np.float32(1e6)) - np.float32(landed))
     assert one != two
     assert float(np.asarray(jsc)[0]) == float(one) == float(psc[0])
+
+
+class _Opened(NamedTuple):
+    """The fields the reference's _objective_score reads of a state."""
+
+    open: jnp.ndarray
+    w_open: jnp.ndarray
+    its: jnp.ndarray
+    pods: jnp.ndarray
+    template: jnp.ndarray
+
+
+def _near_tie(n: int = 200, seed: int = 20):
+    """Two cost_min fleets of n claims each, one type a claim: fleet A's
+    prices drawn from [0.02, 3.0) $/h, fleet B's multiples of the ulp of
+    A's exact total that add up to it exactly, in any order. The
+    reference's f32 sum of A in XLA's order differs from that total; B
+    goes at the index where the port's tie (equal scores, lowest index
+    wins) and the reference's strict order pick different fleets. Returns
+    (price [2n], the rows' types per variant in variant order, A's index,
+    A's reference sum, A's exact total)."""
+    rng = np.random.default_rng(seed)
+    price_a = rng.uniform(0.02, 3.0, n).astype(np.float32)
+    total = np.float32(np.sum(price_a.astype(np.float64)))
+    ulp = np.spacing(total)
+    units = int(round(float(total) / float(ulp)))
+    parts = np.full(n, units // n, dtype=np.int64)
+    parts[: units - int(parts.sum())] += 1
+    price_b = (parts.astype(np.float64) * float(ulp)).astype(np.float32)
+    assert np.float32(np.sum(price_b.astype(np.float64))) == total
+    seq = np.float32(0)
+    for p in price_b:  # every partial sum is a multiple of ulp below 2^24 ulps: exact in any order
+        seq = np.float32(seq + p)
+    assert seq == total
+    price = np.concatenate([price_a, price_b])
+    rows_a, rows_b = list(range(n)), list(range(n, 2 * n))
+    j_sum = _reference_cost(np.asarray([rows_a]), price, n + 56)[0]
+    assert j_sum != float(total)
+    a_first = j_sum > float(total)  # the reference prefers B; the port's tie picks index 0
+    return price, ([rows_a, rows_b] if a_first else [rows_b, rows_a]), int(not a_first), j_sum, float(total)
+
+
+def _reference_cost(fleets: np.ndarray, price: np.ndarray, W: int) -> list:
+    """The reference's jitted _objective_score (cost_min) of each fleet
+    (row r of the window open, viable for type fleets[v][r] alone)."""
+    score = jax.jit(lambda b, st, p: j_solver._objective_score(b, st, p, j_solver.OBJ_COST_MIN, 1))
+    out = []
+    for rows in fleets:
+        its = np.zeros((W, price.shape[0]), bool)
+        its[np.arange(len(rows)), rows] = True
+        op = np.arange(W) < len(rows)
+        st = _Opened(jnp.asarray(op), jnp.asarray(len(rows), jnp.int32), jnp.asarray(its), jnp.zeros(W, jnp.int32),
+                     jnp.zeros(W, jnp.int32))
+        out.append(float(score(st._replace(w_open=jnp.asarray(0, jnp.int32)), st, jnp.asarray(price))))
+    return out
+
+
+def _near_tie_round():
+    """The near-tie round on both sides: (A's index, A's reference sum, the
+    exact total, the reference's scores, its winner, the port's scores,
+    the port's word)."""
+    price, fleets, a_index, j_a, exact = _near_tie()
+    n, W = len(fleets[0]), len(fleets[0]) + 56
+    j_scores = _reference_cost(np.asarray(fleets), price, W)
+    j_winner = int(np.argmin(np.asarray(j_scores, dtype=np.float32)))
+    outs = []
+    for rows in fleets:
+        its = torch.zeros((W, price.shape[0]), dtype=torch.bool)
+        its[torch.arange(n), torch.tensor(rows)] = True
+        outs.append(p_solver.VariantOut(
+            its=its, open=torch.arange(W) < n, pods=torch.ones(W, dtype=torch.int32),
+            template=torch.zeros(W, dtype=torch.int32), w_open=torch.tensor(n, dtype=torch.int32),
+            spills=torch.tensor(0, dtype=torch.int32), leftover=torch.zeros(1, dtype=torch.int32)))
+    zero = torch.tensor(0, dtype=torch.int32)
+    p_scores, word = p_solver.objective_verdict_plain(zero, zero, outs, torch.from_numpy(price),
+                                                      j_solver.OBJ_COST_MIN, 1)
+    return a_index, j_a, exact, j_scores, j_winner, p_scores, _word(word)
+
+
+def test_cost_min_near_tie_scores():
+    """ROADMAP §3's near-tie case, its scores: two cost_min variants whose
+    fleets differ (200 claims each, one type a claim): fleet B adds up
+    exactly to fleet A's total, and the reference's f32 sum of A in XLA's
+    order misses it by one ulp. The port scores both variants at that
+    total (f64, rounded once), within the rtol 1e-6 the other rounds
+    hold to, and both feasible."""
+    a_index, j_a, exact, j_scores, _jw, p_scores, word = _near_tie_round()
+    assert j_scores[a_index] == j_a != exact and j_scores[1 - a_index] == exact
+    assert abs(j_a - exact) == float(np.spacing(np.float32(exact)))
+    assert p_scores.tolist() == [exact, exact] and word & 0xFFFFFF == 0b11
+    np.testing.assert_allclose(p_scores.numpy(), np.asarray(j_scores, dtype=np.float32), rtol=1e-6, atol=0)
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP.md §3, objective winners near a tie: the port's f64 sum rounded "
+                                       "once ties two fleets that the reference's f32 sum in XLA's order tells "
+                                       "apart, so the port commits the other fleet")
+def test_cost_min_near_tie_winner_matches_reference():
+    """The near-tie case's winner: the reference's argmin over its jitted
+    _objective_score of each variant (solve_fill_variants' fold) against
+    the port's verdict word."""
+    _a, _ja, _exact, j_scores, j_winner, p_scores, word = _near_tie_round()
+    assert (word >> 24) & 0xFF == j_winner, (j_scores, p_scores.tolist())
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,23 @@ merge_shard_kscan_plain):
   the plain version, equal, and the solve's result equal to the plain
   solve's;
 - on a captured round widened to DP = 1, 5 and 33 (two lanes of the
-  word), with padding rows (r_min = +inf) among the rows, in both of
-  H12's modes.
+  word; past 32 rows H12's row pointers leave its parameters for a
+  table), with padding rows (r_min = +inf) among the rows, in both of
+  H12's modes;
+- H12's ceiling test at its edges (a total equal to the catalog's
+  largest allocatable, a total of 0, a +inf request, a NaN usage), the
+  kind-scan mode on the zone key and on another key, a catalog past the
+  16384 cells H12 once refused (read in place, not staged), and launches
+  in a row on one workspace.
+H12's rewrite routes its cross-block ors, ticket and loads through
+cuda_emu.h's memory model (a missing fence or a ticket taken early meets
+stale bytes).
 The emulation checks the kernels' logic, not their timing or what the
 GPU compiler does with them: chip_smoke.py holds the compiled kernels to
 the plain versions on the card. Tolerance: exact.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,10 +46,32 @@ SOURCES = ("dp_dead", "dp_verdict", "merge_shard")
 L_ZONE, L_CT, L_HOST = T.l.LABEL_TOPOLOGY_ZONE, T.l.CAPACITY_TYPE_LABEL_KEY, T.l.LABEL_HOSTNAME
 
 
+# H12's dynamic shared memory, staged copies and cross-block helpers, and
+# their cuda_emu.h stand-ins
+DEAD_REWRITES = (
+    ("extern __shared__ __align__(16) char smem[];", "char* smem = emu_smem();"),
+    # the staged catalog's copies give way, so a read that lacks the
+    # barrier after them meets bytes not yet copied
+    ("i += kThreads) s_cells[i] = a.cells[i];", "i += kThreads) { emu_yield(64); s_cells[i] = a.cells[i]; }"),
+    ("i += kThreads) s_alloc[i] = a.alloc[i];", "i += kThreads) { emu_yield(64); s_alloc[i] = a.alloc[i]; }"),
+    ("{ atomicOr(p, v); }", "{ emu_xor(p, v); }"),
+    ("{ return __ldcg(p); }", "{ return emu_xload(p); }"),
+    ("{ return atomicAdd(t, 1u); }", "{ return emu_ticket(t); }"),
+)
+
+
+def dead_rewrite(src: str) -> str:
+    for old, new in DEAD_REWRITES:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry calls routed to the emulated dp kernels."""
-    fns = {name: c_entry(emulated_library(tmp_path_factory, name), name) for name in SOURCES}
+    fns = {name: c_entry(emulated_library(tmp_path_factory, name, dead_rewrite if name == "dp_dead" else None),
+                         name) for name in SOURCES}
     calls = {n: 0 for n in SOURCES}
 
     def invoke(source, entry, *args):
@@ -142,9 +174,9 @@ def test_emulated_kernels_inside_cpu_solves(case, emulated, monkeypatch):
     assert emulated.calls["dp_dead"] >= len(rounds) and emulated.calls["dp_verdict"] >= len(rounds)
 
 
-def _captured_round(monkeypatch, pods, dp, chunk=None):
-    """The H12 / H13 inputs of a CPU dp solve's first round (plain
-    versions throughout)."""
+def _captured_round(monkeypatch, pods, dp, chunk=None, which: int = 0):
+    """The H12 / H13 inputs of a CPU dp solve's first round (or round
+    `which`; plain versions throughout)."""
     rounds = []
     dead_plain, verdict_plain = p_solver.dp_dead, p_solver.dp_verdict
 
@@ -164,7 +196,7 @@ def _captured_round(monkeypatch, pods, dp, chunk=None):
         if chunk:
             s.solve_chunk = chunk
         s.solve(pods)
-    return rounds[0]
+    return rounds[which]
 
 
 def _widen(rnd: dict, DP: int, pad_every: int):
@@ -188,9 +220,9 @@ def _widen(rnd: dict, DP: int, pad_every: int):
 @pytest.mark.parametrize("DP", [1, 5, 33])
 def test_emulated_round_widened(family, DP, emulated, monkeypatch):
     """A captured round's rows repeated to DP = 1, 5 and 33 (the word's
-    second lane), every third row a padding row: H13 equals its plain
-    version, and H12 (its kscan mode on the kind-scan round) at DP 1 and 5
-    (33 x 34 emulated blocks would take minutes)."""
+    second lane, and past the 32 rows whose pointers ride H12's
+    parameters), every third row a padding row: H12 (its kscan mode on the
+    kind-scan round) and H13 equal their plain versions."""
     if family == "fill":
         rnd = _captured_round(monkeypatch, T.sized_kind_pods(128, kinds=4, prefix="w", mixed=False), 2)
     elif family == "kscan":
@@ -202,10 +234,142 @@ def test_emulated_round_widened(family, DP, emulated, monkeypatch):
     base, it, key = rnd["base"], rnd["it"], rnd["key"]
     assert (key is not None) == (family == "kscan")
     want_dead = p_solver.dp_dead_plain(base, specs, r_min, it, key)
-    if DP <= 5:
-        assert torch.equal(p_cuda.dp_dead(base, specs, r_min, it, key), want_dead)
+    assert torch.equal(p_cuda.dp_dead(base, specs, r_min, it, key), want_dead)
     if DP > 2:
         assert bool(want_dead[2].all())  # a padding row: everything dead for +inf
     want = p_solver.dp_verdict_plain(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
     got = p_cuda.dp_verdict(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
     assert got.shape == ((DP + 31) // 32,) and torch.equal(got, want)
+
+
+_ROUNDS: dict = {}
+
+
+def _round(family: str) -> dict:
+    """The captured last round of a small CPU dp solve of `family` (fill,
+    kscan; its base holds open claims), kept for the module."""
+    if family not in _ROUNDS:
+        with pytest.MonkeyPatch.context() as m:
+            if family == "fill":
+                pods = T.sized_kind_pods(128, kinds=4, prefix="w", mixed=False)
+            else:
+                pods = T.spread_kind_pods(96, 4, "wz", (L_ZONE,))
+            _ROUNDS[family] = _captured_round(m, pods, 2, which=-1)
+    return _ROUNDS[family]
+
+
+def _dead_both(emulated, monkeypatch, base, specs, r_min, it, key):
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+    want = p_solver.dp_dead_plain(base, specs, r_min, it, key)
+    got = p_cuda.dp_dead(base, specs, r_min, it, key)
+    assert torch.equal(got, want), (got, want)
+    return want
+
+
+def _ceiling(it) -> torch.Tensor:
+    return torch.where(it.group_valid[:, :, None], it.alloc, float("-inf")).amax(dim=(0, 1))
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan_usage"])
+@pytest.mark.parametrize("family", ["fill", "kscan"])
+def test_emulated_dead_ceiling_edges(family, nan, emulated, monkeypatch):
+    """H12's ceiling test where it must not decide wrongly: a request whose
+    total with an open row's usage equals the catalog's largest
+    allocatable in one resource, the row viable for the type that holds it
+    (the scan must run: in the fill mode that cell takes it), a
+    request of 0 (totals of 0 where the row uses nothing), a +inf request
+    (a padding row: dead everywhere) and the round's own request; with the
+    base's usage finite, or NaN in one resource of every other open row."""
+    rnd = _round(family)
+    base, specs, it, key = rnd["base"], rnd["specs"], rnd["it"], rnd["key"]
+    ceil = _ceiling(it).numpy()
+    rows = torch.nonzero(base.open).flatten().tolist()
+    assert rows
+    u = base.used[rows[0]].numpy()
+    k = int(np.argmax(np.isfinite(ceil) & (ceil > u)))
+    # the first open row may also use the type that holds the ceiling
+    t_max = int(torch.nonzero((it.alloc[:, :, k] == float(ceil[k])) & it.group_valid)[0, 0])
+    its = base.its.clone()
+    its[rows[0], t_max] = True
+    base = base._replace(its=its)
+    at = np.zeros_like(u)
+    at[k] = np.float32(ceil[k]) - np.float32(u[k])
+    while np.float32(u[k]) + at[k] > ceil[k]:
+        at[k] = np.nextafter(at[k], np.float32(-np.inf))
+    while np.float32(u[k]) + at[k] < ceil[k]:
+        at[k] = np.nextafter(at[k], np.float32(np.inf))
+    assert np.float32(u[k]) + at[k] == ceil[k]
+    r_min = torch.stack([torch.from_numpy(at), torch.zeros_like(rnd["r_min"][0]),
+                         torch.full_like(rnd["r_min"][0], float("inf")), rnd["r_min"][0]])
+    specs = [specs[i % len(specs)] for i in range(4)]
+    if nan:
+        used = base.used.clone()
+        used[rows[1::2], k] = float("nan")
+        base = base._replace(used=used)
+    dead = _dead_both(emulated, monkeypatch, base, specs, r_min, it, key)
+    assert bool(dead[2].all())
+    if not nan:
+        assert not bool(dead[1, 0])
+        if key is None:  # the cell at the ceiling takes the request exactly
+            assert not bool(dead[0, 0])
+
+
+def _tiled(it, n: int):
+    """The catalog's types repeated n times (the same cells, n * T types)."""
+    def tile(t):
+        return t.repeat(n, *([1] * (t.dim() - 1)))
+
+    return it._replace(**{f: (type(v)(*map(tile, v)) if isinstance(v, tuple) else tile(v))
+                          for f, v in it._asdict().items()})
+
+
+@pytest.mark.parametrize("case", ["zone_key", "other_key", "past_16384_cells", "fill_past_16384_cells"])
+def test_emulated_dead_catalogs(case, emulated, monkeypatch):
+    """The kind scan's mode on the zone key and on another vocab key of the
+    catalog (a key every type leaves undefined admits every domain), and
+    a catalog past the 16384 (type, group) cells H12 refused before its
+    cell words: the captured round's types repeated to T * GR > 16384,
+    too large to stage, read in place, in both modes."""
+    rnd = _round("fill" if case.startswith("fill") else "kscan")
+    base, specs, r_min, it, key = rnd["base"], rnd["specs"], rnd["r_min"], rnd["it"], rnd["key"]
+    if case.endswith("past_16384_cells"):  # the base's first 8 open claims: a dead row scans every type
+        keep = torch.zeros_like(base.open)
+        keep[torch.nonzero(base.open).flatten()[:8]] = True
+        base = base._replace(open=keep)
+    else:
+        r_min = torch.cat([r_min, r_min * 0.5, r_min * 4.0])
+    specs = [specs[i % len(specs)] for i in range(r_min.shape[0])]
+    if case == "other_key":
+        K, V = it.reqs.mask.shape[1:]
+        other = next(k for k in range(K) if k != key.zone_kid)
+        key = p_solver.DpKey(other, key.zone_kid, min(4, V))
+    elif case.endswith("past_16384_cells"):
+        T_, GR = it.alloc.shape[:2]
+        n = 16384 // (T_ * GR) + 1
+        it = _tiled(it, n)
+        assert it.alloc.shape[0] * GR > 16384
+        base = base._replace(its=base.its.repeat(1, n))
+        specs = [s._replace(its=s.its.repeat(1, n)) for s in specs]
+    _dead_both(emulated, monkeypatch, base, specs, r_min, it, key)
+
+
+def test_emulated_dead_launches_share_the_workspace(emulated, monkeypatch):
+    """H12 launches in a row on one workspace (the stream's): a kind-scan
+    round, a fill round, the fill round at DP = 33 (its table; two alive
+    words, both with live requests) and the kind-scan round again each
+    equal the plain version, so the last block left the alive words and
+    the ticket at 0; they are 0 after."""
+    kr, fr = _round("kscan"), _round("fill")
+    wide, r33, _vin = _widen(fr, 33, 3)
+    r33[1::2] = 0.0  # requests of 0 (31 and 32 among them, one in each alive word) are alive on open rows
+    r33[32] = 0.0
+    for base, specs, r_min, it, key in (
+            (kr["base"], kr["specs"], kr["r_min"], kr["it"], kr["key"]),
+            (fr["base"], fr["specs"], fr["r_min"], fr["it"], None),
+            (fr["base"], wide, r33, fr["it"], None),
+            (kr["base"], kr["specs"], kr["r_min"], kr["it"], kr["key"])):
+        dead = _dead_both(emulated, monkeypatch, base, specs, r_min, it, key)
+        if len(specs) == 33:
+            assert not bool(dead[31].all()) and not bool(dead[32].all())
+    alive, ticket = p_cuda._DP_WORKSPACES[(torch.device("cpu"), None)]
+    assert int(ticket[0]) == 0 and not bool(alive.any())
