@@ -63,7 +63,8 @@ Phases, any failure exits non-zero:
      round and first commit of three dp cells below (SHARD_KERNEL_CELLS:
      fill with existing-node debits, the kind scan, the per-pod scan at
      DP = 4), the deadness matrix, the word and every merged leaf, H12 and
-     H13 timed on each cell's round;
+     H13 timed on each cell's round and H14 on its commit (device, event
+     and launcher ms);
   4. the main paths, each with the launch counts zeroed just before its
      cold solve and read just after, then WARM_CALLS warm solves: the fill path,
      TorchScheduler(make_templates(1000), max_claims=4096) on
@@ -474,6 +475,7 @@ H9_NAMES = ("gang_scan_kernel",)
 H11_NAMES = ("objective_verdict_kernel",)
 H12_NAMES = ("dp_dead_kernel",)
 H13_NAMES = ("dp_verdict_kernel",)
+H14_NAMES = ("merge_shard_kernel",)
 H15_NAMES = ("wire_pack_kernel",)
 
 
@@ -2653,10 +2655,11 @@ def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
     debits, H14's fill mode), of its zonal twin (H12's kscan mode, H14's
     kscan mode) and of shard_perpod_4096x400_dp4 (DP = 4 rows of the
     per-pod kernel's scenario mode, H13 with the budget / reservation
-    bit). Matrix, word and every merged leaf equal. H12 and H13 are timed
-    on each cell's round (launch_times: device ms per launch, CUDA-event
-    and launcher ms per call) beside their bounds; H14 (CUDA events around
-    the launcher call) and the plain versions on the first cell's."""
+    bit). Matrix, word and every merged leaf equal. H12, H13 and H14 are
+    timed on each cell's round and commit (launch_times: device ms per
+    launch, CUDA-event and launcher ms per call; H14 in its fill mode on
+    the existing twin's commit and its kscan mode on the others') beside
+    their bounds; the plain versions on the first cell's."""
     from karpenter_tpu_torch.ops import solver
 
     cells = {c[0]: c for c in shard_cells(T)}
@@ -2694,12 +2697,14 @@ def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
             dp_dead=(lambda _x: cuda.dp_dead(base, specs, r_min, it, key), H12_NAMES, dead_bytes(base, specs, it)),
             dp_verdict=(lambda _x: cuda.dp_verdict(vb, vs, dead, exist, n_claims, vin), H13_NAMES,
                         verdict_dp_bytes(vb, vs, vin)),
+            merge_shard=(lambda _x: cuda.merge_shard(committed, spec, mbase, assign), H14_NAMES,
+                         merge_bytes(committed, spec, assign)),
         )
         for name, (run, names, moved) in shapes.items():
             t = launch_times(run, names, [None] * 20, name)
             b = bound(moved, 0.0)
             shape = (f"first round of {label} (DP={len(specs)}, {'kscan' if key is not None else 'fill / per-pod'} "
-                     f"mode)")
+                     f"mode)") if name != "merge_shard" else f"first commit of {label} ({merge})"
             print(f"kernel {name} ({shape}): equal={checks[label][name]} {fmt_times(t)} bound_ms={b[0]:.6f} "
                   f"({b[1]}, {moved} bytes)", flush=True)
             CALL_SHAPES.append(dict(kernel=name, label=shape, equal=checks[label][name], bound_ms=b[0], **t))
@@ -2711,13 +2716,9 @@ def shard_kernel_phase(torch, cuda, T, TorchScheduler, results: list) -> None:
                 dp_verdict=functools.partial(solver.dp_verdict_plain, vb, vs, dead, exist, n_claims, vin),
                 merge_shard=functools.partial(solver.merge_shard_fill_plain, committed, spec, mbase),
             )
-            merge_run = (functools.partial(cuda.merge_shard, committed, spec, mbase, None),
-                         merge_bytes(committed, spec, None))
     sources = dict(dp_dead=("dp_dead.cu", "karpenter_tpu/ops/solver.py:2030"),
                    dp_verdict=("dp_verdict.cu", "karpenter_tpu/ops/solver.py:2100"),
                    merge_shard=("merge_shard.cu", "karpenter_tpu/ops/solver.py:2287"))
-    ms_m = time_ms(merge_run[0], iters=50)
-    timed["merge_shard"] = (dict(device_ms=None, event_ms=ms_m, launcher_ms=None), bound(merge_run[1], 0.0))
     for name, (t, b) in timed.items():
         plain_ms = time_ms(plain[name], iters=5)
         ok = all(c[name] for c in checks.values())

@@ -5,43 +5,58 @@
 //
 // One launch per objective round. Variant v's claims are the window rows
 // [base_w_open, w_open_v) that are open, and the objective's formula runs
-// over them:
-//   cost_min     sum over opened rows of min over the row's viable types
-//                of price_t;
-//   frag_aware   n_opened * 1e6 - landed pods, in double, rounded once;
-//   topo_spread  sum over templates of (opened rows with that template)^2;
-//   gang_slice   sum of (p_max - pods) over opened rows, + n_opened.
+// over them, every f32 sum in XLA:CPU's order (below):
+//   cost_min     sum over W of the opened rows' min over the row's viable
+//                types of price_t (0 elsewhere);
+//   frag_aware   n_opened * 1e6 - landed, one rounding (an fma), landed
+//                the sum over W of the opened rows' pods as f32;
+//   topo_spread  sum over the G templates of (opened rows with it)^2;
+//   gang_slice   sum over W of p_max - pods on opened rows, + n_opened.
 // Its feasibility is leftover_v summing to 0 and spills_v equal to the
 // base's. The word: bit v = variant v feasible, bits [24, 32) the first
 // index of the least where(feasible, score, +inf) (0 when nothing is
 // feasible, and 0 when every feasible score is +inf, as the reference's
 // argmin gives).
 //
-// Work items. Block b is (variant v = b / NC, chunk c = b % NC) of kRows
-// window rows (and of kRows leftover entries): the grid spans the card,
-// not KV blocks. The opened range is known only on the device, so a block
-// whose chunk misses it (and the leftovers) writes an empty partial and
-// takes its ticket at once. Warp 0 reads the chunk's open flags as 16-byte
-// vectors and lists the opened rows with two ballots; it reads the pods /
-// template columns as 16-byte vectors too. cost_min: price_t is staged in
-// shared memory, a warp takes one listed row at a time, its lanes read the
-// [T] viable-type row as 16-byte vectors (T = 400 is 25 lanes), the row's
-// minimum is a register min and a warp reduce. frag_aware / gang_slice:
-// count, sum of pods and max pods, as integers. topo_spread: per-template
-// counts by integer atomics into a shared histogram, merged into the
-// [KV, G] int32 scratch (left zeroed again by the fold).
+// XLA's order (jax 0.9.0 on the CPU; ops/solver.py xla_tree_sum): a sum
+// of n elements is a reduce-window of size 32, stride 32 and padding
+// lo = p / 2 before, p - lo after (p = ceil(n / 32) * 32 - n), each window
+// summed left to right in f32 from +0.0, then the same over the
+// ceil(n / 32) partials while more than 32 are left, and what is left in
+// order. Skipped zeros (padding, rows not opened) change no sum: x + 0.0 is
+// x for every x a sum from +0.0 can reach.
 //
-// Fixed-order folds. A block writes its partial (a double for cost_min,
-// int64 counts and sums, int max) to the workspace, fences and takes a
-// ticket; the block that draws the last ticket folds each variant's
-// partials in one fixed order over the block index (a lane per block
-// index, blocks lane, lane + 32, ... in turn, then a butterfly of the 32
-// lanes), rounds to float once where the plain version does, writes
-// scores and word, and resets the ticket: no float atomics, and the result
-// does not depend on which block finishes first. Exactness: integer sums
-// are exact; a sum of f32 prices is exact in double while the prices span
-// less than 2^17 and at most 2^12 rows are open, so there any order gives
-// the plain version's (ops/solver.py objective_verdict_plain) bits.
+// Work items. Block b is (variant v = b / NC, item c = b % NC): window
+// rows [32c - lo, 32c + 32 - lo), XLA's window c over W, and leftover
+// entries [32c, 32c + 32); the grid spans the card, not KV blocks. The
+// opened range is known only on the device, so an item that misses it
+// (and the leftovers) writes an empty partial and takes its ticket at
+// once. Warp 0 reads the window's open flags, a row a lane, and lists
+// the opened rows with a ballot. cost_min: price_t is staged in shared
+// memory, a warp takes one listed row at a time, its lanes read the [T]
+// viable-type row as 16-byte vectors (T = 400 is 25 lanes), the row's
+// minimum is a register min and a warp reduce; frag_aware: the pods as
+// f32. Warp 0 then sums the window's values in row order, in f32 from
+// +0.0, through shuffles: the window's partial, bit for bit XLA's. gang_slice: count, sum
+// of pods and max pods, as integers (p_max is the whole variant's, known
+// only after every item). topo_spread: per-template counts by integer
+// atomics into a shared histogram, merged into the [KV, G] int32 scratch
+// (left zeroed again by the fold).
+//
+// Fixed-order folds. A block writes its partial to the workspace, fences
+// and takes a ticket; the block that draws the last ticket folds each
+// variant (a warp a variant) by XLA's rule, level by level in a fixed
+// order (tree_sum: a lane a window of the level, its 32 values loaded at
+// once and summed left to right; the levels in shared memory; the last
+// level's values a lane each, summed in order through shuffles):
+// cost_min and frag_aware over the windows' partials; gang_slice over
+// the windows' cnt * p_max - sum(pods), which is each window's f32 sum
+// exactly while it is at most 2^24 (every prefix an integer a float
+// holds), else summed again from the window's rows; topo_spread over G
+// of the counts squared (one f32 multiply). It writes scores and word and
+// resets the ticket: no float atomics, and the result does not depend on
+// which block finishes first. So the scores are the plain version's
+// (ops/solver.py objective_verdict_plain) bit for bit.
 //
 // Bound on an H100: bytes. A round reads each variant's opened rows of its
 // [W, T] viable-type slab (cost_min), its open / pods / template rows and
@@ -61,18 +76,20 @@ namespace {
 constexpr int kMaxKV = 24;  // ops/solver.py VARIANT_MAX
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;            // window rows (and leftover entries) of a work item
+constexpr int kRows = 32;            // XLA's window: window rows (and leftover entries) of a work item
 constexpr int kHist = 2048;          // templates counted in shared memory; past it, straight into the scratch
-constexpr int kStageTypes = 8192;    // price_t staged in shared memory up to this many types
+constexpr int kStageTypes = 4096;    // price_t staged in shared memory up to this many types
+constexpr int kLevel = 256;          // a warp's tree_sum levels in shared memory (ops/cuda.py OBJ_LEVEL_FLOATS)
+constexpr long long kExactInt = 1ll << 24;  // integers up to here are floats
 constexpr unsigned kFull = 0xffffffffu;
 enum { kLexical, kCostMin, kFragAware, kTopoSpread, kGangSlice };
 
-// one work item's partial sums
+// one work item's partial
 struct Part {
-  double cm;             // cost_min: sum of the opened rows' min prices
-  long long cnt, spods;  // opened rows, their pods
+  float f;               // cost_min / frag_aware: the window's f32 sum in row order
+  int pmax;              // gang_slice: max pods over the window's opened rows (>= 0)
+  long long cnt, spods;  // gang_slice: opened rows, their pods
   long long left;        // leftover entries of the item's range
-  int pmax, pad;         // max pods over the opened rows (>= 0)
 };
 
 struct Args {
@@ -95,7 +112,7 @@ struct Args {
   Part* parts;
   int32_t* hist;
   unsigned* ticket;
-  int KV, W, T, B, G, objective, NC, stage;
+  int KV, W, T, B, G, objective, NC, NB, lo, stage;
 };
 
 // the cross-block protocol: partials stored (and counts added) before the
@@ -111,35 +128,6 @@ __device__ __forceinline__ T xload(const T* p) {
 }
 __device__ __forceinline__ void xadd(int32_t* p, int v) { atomicAdd(p, v); }
 __device__ __forceinline__ unsigned take_ticket(unsigned* t) { return atomicAdd(t, 1u); }
-
-__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// 16 bytes of a bool column from row r0 (rows past W read as false)
-__device__ __forceinline__ uint32_t flags16(const uint8_t* col, int r0, int W) {
-  uint32_t m = 0;
-  if (r0 + 16 <= W && aligned16(col + r0)) {
-    const uint4 v = *reinterpret_cast<const uint4*>(col + r0);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) m |= (uint32_t)(((w[k] >> (8 * j)) & 0xffu) != 0) << (4 * k + j);
-  } else {
-    for (int j = 0; j < 16 && r0 + j < W; ++j) m |= (uint32_t)(col[r0 + j] != 0) << j;
-  }
-  return m;
-}
-
-// 4 int32 of a column from row r0 (rows past W read as 0)
-__device__ __forceinline__ int4 ints4(const int32_t* col, int r0, int W) {
-  if (r0 + 4 <= W && aligned16(col + r0)) return *reinterpret_cast<const int4*>(col + r0);
-  int4 v = make_int4(0, 0, 0, 0);
-  if (r0 < W) v.x = col[r0];
-  if (r0 + 1 < W) v.y = col[r0 + 1];
-  if (r0 + 2 < W) v.z = col[r0 + 2];
-  if (r0 + 3 < W) v.w = col[r0 + 3];
-  return v;
-}
 
 // the min of price[t] over the row's viable types t, in every lane
 __device__ float row_min(const uint8_t* row, int T, const float* price, int lane) {
@@ -177,14 +165,56 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
+// the f32 sum from +0.0 of one value a lane, lanes 0, 1, ..., 31 in
+// order (a value past the data is 0.0, which changes no sum), in every lane
+__device__ __forceinline__ float fold_lanes(float v) {
+  float s = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 32; ++u) s = __fadd_rn(s, __shfl_sync(kFull, v, u));
+  return s;
+}
+
+// XLA:CPU's f32 sum of x(0), ..., x(n - 1) by one warp (ops/solver.py
+// xla_tree_sum): while more than 32 values are left, a lane takes a window
+// of 32 after lo leading zeros, loads its 32 values at once and sums them
+// left to right from +0.0 into `lvl` (the warp's levels); then the last
+// level's values, a lane each, are summed in order. x(i) is the lane's own
+// work (no collective inside). Every lane returns the sum.
+template <class F>
+__device__ float tree_sum(int n, F x, float* lvl, int lane) {
+  const float* src = nullptr;
+  float* dst = lvl;
+  while (n > 32) {
+    const int m = (n + 31) / 32, lo = (32 * m - n) / 2;
+    for (int j = lane; j < m; j += 32) {
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        const int i = 32 * j - lo + u;
+        v[u] = i >= 0 && i < n ? (src ? src[i] : x(i)) : 0.0f;
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 32; ++u) s = __fadd_rn(s, v[u]);
+      dst[j] = s;
+    }
+    __syncwarp();
+    src = dst;
+    dst += m;
+    n = m;
+  }
+  return fold_lanes(lane < n ? (src ? src[lane] : x(lane)) : 0.0f);
+}
+
 __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) char smem[];  // price_t [T] when staged
   float* s_price = reinterpret_cast<float*>(smem);
-  __shared__ int s_list[kRows];       // the chunk's opened rows, in row order
+  __shared__ int s_list[kRows];       // the window's opened rows' offsets, in row order
   __shared__ int s_tmpl[kRows];       // their templates (topo_spread), by row offset
+  __shared__ float s_val[kRows];      // cost_min / frag_aware: each opened row's value, by row offset
   __shared__ int s_hist[kHist];
-  __shared__ double s_cm[kWarps];
-  __shared__ unsigned long long s_mask;
+  __shared__ float s_lvl[kWarps][kLevel];
+  __shared__ unsigned s_mask;
   __shared__ int s_n;
   __shared__ long long s_cnt, s_spods, s_left;
   __shared__ int s_pmax;
@@ -192,47 +222,33 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
   __shared__ float s_score[kMaxKV];
   __shared__ int s_feas[kMaxKV];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int v = blockIdx.x / a.NC, c0 = (blockIdx.x % a.NC) * kRows;
+  const int v = blockIdx.x / a.NC, c = blockIdx.x % a.NC, w0 = kRows * c - a.lo;
   const int lo = max(*a.base_w_open, 0);
   const int hi = min(*a.w_open[v], a.W);
-  const int r0 = max(c0, lo), r1 = min(c0 + kRows, hi);
-  const bool rows = a.objective != kLexical && r0 < r1;
-  const bool lefts = c0 < a.B;
+  const int r0 = max(w0, lo), r1 = min(w0 + kRows, hi);
+  const bool rows = a.objective != kLexical && c < a.NB && r0 < r1;
+  const bool lefts = kRows * c < a.B;
   const int obj = a.objective;
 
   if (rows || lefts) {
     if (warp == 0) {
-      // ---- the chunk's opened rows: open flags as 16-byte vectors, two ballots
-      unsigned long long mask = 0;
-      if (rows) {
-        const uint32_t m16 = lane < kRows / 16 ? flags16(a.open[v], c0 + 16 * lane, a.W) : 0u;
-        const uint32_t mA = __shfl_sync(kFull, m16, lane >> 4), mB = __shfl_sync(kFull, m16, 2 + (lane >> 4));
-        const int rA = c0 + lane, rB = c0 + 32 + lane;
-        const bool oA = ((mA >> (lane & 15)) & 1u) && rA >= r0 && rA < r1;
-        const bool oB = ((mB >> (lane & 15)) & 1u) && rB >= r0 && rB < r1;
-        const unsigned bA = __ballot_sync(kFull, oA), bB = __ballot_sync(kFull, oB);
-        const unsigned lt = (1u << lane) - 1u;
-        if (oA) s_list[__popc(bA & lt)] = rA;
-        if (oB) s_list[__popc(bA) + __popc(bB & lt)] = rB;
-        mask = (unsigned long long)bA | ((unsigned long long)bB << 32);
-      }
-      // ---- pods / templates as 16-byte vectors, 4 rows a lane
+      // ---- the window's opened rows, a row a lane, one ballot
+      const int r = w0 + lane;
+      const bool o = rows && r >= r0 && r < r1 && a.open[v][r];
+      const unsigned mask = __ballot_sync(kFull, o);
+      if (o) s_list[__popc(mask & ((1u << lane) - 1u))] = lane;
       long long cnt = 0, spods = 0;
       int pmax = 0;
-      if (rows && obj != kCostMin && lane < kRows / 4) {
-        const int4 q = ints4(obj == kTopoSpread ? a.tmpl[v] : a.pods[v], c0 + 4 * lane, a.W);
-        const int x[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * lane + j;
-          if (!((mask >> k) & 1ull)) continue;
-          if (obj == kTopoSpread) {
-            s_tmpl[k] = x[j];
-          } else {
-            ++cnt;
-            spods += x[j];
-            pmax = max(pmax, x[j]);
-          }
+      if (o && obj != kCostMin) {
+        const int x = (obj == kTopoSpread ? a.tmpl[v] : a.pods[v])[r];
+        if (obj == kTopoSpread) {
+          s_tmpl[lane] = x;
+        } else if (obj == kFragAware) {
+          s_val[lane] = (float)x;
+        } else {
+          cnt = 1;
+          spods = x;
+          pmax = x;
         }
       }
       cnt = warp_sum(cnt);
@@ -240,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
       pmax = warp_max(pmax);
       if (lane == 0) {
         s_mask = mask;
-        s_n = __popcll(mask);
+        s_n = __popc(mask);
         s_cnt = cnt;
         s_spods = spods;
         s_pmax = pmax;
@@ -249,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
       // ---- the item's leftover entries
       long long left = 0;
       if (lefts)
-        for (int b = c0 + lane; b < min(c0 + kRows, a.B); b += 32) left += a.leftover[v][b];
+        for (int b = kRows * c + lane; b < min(kRows * c + kRows, a.B); b += 32) left += a.leftover[v][b];
       left = warp_sum(left);
       if (lane == 0) s_left = left;
     }
@@ -258,20 +274,18 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
     __syncthreads();
     const int n = s_n;
 
-    double cm = 0.0;
     if (obj == kCostMin && n) {
-      // a warp per listed row, in list order; the warp's rows summed in order
+      // a warp per listed row: the row's min price at its offset
       const float* price = a.stage ? s_price : a.price_t;
-      double part = 0.0;
-      for (int k = warp; k < n; k += kWarps)
-        part += (double)row_min(a.its[v] + (int64_t)s_list[k] * a.T, a.T, price, lane);
-      if (lane == 0) s_cm[warp] = part;
-      __syncthreads();
-      for (int w = 0; w < kWarps; ++w) cm += s_cm[w];
+      for (int k = warp; k < n; k += kWarps) {
+        const int off = s_list[k];
+        const float m = row_min(a.its[v] + (int64_t)(w0 + off) * a.T, a.T, price, lane);
+        if (lane == 0) s_val[off] = m;
+      }
     } else if (obj == kTopoSpread && n) {
-      // the chunk's template counts: a shared histogram, merged by atomicExch
-      const unsigned long long mask = s_mask;
-      const bool mine = tid < kRows && ((mask >> tid) & 1ull);
+      // the window's template counts: a shared histogram, merged by atomicExch
+      const unsigned mask = s_mask;
+      const bool mine = tid < kRows && ((mask >> tid) & 1u);
       const int g = mine ? s_tmpl[tid] : -1;
       const bool ok = g >= 0 && g < a.G;
       int32_t* dst = a.hist + (int64_t)v * a.G;
@@ -290,21 +304,27 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
         xadd(&dst[g], 1);
       }
     }
-    if (tid == 0) {
-      Part p;
-      p.cm = cm;
-      p.cnt = obj == kCostMin || obj == kTopoSpread ? 0 : s_cnt;
-      p.spods = obj == kCostMin || obj == kTopoSpread ? 0 : s_spods;
-      p.pmax = obj == kCostMin || obj == kTopoSpread ? 0 : s_pmax;
-      p.left = lefts ? s_left : 0;
-      p.pad = 0;
-      xstore(&a.parts[blockIdx.x], p);
+    __syncthreads();
+    if (warp == 0) {
+      // the window's values in row order, from +0.0
+      float f = 0.0f;
+      if (obj == kCostMin || obj == kFragAware) f = fold_lanes((s_mask >> lane) & 1u ? s_val[lane] : 0.0f);
+      if (lane == 0) {
+        Part p;
+        const bool ints = obj == kGangSlice && rows;
+        p.f = f;
+        p.cnt = ints ? s_cnt : 0;
+        p.spods = ints ? s_spods : 0;
+        p.pmax = ints ? s_pmax : 0;
+        p.left = lefts ? s_left : 0;
+        xstore(&a.parts[blockIdx.x], p);
+      }
     }
   } else if (tid == 0) {
     Part p;
-    p.cm = 0.0;
+    p.f = 0.0f;
+    p.pmax = 0;
     p.cnt = p.spods = p.left = 0;
-    p.pmax = p.pad = 0;
     xstore(&a.parts[blockIdx.x], p);
   }
 
@@ -318,46 +338,61 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
   __threadfence();
 
   // ---- the last block folds each variant: a warp a variant
-  const long long base_w = *a.base_w_open;
+  const int base_w = *a.base_w_open;
+  float* lvl = s_lvl[warp];
   for (int u = warp; u < a.KV; u += kWarps) {
-    double cm = 0.0;
-    long long cnt = 0, spods = 0, left = 0;
+    const Part* pu = a.parts + (int64_t)u * a.NC;
+    long long left = 0;
     int pmax = 0;
-    for (int c = lane; c < a.NC; c += 32) {
-      const Part* p = a.parts + (int64_t)u * a.NC + c;
-      cm += xload(&p->cm);
-      cnt += xload(&p->cnt);
-      spods += xload(&p->spods);
-      left += xload(&p->left);
-      pmax = max(pmax, xload(&p->pmax));
+    for (int i = lane; i < a.NC; i += 32) {
+      left += xload(&pu[i].left);
+      pmax = max(pmax, xload(&pu[i].pmax));
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) cm += __shfl_xor_sync(kFull, cm, o);
-    cnt = warp_sum(cnt);
-    spods = warp_sum(spods);
     left = warp_sum(left);
     pmax = warp_max(pmax);
-    long long sq = 0;
-    if (obj == kTopoSpread) {
-      int32_t* h = a.hist + (int64_t)u * a.G;
-      for (int g = lane; g < a.G; g += 32) {
-        const long long cg = xload(h + g);
-        sq += cg * cg;
-        h[g] = 0;
+    float sum = 0.0f;
+    if (obj == kCostMin || obj == kFragAware) {
+      sum = tree_sum(a.NB, [&](int i) { return xload(&pu[i].f); }, lvl, lane);
+    } else if (obj == kGangSlice) {
+      const int ulo = max(base_w, 0), uhi = min(*a.w_open[u], a.W);
+      // window i's f32 sum of p_max - pods, a lane a window, into the
+      // partial's f: its integer sum while that is a float's exactly, else
+      // its rows again in order
+      Part* pw = a.parts + (int64_t)u * a.NC;
+      for (int i = lane; i < a.NB; i += 32) {
+        const long long ex = xload(&pu[i].cnt) * (long long)pmax - xload(&pu[i].spods);
+        float s = (float)ex;
+        if (ex > kExactInt) {
+          s = 0.0f;
+          const int b0 = kRows * i - a.lo;
+          for (int r = max(b0, ulo); r < min(b0 + kRows, uhi); ++r)
+            if (a.open[u][r]) s = __fadd_rn(s, (float)(pmax - a.pods[u][r]));
+        }
+        pw[i].f = s;
       }
-      sq = warp_sum(sq);
+      __syncwarp();
+      sum = tree_sum(a.NB, [&](int i) { return pw[i].f; }, lvl, lane);
+    } else if (obj == kTopoSpread) {
+      const int32_t* h = a.hist + (int64_t)u * a.G;
+      sum = tree_sum(a.G, [&](int g) {
+        const float cg = (float)xload(h + g);
+        return __fmul_rn(cg, cg);
+      }, lvl, lane);
+      __syncwarp();
+      for (int g = lane; g < a.G; g += 32) a.hist[(int64_t)u * a.G + g] = 0;
     }
     if (lane == 0) {
-      const double n_opened = (double)(*a.w_open[u] - base_w);
+      const float n_opened = (float)(*a.w_open[u] - base_w);
       float score = 0.0f;
-      if (obj == kCostMin) score = (float)cm;
-      else if (obj == kFragAware) score = (float)(n_opened * 1e6 - (double)spods);
-      else if (obj == kTopoSpread) score = (float)(double)sq;
-      else if (obj == kGangSlice) score = (float)((double)(cnt * (long long)pmax - spods) + n_opened);
+      if (obj == kCostMin) score = sum;
+      else if (obj == kFragAware) score = __fmaf_rn(n_opened, 1e6f, -sum);
+      else if (obj == kTopoSpread) score = sum;
+      else if (obj == kGangSlice) score = __fadd_rn(sum, n_opened);
       a.scores[u] = score;
       s_score[u] = score;
       s_feas[u] = left == 0 && *a.spills[u] == *a.base_spills;
     }
+    __syncwarp();
   }
   __syncthreads();
   if (tid == 0) {
@@ -380,6 +415,16 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
   }
 }
 
+// the floats tree_sum keeps in shared memory for n values
+int level_floats(int n) {
+  int total = 0;
+  while (n > 32) {
+    n = (n + 31) / 32;
+    total += n;
+  }
+  return total;
+}
+
 }  // namespace
 
 // ptrs: 7 * KV device pointers (its, open, pods, template, w_open, spills,
@@ -387,10 +432,11 @@ __global__ void __launch_bounds__(kThreads) objective_verdict_kernel(const __gri
 // price_t, scores, word, and the workspace's parts, hist ([KV, G] int32,
 // zero) and ticket (0); dims: KV, W, T, B, G, objective, and the bytes of
 // parts and the ints of hist the caller holds (ops/cuda.py mirrors the
-// need: KV * NC Parts of 40 bytes, NC = ceil(max(W, B, 1) / kRows)). The
-// grid is KV * NC blocks.
+// need: KV * NC Parts of 32 bytes, NC = max(ceil(W / kRows), ceil(B /
+// kRows), 1)). The grid is KV * NC blocks. A W or G whose levels do not fit
+// a warp's kLevel floats is refused.
 extern "C" int objective_verdict(const int64_t* ptrs, int n_ptrs, const int64_t* dims, void* stream) {
-  static_assert(sizeof(Part) == 40, "ops/cuda.py OBJ_PART_BYTES");
+  static_assert(sizeof(Part) == 32, "ops/cuda.py OBJ_PART_BYTES");
   Args a;
   memset(&a, 0, sizeof(a));
   a.KV = (int)dims[0];
@@ -402,8 +448,11 @@ extern "C" int objective_verdict(const int64_t* ptrs, int n_ptrs, const int64_t*
   if (a.KV < 1 || a.KV > kMaxKV || n_ptrs != 7 * a.KV + 8 || a.objective < kLexical || a.objective > kGangSlice ||
       a.W < 0 || a.T < 0 || a.B < 0 || a.G < 0)
     return (int)cudaErrorInvalidValue;
-  a.NC = (max(max(a.W, a.B), 1) + kRows - 1) / kRows;
-  if (dims[6] < (int64_t)a.KV * a.NC * (int64_t)sizeof(Part) || dims[7] < (int64_t)a.KV * a.G)
+  a.NB = (a.W + kRows - 1) / kRows;
+  a.lo = (kRows * a.NB - a.W) / 2;
+  a.NC = max(max(a.NB, (a.B + kRows - 1) / kRows), 1);
+  if (dims[6] < (int64_t)a.KV * a.NC * (int64_t)sizeof(Part) || dims[7] < (int64_t)a.KV * a.G ||
+      level_floats(a.NB) > kLevel || level_floats(a.G) > kLevel)
     return (int)cudaErrorInvalidValue;
   const void** fields[7] = {(const void**)a.its, (const void**)a.open, (const void**)a.pods,
                             (const void**)a.tmpl, (const void**)a.w_open, (const void**)a.spills,

@@ -194,6 +194,15 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dev: torch.device) ->
     return t
 
 
+def _check_all(kernel: str, names, srcs, want, dev) -> None:
+    """A layout's full check: each source's device, dtype, contiguity
+    (_check) and shape against `want`'s (shape, dtype) pairs."""
+    for name, t, (shape, dt) in zip(names, srcs, want):
+        _check(t, name, dt, dev)
+        if tuple(t.shape) != tuple(shape):
+            raise LaunchRefused(f"{kernel}: {name} shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -1299,11 +1308,24 @@ def retract_tail(state, cut: int):
 # ---------------------------------------------------------------------------
 
 
-# csrc/objective_verdict.cu's work item (window rows and leftover entries)
-# and its partial's bytes: the launcher sizes the workspace by them, the C
-# entry refuses a smaller one
-OBJ_ROWS = 64
-OBJ_PART_BYTES = 40
+# csrc/objective_verdict.cu's work item (XLA's 32-row window, and leftover
+# entries) and its partial's bytes: the launcher sizes the workspace by
+# them, the C entry refuses a smaller one; and the floats a warp holds of
+# the fold's levels (ops.solver.xla_tree_sum over the windows and over G)
+OBJ_ROWS = 32
+OBJ_PART_BYTES = 32
+OBJ_LEVEL_FLOATS = 256
+
+
+def tree_level_floats(n: int) -> int:
+    """The partials XLA's order keeps above n values (every level of
+    ceil(n / 32) while more than 32 are left): csrc/objective_verdict.cu's
+    level_floats."""
+    total = 0
+    while n > 32:
+        n = -(-n // 32)
+        total += n
+    return total
 _OBJ_FIELDS = ("its", "open", "pods", "template", "w_open", "spills", "leftover")
 _OBJ_LAYOUTS = LayoutCache(32)
 # H11's workspace, one per (device, stream): the work items' partials, the
@@ -1325,11 +1347,13 @@ class _ObjLayout:
                     spills=((), i), leftover=((B,), i))
         names = [f"{n}[{v}]" for n in _OBJ_FIELDS for v in range(KV)] + ["base_w_open", "base_spills", "price_t"]
         shapes = [want[n] for n in _OBJ_FIELDS for _v in range(KV)] + [((), i), ((), i), ((T,), f)]
-        for name, t, (shape, dt) in zip(names, srcs, shapes):
-            _check(t, name, dt, dev)
-            if tuple(t.shape) != shape:
-                raise LaunchRefused(f"objective_verdict: {name} {tuple(t.shape)} vs {shape}")
-        nc = -(-max(W, B, 1) // OBJ_ROWS)
+        _check_all("objective_verdict", names, srcs, shapes, dev)
+        nb = -(-max(W, 0) // OBJ_ROWS)
+        for what, n in (("W", nb), ("G", G)):
+            if tree_level_floats(n) > OBJ_LEVEL_FLOATS:
+                raise LaunchRefused(f"objective_verdict: the sum over {what} keeps {tree_level_floats(n)} partials, "
+                                    f"more than a warp's {OBJ_LEVEL_FLOATS}")
+        nc = max(nb, -(-B // OBJ_ROWS), 1)
         self.names = tuple(names)
         self.parts, self.hist = KV * nc * OBJ_PART_BYTES, KV * G
         self.dims = _i64_array([KV, W, T, B, G, objective, self.parts, self.hist])
@@ -1390,14 +1414,6 @@ def objective_verdict(base_w_open, base_spills, outs: list, price_t, objective: 
 # ---------------------------------------------------------------------------
 
 
-def _checked(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev) -> int:
-    """t's device pointer after the launcher's checks."""
-    _check(t, name, dtype, dev)
-    if tuple(t.shape) != tuple(shape):
-        raise LaunchRefused(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    return t.data_ptr()
-
-
 def _table(rows: list, dev) -> torch.Tensor:
     """A [DP, F] int64 table of device pointers (and counts) on `dev`,
     uploaded from pinned memory without blocking the host (the caching
@@ -1408,10 +1424,6 @@ def _table(rows: list, dev) -> torch.Tensor:
     pinned = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
     pinned.copy_(host)
     return pinned.to(dev, non_blocking=True)
-
-
-def _launch(name: str, ptrs: list, dims: list) -> None:
-    _call(name, ctypes.cast(_i64_array(ptrs), ctypes.c_void_p), len(ptrs), ctypes.cast(_i64_array(dims), ctypes.c_void_p))
 
 
 class DpCatalog:
@@ -1490,10 +1502,7 @@ class _DpLayout:
         names.append("r_min")
         if R != cat.R:
             raise LaunchRefused(f"dp_dead: {R} resources in the rows, {cat.R} in the catalog")
-        for name, t, (shape, dt) in zip(names, srcs, shapes):
-            _check(t, name, dt, cat.device)
-            if tuple(t.shape) != shape:
-                raise LaunchRefused(f"dp_dead: {name} {tuple(t.shape)} vs {shape}")
+        _check_all("dp_dead", names, srcs, shapes, cat.device)
         self.names = tuple(names)
         self.nwr = -(-DP // 32)
         self.words = (1 + DP) * self.nwr
@@ -1559,145 +1568,274 @@ def _node_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
+# H13's rows whose pointers ride its kernel's parameters (csrc/dp_verdict.cu
+# kMaxDP); a round of more rows is refused
+DP_VERDICT_ROWS = 16
+_DPV_LAYOUTS = LayoutCache(32)
+# H13's workspace, one per (device, stream): the rows' flag and bit words
+# and the ticket, which every launch leaves at 0 for the next one
+_DPV_WORKSPACES: dict = {}
+
+
+class _DpVerdictLayout:
+    """One checked dp_verdict layout (DP, the family, the sources' shapes
+    and dtypes, in csrc/dp_verdict.cu's pointer order): the names the
+    per-call check reports, the C entry's dims and the pointer array a
+    call fills (the sources, then the workspace, ticket and word)."""
+
+    def __init__(self, base, specs, vin, n_claims: int, srcs: list):
+        b, i, f = torch.bool, torch.int32, torch.float32
+        DP = len(specs)
+        W, R = base.used.shape
+        E = base.exist_used.shape[0]
+        G = base.budget.shape[0]
+        RID = base.res_cap.shape[0]
+        NGv, NGh = vin.rec_v.shape[1], vin.rec_h.shape[1]
+        fill, apply = vin.fill_c is not None, vin.apply_tmpl is not None
+        ex = [base.exist_used, base.exist_ports, base.exist_vols, *base.exist_reqs]
+        ex_want = [(tuple(t.shape), t.dtype) for t in ex]
+        if ex_want[0] != ((E, R), f):
+            raise LaunchRefused(f"dp_verdict: base.exist_used {ex_want[0]}, expected ({E}, {R}) float32")
+        debits = [("budget", ((G, R), f)), ("nodes_budget", ((G,), f)), ("res_cap", ((RID,), i))] if apply else []
+        names = [f"base.{n}" for n in ("w_open", "n_open", "spills", "pods")] + [f"base.exist[{k}]" for k in range(9)]
+        want = [((), i)] * 3 + [((W,), i)] + ex_want
+        names += [f"base.{n}" for n, _w in debits] + ["dead", "r_min", "exist_ok_rows", "rec_v", "app_v", "rec_h",
+                                                        "app_h"]
+        want += [w for _n, w in debits] + [((DP, 1 + DP), b), ((DP, R), f), ((DP, E), b), ((DP, NGv), b),
+                                            ((DP, NGv), b), ((DP, NGh), b), ((DP, NGh), b)]
+        if apply:
+            names.append("apply_tmpl")
+            want.append(((DP, G), b))
+        names += ["exist.valid", "exist.avail"]
+        want += [((E,), b), ((E, R), f)]
+        segs = []
+        for q in range(DP):
+            names += [f"{n}[{q}]" for n in ("w_open", "n_open", "spills")]
+            want += [((), i)] * 3
+            if fill:
+                B = vin.fill_c[q].shape[0] if vin.fill_c[q].dim() == 2 else -1
+                names += [f"fill_c[{q}]", f"leftover[{q}]"]
+                want += [((B, W), i), ((B,), i)]
+                segs.append(B)
+            else:
+                names.append(f"pods[{q}]")
+                want.append(((W,), i))
+                segs.append(0)
+            names += [f"exist[{k}][{q}]" for k in range(9)] + [f"{n}[{q}]" for n, _w in debits]
+            want += ex_want + [w for _n, w in debits]
+        _check_all("dp_verdict", names, srcs, want, srcs[0].device)
+        self.names = tuple(names)
+        nw = sum(-(-n // 32) for n in (E, NGv, NGh)) + (-(-G // 32) if apply else 0)
+        self.words = DP * (1 + 2 * nw)
+        self.n = len(srcs)
+        self.dims = _i64_array([DP, W, E, R, NGv, NGh, G, RID, n_claims, int(fill), int(apply), self.words,
+                                *(_node_bytes(t) for t in ex), *segs])
+        self.ptrs = (ctypes.c_int64 * (self.n + 3))()
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), len(self.ptrs), ctypes.cast(self.dims, ctypes.c_void_p))
+
+
+def _dpv_workspace(dev, words: int) -> tuple:
+    """(words, ticket) of (dev, the current stream), grown to hold `words`
+    (a grown workspace starts zeroed)."""
+    key = _stream_key(dev)
+    ws = _DPV_WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < words:
+        ws = _DPV_WORKSPACES[key] = (torch.zeros(max(words, 64), dtype=torch.int32, device=dev),
+                                     torch.zeros(1, dtype=torch.int32, device=dev))
+    return ws
+
+
 def dp_verdict(base, specs: list, dead, exist, n_claims: int, vin) -> torch.Tensor:
     """H13: the packed verdict word of a dp round (ops.solver.
     dp_verdict_plain) in one launch, reading H12's matrix `dead` and the
-    round's ops.solver.DpVerdictIn. Returns [ceil(DP / 32)] int32."""
-    from karpenter_tpu_torch.ops.solver import exist_leaves
-
-    b, i, f = torch.bool, torch.int32, torch.float32
-    dev = dead.device
+    round's ops.solver.DpVerdictIn. Every row's pointers ride the kernel's
+    parameters (at most DP_VERDICT_ROWS rows); a layout of DP, family,
+    shapes and dtypes is checked in full once, a call checks device and
+    contiguity in one pass and allocates only the word (the workspace is
+    the stream's). Returns [ceil(DP / 32)] int32."""
     DP = len(specs)
-    W, R = base.used.shape
-    E = base.exist_used.shape[0]
-    G = base.budget.shape[0]
-    RID = base.res_cap.shape[0]
-    NGv, NGh = vin.rec_v.shape[1], vin.rec_h.shape[1]
-    fill = vin.fill_c is not None
-    bex = exist_leaves(base)
-    rows = []
+    if not 1 <= DP <= DP_VERDICT_ROWS:
+        raise LaunchRefused(f"dp_verdict: DP={DP} outside [1, {DP_VERDICT_ROWS}] (the rows' pointers ride the "
+                            f"kernel's parameters)")
+    fill, at = vin.fill_c is not None, vin.apply_tmpl
+    srcs = [base.w_open, base.n_open, base.spills, base.pods, base.exist_used, base.exist_ports, base.exist_vols,
+            *base.exist_reqs]
+    if at is not None:
+        srcs += [base.budget, base.nodes_budget, base.res_cap]
+    srcs += [dead, vin.r_min, vin.exist_ok_rows, vin.rec_v, vin.app_v, vin.rec_h, vin.app_h]
+    if at is not None:
+        srcs.append(at)
+    srcs += [exist.valid, exist.avail]
     for q, s in enumerate(specs):
-        sc = [_checked(f"{n}[{q}]", getattr(s, n), i, (), dev) for n in ("w_open", "n_open", "spills")]
-        if fill:
-            fc, lo = vin.fill_c[q], vin.leftover[q]
-            B = fc.shape[0]
-            touch = [_checked(f"fill_c[{q}]", fc, i, (B, W), dev), B, _checked(f"leftover[{q}]", lo, i, (B,), dev)]
-        else:
-            touch = [_checked(f"pods[{q}]", s.pods, i, (W,), dev), 0, 0]
-        ex = [_checked(f"exist[{q}]", t, bt.dtype, tuple(bt.shape), dev) for t, bt in zip(exist_leaves(s), bex)]
-        deb = [_checked(f"budget[{q}]", s.budget, f, (G, R), dev), _checked(f"nodes_budget[{q}]", s.nodes_budget, f,
-                                                                            (G,), dev),
-               _checked(f"res_cap[{q}]", s.res_cap, i, (RID,), dev)]
-        rows.append(sc + touch + ex + deb)
-    table = _table(rows, dev)
-    u8 = torch.uint8
-    touch_e = torch.empty((DP, E), dtype=u8, device=dev)
-    touch_b = torch.empty((DP, G), dtype=u8, device=dev)
-    viable = torch.empty((DP, E), dtype=u8, device=dev)
-    rowbits = torch.empty((DP, 4), dtype=i, device=dev)
-    ticket = torch.zeros(1, dtype=i, device=dev)
-    word = torch.empty((DP + 31) // 32, dtype=i, device=dev)
-    at = vin.apply_tmpl
-    ptrs = [
-        table.data_ptr(), _checked("base.w_open", base.w_open, i, (), dev),
-        _checked("base.n_open", base.n_open, i, (), dev), _checked("base.spills", base.spills, i, (), dev),
-        _checked("base.pods", base.pods, i, (W,), dev),
-        *(_checked("base.exist", t, t.dtype, tuple(t.shape), dev) for t in bex),
-        _checked("base.budget", base.budget, f, (G, R), dev),
-        _checked("base.nodes_budget", base.nodes_budget, f, (G,), dev),
-        _checked("base.res_cap", base.res_cap, i, (RID,), dev), _checked("dead", dead, b, (DP, 1 + DP), dev),
-        _checked("r_min", vin.r_min, f, (DP, R), dev), _checked("exist_ok_rows", vin.exist_ok_rows, b, (DP, E), dev),
-        _checked("rec_v", vin.rec_v, b, (DP, NGv), dev), _checked("app_v", vin.app_v, b, (DP, NGv), dev),
-        _checked("rec_h", vin.rec_h, b, (DP, NGh), dev), _checked("app_h", vin.app_h, b, (DP, NGh), dev),
-        0 if at is None else _checked("apply_tmpl", at, b, (DP, G), dev),
-        _checked("exist.valid", exist.valid, b, (E,), dev), _checked("exist.avail", exist.avail, f, (E, R), dev),
-        touch_e.data_ptr(), touch_b.data_ptr(), viable.data_ptr(), rowbits.data_ptr(), ticket.data_ptr(),
-        word.data_ptr(),
-    ]
-    _launch("dp_verdict", ptrs, [DP, W, E, R, NGv, NGh, G, RID, n_claims, int(fill), *(_node_bytes(t) for t in bex)])
+        srcs += [s.w_open, s.n_open, s.spills]
+        srcs += [vin.fill_c[q], vin.leftover[q]] if fill else [s.pods]
+        srcs += [s.exist_used, s.exist_ports, s.exist_vols, *s.exist_reqs]
+        if at is not None:
+            srcs += [s.budget, s.nodes_budget, s.res_cap]
+    dev = dead.device
+    key = (DP, fill, at is not None, n_claims, tuple(map(_SHAPE, srcs)), tuple(map(_DTYPE, srcs)))
+    lay = _DPV_LAYOUTS.get(key, lambda: _DpVerdictLayout(base, specs, vin, n_claims, srcs))
+    _check_place(dev, lay.names, srcs)
+    ws, ticket = _dpv_workspace(dev, lay.words)
+    word = torch.empty((DP + 31) // 32, dtype=torch.int32, device=dev)
+    p, n = lay.ptrs, lay.n
+    p[:n] = list(map(torch.Tensor.data_ptr, srcs))
+    p[n], p[n + 1], p[n + 2] = ws.data_ptr(), ticket.data_ptr(), word.data_ptr()
+    _call("dp_verdict", *lay.args)
     return word
+
+
+_MERGE_LAYOUTS = LayoutCache(32)
+# the merged state's count and debit fields each mode writes
+_MERGE_QUADS = {False: ("hg_counts",), True: ("hg_counts", "vg_counts", "budget", "nodes_budget", "res_cap")}
+_MERGE_SCALARS = (("committed", "n_open"), ("committed", "w_open"), ("committed", "w_hw"), ("spec", "n_open"),
+                  ("spec", "w_open"), ("base", "n_open"), ("base", "w_open"))
+
+
+def _merge_sources(committed, spec, base, assignment) -> list:
+    """H14's inputs in csrc/merge_shard.cu's order, the pointer slots of
+    outputs left out: window columns (committed, spec), existing-node
+    fields (committed, spec, base), open, slot_of (committed, spec), the
+    mode's count and debit fields (committed, spec, base), the assignment,
+    the seven scalars."""
+    from karpenter_tpu_torch.ops.solver import GRAFT_WINDOW, exist_leaves
+
+    srcs = []
+    for name in GRAFT_WINDOW:
+        c, s = getattr(committed, name), getattr(spec, name)
+        if isinstance(c, tuple):
+            for ct, st in zip(c, s):
+                srcs += [ct, st]
+        else:
+            srcs += [c, s]
+    for c, s, b in zip(exist_leaves(committed), exist_leaves(spec), exist_leaves(base)):
+        srcs += [c, s, b]
+    srcs += [committed.open, committed.slot_of, spec.slot_of]
+    for name in _MERGE_QUADS[assignment is not None]:
+        srcs += [getattr(committed, name), getattr(spec, name), getattr(base, name)]
+    if assignment is not None:
+        srcs.append(assignment)
+    st = dict(committed=committed, spec=spec, base=base)
+    return srcs + [getattr(st[w], n) for w, n in _MERGE_SCALARS]
+
+
+class _MergeLayout:
+    """One checked merge_shard layout (the mode, every input's shape and
+    dtype): the names the per-call check reports, the output arena (each
+    output a 256-byte-aligned view of one allocation, with the committed
+    field's dtype and shape), the C entry's dims and the pointer array a
+    call fills (input slots, output offsets)."""
+
+    def __init__(self, committed, spec, base, assignment, srcs: list):
+        from karpenter_tpu_torch.ops.solver import GRAFT_WINDOW, exist_leaves
+
+        i32 = torch.int32
+        dev = committed.used.device
+        kscan = assignment is not None
+        W = committed.open.shape[0]
+        NB = committed.bank_frozen.shape[0]
+        E, R = committed.exist_used.shape
+        NGh, S = committed.hg_counts.shape
+        NGv, V = committed.vg_counts.shape
+        G = committed.budget.shape[0]
+        RID = committed.res_cap.shape[0]
+        names, want, outs = [], [], []  # outs: (field, component, dtype, shape)
+        win_bytes = []
+        for name in GRAFT_WINDOW:
+            c = getattr(committed, name)
+            parts = list(enumerate(c)) if isinstance(c, tuple) else [(None, c)]
+            for comp, t in parts:
+                label = name if comp is None else f"{name}.{comp}"
+                names += [f"committed.{label}", f"spec.{label}"]
+                want += [(tuple(t.shape), t.dtype)] * 2
+                outs.append((name, comp, t.dtype, tuple(t.shape)))
+                win_bytes.append(_node_bytes(t) if t.dim() else 0)
+        ex = exist_leaves(committed)
+        for n, t in enumerate(ex):
+            names += [f"{w}.exist[{n}]" for w in ("committed", "spec", "base")]
+            want += [(tuple(t.shape), t.dtype)] * 3
+            outs.append(("exist", n, t.dtype, tuple(t.shape)))
+        names += ["committed.open", "committed.slot_of", "spec.slot_of"]
+        want += [((W,), torch.bool), ((W,), i32), ((W,), i32)]
+        outs += [("open", None, torch.bool, (W,)), ("slot_of", None, i32, (W,)), ("shifted", None, i32, (W,))]
+        quad = dict(hg_counts=(i32, (NGh, S)), vg_counts=(i32, (NGv, V)), budget=(torch.float32, (G, R)),
+                    nodes_budget=(torch.float32, (G,)), res_cap=(i32, (RID,)))
+        for name in _MERGE_QUADS[kscan]:
+            dt, shape = quad[name]
+            names += [f"{w}.{name}" for w in ("committed", "spec", "base")]
+            want += [(shape, dt)] * 3
+            outs.append((name, None, dt, shape))
+        if kscan:
+            names.append("assignment")
+            want.append((tuple(assignment.shape), i32))
+            outs.append(("assignment", None, i32, tuple(assignment.shape)))
+        names += [f"{w}.{n}" for w, n in _MERGE_SCALARS]
+        want += [((), i32)] * len(_MERGE_SCALARS)
+        outs += [(n, None, i32, ()) for n in ("n_open", "w_open", "w_hw")]
+        if ex[0].dtype != torch.float32 or tuple(ex[0].shape) != (E, R):
+            raise LaunchRefused(f"merge_shard: committed.exist_used {tuple(ex[0].shape)} {ex[0].dtype}, expected "
+                                f"({E}, {R}) float32")
+        _check_all("merge_shard", names, srcs, want, dev)
+        self.names = tuple(names)
+        # the arena: each output 256-byte aligned, at out_offsets bytes
+        self.views, self.out_offsets, off = [], [], 0
+        for field, comp, dt, shape in outs:
+            es = torch.empty((), dtype=dt).element_size()
+            stride, acc = [], 1
+            for d in reversed(shape):
+                stride.append(acc)
+                acc *= d
+            self.views.append((field, comp, dt, shape, tuple(reversed(stride)), off // es))
+            self.out_offsets.append(off)
+            off += -(-(acc * es) // 256) * 256
+        self.bytes = max(off, 256)
+        self.dtypes = tuple(dict.fromkeys(dt for _f, _c, dt, _s in outs))
+        # the pointers: the sources, then the outputs
+        n_win = len(win_bytes)
+        self.n = len(srcs)
+        k = self.n + len(self.out_offsets)
+        self.ptrs = (ctypes.c_int64 * k)()
+        # the merged state's fields from the views, by position
+        fields = [v[0] for v in self.views]
+        self.n_reqs = fields.count("reqs")
+        self.plain = [(n, j) for j, n in enumerate(fields) if n not in ("reqs", "exist", "shifted", "assignment")]
+        self.exist0 = fields.index("exist")
+        self.shifted = fields.index("shifted")
+        self.assign = fields.index("assignment") if kscan else None
+        self.dims = _i64_array([n_win, W, NB, E, R, NGh, S, NGv, V, G, RID, assignment.numel() if kscan else 0,
+                                int(kscan), *win_bytes, *(_node_bytes(t) for t in ex)])
+        self.args = (ctypes.cast(self.ptrs, ctypes.c_void_p), k, ctypes.cast(self.dims, ctypes.c_void_p))
 
 
 def merge_shard(committed, spec, base, assignment=None) -> tuple:
     """H14: one dp commit out of place (ops.solver.merge_shard_fill_plain,
     or merge_shard_kscan_plain with `assignment`) in one launch. Returns
     (merged state, shifted slot map, shifted assignment or None); every
-    field the commit writes is a fresh tensor."""
+    field the commit writes is a fresh tensor: a view of one output arena,
+    256-byte aligned, disjoint from the others. A layout of mode, shapes
+    and dtypes is checked in full once (_MERGE_LAYOUTS); a call checks
+    device and contiguity in one pass and allocates only the arena."""
     from karpenter_tpu_torch.ops.encode import ReqSetTensors
-    from karpenter_tpu_torch.ops.solver import GRAFT_WINDOW, exist_leaves
 
-    i = torch.int32
+    srcs = _merge_sources(committed, spec, base, assignment)
     dev = committed.used.device
-    W = committed.open.shape[0]
-    NB = committed.bank_frozen.shape[0]
-    E, R = committed.exist_used.shape
-    NGh, S = committed.hg_counts.shape
-    NGv, V = committed.vg_counts.shape
-    G = committed.budget.shape[0]
-    RID = committed.res_cap.shape[0]
-    kscan = assignment is not None
-    ptrs, row_bytes, out = [], [], {}
-
-    def col(name, c, s, d):
-        ptrs.extend([_checked(f"committed.{name}", c, c.dtype, tuple(c.shape), dev),
-                     _checked(f"spec.{name}", s, c.dtype, tuple(c.shape), dev), d.data_ptr()])
-        row_bytes.append(_node_bytes(c))
-
-    for name in GRAFT_WINDOW:
-        c, s = getattr(committed, name), getattr(spec, name)
-        if isinstance(c, ReqSetTensors):
-            d = ReqSetTensors(*(torch.empty_like(t) for t in c))
-            for comp, (ct, st, dt) in enumerate(zip(c, s, d)):
-                col(f"{name}.{comp}", ct, st, dt)
-        else:
-            d = torch.empty_like(c)
-            col(name, c, s, d)
-        out[name] = d
-    n_win = len(row_bytes)
-    ex_c, ex_s, ex_b = exist_leaves(committed), exist_leaves(spec), exist_leaves(base)
-    ex_d = [torch.empty_like(t) for t in ex_c]
-    for n, (c, s, bb, d) in enumerate(zip(ex_c, ex_s, ex_b, ex_d)):
-        ptrs += [_checked(f"committed.exist[{n}]", c, c.dtype, tuple(c.shape), dev),
-                 _checked(f"spec.exist[{n}]", s, c.dtype, tuple(c.shape), dev),
-                 _checked(f"base.exist[{n}]", bb, c.dtype, tuple(c.shape), dev), d.data_ptr()]
-    open_d = torch.empty_like(committed.open)
-    slot_d = torch.empty_like(committed.slot_of)
-    shifted = torch.empty_like(committed.slot_of)
-    ptrs += [_checked("committed.open", committed.open, torch.bool, (W,), dev), open_d.data_ptr(),
-             _checked("committed.slot_of", committed.slot_of, i, (W,), dev),
-             _checked("spec.slot_of", spec.slot_of, i, (W,), dev), slot_d.data_ptr(), shifted.data_ptr()]
-    quads = {"hg_counts": (i, (NGh, S))}
-    if kscan:
-        quads.update(vg_counts=(i, (NGv, V)), budget=(torch.float32, (G, R)), nodes_budget=(torch.float32, (G,)),
-                     res_cap=(i, (RID,)))
-    new = {}
-    for name in ("hg_counts", "vg_counts", "budget", "nodes_budget", "res_cap"):
-        if name not in quads:
-            ptrs += [0, 0, 0, 0]
-            continue
-        dt, shape = quads[name]
-        new[name] = torch.empty(shape, dtype=dt, device=dev)
-        ptrs += [_checked(f"{w}.{name}", getattr(st, name), dt, shape, dev) for w, st in
-                 (("committed", committed), ("spec", spec), ("base", base))] + [new[name].data_ptr()]
-    assign = None
-    if kscan:
-        assign = torch.empty_like(assignment)
-        ptrs += [_checked("assignment", assignment, i, tuple(assignment.shape), dev), assign.data_ptr()]
-    else:
-        ptrs += [0, 0]
-    for name, st in (("n_open", committed), ("w_open", committed), ("w_hw", committed), ("n_open", spec),
-                     ("w_open", spec), ("n_open", base), ("w_open", base)):
-        ptrs.append(_checked(name, getattr(st, name), i, (), dev))
-    scalars = [torch.empty((), dtype=i, device=dev) for _ in range(3)]
-    ptrs += [t.data_ptr() for t in scalars]
-    NA = assignment.numel() if kscan else 0
-    _launch("merge_shard", ptrs, [n_win, W, NB, E, R, NGh, S, NGv, V, G, RID, NA, int(kscan), *row_bytes,
-                                  *(_node_bytes(t) for t in ex_c)])
+    key = (assignment is not None, tuple(map(_SHAPE, srcs)), tuple(map(_DTYPE, srcs)))
+    lay = _MERGE_LAYOUTS.get(key, lambda: _MergeLayout(committed, spec, base, assignment, srcs))
+    _check_place(dev, lay.names, srcs)
+    arena = torch.empty(lay.bytes, dtype=torch.uint8, device=dev)
+    typed = {dt: arena.view(dt) for dt in lay.dtypes}
+    p, n, at = lay.ptrs, lay.n, arena.data_ptr()
+    p[:n] = list(map(torch.Tensor.data_ptr, srcs))
+    p[n:] = [at + off for off in lay.out_offsets]
+    _call("merge_shard", *lay.args)
+    views = [typed[dt].as_strided(shape, stride, off) for _f, _c, dt, shape, stride, off in lay.views]
+    e0 = lay.exist0
     merged = committed._replace(
-        **out, open=open_d, slot_of=slot_d, n_open=scalars[0], w_open=scalars[1], w_hw=scalars[2],
-        exist_used=ex_d[0], exist_ports=ex_d[1], exist_vols=ex_d[2], exist_reqs=ReqSetTensors(*ex_d[3:]), **new,
+        reqs=ReqSetTensors(*views[:lay.n_reqs]), exist_used=views[e0], exist_ports=views[e0 + 1],
+        exist_vols=views[e0 + 2], exist_reqs=ReqSetTensors(*views[e0 + 3:e0 + 9]),
+        **{name: views[j] for name, j in lay.plain},
     )
-    return merged, shifted, assign
+    return merged, views[lay.shifted], None if lay.assign is None else views[lay.assign]
 
 
 # ---------------------------------------------------------------------------

@@ -1098,35 +1098,69 @@ def variant_out(state: SolverState, ys: FillYs) -> VariantOut:
     return VariantOut(state.its, state.open, state.pods, state.template, state.w_open, state.spills, ys.leftover)
 
 
+# XLA:CPU's f32 sum of n elements, the block and its padding rule
+XLA_SUM_BLOCK = 32
+
+
+def xla_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """[...] f32: the sum over the last axis of f32 `x` in the order XLA:CPU
+    sums it (jax 0.9.0; the optimised HLO of `jnp.sum` over n elements is a
+    `reduce-window` with `window={size=32 stride=32 pad=lo_hi}` followed
+    by a reduce of the ceil(n / 32) partials). With p = ceil(n / 32) * 32
+    - n, lo = p // 2 zeros go before the elements and p - lo after them;
+    each block of 32 is summed left to right in f32 from +0.0; the
+    partials are summed again by the same rule while more than 32 are
+    left, and what is left in order. Every add rounds to f32, so the
+    result is the reference's bit for bit."""
+    x = x.to(F32)
+    lead = x.shape[:-1]
+    n = x.shape[-1]
+    if n == 0:
+        return torch.zeros(lead, dtype=F32, device=x.device)
+    while True:
+        m = -(-n // XLA_SUM_BLOCK)
+        p = m * XLA_SUM_BLOCK - n
+        lo = p // 2
+        if p:
+            x = torch.cat([x.new_zeros(lead + (lo,)), x, x.new_zeros(lead + (p - lo,))], dim=-1)
+        blocks = x.reshape(lead + (m, XLA_SUM_BLOCK))
+        s = torch.zeros(lead + (m,), dtype=F32, device=x.device)
+        for j in range(XLA_SUM_BLOCK):
+            s = s + blocks[..., j]
+        if m == 1:
+            return s[..., 0]
+        x, n = s, m
+
+
 def objective_score_plain(base_w_open, v: VariantOut, price_t: torch.Tensor, objective: int, G: int) -> torch.Tensor:
     """[] f32: the realized score of the claims one variant opened (window
     rows [base_w_open, v.w_open) that are open), the reference's
-    _objective_score formulas. Sums are taken in f64 and rounded to f32
-    once: integer sums are exact either way, and cost_min's sum of f32
-    prices is exact in f64 while the prices span less than 2^17 and at most
-    2^12 rows open, so its value does not depend on the order of the sum
-    (XLA's f32 order is not reproducible: scores agree with the
-    reference's to a relative 1e-6, not bit for bit). frag_aware's
-    n·1e6 − landed is one rounding, as XLA contracts it into an fma."""
+    _objective_score formulas with every f32 sum in XLA's order
+    (xla_tree_sum), so scores equal the reference's bit for bit: an
+    integer sum past 2^24 and a sum of f32 prices round where the
+    reference's do. cost_min: the opened rows' cheapest viable price over
+    W; frag_aware: n·1e6 − landed, landed the f32 sum of the pods over W,
+    one rounding (XLA contracts it into an fma); topo_spread: the f32 sum
+    over G of each template's opened count squared; gang_slice: the f32
+    sum over W of p_max − pods, then + n_opened."""
     W = v.open.shape[0]
     rows = torch.arange(W, dtype=I32, device=v.open.device)
     opened = (rows >= base_w_open) & (rows < v.w_open) & v.open
-    n_opened = (v.w_open - base_w_open).double()
+    n_opened = (v.w_open - base_w_open).to(F32)
+    zero = torch.zeros_like(v.pods)
     if objective == OBJ_COST_MIN:
-        row_price = torch.where(v.its, price_t[None, :], float("inf")).amin(dim=1).double()
-        return torch.where(opened, row_price, 0.0).sum().float()
+        row_price = torch.where(v.its, price_t[None, :], float("inf")).amin(dim=1)
+        return xla_tree_sum(torch.where(opened, row_price, 0.0))
     if objective == OBJ_FRAG_AWARE:
-        landed = torch.where(opened, v.pods, torch.zeros_like(v.pods)).sum(dtype=torch.int64).double()
-        return (n_opened * 1e6 - landed).float()
+        landed = xla_tree_sum(torch.where(opened, v.pods, zero).to(F32))
+        return (n_opened.double() * 1e6 - landed.double()).float()
     if objective == OBJ_TOPO_SPREAD:
-        cnt = torch.zeros(G, dtype=torch.int64, device=v.open.device)
-        cnt.index_add_(0, v.template.long(), opened.to(torch.int64))
-        return (cnt * cnt).sum().double().float()
+        cnt = torch.zeros(G, dtype=F32, device=v.open.device)
+        cnt.index_add_(0, v.template.long(), opened.to(F32))
+        return xla_tree_sum(cnt * cnt)
     if objective == OBJ_GANG_SLICE:
-        zero = torch.zeros_like(v.pods)
         p_max = torch.where(opened, v.pods, zero).max()
-        slack = torch.where(opened, p_max - v.pods, zero).sum(dtype=torch.int64).double()
-        return (slack + n_opened).float()
+        return xla_tree_sum(torch.where(opened, p_max - v.pods, zero).to(F32)) + n_opened
     return torch.zeros((), dtype=F32, device=v.open.device)
 
 

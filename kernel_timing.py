@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time H1 req_intersects, H2 fill_count_grid, H3 water_fill, H4
 compact_scatter, H5 kscan_grid, H6 kscan_pod_loop, H9 gang_scan, H11
-objective_verdict, H12 dp_dead, H13 dp_verdict and H15 wire_pack of one
-checkout of this repository on one NVIDIA GPU.
+objective_verdict, H12 dp_dead, H13 dp_verdict, H14 merge_shard and H15
+wire_pack of one checkout of this repository on one NVIDIA GPU.
 
     python3 kernel_timing.py [--repo DIR] [--tag NAME] [--cells] [--only KERNEL,...]
 
@@ -32,10 +32,12 @@ star's first pipeline group, mixed's last group with its final state
 reads, a dp verdict word of 4 bytes); H11 at objectives_mixed_16384x400's
 first round under each of the four non-lexical policies and with every
 type unpriced; H12 and H13 on the first round of each of
-chip_smoke.SHARD_KERNEL_CELLS (fill, kind-scan and per-pod modes), after
+chip_smoke.SHARD_KERNEL_CELLS (fill, kind-scan and per-pod modes) and H14
+on each cell's first commit (its fill mode on the existing twin's, its
+kscan mode on the zonal twin's and the per-pod cell's), after
 which the warm solves of chip_smoke.SYNC_DP_CELLS list the lines that
 made the host wait (chip_smoke.sync_points). --only runs the phases of
-the named kernels alone (e.g. --only objective_verdict,dp_dead). Each call shape's line
+the named kernels alone (e.g. --only objective_verdict,dp_verdict,merge_shard). Each call shape's line
 (chip_smoke.CALL_SHAPES) gives the kernel's device ms
 per launch and per call (torch.profiler, over every `__global__` function
 of DIR's source of that kernel, so an older design that launched two
@@ -63,12 +65,12 @@ import sys
 
 def use_checkout_kernels(smoke, repo: str) -> None:
     """Point chip_smoke's profiled kernel names at DIR's own: every
-    `__global__` function of the source of H1-H6, H9, H11-H13 and H15."""
+    `__global__` function of the source of H1-H6, H9 and H11-H15."""
     csrc = os.path.join(repo, "karpenter_tpu_torch", "ops", "csrc")
     sources = (("req_intersects", "H1_NAMES"), ("fill_count_grid", "H2_NAMES"), ("water_fill", "H3_NAMES"),
                ("compact_scatter", "H4_NAMES"), ("kscan_grid", "H5_NAMES"), ("kscan_pod_loop", "H6_NAMES"),
                ("gang_scan", "H9_NAMES"), ("objective_verdict", "H11_NAMES"), ("dp_dead", "H12_NAMES"),
-               ("dp_verdict", "H13_NAMES"), ("wire_pack", "H15_NAMES"))
+               ("dp_verdict", "H13_NAMES"), ("merge_shard", "H14_NAMES"), ("wire_pack", "H15_NAMES"))
     for source, attr in sources:
         with open(os.path.join(csrc, f"{source}.cu")) as f:
             names = tuple(dict.fromkeys(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
@@ -149,7 +151,7 @@ def main() -> int:
         return cells(smoke, card, repo, args.tag)
     only = set(filter(None, args.only.split(",")))
     timed = ("req_intersects", "fill_count_grid", "water_fill", "compact_scatter", "kscan_grid", "kscan_pod_loop",
-             "gang_scan", "objective_verdict", "dp_dead", "dp_verdict", "wire_pack")
+             "gang_scan", "objective_verdict", "dp_dead", "dp_verdict", "merge_shard", "wire_pack")
     if only - set(timed):
         print(f"FAIL: --only names no timed kernel: {sorted(only - set(timed))}", flush=True)
         return 1
@@ -170,7 +172,7 @@ def main() -> int:
         smoke.gang_kernel_phase(torch, cuda, smoke.gang_cells(T, TorchScheduler), results)
     if wanted("objective_verdict"):
         smoke.objective_kernel_phase(torch, cuda, T, TorchScheduler, results)
-    if wanted("dp_dead", "dp_verdict"):
+    if wanted("dp_dead", "dp_verdict", "merge_shard"):
         smoke.shard_kernel_phase(torch, cuda, T, TorchScheduler, results)
         dp_cells = {c[0]: c for c in smoke.shard_cells(T)}
         for label in smoke.SYNC_DP_CELLS:

@@ -135,6 +135,7 @@ inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __float_as_int(float x) {
   int i;
@@ -310,6 +311,14 @@ inline T __shfl_sync(unsigned, T v, int src) {
   emu_warp_meet();
   return r;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_emu->slot_f[w][l] = v;
+  emu_warp_meet();
+  const float r = g_emu->slot_f[w][src];
+  emu_warp_meet();
+  return r;
+}
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   g_emu->slot_f[w][l] = v;
@@ -458,8 +467,9 @@ inline void emu_note_read(const void* p) {
 // store would be visible in time; the suites' rewrites route a kernel's
 // cross-block stores, adds, ors, ticket and loads through these instead.
 // A store (an add, an or) waits in its thread's list until that thread
-// runs __threadfence; one its thread never fences, or one made after its block
-// took the ticket, lands only when the launch ends. A load by a thread that
+// runs __threadfence; one its thread never fences, one not fenced yet when
+// its block takes the ticket, or one made after that, lands only when the
+// launch ends. A load by a thread that
 // has not fenced since its block took the ticket returns the bytes the
 // address held before this launch's first store there. So a missing fence
 // on either side, or a ticket taken before the stores, gives the last
@@ -510,6 +520,12 @@ inline void emu_xor(unsigned* p, unsigned v) {
 }
 inline unsigned emu_ticket(unsigned* t) {
   g_emu->ticketed = true;
+  // a store of the block that no fence of its thread published before the
+  // ticket races with the ticket: it lands when the launch ends
+  for (auto& p : g_emu->pending) {
+    g_sched->late.insert(g_sched->late.end(), p.begin(), p.end());
+    p.clear();
+  }
   return reinterpret_cast<std::atomic<unsigned>*>(t)->fetch_add(1u);
 }
 template <class T>

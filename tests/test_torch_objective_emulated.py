@@ -11,23 +11,33 @@ on seeded variant outcomes, for each objective, KV 1 to 24, every variant
 infeasible, every feasible score +inf, and tied scores; and inside CPU
 solves, every objective round of which goes through the kernel and the
 plain version. The kernel spreads each variant's window rows over blocks
-of 64 rows and folds their partials in the block that takes the last
-ticket; the rewrite routes its cross-block stores, adds, ticket and loads
-through cuda_emu.h's memory model (a store not fenced before the ticket,
-or a load not fenced after it, meets stale bytes), and cases reach what
-only that layout has: opened rows across chunk boundaries, the only
-opened row last in the last chunk, two launches on one workspace (the
-ticket and the counts reset), more templates than threads and than the
-shared histogram, gang_slice's p_max in another block, columns off their
-16-byte alignment. The emulation checks the kernel's logic, not its
-timing or what the GPU compiler does with it: chip_smoke.py holds the
-compiled kernel to the plain version on the card. Tolerance: exact (the
-scores bit for bit).
+of XLA's 32-row windows (after lo = p // 2 padding rows) and folds their
+partials in XLA's order in the block that takes the last ticket; the
+rewrite routes its cross-block stores, adds, ticket and loads through
+cuda_emu.h's memory model (a store not fenced before the ticket, or a
+load not fenced after it, meets stale bytes), and cases reach what only
+that layout has: opened rows across window boundaries, the only opened
+row last in the last window, two launches on one workspace (the ticket
+and the counts reset), more templates than threads and than the shared
+histogram, gang_slice's p_max in another block, columns off their
+16-byte alignment, the near-tie fleets, a W that is not a multiple of
+32, W and G whose folds take two and three levels, and windows whose
+integer sums pass 2^24 (gang_slice sums such a window's rows again). The
+frag_aware case past 2^24 also holds the jitted reference's score. The
+emulation checks the kernel's logic, not its timing or what the GPU
+compiler does with it: chip_smoke.py holds the compiled kernel to the
+plain version on the card. Tolerance: exact (the scores bit for bit).
 """
 
+from typing import NamedTuple
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from karpenter_tpu.ops import solver as j_solver
 
 from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.controllers.provisioning import TorchScheduler
@@ -167,10 +177,27 @@ def test_emulated_verdict_edges(case, emulated, monkeypatch):
             assert (w >> 24) & 0xFF != 1
 
 
+class _St(NamedTuple):
+    """The fields the reference's _objective_score reads of a state."""
+
+    open: jnp.ndarray
+    w_open: jnp.ndarray
+    its: jnp.ndarray
+    pods: jnp.ndarray
+    template: jnp.ndarray
+
+
+def _reference_score(base_w, out, price, objective: int, G: int) -> float:
+    """The JAX package's jitted _objective_score of one variant outcome."""
+    st = _St(*(jnp.asarray(t.numpy()) for t in (out.open, out.w_open, out.its, out.pods, out.template)))
+    score = jax.jit(lambda b, s, p: j_solver._objective_score(b, s, p, objective, G))
+    return score(st._replace(w_open=jnp.asarray(int(base_w), jnp.int32)), st, jnp.asarray(price.numpy()))
+
+
 def test_emulated_frag_aware_past_2_24(emulated, monkeypatch):
     """frag_aware with 1075 opened rows: n·1e6 is not a float, and one
-    rounding differs from two; the kernel's n·1e6 − landed in double,
-    rounded once, equals the plain f64-rounded-once value."""
+    rounding differs from two; the kernel's fma (one rounding) equals the
+    plain version and the jitted reference bit for bit."""
     W = 1600
     base_w = torch.tensor(0, dtype=torch.int32)
     out = p_solver.VariantOut(
@@ -184,6 +211,92 @@ def test_emulated_frag_aware_past_2_24(emulated, monkeypatch):
     one = np.float32(1075 * 1e6 - 1075)
     two = np.float32(np.float32(np.float32(1075) * np.float32(1e6)) - np.float32(1075))
     assert one != two and float(scores[0]) == float(one)
+    ref = _reference_score(base_w, out, torch.ones(4), p_solver.OBJ_FRAG_AWARE, 1)
+    assert np.float32(ref).view(np.int32) == scores[:1].numpy().view(np.int32)[0]
+
+
+def test_emulated_near_tie_fleets(emulated, monkeypatch):
+    """ROADMAP §3's near-tie fleets (200 claims each over 400 priced
+    types, a window of 256): the kernel's cost_min scores equal the plain
+    version's and the reference's bit for bit, one ulp apart, and the
+    word's winner is the reference's."""
+    from test_torch_objectives import _near_tie_round
+
+    _a, _ja, _exact, j_scores, j_winner, p_scores, word = _near_tie_round()
+    from test_torch_objectives import _near_tie
+
+    price, fleets, *_rest = _near_tie()
+    n, W = len(fleets[0]), len(fleets[0]) + 56
+    outs = []
+    for rows in fleets:
+        its = torch.zeros((W, price.shape[0]), dtype=torch.bool)
+        its[torch.arange(n), torch.tensor(rows)] = True
+        outs.append(p_solver.VariantOut(
+            its=its, open=torch.arange(W) < n, pods=torch.ones(W, dtype=torch.int32),
+            template=torch.zeros(W, dtype=torch.int32), w_open=torch.tensor(n, dtype=torch.int32),
+            spills=torch.tensor(0, dtype=torch.int32), leftover=torch.zeros(1, dtype=torch.int32)))
+    zero = torch.tensor(0, dtype=torch.int32)
+    scores, w = _both(emulated, monkeypatch, zero, zero, outs, torch.from_numpy(price), p_solver.OBJ_COST_MIN, 1)
+    assert np.array_equal(scores.numpy().view(np.int32), np.asarray(j_scores, dtype=np.float32).view(np.int32))
+    assert (w >> 24) & 0xFF == j_winner and w == word and scores[0] != scores[1]
+
+
+def _big_pods(W: int, seed: int, G: int = 2, T_: int = 16):
+    """Two variants over W rows, most open from base 0: pods near 2^20 on
+    most rows (a window's integer sum passes 2^24), small ones between and
+    one row in 40 near 2^21 (p_max - pods passes 2^20 on the others, so
+    gang_slice's window sums pass 2^24 too), seeded prices."""
+    rng = np.random.default_rng(seed)
+    outs = []
+    for v in range(2):
+        pods = np.where(rng.random(W) < 0.7, rng.integers((1 << 20) - 4000, 1 << 20, W),
+                        rng.integers(0, 9, W))
+        pods = np.where(rng.random(W) < 0.025, rng.integers(1 << 21, (1 << 21) + 4000, W), pods).astype(np.int32)
+        outs.append(p_solver.VariantOut(
+            its=torch.from_numpy(rng.random((W, T_)) < 0.5), open=torch.from_numpy(rng.random(W) < 0.95),
+            pods=torch.from_numpy(pods), template=torch.from_numpy(rng.integers(0, G, W).astype(np.int32)),
+            w_open=torch.tensor(W - v, dtype=torch.int32), spills=torch.tensor(0, dtype=torch.int32),
+            leftover=torch.zeros(2, dtype=torch.int32)))
+    price = torch.from_numpy((10.0 ** rng.uniform(-3, 3, T_)).astype(np.float32))
+    return torch.tensor(0, dtype=torch.int32), torch.tensor(0, dtype=torch.int32), outs, price, G
+
+
+@pytest.mark.parametrize("objective", sorted(set(OBJECTIVES) - {"lexical"}))
+@pytest.mark.parametrize("W", [45, 1100, 33000])
+def test_emulated_tree_order(W, objective, emulated, monkeypatch):
+    """XLA's order in the kernel: W = 45 (not a multiple of 32: 19 padding
+    rows, 9 before the first window), W = 1100 (35 windows: the fold takes
+    two levels) and W = 33000 (1032 windows: three levels), with pods whose
+    window sums pass 2^24 (gang_slice, frag_aware and their windows' exact
+    integer sums round differently there) and
+    prices spanning 10^-3 to 10^3: kernel, plain version and the jitted
+    reference bit for bit."""
+    oid = OBJECTIVES[objective]
+    base_w, base_sp, outs, price, G = _big_pods(W, W + oid)
+    scores, _w = _both(emulated, monkeypatch, base_w, base_sp, outs, price, oid, G)
+    for v, out in enumerate(outs):
+        ref = _reference_score(base_w, out, price, oid, G)
+        assert np.float32(ref).view(np.int32) == scores[v:v + 1].numpy().view(np.int32)[0], (v, float(ref))
+
+
+@pytest.mark.parametrize("G", [1500, 7000])
+def test_emulated_topo_spread_tree_over_templates(G, emulated, monkeypatch):
+    """topo_spread's sum over G in XLA's order: G = 1500 (47 windows, then
+    2) and G = 7000 (219, then 7), counts whose squares pass 2^24 (every
+    row of a variant on one template): kernel, plain version and reference
+    bit for bit. A G whose levels pass a warp's shared floats is refused
+    before the launch, naming the limit."""
+    W = 4200
+    base_w, base_sp, outs, price, _G = _big_pods(W, G)
+    outs[0] = outs[0]._replace(template=torch.full((W,), G - 1, dtype=torch.int32))
+    rng = np.random.default_rng(G)
+    outs[1] = outs[1]._replace(template=torch.from_numpy(rng.integers(0, G, W).astype(np.int32)))
+    scores, _w = _both(emulated, monkeypatch, base_w, base_sp, outs, price, p_solver.OBJ_TOPO_SPREAD, G)
+    for v, out in enumerate(outs):
+        ref = _reference_score(base_w, out, price, p_solver.OBJ_TOPO_SPREAD, G)
+        assert np.float32(ref).view(np.int32) == scores[v:v + 1].numpy().view(np.int32)[0], (v, float(ref))
+    with pytest.raises(p_cuda.LaunchRefused, match="more than a warp's 256"):
+        p_cuda.objective_verdict(base_w, base_sp, outs, price, p_solver.OBJ_TOPO_SPREAD, 40000)
 
 
 @pytest.mark.parametrize("policy", ["cost_min", "frag_aware", "topo_spread", "gang_slice"])
@@ -246,10 +359,10 @@ LAYOUT_CASES = ("straddle", "straddle_wide", "last_row_last_chunk", "pmax_other_
 @pytest.mark.parametrize("case", LAYOUT_CASES)
 def test_emulated_verdict_layouts(case, objective, emulated, monkeypatch):
     """Cases only the work-item layout reaches: opened rows across the
-    64-row chunks (W = 300 from base 50; W = 1000 with T = 400, rows of 25
+    32-row windows (W = 300 from base 50; W = 1000 with T = 400, rows of 25
     16-byte vectors); a variant whose only opened row is the window's last
-    (W = 200, the last chunk's 8th row) beside one with none; gang_slice's
-    p_max on a row of another chunk than the rest; every column and the
+    (W = 200, the last window's row) beside one with none; gang_slice's
+    p_max on a row of another window than the rest; every column and the
     price row a byte or an element off their 16-byte alignment; more
     leftover entries than window rows (the leftover chunks past W)."""
     oid = OBJECTIVES[objective]

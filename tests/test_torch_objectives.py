@@ -11,8 +11,8 @@ against the JAX package's, with mesh None on the CPU.
   the same encoded inputs (the reference encodes, the port receives the
   tensors through from_numpy), for each objective at KV 1 and 4: the word
   (feasibility bits and winner) and every variant's fill state exactly,
-  the scores to a relative 1e-6 (the reference sums f32 prices in XLA's
-  order, the port in f64 rounded once); every score +inf; frag_aware's
+  the scores bit for bit (both sum f32 in XLA's order, ops/solver.py
+  xla_tree_sum); every score +inf; frag_aware's
   n·1e6 − landed, which XLA contracts into an fma (measured: one
   rounding), past n = 1074 where one rounding and two differ.
 - End to end: TorchScheduler (the plain path on the CPU) against
@@ -317,9 +317,7 @@ def _check_round(prob, jst, pst, segs, ranks, objective, price=None):
     spec, jys, jw, jsc, states, yss, pw, psc = prob.variants(jst, pst, segs, ranks, objective, price)
     assert _word(pw) == _word(jw), (hex(_word(pw)), hex(_word(jw)))
     jsc, psc = np.asarray(jsc), psc.numpy()
-    assert np.array_equal(np.isinf(jsc), np.isinf(psc))
-    fin = np.isfinite(jsc)
-    np.testing.assert_allclose(psc[fin], jsc[fin], rtol=1e-6, atol=0)
+    assert np.array_equal(jsc.view(np.int32), psc.view(np.int32)), (jsc.tolist(), psc.tolist())
     for v in range(ranks.shape[0]):
         row = jax.tree.map(lambda a: a[v], spec)
         pa = p_solver.to_numpy(states[v])
@@ -347,10 +345,7 @@ def _check_round(prob, jst, pst, segs, ranks, objective, price=None):
                                                                                     if price is None else jnp.asarray(price))
     ps = p_solver.objective_score_plain(pst.w_open, p_solver.variant_out(pc, yss[win]),
                                         prob.price_p if price is None else torch.from_numpy(np.asarray(price)), objective, g)
-    if np.isfinite(float(score)):
-        np.testing.assert_allclose(float(ps), float(score), rtol=1e-6, atol=0)
-    else:
-        assert float(ps) == float(score)
+    assert np.asarray(score, dtype=np.float32).view(np.int32) == ps.numpy().view(np.int32), (float(score), float(ps))
     return jc, pc, w
 
 
@@ -502,19 +497,18 @@ def test_cost_min_near_tie_scores():
     """ROADMAP §3's near-tie case, its scores: two cost_min variants whose
     fleets differ (200 claims each, one type a claim): fleet B adds up
     exactly to fleet A's total, and the reference's f32 sum of A in XLA's
-    order misses it by one ulp. The port scores both variants at that
-    total (f64, rounded once), within the rtol 1e-6 the other rounds
-    hold to, and both feasible."""
+    order misses it by one ulp. The port sums in XLA's order too
+    (xla_tree_sum), so its scores equal the reference's bit for bit, A's
+    one ulp off the exact total included, and both variants are
+    feasible."""
     a_index, j_a, exact, j_scores, _jw, p_scores, word = _near_tie_round()
     assert j_scores[a_index] == j_a != exact and j_scores[1 - a_index] == exact
     assert abs(j_a - exact) == float(np.spacing(np.float32(exact)))
-    assert p_scores.tolist() == [exact, exact] and word & 0xFFFFFF == 0b11
-    np.testing.assert_allclose(p_scores.numpy(), np.asarray(j_scores, dtype=np.float32), rtol=1e-6, atol=0)
+    want = np.asarray(j_scores, dtype=np.float32)
+    assert np.array_equal(p_scores.numpy().view(np.int32), want.view(np.int32)), (p_scores.tolist(), j_scores)
+    assert p_scores[a_index] != p_scores[1 - a_index] and word & 0xFFFFFF == 0b11
 
 
-@pytest.mark.xfail(strict=True, reason="ROADMAP.md §3, objective winners near a tie: the port's f64 sum rounded "
-                                       "once ties two fleets that the reference's f32 sum in XLA's order tells "
-                                       "apart, so the port commits the other fleet")
 def test_cost_min_near_tie_winner_matches_reference():
     """The near-tie case's winner: the reference's argmin over its jitted
     _objective_score of each variant (solve_fill_variants' fold) against

@@ -8,27 +8,40 @@ one after another) and routes ops/cuda.py's launches to those libraries.
 The launchers then run on CPU tensors and are held to the plain versions
 (ops/solver.py dp_dead_plain, dp_verdict_plain, merge_shard_fill_plain /
 merge_shard_kscan_plain):
-- inside CPU solves with dp = 2 and 4 (fill, kind scan, per-pod, existing
-  nodes, hostname groups, minValues under a budget), every round's
-  deadness matrix, verdict word and every commit through the kernel and
-  the plain version, equal, and the solve's result equal to the plain
-  solve's;
-- on a captured round widened to DP = 1, 5 and 33 (two lanes of the
+- inside CPU solves with dp = 2, 4 and 16 (fill, kind scan, per-pod,
+  existing nodes, hostname groups, minValues under a budget), every
+  round's deadness matrix, verdict word and every commit through the
+  kernel and the plain version, equal, and the solve's result equal to
+  the plain solve's;
+- on a captured round widened to DP = 1, 5, 16 and 33 (two lanes of the
   word; past 32 rows H12's row pointers leave its parameters for a
-  table), with padding rows (r_min = +inf) among the rows, in both of
-  H12's modes;
+  table; H13 takes 16 rows in its parameters and refuses 33), with
+  padding rows (r_min = +inf) among the rows, in both of H12's modes;
+- H13's findings one at a time on a round whose rows change nothing:
+  fills in a row's third slab, leftovers, pods, vg / hg groups and
+  templates in a second bit word, existing nodes (usage and requirement
+  bytes) in a second and third, budgets, node counts, reservations,
+  spills and deadness, each leaving its word; sixteen rows and
+  launches in a row on one workspace;
+- H14's output arena (its views alias no input and each other no byte;
+  an in-place write into one leaves the rest) and the window's byte
+  ranges on a commit widened to 1536 rows (many chunks, sources off the
+  destination's alignment, sources the plain version clamps, no grab);
 - H12's ceiling test at its edges (a total equal to the catalog's
   largest allocatable, a total of 0, a +inf request, a NaN usage), the
   kind-scan mode on the zone key and on another key, a catalog past the
   16384 cells H12 once refused (read in place, not staged), and launches
   in a row on one workspace.
-H12's rewrite routes its cross-block ors, ticket and loads through
-cuda_emu.h's memory model (a missing fence or a ticket taken early meets
-stale bytes).
+H12's and H13's rewrites route their cross-block ors, tickets and loads
+through cuda_emu.h's memory model (a missing fence or a ticket taken
+early meets stale bytes); H13's and H14's flag a vector access off its
+alignment, which x86 would hide.
 The emulation checks the kernels' logic, not their timing or what the
 GPU compiler does with them: chip_smoke.py holds the compiled kernels to
 the plain versions on the card. Tolerance: exact.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -67,11 +80,60 @@ def dead_rewrite(src: str) -> str:
     return src
 
 
+# every vector access of H13 and H14 must be aligned to its width (the GPU
+# faults on a misaligned one, x86 does not): the rewrites flag one in
+# `emu_misaligned`, which fails the call
+ALIGN_PRELUDE = ('extern "C" int emu_misaligned;\nint emu_misaligned = 0;\n'
+                 "static inline void emu_al(const void* p, size_t n) {\n"
+                 "  if ((uintptr_t)p % n) __atomic_store_n(&emu_misaligned, 1, __ATOMIC_RELAXED);\n}\n")
+
+# H13's cross-block helpers and their cuda_emu.h stand-ins, and its vector
+# loads' alignment
+VERDICT_REWRITES = (
+    ("{ atomicOr(p, v); }", "{ emu_xor(p, v); }"),
+    ("{ return __ldcg(p); }", "{ return emu_xload(p); }"),
+    ("{ return atomicAdd(t, 1u); }", "{ return emu_ticket(t); }"),
+    ("return *reinterpret_cast<const int4*>(p + c);",
+     "{ emu_al(p + c, 16); return *reinterpret_cast<const int4*>(p + c); }"),
+    ("const float4 x = s4[w], y = b4[w];", "emu_al(&s4[w], 16); emu_al(&b4[w], 16); const float4 x = s4[w], y = b4[w];"),
+    ("if (!(sw[w] == bw[w]))", "if ((emu_al(&sw[w], sizeof(Word)), emu_al(&bw[w], sizeof(Word)), !(sw[w] == bw[w])))"),
+    # a warp gives way before it ORs its fields' nodes into the block's word,
+    # so a read of the word that lacks the barrier after the ORs misses some
+    ("if (m && lane == 0) atomicOr(&s_m, m);", "if (m && lane == 0) { emu_yield(64); atomicOr(&s_m, m); }"),
+)
+# H14's vector copies' alignment
+MERGE_REWRITES = (
+    ("for (int64_t x = tid; x < body; x += nthreads) d4[x] = s4[x];\n  } else",
+     "for (int64_t x = tid; x < body; x += nthreads) { emu_al(&d4[x], 16); emu_al(&s4[x], 16); d4[x] = s4[x]; }\n"
+     "  } else"),
+    ("for (int64_t x = tid; x < body; x += nthreads) d4[x] = s4[x];\n  }\n",
+     "for (int64_t x = tid; x < body; x += nthreads) { emu_al(&d4[x], 4); emu_al(&s4[x], 4); d4[x] = s4[x]; }\n  }\n"),
+)
+
+
+def _rewrite(src: str, rewrites) -> str:
+    for old, new in rewrites:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert src.count("#include <string.h>\n") == 1
+    return src.replace("#include <string.h>\n", "#include <string.h>\n" + ALIGN_PRELUDE)
+
+
+def verdict_rewrite(src: str) -> str:
+    return _rewrite(src, VERDICT_REWRITES)
+
+
+def merge_rewrite(src: str) -> str:
+    return _rewrite(src, MERGE_REWRITES)
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """ops/cuda.py's C-entry calls routed to the emulated dp kernels."""
-    fns = {name: c_entry(emulated_library(tmp_path_factory, name, dead_rewrite if name == "dp_dead" else None),
-                         name) for name in SOURCES}
+    rewrites = {"dp_dead": dead_rewrite, "dp_verdict": verdict_rewrite, "merge_shard": merge_rewrite}
+    libs = {name: emulated_library(tmp_path_factory, name, rewrites[name]) for name in SOURCES}
+    fns = {name: c_entry(lib, name) for name, lib in libs.items()}
+    misaligned = {name: ctypes.c_int.in_dll(libs[name], "emu_misaligned") for name in ("dp_verdict", "merge_shard")}
     calls = {n: 0 for n in SOURCES}
 
     def invoke(source, entry, *args):
@@ -79,6 +141,9 @@ def emulated(tmp_path_factory):
         rc = fns[source](*args, None)
         if rc:
             raise RuntimeError(f"emulated {source}: error {rc}")
+        if source in misaligned and misaligned[source].value:
+            misaligned[source].value = 0
+            pytest.fail(f"emulated {source}: a vector access off its alignment")
         calls[source] += 1
 
     invoke.calls = calls
@@ -139,6 +204,7 @@ def _both_ways(monkeypatch, emulated, rounds: list):
 
 
 SOLVES = {
+    "fill_dp16": (lambda: T.sized_kind_pods(256, kinds=16, prefix="x", mixed=False), 16, None, None, None),
     "fill_graft": (lambda: T.sized_kind_pods(128, kinds=4, prefix="s", mixed=False), 2, None, None, None),
     "fill_replay": (lambda: T.sized_kind_pods(128, kinds=4, prefix="m"), 2, None, None, None),
     "existing": (lambda: T.sized_kind_pods(128, kinds=4, prefix="e"), 2, None,
@@ -174,9 +240,9 @@ def test_emulated_kernels_inside_cpu_solves(case, emulated, monkeypatch):
     assert emulated.calls["dp_dead"] >= len(rounds) and emulated.calls["dp_verdict"] >= len(rounds)
 
 
-def _captured_round(monkeypatch, pods, dp, chunk=None, which: int = 0):
+def _captured_round(monkeypatch, pods, dp, chunk=None, which: int = 0, existing=None):
     """The H12 / H13 inputs of a CPU dp solve's first round (or round
-    `which`; plain versions throughout)."""
+    `which`; plain versions throughout), with `existing` nodes."""
     rounds = []
     dead_plain, verdict_plain = p_solver.dp_dead, p_solver.dp_verdict
 
@@ -195,7 +261,7 @@ def _captured_round(monkeypatch, pods, dp, chunk=None, which: int = 0):
         s.pipeline_min_pods = 32
         if chunk:
             s.solve_chunk = chunk
-        s.solve(pods)
+        s.solve(pods, existing or [])
     return rounds[which]
 
 
@@ -217,12 +283,14 @@ def _widen(rnd: dict, DP: int, pad_every: int):
 
 
 @pytest.mark.parametrize("family", ["fill", "kscan", "perpod"])
-@pytest.mark.parametrize("DP", [1, 5, 33])
+@pytest.mark.parametrize("DP", [1, 5, 16, 33])
 def test_emulated_round_widened(family, DP, emulated, monkeypatch):
-    """A captured round's rows repeated to DP = 1, 5 and 33 (the word's
+    """A captured round's rows repeated to DP = 1, 5, 16 and 33 (the word's
     second lane, and past the 32 rows whose pointers ride H12's
     parameters), every third row a padding row: H12 (its kscan mode on the
-    kind-scan round) and H13 equal their plain versions."""
+    kind-scan round) and H13 equal their plain versions; H13 takes up to
+    16 rows, their pointers in its parameters, and refuses 33 before the
+    launch, naming the limit."""
     if family == "fill":
         rnd = _captured_round(monkeypatch, T.sized_kind_pods(128, kinds=4, prefix="w", mixed=False), 2)
     elif family == "kscan":
@@ -238,6 +306,11 @@ def test_emulated_round_widened(family, DP, emulated, monkeypatch):
     if DP > 2:
         assert bool(want_dead[2].all())  # a padding row: everything dead for +inf
     want = p_solver.dp_verdict_plain(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
+    if DP > p_cuda.DP_VERDICT_ROWS:
+        with pytest.raises(p_cuda.LaunchRefused, match=r"outside \[1, 16\]"):
+            p_cuda.dp_verdict(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
+        assert want.shape == ((DP + 31) // 32,)
+        return
     got = p_cuda.dp_verdict(base, specs, want_dead, rnd["exist"], rnd["n_claims"], vin)
     assert got.shape == ((DP + 31) // 32,) and torch.equal(got, want)
 
@@ -373,3 +446,280 @@ def test_emulated_dead_launches_share_the_workspace(emulated, monkeypatch):
             assert not bool(dead[31].all()) and not bool(dead[32].all())
     alive, ticket = p_cuda._DP_WORKSPACES[(torch.device("cpu"), None)]
     assert int(ticket[0]) == 0 and not bool(alive.any())
+
+
+# ---- H13's findings, one at a time, on a round whose rows change nothing ----
+
+
+def _tile_exist(st, n: int):
+    """The state's existing-node fields repeated to n times the nodes."""
+    def rep(t):
+        return t.repeat(n, *([1] * (t.dim() - 1)))
+
+    return st._replace(exist_used=rep(st.exist_used), exist_ports=rep(st.exist_ports), exist_vols=rep(st.exist_vols),
+                       exist_reqs=type(st.exist_reqs)(*map(rep, st.exist_reqs)))
+
+
+def _quiet_round(family: str, DP: int = 4):
+    """DP rows that each leave the round's base as it was (every row the
+    base itself, fill grids and leftovers 0, no group records or
+    applies), the deadness matrix all dead and r_min 0 (every valid node
+    viable for every row): the verdict word is all ones. fill: the fill
+    family's last round (open claims below the base's w_open), rows of 1,
+    5 and 9 segments; kscan: the kind-scan family (pods columns, vg
+    groups widened to 64); existing: the fill round of a solve with
+    existing nodes, tiled to 80 nodes (three bit words); apply: the
+    per-pod family's budget / reservation bit, 40 templates."""
+    if family == "existing":
+        with pytest.MonkeyPatch.context() as m:
+            rnd = _captured_round(m, T.sized_kind_pods(128, kinds=4, prefix="eq", mixed=False), 2, which=-1,
+                                  existing=T.existing_sim_nodes(cpu_avail=8.0))
+        base = _tile_exist(rnd["base"], 40)
+        exist = rnd["exist"]._replace(valid=exist_rep(rnd["exist"].valid, 40), avail=exist_rep(rnd["exist"].avail, 40))
+    else:
+        rnd = _round("kscan" if family == "kscan" else "fill")
+        base, exist = rnd["base"], rnd["exist"]
+    E, R = base.exist_used.shape
+    W = base.open.shape[0]
+    assert int(base.w_open) > 1
+    fill = family in ("fill", "existing")
+    B = [1, 5, 9, 2][:DP] + [3] * max(DP - 4, 0)
+    specs = [base._replace(pods=base.pods.clone(), spills=base.spills.clone(), exist_used=base.exist_used.clone(),
+                           exist_reqs=type(base.exist_reqs)(*(t.clone() for t in base.exist_reqs)),
+                           budget=base.budget.clone(), nodes_budget=base.nodes_budget.clone(),
+                           res_cap=base.res_cap.clone()) for _q in range(DP)]
+    NGv = 64 if family == "kscan" else 0
+    NGh = 64
+    z = dict(dtype=torch.bool)
+    vin = p_solver.DpVerdictIn(
+        r_min=torch.zeros((DP, R)), exist_ok_rows=torch.ones((DP, E), **z),
+        rec_v=torch.zeros((DP, NGv), **z), app_v=torch.zeros((DP, NGv), **z), rec_h=torch.zeros((DP, NGh), **z),
+        app_h=torch.zeros((DP, NGh), **z),
+        apply_tmpl=torch.zeros((DP, base.budget.shape[0]), **z) if family == "apply" else None,
+        fill_c=[torch.zeros((b, W), dtype=torch.int32) for b in B] if fill else None,
+        leftover=[torch.zeros(b, dtype=torch.int32) for b in B] if fill else None)
+    dead = torch.ones((DP, 1 + DP), dtype=torch.bool)
+    return dict(base=base, specs=specs, dead=dead, exist=exist, n_claims=rnd["n_claims"], vin=vin)
+
+
+def exist_rep(t, n):
+    return t.repeat(n, *([1] * (t.dim() - 1)))
+
+
+def _verdict_word(emulated, monkeypatch, r) -> int:
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+    args = (r["base"], r["specs"], r["dead"], r["exist"], r["n_claims"], r["vin"])
+    want = p_solver.dp_verdict_plain(*args)
+    got = p_cuda.dp_verdict(*args)
+    assert torch.equal(got, want), (got, want)
+    return int(want[0]) & 0xFFFFFFFF
+
+
+FINDINGS = {
+    # name: (family, mutation of the quiet round, the word it leaves)
+    "quiet_fill": ("fill", lambda r: None, 0b1111),
+    "quiet_kscan": ("kscan", lambda r: None, 0b1111),
+    "fill_touch_last_slab": ("fill", lambda r: r["vin"].fill_c[2].__setitem__((8, int(r["base"].w_open) - 1), 1),
+                             0b0011),
+    "fill_touch_at_w_open": ("fill", lambda r: r["vin"].fill_c[1].__setitem__((4, int(r["base"].w_open)), 3), 0b1111),
+    "leftover": ("fill", lambda r: r["vin"].leftover[1].__setitem__(3, 2), 0b0001),
+    "pods_touch": ("kscan", lambda r: r["specs"][2].pods.__setitem__(int(r["base"].w_open) - 1,
+                                                                        int(r["base"].pods[int(r["base"].w_open) - 1])
+                                                                        + 1), 0b0011),
+    "pods_fewer": ("kscan", lambda r: r["specs"][1].pods.__setitem__(0, int(r["base"].pods[0]) - 1), 0b1111),
+    "vg_record_apply": ("kscan", lambda r: (r["vin"].rec_v.__setitem__((0, 60), True),
+                                            r["vin"].app_v.__setitem__((2, 60), True)), 0b0011),
+    "vg_record_later_row": ("kscan", lambda r: (r["vin"].rec_v.__setitem__((2, 5), True),
+                                                r["vin"].app_v.__setitem__((1, 5), True)), 0b1111),
+    "hg_record_apply": ("fill", lambda r: (r["vin"].rec_h.__setitem__((1, 50), True),
+                                           r["vin"].app_h.__setitem__((3, 50), True)), 0b0111),
+    "exist_usage": ("existing", lambda r: r["specs"][0].exist_used.__setitem__((37, 0), -1.0), 0b0001),
+    "exist_reqs_byte": ("existing", lambda r: r["specs"][1].exist_reqs[0].__setitem__(
+        (79,) + (0,) * (r["specs"][1].exist_reqs[0].dim() - 1), ~r["specs"][1].exist_reqs[0][(79,) + (0,) * (
+            r["specs"][1].exist_reqs[0].dim() - 1)]), 0b0011),
+    "exist_not_viable": ("existing", lambda r: (r["specs"][0].exist_used.__setitem__((37, 0), -1.0),
+                                                r["vin"].exist_ok_rows[1:, 37].fill_(False)), 0b1111),
+    "budget": ("apply", lambda r: (r["specs"][0].budget.__setitem__((21, 0), -3.0),
+                                   r["vin"].apply_tmpl.__setitem__((3, 21), True)), 0b0111),
+    "nodes_budget": ("apply", lambda r: (r["specs"][1].nodes_budget.__setitem__(33, 7.0),
+                                         r["vin"].apply_tmpl.__setitem__((2, 33), True)), 0b0011),
+    "reservation": ("apply", lambda r: r["specs"][1].res_cap.__setitem__(0, int(r["base"].res_cap[0]) - 1), 0b0011),
+    "spills": ("fill", lambda r: r["specs"][2].spills.add_(1), 0b0011),
+    "dead": ("fill", lambda r: r["dead"].__setitem__((1, 0), False), 0b0001),
+    "dead_earlier_opens": ("fill", lambda r: r["dead"].__setitem__((3, 1 + 2), False), 0b0111),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FINDINGS))
+def test_emulated_verdict_findings(case, emulated, monkeypatch):
+    """Each of H13's findings alone on a round whose rows change nothing
+    (_quiet_round, DP = 4; each group or template on a lane past 15 of its
+    word or in a second word): a fill below the base's w_open in a segment of
+    a row's third slab (and one at w_open, which does not count), a
+    leftover, more pods below w_open (fewer do not count), a vg / hg group
+    an earlier row records and a later one applies (the other way round
+    does not count; groups in a second bit word), an existing node's usage
+    or a requirement byte changed where a later row may use it (not where
+    its existing-node gate is closed; nodes in a second and third bit
+    word), a budget or node count of a template a later row's pods
+    consider (templates in a second bit word), a reservation capacity, a
+    new spill, a row's base or an earlier row's opens alive: kernel and
+    plain version equal, and the word is the one the finding leaves."""
+    family, mutate, want = FINDINGS[case]
+    if family == "apply":
+        r = _quiet_round("kscan")
+        G, R = r["base"].budget.shape
+        base = r["base"]._replace(budget=torch.rand((40, R)) * 10, nodes_budget=torch.full((40,), 5.0),
+                                  res_cap=torch.tensor([4, 9], dtype=torch.int32))
+        r["base"] = base
+        r["specs"] = [base._replace(budget=base.budget.clone(), nodes_budget=base.nodes_budget.clone(),
+                                    res_cap=base.res_cap.clone()) for _q in range(4)]
+        r["vin"] = r["vin"]._replace(apply_tmpl=torch.zeros((4, 40), dtype=torch.bool))
+    else:
+        r = _quiet_round(family)
+    mutate(r)
+    assert _verdict_word(emulated, monkeypatch, r) == want
+
+
+def test_emulated_verdict_dp16_and_workspace(emulated, monkeypatch):
+    """Sixteen quiet rows, then findings at rows 9 and 14, then the quiet
+    round again, on one workspace: each equals the plain version (the last
+    block left the bit words and the ticket at 0), and the words are all
+    ones, ones below row 9, all ones."""
+    quiet = _quiet_round("fill", DP=16)
+    assert _verdict_word(emulated, monkeypatch, quiet) == 0xFFFF
+    r = _quiet_round("fill", DP=16)
+    r["vin"].leftover[14][2] = 1
+    r["specs"][9].spills.add_(1)
+    assert _verdict_word(emulated, monkeypatch, r) == 0x1FF
+    assert _verdict_word(emulated, monkeypatch, _quiet_round("fill", DP=16)) == 0xFFFF
+    ws, ticket = p_cuda._DPV_WORKSPACES[(torch.device("cpu"), None)]
+    assert int(ticket[0]) == 0 and not bool(ws.any())
+
+
+# ---- H14: the output arena and the window's byte ranges ----------------------
+
+
+def _captured_commit(kscan: bool):
+    """The arguments of the first commit of a small CPU dp solve (fill:
+    merge_shard_fill's (committed, spec, base); kscan: merge_shard_kscan's
+    (committed, spec, assignment, base))."""
+    name = "merge_shard_kscan" if kscan else "merge_shard_fill"
+    rec = []
+    real = getattr(p_solver, name)
+
+    def grab(*a, **k):
+        rec.append(a)
+        return real(*a, **k)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(p_solver, name, grab)
+        pods = (T.spread_kind_pods(96, 4, "cz", (L_ZONE,)) if kscan
+                else T.sized_kind_pods(128, kinds=4, prefix="cf", mixed=False))
+        s = TorchScheduler(T.make_templates(24), device="cpu", dp=2)
+        s.pipeline_min_pods = 32
+        s.solve(pods, T.existing_sim_nodes(cpu_avail=8.0))
+    assert rec, name
+    return rec[0]
+
+
+def _merge_both(emulated, monkeypatch, committed, spec, base, assignment=None):
+    monkeypatch.setattr(p_cuda, "_invoke", emulated)
+    got = p_cuda.merge_shard(committed, spec, base, assignment)
+    if assignment is None:
+        want = p_solver.merge_shard_fill_plain(committed, spec, base) + (None,)
+    else:
+        want = p_solver.merge_shard_kscan_plain(committed, spec, assignment, base)
+    _same_state(got[0], want[0], "merge_shard")
+    assert torch.equal(got[1], want[1])
+    assert assignment is None or torch.equal(got[2], want[2])
+    return got
+
+
+def _ranges(ts) -> list:
+    return [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in ts if t.numel()]
+
+
+@pytest.mark.parametrize("mode", ["fill", "kscan"])
+def test_emulated_merge_arena(mode, emulated, monkeypatch):
+    """The merged state's written fields are views of one arena: each
+    aliases no byte of committed, spec or base, no two overlap, and an
+    in-place write into one leaves every other (and the inputs) as it
+    was."""
+    args = _captured_commit(mode == "kscan")
+    committed, spec = args[0], args[1]
+    base = args[-1]
+    assignment = args[2] if mode == "kscan" else None
+    merged, shifted, assign = _merge_both(emulated, monkeypatch, committed, spec, base, assignment)
+    written = [t for f in p_solver.SolverState._fields for t in
+               (getattr(merged, f) if isinstance(getattr(merged, f), tuple) else (getattr(merged, f),))
+               if all(t is not u for st in (committed,) for g in p_solver.SolverState._fields
+                      for u in (getattr(st, g) if isinstance(getattr(st, g), tuple) else (getattr(st, g),)))]
+    written += [shifted] + ([assign] if assign is not None else [])
+    assert len(written) >= 20
+    inputs = [u for st in (committed, spec, base) for g in p_solver.SolverState._fields
+              for u in (getattr(st, g) if isinstance(getattr(st, g), tuple) else (getattr(st, g),))]
+    out_r, in_r = _ranges(written), _ranges(inputs)
+    for a0, a1 in out_r:
+        assert all(a1 <= b0 or b1 <= a0 for b0, b1 in in_r)
+    out_r.sort()
+    assert all(x[1] <= y[0] for x, y in zip(out_r, out_r[1:]))
+    before = [t.clone() for t in written]
+    ins = [t.clone() for t in inputs]
+    merged.used.add_(1.0)
+    for t, b in zip(written, before):
+        if t is not merged.used:
+            assert torch.equal(t, b)
+    assert all(torch.equal(t, b) for t, b in zip(inputs, ins))
+
+
+@pytest.mark.parametrize("case", ["wide_window", "clamped_sources", "no_grab"])
+def test_emulated_merge_window_ranges(case, emulated, monkeypatch):
+    """The window's byte ranges on a captured fill commit widened to 1536
+    rows (the columns' bytes in many chunks): grabbed rows 700-899 from
+    the spec's 650-849 (sources off the destination's alignment);
+    sources the plain version clamps to the window's last row (a spec
+    w_open past W: copied row by row); and k = 0 (committed throughout)."""
+    committed, spec, base = _captured_commit(False)
+    n = 1536 // committed.open.shape[0]
+
+    def widen(st, w_open):
+        out = {}
+        for f in p_solver.GRAFT_WINDOW + ("open", "slot_of"):
+            v = getattr(st, f)
+            rep = (lambda t: t.repeat(n, *([1] * (t.dim() - 1))))
+            out[f] = type(v)(*map(rep, v)) if isinstance(v, tuple) else rep(v)
+        return st._replace(**out, w_open=torch.tensor(w_open, dtype=torch.int32))
+
+    W = committed.open.shape[0] * n
+    cw, bw, sw = {"wide_window": (700, 650, 850), "clamped_sources": (1400, 1480, 1600),
+                  "no_grab": (700, 650, 650)}[case]
+    c, s, b = widen(committed, cw), widen(spec, sw), widen(base, bw)
+    assert W == 1536 and c.used.shape[0] == W
+    merged, _shifted, _a = _merge_both(emulated, monkeypatch, c, s, b)
+    if case == "wide_window":
+        assert torch.equal(merged.its[700:900], s.its[650:850]) and torch.equal(merged.its[:700], c.its[:700])
+
+
+def test_emulated_merge_exist_whole_node(emulated, monkeypatch):
+    """A node the row touched in one usage component (the fourth, a lane's
+    word) is copied whole from the spec, where committed holds other
+    bytes in every field (an earlier commit's): each of the node's fields
+    equals the spec's, and the other nodes committed's."""
+    committed, spec, base = _captured_commit(False)
+    E = committed.exist_used.shape[0]
+    assert E >= 2 and committed.exist_used.shape[1] >= 4
+
+    def bump(st, k):
+        return st._replace(exist_used=st.exist_used + k, exist_ports=st.exist_ports + k,
+                           exist_vols=st.exist_vols + k,
+                           exist_reqs=type(st.exist_reqs)(*(t ^ True if t.dtype == torch.bool else t + k
+                                                            for t in st.exist_reqs)))
+
+    committed = bump(base, 1)
+    used = base.exist_used.clone()
+    used[1, 3] += 0.5
+    spec = base._replace(exist_used=used)
+    merged, _s, _a = _merge_both(emulated, monkeypatch, committed, spec, base)
+    for got, sp, cm in zip(p_solver.exist_leaves(merged), p_solver.exist_leaves(spec), p_solver.exist_leaves(committed)):
+        assert torch.equal(got[1], sp[1]) and torch.equal(got[0], cm[0])
